@@ -1,0 +1,1 @@
+"""Plain ops and the wrappers of the hand-written CUDA kernels."""
