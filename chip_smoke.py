@@ -18,8 +18,21 @@ Phases (each raises on failure; the script then exits non-zero):
      on the card and the share of identical hypotheses;
   5. where the time goes: the kernel path once more under torch.profiler
      (device activity only), giving the device's busy time, its idle share
-     of the host wall, device launches per beam step and the top kernels.
-It prints one JSON line of per-kernel numbers and, last, the device line.
+     of the host wall, device launches per beam step and the top kernels;
+  6. gru_bwd kernel against its plain version at the encoder's training
+     shape (B=64, T=24, E=256, H=512), ragged lengths, both directions;
+  7. dec_scan_fwd and dec_scan_bwd kernels against their plain versions at
+     full width (B=64, T=Tt=24), ragged source mask: the readout, every
+     residual and all 15 gradients;
+  8. the training path: train_loop on the full-width m30k_ende_vag model
+     (preset dropout 0.3, batch 64) from a seed's random init over a
+     synthetic corpus of 2048 pairs, 40 steps and one dev eval, with each
+     kernel's launch count read from that run alone, steps/s, target
+     tokens/s and the first and last loss; then 5 steps through the kernels
+     and through the plain versions from the same init and dropout draws;
+     then 3 steps under torch.profiler, as phase 5.
+Phase 1 builds all five sources. It prints one JSON line of per-kernel
+numbers and, last, the device line.
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
 
@@ -29,11 +42,6 @@ import json
 import subprocess
 import sys
 import time
-
-# fp32 peak outside the tensor cores and HBM rate of one H100 SXM
-# (NVIDIA data sheet); the bounds below are against these.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel against plain tolerances.
 READOUT_RTOL = 1e-5      # values and lse, relative; ids must be equal
@@ -47,6 +55,22 @@ GRU_ATOL = 1e-4
 MIN_IDENTICAL_SHARE = 0.95
 
 N_SENT = 1024
+
+# Training shapes (m30k_ende_vag: batch 64; 24 is a source/target bucket).
+TRAIN_B, TRAIN_T = 64, 24
+# Kernel against plain, training kernels: error over the reference's scale
+# (see _rel_err). The kernels sum their products in another order than
+# cuBLAS, through 24 recurrent steps, and the weight grads sum B*T terms.
+GRU_BWD_RTOL = 1e-4
+DEC_SCAN_RTOL = 1e-4
+# The training path: a synthetic corpus, steps through train_loop, then
+# kernels against plain over the first steps, then a profiled few steps.
+N_TRAIN_PAIRS, N_DEV_PAIRS = 2048, 64
+N_TRAIN_STEPS, N_COMPARE_STEPS, N_PROFILE_STEPS = 40, 5, 3
+# Losses and grad norms, kernels against plain, relative: Adam turns a
+# gradient that is roundoff-sized in one path into a full lr-sized update,
+# so the paths drift apart a little over the steps.
+TRAIN_RTOL = 1e-3
 
 
 def _smi() -> str:
@@ -76,8 +100,13 @@ def _time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
 
 
 def _bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    """Least time on the card (ms) and what bounds it, against the H100 SXM's
+    fp32 peak outside the tensor cores and its HBM rate (core/flops.py)."""
+    from vag_nmt_tpu_torch.core.flops import (H100_HBM_BYTES_PER_S,
+                                              H100_PEAK_FP32_FLOPS)
+
+    t_ops = flops / H100_PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -199,6 +228,195 @@ def phase_gru(torch, np, dev):
             "library_ms": library_ms}
 
 
+def _rel_err(a, b) -> float:
+    """max |a - b| over max(1, max |b|): the error relative to the
+    reference's scale (weight grads are sums of B*T terms)."""
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def phase_gru_bwd(torch, np, dev):
+    """gru_bwd against gru_bwd_plain at the encoder's training shape."""
+    from vag_nmt_tpu_torch.ops.gru import init_gru_params
+    from vag_nmt_tpu_torch.ops.gru_kernel import gru_bwd, gru_bwd_plain, gru_fwd
+
+    B, T, E, H = TRAIN_B, TRAIN_T, 256, 512
+    rng = np.random.RandomState(6)
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    p = {k: v.to(dev) for k, v in
+         init_gru_params(torch.Generator().manual_seed(6), E, H).items()}
+    bh = cuda(0.1 * rng.randn(3 * H))
+    x = cuda(0.5 * rng.randn(T, B, E))
+    xg_t = (x @ p["wi"] + cuda(0.1 * rng.randn(3 * H))).contiguous()
+    lens = torch.from_numpy(rng.randint(4, T + 1, B)).to(dev)
+    mask_t = (torch.arange(T, device=dev)[:, None] < lens[None, :]).float().contiguous()
+    h0 = cuda(0.5 * rng.randn(B, H))
+    g_t = cuda(rng.randn(T, B, H))
+    errs, abs_err = {}, 0.0
+    for reverse in (False, True):
+        hs_t = gru_fwd(xg_t, mask_t, p["uh"], bh, h0, reverse=reverse,
+                       impl="plain")
+        got = gru_bwd(xg_t, mask_t, p["uh"], bh, h0, hs_t, g_t,
+                      reverse=reverse, impl="kernel")
+        want = gru_bwd_plain(xg_t, mask_t, p["uh"], bh, h0, hs_t, g_t,
+                             reverse=reverse)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dxg", "duh", "dbh", "dh0"), got, want):
+            err = _rel_err(a, b)
+            errs[name] = max(errs.get(name, 0.0), err)
+            abs_err = max(abs_err, float((a - b).abs().max()))
+            if not err <= GRU_BWD_RTOL:
+                raise AssertionError(f"gru_bwd reverse={reverse} {name}: "
+                                     f"relative err {err}")
+        masked = (mask_t == 0)[:, :, None].expand(T, B, 3 * H)
+        if masked.any() and float(got[0][masked].abs().max()) != 0.0:
+            raise AssertionError("gru_bwd: dxg is not 0 at masked steps")
+        print(f"gru_bwd reverse={reverse}: ok")
+    print(f"gru_bwd relative errors: {json.dumps(errs)}")
+
+    hs_t = gru_fwd(xg_t, mask_t, p["uh"], bh, h0, impl="plain")
+    args = (xg_t, mask_t, p["uh"], bh, h0, hs_t, g_t)
+    ms = _time_ms(torch, lambda: gru_bwd(*args, impl="kernel"), reps=20)
+    plain_ms = _time_ms(torch, lambda: gru_bwd_plain(*args), reps=10)
+    # Yardstick only (the port never calls it): cuDNN's GRU forward +
+    # backward minus its forward at the same (T, B, E, H), TF32 off; it also
+    # does the input projection's backward.
+    cudnn = torch.nn.GRU(E, H).to(dev)
+    xr = x.clone().requires_grad_(True)
+    gy = torch.randn(T, B, H, device=dev)
+
+    def fwd_bwd():
+        y, _ = cudnn(xr)
+        y.backward(gy)
+
+    with torch.no_grad():
+        cudnn_fwd_ms = _time_ms(torch, lambda: cudnn(x), reps=20)
+    library_ms = _time_ms(torch, fwd_bwd, reps=20) - cudnn_fwd_ms
+    flops = 3 * 2.0 * T * B * H * 3 * H
+    nbytes = 4.0 * (2 * T * B * 3 * H + T * B + H * 3 * H + 3 * H + 2 * B * H
+                    + 2 * T * B * H + H * 3 * H + 3 * H)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    print(f"gru_bwd (one direction, B={B}, T={T}): kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by})")
+    return {"name": "gru_bwd", "route": "cuda",
+            "source": "vag_nmt_tpu_torch/csrc/gru_bwd.cu",
+            "replaces": "vag_nmt_tpu/ops/pallas_gru.py:180",
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def _dec_scan_case(torch, np, dev):
+    """Full-width decoder-scan inputs at B=TRAIN_B, T=Tt=TRAIN_T, ragged
+    source mask, random biases, the bias folding applied."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.ops.dec_scan import scan_weights
+
+    m = vt.preset("m30k_ende_vag").model
+    B, T, Tt = TRAIN_B, TRAIN_T, TRAIN_T
+    H, A, C, R = m.dec_hidden_dim, m.attn_dim, m.ctx_dim, m.emb_dim
+    rng = np.random.RandomState(7)
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    params = vt.init_params(m, torch.Generator().manual_seed(7), device=dev)
+    d = params["decoder"]
+    for g in ("gru1", "gru2"):
+        for b in ("bi", "bh"):
+            d[g][b] = cuda(0.1 * rng.randn(3 * H))
+    weights = tuple(w.contiguous() for w in scan_weights(d))
+    lens = rng.randint(4, T + 1, B)
+    mask = cuda(np.arange(T)[None, :] < lens[:, None])
+    ctx = cuda(0.5 * rng.randn(B, T, C))
+    ctxp = (ctx @ d["attn"]["wa"] + cuda(0.1 * rng.randn(A))).contiguous()
+    inputs = (cuda(0.5 * rng.randn(Tt, B, R)),            # ty (+b)
+              cuda(0.5 * rng.randn(Tt, B, 3 * H)),        # xg1
+              cuda(0.5 * rng.randn(B, H)), ctx, ctxp, mask)
+    g_t = cuda(rng.randn(Tt, B, R))
+    return inputs, weights, g_t, (B, T, Tt, H, A, C, R)
+
+
+def _dec_scan_flops(B, T, Tt, H, A, C, R):
+    """(forward, backward) operations of the scan at these shapes: the GEMMs
+    (2 per multiply-add) and the attention's products over T positions."""
+    gemm = 2.0 * B * (H * 3 * H + H * A + H * 3 * H + C * 3 * H + H * R + C * R)
+    fwd = Tt * (gemm + 2.0 * B * T * (A + C))
+    # backward: every GEMM once transposed and once as a weight reduction;
+    # attention: dw, dctx, the energies' da and the dq / dva sums
+    bwd = Tt * (2 * gemm + 2.0 * B * T * (2 * C + 3 * A))
+    return fwd, bwd
+
+
+def phase_dec_scan(torch, np, dev):
+    """dec_scan_fwd / dec_scan_bwd against their plain versions at full
+    width: the readout and every residual, and all grads."""
+    from vag_nmt_tpu_torch.ops.dec_scan import (
+        RESIDUALS, dec_scan_bwd, dec_scan_bwd_plain, dec_scan_fwd,
+        dec_scan_fwd_plain)
+
+    inputs, weights, g_t, shape = _dec_scan_case(torch, np, dev)
+    B, T, Tt, H, A, C, R = shape
+    got = dec_scan_fwd(*inputs, weights, impl="kernel")
+    want = dec_scan_fwd_plain(*inputs, weights)
+    torch.cuda.synchronize()
+    fwd_err = fwd_abs = 0.0
+    for k in RESIDUALS:
+        err = _rel_err(got[k], want[k])
+        fwd_err = max(fwd_err, err)
+        fwd_abs = max(fwd_abs, float((got[k] - want[k]).abs().max()))
+        if not err <= DEC_SCAN_RTOL:
+            raise AssertionError(f"dec_scan_fwd {k}: relative err {err}")
+    print(f"dec_scan_fwd: ok (max relative err {fwd_err:.3g})")
+    xg_t, ctx, ctxp, mask = inputs[1], inputs[3], inputs[4], inputs[5]
+    gk = dec_scan_bwd(want, xg_t, ctx, ctxp, mask, weights, g_t, impl="kernel")
+    gp = dec_scan_bwd_plain(want, xg_t, ctx, ctxp, mask, weights, g_t)
+    torch.cuda.synchronize()
+    names = ("dty", "dxg1", "ds0", "dctx", "dctx_proj", "duh1", "dbh1", "dua",
+             "dva", "dwi2", "dbi2", "duh2", "dbh2", "dws", "dwc")
+    bwd_errs, bwd_abs = {}, 0.0
+    for name, a, b in zip(names, gk, gp):
+        bwd_errs[name] = _rel_err(a, b)
+        bwd_abs = max(bwd_abs, float((a - b).abs().max()))
+        if not bwd_errs[name] <= DEC_SCAN_RTOL:
+            raise AssertionError(f"dec_scan_bwd {name}: relative err "
+                                 f"{bwd_errs[name]}")
+    print(f"dec_scan_bwd: ok, relative errors {json.dumps(bwd_errs)}")
+
+    fwd_flops, bwd_flops = _dec_scan_flops(B, T, Tt, H, A, C, R)
+    w_bytes = 4.0 * sum(w.numel() for w in weights)
+    io = 4.0 * (Tt * B * (R + 3 * H) + B * H + B * T * (C + A + 1))
+    res_bytes = 4.0 * sum(want[k].numel() for k in RESIDUALS)
+    out = []
+    for name, fn, plain, flops, nbytes, err, line in (
+            ("dec_scan_fwd",
+             lambda: dec_scan_fwd(*inputs, weights, impl="kernel"),
+             lambda: dec_scan_fwd_plain(*inputs, weights),
+             fwd_flops, w_bytes + io + res_bytes, fwd_abs, 165),
+            ("dec_scan_bwd",
+             lambda: dec_scan_bwd(want, xg_t, ctx, ctxp, mask, weights, g_t,
+                                  impl="kernel"),
+             lambda: dec_scan_bwd_plain(want, xg_t, ctx, ctxp, mask, weights,
+                                        g_t),
+             bwd_flops, 2 * w_bytes + 2 * io + res_bytes + 4.0 * g_t.numel(),
+             bwd_abs, 286)):
+        ms = _time_ms(torch, fn, reps=10)
+        plain_ms = _time_ms(torch, plain, reps=5)
+        bound_ms, bound_by = _bound(flops, nbytes)
+        print(f"{name} (B={B}, T=Tt={T}): kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+        out.append({"name": name, "route": "cuda",
+                    "source": f"vag_nmt_tpu_torch/csrc/{name}.cu",
+                    "replaces": f"vag_nmt_tpu/ops/pallas_dec_scan.py:{line}",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None})
+    return out
+
+
 def phase_main(torch, np, dev):
     import vag_nmt_tpu_torch as vt
     from vag_nmt_tpu_torch.core.config import SPECIALS
@@ -258,21 +476,171 @@ def phase_main(torch, np, dev):
           f"(threshold {MIN_IDENTICAL_SHARE})")
     if share < MIN_IDENTICAL_SHARE:
         raise AssertionError(f"only {share:.4f} of hypotheses identical")
-    return launches, grids, lambda: run("auto")
+    return launches, grids, lambda: run("auto")[1]["beam_loop_steps"]
 
 
-def phase_profile(torch, run):
-    """One run of the main path under torch.profiler, device activity only.
-    One stream, so kernels do not overlap and their summed time is the
-    device's busy time; the idle share is 1 - busy / host wall. The
-    profiler's own host cost makes the wall, and so the idle share, an upper
-    estimate."""
+def _zipf_tokens(np, rng, vocab: int, n: int):
+    """n token ids in [4, vocab) drawn with probability ~ 1/rank, the shape
+    of a natural-language unigram distribution."""
+    p = 1.0 / np.arange(1, vocab - 3)
+    return list(4 + rng.choice(vocab - 4, n, p=p / p.sum()))
+
+
+def _train_corpus(np, m, n: int, seed: int):
+    """n pairs with Zipf tokens, lengths normal(13, 4) clipped to 4..32, and
+    pool5-like image features: a fixed random projection of the source
+    tokens, averaged and rectified, so image and sentence share content
+    (features unrelated to the text let the grounding loss only collapse)."""
+    from vag_nmt_tpu_torch.data.batching import Example
+
+    rng = np.random.RandomState(seed)
+    proj = (np.random.RandomState(4).randn(m.src_vocab_size, m.img_feat_dim)
+            / 4).astype(np.float32)
+    out = []
+    for i in range(n):
+        ls, lt = (int(np.clip(rng.normal(13, 4), 4, 32)) for _ in range(2))
+        src = _zipf_tokens(np, rng, m.src_vocab_size, ls)
+        out.append(Example(src=src,
+                           tgt=_zipf_tokens(np, rng, m.tgt_vocab_size, lt),
+                           img=np.maximum(proj[src].mean(0), 0.0), index=i))
+    return out
+
+
+def phase_train(torch, np, dev):
+    """The training path: train_loop on the full-width m30k_ende_vag model
+    from the seed's random init, with each kernel's launches read from that
+    run alone; then N_COMPARE_STEPS steps through the kernels and through
+    the plain versions from the same init and the same dropout draws."""
+    import shutil
+    from pathlib import Path
+
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.core.config import SPECIALS
+    from vag_nmt_tpu_torch.data.batching import BucketBatcher
+    from vag_nmt_tpu_torch.data.vocab import Vocab
+    from vag_nmt_tpu_torch.ops.dec_scan import dec_scan_bwd, dec_scan_fwd
+    from vag_nmt_tpu_torch.ops.gru_kernel import gru_bwd, gru_fwd
+    from vag_nmt_tpu_torch.ops.readout_topk import readout_topk_rows
+    from vag_nmt_tpu_torch.train.loop import _step_rows
+    from vag_nmt_tpu_torch.train.state import tree_leaves
+
+    cfg = vt.preset("m30k_ende_vag").replace(train=dict(
+        eval_every_steps=N_TRAIN_STEPS, log_every_steps=N_TRAIN_STEPS - 1))
+    m = cfg.model
+    train = _train_corpus(np, m, N_TRAIN_PAIRS, seed=8)
+    dev_set = _train_corpus(np, m, N_DEV_PAIRS, seed=9)
+    vocab = Vocab(list(SPECIALS) + [f"t{i}" for i in range(m.tgt_vocab_size - 4)])
+    refs = [" ".join(vocab.itos[t] for t in ex.tgt) for ex in dev_set]
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    wrappers = {"gru_fwd": gru_fwd, "gru_bwd": gru_bwd,
+                "dec_scan_fwd": dec_scan_fwd, "dec_scan_bwd": dec_scan_bwd,
+                "readout_topk": readout_topk_rows}
+    for fn in wrappers.values():
+        fn.launches = 0
+        fn.grids = 0
+    t0 = time.perf_counter()
+    final = vt.train_loop(cfg, str(out_dir), train, dev_set, vocab, refs,
+                          max_steps=N_TRAIN_STEPS, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    grids = {n: fn.grids for n, fn in wrappers.items()}
+    recs = [json.loads(line) for line in open(out_dir / "metrics.jsonl")]
+    ckpts = sorted(p.name for p in (out_dir / cfg.train.checkpoint_dir).iterdir())
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rows = [r for r in recs if r["tag"] == "train"]
+    first, last = rows[0], rows[-1]
+    if (first["step"], last["step"]) != (1, N_TRAIN_STEPS):
+        raise AssertionError(f"expected log rows at steps 1 and "
+                             f"{N_TRAIN_STEPS}: {[r['step'] for r in rows]}")
+    if final["steps"] != N_TRAIN_STEPS:
+        raise AssertionError(f"train_loop ran {final['steps']} steps")
+    if "state_best.pt" not in ckpts or "state_last.pt" not in ckpts:
+        raise AssertionError(f"checkpoints missing: {ckpts}")
+
+    # Target tokens of steps 2..N (the steps the step-N row times), from
+    # the same batch stream as the loop's.
+    batcher = BucketBatcher(train, cfg.data.batch_size, cfg.data.length_buckets,
+                            seed=cfg.data.shuffle_seed, image_ids=True,
+                            img_dim=m.img_feat_dim, compact=True)
+    K = cfg.train.steps_per_dispatch
+    batches, epoch = [], 0
+    while len(batches) < N_TRAIN_STEPS:
+        batches += list(_step_rows(batcher.epoch_stacked(epoch, K), 0))
+        epoch += 1
+    batches = batches[:N_TRAIN_STEPS]
+    tokens = sum(float((((b["tgt_len"] >= 0) * (b["tgt_len"] + 1))
+                        * b["sample_mask"]).sum()) for b in batches[1:])
+    step_s = last["step_time_s"]       # mean over steps 2..N, completion rate
+    print(f"train path (kernels): wall_s={wall_s:.2f} "
+          f"steps_per_sec={1.0 / step_s:.3f} "
+          f"tgt_tokens_per_sec={tokens / (step_s * (N_TRAIN_STEPS - 1)):.1f} "
+          f"first_loss={first['loss']:.5f} last_loss={last['loss']:.5f} "
+          f"dev_bleu={final.get('dev_bleu')} launches={launches} grids={grids}")
+    losses = (first["loss"], last["loss"])
+    if not all(np.isfinite(losses)) or not last["loss"] < first["loss"]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    for n in ("gru_fwd", "gru_bwd", "dec_scan_fwd", "dec_scan_bwd"):
+        if launches[n] <= 0:
+            raise AssertionError(f"{n} never launched on the training path")
+
+    # Kernels against plain over the first steps, same init and draws.
+    state0 = vt.create_train_state(
+        cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
+    table = vt.build_img_table(train, m.img_feat_dim, device=dev)
+
+    def run(c):
+        step = vt.make_train_step(c, with_img_table=True)
+        st, first_state, out = state0, None, []
+        for b in batches[:N_COMPARE_STEPS]:
+            st, aux = step(st, b, table)
+            first_state = first_state or st
+            out.append(torch.stack([aux["loss"], aux["grad_norm"]]))
+        return torch.stack(out).cpu(), first_state, st
+
+    got, st1, st_end = run(cfg)
+    want, _, _ = run(cfg.replace(model=dict(gru_impl="xla",
+                                            dec_scan_impl="xla")))
+    rel = float(((got - want).abs() / want.abs()).max())
+    print(f"train kernels vs plain over {N_COMPARE_STEPS} steps: losses "
+          f"{got[:, 0].tolist()} vs {want[:, 0].tolist()}, grad norms "
+          f"{got[:, 1].tolist()} vs {want[:, 1].tolist()}, max relative "
+          f"diff {rel:.3g} (tolerance {TRAIN_RTOL})")
+    if not rel <= TRAIN_RTOL:
+        raise AssertionError(f"kernel and plain training differ by {rel}")
+    # Adam's first moment after one step is (1 - b1) * the clipped grad.
+    dead = [i for i, mu in enumerate(tree_leaves(st1.mu))
+            if float(mu.abs().max()) == 0.0]
+    if dead:
+        raise AssertionError(f"parameter leaves {dead} got no gradient")
+    print(f"every one of {len(tree_leaves(st1.mu))} parameter leaves has a "
+          "gradient")
+
+    step = vt.make_train_step(cfg, with_img_table=True)
+
+    def profiled():
+        st = st_end
+        for b in batches[N_COMPARE_STEPS:N_COMPARE_STEPS + N_PROFILE_STEPS]:
+            st, _ = step(st, b, table)
+        return N_PROFILE_STEPS
+
+    return launches, grids, profiled
+
+
+def phase_profile(torch, what: str, run):
+    """One run of a path under torch.profiler, device activity only; run()
+    returns its step count (beam steps or train steps). One stream, so
+    kernels do not overlap and their summed time is the device's busy time;
+    the idle share is 1 - busy / host wall. The profiler's own host cost
+    makes the wall, and so the idle share, an upper estimate."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, st = run()
+        steps = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -284,13 +652,12 @@ def phase_profile(torch, run):
         n_launch += 1
     busy_ms = sum(kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    print("profile: " + json.dumps({
-        "beam_loop_steps": st["beam_loop_steps"], "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms,
+    print(f"profile {what}: " + json.dumps({
+        "steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         # None: the profiler saw no device activity (not measured)
         "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
         "device_launches": n_launch,
-        "device_launches_per_step": n_launch / max(1, st["beam_loop_steps"]),
+        "device_launches_per_step": n_launch / max(1, steps),
         "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top]}))
 
 
@@ -310,12 +677,20 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     print(f"build_s: {_build.build_all():.2f}")
     t0 = time.perf_counter()
-    kernels = [phase_readout(torch, np, dev), phase_gru(torch, np, dev)]
+    decode_kernels = [phase_readout(torch, np, dev), phase_gru(torch, np, dev)]
+    train_kernels = [phase_gru_bwd(torch, np, dev), *phase_dec_scan(torch, np, dev)]
     launches, grids, run = phase_main(torch, np, dev)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["grids"] = grids[k["name"]]     # device grids those launches enqueued
-    phase_profile(torch, run)
+    phase_profile(torch, "decode (beam steps)", run)
+    t_launches, t_grids, t_run = phase_train(torch, np, dev)
+    phase_profile(torch, "train (steps)", t_run)
+    # Each kernel's launches come from the run of its own path: the decode
+    # path for the decode kernels, the training path for the others.
+    for ks, ln, gr in ((decode_kernels, launches, grids),
+                       (train_kernels, t_launches, t_grids)):
+        for k in ks:
+            k["launches"] = ln[k["name"]]
+            k["grids"] = gr[k["name"]]    # device grids those launches enqueued
+    kernels = decode_kernels + train_kernels
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,8 @@ from vag_nmt_tpu.ops.pallas_topk import beam_topk as j_beam_topk
 from vag_nmt_tpu_torch.ops import attention as att
 from vag_nmt_tpu_torch.ops import gru
 from vag_nmt_tpu_torch.ops import readout_topk as rt
-from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd
+from vag_nmt_tpu_torch.ops.dec_scan import dec_scan_bwd, dec_scan_fwd
+from vag_nmt_tpu_torch.ops.gru_kernel import gru_bwd, gru_fwd
 from vag_nmt_tpu_torch.ops.topk import beam_topk
 
 # One intra-op thread: the suite runs several test processes at once.
@@ -255,6 +256,26 @@ def test_kernel_impl_on_cpu_raises():
     with pytest.raises(ValueError, match="CUDA"):
         rt.fused_readout_topk(T(t), T(w), T(b), T(scores), T(fin),
                               impl="kernel")
+    p, x, mask, h0 = _gru_case()
+    xg_t = torch.zeros((7, 5, 48))
+    mask_t = T(mask.T.copy())
+    hs_t = torch.zeros((7, 5, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        gru_bwd(xg_t, mask_t, T(p["uh"]), T(p["bh"]), T(h0), hs_t, hs_t,
+                impl="kernel")
+    B, Tt, T_, H, A, C, R = 2, 3, 4, 8, 6, 10, 5
+    weights = tuple(torch.zeros(s) for s in (
+        (H, 3 * H), (3 * H,), (H, A), (A,), (C, 3 * H), (3 * H,), (H, 3 * H),
+        (3 * H,), (H, R), (C, R)))
+    args = (torch.zeros((Tt, B, R)), torch.zeros((Tt, B, 3 * H)),
+            torch.zeros((B, H)), torch.zeros((B, T_, C)),
+            torch.zeros((B, T_, A)), torch.ones((B, T_)))
+    with pytest.raises(ValueError, match="CUDA"):
+        dec_scan_fwd(*args, weights, impl="kernel")
+    res = dec_scan_fwd(*args, weights, impl="plain")
+    with pytest.raises(ValueError, match="CUDA"):
+        dec_scan_bwd(res, args[1], args[3], args[4], args[5], weights,
+                     torch.ones((Tt, B, R)), impl="kernel")
 
 
 @pytest.mark.parametrize("R,V", [(640, 8000), (12, 300), (3, 64), (640, 16000)])

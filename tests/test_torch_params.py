@@ -176,6 +176,12 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         vt.beam_search(p, cfg.model, state, beam_size=2, max_len=3)
     with pytest.raises(RuntimeError):
         vt.translate_corpus(p, cfg, [], None)
+    with pytest.raises(RuntimeError):
+        vt.create_train_state(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError):
+        vt.train_loop(cfg, "unused", [], [], None, [])
+    assert vt.create_train_state(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu").step == 0
 
 
 def test_impl_resolution():

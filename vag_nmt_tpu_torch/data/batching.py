@@ -1,12 +1,19 @@
-"""Corpus examples and the source-length bucket rule (own copy of the JAX
-package's ``data/batching.py`` pieces that decoding needs)."""
+"""Length-bucketed, fixed-shape batching (own copy of the JAX package's
+``data/batching.py``, numpy only): each example lands in the smallest
+(src_bucket, tgt_bucket) that fits it, every batch has exactly
+``batch_size`` rows (short final batches are padded with all-<pad> rows
+carrying sample_mask=0), and the per-epoch order is a function of the seed
+and the epoch alone, so the port visits the same batches in the same order
+as the JAX package."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from vag_nmt_tpu_torch.core.config import EOS_ID, PAD_ID, SOS_ID
 
 
 @dataclasses.dataclass
@@ -22,3 +29,217 @@ def _bucket_for(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+Batch = Dict[str, np.ndarray]
+
+
+class BucketBatcher:
+    """Groups examples into fixed-shape batches.
+
+    train mode (shuffle=True): buckets are shuffled per epoch with a
+    deterministic per-epoch seed; short remainder batches are padded.
+    eval mode (shuffle=False): corpus order within buckets is preserved and
+    `index` travels with each row so outputs can be restored to corpus order.
+    """
+
+    def __init__(
+        self,
+        examples: Sequence[Example],
+        batch_size: int,
+        src_buckets: Sequence[int],
+        tgt_buckets: Optional[Sequence[int]] = None,
+        *,
+        seed: int = 0,
+        include_image: bool = False,
+        image_ids: bool = False,
+        img_dim: int = 2048,
+        compact: bool = False,
+    ):
+        """image_ids=True: batches carry int32 "img_ids" (positions into
+        `examples`, filler rows 0) instead of feature rows — for train/decode
+        paths that gather from a device-resident table (build_img_table).
+
+        compact=True (train hot path): batches carry uint16 tokens + int32
+        lengths only — {src, tgt, src_len, tgt_len, sample_mask[, img_ids]} —
+        and the masks / shifted tgt_in/tgt_out are built ON DEVICE by
+        train.step.expand_compact_batch (bit-identical to the classic keys,
+        tested). ~4x fewer feed bytes and ~half the device_put calls per
+        step; requires vocab ids < 65536 (checked). The flops/shape key uses
+        "tgt" (width = tgt bucket, same as tgt_in)."""
+        self.examples = list(examples)
+        self.batch_size = batch_size
+        self.src_buckets = sorted(src_buckets)
+        self.tgt_buckets = sorted(tgt_buckets or src_buckets)
+        self.seed = seed
+        self.include_image = include_image
+        self.image_ids = image_ids
+        self.img_dim = img_dim
+        self.compact = compact
+        if compact:
+            if include_image:
+                raise ValueError(
+                    "compact batches carry img_ids (device-table gather), "
+                    "not feature rows; use image_ids=True")
+            big = max((max(ex.src, default=0) for ex in self.examples),
+                      default=0)
+            bigt = max((max(ex.tgt, default=0)
+                        for ex in self.examples if ex.tgt is not None),
+                       default=0)
+            if big > 65535 or bigt > 65535:
+                raise ValueError(
+                    "compact batches transport token ids as uint16; vocab "
+                    f"ids must be < 65536 (saw src max {big}, tgt max {bigt})")
+
+    def _assign(self) -> Dict[Tuple[int, int], List[int]]:
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for i, ex in enumerate(self.examples):
+            bs = _bucket_for(len(ex.src), self.src_buckets)
+            # +1 on target for the shifted sos/eos pair
+            bt = (_bucket_for(len(ex.tgt) + 1, self.tgt_buckets)
+                  if ex.tgt is not None else self.tgt_buckets[0])
+            groups.setdefault((bs, bt), []).append(i)
+        return groups
+
+    def _materialize(self) -> None:
+        """Pad every example into its group's matrices ONCE; per-epoch batch
+        assembly is then a vectorized row gather (the per-row Python fill was
+        ~2/3 of wall-clock step time once device feeds got cheap)."""
+        self._mat: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
+        self._row_of: Dict[int, int] = {}
+        for (bs, bt), idxs in self._assign().items():
+            n = len(idxs)
+            if self.compact:
+                g = {
+                    "src": np.full((n, bs), PAD_ID, np.uint16),
+                    "src_len": np.zeros((n,), np.int32),
+                    "tgt": np.full((n, bt), PAD_ID, np.uint16),
+                    # -1 = row has NO target (classic path: all-zero tgt_mask)
+                    # vs 0 = empty target (classic: EOS at position 0 is live)
+                    "tgt_len": np.full((n,), -1, np.int32),
+                    "sample_mask": np.ones((n,), np.float32),
+                }
+                if self.image_ids:
+                    g["img_ids"] = np.zeros((n,), np.int32)
+                for r, i in enumerate(idxs):
+                    ex = self.examples[i]
+                    self._row_of[i] = r
+                    L = min(len(ex.src), bs)
+                    g["src"][r, :L] = ex.src[:L]
+                    g["src_len"][r] = L
+                    if ex.tgt is not None:
+                        t = ex.tgt[: bt - 1]
+                        g["tgt"][r, : len(t)] = t
+                        g["tgt_len"][r] = len(t)
+                    if self.image_ids:
+                        g["img_ids"][r] = i
+                self._mat[(bs, bt)] = g
+                continue
+            g = {
+                "src": np.full((n, bs), PAD_ID, np.int32),
+                "src_mask": np.zeros((n, bs), np.float32),
+                "tgt_in": np.full((n, bt), PAD_ID, np.int32),
+                "tgt_out": np.full((n, bt), PAD_ID, np.int32),
+                "tgt_mask": np.zeros((n, bt), np.float32),
+                "sample_mask": np.ones((n,), np.float32),
+                "index": np.zeros((n,), np.int32),
+            }
+            if self.include_image:
+                g["img"] = np.zeros((n, self.img_dim), np.float32)
+            if self.image_ids:
+                g["img_ids"] = np.zeros((n,), np.int32)
+            for r, i in enumerate(idxs):
+                ex = self.examples[i]
+                self._row_of[i] = r
+                L = min(len(ex.src), bs)
+                g["src"][r, :L] = ex.src[:L]
+                g["src_mask"][r, :L] = 1.0
+                g["index"][r] = ex.index if ex.index >= 0 else i
+                if ex.tgt is not None:
+                    t = ex.tgt[: bt - 1]
+                    g["tgt_in"][r, 0] = SOS_ID
+                    g["tgt_in"][r, 1: 1 + len(t)] = t
+                    g["tgt_out"][r, : len(t)] = t
+                    g["tgt_out"][r, len(t)] = EOS_ID
+                    g["tgt_mask"][r, : len(t) + 1] = 1.0
+                if self.include_image and ex.img is not None:
+                    g["img"][r] = ex.img
+                if self.image_ids:
+                    g["img_ids"][r] = i
+            self._mat[(bs, bt)] = g
+
+    def _make_batch(self, idxs: Sequence[int], bs: int, bt: int) -> Batch:
+        if not hasattr(self, "_mat"):
+            self._materialize()
+        B = self.batch_size
+        n = len(idxs)
+        g = self._mat[(bs, bt)]
+        rows = np.fromiter((self._row_of[i] for i in idxs), np.int64, n)
+        batch: Batch = {}
+        for key, m in g.items():
+            got = m[rows]
+            if n < B:        # pad short final batches to the fixed shape
+                full = np.zeros((B,) + m.shape[1:], m.dtype)
+                if key in ("src", "tgt", "tgt_in", "tgt_out"):
+                    full[:] = PAD_ID
+                elif key in ("index", "tgt_len"):
+                    full[:] = -1
+                full[:n] = got
+                got = full
+            batch[key] = got
+        return batch
+
+    def epoch(self, epoch: int = 0, shuffle: bool = True) -> Iterator[Batch]:
+        groups = self._assign()
+        rng = np.random.RandomState((self.seed * 1_000_003 + epoch) & 0x7FFFFFFF)
+        keys = sorted(groups.keys())
+        order: List[Tuple[Tuple[int, int], List[int]]] = []
+        for k in keys:
+            idxs = groups[k]
+            if shuffle:
+                idxs = list(np.array(idxs)[rng.permutation(len(idxs))])
+            chunks = [idxs[i: i + self.batch_size]
+                      for i in range(0, len(idxs), self.batch_size)]
+            order.extend((k, c) for c in chunks)
+        if shuffle:
+            order = [order[i] for i in rng.permutation(len(order))]
+        for (bs, bt), chunk in order:
+            yield self._make_batch(chunk, bs, bt)
+
+    def epoch_stacked(self, epoch: int, k: int,
+                      shuffle: bool = True) -> Iterator[Batch]:
+        """Epoch batches grouped into k-deep SAME-SHAPE stacks (every leaf
+        gains a leading k axis) for the multi-step train dispatcher, plus
+        leftover single batches. STREAMING: a stack is yielded as soon as k
+        same-shape batches have arrived (epoch() already shuffles, so stack
+        completion order is itself shuffled), leftovers at the end —
+        materializing the whole epoch first would stall the device at every
+        epoch start and hold an epoch of batches in host memory. k=1
+        degrades to epoch()."""
+        if k <= 1:
+            yield from self.epoch(epoch, shuffle)
+            return
+        pending: Dict[Tuple, List[Batch]] = {}
+        for b in self.epoch(epoch, shuffle):
+            tgt = b["tgt"] if "tgt" in b else b["tgt_in"]
+            key = b["src"].shape + tgt.shape
+            pending.setdefault(key, []).append(b)
+            if len(pending[key]) == k:
+                chunk = pending.pop(key)
+                yield {kk: np.stack([bb[kk] for bb in chunk])
+                       for kk in chunk[0]}
+        # Leftover singles must be re-shuffled ACROSS shapes: yielding them
+        # in pending-dict (shape) order serializes same-bucket batches,
+        # which measurably hurt convergence on small corpora where most
+        # batches are leftovers (toy 400-step dev BLEU dropped 93 -> 72).
+        leftovers = [b for rest in pending.values() for b in rest]
+        if shuffle and len(leftovers) > 1:
+            rng = np.random.RandomState(
+                (self.seed * 7919 + epoch + 1) & 0x7FFFFFFF)
+            leftovers = [leftovers[i]
+                         for i in rng.permutation(len(leftovers))]
+        yield from leftovers
+
+    def num_batches(self) -> int:
+        groups = self._assign()
+        return sum(-(-len(v) // self.batch_size) for v in groups.values())

@@ -1,12 +1,14 @@
-"""Conditional-GRU attention decoder, decode side (counterpart of the JAX
-package's ``models/decoder.py``).
+"""Conditional-GRU attention decoder (counterpart of the JAX package's
+``models/decoder.py``).
 
 dl4mt-style two-cell step: GRU1 on the target embedding, masked Bahdanau
 attention queried by the intermediate state, GRU2 on the attention context,
-then a tanh readout ``t``; the vocab projection of ``t`` runs either here
-(``decode_step_beams``, logits materialized) or fused with the top-K
-(``decode_step_beams_readout`` + ops/readout_topk). The teacher-forced
-training scan waits for the training slice."""
+then a tanh readout ``t``. In decoding the vocab projection of ``t`` runs
+either here (``decode_step_beams``, logits materialized) or fused with the
+top-K (``decode_step_beams_readout`` + ops/readout_topk). In training,
+``teacher_forced_logits`` hoists the token-parallel GEMMs out of the
+recurrence, runs the recurrence as one ``ops/dec_scan.decoder_scan`` and
+the vocab projection as one GEMM after it."""
 
 from __future__ import annotations
 
@@ -15,12 +17,20 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from vag_nmt_tpu_torch.core.config import ModelConfig
-from vag_nmt_tpu_torch.models.layers import embed, glorot_uniform, init_embedding
+from vag_nmt_tpu_torch.models.layers import (
+    dropout,
+    embed,
+    glorot_uniform,
+    init_embedding,
+)
 from vag_nmt_tpu_torch.ops.attention import (
+    bahdanau_attend,
     bahdanau_attend_beams,
     bahdanau_attend_beams_q,
     init_attention_params,
+    precompute_ctx_proj,
 )
+from vag_nmt_tpu_torch.ops.dec_scan import decoder_scan
 from vag_nmt_tpu_torch.ops.gru import (
     gru_cell_from_gates,
     gru_cell_from_xgates,
@@ -87,6 +97,25 @@ def _readout_t(
     if tc is None:
         tc = c @ r["wc"]
     return torch.tanh(ty + s_new @ r["ws"] + tc + r["b"])
+
+
+def step_acts_from_xgates(
+    params: Dict[str, Any],
+    ty: torch.Tensor,         # (N, R) precomputed readout y-term (y @ wy)
+    xg1: torch.Tensor,        # (N, 3H) precomputed GRU1 input gates
+    s: torch.Tensor,          # (N, H)
+    ctx: torch.Tensor,        # (N, T, C)
+    ctx_proj: torch.Tensor,   # (N, T, A)
+    src_mask: torch.Tensor,   # (N, T)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decoder step up to the readout activations (pre-dropout, pre
+    vocab GEMM): the per-step oracle of the teacher-forced scan. Returns
+    (s_new (N, H), t (N, R), attn (N, T))."""
+    s_tilde = gru_cell_from_xgates(params["gru1"], xg1, s)
+    c, w = bahdanau_attend(params["attn"], s_tilde, ctx, ctx_proj, src_mask)
+    s_new = gru_cell_from_xgates(
+        params["gru2"], gru_gates_from_x(params["gru2"], c), s_tilde)
+    return s_new, _readout_t(params, ty, s_new, c), w
 
 
 def _beams_step_core(
@@ -175,3 +204,32 @@ def decode_step_beams_readout(
     t = _readout_t(params, ty, s_new, c_flat, tc=tc)
     return (s_new.reshape(B, K, H), t, _out_matrix(params, cfg),
             params["readout"]["b_out"])
+
+
+def teacher_forced_logits(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    tgt_in: torch.Tensor,     # (B, Tt) int, starts with <sos>
+    s0: torch.Tensor,         # (B, H)
+    ctx: torch.Tensor,        # (B, T, C)
+    src_mask: torch.Tensor,   # (B, T)
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Logits for every target position, (B, Tt, V) fp32. The GRU1 input
+    gates and the readout y-term run time-parallel before the scan, the
+    (R, V) vocab projection as one (B*Tt, R) GEMM after it. In training
+    (train=True with a generator) dropout applies to the target embeddings
+    and to the stacked readout activations, drawn in that order. The scan
+    runs per cfg.dec_scan_impl: "auto" (kernels for CUDA tensors, plain for
+    CPU tensors), "pallas" (the kernels) or "xla" (the plain versions)."""
+    y = embed(params["embed"], tgt_in)                        # (B, Tt, E)
+    y = dropout(generator, y, cfg.dropout, train)
+    xg1 = gru_gates_from_x(params["gru1"], y)                 # (B, Tt, 3H)
+    ty = y @ params["readout"]["wy"]                          # (B, Tt, R)
+    ctx_proj = precompute_ctx_proj(params["attn"], ctx)
+    t_all = decoder_scan(params, ty, xg1, s0, ctx, ctx_proj, src_mask,
+                         impl=cfg.dec_scan_impl)
+    t_all = dropout(generator, t_all, cfg.dropout, train)
+    return t_all @ _out_matrix(params, cfg) + params["readout"]["b_out"]

@@ -1,7 +1,7 @@
 """Bidirectional GRU text encoder (counterpart of the JAX package's
 ``models/encoder.py``). Each direction is a masked scan from ``ops/gru.py``;
-layers stack on the concatenated (B, T, 2H) outputs. Decode only: the
-training-time dropout waits for the training slice."""
+layers stack on the concatenated (B, T, 2H) outputs, with dropout on the
+embeddings and between layers in training."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from vag_nmt_tpu_torch.core.config import ModelConfig
-from vag_nmt_tpu_torch.models.layers import embed, init_embedding
+from vag_nmt_tpu_torch.models.layers import dropout, embed, init_embedding
 from vag_nmt_tpu_torch.ops.gru import bidirectional_gru, init_gru_params
 
 
@@ -35,14 +35,21 @@ def encode(
     src_mask: torch.Tensor,   # (B, T) float
     *,
     impl: Optional[str] = None,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Returns encoder states ctx (B, T, 2H). impl: the GRU scan's impl
-    (None = cfg.gru_impl; see ops/gru.gru_scan)."""
+    (None = cfg.gru_impl; see ops/gru.gru_scan). In training (train=True
+    with a generator) dropout applies to the embeddings and between
+    layers, drawn from ``generator`` in that order."""
     if cfg.compute_dtype != "float32":
-        raise NotImplementedError("bf16 compute waits for the bf16 decode slice")
+        raise NotImplementedError("bf16 compute waits for the bf16 slices")
     impl = cfg.gru_impl if impl is None else impl
     x = embed(params["embed"], src)
-    for layer in params["layers"]:
+    x = dropout(generator, x, cfg.dropout, train)
+    for i, layer in enumerate(params["layers"]):
         x, _, _ = bidirectional_gru(layer["fwd"], layer["bwd"], x, src_mask,
                                     impl=impl)
+        if i + 1 < len(params["layers"]):
+            x = dropout(generator, x, cfg.dropout, train)
     return x

@@ -5,7 +5,7 @@ tensors). Weights keep the JAX layout ``(in, out)`` and are applied as
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -43,6 +43,19 @@ def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
 
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"] + params["b"]
+
+
+def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). Identity unless training with a
+    generator and rate > 0. The draws come from ``gen`` (on x's device), so
+    they differ from the JAX package's threefry bits."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Model assembly, decode side (counterpart of the JAX package's
-``models/model.py``): parameter init and the weight bridge from the JAX
-parameter tree, the per-batch decode state (encoder, visual grounding,
-image-guided decoder init) and the fused beam step.
+"""Model assembly (counterpart of the JAX package's ``models/model.py``):
+parameter init and the weight bridge from the JAX parameter tree, the
+joint training loss (cross-entropy + max-margin VSE), the per-batch decode
+state (encoder, visual grounding, image-guided decoder init) and the fused
+beam step.
 
 Image-guided decoder init:  s0 = tanh(mean_ctx @ w_ctx + t_vec @ w_vis + b)
 where ``t_vec`` is the grounding-attention summary; the text-only model
@@ -112,6 +113,59 @@ def _init_decoder_state(params: Params, cfg: ModelConfig, ctx: torch.Tensor,
     return torch.tanh(pre + params["init"]["b"]).to(ctx.dtype)
 
 
+def _encode_and_ground(params: Params, cfg: ModelConfig,
+                       batch: Dict[str, torch.Tensor], *, train: bool,
+                       generator: Optional[torch.Generator] = None,
+                       impl: Optional[str] = None):
+    """Encoder, image embedding + grounding and decoder init on tensors
+    already on the params' device. Returns (ctx, s0, img_emb, txt_emb)."""
+    src_mask = batch["src_mask"]
+    ctx = enc.encode(params["encoder"], cfg, batch["src"].long(), src_mask,
+                     impl=impl, train=train, generator=generator)
+    img_emb = txt_emb = t_vec = None
+    if cfg.multimodal:
+        img_emb = vse.image_embedding(params["vse"], batch["img"].to(ctx.dtype))
+        txt_emb, t_vec, _ = vse.ground(params["vse"], img_emb, ctx, src_mask)
+    s0 = _init_decoder_state(params, cfg, ctx, src_mask, t_vec)
+    return ctx, s0, img_emb, txt_emb
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            generator: Optional[torch.Generator] = None, *,
+            train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Joint loss L = CE + vse_weight * VSE; returns (loss, aux) with aux
+    keys ce, acc, ntokens, loss and, multimodal, vse (0-dim tensors on the
+    params' device).
+
+    batch (tensors on the params' device): src (B, T) int, src_mask (B, T),
+    tgt_in (B, Tt) int starting with <sos>, tgt_out (B, Tt) ending with
+    <eos>, tgt_mask (B, Tt); img (B, F) when cfg.multimodal; optional
+    sample_mask (B,). Dropout (train=True) draws from ``generator``: the
+    encoder's first, then the decoder's."""
+    ctx, s0, img_emb, txt_emb = _encode_and_ground(
+        params, cfg, batch, train=train, generator=generator)
+    logits = dec.teacher_forced_logits(
+        params["decoder"], cfg, batch["tgt_in"].long(), s0, ctx,
+        batch["src_mask"], train=train, generator=generator)
+    tgt_out = batch["tgt_out"].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt_logp = torch.gather(logp, -1, tgt_out[..., None])[..., 0]
+    tmask = batch["tgt_mask"].to(torch.float32)
+    ntok = tmask.sum().clamp_min(1.0)
+    ce = -(tgt_logp * tmask).sum() / ntok
+    acc = ((logits.argmax(-1) == tgt_out) * tmask).sum() / ntok
+    aux = {"ce": ce, "acc": acc, "ntokens": tmask.sum()}
+    total = ce
+    if cfg.multimodal:
+        vse_l = vse.max_margin_loss(img_emb, txt_emb, cfg.vse_margin,
+                                    cfg.vse_hard_negatives,
+                                    sample_mask=batch.get("sample_mask"))
+        total = ce + cfg.vse_weight * vse_l
+        aux["vse"] = vse_l
+    aux["loss"] = total
+    return total, aux
+
+
 def prepare_decode(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
                    device: DeviceLike = None,
                    impl: Optional[str] = None) -> DecodeState:
@@ -122,15 +176,12 @@ def prepare_decode(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     cfg.gru_impl)."""
     dev = resolve_device(device)
     same_device(dev, params["decoder"]["embed"]["table"], "params")
-    src = torch.as_tensor(batch["src"], device=dev).long()
     src_mask = torch.as_tensor(batch["src_mask"], device=dev).to(torch.float32)
-    ctx = enc.encode(params["encoder"], cfg, src, src_mask, impl=impl)
-    t_vec = None
+    b = {"src": torch.as_tensor(batch["src"], device=dev).long(),
+         "src_mask": src_mask}
     if cfg.multimodal:
-        img = torch.as_tensor(batch["img"], device=dev).to(ctx.dtype)
-        img_emb = vse.image_embedding(params["vse"], img)
-        _, t_vec, _ = vse.ground(params["vse"], img_emb, ctx, src_mask)
-    s0 = _init_decoder_state(params, cfg, ctx, src_mask, t_vec)
+        b["img"] = torch.as_tensor(batch["img"], device=dev)
+    ctx, s0, _, _ = _encode_and_ground(params, cfg, b, train=False, impl=impl)
     return DecodeState(
         ctx=ctx,
         ctx_proj=precompute_ctx_proj(params["decoder"]["attn"], ctx),

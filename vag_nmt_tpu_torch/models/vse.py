@@ -4,13 +4,13 @@
 - image side: pool5 feature -> tanh dense -> L2 norm into the shared space;
 - text side: the image embedding queries a Bahdanau attention over the
   encoder states (visual attention grounding); the weighted sum is
-  projected and L2-normalized into the same space.
-
-The max-margin loss waits for the training slice."""
+  projected and L2-normalized into the same space;
+- loss: bidirectional in-batch max-margin ranking on cosine similarity
+  (sum of violations, or the hardest negative behind a flag)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -51,3 +51,29 @@ def ground(
                                   ctx, ctx_proj, src_mask)
     txt_emb = l2_normalize(torch.tanh(dense(params["txt_proj"], t_vec)))
     return txt_emb, t_vec, beta
+
+
+def max_margin_loss(
+    img_emb: torch.Tensor,    # (B, D) unit-norm
+    txt_emb: torch.Tensor,    # (B, D) unit-norm
+    margin: float,
+    hard_negatives: bool = False,
+    sample_mask: Optional[torch.Tensor] = None,  # (B,) 1 real, 0 batch pad
+) -> torch.Tensor:
+    """Bidirectional in-batch pairwise ranking loss on cosine similarity.
+    Rows with sample_mask == 0 are neither anchors nor negatives."""
+    sim = txt_emb @ img_emb.T
+    pos = torch.diagonal(sim)
+    b = sim.shape[0]
+    valid_pair = 1.0 - torch.eye(b, dtype=sim.dtype, device=sim.device)
+    n_valid = torch.tensor(float(b), dtype=sim.dtype, device=sim.device)
+    if sample_mask is not None:
+        sm = sample_mask.to(sim.dtype)
+        valid_pair = valid_pair * sm[:, None] * sm[None, :]
+        n_valid = sm.sum().clamp_min(1.0)
+    # sentence -> wrong images, and image -> wrong sentences
+    cost_s = torch.relu(margin + sim - pos[:, None]) * valid_pair
+    cost_i = torch.relu(margin + sim - pos[None, :]) * valid_pair
+    if hard_negatives:
+        return (cost_s.amax(dim=1) + cost_i.amax(dim=0)).sum() / n_valid
+    return (cost_s.sum(dim=1) + cost_i.sum(dim=0)).sum() / n_valid

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/kernels/`` at the
-repository root, named by a hash of its source, flags and defines (so an
-edited source rebuilds), and loaded through ``ctypes``. Pointers and the
+repository root, named by a hash of its source, the shared headers
+``csrc/*.cuh``, flags and defines (so an edited source rebuilds), and
+loaded through ``ctypes``. Pointers and the
 stream are passed as ``c_void_p``. A kernel's wrapper module declares it
 with its C entry point and the ``-D`` defines that carry the tiling the
 wrapper plans with, so the tiling has one owner. Nothing here runs at
@@ -57,6 +58,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
+    for hdr in sorted(CSRC.glob("*.cuh")):     # shared device code
+        h.update(hdr.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -98,6 +101,28 @@ def build_all() -> float:
                 job[0].kill()
                 job[0].wait()
     return time.perf_counter() - t0
+
+
+# Split-K scratch of the GEMM in csrc/common.cuh, passed to the kernels that
+# use it: partial sums (fp32) and per-tile arrival counters (zero, and left
+# zero by the kernel).
+WORK_FLOATS = 1 << 21
+N_COUNTERS = 1024
+WORKSPACE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                      ctypes.c_int]
+
+
+def workspace_args(device) -> Tuple[list, tuple]:
+    """(the four C arguments, the tensors behind them). The caller holds
+    the tensors until the launch is enqueued; PyTorch's allocator hands
+    freed memory only to later work on the same stream, which runs after
+    the kernels."""
+    import torch
+
+    work = torch.empty(WORK_FLOATS, dtype=torch.float32, device=device)
+    counters = torch.zeros(N_COUNTERS, dtype=torch.int32, device=device)
+    return ([work.data_ptr(), WORK_FLOATS, counters.data_ptr(), N_COUNTERS],
+            (work, counters))
 
 
 def load(name: str) -> ctypes.CDLL:

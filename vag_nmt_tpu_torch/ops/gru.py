@@ -11,8 +11,9 @@ hidden matmul):
 The input projection ``x @ Wi + bi`` for all time steps is one matmul
 outside the recurrence. Padding uses the mask-carry rule: at masked steps
 the state is carried through unchanged. The recurrence itself runs in
-``ops/gru_kernel.py``: the hand-written CUDA kernel for CUDA tensors, its
-plain PyTorch version for CPU tensors.
+``ops/gru_kernel.py``: the hand-written CUDA kernels for CUDA tensors,
+their plain PyTorch versions for CPU tensors; with grad enabled the scan
+goes through ``GRUScan``, whose backward is the backward kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from vag_nmt_tpu_torch.models.layers import glorot_uniform, orthogonal
-from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd, gru_gate_algebra
+from vag_nmt_tpu_torch.ops.gru_kernel import GRUScan, gru_fwd, gru_gate_algebra
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,9 +77,12 @@ def gru_scan(
         h0 = torch.zeros((B, H), dtype=torch.float32, device=x.device)
     xg_t = gru_gates_from_x(params, x).transpose(0, 1).contiguous()
     mask_t = mask.transpose(0, 1).to(torch.float32).contiguous()
-    hs_t = gru_fwd(xg_t, mask_t, params["uh"].contiguous(),
-                   params["bh"].contiguous(), h0.contiguous(),
-                   reverse=reverse, impl=impl)
+    args = (xg_t, mask_t, params["uh"].contiguous(),
+            params["bh"].contiguous(), h0.contiguous())
+    if torch.is_grad_enabled():
+        hs_t = GRUScan.apply(*args, reverse, impl)
+    else:
+        hs_t = gru_fwd(*args, reverse=reverse, impl=impl)
     hs = hs_t.transpose(0, 1)
     return hs, (hs[:, 0] if reverse else hs[:, -1])
 
