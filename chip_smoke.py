@@ -30,8 +30,19 @@ Phases (each raises on failure; the script then exits non-zero):
      kernel's launch count read from that run alone, steps/s, target
      tokens/s and the first and last loss; then 5 steps through the kernels
      and through the plain versions from the same init and dropout draws;
-     then 3 steps under torch.profiler, as phase 5.
-Phase 1 builds all five sources. It prints one JSON line of per-kernel
+     then 3 steps under torch.profiler, as phase 5;
+  9. beam_topk kernel against its plain version at the unfused beam step's
+     shape (B=128, K=5, V=8000), exactly, with finished rows and forced ties;
+ 10. dec_step kernel against its plain version at full width (B=128, K=5,
+     T=32) and at a ragged shape, with masked source positions;
+ 11. the serving path: Translator.from_run on phase 8's run dir (its
+     checkpoint, plus config.json and vocab files written here), then a
+     1024-line raw-text request at batch 128 in six modes: (a) the default
+     streaming pool, (b) the pool with VAG_DEC_STEP=on, (c) streaming off,
+     (d) VAG_READOUT_TOPK=unfused, (e) bulk=True, (f) greedy on 128 lines;
+     each kernel's launches read from each mode alone, the shares of
+     identical hypotheses between modes, and (a) and (b) under the profiler.
+Phase 1 builds all seven sources. It prints one JSON line of per-kernel
 numbers and, last, the device line.
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -39,6 +50,7 @@ Needs torch with CUDA and nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -71,6 +83,12 @@ N_TRAIN_STEPS, N_COMPARE_STEPS, N_PROFILE_STEPS = 40, 5, 3
 # gradient that is roundoff-sized in one path into a full lr-sized update,
 # so the paths drift apart a little over the steps.
 TRAIN_RTOL = 1e-3
+# The fused decode step against its plain version, error over the
+# reference's scale (see _rel_err): its GEMMs and attention sums run in
+# another order than cuBLAS and torch's reductions.
+DEC_STEP_RTOL = 1e-4
+# The serving request: raw-text lines, and the greedy mode's share of them.
+N_SERVE, N_GREEDY = 1024, 128
 
 
 def _smi() -> str:
@@ -511,7 +529,6 @@ def phase_train(torch, np, dev):
     from the seed's random init, with each kernel's launches read from that
     run alone; then N_COMPARE_STEPS steps through the kernels and through
     the plain versions from the same init and the same dropout draws."""
-    import shutil
     from pathlib import Path
 
     import vag_nmt_tpu_torch as vt
@@ -549,7 +566,6 @@ def phase_train(torch, np, dev):
     grids = {n: fn.grids for n, fn in wrappers.items()}
     recs = [json.loads(line) for line in open(out_dir / "metrics.jsonl")]
     ckpts = sorted(p.name for p in (out_dir / cfg.train.checkpoint_dir).iterdir())
-    shutil.rmtree(out_dir, ignore_errors=True)
     rows = [r for r in recs if r["tag"] == "train"]
     first, last = rows[0], rows[-1]
     if (first["step"], last["step"]) != (1, N_TRAIN_STEPS):
@@ -626,7 +642,267 @@ def phase_train(torch, np, dev):
             st, _ = step(st, b, table)
         return N_PROFILE_STEPS
 
-    return launches, grids, profiled
+    # the run dir (its checkpoints) serves phase 11, which removes it
+    return launches, grids, profiled, (out_dir, cfg, vocab)
+
+
+def phase_beam_topk(torch, np, dev):
+    """beam_topk against beam_topk_plain at the unfused beam step's shape:
+    ids and values exactly, with finished rows and forced ties (integer
+    logits repeated across a sentence's beams under equal scores, so
+    candidates tie within rows, across rows and across beams)."""
+    from vag_nmt_tpu_torch.ops.topk import beam_topk, beam_topk_plain, candidates
+
+    B, K, V = 128, 5, 8000
+    rng = np.random.RandomState(3)
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def case(kind):
+        if kind == "ties":
+            logits = np.repeat(rng.randint(-2, 3, (B, 1, V)), K, 1)
+            scores = np.repeat(rng.randint(-3, 1, (B, 1)), K, 1)
+        else:
+            logits = 3.0 * rng.randn(B, K, V)
+            scores = rng.randn(B, K)
+        ff = {"random": 0.2, "ties": 0.3, "all_finished": 1.0}[kind]
+        return (cuda(logits.astype(np.float32)), cuda(scores.astype(np.float32)),
+                cuda(rng.rand(B, K) < ff))
+
+    for kind in ("random", "ties", "all_finished"):
+        args = case(kind)
+        kv, ki = beam_topk(*args, impl="kernel")
+        pv, pi = beam_topk_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(ki, pi):
+            raise AssertionError(f"beam_topk {kind}: ids differ in "
+                                 f"{int((ki != pi).sum())} places")
+        if not torch.equal(kv, pv):
+            raise AssertionError(f"beam_topk {kind}: values off by "
+                                 f"{float((kv - pv).abs().max())}")
+        print(f"beam_topk {kind}: ok (exact)")
+
+    args = case("random")
+    ms = _time_ms(torch, lambda: beam_topk(*args, impl="kernel"))
+    plain_ms = _time_ms(torch, lambda: beam_topk_plain(*args))
+    # Yardstick only (the port never calls it; its tie order differs):
+    # torch.topk over the materialized (B, K*V) candidates.
+    cand = candidates(*args)
+    library_ms = _time_ms(torch, lambda: torch.topk(cand, K, dim=-1))
+    # logsumexp (max, subtract, exp, add) and the candidate add per logit;
+    # logits, scores and flags in, values and int64 ids out
+    n = B * K * V
+    bound_ms, bound_by = _bound(5.0 * n, 4.0 * n + 5.0 * B * K + 12.0 * B * K)
+    print(f"beam_topk (B={B}, K={K}, V={V}): kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by})")
+    return {"name": "beam_topk", "route": "cuda",
+            "source": "vag_nmt_tpu_torch/csrc/beam_topk.cu",
+            "replaces": "vag_nmt_tpu/ops/pallas_topk.py:61",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def _dec_step_case(torch, np, dev, B, K, T, H, A, C, R, seed):
+    """dec_step inputs: random weights at 1/sqrt(fan-in) scale and biases,
+    gathered table rows, states, ctx and ctx_proj + ba, source lengths
+    from 1 to T (masked positions)."""
+    rng = np.random.RandomState(seed)
+    N = B * K
+
+    def cuda(*shape, scale=0.5):
+        return torch.from_numpy((scale * rng.randn(*shape)).astype(np.float32)).to(dev)
+
+    weights = (cuda(H, 3 * H, scale=H ** -0.5), cuda(3 * H, scale=0.1),
+               cuda(H, A + 3 * H, scale=H ** -0.5), cuda(3 * H, scale=0.1),
+               cuda(A, scale=A ** -0.5), cuda(C, 3 * H + R, scale=C ** -0.5),
+               cuda(3 * H, scale=0.1), cuda(H, R, scale=H ** -0.5),
+               cuda(R, scale=0.1))
+    lens = rng.randint(1, T + 1, B)
+    lens[0] = T
+    mask = torch.from_numpy((np.arange(T)[None] < lens[:, None]).astype(
+        np.float32)).to(dev)
+    return (cuda(N, 3 * H + R), cuda(N, H), cuda(B, T, C), cuda(B, T, A),
+            mask), weights
+
+
+def phase_dec_step(torch, np, dev):
+    """dec_step against dec_step_plain at full width and at a ragged shape
+    (widths and batch that fill no tile)."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.ops.dec_step import dec_step, dec_step_plain
+
+    m = vt.preset("m30k_ende_vag").model
+    full = (128, 5, 32, m.dec_hidden_dim, m.attn_dim, m.ctx_dim, m.emb_dim)
+    max_abs = 0.0
+    for shape in (full, (12, 3, 13, 96, 96, 192, 64)):
+        inputs, weights = _dec_step_case(torch, np, dev, *shape, seed=11)
+        got = dec_step(*inputs, weights, impl="kernel")
+        want = dec_step_plain(*inputs, weights)
+        torch.cuda.synchronize()
+        errs = {n: _rel_err(a, b) for n, a, b in zip(("s_new", "t"), got, want)}
+        if not max(errs.values()) <= DEC_STEP_RTOL:
+            raise AssertionError(f"dec_step {shape}: relative errors {errs}")
+        max_abs = max([max_abs] + [float((a - b).abs().max())
+                                   for a, b in zip(got, want)])
+        print(f"dec_step (B, K, T, H, A, C, R)={shape}: ok, relative errors "
+              f"{json.dumps(errs)}")
+
+    inputs, weights = _dec_step_case(torch, np, dev, *full, seed=12)
+    ms = _time_ms(torch, lambda: dec_step(*inputs, weights, impl="kernel"))
+    plain_ms = _time_ms(torch, lambda: dec_step_plain(*inputs, weights))
+    B, K, T, H, A, C, R = full
+    N = B * K
+    # the four GEMMs, then the energies (add, tanh, multiply-add by va) and
+    # the context's multiply-adds per position of the sentence's source
+    flops = (2.0 * N * (H * 3 * H + H * (A + 3 * H) + C * (3 * H + R) + H * R)
+             + N * T * (4.0 * A + 2.0 * C))
+    nbytes = 4.0 * (sum(w.numel() for w in weights) + N * (3 * H + R)
+                    + N * H + B * T * (C + A + 1) + N * (H + R))
+    bound_ms, bound_by = _bound(flops, nbytes)
+    print(f"dec_step (B={B}, K={K}, T={T}): kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    return {"name": "dec_step", "route": "cuda",
+            "source": "vag_nmt_tpu_torch/csrc/dec_step.cu",
+            "replaces": "vag_nmt_tpu/ops/pallas_dec_step.py:106",
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+# (mode, Translator.translate arguments, environment): the serving modes
+SERVE_MODES = (
+    ("a", {}, {}),
+    ("b", {}, {"VAG_DEC_STEP": "on"}),
+    ("c", {"streaming": False}, {}),
+    ("d", {}, {"VAG_READOUT_TOPK": "unfused"}),
+    ("e", {"bulk": True}, {}),
+    ("f", {"beam_size": 1}, {}),
+)
+
+
+def _with_env(env, fn):
+    import os
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def phase_serve(torch, np, dev, run):
+    """The serving path through Translator, raw text in: the modes of
+    SERVE_MODES, each kernel's launches from each mode alone; returns the
+    launches and grids of beam_topk from (d) and dec_step from (b)."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.core.config import SPECIALS
+    from vag_nmt_tpu_torch.data.vocab import Vocab
+    from vag_nmt_tpu_torch.ops.dec_step import dec_step
+    from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd
+    from vag_nmt_tpu_torch.ops.readout_topk import readout_topk_rows
+    from vag_nmt_tpu_torch.ops.topk import beam_topk
+
+    out_dir, cfg, tgt_vocab = run
+    m, d = cfg.model, cfg.data
+    (out_dir / "config.json").write_text(
+        cfg.replace(data=dict(data_dir=str(out_dir))).to_json())
+    Vocab(list(SPECIALS) + [f"s{i}" for i in range(4, m.src_vocab_size)]).save(
+        str(out_dir / f"vocab.{d.src_lang}.json"))
+    tgt_vocab.save(str(out_dir / f"vocab.{d.tgt_lang}.json"))
+    corpus = _train_corpus(np, m, N_SERVE, seed=10)
+    lines = [" ".join(f"s{t}" for t in ex.src) for ex in corpus]
+    images = np.stack([ex.img for ex in corpus]).astype(np.float32)
+
+    tr = vt.Translator.from_run(str(out_dir), device=dev)
+    t0 = time.perf_counter()
+    n_warm = tr.warmup()
+    torch.cuda.synchronize()
+    print(f"serve warmup: {n_warm} requests in {time.perf_counter() - t0:.2f} s")
+
+    wrappers = {"gru_fwd": gru_fwd, "readout_topk": readout_topk_rows,
+                "beam_topk": beam_topk, "dec_step": dec_step}
+
+    def request(kw, n):
+        hyps = tr.translate(lines[:n], images=images[:n], **kw)
+        steps = sum(s.get("beam_loop_steps", 0) for s in tr.last_stats)
+        return hyps, steps
+
+    out = {}
+    for mode, kw, env in SERVE_MODES:
+        n = N_GREEDY if mode == "f" else N_SERVE
+        for fn in wrappers.values():
+            fn.launches = 0
+            fn.grids = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps, steps = _with_env(env, lambda: request(kw, n))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        grids = {k: fn.grids for k, fn in wrappers.items()}
+        trips = [s["chunk_steps"] for s in tr.last_stats]
+        refills = [s.get("refills") for s in tr.last_stats]
+        # decode_s: translate_corpus's own clock (upload to hypotheses on
+        # the host), as phase 4's sentences_per_sec; the wall adds the text
+        # pipeline, the image table and the detokenization
+        decode_s = sum(s["elapsed_s"] for s in tr.last_stats)
+        print(f"serve ({mode}) {kw} {env}: sentences_per_sec={n / wall:.1f} "
+              f"wall_s={wall:.4f} decode_s={decode_s:.4f} "
+              f"calls={len(tr.last_stats)} "
+              f"streaming={[bool(s.get('streaming')) for s in tr.last_stats]} "
+              f"steps={steps} trips={trips} refills={refills} "
+              f"launches={launches} grids={grids}")
+        if len(hyps) != n or not any(hyps):
+            raise AssertionError(f"serve ({mode}): malformed or empty hypotheses")
+        if launches["gru_fwd"] <= 0:
+            raise AssertionError(f"serve ({mode}): the encoder kernel never ran")
+        beam = mode != "f"
+        want = {"readout_topk": steps if beam and mode != "d" else 0,
+                "beam_topk": steps if mode == "d" else 0,
+                "dec_step": steps if mode == "b" else 0}
+        for k, v in want.items():
+            if launches[k] != v:
+                raise AssertionError(f"serve ({mode}): {k} launched "
+                                     f"{launches[k]} times, expected {v}")
+        if beam and not steps:
+            raise AssertionError(f"serve ({mode}): no beam steps")
+        out[mode] = (hyps, launches, grids, steps, wall)
+
+    for a, b in (("a", "c"), ("b", "a"), ("d", "a"), ("e", "a")):
+        share = sum(x == y for x, y in zip(out[a][0], out[b][0])) / N_SERVE
+        print(f"serve identical hypotheses ({a}) vs ({b}): {share:.4f} "
+              f"(threshold {MIN_IDENTICAL_SHARE})")
+        if share < MIN_IDENTICAL_SHARE:
+            raise AssertionError(f"serve ({a}) vs ({b}): only {share:.4f} "
+                                 "of hypotheses identical")
+
+    envs = {mode: env for mode, _, env in SERVE_MODES}
+    # (b) and (a) once more, so the two ran in turns a, b, b, a
+    rates = {mode: [N_SERVE / out[mode][4]] for mode in ("a", "b")}
+    for mode in ("b", "a"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _with_env(envs[mode], lambda: request({}, N_SERVE))
+        torch.cuda.synchronize()
+        rates[mode].append(N_SERVE / (time.perf_counter() - t0))
+    print(f"serve sentences_per_sec in turns a, b, b, a: {json.dumps(rates)}; "
+          f"(b)/(a) of the means "
+          f"{sum(rates['b']) / sum(rates['a']):.4f}")
+    for mode in ("a", "b"):
+        env = envs[mode]
+        phase_profile(torch, f"serve ({mode}) (beam steps)",
+                      lambda: _with_env(env, lambda: request({}, N_SERVE))[1])
+    return ({"beam_topk": out["d"][1]["beam_topk"],
+             "dec_step": out["b"][1]["dec_step"]},
+            {"beam_topk": out["d"][2]["beam_topk"],
+             "dec_step": out["b"][2]["dec_step"]})
 
 
 def phase_profile(torch, what: str, run):
@@ -679,18 +955,26 @@ def main() -> int:
     t0 = time.perf_counter()
     decode_kernels = [phase_readout(torch, np, dev), phase_gru(torch, np, dev)]
     train_kernels = [phase_gru_bwd(torch, np, dev), *phase_dec_scan(torch, np, dev)]
+    serve_kernels = [phase_beam_topk(torch, np, dev),
+                     phase_dec_step(torch, np, dev)]
     launches, grids, run = phase_main(torch, np, dev)
     phase_profile(torch, "decode (beam steps)", run)
-    t_launches, t_grids, t_run = phase_train(torch, np, dev)
+    t_launches, t_grids, t_run, train_run = phase_train(torch, np, dev)
     phase_profile(torch, "train (steps)", t_run)
+    try:
+        s_launches, s_grids = phase_serve(torch, np, dev, train_run)
+    finally:
+        shutil.rmtree(train_run[0], ignore_errors=True)
     # Each kernel's launches come from the run of its own path: the decode
-    # path for the decode kernels, the training path for the others.
+    # path for the decode kernels, the training path for the training
+    # kernels, the serving modes that select them for beam_topk and dec_step.
     for ks, ln, gr in ((decode_kernels, launches, grids),
-                       (train_kernels, t_launches, t_grids)):
+                       (train_kernels, t_launches, t_grids),
+                       (serve_kernels, s_launches, s_grids)):
         for k in ks:
             k["launches"] = ln[k["name"]]
             k["grids"] = gr[k["name"]]    # device grids those launches enqueued
-    kernels = decode_kernels + train_kernels
+    kernels = decode_kernels + train_kernels + serve_kernels
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

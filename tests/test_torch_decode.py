@@ -175,7 +175,6 @@ def test_translate_corpus_unsupported_paths_raise():
     exs = make_toy_examples(3)
     vocab = toy_vocab()
     calls = [
-        dict(beam_size=1),
         dict(nbest=2),
         dict(fused=False),
         dict(mesh=object()),
@@ -184,9 +183,9 @@ def test_translate_corpus_unsupported_paths_raise():
     for kw in calls:
         with pytest.raises(NotImplementedError, match="later slice"):
             vt.translate_corpus(params, cfg, exs, vocab, device="cpu", **kw)
-    streaming = cfg.replace(decode=dict(streaming="on"))
+    unrolled = cfg.replace(decode=dict(beam_unroll=2))
     with pytest.raises(NotImplementedError, match="later slice"):
-        vt.translate_corpus(params, streaming, exs, vocab, device="cpu")
+        vt.translate_corpus(params, unrolled, exs, vocab, device="cpu")
     short = vt.build_img_table(exs[:2], cfg.model.img_feat_dim, device="cpu")
     with pytest.raises(ValueError, match="img_table"):
         vt.translate_corpus(params, cfg, exs, vocab, img_table=short,

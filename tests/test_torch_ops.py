@@ -1,6 +1,7 @@
 """PyTorch port ops against the JAX package: the GRU scan (against the XLA
 scan and the Pallas kernel in interpret mode), the three attention
-functions, the plain beam top-K, and the fused readout->top-K (against
+functions, the plain beam top-K (against the lane-parallel kernel in
+interpret mode and the xla branch), and the fused readout->top-K (against
 the JAX kernel in interpret mode and its xla branch). Inputs are made with
 numpy from a seed and handed to both. All on the CPU, where the port's
 wrappers run their plain versions; the CUDA kernels are held against the
@@ -192,6 +193,69 @@ def test_beam_topk_matches_jax(kind):
     got = beam_topk(T(logits), T(scores), T(fin))
     # integer-valued logits are exact; only the log-sum-exp rounds
     _assert_topk(got, want, 1e-6 if kind == "integer" else ATOL)
+
+
+def _lanes_case(B, K, V, ff, ties, seed):
+    """tests/test_pallas_topk.py's inputs; with ties, integer logits whose
+    rows repeat across a sentence's beams under equal scores, so candidates
+    tie within a row, across rows and across beams."""
+    rng = np.random.RandomState(seed)
+    if ties:
+        logits = np.repeat(rng.randint(-2, 3, (B, 1, V)), K, 1).astype(np.float32)
+        scores = np.repeat(rng.randint(-3, 1, (B, 1)), K, 1).astype(np.float32)
+    else:
+        logits = (rng.randn(B, K, V) * 3.0).astype(np.float32)
+        scores = rng.randn(B, K).astype(np.float32)
+    return logits, scores, rng.rand(B, K) < ff
+
+
+@pytest.mark.parametrize("jax_impl", ["pallas_lanes", "xla"])
+@pytest.mark.parametrize("B,K,V,ff,ties", [
+    (8, 5, 1000, 0.0, False),
+    (8, 5, 1000, 0.4, False),      # mixed finished rows
+    (16, 5, 1303, 0.2, False),     # V not a multiple of the vocab block
+    (4, 3, 512, 1.0, False),       # everything finished
+    (2, 1, 700, 0.0, False),       # K=1
+    (8, 5, 1000, 0.0, True),       # forced ties
+    (8, 5, 1000, 0.5, True),       # ties and frozen rows
+    (3, 8, 129, 0.3, True),        # the kernel's largest K
+])
+def test_beam_topk_plain_matches_jax_lanes_and_xla(B, K, V, ff, ties,
+                                                   jax_impl):
+    """The plain beam_topk (what the CUDA kernel is held to exactly on the
+    card) equals the JAX lane-parallel kernel in interpret mode and its xla
+    branch: flat ids exactly, ties to the smaller flat id; values exactly
+    on the integer-valued tie cases and else to ATOL, since the two
+    frameworks sum the log-sum-exp in another order (a few ulp of lse)."""
+    logits, scores, fin = _lanes_case(B, K, V, ff, ties, seed=B + V)
+    want = j_beam_topk(jnp.asarray(logits), jnp.asarray(scores),
+                       jnp.asarray(fin), impl=jax_impl)
+    got = beam_topk(T(logits), T(scores), T(fin), impl="plain")
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    tol = 0.0 if ties or ff == 1.0 else ATOL
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=0, atol=tol)
+
+
+def test_beam_topk_impl_selection(monkeypatch):
+    logits, scores, fin = _lanes_case(2, 3, 50, 0.3, True, seed=1)
+    ref = beam_topk(T(logits), T(scores), T(fin), impl="plain")
+    for impl in ("auto", "xla"):
+        got = beam_topk(T(logits), T(scores), T(fin), impl=impl)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    for impl in ("kernel", "pallas_lanes"):
+        with pytest.raises(ValueError, match="CUDA"):
+            beam_topk(T(logits), T(scores), T(fin), impl=impl)
+    monkeypatch.setenv("VAG_TOPK_IMPL", "pallas_lanes")
+    with pytest.raises(ValueError, match="CUDA"):
+        beam_topk(T(logits), T(scores), T(fin))
+    for knob in ("pallas", "pallas_rows"):
+        monkeypatch.setenv("VAG_TOPK_IMPL", knob)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            beam_topk(T(logits), T(scores), T(fin))
+    monkeypatch.setenv("VAG_TOPK_IMPL", "xla")
+    got = beam_topk(T(logits), T(scores), T(fin))
+    assert torch.equal(got[1], ref[1])
 
 
 @pytest.mark.parametrize("jax_impl", ["pallas", "xla"])

@@ -132,25 +132,32 @@ def test_port_imports_without_jax():
     loads no module of the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
+        "for blocked in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "    sys.modules[blocked] = None\n"
         "import vag_nmt_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'vag_nmt_tpu' or m.startswith('vag_nmt_tpu.')\n"
-        "       or m == 'jax' and sys.modules[m] is not None]\n"
+        "       or m in ('jax', 'jaxlib', 'flax', 'optax')\n"
+        "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
-        "print('ok')\n")
+        "print(' '.join(sorted(m for m in sys.modules\n"
+        "                      if m.startswith('vag_nmt_tpu_torch.'))))\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    loaded = set(out.stdout.split())
+    # the serving slice's modules are among those imported
+    for name in ("core.knobs", "data.moses", "data.tokenizer", "data.bpe",
+                 "decode.greedy", "decode.serve", "ops.dec_step", "ops.topk"):
+        assert f"vag_nmt_tpu_torch.{name}" in loaded, name
 
 
 def test_port_sources_do_not_import_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|vag_nmt_tpu)\b",
-                     re.M)
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|vag_nmt_tpu)\b", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "vag_nmt_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -174,6 +181,9 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     state = vt.prepare_decode(p, cfg.model, batch, device="cpu")
     with pytest.raises(RuntimeError):
         vt.beam_search(p, cfg.model, state, beam_size=2, max_len=3)
+    with pytest.raises(RuntimeError):
+        vt.beam_search_streaming(p, cfg.model, state, beam_size=2, max_len=3,
+                                 slots=1)
     with pytest.raises(RuntimeError):
         vt.translate_corpus(p, cfg, [], None)
     with pytest.raises(RuntimeError):

@@ -91,9 +91,11 @@ class TrainConfig:
 class DecodeConfig:
     """Beam decoding. The semantics of each knob are documented on the JAX
     package's DecodeConfig; the port implements beam_finish, beam_prune,
-    block_ngram, max_len_factor/offset and the fp32 compute dtype. The
-    two-phase and streaming decoders are later slices (translate_corpus
-    raises NotImplementedError when they resolve on)."""
+    block_ngram, max_len_factor/offset, the fp32 compute dtype, greedy
+    decode (beam_size 1) and the streaming-refill decoder (streaming,
+    refill_threshold). The two-phase decoder and beam_unroll > 1 are later
+    slices (translate_corpus raises NotImplementedError when they resolve
+    on)."""
 
     beam_size: int = 5
     max_len: int = 64

@@ -1,10 +1,12 @@
-// Device code shared by the training kernels (gru_bwd.cu, dec_scan_fwd.cu,
-// dec_scan_bwd.cu): a tiled fp32 GEMM with optional transposes, bias,
-// accumulation and split-K, the GRU cell forward and backward as elementwise
-// grids, and a deterministic column sum. Everything is fp32 FMA (no TF32),
-// each output written by one thread, sums taken in a fixed order (the only
-// atomic is split-K's arrival ticket, which orders nothing), so the results
-// do not change from run to run.
+// Device code shared by the kernels: a tiled fp32 GEMM with optional
+// transposes, bias, accumulation and split-K, the GRU cell forward and
+// backward as elementwise grids, a deterministic column sum (gru_bwd.cu,
+// dec_scan_fwd.cu, dec_scan_bwd.cu, dec_step.cu); warp reductions (the
+// attention grids); and the branch-free running top-K insertion ordered by
+// (value descending, index ascending) (readout_topk.cu, beam_topk.cu).
+// Everything is fp32 FMA (no TF32), each output written by one thread, sums
+// taken in a fixed order (the only atomic is split-K's arrival ticket, which
+// orders nothing), so the results do not change from run to run.
 
 #pragma once
 
@@ -183,19 +185,29 @@ __device__ __forceinline__ float sigmoidf_(float x) {
 }
 
 // GRU cell on precomputed gates (reset gate after the hidden matmul):
-// out = (1 - z) n + z h, xg/hg (rows, 3H), h/out (rows, H).
-__global__ void gru_cell_kernel(const float* __restrict__ xg,
-                                const float* __restrict__ hg,
+// out = (1 - z) n + z h with h/out (rows, H) and the gate pre-activations
+// read from row r of xg and hg at row strides ldx and ldh (3H when packed),
+// each plus an optional (3H,) bias added first (xb / hb, or nullptr).
+__global__ void gru_cell_kernel(const float* __restrict__ xg, int ldx,
+                                const float* __restrict__ xb,
+                                const float* __restrict__ hg, int ldh,
+                                const float* __restrict__ hb,
                                 const float* __restrict__ h,
                                 float* __restrict__ out, int rows, int H) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows * H) return;
   const int row = i / H, u = i % H;
-  const float* x = xg + (size_t)row * 3 * H;
-  const float* g = hg + (size_t)row * 3 * H;
-  const float r = sigmoidf_(x[u] + g[u]);
-  const float z = sigmoidf_(x[H + u] + g[H + u]);
-  const float n = tanhf(x[2 * H + u] + r * g[2 * H + u]);
+  const float* x = xg + (size_t)row * ldx;
+  const float* g = hg + (size_t)row * ldh;
+  float xv[3], gv[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    xv[j] = xb ? x[j * H + u] + xb[j * H + u] : x[j * H + u];
+    gv[j] = hb ? g[j * H + u] + hb[j * H + u] : g[j * H + u];
+  }
+  const float r = sigmoidf_(xv[0] + gv[0]);
+  const float z = sigmoidf_(xv[1] + gv[1]);
+  const float n = tanhf(xv[2] + r * gv[2]);
   out[i] = (1.f - z) * n + z * h[i];
 }
 
@@ -243,12 +255,20 @@ __global__ void gru_cell_bwd_kernel(const float* __restrict__ xg,
   dh_out[i] = dh_cell * z + dh * (1.f - m);
 }
 
-inline cudaError_t gru_cell(cudaStream_t s, const float* xg, const float* hg,
-                            const float* h, float* out, int rows, int H) {
+inline cudaError_t gru_cell(cudaStream_t s, const float* xg, int ldx,
+                            const float* xb, const float* hg, int ldh,
+                            const float* hb, const float* h, float* out,
+                            int rows, int H) {
   const int n = rows * H;
   gru_cell_kernel<<<(n + EW_THREADS - 1) / EW_THREADS, EW_THREADS, 0, s>>>(
-      xg, hg, h, out, rows, H);
+      xg, ldx, xb, hg, ldh, hb, h, out, rows, H);
   return cudaGetLastError();
+}
+
+// Packed gates (row stride 3H), biases already added.
+inline cudaError_t gru_cell(cudaStream_t s, const float* xg, const float* hg,
+                            const float* h, float* out, int rows, int H) {
+  return gru_cell(s, xg, 3 * H, nullptr, hg, 3 * H, nullptr, h, out, rows, H);
 }
 
 inline cudaError_t gru_cell_bwd(cudaStream_t s, const float* xg,
@@ -277,6 +297,41 @@ inline cudaError_t colsum(cudaStream_t s, const float* X, int R, int N,
   colsum_kernel<<<(N + EW_THREADS - 1) / EW_THREADS, EW_THREADS, 0, s>>>(
       X, R, N, out);
   return cudaGetLastError();
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The running top-K order: value descending, then index ascending (the
+// order of lax.top_k and of a stable descending sort).
+__device__ __forceinline__ bool better(float v, int i, float v2, int i2) {
+  return v > v2 || (v == v2 && i < i2);
+}
+
+// Sinks (x, xi) through the K slots kept sorted by `better`; branch-free.
+template <int K>
+__device__ __forceinline__ void insert(float (&sv)[K], int (&si)[K], float x,
+                                       int xi) {
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const bool gt = better(x, xi, sv[s], si[s]);
+    const float tv = gt ? sv[s] : x;
+    const int ti = gt ? si[s] : xi;
+    sv[s] = gt ? x : sv[s];
+    si[s] = gt ? xi : si[s];
+    x = tv;
+    xi = ti;
+  }
 }
 
 #define VAG_CHECK(expr)                              \

@@ -43,11 +43,7 @@ namespace {
 constexpr int ATT_THREADS = 256;
 constexpr int ATT_WARPS = ATT_THREADS / 32;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using vag::warp_sum;
 
 __global__ void dpre_kernel(const float* __restrict__ g,
                             const float* __restrict__ t,

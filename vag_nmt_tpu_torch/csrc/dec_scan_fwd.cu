@@ -40,18 +40,8 @@ constexpr int ATT_THREADS = 256;
 constexpr int ATT_WARPS = ATT_THREADS / 32;
 constexpr float NEG_INF = -1e9f;   // as ops/attention.masked_softmax
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+using vag::warp_max;
+using vag::warp_sum;
 
 // One block per batch row b. Shared: q (A), va (A), scores/weights (T).
 __global__ void __launch_bounds__(ATT_THREADS)

@@ -33,11 +33,10 @@
 // Columns past V are masked (V need not be a multiple of any tile). Simple
 // and right first: wgmma / 3xTF32 products are later work.
 
-#include <cuda_runtime.h>
 #include <limits.h>
-#include <math.h>
-#include <stddef.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -59,25 +58,7 @@ constexpr int MAX_K = VAG_MAX_K;
 static_assert(CT % CPT == 0 && THREADS % TX == 0 && RT % (THREADS / TX) == 0,
               "tiling: CT a multiple of 4, RT a multiple of THREADS / TX");
 
-__device__ __forceinline__ bool better(float v, int i, float v2, int i2) {
-  return v > v2 || (v == v2 && i < i2);
-}
-
-// Sinks (x, xi) through the sorted slots; branch-free.
-template <int K>
-__device__ __forceinline__ void insert(float (&sv)[K], int (&si)[K], float x,
-                                       int xi) {
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    const bool gt = better(x, xi, sv[s], si[s]);
-    const float tv = gt ? sv[s] : x;
-    const int ti = gt ? si[s] : xi;
-    sv[s] = gt ? x : sv[s];
-    si[s] = gt ? xi : si[s];
-    x = tv;
-    xi = ti;
-  }
-}
+using vag::insert;
 
 template <int K>
 size_t pass1_smem(int E) {

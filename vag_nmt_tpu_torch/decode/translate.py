@@ -1,13 +1,15 @@
-"""Corpus translation: batched beam decode -> text (counterpart of the
-fused path of the JAX package's ``decode/translate.py``).
+"""Corpus translation: batched beam or greedy decode -> text (counterpart
+of the fused path of the JAX package's ``decode/translate.py``).
 
 The corpus is sorted by source length (a chunk's beam loop runs until its
 longest hypothesis finishes, so homogeneous-length chunks exit earlier),
 padded to one source bucket, encoded in super-chunks of about 1024 rows
 (one encoder pass, whose GRU products fill the card far better than a
-128-row chunk's), and beam-decoded in chunks of ``decode_batch_size``
-rows. Corpus order is restored afterwards and hypotheses are de-BPE'd on
-the host."""
+128-row chunk's), and decoded either in chunks of ``decode_batch_size``
+rows (beam search, or greedy at beam_size 1) or, with the streaming-refill
+decoder on, as one pool per super-chunk whose working set of
+``decode_batch_size`` rows refills as sentences finish. Corpus order is
+restored afterwards and hypotheses are de-BPE'd on the host."""
 
 from __future__ import annotations
 
@@ -19,9 +21,11 @@ import torch
 
 from vag_nmt_tpu_torch.core.config import Config
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device
+from vag_nmt_tpu_torch.core.knobs import decode_knobs
 from vag_nmt_tpu_torch.data.batching import Example, _bucket_for
 from vag_nmt_tpu_torch.data.vocab import Vocab
-from vag_nmt_tpu_torch.decode.beam import beam_search
+from vag_nmt_tpu_torch.decode.beam import beam_search, beam_search_streaming
+from vag_nmt_tpu_torch.decode.greedy import greedy_decode
 from vag_nmt_tpu_torch.models.decoder import decode_tables
 from vag_nmt_tpu_torch.models.model import DecodeState, prepare_decode
 
@@ -57,22 +61,28 @@ def _later_slice(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is a later slice of the PyTorch port")
 
 
-def _check_supported(cfg: Config, beam_size: int, max_len: int, nbest: int,
-                     fused: bool, mesh) -> None:
-    d = cfg.decode
+def _use_streaming(cfg: Config, beam_size: int) -> bool:
+    """The streaming-refill decoder: beam only; VAG_STREAM_DECODE over
+    cfg.decode.streaming ("on" streams; "auto" and "off" do not)."""
     if beam_size <= 1:
-        raise _later_slice("greedy decode (beam_size <= 1)")
+        return False
+    env = decode_knobs().streaming
+    return env if env is not None else cfg.decode.streaming == "on"
+
+
+def _check_supported(cfg: Config, beam_size: int, max_len: int, nbest: int,
+                     fused: bool, mesh, streaming: bool) -> None:
+    d = cfg.decode
     if nbest:
         raise _later_slice("nbest output")
     if not fused:
         raise _later_slice("the bucketed (fused=False) decode path")
     if mesh is not None:
         raise _later_slice("mesh-sharded decode")
-    if d.streaming == "on":
-        raise _later_slice("the streaming-refill decoder")
-    if d.two_phase == "on" or (d.two_phase == "auto" and max_len >= 96):
+    if beam_size > 1 and not streaming and (
+            d.two_phase == "on" or (d.two_phase == "auto" and max_len >= 96)):
         raise _later_slice("the two-phase straggler decoder")
-    if d.beam_unroll > 1:
+    if beam_size > 1 and d.beam_unroll > 1:
         raise _later_slice("beam_unroll > 1")
     if cfg.model.compute_dtype != "float32":
         raise _later_slice("bf16 decode")
@@ -122,18 +132,23 @@ def translate_corpus(
 ) -> Tuple[List[str], Dict]:
     """Returns (hypothesis lines in example-list order, stats).
 
-    impl: kernel selection for the encoder GRU scan and the fused
-    readout->top-K ("auto": kernels for CUDA tensors, plain PyTorch for CPU
-    tensors; "kernel"; "plain"). use_tables: per-vocab decode tables (None
-    = on for CUDA, off for the CPU, whose fixed-seed golden was made
+    beam_size 1 decodes greedily; beam search otherwise, chunked or, when
+    the streaming-refill decoder is on (VAG_STREAM_DECODE over
+    cfg.decode.streaming), pooled per super-chunk. impl: kernel selection
+    for the encoder GRU scan and the beam step ("auto": kernels for CUDA
+    tensors, plain PyTorch for CPU tensors; "kernel"; "plain"; the step's
+    structure and its optional kernels follow core/knobs.py).
+    use_tables: per-vocab decode tables (None = VAG_TOKEN_TABLES, else on
+    for CUDA and off for the CPU, whose fixed-seed golden was made
     untabled). device: None = the card. img_table: optional (N, F) feature
     table from build_img_table (row i = examples[i]).
 
     stats: sentences_per_sec, elapsed_s (host clock from the first upload
     to the last hypothesis on the host, de-BPE excluded), chunk_steps (the
-    realized beam-loop trips of each chunk, in length order),
-    beam_loop_steps (their sum = decoder steps run), n_chunks,
-    rows_per_chunk, t_src."""
+    realized decode-loop trips of each chunk in length order; streaming:
+    of each super-chunk's pool), beam_loop_steps (their sum = decoder steps
+    run), n_chunks, rows_per_chunk, t_src; streaming adds
+    ``streaming=True`` and ``refills`` (refill events per super-chunk)."""
     dev = resolve_device(device)
     dd = cfg.decode.compute_dtype
     if dd and dd != cfg.model.compute_dtype:
@@ -141,8 +156,12 @@ def translate_corpus(
     beam_size = beam_size if beam_size is not None else cfg.decode.beam_size
     max_len = max_len if max_len is not None else cfg.decode.max_len
     B = batch_size if batch_size is not None else cfg.decode.decode_batch_size
-    _check_supported(cfg, beam_size, max_len, nbest, fused, mesh)
-    use_tables = dev.type == "cuda" if use_tables is None else use_tables
+    streaming = _use_streaming(cfg, beam_size)
+    _check_supported(cfg, beam_size, max_len, nbest, fused, mesh, streaming)
+    if use_tables is None:
+        use_tables = decode_knobs().tables
+    if use_tables is None:
+        use_tables = dev.type == "cuda"
     m = cfg.model
     if m.multimodal and img_table is None and any(ex.img is None
                                                   for ex in examples):
@@ -203,6 +222,12 @@ def translate_corpus(
     out_toks = np.zeros((nb * B, max_len), np.int64)
     out_lens = np.zeros((nb * B,), np.int64)
     chunk_steps: List[int] = []
+    refills: List[int] = []
+    d = cfg.decode
+    beam_kw = dict(beam_size=beam_size, max_len=max_len,
+                   length_norm_alpha=d.length_norm_alpha, tables=tables,
+                   beam_finish=d.beam_finish, prune=d.beam_prune != "off",
+                   block_ngram=d.block_ngram, impl=impl, device=dev)
     for sc in range(ns):
         rows = slice(sc * S * B, (sc + 1) * S * B)
         src_d = torch.from_numpy(src[rows]).to(dev)
@@ -214,19 +239,29 @@ def translate_corpus(
             batch["img"] = img_table[torch.from_numpy(ids[rows]).to(dev)]
         state = prepare_decode(params, m, batch, device=dev, impl=impl)
         row_cap = _row_caps(cfg, max_len, lens_d)
+        if streaming:
+            res, steps, n_refill = beam_search_streaming(
+                params, m, state, slots=B, refill_threshold=d.refill_threshold,
+                row_cap=row_cap, **beam_kw)
+            out_toks[rows] = res.best_tokens.cpu().numpy()
+            out_lens[rows] = res.best_lengths.cpu().numpy()
+            chunk_steps.append(steps)
+            refills.append(n_refill)
+            continue
         for c in range(S):
             cr = slice(c * B, (c + 1) * B)
-            res = beam_search(
-                params, m, DecodeState(*(x[cr] for x in state)),
-                beam_size=beam_size, max_len=max_len,
-                length_norm_alpha=cfg.decode.length_norm_alpha,
-                tables=tables, beam_finish=cfg.decode.beam_finish,
-                row_cap=None if row_cap is None else row_cap[cr],
-                prune=cfg.decode.beam_prune != "off",
-                block_ngram=cfg.decode.block_ngram, impl=impl, device=dev)
+            chunk = DecodeState(*(x[cr] for x in state))
+            cap = None if row_cap is None else row_cap[cr]
+            if beam_size <= 1:
+                res = greedy_decode(params, m, chunk, max_len, tables=tables,
+                                    row_cap=cap, block_ngram=d.block_ngram)
+                toks, lens_c = res.tokens, res.lengths
+            else:
+                res = beam_search(params, m, chunk, row_cap=cap, **beam_kw)
+                toks, lens_c = res.best_tokens, res.best_lengths
             g = slice(sc * S * B + c * B, sc * S * B + (c + 1) * B)
-            out_toks[g] = res.best_tokens.cpu().numpy()
-            out_lens[g] = res.best_lengths.cpu().numpy()
+            out_toks[g] = toks.cpu().numpy()
+            out_lens[g] = lens_c.cpu().numpy()
             chunk_steps.append(res.steps)
     elapsed = time.perf_counter() - t0
 
@@ -240,4 +275,7 @@ def translate_corpus(
              "chunk_steps": chunk_steps, "n_chunks": nb,
              "rows_per_chunk": B, "t_src": int(t_src),
              "device": str(dev), "impl": impl, "tables": bool(use_tables)}
+    if streaming:
+        stats["streaming"] = True
+        stats["refills"] = refills
     return hyps, stats

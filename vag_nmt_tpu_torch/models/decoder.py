@@ -5,10 +5,12 @@ dl4mt-style two-cell step: GRU1 on the target embedding, masked Bahdanau
 attention queried by the intermediate state, GRU2 on the attention context,
 then a tanh readout ``t``. In decoding the vocab projection of ``t`` runs
 either here (``decode_step_beams``, logits materialized) or fused with the
-top-K (``decode_step_beams_readout`` + ops/readout_topk). In training,
-``teacher_forced_logits`` hoists the token-parallel GEMMs out of the
-recurrence, runs the recurrence as one ``ops/dec_scan.decoder_scan`` and
-the vocab projection as one GEMM after it."""
+top-K (``decode_step_beams_readout`` + ops/readout_topk; with the decode
+tables and ``VAG_DEC_STEP=on`` its mid-section is one fused step,
+ops/dec_step). In training, ``teacher_forced_logits`` hoists the
+token-parallel GEMMs out of the recurrence, runs the recurrence as one
+``ops/dec_scan.decoder_scan`` and the vocab projection as one GEMM after
+it."""
 
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from vag_nmt_tpu_torch.core.config import ModelConfig
+from vag_nmt_tpu_torch.core.knobs import decode_knobs
 from vag_nmt_tpu_torch.models.layers import (
     dropout,
     embed,
@@ -31,6 +34,7 @@ from vag_nmt_tpu_torch.ops.attention import (
     precompute_ctx_proj,
 )
 from vag_nmt_tpu_torch.ops.dec_scan import decoder_scan
+from vag_nmt_tpu_torch.ops.dec_step import decode_step_fused
 from vag_nmt_tpu_torch.ops.gru import (
     gru_cell_from_gates,
     gru_cell_from_xgates,
@@ -193,12 +197,27 @@ def decode_step_beams_readout(
     ctx_proj: torch.Tensor,
     src_mask: torch.Tensor,
     tables: Optional[Tables] = None,
+    *,
+    dec_step: Optional[bool] = None,
+    impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Beam decoder step stopping at the readout activations: returns
     (s_new (B, K, H), t (B*K, R), w_out (R, V), b_out (V,)) so the vocab
-    projection can run fused with the top-K (ops/readout_topk)."""
+    projection can run fused with the top-K (ops/readout_topk).
+
+    With tables and dec_step (None: VAG_DEC_STEP, default off) the whole
+    mid-section runs as one call of the fused step
+    (ops/dec_step.decode_step_fused; impl: "auto", "kernel" or "plain"),
+    as the JAX package's tabled step does with VAG_DEC_STEP=on."""
     B, K = tok.shape
     H = s.shape[-1]
+    if dec_step is None:
+        dec_step = decode_knobs().dec_step
+    if tables is not None and dec_step:
+        s_new3, t = decode_step_fused(params, tables, tok, s, ctx, ctx_proj,
+                                      src_mask, impl=impl)
+        return (s_new3, t, _out_matrix(params, cfg),
+                params["readout"]["b_out"])
     s_new, ty, c_flat, tc, _ = _beams_step_core(params, tok, s, ctx, ctx_proj,
                                                 src_mask, tables)
     t = _readout_t(params, ty, s_new, c_flat, tc=tc)

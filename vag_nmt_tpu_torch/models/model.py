@@ -21,6 +21,7 @@ import torch
 
 from vag_nmt_tpu_torch.core.config import ModelConfig
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device, same_device
+from vag_nmt_tpu_torch.core.knobs import decode_knobs
 from vag_nmt_tpu_torch.models import decoder as dec
 from vag_nmt_tpu_torch.models import encoder as enc
 from vag_nmt_tpu_torch.models import vse
@@ -218,16 +219,24 @@ def decode_step_topk(
     (s_new (B, K, H), top_scores (B, K), flat_idx (B, K), flat =
     beam * V + token), with ops/topk.beam_topk's candidate semantics.
 
-    impl: the fused structure (the vocab projection runs inside
-    ops/readout_topk.fused_readout_topk) with "auto" (kernel for CUDA
-    tensors, plain for CPU tensors), "kernel", "plain" or "fused" (= auto);
-    or "unfused", which materializes the logits, scatters the ban to -1e9
-    and calls beam_topk, as the JAX package's unfused path.
+    impl: the step's structure and kernels. "fused" or "unfused" names the
+    structure; "auto", "kernel" or "plain" names the kernels (auto: kernels
+    for CUDA tensors, plain versions for CPU tensors) and takes the
+    structure from VAG_READOUT_TOPK (core/knobs.py; default fused). Fused:
+    the vocab projection runs inside ops/readout_topk.fused_readout_topk,
+    and with the decode tables and VAG_DEC_STEP=on the mid-section is the
+    fused step (ops/dec_step). Unfused: the logits are materialized, the
+    ban is scattered to -1e9 and ops/topk.beam_topk takes the top-K (its
+    kernel per VAG_TOPK_IMPL), as the JAX package's unfused path.
 
     ban: optional (B, K, M) banned ids for no-repeat n-gram blocking (id V
     is the "no ban" sentinel and is dropped). Banned mass is excluded from
     the softmax normalization on both paths."""
-    if impl == "unfused":
+    if impl in ("fused", "unfused"):
+        structure, impl = impl, "auto"
+    else:
+        structure = decode_knobs().readout_topk
+    if structure == "unfused":
         s_new, logits = decode_step(params, cfg, tok, s, state, tables)
         if ban is not None:
             Bk, Kk, Vk = logits.shape
@@ -235,13 +244,12 @@ def decode_step_topk(
             mask = ban_mask(ban.reshape(Bk * Kk, -1), Vk).bool()
             flat = torch.where(mask, flat.clamp_max(-1e9), flat)
             logits = flat.reshape(Bk, Kk, Vk)
-        top_scores, idx = beam_topk(logits, scores, finished)
+        top_scores, idx = beam_topk(logits, scores, finished, impl=impl)
         return s_new, top_scores, idx
     s_new, t, w_out, b_out = dec.decode_step_beams_readout(
         params["decoder"], cfg, tok, s, state.ctx, state.ctx_proj,
-        state.src_mask, tables)
+        state.src_mask, tables, impl=impl)
     top_scores, idx = fused_readout_topk(
         t, w_out, b_out, scores, finished,
-        None if ban is None else ban.reshape(t.shape[0], -1),
-        impl="auto" if impl == "fused" else impl)
+        None if ban is None else ban.reshape(t.shape[0], -1), impl=impl)
     return s_new, top_scores, idx

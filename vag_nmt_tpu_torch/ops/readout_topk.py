@@ -12,8 +12,8 @@ combine (``_combine``) run on those small outputs in PyTorch:
     frozen row:  [(scores, pad_id), (scores + NEG_INF, next smallest ids)]
 
 Its plain version is the JAX ``impl="xla"`` branch: materialize the
-logits, floor the banned ids, then ``beam_topk``. Runs at full slot depth
-K; the JAX package's shallow-slot watermark mode is a later slice.
+logits, floor the banned ids, then ``beam_topk_plain``. Runs at full slot
+depth K; the JAX package's shallow-slot watermark mode is a later slice.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 from vag_nmt_tpu_torch.core.config import PAD_ID
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
 from vag_nmt_tpu_torch.ops import _build
-from vag_nmt_tpu_torch.ops.topk import _FLOOR, NEG_INF, beam_topk, stable_topk
+from vag_nmt_tpu_torch.ops.topk import _FLOOR, NEG_INF, beam_topk_plain, stable_topk
 
 # Tiling of the kernel's first pass; csrc/readout_topk.cu is built with it
 # (-D defines, see the declare() below), so the split plan cannot disagree.
@@ -176,8 +176,8 @@ def fused_readout_topk(
         if ban is not None:
             logits = torch.where(ban_mask(ban, V).bool(),
                                  logits.clamp_max(_FLOOR), logits)
-        return beam_topk(logits.reshape(B, K, V), scores, finished,
-                         pad_id=pad_id)
+        return beam_topk_plain(logits.reshape(B, K, V), scores, finished,
+                               pad_id=pad_id)
     mask = None if ban is None else ban_mask(ban, V)
     rvals, ridx, lse = readout_topk_rows(t.contiguous(), w.contiguous(),
                                          b.contiguous(), K, mask,
