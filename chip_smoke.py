@@ -41,8 +41,26 @@ Phases (each raises on failure; the script then exits non-zero):
      streaming pool, (b) the pool with VAG_DEC_STEP=on, (c) streaming off,
      (d) VAG_READOUT_TOPK=unfused, (e) bulk=True, (f) greedy on 128 lines;
      each kernel's launches read from each mode alone, the shares of
-     identical hypotheses between modes, and (a) and (b) under the profiler.
-Phase 1 builds all seven sources. It prints one JSON line of per-kernel
+     identical hypotheses between modes, and (a) and (b) under the profiler;
+ 12. legacy_topk_blocks and legacy_topk_rows (the two legacy beam top-K
+     kernels) against their plain versions at (B, K, V) = (128, 5, 16000)
+     and (128, 5, 8000), exactly: random, all-finished and forced ties
+     across 512-blocks, where each follows its own tie rule;
+ 13. the readout_topk kernel's shallow-slot watermark mode at R=640, E=256,
+     V=16000, slot depths 1 and 3: every row's viol as the plain version's
+     under the kernel's lane map, unflagged rows and the per-step recovery
+     bit for bit as depth K, a lane collision, a ban mask, the deferred
+     live flag (all-frozen rows do not arm it);
+ 14. the long-caption decode: translate_corpus on the full-width ikea_vag
+     model (V=16000, max_len 128, random weights from a seed, the output
+     matrix scaled by IKEA_READOUT_SCALE) over 512
+     synthetic sentences of 40-120 source tokens, in the eight modes of
+     IKEA_MODES (two-phase at depth K and with per-step recovery; chunked
+     with the deferred chunk rerun, per-step, unrolled; the unfused step
+     through kernels 8, 9 and 6), each kernel's launches read from its own
+     mode, the shares of identical hypotheses between modes, and (a) and
+     (b) under the profiler.
+Phase 1 builds all eight sources. It prints one JSON line of per-kernel
 numbers and, last, the device line.
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
@@ -771,6 +789,205 @@ def phase_dec_step(torch, np, dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _legacy_case(torch, np, dev, kind, B, K, V, seed):
+    """Inputs of the legacy top-K kernels: random logits with a fifth of the
+    rows finished, all rows finished, or forced ties (integer logits repeated
+    across a sentence's beams under equal scores, the maximum at v=100 and
+    v=600: ties across beams and across the first two 512-blocks)."""
+    rng = np.random.RandomState(seed)
+    if kind == "ties":
+        logits = np.repeat(rng.randint(-2, 3, (B, 1, V)), K, 1).astype(np.float32)
+        logits[:, :, [100, 600]] = 5.0
+        scores = np.repeat(rng.randint(-3, 1, (B, 1)), K, 1)
+    else:
+        logits = 3.0 * rng.randn(B, K, V)
+        scores = rng.randn(B, K)
+    fin = rng.rand(B, K) < {"random": 0.2, "ties": 0.0, "all_finished": 1.0}[kind]
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (cuda(logits.astype(np.float32)), cuda(scores.astype(np.float32)),
+            cuda(fin))
+
+
+def phase_legacy_topk(torch, np, dev):
+    """Kernels 8 and 9 (legacy_topk_blocks, legacy_topk_rows) against their
+    plain versions, ids and values exactly, at (B, K, V) = (128, 5, 16000)
+    and (128, 5, 8000) (neither V a multiple of the 512-block): random,
+    all-finished and forced cross-block ties, where gen 1 and gen 2 must
+    each follow their own rule and differ."""
+    from vag_nmt_tpu_torch.ops import topk
+
+    kernels = (("legacy_topk_blocks", topk.legacy_topk_blocks,
+                topk.legacy_topk_blocks_plain, 25, 207),
+               ("legacy_topk_rows", topk.legacy_topk_rows,
+                topk.legacy_topk_rows_plain, 95, 175))
+    for B, K, V in ((128, 5, 16000), (128, 5, 8000)):
+        for kind in ("random", "all_finished", "ties"):
+            args = _legacy_case(torch, np, dev, kind, B, K, V, seed=V)
+            got = {}
+            for name, fn, plain, _, _ in kernels:
+                kv, ki = fn(*args, impl="kernel")
+                pv, pi = plain(*args)
+                torch.cuda.synchronize()
+                if not (torch.equal(ki, pi) and torch.equal(kv, pv)):
+                    raise AssertionError(
+                        f"{name} {kind} V={V}: ids differ in "
+                        f"{int((ki != pi).sum())} places, values by "
+                        f"{float((kv - pv).abs().max())}")
+                got[name] = ki
+            if kind == "ties":
+                g1, g2 = got["legacy_topk_blocks"], got["legacy_topk_rows"]
+                want1 = torch.tensor([100, V + 100], device=dev)
+                want2 = torch.tensor([100, 600], device=dev)
+                if not ((g1[:, :2] == want1).all() and (g2[:, :2] == want2).all()):
+                    raise AssertionError(f"forced ties V={V}: gen 1 took "
+                                         f"{g1[0].tolist()}, gen 2 {g2[0].tolist()}")
+            print(f"legacy top-K {kind} (B={B}, K={K}, V={V}): ok (exact)")
+
+    B, K, V = 128, 5, 16000
+    args = _legacy_case(torch, np, dev, "random", B, K, V, seed=1)
+    cand = topk.candidates(*args)
+    # Yardstick only (the port never calls it; its tie order differs):
+    # torch.topk over the materialized (B, K*V) candidates.
+    library_ms = _time_ms(torch, lambda: torch.topk(cand, K, dim=-1))
+    n = B * K * V
+    bound_ms, bound_by = _bound(5.0 * n, 4.0 * n + 5.0 * B * K + 12.0 * B * K)
+    out = []
+    for name, fn, plain, line, _ in kernels:
+        ms = _time_ms(torch, lambda: fn(*args, impl="kernel"))
+        plain_ms = _time_ms(torch, lambda: plain(*args), reps=10)
+        print(f"{name} (B={B}, K={K}, V={V}): kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by})")
+        out.append({"name": name, "route": "cuda",
+                    "source": "vag_nmt_tpu_torch/csrc/legacy_topk.cu",
+                    "replaces": f"vag_nmt_tpu/ops/topk_legacy.py:{line}",
+                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms})
+    return out
+
+
+# Kernel 1's watermark mode: the slot depths checked, and the lane-collision
+# ids (lane 0 of the kernel's map at R=640, V=16000: split 0, columns 0-3 of
+# each 64-column tile).
+READOUT_SLOTS = (1, 3)
+LANE_COLLISION = (0, 1, 2, 3, 64)
+
+
+def _slots_case(torch, np, dev, kind, R, E, V, seed):
+    """Readout inputs whose logits are exact in fp32 whatever the order of
+    the sums (multiples of 1/512 below 2^14 / 512), so the kernel and the
+    plain version see the same values: ties, watermarks and flags alike;
+    "collision" puts every row's five best logits in one kernel lane."""
+    rng = np.random.RandomState(seed)
+    t = rng.randint(-8, 9, (R, E)) / 8.0
+    w = rng.randint(-8, 9, (E, V)) / 64.0
+    b = rng.randint(-64, 65, V) / 64.0
+    if kind == "collision":
+        for rank, vid in enumerate(LANE_COLLISION):
+            b[vid] = 100.0 - rank
+    mask = None
+    if kind == "ban":
+        mask = torch.from_numpy((rng.rand(R, V) < 0.001).astype(np.uint8)).to(dev)
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    return cuda(t), cuda(w), cuda(b), mask
+
+
+def phase_readout_slots(torch, np, dev):
+    """Kernel 1's shallow-slot watermark mode at R=640, E=256, V=16000 for
+    each slot depth of READOUT_SLOTS, against its plain version under the
+    kernel's own lane map and against the depth-K kernel: every row's viol
+    as the plain version's; vals, ids, lse as the plain version's (exact
+    logits) and, on every row that is not flagged, bit for bit as depth K's;
+    the per-step recovery equal to depth K on every row and its counter;
+    the deferred live flag, which all-frozen rows never arm."""
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+
+    R, E, V, K = 640, 256, 16000, 5
+    lanes = rt.kernel_lanes(R, V)
+    if len(set(lanes[list(LANE_COLLISION)].tolist())) != 1:
+        raise AssertionError("LANE_COLLISION ids do not share a kernel lane")
+    live = torch.ones(R, dtype=torch.bool, device=dev)
+    flagged, max_err = {}, 0.0
+    for kind in ("exact", "collision", "ban"):
+        t, w, b, mask = _slots_case(torch, np, dev, kind, R, E, V, seed=13)
+        deep = rt.readout_topk_rows(t, w, b, K, mask, impl="kernel")
+        for sk in READOUT_SLOTS:
+            kv, ki, kl, viol = rt.readout_topk_rows(t, w, b, K, mask, slots=sk,
+                                                    impl="kernel")
+            pv, pi, pl, pviol = rt.readout_topk_rows_plain(t, w, b, K, mask,
+                                                           slots=sk)
+            rt.readout_topk_rows.recoveries = None
+            rec = rt.readout_topk_rows(t, w, b, K, mask, slots=sk,
+                                       recover_live=live, impl="kernel")
+            torch.cuda.synchronize()
+            what = f"readout_topk slots={sk} {kind}"
+            if not torch.equal(viol, pviol):
+                raise AssertionError(f"{what}: viol differs from the plain "
+                                     f"version on {int((viol != pviol).sum())} rows")
+            if not (torch.equal(ki, pi) and torch.equal(kv, pv)):
+                raise AssertionError(f"{what}: vals/ids differ from the plain "
+                                     "version")
+            max_err = max(max_err, float((kl - pl).abs().max()))
+            if not torch.allclose(kl, pl, rtol=READOUT_RTOL, atol=0.0):
+                raise AssertionError(f"{what}: lse off by {max_err}")
+            ok = viol == 0
+            if not (torch.equal(kv[ok], deep[0][ok]) and torch.equal(ki[ok], deep[1][ok])
+                    and torch.equal(kl, deep[2])):
+                raise AssertionError(f"{what}: an unflagged row differs from depth K")
+            if not all(torch.equal(a, c) for a, c in zip(rec[:3], deep)):
+                raise AssertionError(f"{what}: the recovered rows differ from depth K")
+            n_flag = int(viol.sum())
+            counts = rt.readout_topk_rows.recoveries.tolist()
+            if counts != [n_flag, int(n_flag > 0)]:
+                raise AssertionError(f"{what}: recoveries {counts}, {n_flag} flagged")
+            if kind == "collision" and n_flag != R:
+                raise AssertionError(f"{what}: only {n_flag} of {R} rows flagged")
+            flagged[(kind, sk)] = n_flag
+        print(f"readout_topk slots {kind}: ok, flagged rows "
+              f"{ {sk: flagged[(kind, sk)] for sk in READOUT_SLOTS} }")
+
+    # the deferred live flag through fused_readout_topk
+    t, w, b, _ = _slots_case(torch, np, dev, "collision", R, E, V, seed=14)
+    scores = torch.zeros((R // K, K), device=dev)
+    for frac in (0.0, 1.0):
+        fin = torch.full((R // K, K), frac > 0, device=dev)
+        *_, flag = rt.fused_readout_topk(t, w, b, scores, fin, impl="kernel",
+                                         slots=1, defer_exact=True)
+        if bool(flag) != (frac == 0.0):
+            raise AssertionError(f"deferred flag {bool(flag)} with finished={frac}")
+    print("readout_topk deferred live flag: ok (all-frozen rows do not arm it)")
+
+    t, w, b, _ = _slots_case(torch, np, dev, "exact", R, E, V, seed=15)
+    times = {sk: _time_ms(torch, lambda: rt.readout_topk_rows(
+        t, w, b, K, slots=sk, impl="kernel")) for sk in READOUT_SLOTS}
+    deep_ms = _time_ms(torch, lambda: rt.readout_topk_rows(t, w, b, K,
+                                                           impl="kernel"))
+    rec_ms = _time_ms(torch, lambda: rt.readout_topk_rows(
+        t, w, b, K, slots=READOUT_SLOTS[0], recover_live=live, impl="kernel"))
+    plain_ms = _time_ms(torch, lambda: rt.readout_topk_rows_plain(
+        t, w, b, K, slots=READOUT_SLOTS[0]), reps=5)
+    bound_ms, bound_by = _bound(2.0 * R * E * V,
+                                4.0 * (R * E + E * V + V) + 8.0 * R * K + 8.0 * R)
+    print(f"readout_topk slots (R={R}, E={E}, V={V}): kernel_ms by slots "
+          f"{json.dumps(times)} depth K {deep_ms:.4f}, slots "
+          f"{READOUT_SLOTS[0]} with per-step recovery {rec_ms:.4f}, "
+          f"plain_ms (slots {READOUT_SLOTS[0]}) {plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by})")
+    return {"name": "readout_topk_slots", "route": "cuda",
+            "source": "vag_nmt_tpu_torch/csrc/readout_topk.cu",
+            "replaces": "vag_nmt_tpu/ops/pallas_readout_topk.py:113",
+            "max_abs_err": max_err, "ms": times[READOUT_SLOTS[0]],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 # (mode, Translator.translate arguments, environment): the serving modes
 SERVE_MODES = (
     ("a", {}, {}),
@@ -905,6 +1122,184 @@ def phase_serve(torch, np, dev, run):
              "dec_step": out["b"][2]["dec_step"]})
 
 
+# The long-caption decode: ikea_vag at full width over IKEA_N_SENT synthetic
+# sentences with source lengths uniform in IKEA_SRC_LENS (the 128 bucket;
+# IKEA captions are 40-90 words), in the modes of IKEA_MODES: (mode,
+# environment, the route it exercises).
+IKEA_N_SENT = 512
+IKEA_SRC_LENS = (40, 120)
+# The seed's random model has a near-flat posterior over its 16000 words:
+# a step's best candidates lie within a few fp32 roundings of each other
+# once the beam scores have grown over 128 steps, so the last-bit
+# difference between cuBLAS logits and the readout kernel's decides
+# near-ties: with IKEA_READOUT_SCALE = 1, 16% of the hypotheses differed
+# between (h) and (a) (share 0.8418, NVIDIA H100 80GB HBM3, 700 W). The
+# output matrix is scaled up, as a trained model's posterior is peaked:
+# the share is then 1.0000 on the same card.
+IKEA_READOUT_SCALE = 100.0
+IKEA_MODES = (
+    ("a", {}, "two-phase at depth K"),
+    ("b", {"VAG_FRT_SLOTS": "1"}, "two-phase, per-step recovery"),
+    ("c", {"VAG_TWO_PHASE": "off", "VAG_FRT_SLOTS": "1"},
+     "chunked, deferred chunk rerun"),
+    ("d", {"VAG_TWO_PHASE": "off", "VAG_FRT_SLOTS": "3", "VAG_FRT_DEFER": "0"},
+     "chunked, per-step"),
+    ("e", {"VAG_TWO_PHASE": "off", "VAG_BEAM_UNROLL": "4"}, "chunked, unrolled"),
+    ("f", {"VAG_READOUT_TOPK": "unfused", "VAG_TOPK_IMPL": "pallas"},
+     "unfused step, kernel 8"),
+    ("g", {"VAG_READOUT_TOPK": "unfused", "VAG_TOPK_IMPL": "pallas_rows"},
+     "unfused step, kernel 9"),
+    ("h", {"VAG_READOUT_TOPK": "unfused", "VAG_TOPK_IMPL": "pallas_lanes"},
+     "unfused step, kernel 6"),
+)
+
+
+def phase_ikea(torch, np, dev):
+    """The ikea_vag long-caption decode at full width through
+    translate_corpus in each mode of IKEA_MODES, each kernel's launches read
+    from each mode alone: the routes exact by construction agree with (a)
+    on every hypothesis, as (f) and (g) do with (h), and (h) with (a) on at
+    least MIN_IDENTICAL_SHARE; (b) must recover rows and (c) rerun chunks.
+    Returns the launches and grids of legacy_topk_blocks from (f),
+    legacy_topk_rows from (g) and the readout's shallow slots from (b)."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.core.config import SPECIALS
+    from vag_nmt_tpu_torch.data.batching import Example
+    from vag_nmt_tpu_torch.data.vocab import Vocab
+    from vag_nmt_tpu_torch.ops import topk
+    from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd
+    from vag_nmt_tpu_torch.ops.readout_topk import readout_topk_rows
+
+    cfg = vt.preset("ikea_vag")
+    m = cfg.model
+    params = vt.init_params(m, torch.Generator().manual_seed(0), device=dev)
+    params["decoder"]["readout"]["w_out"].mul_(IKEA_READOUT_SCALE)
+    rng = np.random.RandomState(20)
+    lo, hi = IKEA_SRC_LENS
+    examples = [Example(src=list(rng.randint(4, m.src_vocab_size, L)),
+                        img=rng.randn(m.img_feat_dim).astype(np.float32),
+                        index=i)
+                for i, L in enumerate(rng.randint(lo, hi + 1, IKEA_N_SENT))]
+    vocab = Vocab(list(SPECIALS) + [f"t{i}" for i in range(m.tgt_vocab_size - 4)])
+    img_table = vt.build_img_table(examples, m.img_feat_dim, device=dev)
+
+    def run():
+        return vt.translate_corpus(params, cfg, examples, vocab,
+                                   img_table=img_table)
+
+    run()                                 # warm-up (allocator, cuBLAS)
+    wrappers = {"gru_fwd": gru_fwd, "readout_topk": readout_topk_rows,
+                "beam_topk": topk.beam_topk,
+                "legacy_topk_blocks": topk.legacy_topk_blocks,
+                "legacy_topk_rows": topk.legacy_topk_rows}
+    out = {}
+    for mode, env, route in IKEA_MODES:
+        for fn in wrappers.values():
+            fn.launches = 0
+            fn.grids = 0
+        readout_topk_rows.recoveries = None
+        torch.cuda.synchronize()
+        hyps, st = _with_env(env, run)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        grids = {k: fn.grids for k, fn in wrappers.items()}
+        rec = readout_topk_rows.recoveries
+        rec = [0, 0] if rec is None else rec.tolist()
+        steps = st["beam_loop_steps"]
+        print(f"ikea ({mode}) {route} {env}: "
+              f"sentences_per_sec={st['sentences_per_sec']:.1f} "
+              f"elapsed_s={st['elapsed_s']:.4f} t_src={st['t_src']} "
+              f"beam_loop_steps={steps} chunk_steps={st['chunk_steps']} "
+              f"phase2_steps={st.get('phase2_steps')} reruns={st['reruns']} "
+              f"recoveries(rows, steps)={rec} launches={launches} "
+              f"grids={grids} launches_per_beam_step="
+              f"{json.dumps({k: v / steps for k, v in launches.items() if v})}")
+        if len(hyps) != IKEA_N_SENT or not any(hyps) or not steps:
+            raise AssertionError(f"ikea ({mode}): malformed or empty output")
+        if st.get("two_phase", False) != (env.get("VAG_TWO_PHASE") != "off"):
+            raise AssertionError(f"ikea ({mode}): two_phase {st.get('two_phase')}")
+        fused = env.get("VAG_READOUT_TOPK") != "unfused"
+        impl = env.get("VAG_TOPK_IMPL")
+        want = {"readout_topk": steps if fused else 0,
+                "beam_topk": steps if impl == "pallas_lanes" else 0,
+                "legacy_topk_blocks": steps if impl == "pallas" else 0,
+                "legacy_topk_rows": steps if impl == "pallas_rows" else 0}
+        if launches["gru_fwd"] <= 0 or any(launches[k] != v
+                                           for k, v in want.items()):
+            raise AssertionError(f"ikea ({mode}): launches {launches}, "
+                                 f"expected {want}")
+        if mode == "b" and rec[0] <= 0:
+            raise AssertionError("ikea (b): no per-step recovery ran")
+        if mode == "c" and st["reruns"] <= 0:
+            raise AssertionError("ikea (c): no chunk was rerun")
+        out[mode] = (hyps, launches, grids)
+
+    envs = {k: e for k, e, _ in IKEA_MODES}
+    for a, b, least in (("a", "b", 1.0), ("a", "c", 1.0), ("a", "d", 1.0),
+                        ("a", "e", 1.0), ("g", "h", 1.0), ("f", "h", 1.0),
+                        ("h", "a", MIN_IDENTICAL_SHARE)):
+        share = sum(x == y for x, y in zip(out[a][0], out[b][0])) / IKEA_N_SENT
+        print(f"ikea identical hypotheses ({a}) vs ({b}): {share:.4f} "
+              f"(threshold {least})")
+        if share < least and (a, b) == ("f", "h"):
+            _gen1_tie_audit(torch, topk, envs["f"], run, out["f"][0])
+        elif share < least:
+            raise AssertionError(f"ikea ({a}) vs ({b}): only {share:.4f} of "
+                                 "hypotheses identical")
+    for mode in ("a", "b"):
+        phase_profile(torch, f"ikea ({mode}) (beam steps)",
+                      lambda: _with_env(envs[mode], run)[1]["beam_loop_steps"])
+    pick = {"legacy_topk_blocks": ("f", "legacy_topk_blocks"),
+            "legacy_topk_rows": ("g", "legacy_topk_rows"),
+            "readout_topk_slots": ("b", "readout_topk")}
+    return ({k: out[mode][1][w] for k, (mode, w) in pick.items()},
+            {k: out[mode][2][w] for k, (mode, w) in pick.items()})
+
+
+def _gen1_tie_audit(torch, topk, env, run, hyps_f):
+    """Mode (f) once more with every step's gen 1 result held against the
+    flat-index order of kernel 6 (beam_topk_plain) on the same inputs: the
+    values must be equal at every step, so the ids can differ only where
+    candidates tie exactly and gen 1's rule (512-block, beam, id) picks
+    another of them. Prints the count and the first such tie; raises on any
+    other difference or if the audited run's hypotheses are not (f)'s."""
+    orig = topk.legacy_topk_blocks
+    seen = {"steps": 0, "rows": 0, "first": None}
+
+    def audited(logits, scores, finished, *, pad_id, impl):
+        vals, idx = orig(logits, scores, finished, pad_id=pad_id, impl=impl)
+        ref_v, ref_i = topk.beam_topk_plain(logits, scores, finished,
+                                            pad_id=pad_id)
+        if not torch.equal(vals, ref_v):
+            raise AssertionError("gen 1's values differ from the flat order's")
+        diff = (idx != ref_i).any(1)
+        n = int(diff.sum())
+        if n:
+            seen["steps"] += 1
+            seen["rows"] += n
+            if seen["first"] is None:
+                b = int(diff.nonzero()[0, 0])
+                seen["first"] = {"sentence": b, "values": vals[b].tolist(),
+                                 "gen1_ids": idx[b].tolist(),
+                                 "flat_order_ids": ref_i[b].tolist()}
+        return vals, idx
+
+    audited.launches = audited.grids = 0      # the kernel's wrapper counts here
+    topk.legacy_topk_blocks = audited
+    try:
+        hyps, _ = _with_env(env, run)
+    finally:
+        topk.legacy_topk_blocks = orig
+    if hyps != hyps_f:
+        raise AssertionError("ikea (f): the audited run decoded otherwise")
+    print(f"ikea (f) tie audit: gen 1 broke exact ties otherwise than the "
+          f"flat order in {seen['rows']} sentence-steps over {seen['steps']} "
+          f"beam steps, with equal values at every step; first tie: "
+          f"{json.dumps(seen['first'])}")
+    if not seen["rows"]:
+        raise AssertionError("ikea (f) differs from (h) with no tie flipped")
+
+
 def phase_profile(torch, what: str, run):
     """One run of a path under torch.profiler, device activity only; run()
     returns its step count (beam steps or train steps). One stream, so
@@ -957,6 +1352,8 @@ def main() -> int:
     train_kernels = [phase_gru_bwd(torch, np, dev), *phase_dec_scan(torch, np, dev)]
     serve_kernels = [phase_beam_topk(torch, np, dev),
                      phase_dec_step(torch, np, dev)]
+    ikea_kernels = [*phase_legacy_topk(torch, np, dev),
+                    phase_readout_slots(torch, np, dev)]
     launches, grids, run = phase_main(torch, np, dev)
     phase_profile(torch, "decode (beam steps)", run)
     t_launches, t_grids, t_run, train_run = phase_train(torch, np, dev)
@@ -965,16 +1362,20 @@ def main() -> int:
         s_launches, s_grids = phase_serve(torch, np, dev, train_run)
     finally:
         shutil.rmtree(train_run[0], ignore_errors=True)
+    i_launches, i_grids = phase_ikea(torch, np, dev)
     # Each kernel's launches come from the run of its own path: the decode
     # path for the decode kernels, the training path for the training
-    # kernels, the serving modes that select them for beam_topk and dec_step.
+    # kernels, the serving modes that select them for beam_topk and dec_step,
+    # the ikea_vag modes that select them for the legacy top-K kernels and
+    # the readout's shallow slots.
     for ks, ln, gr in ((decode_kernels, launches, grids),
                        (train_kernels, t_launches, t_grids),
-                       (serve_kernels, s_launches, s_grids)):
+                       (serve_kernels, s_launches, s_grids),
+                       (ikea_kernels, i_launches, i_grids)):
         for k in ks:
             k["launches"] = ln[k["name"]]
             k["grids"] = gr[k["name"]]    # device grids those launches enqueued
-    kernels = decode_kernels + train_kernels + serve_kernels
+    kernels = decode_kernels + train_kernels + serve_kernels + ikea_kernels
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -178,14 +178,18 @@ def test_translate_corpus_unsupported_paths_raise():
         dict(nbest=2),
         dict(fused=False),
         dict(mesh=object()),
-        dict(max_len=96),                               # two-phase auto
     ]
     for kw in calls:
         with pytest.raises(NotImplementedError, match="later slice"):
             vt.translate_corpus(params, cfg, exs, vocab, device="cpu", **kw)
+    # the two-phase decoder (auto at max_len >= 96) and beam_unroll > 1 are
+    # supported now
+    _, st = vt.translate_corpus(params, cfg, exs, vocab, device="cpu",
+                                max_len=96)
+    assert st["two_phase"] and len(st["phase2_steps"]) == 1
     unrolled = cfg.replace(decode=dict(beam_unroll=2))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        vt.translate_corpus(params, unrolled, exs, vocab, device="cpu")
+    _, st = vt.translate_corpus(params, unrolled, exs, vocab, device="cpu")
+    assert "two_phase" not in st and st["beam_loop_steps"] % 2 == 0
     short = vt.build_img_table(exs[:2], cfg.model.img_feat_dim, device="cpu")
     with pytest.raises(ValueError, match="img_table"):
         vt.translate_corpus(params, cfg, exs, vocab, img_table=short,

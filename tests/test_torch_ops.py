@@ -27,7 +27,11 @@ from vag_nmt_tpu_torch.ops import gru
 from vag_nmt_tpu_torch.ops import readout_topk as rt
 from vag_nmt_tpu_torch.ops.dec_scan import dec_scan_bwd, dec_scan_fwd
 from vag_nmt_tpu_torch.ops.gru_kernel import gru_bwd, gru_fwd
-from vag_nmt_tpu_torch.ops.topk import beam_topk
+from vag_nmt_tpu_torch.ops.topk import (
+    beam_topk,
+    legacy_topk_blocks_plain,
+    legacy_topk_rows_plain,
+)
 
 # One intra-op thread: the suite runs several test processes at once.
 torch.set_num_threads(1)
@@ -249,10 +253,15 @@ def test_beam_topk_impl_selection(monkeypatch):
     monkeypatch.setenv("VAG_TOPK_IMPL", "pallas_lanes")
     with pytest.raises(ValueError, match="CUDA"):
         beam_topk(T(logits), T(scores), T(fin))
-    for knob in ("pallas", "pallas_rows"):
+    # the legacy kernels (gens 1 and 2): a CPU tensor cannot take them; their
+    # plain versions run through their own functions
+    for knob, plain in (("pallas", legacy_topk_blocks_plain),
+                        ("pallas_rows", legacy_topk_rows_plain)):
         monkeypatch.setenv("VAG_TOPK_IMPL", knob)
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(ValueError, match="CUDA"):
             beam_topk(T(logits), T(scores), T(fin))
+        got = plain(T(logits), T(scores), T(fin))
+        assert torch.equal(got[0], ref[0])
     monkeypatch.setenv("VAG_TOPK_IMPL", "xla")
     got = beam_topk(T(logits), T(scores), T(fin))
     assert torch.equal(got[1], ref[1])

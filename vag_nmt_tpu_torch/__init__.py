@@ -1,10 +1,10 @@
 """PyTorch/CUDA port of vag_nmt_tpu (Visual Attention Grounding NMT).
 
 The layout mirrors the JAX package, so each counterpart is found by name.
-Plain tensor code is PyTorch; the TPU kernels on the beam-decode, serving
-and training paths are hand-written CUDA kernels for Hopper (``csrc/``),
-built with ``nvcc`` at first use. The package imports torch, numpy and the
-standard library only.
+Plain tensor code is PyTorch; every TPU kernel of the JAX package (on the
+beam-decode, serving and training paths) is a hand-written CUDA kernel for
+Hopper (``csrc/``), built with ``nvcc`` at first use. The package imports
+torch, numpy and the standard library only.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
@@ -13,6 +13,7 @@ from vag_nmt_tpu_torch.decode.beam import (
     BeamResult,
     beam_search,
     beam_search_streaming,
+    beam_search_two_phase,
 )
 from vag_nmt_tpu_torch.decode.greedy import GreedyResult, greedy_decode
 from vag_nmt_tpu_torch.decode.serve import Translator
@@ -30,7 +31,8 @@ from vag_nmt_tpu_torch.train.step import make_train_step
 
 __all__ = ["BeamResult", "Config", "DecodeState", "GreedyResult",
            "ModelConfig", "TrainState", "Translator", "beam_search",
-           "beam_search_streaming", "build_img_table", "create_train_state",
+           "beam_search_streaming", "beam_search_two_phase",
+           "build_img_table", "create_train_state",
            "greedy_decode", "init_params", "loss_fn", "make_train_step",
            "params_from_numpy", "prepare_decode", "preset", "train_loop",
            "translate_corpus"]

@@ -90,12 +90,12 @@ class TrainConfig:
 @dataclass(frozen=True)
 class DecodeConfig:
     """Beam decoding. The semantics of each knob are documented on the JAX
-    package's DecodeConfig; the port implements beam_finish, beam_prune,
-    block_ngram, max_len_factor/offset, the fp32 compute dtype, greedy
-    decode (beam_size 1) and the streaming-refill decoder (streaming,
-    refill_threshold). The two-phase decoder and beam_unroll > 1 are later
-    slices (translate_corpus raises NotImplementedError when they resolve
-    on)."""
+    package's DecodeConfig; the port implements all of them for fp32
+    decode: beam_finish, beam_prune, block_ngram, max_len_factor/offset,
+    greedy decode (beam_size 1), beam_unroll, the two-phase straggler
+    decoder (two_phase, split_len) and the streaming-refill decoder
+    (streaming, refill_threshold). compute_dtype "bfloat16" is a later
+    slice (translate_corpus raises NotImplementedError)."""
 
     beam_size: int = 5
     max_len: int = 64

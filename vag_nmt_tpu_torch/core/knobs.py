@@ -11,21 +11,40 @@ values and defaults, here, so one A/B setting drives both packages:
   ``ops/topk.py::beam_topk``). Unset, the port takes "fused" on every
   device (the JAX package takes "unfused" off the TPU; both give the same
   candidates).
-- ``VAG_TOPK_IMPL``: the unfused step's top-K: "pallas_lanes" (the
-  kernel), "xla" (the plain version), "pallas" / "pallas_rows" (the bench
-  kernels, not ported yet: they raise where they are used). Unset, the
-  kernel for CUDA tensors and the plain version for CPU tensors.
+- ``VAG_TOPK_IMPL``: the unfused step's top-K: "pallas_lanes" (kernel 6),
+  "pallas" / "pallas_rows" (the two legacy kernels, gens 1 and 2), "xla"
+  (the plain version). Unset, kernel 6 for CUDA tensors and the plain
+  version for CPU tensors.
 - ``VAG_STREAM_DECODE``: "on" / "1" or "off" / "0" over
   ``cfg.decode.streaming``.
 - ``VAG_TOKEN_TABLES``: "on" / "1" or "off" / "0" over the default (on for
   the card, off for the CPU).
+- ``VAG_BEAM_PRUNE``: "on" / "1" or "off" / "0" over the exact admissible
+  pruning argument (default on).
+- ``VAG_BLOCK_NGRAM``: an int over the no-repeat n-gram order (n <= 1
+  disables); it applies to beam, two-phase, streaming and, through
+  ``translate_corpus``, greedy decode.
+- ``VAG_BEAM_UNROLL``: an int over ``cfg.decode.beam_unroll`` (decoder steps
+  per host check of the chunked beam loop).
+- ``VAG_TWO_PHASE``: "on" / "1" or "off" / "0" over ``cfg.decode.two_phase``.
+- ``VAG_FRT_SLOTS``: the readout top-K's per-lane slot depth (an int;
+  unset means K, the unconditionally exact depth). Below K a watermark
+  flags the rows that may be inexact, and they are recovered at depth K.
+- ``VAG_FRT_DEFER``: "0" turns the chunk-level deferred recovery off (the
+  per-step recovery then runs).
+- ``VAG_FRT_NOCOND``: "1" skips the recovery altogether. Not exact; for
+  measuring the recovery's cost only, as in the JAX package.
 
-An explicit argument to a port function wins over its variable."""
+An explicit argument to a port function wins over its variable; a config
+value does not (``translate_corpus`` lets the variable override it, as the
+JAX package does)."""
 
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, TypeVar
+
+T = TypeVar("T")
 
 
 class DecodeKnobs(NamedTuple):
@@ -34,6 +53,13 @@ class DecodeKnobs(NamedTuple):
     topk_impl: str               # "auto" | "xla" | "pallas_lanes" | "pallas" | "pallas_rows"
     streaming: Optional[bool]    # None: cfg.decode.streaming decides
     tables: Optional[bool]       # None: on for the card, off for the CPU
+    beam_prune: Optional[bool]   # None: the argument decides
+    block_ngram: Optional[int]   # None: the argument decides
+    beam_unroll: Optional[int]   # None: the argument decides
+    two_phase: Optional[bool]    # None: cfg.decode.two_phase decides
+    frt_slots: Optional[int]     # None: K
+    frt_defer: bool              # False when VAG_FRT_DEFER is "0"
+    frt_nocond: bool             # True when VAG_FRT_NOCOND is "1"
 
 
 def _on_off(name: str) -> Optional[bool]:
@@ -43,6 +69,11 @@ def _on_off(name: str) -> Optional[bool]:
     if v in ("off", "0"):
         return False
     return None
+
+
+def _int(name: str) -> Optional[int]:
+    v = os.environ.get(name, "")
+    return int(v) if v else None
 
 
 def decode_knobs() -> DecodeKnobs:
@@ -57,4 +88,16 @@ def decode_knobs() -> DecodeKnobs:
                                    "pallas_lanes") else "auto",
         streaming=_on_off("VAG_STREAM_DECODE"),
         tables=_on_off("VAG_TOKEN_TABLES"),
+        beam_prune=_on_off("VAG_BEAM_PRUNE"),
+        block_ngram=_int("VAG_BLOCK_NGRAM"),
+        beam_unroll=_int("VAG_BEAM_UNROLL"),
+        two_phase=_on_off("VAG_TWO_PHASE"),
+        frt_slots=_int("VAG_FRT_SLOTS"),
+        frt_defer=os.environ.get("VAG_FRT_DEFER", "") != "0",
+        frt_nocond=os.environ.get("VAG_FRT_NOCOND", "") == "1",
     )
+
+
+def over(knob: Optional[T], default: T) -> T:
+    """A variable's value where it is set, else ``default``."""
+    return default if knob is None else knob

@@ -72,25 +72,7 @@ beam_topk_kernel(const float* __restrict__ logits,
         insert<K>(sv, si, bs + row[v], off + v);
     }
   }
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    lv[tid * K + s] = sv[s];
-    li[tid * K + s] = si[s];
-  }
-  __syncthreads();
-  for (int stride = THREADS / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-#pragma unroll
-      for (int s = 0; s < K; ++s)
-        insert<K>(sv, si, lv[(tid + stride) * K + s], li[(tid + stride) * K + s]);
-#pragma unroll
-      for (int s = 0; s < K; ++s) {
-        lv[tid * K + s] = sv[s];
-        li[tid * K + s] = si[s];
-      }
-    }
-    __syncthreads();
-  }
+  vag::block_merge<K>(sv, si, lv, li);
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < K; ++s) {

@@ -3,7 +3,8 @@
 // backward as elementwise grids, a deterministic column sum (gru_bwd.cu,
 // dec_scan_fwd.cu, dec_scan_bwd.cu, dec_step.cu); warp reductions (the
 // attention grids); and the branch-free running top-K insertion ordered by
-// (value descending, index ascending) (readout_topk.cu, beam_topk.cu).
+// (value descending, index ascending) with its block-wide merge
+// (readout_topk.cu, beam_topk.cu, legacy_topk.cu).
 // Everything is fp32 FMA (no TF32), each output written by one thread, sums
 // taken in a fixed order (the only atomic is split-K's arrival ticket, which
 // orders nothing), so the results do not change from run to run.
@@ -319,9 +320,10 @@ __device__ __forceinline__ bool better(float v, int i, float v2, int i2) {
 }
 
 // Sinks (x, xi) through the K slots kept sorted by `better`; branch-free.
+// Returns the value that leaves the last slot (x itself when it ranks last).
 template <int K>
-__device__ __forceinline__ void insert(float (&sv)[K], int (&si)[K], float x,
-                                       int xi) {
+__device__ __forceinline__ float insert(float (&sv)[K], int (&si)[K], float x,
+                                        int xi) {
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     const bool gt = better(x, xi, sv[s], si[s]);
@@ -331,6 +333,35 @@ __device__ __forceinline__ void insert(float (&sv)[K], int (&si)[K], float x,
     si[s] = gt ? xi : si[s];
     x = tv;
     xi = ti;
+  }
+  return x;
+}
+
+// Merges the running top-K lists of a block's threads pairwise through
+// shared memory (lv, li: blockDim.x * K entries each; blockDim.x a power of
+// two); thread 0's (sv, si) end as the block's top-K in the same order.
+template <int K>
+__device__ __forceinline__ void block_merge(float (&sv)[K], int (&si)[K],
+                                            float* lv, int* li) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    lv[tid * K + s] = sv[s];
+    li[tid * K + s] = si[s];
+  }
+  __syncthreads();
+  for (int stride = blockDim.x / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) {
+#pragma unroll
+      for (int s = 0; s < K; ++s)
+        insert<K>(sv, si, lv[(tid + stride) * K + s], li[(tid + stride) * K + s]);
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        lv[tid * K + s] = sv[s];
+        li[tid * K + s] = si[s];
+      }
+    }
+    __syncthreads();
   }
 }
 

@@ -1,5 +1,6 @@
 """Batched beam search (counterpart of the JAX package's ``decode/beam.py``:
-the single-loop decoder at unroll 1 and the streaming-refill decoder).
+the chunked single-loop decoder, the two-phase straggler decoder and the
+streaming-refill decoder).
 
 - encode once; the beams of a sentence share the encoder context;
 - each step: one decoder step over all rows, fused candidate scoring and
@@ -11,17 +12,27 @@ the single-loop decoder at unroll 1 and the streaming-refill decoder).
   from the device per step);
 - the final ranking divides by length ** alpha.
 
-The two-phase straggler decoder is a later slice."""
+With the readout top-K at a slot depth below K (``VAG_FRT_SLOTS``), the
+chunked loop carries the readout's live-row watermark flag and reruns the
+chunk at depth K when it fired (read once, at the chunk's end); the
+two-phase and streaming loops recover each step instead
+(``ops/readout_topk.py``). Either way the hypotheses are those of depth K.
+
+Each function reads ``VAG_BEAM_PRUNE`` and ``VAG_BLOCK_NGRAM`` (and
+``beam_search`` ``VAG_BEAM_UNROLL``) where its argument is left at None
+(core/knobs.py)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from vag_nmt_tpu_torch.core.config import EOS_ID, ModelConfig, PAD_ID, SOS_ID
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device, same_device
+from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
 from vag_nmt_tpu_torch.models.model import DecodeState, decode_step_topk
+from vag_nmt_tpu_torch.ops.readout_topk import deferred_exactness_active
 
 NEG_INF = -1e9
 
@@ -33,6 +44,7 @@ class BeamResult(NamedTuple):
     best_tokens: torch.Tensor   # (B, L)
     best_lengths: torch.Tensor  # (B,)
     steps: int                  # realized loop trips (decoder steps run)
+    reruns: int = 0             # chunk reruns at slot depth K (deferred mode)
 
 
 def ngram_ban(tokens: torch.Tensor, t, n: int, V: int) -> torch.Tensor:
@@ -68,15 +80,19 @@ def ngram_ban(tokens: torch.Tensor, t, n: int, V: int) -> torch.Tensor:
 
 
 def _make_body_1(params, cfg: ModelConfig, state: DecodeState, tables,
-                 max_len: int, eos_top: bool = False, row_cap=None,
+                 mode: str, max_len: int, eos_top: bool = False, row_cap=None,
                  prune_alpha: Optional[float] = None, block_ngram: int = 0,
                  impl: str = "auto"):
     """The per-step beam body over the carry (t, last_tok (B,K), s (B,K,H),
-    scores (B,K), tokens (B,K,L), finished (B,K), lengths (B,K)). t is an
-    int (all rows in step) or a (B,) tensor of per-row positions (the
-    streaming-refill loop): freezing then compares per row, and the token
-    lands at each row's own position by a one-hot mask over the length
-    axis; a row whose t has run past the buffer writes nothing.
+    scores (B,K), tokens (B,K,L), finished (B,K), lengths (B,K)), plus, in
+    mode "defer", the 0-dim bool flag that ORs the readout's live-row
+    watermark flags (mode: "plain" | "defer" | "exact", the last running the
+    readout at slot depth K; see beam_search). t is an int (all rows in
+    step) or a (B,) tensor of per-row positions (the streaming-refill
+    loop): freezing then compares per row, and the token lands at each
+    row's own position by a one-hot mask over the length axis; a row whose
+    t has run past the buffer writes nothing. Rows freeze at t >= max_len,
+    so the steps an unrolled loop runs past max_len are no-ops.
 
     eos_top: once a sentence's top-ranked beam is finished, every beam of
     that sentence freezes. row_cap: optional (B,) per-row step cap. Exact
@@ -88,16 +104,17 @@ def _make_body_1(params, cfg: ModelConfig, state: DecodeState, tables,
     V = cfg.tgt_vocab_size
 
     def body_1(carry):
-        t, last_tok, s, scores, tokens, finished, lengths = carry
+        t, last_tok, s, scores, tokens, finished, lengths = carry[:7]
         per_row = not isinstance(t, int)
         t_col = t[:, None] if per_row else t
         ban = ngram_ban(tokens, t, block_ngram, V) if block_ngram > 0 else None
         finished = finished | (t_col >= max_len)
         if row_cap is not None:
             finished = finished | (t_col >= row_cap[:, None])
-        s_new, top_scores, idx = decode_step_topk(
+        s_new, top_scores, idx, *flag = decode_step_topk(
             params, cfg, last_tok, s, state, scores, finished,
-            impl=impl, tables=tables, ban=ban)
+            impl=impl, tables=tables, ban=ban, defer_exact=mode == "defer",
+            exact=mode == "exact")
         beam_idx = torch.div(idx, V, rounding_mode="floor")
         tok = idx - beam_idx * V
 
@@ -129,21 +146,29 @@ def _make_body_1(params, cfg: ModelConfig, state: DecodeState, tables,
             bound = top_scores / capf ** a
             ok = finished | (bound < frozen_norm_min)
             finished = finished | (any_frozen & ok.all(1, keepdim=True))
-        return (t + 1, tok, s_sel, top_scores, tokens, finished, lengths)
+        out = (t + 1, tok, s_sel, top_scores, tokens, finished, lengths)
+        return out + (carry[7] | flag[0],) if mode == "defer" else out
 
     return body_1
 
 
-def _resolve_prune(prune: bool, length_norm_alpha: float) -> Optional[float]:
-    """prune_alpha for _make_body_1: None when pruning is off or alpha < 0
-    (the bound r / cap ** alpha is admissible only for alpha >= 0)."""
+def _resolve_prune(prune: Optional[bool],
+                   length_norm_alpha: float) -> Optional[float]:
+    """prune_alpha for _make_body_1 (prune None: VAG_BEAM_PRUNE, else on):
+    None when pruning is off or alpha < 0 (the bound r / cap ** alpha is
+    admissible only for alpha >= 0)."""
+    if prune is None:
+        prune = over(decode_knobs().beam_prune, True)
     if not prune or length_norm_alpha < 0:
         return None
     return float(length_norm_alpha)
 
 
-def _resolve_block(block_ngram: int) -> int:
-    """n <= 1 disables (a 1-gram ban would forbid every used token)."""
+def _resolve_block(block_ngram: Optional[int]) -> int:
+    """block_ngram None: VAG_BLOCK_NGRAM, else 0. n <= 1 disables (a 1-gram
+    ban would forbid every used token)."""
+    if block_ngram is None:
+        block_ngram = over(decode_knobs().block_ngram, 0)
     return block_ngram if block_ngram > 1 else 0
 
 
@@ -171,7 +196,8 @@ def _beam_init(state: DecodeState, K: int, buf_len: int):
 
 
 def _finalize(tokens, lengths, scores, max_len: int, length_norm_alpha: float,
-              mask_incomplete: bool = False, steps: int = 0) -> BeamResult:
+              mask_incomplete: bool = False, steps: int = 0,
+              reruns: int = 0) -> BeamResult:
     """Length-normalize, rank beams best-first (stable: ties keep the lower
     beam), slice the token buffer. mask_incomplete ("eos_top"): beams whose
     last counted token is not <eos> are masked out of the ranking, unless
@@ -191,7 +217,16 @@ def _finalize(tokens, lengths, scores, max_len: int, length_norm_alpha: float,
     final_scores = torch.gather(final_scores, 1, order)
     return BeamResult(tokens=tokens, lengths=lengths, scores=final_scores,
                       best_tokens=tokens[:, 0], best_lengths=lengths[:, 0],
-                      steps=steps)
+                      steps=steps, reruns=reruns)
+
+
+def _run(body, carry, t_end: int, unroll: int = 1):
+    """The host loop: ``unroll`` bodies per check of the exit condition
+    (t < t_end and not every hypothesis finished, one device read)."""
+    while carry[0] < t_end and not bool(carry[5].all()):
+        for _ in range(unroll):
+            carry = body(carry)
+    return carry
 
 
 def beam_search(
@@ -202,11 +237,12 @@ def beam_search(
     beam_size: int,
     max_len: int,
     length_norm_alpha: float = 1.0,
+    unroll: int = 0,
     tables=None,
     beam_finish: str = "all_frozen",
     row_cap: Optional[torch.Tensor] = None,
-    prune: bool = True,
-    block_ngram: int = 0,
+    prune: Optional[bool] = None,
+    block_ngram: Optional[int] = None,
     impl: str = "auto",
     device: DeviceLike = None,
 ) -> BeamResult:
@@ -216,10 +252,23 @@ def beam_search(
     "eos_top" (stop a sentence once its top-ranked beam is finished; its
     unfinished beams are masked out of the final ranking). row_cap:
     optional (B,) per-row step cap. prune: exact admissible pruning (see
-    _make_body_1). block_ngram: no-repeat n-gram blocking (0 disables).
-    tables: optional per-vocab decode tables (models.decoder.decode_tables).
-    impl: the beam step's impl (models.model.decode_step_topk).
-    device: where the search runs (None = the card); state must lie there."""
+    _make_body_1; None: VAG_BEAM_PRUNE, else on). block_ngram: no-repeat
+    n-gram blocking (None: VAG_BLOCK_NGRAM, else 0; 0 disables). tables:
+    optional per-vocab decode tables (models.decoder.decode_tables). impl:
+    the beam step's impl (models.model.decode_step_topk). device: where the
+    search runs (None = the card); state must lie there.
+
+    unroll: decoder steps per check of the exit condition (0:
+    VAG_BEAM_UNROLL, else 1). The token buffer is padded to a multiple of
+    it and sliced back; rows freeze at max_len, so the hypotheses do not
+    depend on it, only the steps run past the last finish do.
+
+    Device reads: one per check of the exit condition (all finished?), and
+    in the deferred mode (``deferred_exactness_active``) one more at the
+    chunk's end, the OR of the readout's live-row watermark flags; when it
+    is set, the chunk runs again from the same initial carry with the
+    readout at depth K. ``steps`` counts every decoder step run, the
+    rerun's included; ``reruns`` the reruns."""
     dev = resolve_device(device)
     same_device(dev, state.s0, "decode state")
     if beam_size < 1:
@@ -227,16 +276,152 @@ def beam_search(
     if beam_finish not in ("all_frozen", "eos_top"):
         raise ValueError(f"unknown beam_finish {beam_finish!r}")
     eos_top = beam_finish == "eos_top"
-    body_1 = _make_body_1(params, cfg, state, tables, max_len,
-                          eos_top=eos_top, row_cap=row_cap,
-                          prune_alpha=_resolve_prune(prune, length_norm_alpha),
-                          block_ngram=_resolve_block(block_ngram), impl=impl)
-    carry = _beam_init(state, beam_size, max_len)
-    while carry[0] < max_len and not bool(carry[5].all()):
-        carry = body_1(carry)
-    t, _, _, scores, tokens, _, lengths = carry
+    if unroll <= 0:
+        unroll = over(decode_knobs().beam_unroll, 1)
+    U = min(max(unroll, 1), max_len)
+    max_len_pad = -(-max_len // U) * U
+    K = beam_size
+    prune_alpha = _resolve_prune(prune, length_norm_alpha)
+    block_n = _resolve_block(block_ngram)
+
+    def run(mode, carry):
+        body = _make_body_1(params, cfg, state, tables, mode, max_len,
+                            eos_top=eos_top, row_cap=row_cap,
+                            prune_alpha=prune_alpha, block_ngram=block_n,
+                            impl=impl)
+        return _run(body, carry, max_len_pad, U)
+
+    init = _beam_init(state, K, max_len_pad)
+    reruns = 0
+    if deferred_exactness_active(K):
+        out = run("defer", init + (torch.zeros((), dtype=torch.bool,
+                                               device=dev),))
+        steps = out[0]
+        if bool(out[7]):
+            out = run("exact", init)
+            steps += out[0]
+            reruns = 1
+    else:
+        out = run("plain", init)
+        steps = out[0]
+    _, _, _, scores, tokens, _, lengths = out[:7]
     return _finalize(tokens, lengths, scores, max_len, length_norm_alpha,
-                     mask_incomplete=eos_top, steps=t)
+                     mask_incomplete=eos_top, steps=steps, reruns=reruns)
+
+
+def beam_search_two_phase(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    state: DecodeState,
+    *,
+    beam_size: int,
+    max_len: int,
+    chunk: int,
+    split_len: int,
+    length_norm_alpha: float = 1.0,
+    tables=None,
+    beam_finish: str = "all_frozen",
+    row_cap: Optional[torch.Tensor] = None,
+    prune: Optional[bool] = None,
+    block_ngram: Optional[int] = None,
+    impl: str = "auto",
+    device: DeviceLike = None,
+) -> Tuple[BeamResult, List[int], int]:
+    """Two-phase straggler-compacted beam search over N = S * chunk
+    sentences (counterpart of the JAX package's ``beam_search_two_phase``,
+    whose docstring has the measurements behind it).
+
+    Phase 1: each of the S chunks runs its own early-exit loop for at most
+    L1 = split_len steps. Then, for each rung of the doubling ladder L1 ->
+    2 L1 -> ... -> max_len: the sentences are re-packed on the device by a
+    stable argsort of the per-sentence finished flag, stragglers first,
+    and only the first ceil(n_unfinished / chunk) chunks resume, each from
+    the previous rung's cap until this rung's or until its rows are all
+    finished. Finally the rows go back to their original order and are
+    ranked (``_finalize``). Exact: the step body is row-local, so a row's
+    hypotheses do not depend on the chunk it rides in.
+
+    The bodies run in mode "plain": at a readout slot depth below K each
+    step recovers its flagged rows itself. Other arguments as beam_search.
+
+    Device reads: one per loop trip (all finished?), and one per rung, the
+    count of unfinished sentences.
+
+    Returns (BeamResult over the N rows, steps1: the trips of each chunk's
+    phase 1, steps2: the resume trips of all rungs). Each trip is one
+    chunk-row decoder step; ``BeamResult.steps`` is their sum."""
+    dev = resolve_device(device)
+    same_device(dev, state.s0, "decode state")
+    N = state.s0.shape[0]
+    B = chunk
+    if N % B:
+        raise ValueError(f"two-phase decode needs N ({N}) % chunk ({B}) == 0")
+    if beam_finish not in ("all_frozen", "eos_top"):
+        raise ValueError(f"unknown beam_finish {beam_finish!r}")
+    eos_top = beam_finish == "eos_top"
+    S = N // B
+    K = beam_size
+    L1 = min(max(int(split_len), 1), max_len)
+    rungs = []                           # doubling caps, ending at max_len
+    cap = L1
+    while cap < max_len:
+        cap = min(cap * 2, max_len)
+        rungs.append(cap)
+    prune_alpha = _resolve_prune(prune, length_norm_alpha)
+    block_n = _resolve_block(block_ngram)
+
+    def body_of(st, rc):
+        return _make_body_1(params, cfg, st, tables, "plain", max_len,
+                            eos_top=eos_top, row_cap=rc,
+                            prune_alpha=prune_alpha, block_ngram=block_n,
+                            impl=impl)
+
+    # ---- phase 1: per-chunk early-exit loops capped at L1 ----------------
+    steps1: List[int] = []
+    outs = []
+    for c in range(S):
+        sl = slice(c * B, (c + 1) * B)
+        st = DecodeState(*(x[sl] for x in state))
+        rc = None if row_cap is None else row_cap[sl]
+        out = _run(body_of(st, rc), _beam_init(st, K, max_len), L1)
+        steps1.append(out[0])
+        outs.append(out[1:])
+    # (last_tok, s, scores, tokens, finished, lengths) over the N rows
+    packed = [torch.cat([o[j] for o in outs]) for j in range(6)]
+    work = DecodeState(*state)
+    cap_p = row_cap
+    order = torch.arange(N, device=dev)   # packed row -> original row
+    steps2 = 0
+    t_start = L1
+    for t_end in rungs:
+        # ---- compact: stragglers first (stable argsort) -------------------
+        fin_sent = packed[4].all(1)
+        perm = torch.argsort(fin_sent.to(torch.int32), stable=True)
+        n_unfin = N - int(fin_sent.sum())
+        packed = [a[perm] for a in packed]
+        work = DecodeState(*(x[perm] for x in work))
+        cap_p = None if cap_p is None else cap_p[perm]
+        order = order[perm]
+        # ---- resume straggler chunks from t_start to t_end ----------------
+        i = 0
+        while i < S and i * B < n_unfin:
+            sl = slice(i * B, (i + 1) * B)
+            st = DecodeState(*(x[sl] for x in work))
+            rc = None if cap_p is None else cap_p[sl]
+            out = _run(body_of(st, rc),
+                       (t_start,) + tuple(a[sl] for a in packed), t_end)
+            for a, v in zip(packed, out[1:]):
+                a[sl] = v
+            steps2 += out[0] - t_start
+            i += 1
+        t_start = t_end
+
+    # ---- scatter back to the original row order + finalize ---------------
+    inv = torch.argsort(order)
+    _, _, scores, tokens, _, lengths = (a[inv] for a in packed)
+    res = _finalize(tokens, lengths, scores, max_len, length_norm_alpha,
+                    mask_incomplete=eos_top, steps=sum(steps1) + steps2)
+    return res, steps1, steps2
 
 
 def beam_search_streaming(
@@ -252,8 +437,8 @@ def beam_search_streaming(
     tables=None,
     beam_finish: str = "all_frozen",
     row_cap: Optional[torch.Tensor] = None,
-    prune: bool = True,
-    block_ngram: int = 0,
+    prune: Optional[bool] = None,
+    block_ngram: Optional[int] = None,
     impl: str = "auto",
     device: DeviceLike = None,
 ) -> Tuple[BeamResult, int, int]:
@@ -269,7 +454,9 @@ def beam_search_streaming(
 
     Each trip reads one number from the device: the count of finished
     sentences in the set, from which the host knows the all-finished flag
-    and the next pool row (the JAX loop's ``nxt``) as well.
+    and the next pool row (the JAX loop's ``nxt``) as well. The bodies run
+    in mode "plain" (see beam_search_two_phase); prune and block_ngram as
+    beam_search.
 
     Returns (BeamResult over the N pool rows in pool order, steps (loop
     trips, each one ``slots``-row decoder step), refills (refill events))."""
@@ -306,7 +493,7 @@ def beam_search_streaming(
     o_len = torch.zeros((N + 1, K), dtype=torch.long, device=dev)
     nxt, steps, refills = W, 0, 0
     while True:
-        body = _make_body_1(params, cfg, work, tables, max_len,
+        body = _make_body_1(params, cfg, work, tables, "plain", max_len,
                             eos_top=eos_top, row_cap=cap_w,
                             prune_alpha=prune_alpha, block_ngram=block_n,
                             impl=impl)

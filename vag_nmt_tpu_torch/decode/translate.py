@@ -5,11 +5,13 @@ The corpus is sorted by source length (a chunk's beam loop runs until its
 longest hypothesis finishes, so homogeneous-length chunks exit earlier),
 padded to one source bucket, encoded in super-chunks of about 1024 rows
 (one encoder pass, whose GRU products fill the card far better than a
-128-row chunk's), and decoded either in chunks of ``decode_batch_size``
-rows (beam search, or greedy at beam_size 1) or, with the streaming-refill
-decoder on, as one pool per super-chunk whose working set of
-``decode_batch_size`` rows refills as sentences finish. Corpus order is
-restored afterwards and hypotheses are de-BPE'd on the host."""
+128-row chunk's), and decoded in chunks of ``decode_batch_size`` rows
+(beam search, or greedy at beam_size 1), or, per super-chunk, by the
+streaming-refill decoder (one pool whose working set of
+``decode_batch_size`` rows refills as sentences finish) or the two-phase
+straggler decoder (chunks capped at a split length, then re-packed
+stragglers on a doubling ladder). Corpus order is restored afterwards and
+hypotheses are de-BPE'd on the host."""
 
 from __future__ import annotations
 
@@ -21,10 +23,14 @@ import torch
 
 from vag_nmt_tpu_torch.core.config import Config
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device
-from vag_nmt_tpu_torch.core.knobs import decode_knobs
+from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
 from vag_nmt_tpu_torch.data.batching import Example, _bucket_for
 from vag_nmt_tpu_torch.data.vocab import Vocab
-from vag_nmt_tpu_torch.decode.beam import beam_search, beam_search_streaming
+from vag_nmt_tpu_torch.decode.beam import (
+    beam_search,
+    beam_search_streaming,
+    beam_search_two_phase,
+)
 from vag_nmt_tpu_torch.decode.greedy import greedy_decode
 from vag_nmt_tpu_torch.models.decoder import decode_tables
 from vag_nmt_tpu_torch.models.model import DecodeState, prepare_decode
@@ -70,20 +76,28 @@ def _use_streaming(cfg: Config, beam_size: int) -> bool:
     return env if env is not None else cfg.decode.streaming == "on"
 
 
-def _check_supported(cfg: Config, beam_size: int, max_len: int, nbest: int,
-                     fused: bool, mesh, streaming: bool) -> None:
-    d = cfg.decode
+def _use_two_phase(cfg: Config, beam_size: int, max_len: int) -> bool:
+    """The two-phase straggler decoder: beam only; VAG_TWO_PHASE over
+    cfg.decode.two_phase ("on", "off", "auto": on iff max_len >= 96, the
+    long-caption regime)."""
+    if beam_size <= 1:
+        return False
+    env = decode_knobs().two_phase
+    if env is not None:
+        return env
+    mode = cfg.decode.two_phase
+    if mode in ("on", "off"):
+        return mode == "on"
+    return max_len >= 96
+
+
+def _check_supported(nbest: int, fused: bool, mesh, cfg: Config) -> None:
     if nbest:
         raise _later_slice("nbest output")
     if not fused:
         raise _later_slice("the bucketed (fused=False) decode path")
     if mesh is not None:
         raise _later_slice("mesh-sharded decode")
-    if beam_size > 1 and not streaming and (
-            d.two_phase == "on" or (d.two_phase == "auto" and max_len >= 96)):
-        raise _later_slice("the two-phase straggler decoder")
-    if beam_size > 1 and d.beam_unroll > 1:
-        raise _later_slice("beam_unroll > 1")
     if cfg.model.compute_dtype != "float32":
         raise _later_slice("bf16 decode")
 
@@ -132,12 +146,17 @@ def translate_corpus(
 ) -> Tuple[List[str], Dict]:
     """Returns (hypothesis lines in example-list order, stats).
 
-    beam_size 1 decodes greedily; beam search otherwise, chunked or, when
-    the streaming-refill decoder is on (VAG_STREAM_DECODE over
-    cfg.decode.streaming), pooled per super-chunk. impl: kernel selection
-    for the encoder GRU scan and the beam step ("auto": kernels for CUDA
-    tensors, plain PyTorch for CPU tensors; "kernel"; "plain"; the step's
-    structure and its optional kernels follow core/knobs.py).
+    beam_size 1 decodes greedily; beam search otherwise: pooled per
+    super-chunk when the streaming-refill decoder is on (VAG_STREAM_DECODE
+    over cfg.decode.streaming), else by the two-phase decoder per
+    super-chunk when it is on (VAG_TWO_PHASE over cfg.decode.two_phase,
+    "auto" on for max_len >= 96; split length cfg.decode.split_len, 0:
+    max(16, max_len // 4)), else chunked, with cfg.decode.beam_unroll
+    (VAG_BEAM_UNROLL over it). VAG_BEAM_PRUNE and VAG_BLOCK_NGRAM override
+    cfg.decode.beam_prune and block_ngram, greedy included. impl: kernel
+    selection for the encoder GRU scan and the beam step ("auto": kernels
+    for CUDA tensors, plain PyTorch for CPU tensors; "kernel"; "plain"; the
+    step's structure and its optional kernels follow core/knobs.py).
     use_tables: per-vocab decode tables (None = VAG_TOKEN_TABLES, else on
     for CUDA and off for the CPU, whose fixed-seed golden was made
     untabled). device: None = the card. img_table: optional (N, F) feature
@@ -146,9 +165,13 @@ def translate_corpus(
     stats: sentences_per_sec, elapsed_s (host clock from the first upload
     to the last hypothesis on the host, de-BPE excluded), chunk_steps (the
     realized decode-loop trips of each chunk in length order; streaming:
-    of each super-chunk's pool), beam_loop_steps (their sum = decoder steps
-    run), n_chunks, rows_per_chunk, t_src; streaming adds
-    ``streaming=True`` and ``refills`` (refill events per super-chunk)."""
+    of each super-chunk's pool; two-phase: each chunk's phase-1 trips),
+    beam_loop_steps (their sum, plus the phase-2 trips = decoder steps
+    run), n_chunks, rows_per_chunk, t_src, reruns (chunks rerun at the
+    readout's depth K in the deferred mode); streaming adds
+    ``streaming=True`` and ``refills`` (refill events per super-chunk);
+    two-phase adds ``two_phase=True`` and ``phase2_steps`` (resume trips
+    per super-chunk)."""
     dev = resolve_device(device)
     dd = cfg.decode.compute_dtype
     if dd and dd != cfg.model.compute_dtype:
@@ -157,7 +180,8 @@ def translate_corpus(
     max_len = max_len if max_len is not None else cfg.decode.max_len
     B = batch_size if batch_size is not None else cfg.decode.decode_batch_size
     streaming = _use_streaming(cfg, beam_size)
-    _check_supported(cfg, beam_size, max_len, nbest, fused, mesh, streaming)
+    two_phase = not streaming and _use_two_phase(cfg, beam_size, max_len)
+    _check_supported(nbest, fused, mesh, cfg)
     if use_tables is None:
         use_tables = decode_knobs().tables
     if use_tables is None:
@@ -223,11 +247,17 @@ def translate_corpus(
     out_lens = np.zeros((nb * B,), np.int64)
     chunk_steps: List[int] = []
     refills: List[int] = []
+    phase2: List[int] = []
+    reruns = 0
     d = cfg.decode
+    kn = decode_knobs()
+    block_ngram = over(kn.block_ngram, d.block_ngram)
     beam_kw = dict(beam_size=beam_size, max_len=max_len,
                    length_norm_alpha=d.length_norm_alpha, tables=tables,
-                   beam_finish=d.beam_finish, prune=d.beam_prune != "off",
-                   block_ngram=d.block_ngram, impl=impl, device=dev)
+                   beam_finish=d.beam_finish,
+                   prune=over(kn.beam_prune, d.beam_prune != "off"),
+                   block_ngram=block_ngram, impl=impl, device=dev)
+    unroll = over(kn.beam_unroll, d.beam_unroll)       # the chunked loop's
     for sc in range(ns):
         rows = slice(sc * S * B, (sc + 1) * S * B)
         src_d = torch.from_numpy(src[rows]).to(dev)
@@ -248,17 +278,29 @@ def translate_corpus(
             chunk_steps.append(steps)
             refills.append(n_refill)
             continue
+        if two_phase:
+            res, steps1, steps2 = beam_search_two_phase(
+                params, m, state, chunk=B,
+                split_len=d.split_len or max(16, max_len // 4),
+                row_cap=row_cap, **beam_kw)
+            out_toks[rows] = res.best_tokens.cpu().numpy()
+            out_lens[rows] = res.best_lengths.cpu().numpy()
+            chunk_steps.extend(steps1)
+            phase2.append(steps2)
+            continue
         for c in range(S):
             cr = slice(c * B, (c + 1) * B)
             chunk = DecodeState(*(x[cr] for x in state))
             cap = None if row_cap is None else row_cap[cr]
             if beam_size <= 1:
                 res = greedy_decode(params, m, chunk, max_len, tables=tables,
-                                    row_cap=cap, block_ngram=d.block_ngram)
+                                    row_cap=cap, block_ngram=block_ngram)
                 toks, lens_c = res.tokens, res.lengths
             else:
-                res = beam_search(params, m, chunk, row_cap=cap, **beam_kw)
+                res = beam_search(params, m, chunk, row_cap=cap,
+                                  unroll=unroll, **beam_kw)
                 toks, lens_c = res.best_tokens, res.best_lengths
+                reruns += res.reruns
             g = slice(sc * S * B + c * B, sc * S * B + (c + 1) * B)
             out_toks[g] = toks.cpu().numpy()
             out_lens[g] = lens_c.cpu().numpy()
@@ -271,11 +313,14 @@ def translate_corpus(
         hyps[i] = lines[r]
     stats = {"sentences_per_sec": n / max(elapsed, 1e-9),
              "elapsed_s": elapsed, "sentences": n, "beam_size": beam_size,
-             "beam_loop_steps": int(sum(chunk_steps)),
+             "beam_loop_steps": int(sum(chunk_steps) + sum(phase2)),
              "chunk_steps": chunk_steps, "n_chunks": nb,
-             "rows_per_chunk": B, "t_src": int(t_src),
+             "rows_per_chunk": B, "t_src": int(t_src), "reruns": reruns,
              "device": str(dev), "impl": impl, "tables": bool(use_tables)}
     if streaming:
         stats["streaming"] = True
         stats["refills"] = refills
+    if two_phase:
+        stats["two_phase"] = True
+        stats["phase2_steps"] = phase2
     return hyps, stats

@@ -213,8 +213,10 @@ def decode_step_topk(
     *,
     impl: str = "auto",
     tables: Optional[dec.Tables] = None,
+    defer_exact: bool = False,
+    exact: bool = False,
     ban: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """One beam step fused with candidate scoring + top-K: returns
     (s_new (B, K, H), top_scores (B, K), flat_idx (B, K), flat =
     beam * V + token), with ops/topk.beam_topk's candidate semantics.
@@ -228,6 +230,12 @@ def decode_step_topk(
     fused step (ops/dec_step). Unfused: the logits are materialized, the
     ban is scattered to -1e9 and ops/topk.beam_topk takes the top-K (its
     kernel per VAG_TOPK_IMPL), as the JAX package's unfused path.
+
+    defer_exact: append the "may be inexact" flag (a 0-dim bool tensor:
+    a live row was flagged by the readout's watermark) in place of the
+    per-step recovery; the beam loop ORs it over a chunk and reruns the
+    chunk with exact=True when it fired. Always False on the unfused path,
+    which is exact. exact: run the readout at slot depth K.
 
     ban: optional (B, K, M) banned ids for no-repeat n-gram blocking (id V
     is the "no ban" sentinel and is dropped). Banned mass is excluded from
@@ -244,12 +252,15 @@ def decode_step_topk(
             mask = ban_mask(ban.reshape(Bk * Kk, -1), Vk).bool()
             flat = torch.where(mask, flat.clamp_max(-1e9), flat)
             logits = flat.reshape(Bk, Kk, Vk)
-        top_scores, idx = beam_topk(logits, scores, finished, impl=impl)
-        return s_new, top_scores, idx
+        out = (s_new,) + beam_topk(logits, scores, finished, impl=impl)
+        if defer_exact:
+            out = out + (torch.zeros((), dtype=torch.bool, device=s.device),)
+        return out
     s_new, t, w_out, b_out = dec.decode_step_beams_readout(
         params["decoder"], cfg, tok, s, state.ctx, state.ctx_proj,
         state.src_mask, tables, impl=impl)
-    top_scores, idx = fused_readout_topk(
+    K = scores.shape[1]
+    return (s_new,) + fused_readout_topk(
         t, w_out, b_out, scores, finished,
-        None if ban is None else ban.reshape(t.shape[0], -1), impl=impl)
-    return s_new, top_scores, idx
+        None if ban is None else ban.reshape(t.shape[0], -1), impl=impl,
+        slots=K if exact else 0, defer_exact=defer_exact)

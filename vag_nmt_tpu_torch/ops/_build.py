@@ -31,19 +31,22 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# name -> (C function name, argtypes, -D defines); filled by each kernel's
-# wrapper module.
-_KERNELS: Dict[str, Tuple[str, list, Dict[str, int]]] = {}
+# name -> ({C function name: argtypes}, -D defines); filled by each
+# kernel's wrapper module.
+_KERNELS: Dict[str, Tuple[Dict[str, list], Dict[str, int]]] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def declare(name: str, fn: str, argtypes: list,
             defines: Optional[Dict[str, int]] = None) -> None:
-    _KERNELS[name] = (fn, argtypes, dict(defines or {}))
+    """Declare C entry point ``fn`` of csrc/<name>.cu; a source with several
+    entry points declares each, with the same defines."""
+    fns, _ = _KERNELS.setdefault(name, ({}, dict(defines or {})))
+    fns[fn] = argtypes
 
 
 def _flags(name: str) -> List[str]:
-    defines = _KERNELS[name][2]
+    defines = _KERNELS[name][1]
     return NVCC_FLAGS + [f"-D{k}={v}" for k, v in sorted(defines.items())]
 
 
@@ -133,9 +136,9 @@ def load(name: str) -> ctypes.CDLL:
         if job is not None:
             _finish(name, job)
         lib = ctypes.CDLL(str(_target(name)))
-        fn, argtypes, _ = _KERNELS[name]
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        for fn, argtypes in _KERNELS[name][0].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib

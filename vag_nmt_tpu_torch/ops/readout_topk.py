@@ -11,9 +11,21 @@ combine (``_combine``) run on those small outputs in PyTorch:
     live row:    cand = (scores - lse) + topk_raw_logits
     frozen row:  [(scores, pad_id), (scores + NEG_INF, next smallest ids)]
 
-Its plain version is the JAX ``impl="xla"`` branch: materialize the
-logits, floor the banned ids, then ``beam_topk_plain``. Runs at full slot
-depth K; the JAX package's shallow-slot watermark mode is a later slice.
+Its plain version at full slot depth K is the JAX ``impl="xla"`` branch:
+materialize the logits, floor the banned ids, then ``beam_topk_plain``.
+
+Shallow slots (``slots`` / ``VAG_FRT_SLOTS`` below K), the JAX package's
+watermark mode: each lane of the kernel keeps only ``sk`` slots and a
+watermark, the largest value it pushed out of them; a row is flagged
+(``viol``) when some lane's watermark reaches the row's provisional K-th
+value, and only a flagged row may differ from depth K. A lane is the
+kernel's own partition (``kernel_lanes``: a thread's 4 columns of every
+64-column tile of its vocab split), not the TPU's ``id % 128``; the plain
+version takes the lane map as an argument, so it models either. Recovery,
+as in the JAX package: per step (flagged live rows recomputed at depth K
+on the device, no host read), or deferred (the live-row flag returned for
+the beam loop to OR over a chunk and rerun the chunk at depth K), or none
+(``VAG_FRT_NOCOND=1``, not exact).
 """
 
 from __future__ import annotations
@@ -25,13 +37,16 @@ import torch
 
 from vag_nmt_tpu_torch.core.config import PAD_ID
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
+from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
 from vag_nmt_tpu_torch.ops import _build
 from vag_nmt_tpu_torch.ops.topk import _FLOOR, NEG_INF, beam_topk_plain, stable_topk
 
 # Tiling of the kernel's first pass; csrc/readout_topk.cu is built with it
-# (-D defines, see the declare() below), so the split plan cannot disagree.
+# (-D defines, see the declare() below), so the split plan and the lane map
+# cannot disagree with it.
 _ROW_TILE = 32
 _COL_TILE = 64
+_LANE_COLS = 4              # columns of a tile that one thread (lane) folds
 _MAX_K = 8
 _TARGET_BLOCKS = 264        # two blocks per SM on the H100's 132 SMs
 
@@ -39,25 +54,13 @@ _TARGET_BLOCKS = 264        # two blocks per SM on the H100's 132 SMs
 def ban_mask(ban: torch.Tensor, V: int) -> torch.Tensor:
     """(R, M) banned ids (V = the "no ban" sentinel) -> dense (R, V) uint8
     mask. The sentinel lands in an extra column that is cut off, which is
-    how the JAX scatter drops it."""
+    how the JAX scatter drops it. A negative id (ngram_ban's window past
+    the token buffer, which only a frozen row riding past max_len reaches)
+    is dropped too: a frozen row's logits are not used."""
     R = ban.shape[0]
     mask = torch.zeros((R, V + 1), dtype=torch.uint8, device=ban.device)
-    mask.scatter_(1, ban.long(), 1)
+    mask.scatter_(1, torch.where(ban < 0, V, ban.long()), 1)
     return mask[:, :V].contiguous()
-
-
-def readout_topk_rows_plain(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                            k: int, mask: Optional[torch.Tensor] = None
-                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version of the kernel: per-row top-k (values, int32 ids,
-    ties to the smaller id) and log-sum-exp of ``t @ w + b`` with banned ids
-    floored to -3e38."""
-    logits = t @ w + b
-    if mask is not None:
-        logits = torch.where(mask.bool(), torch.full_like(logits, _FLOOR),
-                             logits)
-    vals, idx = stable_topk(logits, k)
-    return vals, idx.to(torch.int32), torch.logsumexp(logits, dim=-1)
 
 
 def _split_plan(R: int, V: int) -> Tuple[int, int]:
@@ -70,17 +73,94 @@ def _split_plan(R: int, V: int) -> Tuple[int, int]:
     return -(-n_tiles // per_split), per_split * _COL_TILE
 
 
+def kernel_lanes(R: int, V: int) -> torch.Tensor:
+    """(V,) int64: the lane of each vocab id in the CUDA kernel at R rows,
+    (its vocab split, its thread's column group within a tile)."""
+    _, split_cols = _split_plan(R, V)
+    col = torch.arange(V)
+    per_split = _COL_TILE // _LANE_COLS
+    return (col // split_cols) * per_split + (col % _COL_TILE) // _LANE_COLS
+
+
+def _shallow(logits: torch.Tensor, k: int, sk: int, lanes: torch.Tensor):
+    """The watermark mode on materialized (R, V) logits: each lane keeps its
+    top-sk by (value desc, smaller id); returns the union's top-k (vals,
+    ids) and viol (R,) int32 = (max over lanes of the (sk+1)-th best value,
+    -3e38 where no lane has one) >= the union's k-th value."""
+    R, V = logits.shape
+    lanes = lanes.to(logits.device)
+    order = stable_topk(logits, V)[1]                      # value desc, id asc
+    by_lane = torch.sort(lanes[order], dim=1, stable=True)
+    pos = torch.gather(order, 1, by_lane.indices)          # lane-major order
+    starts = torch.cumsum(torch.bincount(lanes), 0) - torch.bincount(lanes)
+    rank = torch.arange(V, device=logits.device) - starts[by_lane.values]
+    vals = torch.gather(logits, 1, pos)
+    neg_inf = torch.full_like(vals, float("-inf"))
+    kept = torch.zeros_like(logits).scatter_(1, pos, torch.where(
+        rank < sk, vals, neg_inf))
+    uvals, uidx = stable_topk(kept, k)
+    mark = torch.where(rank == sk, vals, neg_inf).amax(1).clamp_min(_FLOOR)
+    return uvals, uidx, (mark >= uvals[:, k - 1]).to(torch.int32)
+
+
+def readout_topk_rows_plain(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                            k: int, mask: Optional[torch.Tensor] = None, *,
+                            slots: int = 0,
+                            lanes: Optional[torch.Tensor] = None,
+                            recover_live: Optional[torch.Tensor] = None):
+    """The plain version of the kernel: per-row top-k (values, int32 ids,
+    ties to the smaller id) and log-sum-exp of ``t @ w + b`` with banned ids
+    floored to -3e38. With ``slots`` > 0 (sk = min(slots, k)) also the
+    watermark mode's per-row viol (int32) as a fourth output, under the
+    lane map ``lanes`` ((V,) lane ids; None: ``kernel_lanes``), with the
+    shallow union's top-k in place of the exact one unless sk == k; rows
+    flagged and True in ``recover_live`` (R,) get the depth-k result."""
+    logits = t @ w + b
+    if mask is not None:
+        logits = torch.where(mask.bool(), torch.full_like(logits, _FLOOR),
+                             logits)
+    vals, idx = stable_topk(logits, k)
+    lse = torch.logsumexp(logits, dim=-1)
+    if not slots:
+        return vals, idx.to(torch.int32), lse
+    R, V = logits.shape
+    if min(slots, k) >= k:
+        return (vals, idx.to(torch.int32), lse,
+                torch.zeros((R,), dtype=torch.int32, device=logits.device))
+    lanes = kernel_lanes(R, V) if lanes is None else lanes
+    svals, sidx, viol = _shallow(logits, k, slots, lanes)
+    if recover_live is not None:
+        fix = ((viol > 0) & recover_live)[:, None]
+        svals, sidx = torch.where(fix, vals, svals), torch.where(fix, idx, sidx)
+    return svals, sidx.to(torch.int32), lse, viol
+
+
 def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       k: int, mask: Optional[torch.Tensor] = None, *,
-                      impl: str = "auto"
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      slots: int = 0,
+                      recover_live: Optional[torch.Tensor] = None,
+                      impl: str = "auto"):
     """(vals (R, k) f32, idx (R, k) int32, lse (R,) f32) of the rows of
-    ``t @ w + b``. impl: "auto" (kernel for CUDA tensors, plain for CPU
-    tensors), "kernel" or "plain". Each kernel call counts one in
-    ``readout_topk_rows.launches`` and its two grids (the vocab splits, then
-    their merge) in ``readout_topk_rows.grids``."""
+    ``t @ w + b``; with ``slots`` > 0 the watermark mode at slot depth
+    min(slots, k) and a fourth output, viol (R,) int32, as
+    ``readout_topk_rows_plain``. recover_live ((R,) bool): recover the
+    flagged live rows at depth k within the call (the per-step recovery);
+    each such row and each call that recovers any counts in
+    ``readout_topk_rows.recoveries``, a (2,) int64 tensor on the rows'
+    device (None until the first recovery). impl: "auto" (kernel for CUDA
+    tensors, plain for CPU tensors), "kernel" or "plain". Each kernel call
+    counts one in ``readout_topk_rows.launches`` and its grids in
+    ``readout_topk_rows.grids``: the vocab splits and their merge, and with
+    the per-step recovery the depth-k rerun and its merge."""
+    sk = min(slots, k) if slots else k
+    recover = recover_live if sk < k else None
     if resolve_impl(impl, t) == "plain":
-        return readout_topk_rows_plain(t, w, b, k, mask)
+        out = readout_topk_rows_plain(t, w, b, k, mask, slots=slots,
+                                      recover_live=recover)
+        if recover is not None:
+            fix = (out[3] > 0) & recover
+            _recoveries(t.device).add_(torch.stack([fix.sum(), fix.any().long()]))
+        return out
     R, E = t.shape
     V = w.shape[1]
     if not 1 <= k <= _MAX_K or k > V:
@@ -99,28 +179,70 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     vals = torch.empty((R, k), dtype=torch.float32, device=dev)
     idx = torch.empty((R, k), dtype=torch.int32, device=dev)
     lse = torch.empty((R,), dtype=torch.float32, device=dev)
+    # shallow slots: (part_w, viol); per-step recovery: (live, tile marks,
+    # the recovery counter)
+    shallow, recovery = (None, None), (None, None, None)
+    if sk < k:
+        shallow = (torch.empty((n_split, R), dtype=torch.float32, device=dev),
+                   torch.empty((R,), dtype=torch.int32, device=dev))
+    if recover is not None:
+        live = recover.to(torch.uint8).contiguous()
+        check_kernel_arg(live, torch.uint8, (R,), "readout_topk: recover_live")
+        recovery = (live, torch.empty((-(-R // _ROW_TILE),), dtype=torch.uint8,
+                                      device=dev), _recoveries(dev))
+    part_w, viol = (None if x is None else x.data_ptr() for x in shallow)
     lib = _build.load("readout_topk")
     rc = lib.readout_topk_launch(
         t.data_ptr(), w.data_ptr(), b.data_ptr(),
         None if mask is None else mask.data_ptr(),
         part_v.data_ptr(), part_i.data_ptr(), part_m.data_ptr(),
-        part_s.data_ptr(), vals.data_ptr(), idx.data_ptr(), lse.data_ptr(),
-        R, E, V, k, n_split, split_cols,
+        part_s.data_ptr(), part_w, vals.data_ptr(), idx.data_ptr(),
+        lse.data_ptr(), viol,
+        *(None if x is None else x.data_ptr() for x in recovery),
+        R, E, V, k, sk, n_split, split_cols,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"readout_topk kernel launch failed: CUDA error {rc}")
     readout_topk_rows.launches += 1
-    readout_topk_rows.grids += 2
-    return vals, idx, lse
+    readout_topk_rows.grids += 2 if recover is None else 4
+    if not slots:
+        return vals, idx, lse
+    if shallow[1] is None:                     # depth k: nothing flagged
+        return vals, idx, lse, torch.zeros((R,), dtype=torch.int32, device=dev)
+    return vals, idx, lse, shallow[1]
 
 
 readout_topk_rows.launches = 0
 readout_topk_rows.grids = 0
+readout_topk_rows.recoveries = None
+
+
+def _recoveries(dev: torch.device) -> torch.Tensor:
+    """The recovery counter on ``dev`` (made, at zero, on first use there)."""
+    c = readout_topk_rows.recoveries
+    if c is None or c.device != dev:
+        c = readout_topk_rows.recoveries = torch.zeros(2, dtype=torch.int64,
+                                                       device=dev)
+    return c
+
 
 _build.declare("readout_topk", "readout_topk_launch",
-               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+               [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
                defines={"VAG_RT": _ROW_TILE, "VAG_CT": _COL_TILE,
-                        "VAG_MAX_K": _MAX_K})
+                        "VAG_CPT": _LANE_COLS, "VAG_MAX_K": _MAX_K})
+
+
+def deferred_exactness_active(K: int) -> bool:
+    """Whether beam_search carries the live-row watermark flag over a chunk
+    and reruns the chunk at depth K when it fired (the JAX package's
+    chunk-level deferred recovery): the fused step (``VAG_READOUT_TOPK``,
+    default "fused" on every device, where the JAX package takes "unfused"
+    off the TPU) at a slot depth below K, ``VAG_FRT_DEFER`` not "0" and
+    ``VAG_FRT_NOCOND`` not "1"."""
+    kn = decode_knobs()
+    if not kn.frt_defer or kn.frt_nocond or kn.readout_topk != "fused":
+        return False
+    return min(max(1, over(kn.frt_slots, K)), K) < K
 
 
 def _combine(rvals, ridx, lse, scores, finished, V: int, pad_id: int):
@@ -159,27 +281,53 @@ def fused_readout_topk(
     *,
     pad_id: int = PAD_ID,
     impl: str = "auto",
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    slots: int = 0,
+    defer_exact: bool = False,
+):
     """Top-K next-beam candidates straight from the readout activations:
     (top_scores (B, K) fp32 descending, flat_idx (B, K) int64, flat =
     beam * V + token), the contract of ``beam_topk`` applied to
     ``t @ w + b``. impl: "auto" (kernel for CUDA tensors, plain for CPU
-    tensors), "kernel", "plain", or the JAX names "pallas" / "xla"."""
+    tensors), "kernel", "plain", or the JAX names "pallas" / "xla".
+
+    slots: the per-lane slot depth (0: ``VAG_FRT_SLOTS``, else K). Below K
+    the result stays exact: flagged live rows are recovered at depth K in
+    the step, unless defer_exact, where a third output is appended instead,
+    a 0-dim bool tensor on the device (no sync) that is True iff a LIVE row
+    was flagged (frozen rows' outputs are discarded by ``_combine``), or
+    ``VAG_FRT_NOCOND=1``, where nothing is recovered (not exact). At depth
+    K the appended flag is always False."""
     B, K = scores.shape
     E, V = w.shape
     R = t.shape[0]
     if R != B * K:
         raise ValueError(f"t rows {R} != B*K = {B * K}")
     scores = scores.to(torch.float32)
-    if resolve_impl(impl, t) == "plain":
-        logits = t @ w + b
-        if ban is not None:
-            logits = torch.where(ban_mask(ban, V).bool(),
-                                 logits.clamp_max(_FLOOR), logits)
-        return beam_topk_plain(logits.reshape(B, K, V), scores, finished,
-                               pad_id=pad_id)
+    kn = decode_knobs()
+    sk = min(max(1, slots if slots > 0 else over(kn.frt_slots, K)), K)
+    route = resolve_impl(impl, t)
     mask = None if ban is None else ban_mask(ban, V)
-    rvals, ridx, lse = readout_topk_rows(t.contiguous(), w.contiguous(),
-                                         b.contiguous(), K, mask,
-                                         impl="kernel")
-    return _combine(rvals, ridx, lse, scores, finished, V, pad_id)
+    if sk >= K:
+        if route == "plain":
+            logits = t @ w + b
+            if mask is not None:
+                logits = torch.where(mask.bool(), logits.clamp_max(_FLOOR),
+                                     logits)
+            out = beam_topk_plain(logits.reshape(B, K, V), scores, finished,
+                                  pad_id=pad_id)
+        else:
+            rows = readout_topk_rows(t.contiguous(), w.contiguous(),
+                                     b.contiguous(), K, mask, impl="kernel")
+            out = _combine(*rows, scores, finished, V, pad_id)
+        if defer_exact:
+            out = out + (torch.zeros((), dtype=torch.bool, device=t.device),)
+        return out
+    live = ~finished.reshape(-1)
+    recover = not defer_exact and not kn.frt_nocond
+    rvals, ridx, lse, viol = readout_topk_rows(
+        t.contiguous(), w.contiguous(), b.contiguous(), K, mask, slots=sk,
+        recover_live=live if recover else None, impl=route)
+    out = _combine(rvals, ridx, lse, scores, finished, V, pad_id)
+    if defer_exact:
+        out = out + (((viol > 0) & live).any(),)
+    return out
