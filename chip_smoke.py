@@ -32,7 +32,11 @@ Phases (each raises on failure; the script then exits non-zero):
      and through the plain versions from the same init and dropout draws;
      then 3 steps under torch.profiler, as phase 5;
   9. beam_topk kernel against its plain version at the unfused beam step's
-     shape (B=128, K=5, V=8000), exactly, with finished rows and forced ties;
+     shape (B=128, K=5, V=8000), exactly, with finished rows and forced ties,
+     and on the split cases (ragged V=8003, B=1 over many vocab slices, ties
+     straddling a slice boundary and across beams, K=1, K=8, all finished);
+     before it, kernels 6, 8 and 9 timed as grids alone at V=8000 and 16000,
+     cold (L2 flushed) and warm, beside torch.topk on the candidates;
  10. dec_step kernel against its plain version at full width (B=128, K=5,
      T=32) and at a ragged shape, with masked source positions;
  11. the serving path: Translator.from_run on phase 8's run dir (its
@@ -45,7 +49,8 @@ Phases (each raises on failure; the script then exits non-zero):
  12. legacy_topk_blocks and legacy_topk_rows (the two legacy beam top-K
      kernels) against their plain versions at (B, K, V) = (128, 5, 16000)
      and (128, 5, 8000), exactly: random, all-finished and forced ties
-     across 512-blocks, where each follows its own tie rule;
+     across 512-blocks, where each follows its own tie rule; gen 2 on the
+     split cases of phase 9;
  13. the readout_topk kernel's shallow-slot watermark mode at R=640, E=256,
      V=16000, slot depths 1 and 3: every row's viol as the plain version's
      under the kernel's lane map, unflagged rows and the per-step recovery
@@ -58,8 +63,8 @@ Phases (each raises on failure; the script then exits non-zero):
      IKEA_MODES (two-phase at depth K and with per-step recovery; chunked
      with the deferred chunk rerun, per-step, unrolled; the unfused step
      through kernels 8, 9 and 6), each kernel's launches read from its own
-     mode, the shares of identical hypotheses between modes, and (a) and
-     (b) under the profiler.
+     mode, the shares of identical hypotheses between modes, and (a), (b),
+     (g) and (h) under the profiler.
 Phase 1 builds all eight sources. It prints one JSON line of per-kernel
 numbers and, last, the device line.
 Needs torch with CUDA and nvcc; imports nothing of JAX.
@@ -130,9 +135,52 @@ def _time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2] if len(times) % 2 else 0.5 * (
-        times[len(times) // 2 - 1] + times[len(times) // 2])
+    return _median(times)
+
+
+# Grid-only timings: a read of FLUSH_BYTES (more than the H100's 50 MB L2,
+# and a read, so the timed grid finds no dirty lines to write back) before
+# each cold launch, then HOLD_CYCLES of device sleep so the host has
+# enqueued the event pair and the launch before the device reaches them;
+# WARM_LAUNCHES back to back behind WARM_HOLD_CYCLES of sleep.
+FLUSH_BYTES = 96 << 20
+HOLD_CYCLES = 200_000
+WARM_LAUNCHES, WARM_HOLD_CYCLES = 200, 20_000_000
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+
+
+def _grid_ms(torch, launch, reps: int = 41):
+    """(cold, warm) device ms of one launch(): cold is the median of
+    per-launch event pairs with L2 flushed before each, warm the time of
+    WARM_LAUNCHES back-to-back launches over their count. launch() enqueues
+    the grid alone (inputs and outputs made beforehand)."""
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in pairs:
+        flush.sum()
+        torch.cuda._sleep(HOLD_CYCLES)
+        a.record()
+        launch()
+        b.record()
+    torch.cuda.synchronize()
+    cold = _median([a.elapsed_time(b) for a, b in pairs])
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(WARM_HOLD_CYCLES)
+    a.record()
+    for _ in range(WARM_LAUNCHES):
+        launch()
+    b.record()
+    torch.cuda.synchronize()
+    return cold, a.elapsed_time(b) / WARM_LAUNCHES
 
 
 def _bound(flops: float, nbytes: float):
@@ -664,11 +712,68 @@ def phase_train(torch, np, dev):
     return launches, grids, profiled, (out_dir, cfg, vocab)
 
 
+def _split_cases(torch, np, dev):
+    """Exactness cases of the split top-K kernels (6 and 9) beyond the
+    paths' shapes: (label, (logits, scores, finished), expected leading ids
+    or None). A ragged V and a logits view one float into its storage
+    (rows not 16-byte aligned), a single sentence over
+    many slices, ties straddling a slice boundary and across beams, K=1,
+    K=8, and all beams finished (the closed form)."""
+    from vag_nmt_tpu_torch.ops.topk import split_bounds, split_plan
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def case(B, K, V, ff, seed, ties=False):
+        rng = np.random.RandomState(seed)
+        if ties:
+            logits = np.repeat(rng.randint(-2, 3, (B, 1, V)), K, 1)
+            scores = np.repeat(rng.randint(-3, 1, (B, 1)), K, 1)
+        else:
+            logits, scores = 3.0 * rng.randn(B, K, V), rng.randn(B, K)
+        return [cuda(logits.astype(np.float32)), cuda(scores.astype(np.float32)),
+                cuda(rng.rand(B, K) < ff)]
+
+    shifted = case(128, 5, 8000, 0.2, 36)
+    store = torch.empty(shifted[0].numel() + 1, device=dev)
+    shifted[0] = store[1:].view(shifted[0].shape).copy_(shifted[0])
+    out = [("ragged V=8003", case(128, 5, 8003, 0.2, 30), None),
+           ("logits 4 bytes past a 16-byte boundary", shifted, None),
+           ("B=1 V=16000", case(1, 5, 16000, 0.2, 31), None),
+           ("K=1", case(128, 1, 8000, 0.2, 32), None),
+           ("K=8 ties V=8003", case(16, 8, 8003, 0.3, 33, ties=True), None),
+           ("B=1 all finished", case(1, 5, 8003, 1.0, 34), None)]
+    B, K, V = 1, 5, 8003
+    args = case(B, K, V, 0.0, 35, ties=True)
+    edge = split_bounds(V, split_plan(B, K, V))[1][0]
+    args[0][:, :, [edge - 1, edge]] = 5.0
+    out.append((f"slice-boundary ties at {edge} (S={split_plan(B, K, V)})", args,
+                [k * V + c for k in range(K) for c in (edge - 1, edge)][:K]))
+    return out
+
+
+def _split_exactness(torch, name, fn, plain, cases):
+    """fn (kernel) against plain on every case: ids and values exactly."""
+    for label, args, lead in cases:
+        kv, ki = fn(*args, impl="kernel")
+        pv, pi = plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, pi) and torch.equal(kv, pv)):
+            raise AssertionError(f"{name} {label}: ids differ in "
+                                 f"{int((ki != pi).sum())} places, values by "
+                                 f"{float((kv - pv).abs().max())}")
+        if lead is not None and ki[0].tolist() != lead:
+            raise AssertionError(f"{name} {label}: took {ki[0].tolist()}, "
+                                 f"expected {lead}")
+        print(f"{name} {label}: ok (exact)")
+
+
 def phase_beam_topk(torch, np, dev):
     """beam_topk against beam_topk_plain at the unfused beam step's shape:
     ids and values exactly, with finished rows and forced ties (integer
     logits repeated across a sentence's beams under equal scores, so
-    candidates tie within rows, across rows and across beams)."""
+    candidates tie within rows, across rows and across beams), then the
+    split cases of _split_cases."""
     from vag_nmt_tpu_torch.ops.topk import beam_topk, beam_topk_plain, candidates
 
     B, K, V = 128, 5, 8000
@@ -700,6 +805,8 @@ def phase_beam_topk(torch, np, dev):
             raise AssertionError(f"beam_topk {kind}: values off by "
                                  f"{float((kv - pv).abs().max())}")
         print(f"beam_topk {kind}: ok (exact)")
+    _split_exactness(torch, "beam_topk", beam_topk, beam_topk_plain,
+                     _split_cases(torch, np, dev))
 
     args = case("random")
     ms = _time_ms(torch, lambda: beam_topk(*args, impl="kernel"))
@@ -721,6 +828,62 @@ def phase_beam_topk(torch, np, dev):
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+# Shapes of the top-K grid timings: m30k serving (d) and ikea (f)-(h); the
+# kernels line carries each kernel's at the V of its own path.
+TOPK_GRID_SHAPES = ((128, 5, 8000), (128, 5, 16000))
+TOPK_PATH_V = {"beam_topk": 8000, "legacy_topk_blocks": 16000,
+               "legacy_topk_rows": 16000}
+
+
+def phase_topk_grids(torch, np, dev):
+    """Kernels 6, 8 and 9 timed as grids alone (their C entry points on
+    base, flags and outputs made beforehand), cold and warm (_grid_ms),
+    beside torch.topk on the materialized candidates, (B, K*V) and, the
+    per-row yardstick of kernel 9, (B*K, V); all beams live, so every
+    logit is read. Two references for what is not reading: the same grid
+    with every beam finished (no logit read: launch, merges and tickets),
+    and an empty device op (the floor of an event pair). Returns
+    {(name, V): fields of the kernels line}."""
+    from vag_nmt_tpu_torch.ops import topk
+
+    floor_ms = _grid_ms(torch, lambda: torch.cuda._sleep(0))[0]
+    out = {}
+    for B, K, V in TOPK_GRID_SHAPES:
+        rng = np.random.RandomState(V + 1)
+        args = tuple(torch.from_numpy(a).to(dev) for a in (
+            (3.0 * rng.randn(B, K, V)).astype(np.float32),
+            rng.randn(B, K).astype(np.float32), np.zeros((B, K), bool)))
+        done = args[:2] + (torch.ones((B, K), dtype=torch.bool, device=dev),)
+        cand = topk.candidates(*args)
+        rows = cand.reshape(B * K, V)
+        lib = {}
+        for what, x in (("", cand), ("rows_", rows)):
+            tv = torch.empty((x.shape[0], K), dtype=torch.float32, device=dev)
+            ti = torch.empty((x.shape[0], K), dtype=torch.int64, device=dev)
+            lib[what] = _grid_ms(torch, lambda: torch.topk(x, K, dim=-1,
+                                                           out=(tv, ti)))
+        n = B * K * V
+        bound_ms, _ = _bound(2.0 * n, 4.0 * n + 5.0 * B * K + 12.0 * B * K)
+        for name in ("beam_topk", "legacy_topk_blocks", "legacy_topk_rows"):
+            fn, cargs, _, keep = topk.grid_call(name, *args)
+            cold, warm = _grid_ms(torch, lambda: fn(*cargs))
+            fn, cargs, _, keep = topk.grid_call(name, *done)
+            f = {"grid_ms": cold, "grid_warm_ms": warm,
+                 "grid_finished_ms": _grid_ms(torch, lambda: fn(*cargs))[0],
+                 "grid_floor_ms": floor_ms,
+                 "library_grid_ms": lib[""][0],
+                 "library_grid_warm_ms": lib[""][1]}
+            if name == "legacy_topk_rows":
+                f["library_rows_grid_ms"] = lib["rows_"][0]
+                f["library_rows_grid_warm_ms"] = lib["rows_"][1]
+            out[(name, V)] = f
+            print(f"{name} grid (B={B}, K={K}, V={V}): " + json.dumps(
+                {**f, "bound_ms": bound_ms,
+                 "grid_bound_share": bound_ms / cold}))
+            del keep
+    return out
 
 
 def _dec_step_case(torch, np, dev, B, K, T, H, A, C, R, seed):
@@ -816,7 +979,8 @@ def phase_legacy_topk(torch, np, dev):
     plain versions, ids and values exactly, at (B, K, V) = (128, 5, 16000)
     and (128, 5, 8000) (neither V a multiple of the 512-block): random,
     all-finished and forced cross-block ties, where gen 1 and gen 2 must
-    each follow their own rule and differ."""
+    each follow their own rule and differ; then gen 2 on the split cases
+    of _split_cases."""
     from vag_nmt_tpu_torch.ops import topk
 
     kernels = (("legacy_topk_blocks", topk.legacy_topk_blocks,
@@ -845,6 +1009,8 @@ def phase_legacy_topk(torch, np, dev):
                     raise AssertionError(f"forced ties V={V}: gen 1 took "
                                          f"{g1[0].tolist()}, gen 2 {g2[0].tolist()}")
             print(f"legacy top-K {kind} (B={B}, K={K}, V={V}): ok (exact)")
+    _split_exactness(torch, "legacy_topk_rows", topk.legacy_topk_rows,
+                     topk.legacy_topk_rows_plain, _split_cases(torch, np, dev))
 
     B, K, V = 128, 5, 16000
     args = _legacy_case(torch, np, dev, "random", B, K, V, seed=1)
@@ -1246,7 +1412,7 @@ def phase_ikea(torch, np, dev):
         elif share < least:
             raise AssertionError(f"ikea ({a}) vs ({b}): only {share:.4f} of "
                                  "hypotheses identical")
-    for mode in ("a", "b"):
+    for mode in ("a", "b", "g", "h"):
         phase_profile(torch, f"ikea ({mode}) (beam steps)",
                       lambda: _with_env(envs[mode], run)[1]["beam_loop_steps"])
     pick = {"legacy_topk_blocks": ("f", "legacy_topk_blocks"),
@@ -1350,6 +1516,7 @@ def main() -> int:
     t0 = time.perf_counter()
     decode_kernels = [phase_readout(torch, np, dev), phase_gru(torch, np, dev)]
     train_kernels = [phase_gru_bwd(torch, np, dev), *phase_dec_scan(torch, np, dev)]
+    grid_times = phase_topk_grids(torch, np, dev)
     serve_kernels = [phase_beam_topk(torch, np, dev),
                      phase_dec_step(torch, np, dev)]
     ikea_kernels = [*phase_legacy_topk(torch, np, dev),
@@ -1376,6 +1543,8 @@ def main() -> int:
             k["launches"] = ln[k["name"]]
             k["grids"] = gr[k["name"]]    # device grids those launches enqueued
     kernels = decode_kernels + train_kernels + serve_kernels + ikea_kernels
+    for k in kernels:
+        k.update(grid_times.get((k["name"], TOPK_PATH_V.get(k["name"])), {}))
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

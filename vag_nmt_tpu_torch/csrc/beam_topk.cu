@@ -15,21 +15,29 @@
 // kernel must read the 20.5 MB of logits once, ~6.1 us at 3.35 TB/s, and
 // does a few operations per element: bound by bytes.
 //
-// Design. The TPU kernel walks vocab blocks in order and keeps, per lane, a
-// running top-K by a branch-free insertion cascade, merging lanes once at
-// the end; the K*K -> K cross-beam combine ran outside it. Here one block
-// takes one sentence (its K rows), every thread keeps the cascade in
-// registers over a strided slice of each row (coalesced reads, the frozen
-// rows' logits not read at all), and the block merges its threads' lists
-// pairwise in shared memory (log2(threads) rounds of K insertions). Taking
-// the top-K over the sentence's K*V candidates at once is the per-row top-K
-// and the combine in one, with the same (value, index) order. Simple first:
-// one block per sentence leaves 4 of 132 SMs idle at B=128.
+// Design (the split top-K of topk_split.cuh). Stage 1: one 128-thread CTA
+// per (row, vocab slice), S slices per row planned in ops/topk.py so that
+// the grid puts several CTAs on every SM; float4 loads, several in flight
+// per thread; a candidate enters the register cascade only if it beats the
+// thread's K-th entry; warp shuffles and shared memory merge the CTA's
+// lists into K partials with flat ids k * V + v; a finished row reads no
+// logits. Stage 2 runs in the last CTA of each sentence to arrive (an
+// atomic ticket, so one launch in all): one warp merges the sentence's
+// K * S partial lists into its K values and int64 flat ids.
+//
+// Measured (chip_smoke.py on an H100 SXM at 700 W; PERF.md), the grid
+// alone with L2 cold: 0.027 ms at V=8000 and 0.039 ms at V=16000, 22% and
+// 32% of the bytes bound, where the first design (one 256-thread CTA per
+// sentence, scalar loads, the full cascade on every element) took 0.047
+// and 0.084 and torch.topk on the same candidates takes 0.139 and 0.237.
+// What is left: 0.009 ms of fixed cost (every beam finished, no logit
+// read) and a loop that reads at ~1.4 TB/s in every tiling tried.
 
 #include <limits.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "topk_split.cuh"
 
 namespace {
 
@@ -37,80 +45,79 @@ namespace {
 #error "build through vag_nmt_tpu_torch/ops/_build.py (VAG_MAX_K)"
 #endif
 
-constexpr float FLOOR = -3.0e38f;
-constexpr float NEG_INF = -1e9f;     // ops/topk.py's finished-beam filler
-constexpr int THREADS = 256;
-
-using vag::insert;
+namespace split = vag::split;
 
 template <int K>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(split::THREADS)
 beam_topk_kernel(const float* __restrict__ logits,
                  const float* __restrict__ base,
-                 const uint8_t* __restrict__ fin, float* __restrict__ vals,
-                 long long* __restrict__ idx, int V, int pad_id) {
-  __shared__ float lv[THREADS * K];
-  __shared__ int li[THREADS * K];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  float sv[K];
-  int si[K];
+                 const uint8_t* __restrict__ fin, float* part_v, int* part_i,
+                 unsigned int* counters, float* __restrict__ vals,
+                 long long* __restrict__ idx, int V, int S, int pad_id) {
+  if (!split::stage1<K>(logits, base, fin, part_v, part_i, counters, V, S,
+                        pad_id, /*flat_ids=*/true))
+    return;
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x / (S * K);
+  const size_t p0 = (size_t)b * K * S * K;
+  float sv[K], ov[K];
+  int si[K], oi[K];
+  split::clear<K>(sv, si);
+  // partials other CTAs wrote: read through L2 (__ldcg), not L1
+  for (int e = lane; e < K * S * K; e += 32)
+    split::offer<K>(sv, si, __ldcg(part_v + p0 + e),
+                    __ldcg(part_i + p0 + e));
+  split::warp_merge<K>(sv, si, ov, oi);
+  if (lane == 0) {
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    sv[s] = FLOOR;
-    si[s] = INT_MAX;
-  }
-  for (int k = 0; k < K; ++k) {
-    const float bs = base[(size_t)b * K + k];
-    const int off = k * V;
-    if (fin[(size_t)b * K + k]) {
-      const float rest = bs + NEG_INF;
-      for (int v = tid; v < V; v += THREADS)
-        insert<K>(sv, si, v == pad_id ? bs : rest, off + v);
-    } else {
-      const float* row = logits + ((size_t)b * K + k) * V;
-      for (int v = tid; v < V; v += THREADS)
-        insert<K>(sv, si, bs + row[v], off + v);
+    for (int j = 0; j < K; ++j) {
+      vals[(size_t)b * K + j] = ov[j];
+      idx[(size_t)b * K + j] = oi[j];
     }
-  }
-  vag::block_merge<K>(sv, si, lv, li);
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      vals[(size_t)b * K + s] = sv[s];
-      idx[(size_t)b * K + s] = si[s];
-    }
+    counters[b] = 0u;
   }
 }
 
 template <int K>
 int launch(const float* logits, const float* base, const uint8_t* fin,
-           float* vals, long long* idx, int B, int V, int pad_id,
+           float* part_v, int* part_i, unsigned int* counters, float* vals,
+           long long* idx, int B, int V, int S, int pad_id,
            cudaStream_t stream) {
-  beam_topk_kernel<K><<<B, THREADS, 0, stream>>>(logits, base, fin, vals, idx,
-                                                 V, pad_id);
+  beam_topk_kernel<K><<<B * K * S, split::THREADS, 0, stream>>>(
+      logits, base, fin, part_v, part_i, counters, vals, idx, V, S, pad_id);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Device pointers to contiguous tensors: logits (B, K, V) f32, base (B, K)
-// f32, fin (B, K) uint8; outputs vals (B, K) f32 descending, idx (B, K)
-// int64 flat indices k * V + v. 1 <= K <= VAG_MAX_K, K * V < 2^31.
-// Returns 0 or a CUDA error code.
+// f32, fin (B, K) uint8; scratch part_v (B*K*S*K) f32 and part_i int32,
+// counters (>= B) uint32, zero on entry and left zero; outputs vals (B, K)
+// f32 descending, idx (B, K) int64 flat indices k * V + v.
+// 1 <= K <= VAG_MAX_K, K * V < 2^31, S >= 1 slices per row. Returns 0 or a
+// CUDA error code.
 extern "C" int beam_topk_launch(const void* logits, const void* base,
-                                const void* fin, void* vals, void* idx, int B,
-                                int K, int V, int pad_id, void* stream) {
+                                const void* fin, void* part_v, void* part_i,
+                                void* counters, void* vals, void* idx, int B,
+                                int K, int V, int S, int pad_id,
+                                void* stream) {
   if (B <= 0) return 0;
-  if (V <= 0 || (long long)K * V >= INT_MAX) return (int)cudaErrorInvalidValue;
+  if (V <= 0 || S < 1 || (long long)K * V >= INT_MAX ||
+      (long long)B * K * S >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
   const float* lg = static_cast<const float*>(logits);
   const float* bs = static_cast<const float*>(base);
   const uint8_t* fn = static_cast<const uint8_t*>(fin);
+  float* pv = static_cast<float*>(part_v);
+  int* pi = static_cast<int*>(part_i);
+  unsigned int* ct = static_cast<unsigned int*>(counters);
   float* vf = static_cast<float*>(vals);
   long long* ix = static_cast<long long*>(idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VAG_TOPK_CASE(KK) \
   case KK:                \
-    return launch<KK>(lg, bs, fn, vf, ix, B, V, pad_id, s);
+    return launch<KK>(lg, bs, fn, pv, pi, ct, vf, ix, B, V, S, pad_id, s);
   switch (K) {
     VAG_TOPK_CASE(1)
     VAG_TOPK_CASE(2)

@@ -22,13 +22,18 @@ the kernel's ids and values equal the plain version's exactly.
 The legacy kernels keep the TPU kernels' tie orders. Gen 1
 (``legacy_topk_blocks``) orders equal candidates by (vocab block of 512,
 beam, id), not by flat index; gen 2 (``legacy_topk_rows``) takes a per-row
-top-K (ties to the smaller id) and combines the K*K per sentence in
-PyTorch, beam-major, which is the flat-index order again."""
+top-K (ties to the smaller id) and combines the K*K per sentence
+beam-major, which is the flat-index order again.
+
+Kernel 6 and gen 2 share one split design (``csrc/topk_split.cuh``): a
+grid over (row, vocab slice) with ``split_plan``'s S slices per row, each
+CTA writing its slice's K best, and the last CTA of each sentence merging
+them (gen 2: per row, then the combine) in the same launch."""
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -43,6 +48,9 @@ NEG_INF = -1e9          # finished-beam filler, matches decode/beam.py
 _FLOOR = -3.0e38        # "smaller than any candidate" for masking
 MAX_K = 8               # the kernel's register top-K (csrc/beam_topk.cu)
 LEGACY_BLOCK = 512      # the legacy TPU kernels' vocab block (their tv)
+SPLIT_THREADS = 128     # threads of a split CTA (csrc/topk_split.cuh)
+SPLIT_MIN_COLS = 4 * SPLIT_THREADS   # one float4 per thread at least
+SPLIT_TARGET_CTAS = 4 * 132          # four CTAs on each of the H100's SMs
 
 # VAG_TOPK_IMPL values -> the port's impl names
 _KNOB_IMPL = {"auto": "auto", "xla": "plain", "pallas_lanes": "kernel"}
@@ -52,6 +60,22 @@ def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, descending, ties to the smaller index."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def split_plan(B: int, K: int, V: int) -> int:
+    """Slices per row S of the split kernels: the fewest that give the
+    B*K rows SPLIT_TARGET_CTAS CTAs, but no slice under SPLIT_MIN_COLS
+    columns (at least 1)."""
+    want = -(-SPLIT_TARGET_CTAS // (B * K))
+    return max(1, min(want, V // SPLIT_MIN_COLS))
+
+
+def split_bounds(V: int, S: int) -> List[Tuple[int, int]]:
+    """Column bounds [c0, c1) of a row's S slices, as the kernel cuts them
+    (``slice_len``: ceil(V / S) rounded up to 4); trailing slices may be
+    empty."""
+    L = (-(-V // S) + 3) // 4 * 4
+    return [(min(V, s * L), min(V, s * L + L)) for s in range(S)]
 
 
 def _base(logits: torch.Tensor, scores: torch.Tensor,
@@ -140,19 +164,6 @@ def legacy_topk_rows_plain(
     return _rows_combine(rvals, ridx, B, K, V)
 
 
-def _legacy_launch(gen: str, logits, scores, finished, pad_id):
-    """Shared argument checks and inputs of the two legacy kernels:
-    (library, pointer arguments before the outputs, B, K, V)."""
-    B, K, V = logits.shape
-    if not 1 <= K <= min(MAX_K, V):
-        raise ValueError(f"{gen} kernel: K={K} outside 1..{min(MAX_K, V)}")
-    check_kernel_arg(logits, torch.float32, (B, K, V), f"{gen}: logits")
-    base = _base(logits, scores, finished).contiguous()
-    fin = finished.to(torch.uint8).contiguous()
-    check_kernel_arg(fin, torch.uint8, (B, K), f"{gen}: finished")
-    return _build.load("legacy_topk"), (logits, base, fin), B, K, V
-
-
 def legacy_topk_blocks(logits, scores, finished, *, pad_id: int = PAD_ID,
                        impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Gen 1: ``legacy_topk_blocks_plain``'s contract. impl: "auto" (the
@@ -161,50 +172,35 @@ def legacy_topk_blocks(logits, scores, finished, *, pad_id: int = PAD_ID,
     ``.grids``."""
     if resolve_impl(impl, logits) == "plain":
         return legacy_topk_blocks_plain(logits, scores, finished, pad_id=pad_id)
-    lib, ins, B, K, V = _legacy_launch("legacy_topk_blocks", logits, scores,
-                                       finished, pad_id)
-    vals = torch.empty((B, K), dtype=torch.float32, device=logits.device)
-    idx = torch.empty((B, K), dtype=torch.int64, device=logits.device)
-    rc = lib.legacy_topk_blocks_launch(
-        *(x.data_ptr() for x in ins), vals.data_ptr(), idx.data_ptr(),
-        B, K, V, pad_id, torch.cuda.current_stream(logits.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"legacy_topk_blocks kernel launch failed: CUDA "
-                           f"error {rc}")
+    out = _launch("legacy_topk_blocks", logits, scores, finished, pad_id)
     legacy_topk_blocks.launches += 1
     legacy_topk_blocks.grids += 1
-    return vals, idx
+    return out
 
 
 def legacy_topk_rows(logits, scores, finished, *, pad_id: int = PAD_ID,
                      impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gen 2: ``legacy_topk_rows_plain``'s contract; the kernel takes the
-    per-row top-K and ``_rows_combine`` the rest. impl and counters as
+    """Gen 2: ``legacy_topk_rows_plain``'s contract; one launch takes the
+    per-row top-K and the K*K -> K combine. impl and counters as
     ``legacy_topk_blocks``."""
     if resolve_impl(impl, logits) == "plain":
         return legacy_topk_rows_plain(logits, scores, finished, pad_id=pad_id)
-    lib, ins, B, K, V = _legacy_launch("legacy_topk_rows", logits, scores,
-                                       finished, pad_id)
-    rvals = torch.empty((B * K, K), dtype=torch.float32, device=logits.device)
-    ridx = torch.empty((B * K, K), dtype=torch.int32, device=logits.device)
-    rc = lib.legacy_topk_rows_launch(
-        *(x.data_ptr() for x in ins), rvals.data_ptr(), ridx.data_ptr(),
-        B, K, V, pad_id, torch.cuda.current_stream(logits.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"legacy_topk_rows kernel launch failed: CUDA "
-                           f"error {rc}")
+    out = _launch("legacy_topk_rows", logits, scores, finished, pad_id)
     legacy_topk_rows.launches += 1
     legacy_topk_rows.grids += 1
-    return _rows_combine(rvals, ridx, B, K, V)
+    return out
 
 
 legacy_topk_blocks.launches = legacy_topk_blocks.grids = 0
 legacy_topk_rows.launches = legacy_topk_rows.grids = 0
 
-_LEGACY_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-for _fn in ("legacy_topk_blocks_launch", "legacy_topk_rows_launch"):
-    _build.declare("legacy_topk", _fn, _LEGACY_ARGTYPES,
-                   defines={"VAG_MAX_K": MAX_K})
+_DEFINES = {"VAG_MAX_K": MAX_K, "VAG_SPLIT_THREADS": SPLIT_THREADS}
+_build.declare("legacy_topk", "legacy_topk_blocks_launch",
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+               defines=_DEFINES)
+_build.declare("legacy_topk", "legacy_topk_rows_launch",
+               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+               defines=_DEFINES)
 
 
 def beam_topk(
@@ -233,31 +229,80 @@ def beam_topk(
     impl = _KNOB_IMPL.get(impl, impl)
     if resolve_impl(impl, logits) == "plain":
         return beam_topk_plain(logits, scores, finished, pad_id=pad_id)
-    B, K, V = logits.shape
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"beam_topk kernel: K={K} outside 1..{MAX_K}")
-    check_kernel_arg(logits, torch.float32, (B, K, V), "beam_topk: logits")
-    base = _base(logits, scores, finished).contiguous()
-    fin = finished.to(torch.uint8).contiguous()
-    check_kernel_arg(fin, torch.uint8, (B, K), "beam_topk: finished")
-    dev = logits.device
-    vals = torch.empty((B, K), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, K), dtype=torch.int64, device=dev)
-    lib = _build.load("beam_topk")
-    rc = lib.beam_topk_launch(logits.data_ptr(), base.data_ptr(),
-                              fin.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                              B, K, V, pad_id,
-                              torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"beam_topk kernel launch failed: CUDA error {rc}")
+    out = _launch("beam_topk", logits, scores, finished, pad_id)
     beam_topk.launches += 1
     beam_topk.grids += 1
-    return vals, idx
+    return out
+
+
+# Per device: the split kernels' arrival counters, zero between launches
+# (the last CTA of each sentence sets its counter back to 0). Launches on
+# one stream run in order, so they share the buffer.
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=dev)
+    return c
+
+
+def grid_call(name: str, logits, scores, finished, *, pad_id: int = PAD_ID):
+    """One launch of kernel ``name`` ("beam_topk", "legacy_topk_blocks" or
+    "legacy_topk_rows") made ready: (C function, its arguments, its
+    outputs, the tensors its pointers hold). The outputs end with (vals,
+    idx); gen 2's begin with its per-row top-K (rvals, ridx). The wrapper
+    calls ``fn(*args)`` once; chip_smoke.py times that call alone, with
+    ``base``, scratch and outputs made beforehand. Counts nothing."""
+    B, K, V = logits.shape
+    kmax = MAX_K if name == "beam_topk" else min(MAX_K, V)
+    if not 1 <= K <= kmax:
+        raise ValueError(f"{name} kernel: K={K} outside 1..{kmax}")
+    check_kernel_arg(logits, torch.float32, (B, K, V), f"{name}: logits")
+    base = _base(logits, scores, finished).contiguous()
+    fin = finished.to(torch.uint8).contiguous()
+    check_kernel_arg(fin, torch.uint8, (B, K), f"{name}: finished")
+    dev = logits.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = (torch.empty((B, K), dtype=torch.float32, device=dev),
+            torch.empty((B, K), dtype=torch.int64, device=dev))
+    keep = (logits, base, fin)
+    if name == "legacy_topk_blocks":
+        return (_build.load("legacy_topk").legacy_topk_blocks_launch,
+                (logits.data_ptr(), base.data_ptr(), fin.data_ptr(),
+                 *(x.data_ptr() for x in outs), B, K, V, pad_id, stream),
+                outs, keep)
+    S = split_plan(B, K, V)
+    scratch = (torch.empty(B * K * S * K, dtype=torch.float32, device=dev),
+               torch.empty(B * K * S * K, dtype=torch.int32, device=dev),
+               _arrival_counters(dev, B))
+    if name == "beam_topk":
+        fn = _build.load("beam_topk").beam_topk_launch
+    else:
+        outs = (torch.empty((B * K, K), dtype=torch.float32, device=dev),
+                torch.empty((B * K, K), dtype=torch.int32, device=dev)) + outs
+        fn = _build.load("legacy_topk").legacy_topk_rows_launch
+    args = (logits.data_ptr(), base.data_ptr(), fin.data_ptr(),
+            *(x.data_ptr() for x in scratch + outs), B, K, V, S, pad_id,
+            stream)
+    return fn, args, outs, keep + scratch
+
+
+def _launch(name: str, logits, scores, finished, pad_id: int):
+    """Launch kernel ``name`` once; its (vals, idx)."""
+    fn, args, outs, _ = grid_call(name, logits, scores, finished,
+                                  pad_id=pad_id)
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return outs[-2:]
 
 
 beam_topk.launches = 0
 beam_topk.grids = 0
 
 _build.declare("beam_topk", "beam_topk_launch",
-               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-               defines={"VAG_MAX_K": MAX_K})
+               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+               defines=_DEFINES)
