@@ -9,8 +9,15 @@ Phases (each raises on failure; the script then exits non-zero):
      started together);
   2. readout_topk kernel against its plain PyTorch version at the beam-5
      decode shape of m30k_ende_vag (R=640 rows, E=256, V=8000, K=5);
-  3. gru_fwd kernel against its plain version at the encoder's super-chunk
-     shape (B=1024, T=32, E=256, H=512), ragged lengths, both directions;
+  3. gru_fwd kernel (one persistent grid per scan) against its plain
+     version at the encoders' shapes (B, T) = (1024, 32) m30k decode,
+     (64, 24) training and (512, 120) ikea_vag (E=256, H=512), ragged
+     lengths, both directions, and at the ragged batches of GRU_RAGGED
+     (a last row block part full, two passes over the row blocks a step,
+     under the card's plan and other tilings); at each path shape its
+     grid alone, cold (L2 flushed) and warm, beside cuDNN's nn.GRU forward
+     and the cuBLAS input projection alone (cuDNN minus it is the
+     recurrence's yardstick), and the operations bound;
   4. the main path: translate_corpus at beam 5 on the full-width
      m30k_ende_vag model (random weights from a fixed seed) over a synthetic
      corpus, through the kernels (impl="auto"), with each kernel's launch
@@ -66,7 +73,8 @@ Phases (each raises on failure; the script then exits non-zero):
      mode, the shares of identical hypotheses between modes, and (a), (b),
      (g) and (h) under the profiler.
 Phase 1 builds all eight sources. It prints one JSON line of per-kernel
-numbers and, last, the device line.
+numbers and, last, the device line. With --gru-grids it prints phase 3's
+grid times alone (see main).
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
 
@@ -263,53 +271,176 @@ def phase_readout(torch, np, dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def phase_gru(torch, np, dev):
-    from vag_nmt_tpu_torch.ops.gru import init_gru_params
-    from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd, gru_fwd_plain
+# gru_fwd's shapes on the paths (label, B, T): the m30k decode's encoder
+# super chunk, the m30k training batch, the ikea_vag encoder over 40-120
+# token captions; E and H of both presets.
+GRU_SHAPES = (("decode", 1024, 32), ("train", TRAIN_B, TRAIN_T),
+              ("ikea", 512, 120))
+GRU_E, GRU_H = 256, 512
 
-    B, T, E, H = 1024, 32, 256, 512
-    rng = np.random.RandomState(2)
+
+def _gru_case(torch, np, dev, B, T, seed):
+    """(x, params, xg_t, mask_t, h0) of one direction at (B, T), random
+    biases and ragged lengths (every row at least min(4, T) tokens, one
+    full)."""
+    from vag_nmt_tpu_torch.ops.gru import init_gru_params
+
+    rng = np.random.RandomState(seed)
     p = {k: v.to(dev) for k, v in
-         init_gru_params(torch.Generator().manual_seed(2), E, H).items()}
-    p["bi"] = torch.from_numpy((0.1 * rng.randn(3 * H)).astype(np.float32)).to(dev)
-    p["bh"] = torch.from_numpy((0.1 * rng.randn(3 * H)).astype(np.float32)).to(dev)
-    x = torch.from_numpy((0.5 * rng.randn(T, B, E)).astype(np.float32)).to(dev)
-    lens = torch.from_numpy(rng.randint(4, T + 1, B)).to(dev)
+         init_gru_params(torch.Generator().manual_seed(seed), GRU_E, GRU_H).items()}
+    for k in ("bi", "bh"):
+        p[k] = torch.from_numpy((0.1 * rng.randn(3 * GRU_H)).astype(np.float32)).to(dev)
+    x = torch.from_numpy((0.5 * rng.randn(T, B, GRU_E)).astype(np.float32)).to(dev)
+    lens = rng.randint(min(4, T), T + 1, B)
+    lens[0] = T
+    lens = torch.from_numpy(lens).to(dev)
     mask_t = (torch.arange(T, device=dev)[:, None] < lens[None, :]).float().contiguous()
     xg_t = (x @ p["wi"] + p["bi"]).contiguous()
-    h0 = torch.zeros((B, H), device=dev)
-    max_err = 0.0
-    for reverse in (False, True):
-        hk = gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse,
-                     impl="kernel")
-        hp = gru_fwd_plain(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse)
-        torch.cuda.synchronize()
-        err = float((hk - hp).abs().max())
-        if not err <= GRU_ATOL:
-            raise AssertionError(f"gru_fwd reverse={reverse}: max abs err {err}")
-        max_err = max(max_err, err)
-        print(f"gru_fwd reverse={reverse}: ok (max abs err {err:.3g})")
+    h0 = torch.zeros((B, GRU_H), device=dev)
+    return x, p, xg_t, mask_t, h0
 
+
+def gru_grid_times(torch, np, dev):
+    """gru_fwd at GRU_SHAPES, cold and warm (_grid_ms), through the wrapper
+    of whichever vag_nmt_tpu_torch is first on sys.path: its only device
+    work is the kernel's grids (one persistent grid; T step grids in the
+    trees before it), so the event pair times the grids alone.
+    {label: (cold, warm)}."""
+    from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd
+
+    out = {}
+    for label, B, T in GRU_SHAPES:
+        _, p, xg_t, mask_t, h0 = _gru_case(torch, np, dev, B, T, seed=2)
+        out[label] = _grid_ms(torch, lambda: gru_fwd(
+            xg_t, mask_t, p["uh"], p["bh"], h0, impl="kernel"))
+    return out
+
+
+# gru_fwd's ragged checks, against the plain version within GRU_ATOL, both
+# directions (label, B, T, tiling): B not a whole number of row blocks
+# (1000 is the line count of Multi30k test2016; its last block holds 104
+# of 128 rows), under the card's plan ("plan"), the plan for half the
+# card's SMs (two passes over the row blocks a step, the ragged block in
+# the second), and a hand tiling of two passes (rows a thread, row_block,
+# unit_block, chunk, row_slots; H = GRU_H).
+GRU_RAGGED = (("test2016", 1000, 32, "plan"), ("toy", 37, 24, "plan"),
+              ("test2016 half card", 1000, 32, "half"),
+              ("test2016 two passes", 1000, 32, (4, 64, 32, 32, 8)))
+
+
+def _gru_ragged_checks(torch, np, dev):
+    """Max abs error of gru_fwd against gru_fwd_plain over GRU_RAGGED; the
+    tilings other than the card's plan go straight to the launcher."""
+    from vag_nmt_tpu_torch.ops import _build
+    from vag_nmt_tpu_torch.ops.gru_kernel import (GruFwdPlan, _device_limits,
+                                                  _launch, gru_fwd,
+                                                  gru_fwd_plain, gru_fwd_plan)
+
+    fn, max_err = _build.load("gru_fwd").gru_fwd_launch, 0.0
+    for label, B, T, tiling in GRU_RAGGED:
+        _, p, xg_t, mask_t, h0 = _gru_case(torch, np, dev, B, T, seed=3)
+        args = (xg_t, mask_t, p["uh"], p["bh"], h0)
+        n_sms, max_smem = _device_limits(xg_t.device)
+        if tiling == "plan":
+            plan = gru_fwd_plan(B, GRU_H, n_sms, max_smem)
+        elif tiling == "half":
+            plan = gru_fwd_plan(B, GRU_H, n_sms // 2, max_smem)
+        else:
+            R, RB, UB, KC, GX = tiling
+            plan = GruFwdPlan(R, RB, UB, KC, -(-B // RB), GX, GRU_H // UB)
+        if B % plan.row_block == 0 or (tiling != "plan" and plan.passes < 2):
+            raise AssertionError(f"gru_fwd ragged check {label}: {plan} "
+                                 "has no ragged block or a single pass")
+        for reverse in (False, True):
+            hk = (gru_fwd(*args, reverse=reverse, impl="kernel")
+                  if tiling == "plan" else _launch(fn, plan, *args, reverse))
+            e = float((hk - gru_fwd_plain(*args, reverse=reverse)).abs().max())
+            if not e <= GRU_ATOL:
+                raise AssertionError(f"gru_fwd {label} (B={B}, T={T}, {plan}) "
+                                     f"reverse={reverse}: max abs err {e}")
+            max_err = max(max_err, e)
+        print(f"gru_fwd ragged {label} (B={B}, T={T}, grid {plan.grid}, "
+              f"{plan.passes} passes) both directions: ok")
+    return max_err
+
+
+def phase_gru(torch, np, dev):
+    """gru_fwd against gru_fwd_plain at GRU_SHAPES, both directions; its
+    grid alone at each shape beside cuDNN's nn.GRU forward and the cuBLAS
+    input projection (yardsticks the port never calls), and its bound."""
+    from vag_nmt_tpu_torch.ops.gru_kernel import (_device_limits, gru_fwd,
+                                                  gru_fwd_plain, gru_fwd_plan)
+
+    max_err, shapes = 0.0, []
+    for label, B, T in GRU_SHAPES:
+        x, p, xg_t, mask_t, h0 = _gru_case(torch, np, dev, B, T, seed=2)
+        err = 0.0
+        for reverse in (False, True):
+            hk = gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse,
+                         impl="kernel")
+            hp = gru_fwd_plain(xg_t, mask_t, p["uh"], p["bh"], h0,
+                               reverse=reverse)
+            torch.cuda.synchronize()
+            e = float((hk - hp).abs().max())
+            if not e <= GRU_ATOL:
+                raise AssertionError(f"gru_fwd {label} (B={B}, T={T}) "
+                                     f"reverse={reverse}: max abs err {e}")
+            err = max(err, e)
+        max_err = max(max_err, err)
+        # Yardsticks: cuDNN's GRU forward at the same (T, B, E, H), fp32
+        # with TF32 off, which also does the input projection; and that
+        # projection alone, so cudnn - projection is the recurrence's.
+        cudnn = torch.nn.GRU(GRU_E, GRU_H).to(dev)
+        x2, proj = x.reshape(T * B, GRU_E), torch.empty_like(xg_t).reshape(T * B, -1)
+        with torch.no_grad():
+            cudnn_ms = _grid_ms(torch, lambda: cudnn(x))
+        proj_ms = _grid_ms(torch, lambda: torch.addmm(p["bi"], x2, p["wi"],
+                                                      out=proj))
+        H = GRU_H
+        bound_ms, bound_by = _bound(
+            2.0 * T * B * H * 3 * H,
+            4.0 * (T * B * 3 * H + T * B + H * 3 * H + 3 * H + B * H + T * B * H))
+        plan = gru_fwd_plan(B, H, *_device_limits(xg_t.device))
+        f = {"shape": label, "B": B, "T": T, "cudnn_ms": cudnn_ms[0],
+             "cudnn_warm_ms": cudnn_ms[1], "projection_ms": proj_ms[0],
+             "projection_warm_ms": proj_ms[1],
+             "recurrence_library_ms": cudnn_ms[0] - proj_ms[0],
+             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+             "plan": {"grid": list(plan.grid), "threads": plan.threads,
+                      "rows_per_thread": plan.rows_per_thread,
+                      "row_block": plan.row_block,
+                      "unit_block": plan.unit_block, "chunk": plan.chunk,
+                      "smem_bytes": plan.smem_bytes}}
+        shapes.append(f)
+        print(f"gru_fwd {label} (B={B}, T={T}) both directions: ok "
+              f"(max abs err {err:.3g})")
+    max_err = max(max_err, _gru_ragged_checks(torch, np, dev))
+    grids = gru_grid_times(torch, np, dev)
+    for f in shapes:
+        f["grid_ms"], f["grid_warm_ms"] = grids[f["shape"]]
+        f["grid_bound_share"] = f["bound_ms"] / f["grid_ms"]
+        print(f"gru_fwd grid {f['shape']}: " + json.dumps(f))
+
+    x, p, xg_t, mask_t, h0 = _gru_case(torch, np, dev, *GRU_SHAPES[0][1:], seed=2)
     ms = _time_ms(torch, lambda: gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0,
                                          impl="kernel"), reps=20)
     plain_ms = _time_ms(torch, lambda: gru_fwd_plain(xg_t, mask_t, p["uh"],
                                                      p["bh"], h0), reps=10)
-    # Yardstick only (the port never calls it): cuDNN's GRU at the same
-    # (T, B, E, H), fp32 with TF32 off; it also does the input projection.
-    cudnn = torch.nn.GRU(E, H).to(dev)
+    cudnn = torch.nn.GRU(GRU_E, GRU_H).to(dev)
     with torch.no_grad():
         library_ms = _time_ms(torch, lambda: cudnn(x), reps=20)
-    flops = 2.0 * T * B * H * 3 * H
-    nbytes = 4.0 * (T * B * 3 * H + T * B + H * 3 * H + 3 * H + B * H + T * B * H)
-    bound_ms, bound_by = _bound(flops, nbytes)
-    print(f"gru_fwd (one direction): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    dec = shapes[0]
+    print(f"gru_fwd (one direction, decode shape): kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bound_ms={dec['bound_ms']:.4f} ({dec['bound_by']})")
     return {"name": "gru_fwd", "route": "cuda",
             "source": "vag_nmt_tpu_torch/csrc/gru_fwd.cu",
             "replaces": "vag_nmt_tpu/ops/pallas_gru.py:114",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+            "library_ms": library_ms, "grid_ms": dec["grid_ms"],
+            "grid_warm_ms": dec["grid_warm_ms"],
+            "projection_ms": dec["projection_ms"], "shapes": shapes}
 
 
 def _rel_err(a, b) -> float:
@@ -1495,6 +1626,8 @@ def phase_profile(torch, what: str, run):
         "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
         "device_launches": n_launch,
         "device_launches_per_step": n_launch / max(1, steps),
+        "gru_fwd_ms": sum(us for name, us in kernels.items()
+                          if "gru_fwd" in name) / 1e3,
         "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top]}))
 
 
@@ -1512,6 +1645,12 @@ def main() -> int:
     dev = resolve_device(None)
     print(_smi())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    if sys.argv[1:] == ["--gru-grids"]:
+        # gru_fwd's grids alone at GRU_SHAPES and nothing else, for timing
+        # another tree's kernel in the same call (a copy of this script in
+        # that tree's root): {label: [cold, warm]}.
+        print(json.dumps({"gru_grids": gru_grid_times(torch, np, dev)}))
+        return 0
     print(f"build_s: {_build.build_all():.2f}")
     t0 = time.perf_counter()
     decode_kernels = [phase_readout(torch, np, dev), phase_gru(torch, np, dev)]

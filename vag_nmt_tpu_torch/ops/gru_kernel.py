@@ -16,7 +16,9 @@ time-major: ``xg_t`` (T, B, 3H), ``mask_t`` (T, B), output ``hs_t``
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,45 +52,185 @@ def gru_fwd_plain(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     return out
 
 
+# The kernel's ring of state chunks and the padding after each staged row
+# (floats), passed to csrc/gru_fwd.cu as -D defines so the plan below and
+# the kernel agree on its shared memory.
+GRU_STAGES = 3
+GRU_PAD = 4
+# The kernel's instantiations (rows a thread; each also holds 2 units),
+# block sizes and state chunk depths the plan chooses from.
+_ROWS_PER_THREAD = (8, 4, 2, 1)
+_THREADS = (256, 128)
+_CHUNKS = (128, 64, 32, 16)
+
+
+@dataclass(frozen=True)
+class GruFwdPlan:
+    """Tiling of one persistent ``gru_fwd`` launch: a grid of
+    (row_slots, unit_tiles) CTAs. CTA (x, y) owns the ``unit_block``
+    hidden units y*unit_block.. (all three gate columns
+    ``uh[:, g*H + unit]``) and, each step, the row blocks x, x + row_slots,
+    ... of the ``row_blocks`` blocks of ``row_block`` rows; a thread holds
+    ``rows_per_thread`` rows x 2 units. The state streams through shared
+    memory in ``chunk``-deep slices."""
+
+    rows_per_thread: int
+    row_block: int
+    unit_block: int
+    chunk: int
+    row_blocks: int
+    row_slots: int
+    unit_tiles: int
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return (self.row_slots, self.unit_tiles)
+
+    @property
+    def threads(self) -> int:
+        return (self.row_block // self.rows_per_thread) * (self.unit_block // 2)
+
+    @property
+    def smem_bytes(self) -> int:
+        return gru_fwd_smem_bytes(self.unit_block * self.unit_tiles,
+                                  self.row_block, self.unit_block, self.chunk)
+
+    @property
+    def passes(self) -> int:
+        """Row blocks a CTA walks per step."""
+        return -(-self.row_blocks // self.row_slots)
+
+
+def gru_fwd_smem_bytes(H: int, row_block: int, unit_block: int,
+                       chunk: int) -> int:
+    """Dynamic shared memory of one CTA: its Uh slice (H x 3*unit_block)
+    and GRU_STAGES staged chunks of row_block state rows (the layout of
+    csrc/gru_fwd.cu, whose launcher sizes it the same way)."""
+    return 4 * (H * 3 * unit_block + GRU_STAGES * row_block * (chunk + GRU_PAD))
+
+
+@functools.lru_cache(maxsize=256)
+def gru_fwd_plan(B: int, H: int, n_sms: int, max_smem: int) -> GruFwdPlan:
+    """The co-resident tiling (one CTA per SM at most) of a (B, H) scan
+    with the least work per CTA and step (passes x rows x units), ties
+    going to fewer passes (more rows a thread), then more threads, then
+    fewer L2 reads of the state (fewer unit tiles), then deeper chunks. On
+    the H100 this spreads the rows over every CTA the unit tiles leave room
+    for; at the decode shape it gives up about 2% against twice the unit
+    tiles of half the width to halve the L2 reads of the state (PERF.md).
+    Raises ValueError when no tiling fits ``n_sms`` SMs and ``max_smem``
+    bytes of shared memory a block, or H is not a multiple of 16."""
+    if B < 1 or H < 16 or H % 16:
+        raise ValueError(f"gru_fwd: H={H} must be a positive multiple of 16 "
+                         f"(and B={B} positive)")
+    best, best_key = None, None
+    for R in _ROWS_PER_THREAD:
+        for threads in _THREADS:
+            for ug in (32, 16, 8, 4, 2, 1):
+                rg = threads // ug
+                ub, rb = 2 * ug, R * rg
+                if H % ub or H // ub > n_sms:
+                    continue
+                # The deepest chunk that fits, leaving at least 4 a step for
+                # the ring to overlap (bar the shallowest); whole chunk rows
+                # per pass of the block's threads.
+                chunk = next((c for c in _CHUNKS if H % c == 0
+                              and (H // c >= 4 or c == 16)
+                              and threads % (c // 4) == 0
+                              and gru_fwd_smem_bytes(H, rb, ub, c) <= max_smem),
+                             None)
+                if chunk is None:
+                    continue
+                row_blocks, unit_tiles = -(-B // rb), H // ub
+                plan = GruFwdPlan(R, rb, ub, chunk, row_blocks,
+                                  min(row_blocks, n_sms // unit_tiles),
+                                  unit_tiles)
+                key = (plan.passes * rb * ub, plan.passes, -threads,
+                       unit_tiles, -chunk)
+                if best_key is None or key < best_key:
+                    best, best_key = plan, key
+    if best is None:
+        raise ValueError(f"gru_fwd: no co-resident tiling of B={B}, H={H} "
+                         f"on {n_sms} SMs with {max_smem} bytes of shared "
+                         "memory a block")
+    return best
+
+
+_LIMITS: Dict[int, Tuple[int, int]] = {}
+
+
+def _device_limits(device: torch.device) -> Tuple[int, int]:
+    """(SM count, opt-in shared memory of a block) of a CUDA device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _LIMITS:
+        n, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(idx):
+            rc = _build.load("gru_fwd").gru_fwd_limits(ctypes.byref(n),
+                                                       ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"gru_fwd: reading the device limits failed: "
+                               f"CUDA error {rc}")
+        _LIMITS[idx] = (n.value, smem.value)
+    return _LIMITS[idx]
+
+
+def _launch(fn, plan: GruFwdPlan, xg_t: torch.Tensor, mask_t: torch.Tensor,
+            uh: torch.Tensor, bh: torch.Tensor, h0: torch.Tensor,
+            reverse: bool) -> torch.Tensor:
+    """Enqueue one scan through C entry ``fn`` (csrc/gru_fwd.cu's
+    gru_fwd_launch) tiled by ``plan``; returns hs_t. Raises when the
+    launcher refuses the plan (not co-resident, malformed) or the launch
+    fails."""
+    T, B, H3 = xg_t.shape
+    out = torch.empty((T, B, H3 // 3), dtype=torch.float32, device=xg_t.device)
+    rc = fn(xg_t.data_ptr(), mask_t.data_ptr(), uh.data_ptr(), bh.data_ptr(),
+            h0.data_ptr(), out.data_ptr(), T, B, H3 // 3, int(reverse),
+            plan.rows_per_thread, plan.row_block, plan.unit_block, plan.chunk,
+            plan.row_slots, torch.cuda.current_stream(xg_t.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gru_fwd kernel launch failed: CUDA error {rc} "
+                           f"(plan {plan})")
+    return out
+
+
 def gru_fwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
             bh: torch.Tensor, h0: torch.Tensor, *, reverse: bool = False,
             impl: str = "auto") -> torch.Tensor:
     """hs_t (T, B, H) of the masked GRU recurrence. impl: "auto" (kernel for
     CUDA tensors, plain for CPU tensors), "kernel" or "plain".
 
-    One call of the kernel path enqueues the whole scan, one grid per time
-    step (see csrc/gru_fwd.cu): it counts one in ``gru_fwd.launches`` and T
-    in ``gru_fwd.grids``."""
+    One call of the kernel path enqueues the whole scan as one persistent
+    cooperative grid (see csrc/gru_fwd.cu) tiled by ``gru_fwd_plan`` for
+    this card: it counts one in ``gru_fwd.launches`` and one in
+    ``gru_fwd.grids``. A plan the card cannot hold co-resident raises."""
     if resolve_impl(impl, xg_t) == "plain":
         return gru_fwd_plain(xg_t, mask_t, uh, bh, h0, reverse=reverse)
     T, B, H3 = xg_t.shape
     H = H3 // 3
-    if H3 != 3 * H or H % 8:
-        raise ValueError(f"gru_fwd: gate width {H3} must be 3*H with H a "
-                         "multiple of 8")
+    if H3 != 3 * H:
+        raise ValueError(f"gru_fwd: gate width {H3} must be 3*H")
     check_kernel_arg(xg_t, torch.float32, (T, B, 3 * H), "gru_fwd: xg_t")
     check_kernel_arg(mask_t, torch.float32, (T, B), "gru_fwd: mask_t")
     check_kernel_arg(uh, torch.float32, (H, 3 * H), "gru_fwd: uh")
     check_kernel_arg(bh, torch.float32, (3 * H,), "gru_fwd: bh")
     check_kernel_arg(h0, torch.float32, (B, H), "gru_fwd: h0")
-    out = torch.empty((T, B, H), dtype=torch.float32, device=xg_t.device)
-    lib = _build.load("gru_fwd")
-    rc = lib.gru_fwd_launch(
-        xg_t.data_ptr(), mask_t.data_ptr(), uh.data_ptr(), bh.data_ptr(),
-        h0.data_ptr(), out.data_ptr(), T, B, H, int(reverse),
-        torch.cuda.current_stream(xg_t.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gru_fwd kernel launch failed: CUDA error {rc}")
+    plan = gru_fwd_plan(B, H, *_device_limits(xg_t.device))
+    out = _launch(_build.load("gru_fwd").gru_fwd_launch, plan, xg_t, mask_t,
+                  uh, bh, h0, reverse)
     gru_fwd.launches += 1
-    gru_fwd.grids += T
+    gru_fwd.grids += 1
     return out
 
 
 gru_fwd.launches = 0
 gru_fwd.grids = 0
 
+_GRU_DEFINES = {"VAG_GRU_STAGES": GRU_STAGES, "VAG_GRU_PAD": GRU_PAD}
 _build.declare("gru_fwd", "gru_fwd_launch",
-               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+               _GRU_DEFINES)
+_build.declare("gru_fwd", "gru_fwd_limits",
+               [ctypes.POINTER(ctypes.c_int)] * 2, _GRU_DEFINES)
 
 
 def gru_cell_bwd_plain(xg: torch.Tensor, hg: torch.Tensor, h: torch.Tensor,
