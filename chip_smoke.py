@@ -8,7 +8,9 @@ Phases (each raises on failure; the script then exits non-zero):
      hand-written kernel under vag_nmt_tpu_torch/csrc/ (one nvcc each, all
      started together);
   2. readout_topk kernel against its plain PyTorch version at the beam-5
-     decode shape of m30k_ende_vag (R=640 rows, E=256, V=8000, K=5);
+     decode shape of m30k_ende_vag (R=640 rows, E=256, V=8000, K=5) and at
+     the ragged shapes of READOUT_CASES (V=8003, E=250, 35 rows), a second
+     call bit for bit as the first;
   3. gru_fwd kernel (one persistent grid per scan) against its plain
      version at the encoders' shapes (B, T) = (1024, 32) m30k decode,
      (64, 24) training and (512, 120) ikea_vag (E=256, H=512), ragged
@@ -59,10 +61,15 @@ Phases (each raises on failure; the script then exits non-zero):
      across 512-blocks, where each follows its own tie rule; gen 2 on the
      split cases of phase 9;
  13. the readout_topk kernel's shallow-slot watermark mode at R=640, E=256,
-     V=16000, slot depths 1 and 3: every row's viol as the plain version's
+     V=16000 and at a part-full last row tile (R=35, V=8003), slot depths
+     1 and 3: every row's viol as the plain version's
      under the kernel's lane map, unflagged rows and the per-step recovery
      bit for bit as depth K, a lane collision, a ban mask, the deferred
      live flag (all-frozen rows do not arm it);
+ 13b. kernel 1's whole call timed alone (readout_grid_times) at R=640,
+     E=256, V=8000 and 16000: depth K, slots 1, slots 1 with the per-step
+     recovery where no row is flagged, cold (L2 flushed) and warm, beside
+     torch.addmm in fp32 and an empty device op;
  14. the long-caption decode: translate_corpus on the full-width ikea_vag
      model (V=16000, max_len 128, random weights from a seed, the output
      matrix scaled by IKEA_READOUT_SCALE) over 512
@@ -70,11 +77,12 @@ Phases (each raises on failure; the script then exits non-zero):
      IKEA_MODES (two-phase at depth K and with per-step recovery; chunked
      with the deferred chunk rerun, per-step, unrolled; the unfused step
      through kernels 8, 9 and 6), each kernel's launches read from its own
-     mode, the shares of identical hypotheses between modes, and (a), (b),
-     (g) and (h) under the profiler.
+     mode, the shares of identical hypotheses between modes, (a), (b),
+     (g) and (h) under the profiler, and (b) once more counting the row
+     groups its per-step recoveries mark at 32 and at 64 rows.
 Phase 1 builds all eight sources. It prints one JSON line of per-kernel
 numbers and, last, the device line. With --gru-grids it prints phase 3's
-grid times alone (see main).
+grid times alone, with --readout-grids kernel 1's (see main).
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
 
@@ -162,11 +170,14 @@ def _median(xs):
     return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
 
 
-def _grid_ms(torch, launch, reps: int = 41):
+def _grid_ms(torch, launch, reps: int = 41, hold: int = HOLD_CYCLES,
+             warm_hold: int = WARM_HOLD_CYCLES):
     """(cold, warm) device ms of one launch(): cold is the median of
     per-launch event pairs with L2 flushed before each, warm the time of
     WARM_LAUNCHES back-to-back launches over their count. launch() enqueues
-    the grid alone (inputs and outputs made beforehand)."""
+    the grid alone (inputs and outputs made beforehand); the holds (device
+    sleep, cycles) must outlast the host's enqueue of one launch (cold) and
+    of WARM_LAUNCHES (warm)."""
     flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     for _ in range(3):
         launch()
@@ -175,14 +186,14 @@ def _grid_ms(torch, launch, reps: int = 41):
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for a, b in pairs:
         flush.sum()
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         a.record()
         launch()
         b.record()
     torch.cuda.synchronize()
     cold = _median([a.elapsed_time(b) for a, b in pairs])
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(WARM_HOLD_CYCLES)
+    torch.cuda._sleep(warm_hold)
     a.record()
     for _ in range(WARM_LAUNCHES):
         launch()
@@ -191,28 +202,50 @@ def _grid_ms(torch, launch, reps: int = 41):
     return cold, a.elapsed_time(b) / WARM_LAUNCHES
 
 
-def _bound(flops: float, nbytes: float):
-    """Least time on the card (ms) and what bounds it, against the H100 SXM's
-    fp32 peak outside the tensor cores and its HBM rate (core/flops.py)."""
+def _bound(flops: float, nbytes: float, peak: float = 0.0):
+    """Least time on the card (ms) and what bounds it, against ``peak``
+    operations/s (0: the H100 SXM's fp32 peak outside the tensor cores) and
+    the HBM rate (core/flops.py)."""
     from vag_nmt_tpu_torch.core.flops import (H100_HBM_BYTES_PER_S,
                                               H100_PEAK_FP32_FLOPS)
 
-    t_ops = flops / H100_PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / (peak or H100_PEAK_FP32_FLOPS) * 1e3
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _readout_bound(R: int, E: int, V: int, K: int, slots: bool):
+    """Kernel 1's bound (ms, by): its product t @ W runs as three TF32
+    products on the tensor cores (3xTF32), 3 x 2REV operations at the TF32
+    peak; its bytes are t, W and b read once, the top-K, lse (and viol)
+    written once."""
+    from vag_nmt_tpu_torch.core.flops import H100_PEAK_TF32_FLOPS
+
+    nbytes = 4.0 * (R * E + E * V + V) + 8.0 * R * K + (8.0 if slots else 4.0) * R
+    return _bound(3 * 2.0 * R * E * V, nbytes, H100_PEAK_TF32_FLOPS)
+
+
+# Phase 2's readout cases (kind, sentences, E, V): the m30k beam-5 decode
+# shape, and ragged ones: V = 8003 (W's rows off a 16-byte boundary: 4-byte
+# copies, a part-full last column tile) at 7 sentences (one part-full row
+# tile), and E = 250 (t's rows off a 16-byte boundary, a part-full depth
+# chunk).
+READOUT_CASES = (("random", 128, 256, 8000), ("integer", 128, 256, 8000),
+                 ("all_finished", 128, 256, 8000), ("ban", 128, 256, 8000),
+                 ("ragged", 7, 256, 8003), ("ragged_e", 7, 250, 8003))
 
 
 def phase_readout(torch, np, dev):
     from vag_nmt_tpu_torch.ops import readout_topk as rt
 
-    B, K, E, V, M = 128, 5, 256, 8000, 12
-    R = B * K
+    K, M = 5, 12
     rng = np.random.RandomState(1)
 
     def cuda(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def case(kind):
+    def case(kind, B, E, V):
+        R = B * K
         if kind == "integer":
             t = rng.randint(-3, 4, (R, E)).astype(np.float32)
             w = rng.randint(-3, 4, (E, V)).astype(np.float32)
@@ -232,8 +265,8 @@ def phase_readout(torch, np, dev):
         return cuda(t), cuda(w), cuda(b), cuda(scores), cuda(fin), ban
 
     max_err = 0.0
-    for kind in ("random", "integer", "all_finished", "ban"):
-        t, w, b, scores, fin, ban = case(kind)
+    for kind, B, E, V in READOUT_CASES:
+        t, w, b, scores, fin, ban = case(kind, B, E, V)
         mask = None if ban is None else rt.ban_mask(ban, V)
         kv, ki, kl = rt.readout_topk_rows(t, w, b, K, mask, impl="kernel")
         pv, pi, pl = rt.readout_topk_rows_plain(t, w, b, K, mask)
@@ -248,6 +281,9 @@ def phase_readout(torch, np, dev):
             max_err = max(max_err, float((a - c).abs().max()))
         if kind == "integer" and not torch.equal(kv, pv):
             raise AssertionError("readout_topk integer: values not exact")
+        again = rt.readout_topk_rows(t, w, b, K, mask, impl="kernel")
+        if not all(torch.equal(x, y) for x, y in zip(again, (kv, ki, kl))):
+            raise AssertionError(f"readout_topk {kind}: a second call differs")
         fk = rt.fused_readout_topk(t, w, b, scores, fin, ban, impl="kernel")
         fp = rt.fused_readout_topk(t, w, b, scores, fin, ban, impl="plain")
         if not torch.equal(fk[1], fp[1]):
@@ -255,13 +291,14 @@ def phase_readout(torch, np, dev):
         if not torch.allclose(fk[0], fp[0], rtol=READOUT_RTOL, atol=0.0):
             raise AssertionError(f"fused_readout_topk {kind}: values off by "
                                  f"{float((fk[0] - fp[0]).abs().max())}")
-        print(f"readout_topk {kind}: ok")
+        print(f"readout_topk {kind} (R={B * K}, E={E}, V={V}): ok")
 
-    t, w, b, *_ = case("random")
+    _, B, E, V = READOUT_CASES[0]
+    R = B * K
+    t, w, b, *_ = case("random", B, E, V)
     ms = _time_ms(torch, lambda: rt.readout_topk_rows(t, w, b, K, impl="kernel"))
     plain_ms = _time_ms(torch, lambda: rt.readout_topk_rows_plain(t, w, b, K))
-    bound_ms, bound_by = _bound(2.0 * R * E * V,
-                                4.0 * (R * E + E * V + V) + 8.0 * R * K + 4.0 * R)
+    bound_ms, bound_by = _readout_bound(R, E, V, K, slots=False)
     print(f"readout_topk: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={max_err:.3g}")
     return {"name": "readout_topk", "route": "cuda",
@@ -269,6 +306,67 @@ def phase_readout(torch, np, dev):
             "replaces": "vag_nmt_tpu/ops/pallas_readout_topk.py:113",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+# Kernel 1 timed as a grid alone (readout_grid_times): R = 640 rows (128
+# sentences x beam 5), E = 256, at the m30k and ikea_vag vocabularies.
+READOUT_GRID_V = (8000, 16000)
+# Through the wrapper, whose host work (allocations, the C call) must be
+# enqueued before the device gets there: ~1 ms of device sleep before a
+# cold call, ~50 ms before WARM_LAUNCHES warm ones.
+READOUT_HOLD, READOUT_WARM_HOLD = 2_000_000, 100_000_000
+# Ids of distinct lanes (split 0, 4-column groups 0-4) made the five best of
+# every row by far: slots 1 then flags no row (the recovery's rerun exits).
+READOUT_CLEAR_IDS = (0, 4, 8, 12, 16)
+
+
+def readout_grid_times(torch, np, dev):
+    """Kernel 1's whole call, its device work alone, cold (L2 flushed) and
+    warm (_grid_ms), at R=640, E=256, K=5 and each V of READOUT_GRID_V:
+    depth K, slots 1, and slots 1 with the per-step recovery where no row
+    is flagged; beside it torch.addmm(b, t, W) in fp32 (TF32 off), the GEMM
+    share of the same work, and an empty device op. Through the wrapper of
+    whichever vag_nmt_tpu_torch is first on sys.path. {V: fields}."""
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+
+    R, E, K = 640, 256, 5
+    floor_ms = _grid_ms(torch, lambda: torch.cuda._sleep(0))[0]
+    allow = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    for V in READOUT_GRID_V:
+        rng = np.random.RandomState(V + 7)
+        t = torch.from_numpy(np.tanh(rng.randn(R, E)).astype(np.float32)).to(dev)
+        w = torch.from_numpy((0.05 * rng.randn(E, V)).astype(np.float32)).to(dev)
+        bn = (0.1 * rng.randn(V)).astype(np.float32)
+        bn[list(READOUT_CLEAR_IDS)] += 100.0
+        b = torch.from_numpy(bn).to(dev)
+        live = torch.ones(R, dtype=torch.uint8, device=dev)
+        viol = rt.readout_topk_rows(t, w, b, K, slots=1, impl="kernel")[3]
+        if int(viol.sum()) != 0:
+            raise AssertionError(f"readout grid case V={V}: rows flagged")
+        kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+        depth = _grid_ms(torch, lambda: rt.readout_topk_rows(
+            t, w, b, K, impl="kernel"), **kw)
+        slots = _grid_ms(torch, lambda: rt.readout_topk_rows(
+            t, w, b, K, slots=1, impl="kernel"), **kw)
+        rec = _grid_ms(torch, lambda: rt.readout_topk_rows(
+            t, w, b, K, slots=1, recover_live=live, impl="kernel"), **kw)
+        logits = torch.empty((R, V), dtype=torch.float32, device=dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            addmm = _grid_ms(torch, lambda: torch.addmm(b, t, w, out=logits))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = allow
+        bound_ms, bound_by = _readout_bound(R, E, V, K, slots=False)
+        out[V] = {"R": R, "E": E, "V": V, "K": K,
+                  "grid_ms": depth[0], "grid_warm_ms": depth[1],
+                  "slots1_grid_ms": slots[0], "slots1_grid_warm_ms": slots[1],
+                  "recovery_grid_ms": rec[0], "recovery_grid_warm_ms": rec[1],
+                  "addmm_grid_ms": addmm[0], "addmm_grid_warm_ms": addmm[1],
+                  "grid_floor_ms": floor_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "grid_bound_share": bound_ms / depth[0]}
+        print(f"readout_topk grid (R={R}, E={E}, V={V}): " + json.dumps(out[V]))
+    return out
 
 
 # gru_fwd's shapes on the paths (label, B, T): the m30k decode's encoder
@@ -1196,17 +1294,16 @@ def _slots_case(torch, np, dev, kind, R, E, V, seed):
     return cuda(t), cuda(w), cuda(b), mask
 
 
-def phase_readout_slots(torch, np, dev):
-    """Kernel 1's shallow-slot watermark mode at R=640, E=256, V=16000 for
-    each slot depth of READOUT_SLOTS, against its plain version under the
-    kernel's own lane map and against the depth-K kernel: every row's viol
-    as the plain version's; vals, ids, lse as the plain version's (exact
-    logits) and, on every row that is not flagged, bit for bit as depth K's;
-    the per-step recovery equal to depth K on every row and its counter;
-    the deferred live flag, which all-frozen rows never arm."""
+# Phase 13's shapes (R, V) at E=256: the ikea beam step, and a last row
+# tile part full at a V that puts W's rows off 16-byte boundaries.
+READOUT_SLOTS_SHAPES = ((640, 16000), (35, 8003))
+
+
+def _readout_slots_checks(torch, np, dev, R, E, V, K):
+    """Phase 13's checks at one shape (phase_readout_slots); returns the
+    largest lse error against the plain version."""
     from vag_nmt_tpu_torch.ops import readout_topk as rt
 
-    R, E, V, K = 640, 256, 16000, 5
     lanes = rt.kernel_lanes(R, V)
     if len(set(lanes[list(LANE_COLLISION)].tolist())) != 1:
         raise AssertionError("LANE_COLLISION ids do not share a kernel lane")
@@ -1224,7 +1321,7 @@ def phase_readout_slots(torch, np, dev):
             rec = rt.readout_topk_rows(t, w, b, K, mask, slots=sk,
                                        recover_live=live, impl="kernel")
             torch.cuda.synchronize()
-            what = f"readout_topk slots={sk} {kind}"
+            what = f"readout_topk slots={sk} {kind} (R={R}, V={V})"
             if not torch.equal(viol, pviol):
                 raise AssertionError(f"{what}: viol differs from the plain "
                                      f"version on {int((viol != pviol).sum())} rows")
@@ -1247,9 +1344,28 @@ def phase_readout_slots(torch, np, dev):
             if kind == "collision" and n_flag != R:
                 raise AssertionError(f"{what}: only {n_flag} of {R} rows flagged")
             flagged[(kind, sk)] = n_flag
-        print(f"readout_topk slots {kind}: ok, flagged rows "
+        print(f"readout_topk slots {kind} (R={R}, V={V}): ok, flagged rows "
               f"{ {sk: flagged[(kind, sk)] for sk in READOUT_SLOTS} }")
+    return max_err
 
+
+def phase_readout_slots(torch, np, dev):
+    """Kernel 1's shallow-slot watermark mode at E=256 and each (R, V) of
+    READOUT_SLOTS_SHAPES for each slot depth of READOUT_SLOTS, against its
+    plain version under the kernel's own lane map and against the depth-K
+    kernel: every row's viol as the plain version's; vals, ids, lse as the
+    plain version's (exact logits) and, on every row that is not flagged,
+    bit for bit as depth K's; the per-step recovery equal to depth K on
+    every row and its counter; then, at the first shape, the deferred live
+    flag, which all-frozen rows never arm."""
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+
+    E, K = 256, 5
+    max_err = 0.0
+    for R, V in READOUT_SLOTS_SHAPES:
+        max_err = max(max_err, _readout_slots_checks(torch, np, dev, R, E, V, K))
+    R, V = READOUT_SLOTS_SHAPES[0]
+    live = torch.ones(R, dtype=torch.bool, device=dev)
     # the deferred live flag through fused_readout_topk
     t, w, b, _ = _slots_case(torch, np, dev, "collision", R, E, V, seed=14)
     scores = torch.zeros((R // K, K), device=dev)
@@ -1270,8 +1386,7 @@ def phase_readout_slots(torch, np, dev):
         t, w, b, K, slots=READOUT_SLOTS[0], recover_live=live, impl="kernel"))
     plain_ms = _time_ms(torch, lambda: rt.readout_topk_rows_plain(
         t, w, b, K, slots=READOUT_SLOTS[0]), reps=5)
-    bound_ms, bound_by = _bound(2.0 * R * E * V,
-                                4.0 * (R * E + E * V + V) + 8.0 * R * K + 8.0 * R)
+    bound_ms, bound_by = _readout_bound(R, E, V, K, slots=True)
     print(f"readout_topk slots (R={R}, E={E}, V={V}): kernel_ms by slots "
           f"{json.dumps(times)} depth K {deep_ms:.4f}, slots "
           f"{READOUT_SLOTS[0]} with per-step recovery {rec_ms:.4f}, "
@@ -1543,6 +1658,7 @@ def phase_ikea(torch, np, dev):
         elif share < least:
             raise AssertionError(f"ikea ({a}) vs ({b}): only {share:.4f} of "
                                  "hypotheses identical")
+    _recovery_marks(torch, envs["b"], run, out["b"][0])
     for mode in ("a", "b", "g", "h"):
         phase_profile(torch, f"ikea ({mode}) (beam steps)",
                       lambda: _with_env(envs[mode], run)[1]["beam_loop_steps"])
@@ -1551,6 +1667,62 @@ def phase_ikea(torch, np, dev):
             "readout_topk_slots": ("b", "readout_topk")}
     return ({k: out[mode][1][w] for k, (mode, w) in pick.items()},
             {k: out[mode][2][w] for k, (mode, w) in pick.items()})
+
+
+# Row groups of the per-step recovery's marks counted by _recovery_marks:
+# the kernel's 64-row tiles and a 32-row alternative.
+RECOVERY_GROUPS = (32, 64)
+
+
+def _recovery_marks(torch, env, run, hyps_b):
+    """Mode (b) once more, counting at each per-step recovery the flagged
+    live rows, and for each group size of RECOVERY_GROUPS the groups of
+    rows that hold one (the kernel marks its 64-row tiles) and the rows
+    those groups rerun at depth K. Prints the totals and raises if the
+    audited run's recoveries or hypotheses are not (b)'s."""
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+
+    orig = rt.readout_topk_rows
+    counts = []
+
+    def counted(t, w, b, k, mask=None, *, slots=0, recover_live=None,
+                impl="auto"):
+        out = orig(t, w, b, k, mask, slots=slots, recover_live=recover_live,
+                   impl=impl)
+        if recover_live is not None and len(out) == 4:
+            fix = ((out[3] > 0) & recover_live.bool()).to(torch.int64)
+            R = fix.shape[0]
+            c = [fix.sum(), fix.amax()]
+            for g in RECOVERY_GROUPS:
+                n = -(-R // g)
+                marks = torch.nn.functional.pad(fix, (0, n * g - R)).view(n, g).amax(1)
+                rows = (R - g * torch.arange(n, device=fix.device)).clamp(max=g)
+                c += [marks.sum(), (marks * rows).sum(),
+                      torch.tensor(n, device=fix.device),
+                      torch.tensor(R, device=fix.device)]
+            counts.append(torch.stack(c))
+        return out
+
+    # the kernel's wrapper counts launches; the recovery counter is looked
+    # up on the module's readout_topk_rows, here counted
+    counted.launches, counted.grids, counted.recoveries = 0, 0, None
+    rt.readout_topk_rows = counted
+    try:
+        hyps, _ = _with_env(env, run)
+    finally:
+        rt.readout_topk_rows = orig
+    tot = torch.stack(counts).sum(0).tolist()
+    rec = counted.recoveries
+    if hyps != hyps_b or rec is None or rec.tolist() != tot[:2]:
+        raise AssertionError(f"ikea (b): the audited run differs ({tot[:2]} "
+                             f"recoveries counted, {rec} by the kernel)")
+    marks = {"calls": len(counts), "flagged_live_rows": tot[0],
+             "calls_with_a_flag": tot[1]}
+    for i, g in enumerate(RECOVERY_GROUPS):
+        marked, rows, groups, all_rows = tot[2 + 4 * i: 6 + 4 * i]
+        marks[f"groups{g}"] = {"marked": marked, "of": groups,
+                               "rows_rerun": rows, "of_rows": all_rows}
+    print("ikea (b) recovery marks: " + json.dumps(marks))
 
 
 def _gen1_tie_audit(torch, topk, env, run, hyps_f):
@@ -1628,6 +1800,8 @@ def phase_profile(torch, what: str, run):
         "device_launches_per_step": n_launch / max(1, steps),
         "gru_fwd_ms": sum(us for name, us in kernels.items()
                           if "gru_fwd" in name) / 1e3,
+        "readout_topk_ms": sum(us for name, us in kernels.items()
+                               if "readout_topk" in name) / 1e3,
         "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top]}))
 
 
@@ -1651,6 +1825,11 @@ def main() -> int:
         # that tree's root): {label: [cold, warm]}.
         print(json.dumps({"gru_grids": gru_grid_times(torch, np, dev)}))
         return 0
+    if sys.argv[1:] == ["--readout-grids"]:
+        # kernel 1's whole call alone at READOUT_GRID_V and nothing else,
+        # the same way for another tree's kernel: {V: fields}.
+        print(json.dumps({"readout_grids": readout_grid_times(torch, np, dev)}))
+        return 0
     print(f"build_s: {_build.build_all():.2f}")
     t0 = time.perf_counter()
     decode_kernels = [phase_readout(torch, np, dev), phase_gru(torch, np, dev)]
@@ -1660,6 +1839,7 @@ def main() -> int:
                      phase_dec_step(torch, np, dev)]
     ikea_kernels = [*phase_legacy_topk(torch, np, dev),
                     phase_readout_slots(torch, np, dev)]
+    readout_grids = readout_grid_times(torch, np, dev)
     launches, grids, run = phase_main(torch, np, dev)
     phase_profile(torch, "decode (beam steps)", run)
     t_launches, t_grids, t_run, train_run = phase_train(torch, np, dev)
@@ -1684,6 +1864,15 @@ def main() -> int:
     kernels = decode_kernels + train_kernels + serve_kernels + ikea_kernels
     for k in kernels:
         k.update(grid_times.get((k["name"], TOPK_PATH_V.get(k["name"])), {}))
+    # kernel 1: depth K at V=8000 (m30k) and the shallow slots at 16000
+    # (ikea); the depth-K row also carries every field at both V.
+    for k in kernels:
+        if k["name"] in ("readout_topk", "readout_topk_slots"):
+            g = readout_grids[8000 if k["name"] == "readout_topk" else 16000]
+            k.update({f: g[f] for f in ("grid_ms", "grid_warm_ms",
+                                        "slots1_grid_ms", "recovery_grid_ms",
+                                        "addmm_grid_ms", "grid_floor_ms")})
+    decode_kernels[0]["grids_by_v"] = readout_grids
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

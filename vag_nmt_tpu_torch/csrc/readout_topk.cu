@@ -7,51 +7,71 @@
 //
 // For each of R rows (R = sentences * beams) it computes, without writing
 // the (R, V) logits to device memory:
-//   logits = t @ W + b      (t (R, E), W (E, V) row-major, b (V,)), fp32 FMA
+//   logits = t @ W + b      (t (R, E), W (E, V) row-major, b (V,))
 //   banned ids (optional (R, V) uint8 mask) floored to FLOOR = -3e38
 //   vals/idx = top-K of the row's logits, ties to the smaller vocab id
 //   lse      = log-sum-exp of the same (floored) logits
 // The live/frozen candidate rules and the K*K -> K cross-beam combine stay
 // in PyTorch (ops/readout_topk.py::_combine), as in the JAX package.
 //
-// Bound on this card: 2 R E V fp32 FMA operations against R E + E V + V
-// input floats, so bound by operations, independent of SK: at R=640, E=256
-// it is 2.62 GFLOP, ~39 us at the H100 SXM's 67 TFLOP/s fp32, for V=8000,
-// and 5.24 GFLOP, ~78 us, for V=16000. W (8.2 / 16.4 MB) stays resident in
-// the 50 MB L2 across beam steps.
+// Bound on this card: 2 R E V operations against R E + E V + V input
+// floats, so bound by operations: at R=640, E=256 it is 2.62 GFLOP, ~39 us
+// at the H100 SXM's 67 TFLOP/s fp32 outside the tensor cores and ~16 us as
+// three TF32 products at 495 TFLOP/s, for V=8000 (twice that at V=16000).
+// W (8.2 / 16.4 MB) stays resident in the 50 MB L2 across beam steps.
 //
-// Design: the TPU kernel walks the vocab in order on one core and carries
-// the running state in scratch. Here blocks run in parallel in no order, so
-// the work is two passes (two grids per call):
-//  pass 1: grid (row tiles of RT rows) x (vocab splits). A block stages its
-//    t rows in shared memory, streams W column tiles (CT columns, EC-deep
-//    chunks) through shared memory, and each thread keeps, for its RPT rows
-//    and its CPT columns of every tile of its split (a "lane": a row has
-//    n_split * TX lanes), a running top-SK (branch-free insertion with the
-//    (value, smaller id) order) and an online (max, sum-exp). The block then
-//    merges its lanes per row and writes K candidates plus (m, s) per row
-//    per split.
-//  pass 2: one thread per row merges the splits: top-K with the same order,
-//    lse = M + log(sum_i s_i * exp(m_i - M)).
-// Columns past V are masked (V need not be a multiple of any tile). Simple
-// and right first: wgmma / 3xTF32 products are later work.
+// Design: one grid of (row tiles of BM rows) x (vocab splits) CTAs of 512
+// threads, one a SM; the split plan, the tiles and the lane map are
+// ops/readout_topk.py's, passed here as -D defines.
+//  The product runs on the tensor cores in 3xTF32: each operand is split
+//    into a TF32 part and a TF32 remainder, both rounded to nearest with
+//    ties away (cvt.rna's rounding, done on the bits: tf32_rna), and
+//    a_small*b_big + a_big*b_small + a_big*b_big is summed with
+//    mma.sync m16n8k8 into fp32 accumulators: about fp32's accuracy (one
+//    TF32 pass keeps ~3 digits; the logits are held to 1e-5 relative).
+//    Inputs whose TF32 remainders are 0 and whose sums are exact in fp32
+//    (small integers, multiples of 1/512) give exact logits. wgmma takes
+//    TF32 operands only K-major from shared memory, and W is V-major as the
+//    B operand: wgmma needs a transposed copy of W (later work).
+//  Operands: t and W both stream through a STAGES-deep ring of cp.async
+//    copies, in BK-deep chunks of a BM x BN output tile (16-byte
+//    cp.async.cg, zero-filled past R, E and the split's last column; 4-byte
+//    copies where V or E is not a multiple of 4, since rows then start off
+//    a 16-byte boundary). t is not kept resident, so any E fits; it is read
+//    again for every column tile, which BN = 128 halves against 64. A stage
+//    also carries the tile's biases with its last chunk.
+//  The fold: the logits tile (its own region of shared memory) takes each
+//    column tile's accumulators to the lane states. A lane is (split,
+//    (col % 64) / 4): a thread folds 4 columns of every 64 of its split for
+//    RPT rows, per element in this order: bias, ban floor, online (max,
+//    sum-exp), running top-SK (insert<SK>, early reject against the SK-th
+//    slot), watermark. The main loop takes no SK, so a depth-K call and a
+//    shallow call see the same logits bit for bit; only the fold and the
+//    merges are instantiated per SK (8 kernels).
+//  The merge: the CTA merges its lanes per row (top-K, max, sum-exp,
+//    watermark) and writes them as its split's partials; then it takes an
+//    arrival ticket on its row tile's counter, and the last CTA of the row
+//    tile to arrive merges the splits in index order (never in arrival
+//    order, so results repeat bit for bit), lse = M + log(sum s_i
+//    exp(m_i - M)), and sets the counter back to 0. The counters are a
+//    per-device buffer (ops/topk.py) shared with kernels 6 and 9: launches
+//    on one stream only.
 //
-// Shallow slots (SK < K), the TPU kernel's rule with this kernel's lanes: a
-// lane keeps SK slots, and its watermark is the largest value it pushed out
-// of its last slot (its (SK+1)-th best). Pass 1 also writes each block's
-// per-row maximum watermark; pass 2 flags a row (viol) iff the maximum over
-// the splits is >= the row's K-th value of the merged shallow union. A row
-// that is not flagged has every value outside the union strictly below its
-// K-th, so its vals/idx are those of depth K, bit for bit (same sums in the
-// same order), and lse does not depend on SK at all.
-// Per-step recovery (the TPU's per-step lax.cond, without a host read):
-// pass 2 also marks each row tile holding a flagged LIVE row (a frozen
-// row's outputs are discarded by _combine) and counts the flagged rows in
-// a device counter; a third grid reruns pass 1 at depth K, where blocks of
-// unmarked tiles return at once, and a fourth reruns pass 2 on the rows of
-// marked tiles only, overwriting vals/idx/lse (and counting the call when
-// any tile was marked). A step with nothing flagged so pays two more grid
-// launches that exit at once and a memset of the tile marks.
+// Shallow slots (SK < K): a lane keeps SK slots, and its watermark is the
+// largest value it pushed out of its last slot (its (SK+1)-th best). The
+// merge flags a row (viol) iff the maximum watermark over its lanes and
+// splits is >= the row's K-th value of the merged shallow union. A row that
+// is not flagged has every value outside the union strictly below its K-th,
+// so its vals/idx are those of depth K, bit for bit, and lse does not
+// depend on SK at all.
+// Per-step recovery (the TPU's per-step lax.cond, without a host read): the
+// merge also marks each row tile holding a flagged LIVE row (a frozen row's
+// outputs are discarded by _combine) and counts the flagged rows in a
+// device counter; a second grid reruns the call at depth K, where CTAs of
+// unmarked row tiles return at once, overwriting vals/idx/lse of the marked
+// tiles (and counting the call when any tile was marked). A step with
+// nothing flagged so pays one more grid that exits at once and a memset of
+// the tile marks.
 
 #include <limits.h>
 #include <stdint.h>
@@ -62,77 +82,246 @@ namespace {
 
 // The wrapper (ops/readout_topk.py) owns the tiling that its split plan and
 // lane map rely on and passes it here as -D defines when it builds this file.
-#if !defined(VAG_RT) || !defined(VAG_CT) || !defined(VAG_CPT) || !defined(VAG_MAX_K)
-#error "build through vag_nmt_tpu_torch/ops/_build.py (VAG_RT, VAG_CT, VAG_CPT, VAG_MAX_K)"
+#if !defined(VAG_BM) || !defined(VAG_BN) || !defined(VAG_BK) || \
+    !defined(VAG_LANE_PERIOD) || !defined(VAG_CPT) || !defined(VAG_MAX_K)
+#error "build through vag_nmt_tpu_torch/ops/_build.py (VAG_BM, VAG_BN, VAG_BK, VAG_LANE_PERIOD, VAG_CPT, VAG_MAX_K)"
 #endif
 
 constexpr float FLOOR = -3.0e38f;
-constexpr int RT = VAG_RT;             // rows per block (32)
-constexpr int CT = VAG_CT;             // vocab columns per tile (64)
-constexpr int EC = 32;                 // depth of a staged W chunk
-constexpr int THREADS = 256;
-constexpr int CPT = VAG_CPT;           // columns per thread per tile (float4)
-constexpr int TX = CT / CPT;           // 16 lanes per row per split
-constexpr int RPT = RT / (THREADS / TX);  // 2 rows per thread
+constexpr int BM = VAG_BM;             // rows per CTA (64)
+constexpr int BN = VAG_BN;             // columns of an output tile (128)
+constexpr int LP = VAG_LANE_PERIOD;    // columns of one lane period (64)
+constexpr int CPT = VAG_CPT;           // columns of a lane per period (4)
 constexpr int MAX_K = VAG_MAX_K;
-static_assert(CPT == 4, "one float4 of W per thread per tile row");
-static_assert(CT % CPT == 0 && THREADS % TX == 0 && RT % (THREADS / TX) == 0,
-              "tiling: CT a multiple of 4, RT a multiple of THREADS / TX");
+constexpr int BK = VAG_BK;             // depth of a staged chunk (64)
+constexpr int STAGES = 3;              // the cp.async ring (193 KB with the rest)
+constexpr int THREADS = 512;
+constexpr int WARPS_M = 2, WARPS_N = 8;            // warp grid over BM x BN
+constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // 32 x 16 a warp
+constexpr int MI = WM / 16, NI = WN / 8;           // m16n8k8 tiles a warp
+constexpr int TX = LP / CPT;                       // 16 lanes a row a split
+constexpr int RPT = BM / (THREADS / TX);           // 2 rows a thread
+constexpr int HALVES = BN / LP;                    // lane periods a tile
+// Shared-memory row strides (floats), padded so that the fragment loads
+// and the accumulator stores hit 32 distinct banks, and every row starts
+// on a 16-byte boundary.
+constexpr int TS = BK + 4;             // t chunk [BM][TS]
+constexpr int WS = BN + 8;             // W chunk [BK][WS]
+constexpr int LS = BN + 8;             // logits tile [BM][LS]
+// A stage: the t chunk, the W chunk and, with a tile's last chunk, the
+// tile's BN biases (read by the fold before the stage is refilled).
+constexpr int STAGE_FLOATS = BM * TS + BK * WS + BN;
+constexpr size_t SMEM_BYTES = sizeof(float) * ((size_t)STAGES * STAGE_FLOATS + BM * LS);
 
+static_assert(WARPS_M * WARPS_N * 32 == THREADS, "one warp per warp tile");
+static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % 8 == 0, "whole mma tiles");
+static_assert(CPT == 4 && LP % CPT == 0 && BN % LP == 0, "lanes: float4 of a period");
+static_assert(THREADS % TX == 0 && BM % (THREADS / TX) == 0, "fold: whole rows");
+static_assert(BM <= THREADS, "merge: one thread a row");
+static_assert(SMEM_BYTES <= 232448, "227 KB a block");
+// The lane merge reuses the ring: BM x TX lanes of MAX_K (value, id) and
+// (max, sum, watermark).
+static_assert((size_t)BM * TX * (2 * MAX_K + 3) <= (size_t)STAGES * STAGE_FLOATS,
+              "lane merge fits in the ring");
+
+using vag::better;
 using vag::insert;
 
-template <int SK>
-size_t pass1_smem(int E) {
-  return sizeof(float) * ((size_t)RT * (E + 1) + EC * CT)
-       + (sizeof(float) + sizeof(int)) * (size_t)RT * TX * SK
-       + 3 * sizeof(float) * RT * TX;
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// part_w (the per-row maximum watermark of the block) is written when
-// SK < K; blocks of row tiles whose tile_mark is 0 return at once when
-// tile_mark is given (the per-step recovery's rerun).
-template <int K, int SK>
-__global__ void __launch_bounds__(THREADS)
-readout_topk_pass1(const float* __restrict__ t, const float* __restrict__ w,
-                   const float* __restrict__ b,
-                   const uint8_t* __restrict__ ban,
-                   const uint8_t* __restrict__ tile_mark,
-                   float* __restrict__ part_v, int* __restrict__ part_i,
-                   float* __restrict__ part_m, float* __restrict__ part_s,
-                   float* __restrict__ part_w,
-                   int R, int E, int V, int split_cols) {
-  static_assert(1 <= SK && SK <= K, "slot depth 1..K");
-  if (tile_mark != nullptr && tile_mark[blockIdx.x] == 0) return;
-  extern __shared__ __align__(16) float smem[];
-  float* ts = smem;                              // [RT][E + 1]
-  float* ws = ts + (size_t)RT * (E + 1);         // [EC][CT]
-  float* cv = ws + EC * CT;                      // [RT][TX * SK]
-  int* ci = reinterpret_cast<int*>(cv + RT * TX * SK);
-  float* cm = reinterpret_cast<float*>(ci + RT * TX * SK);  // [RT][TX]
-  float* cs = cm + RT * TX;
-  float* cw = cs + RT * TX;
+// TF32 rounding of x, to nearest with ties away from zero (cvt.rna's), on
+// the bits: add half of the last kept bit to the magnitude, clear the 13
+// dropped ones (two integer operations at full rate; cvt runs at a fraction
+// of it).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
 
+// x = big + small, both TF32: big = rna(x), small = rna(x - big); x - big
+// is exact.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+struct Params {
+  const float *t, *w, *b;
+  const uint8_t* ban;
+  const uint8_t* live;          // per-step recovery: flagged live rows mark
+  uint8_t* tile_mark;           // (row tiles,) recovery marks
+  unsigned long long* counts;   // (2,) flagged live rows, recovering calls
+  float *part_v, *part_m, *part_s, *part_w;
+  int* part_i;
+  unsigned int* arrivals;       // (row tiles,) zero between launches
+  float *vals, *lse;
+  int *idx, *viol;
+  int R, E, V, K, n_split, split_cols;
+  int vec_t, vec_w, vec_b;      // 16-byte copies of t rows / W rows / b
+  int shallow;                  // SK < K: watermark, viol (and marks)
+  int rerun;                    // the recovery's depth-K rerun
+};
+
+// Copies chunk q (column tile q / kc_n, depth chunk q % kc_n) of the CTA's
+// t rows and W columns into ring stage `st`, zero-filled outside.
+__device__ __forceinline__ void load_chunk(const Params& p, float* st, int q,
+                                           int kc_n, int row0, int col_begin,
+                                           int col_end) {
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int row0 = blockIdx.x * RT;
-  const int split = blockIdx.y;
-  const int col_begin = split * split_cols;
-  const int col_end = min(V, col_begin + split_cols);
-
-  for (int i = tid; i < RT * E; i += THREADS) {
-    const int r = i / E, e = i % E;
+  const int c0 = col_begin + (q / kc_n) * BN;
+  const int e0 = (q % kc_n) * BK;
+  float* ts = st;
+  float* ws = st + BM * TS;
+  for (int i = tid; i < BM * (BK / 4); i += THREADS) {
+    const int r = i / (BK / 4), e = e0 + (i % (BK / 4)) * 4;
     const int row = row0 + r;
-    ts[r * (E + 1) + e] = row < R ? t[(size_t)row * E + e] : 0.f;
+    float* dst = ts + r * TS + (e - e0);
+    if (p.vec_t) {
+      const bool in = row < p.R && e < p.E;
+      cp_async16(dst, in ? p.t + (size_t)row * p.E + e : p.t, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = row < p.R && e + j < p.E;
+        cp_async4(dst + j, in ? p.t + (size_t)row * p.E + e + j : p.t, in ? 4 : 0);
+      }
+    }
   }
+  for (int i = tid; i < BK * (BN / 4); i += THREADS) {
+    const int k = i / (BN / 4), c = (i % (BN / 4)) * 4;
+    const int e = e0 + k, col = c0 + c;
+    float* dst = ws + k * WS + c;
+    if (p.vec_w) {  // V % 4 == 0, so col_end is too: 4 columns in or out
+      const bool in = e < p.E && col < col_end;
+      cp_async16(dst, in ? p.w + (size_t)e * p.V + col : p.w, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = e < p.E && col + j < col_end;
+        cp_async4(dst + j, in ? p.w + (size_t)e * p.V + col + j : p.w, in ? 4 : 0);
+      }
+    }
+  }
+  if (q % kc_n == kc_n - 1 && tid < BN / 4) {
+    const int col = c0 + tid * 4;
+    const int n = max(0, min(4, col_end - col));   // the rest zero-filled
+    float* dst = ws + BK * WS + tid * 4;
+    if (p.vec_b) {
+      cp_async16(dst, n ? p.b + col : p.b, 4 * n);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        cp_async4(dst + j, j < n ? p.b + col + j : p.b, j < n ? 4 : 0);
+    }
+  }
+}
 
-  float sv[RPT][SK], m[RPT], s[RPT], wm[RPT];
+// acc += the 3xTF32 product of one staged chunk, for this warp's WM x WN.
+__device__ __forceinline__ void mma_chunk(const float* st, float (&acc)[MI][NI][4],
+                                          int wm, int wn, int g, int tg) {
+  const float* ts = st;
+  const float* ws = st + BM * TS;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 8) {
+    uint32_t ab[MI][4], as[MI][4], bb[NI][2], bs[NI][2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const float* a = ts + (wm * WM + mi * 16 + g) * TS + ks + tg;
+      split_tf32(a[0], ab[mi][0], as[mi][0]);
+      split_tf32(a[8 * TS], ab[mi][1], as[mi][1]);
+      split_tf32(a[4], ab[mi][2], as[mi][2]);
+      split_tf32(a[8 * TS + 4], ab[mi][3], as[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const float* b = ws + (ks + tg) * WS + wn * WN + ni * 8 + g;
+      split_tf32(b[0], bb[ni][0], bs[ni][0]);
+      split_tf32(b[4 * WS], bb[ni][1], bs[ni][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        mma_tf32(acc[mi][ni], as[mi], bb[ni]);
+        mma_tf32(acc[mi][ni], ab[mi], bs[ni]);
+        mma_tf32(acc[mi][ni], ab[mi], bb[ni]);
+      }
+  }
+}
+
+// The K-th entry of a sorted list (K at run time, the list in registers).
+__device__ __forceinline__ float kth(const float (&bv)[MAX_K], int K) {
+  float x = bv[0];
+#pragma unroll
+  for (int k = 1; k < MAX_K; ++k)
+    if (k == K - 1) x = bv[k];
+  return x;
+}
+
+template <int SK>
+__global__ void __launch_bounds__(THREADS, 1)
+readout_topk_kernel(const Params p) {
+  static_assert(1 <= SK && SK <= MAX_K, "slot depth 1..MAX_K");
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x;
+  if (p.rerun) {
+    if (tile == 0 && blockIdx.y == 0 && tid == 0) {
+      int any = 0;
+      for (int i = 0; i < gridDim.x; ++i) any |= p.tile_mark[i];
+      if (any) atomicAdd(&p.counts[1], 1ull);
+    }
+    if (p.tile_mark[tile] == 0) return;   // every CTA of the row tile
+  }
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                               // [STAGES][STAGE_FLOATS]
+  float* lg = smem + (size_t)STAGES * STAGE_FLOATS;  // [BM][LS]
+  __shared__ bool last;
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int row0 = tile * BM;
+  const int col_begin = blockIdx.y * p.split_cols;
+  const int col_end = min(p.V, col_begin + p.split_cols);
+  const int kc_n = (p.E + BK - 1) / BK;
+  const int n_ct = col_end > col_begin ? (col_end - col_begin + BN - 1) / BN : 0;
+  const int n_q = n_ct * kc_n;
+
+  // fold: thread (rq, gq) keeps lane gq of rows rq + (THREADS / TX) r
+  const int gq = tid % TX, rq = tid / TX;
+  float sv[RPT][SK], m[RPT], s[RPT], wmark[RPT];
   int si[RPT][SK];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     m[r] = FLOOR;
     s[r] = 0.f;
-    wm[r] = FLOOR;
+    wmark[r] = FLOOR;
 #pragma unroll
     for (int k = 0; k < SK; ++k) {
       sv[r][k] = FLOOR;
@@ -140,292 +329,294 @@ readout_topk_pass1(const float* __restrict__ t, const float* __restrict__ w,
     }
   }
 
-  for (int c0 = col_begin; c0 < col_end; c0 += CT) {
-    float acc[RPT][CPT];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[r][j] = 0.f;
+  for (int q = 0; q < STAGES - 1; ++q) {
+    if (q < n_q)
+      load_chunk(p, ring + q * STAGE_FLOATS, q, kc_n, row0, col_begin, col_end);
+    cp_async_commit();
+  }
 
-    for (int e0 = 0; e0 < E; e0 += EC) {
-      __syncthreads();  // t staged / the previous W chunk consumed
-      for (int i = tid; i < EC * CT; i += THREADS) {
-        const int ee = i / CT, c = i % CT;
-        const int e = e0 + ee, col = c0 + c;
-        ws[i] = (e < E && col < col_end) ? w[(size_t)e * V + col] : 0.f;
-      }
-      __syncthreads();
-      const int ne = min(EC, E - e0);
-      for (int ee = 0; ee < ne; ++ee) {
-        const float4 wv = *reinterpret_cast<const float4*>(&ws[ee * CT + tx * CPT]);
+  float acc[MI][NI][4];
+  for (int q = 0; q < n_q; ++q) {
+    const int kc = q % kc_n;
+    if (kc == 0) {
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const float a = ts[(ty * RPT + r) * (E + 1) + e0 + ee];
-          acc[r][0] = fmaf(a, wv.x, acc[r][0]);
-          acc[r][1] = fmaf(a, wv.y, acc[r][1]);
-          acc[r][2] = fmaf(a, wv.z, acc[r][2]);
-          acc[r][3] = fmaf(a, wv.w, acc[r][3]);
-        }
-      }
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
     }
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk q landed; chunk q - 1's stage consumed
+    const int qn = q + STAGES - 1;
+    if (qn < n_q)
+      load_chunk(p, ring + (qn % STAGES) * STAGE_FLOATS, qn, kc_n, row0, col_begin,
+                 col_end);
+    cp_async_commit();
+    mma_chunk(ring + (q % STAGES) * STAGE_FLOATS, acc, wm, wn, g, tg);
+    if (kc != kc_n - 1) continue;
 
-    // Fold this tile's CPT columns into each row's lane state.
+    // The tile's logits (without bias) through shared memory ...
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int r = wm * WM + mi * 16 + g, c = wn * WN + ni * 8 + 2 * tg;
+        *reinterpret_cast<float2*>(&lg[r * LS + c]) =
+            make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+        *reinterpret_cast<float2*>(&lg[(r + 8) * LS + c]) =
+            make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+      }
+    __syncthreads();
+    // ... into the lane states, CPT columns at a time in column order.
+    const int c0 = col_begin + (q / kc_n) * BN;
+    const float* bias = ring + (q % STAGES) * STAGE_FLOATS + BM * TS + BK * WS;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const int row = row0 + ty * RPT + r;
-      float x[CPT];
-      float tmax = FLOOR;
+      const int lr = rq + r * (THREADS / TX);
+      const int row = row0 + lr;
+      if (row >= p.R) continue;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = c0 + tx * CPT + j;
-        x[j] = FLOOR;
-        if (col < col_end) {
-          x[j] = acc[r][j] + b[col];
-          if (ban != nullptr && row < R && ban[(size_t)row * V + col]) x[j] = FLOOR;
-          tmax = fmaxf(tmax, x[j]);
-        }
-      }
-      const float m_new = fmaxf(m[r], tmax);
-      float acc_s = s[r] * expf(m[r] - m_new);
+      for (int h = 0; h < HALVES; ++h) {
+        const int cl = h * LP + gq * CPT;
+        const float4 a4 = *reinterpret_cast<const float4*>(&lg[lr * LS + cl]);
+        const float4 b4 = *reinterpret_cast<const float4*>(&bias[cl]);
+        const float av[CPT] = {a4.x, a4.y, a4.z, a4.w};
+        const float bv4[CPT] = {b4.x, b4.y, b4.z, b4.w};
+        float x[CPT];
+        float tmax = FLOOR;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = c0 + tx * CPT + j;
-        if (col < col_end) {
-          acc_s += expf(x[j] - m_new);
-          const float out = insert<SK>(sv[r], si[r], x[j], col);
-          if (SK < K) wm[r] = fmaxf(wm[r], out);
+        for (int j = 0; j < CPT; ++j) {
+          const int col = c0 + cl + j;
+          x[j] = FLOOR;
+          if (col < col_end) {
+            x[j] = __fadd_rn(av[j], bv4[j]);
+            if (p.ban != nullptr && p.ban[(size_t)row * p.V + col]) x[j] = FLOOR;
+            tmax = fmaxf(tmax, x[j]);
+          }
         }
+        const float m_new = fmaxf(m[r], tmax);
+        float acc_s = __fmul_rn(s[r], expf(m[r] - m_new));
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int col = c0 + cl + j;
+          if (col < col_end) {
+            acc_s = __fadd_rn(acc_s, expf(x[j] - m_new));
+            const float out = better(x[j], col, sv[r][SK - 1], si[r][SK - 1])
+                                  ? insert<SK>(sv[r], si[r], x[j], col) : x[j];
+            wmark[r] = fmaxf(wmark[r], out);
+          }
+        }
+        m[r] = m_new;
+        s[r] = acc_s;
       }
-      m[r] = m_new;
-      s[r] = acc_s;
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the lane merge reuses it
 
-  // Merge the TX lanes of each row.
+  // The CTA's lanes of each row -> its split's partials.
+  float* cv = ring;                                          // [BM][TX][SK]
+  int* ci = reinterpret_cast<int*>(cv + BM * TX * SK);       // [BM][TX][SK]
+  float* cm = reinterpret_cast<float*>(ci + BM * TX * SK);   // [BM][TX] x 3
+  float* cs = cm + BM * TX;
+  float* cw = cs + BM * TX;
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
-    const int lr = ty * RPT + r;
+    const int lr = rq + r * (THREADS / TX);
 #pragma unroll
     for (int k = 0; k < SK; ++k) {
-      cv[(lr * TX + tx) * SK + k] = sv[r][k];
-      ci[(lr * TX + tx) * SK + k] = si[r][k];
+      cv[(lr * TX + gq) * SK + k] = sv[r][k];
+      ci[(lr * TX + gq) * SK + k] = si[r][k];
     }
-    cm[lr * TX + tx] = m[r];
-    cs[lr * TX + tx] = s[r];
-    cw[lr * TX + tx] = wm[r];
+    cm[lr * TX + gq] = m[r];
+    cs[lr * TX + gq] = s[r];
+    cw[lr * TX + gq] = wmark[r];
   }
   __syncthreads();
-  if (tid < RT) {
-    const int row = row0 + tid;
-    if (row < R) {
-      float bv[K];
-      int bi[K];
+  const int row = row0 + tid;
+  const bool mine = tid < BM && row < p.R;
+  if (mine) {
+    float bv[MAX_K];
+    int bi[MAX_K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        bv[k] = FLOOR;
-        bi[k] = INT_MAX;
-      }
-      float M = FLOOR, W = FLOOR;
-      for (int j = 0; j < TX; ++j) {
-        for (int k = 0; k < SK; ++k)
-          insert<K>(bv, bi, cv[(tid * TX + j) * SK + k], ci[(tid * TX + j) * SK + k]);
-        M = fmaxf(M, cm[tid * TX + j]);
-        W = fmaxf(W, cw[tid * TX + j]);
-      }
-      float S = 0.f;
-      for (int j = 0; j < TX; ++j) S += cs[tid * TX + j] * expf(cm[tid * TX + j] - M);
-      const size_t o = (size_t)split * R + row;
+    for (int k = 0; k < MAX_K; ++k) {
+      bv[k] = FLOOR;
+      bi[k] = INT_MAX;
+    }
+    float M = FLOOR, W = FLOOR;
+    for (int j = 0; j < TX; ++j) {
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        part_v[o * K + k] = bv[k];
-        part_i[o * K + k] = bi[k];
+      for (int k = 0; k < SK; ++k) {
+        const float x = cv[(tid * TX + j) * SK + k];
+        const int xi = ci[(tid * TX + j) * SK + k];
+        if (better(x, xi, bv[MAX_K - 1], bi[MAX_K - 1])) insert<MAX_K>(bv, bi, x, xi);
       }
-      part_m[o] = M;
-      part_s[o] = S;
-      if (SK < K) part_w[o] = W;
+      M = fmaxf(M, cm[tid * TX + j]);
+      W = fmaxf(W, cw[tid * TX + j]);
+    }
+    float S = 0.f;
+    for (int j = 0; j < TX; ++j)
+      S = __fadd_rn(S, __fmul_rn(cs[tid * TX + j], expf(cm[tid * TX + j] - M)));
+    const size_t o = (size_t)blockIdx.y * p.R + row;
+#pragma unroll
+    for (int k = 0; k < MAX_K; ++k)
+      if (k < p.K) {
+        p.part_v[o * p.K + k] = bv[k];
+        p.part_i[o * p.K + k] = bi[k];
+      }
+    p.part_m[o] = M;
+    p.part_s[o] = S;
+    if (p.shallow) p.part_w[o] = W;
+    __threadfence();  // the partials, before the ticket
+  }
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(&p.arrivals[tile], 1u) == (unsigned int)(p.n_split - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // The last CTA of the row tile: the splits in index order.
+  if (mine) {
+    float bv[MAX_K];
+    int bi[MAX_K];
+#pragma unroll
+    for (int k = 0; k < MAX_K; ++k) {
+      bv[k] = FLOOR;
+      bi[k] = INT_MAX;
+    }
+    float M = FLOOR, W = FLOOR;
+    for (int sp = 0; sp < p.n_split; ++sp) {
+      const size_t o = (size_t)sp * p.R + row;
+      for (int k = 0; k < p.K; ++k) {
+        const float x = __ldcg(p.part_v + o * p.K + k);
+        const int xi = __ldcg(p.part_i + o * p.K + k);
+        if (better(x, xi, bv[MAX_K - 1], bi[MAX_K - 1])) insert<MAX_K>(bv, bi, x, xi);
+      }
+      M = fmaxf(M, __ldcg(p.part_m + o));
+      if (p.shallow) W = fmaxf(W, __ldcg(p.part_w + o));
+    }
+    float S = 0.f;
+    for (int sp = 0; sp < p.n_split; ++sp) {
+      const size_t o = (size_t)sp * p.R + row;
+      S = __fadd_rn(S, __fmul_rn(__ldcg(p.part_s + o), expf(__ldcg(p.part_m + o) - M)));
+    }
+#pragma unroll
+    for (int k = 0; k < MAX_K; ++k)
+      if (k < p.K) {
+        p.vals[(size_t)row * p.K + k] = bv[k];
+        p.idx[(size_t)row * p.K + k] = bi[k];
+      }
+    p.lse[row] = M + logf(S);
+    if (p.shallow) {
+      const int flag = W >= kth(bv, p.K) ? 1 : 0;
+      p.viol[row] = flag;
+      if (flag && p.live != nullptr && p.live[row]) {
+        p.tile_mark[tile] = 1;
+        atomicAdd(&p.counts[0], 1ull);
+      }
     }
   }
+  if (tid == 0) p.arrivals[tile] = 0;   // ready for the next launch
 }
 
-// Merges the splits of each row. With part_w: viol[row] = (maximum
-// watermark >= the merged K-th value), and, with live, a flagged live row
-// marks its row tile and counts in counts[0]. With only_marked: rows of
-// unmarked tiles are left as they are (the recovery's merge), and thread 0
-// of block 0 counts the call in counts[1] when any tile is marked.
-template <int K>
-__global__ void readout_topk_pass2(const float* __restrict__ part_v,
-                                   const int* __restrict__ part_i,
-                                   const float* __restrict__ part_m,
-                                   const float* __restrict__ part_s,
-                                   const float* __restrict__ part_w,
-                                   float* __restrict__ vals,
-                                   int* __restrict__ idx,
-                                   float* __restrict__ lse,
-                                   int* __restrict__ viol,
-                                   const uint8_t* __restrict__ live,
-                                   uint8_t* tile_mark, int only_marked,
-                                   unsigned long long* counts, int R,
-                                   int n_split) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (only_marked && row == 0) {
-    int any = 0;
-    for (int i = 0; i < (R + RT - 1) / RT; ++i) any |= tile_mark[i];
-    if (any) atomicAdd(&counts[1], 1ull);
-  }
-  if (row >= R) return;
-  if (only_marked && tile_mark[row / RT] == 0) return;
-  float bv[K];
-  int bi[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    bv[k] = FLOOR;
-    bi[k] = INT_MAX;
-  }
-  float M = FLOOR, W = FLOOR;
-  for (int sp = 0; sp < n_split; ++sp) {
-    const size_t o = (size_t)sp * R + row;
-    for (int k = 0; k < K; ++k) insert<K>(bv, bi, part_v[o * K + k], part_i[o * K + k]);
-    M = fmaxf(M, part_m[o]);
-    if (part_w != nullptr) W = fmaxf(W, part_w[o]);
-  }
-  float S = 0.f;
-  for (int sp = 0; sp < n_split; ++sp) {
-    const size_t o = (size_t)sp * R + row;
-    S += part_s[o] * expf(part_m[o] - M);
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    vals[(size_t)row * K + k] = bv[k];
-    idx[(size_t)row * K + k] = bi[k];
-  }
-  lse[row] = M + logf(S);
-  if (part_w != nullptr) {
-    const int flag = W >= bv[K - 1] ? 1 : 0;
-    viol[row] = flag;
-    if (flag && live != nullptr && live[row]) {
-      tile_mark[row / RT] = 1;
-      atomicAdd(&counts[0], 1ull);
-    }
-  }
-}
-
-struct Args {
-  const float *t, *w, *b;
-  const uint8_t* ban;
-  float *part_v, *part_m, *part_s, *part_w;
-  int* part_i;
-  float *vals, *lse;
-  int *idx, *viol;
-  const uint8_t* live;
-  uint8_t* tile_mark;
-  unsigned long long* counts;
-  int R, E, V, n_split, split_cols;
-  cudaStream_t stream;
-};
-
-template <int K, int SK>
-cudaError_t pass1(const Args& a, const uint8_t* tile_mark) {
-  const size_t smem = pass1_smem<SK>(a.E);
+template <int SK>
+cudaError_t grid(const Params& p, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      readout_topk_pass1<K, SK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      readout_topk_kernel<SK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.R + RT - 1) / RT, a.n_split);
-  readout_topk_pass1<K, SK><<<grid, THREADS, smem, a.stream>>>(
-      a.t, a.w, a.b, a.ban, tile_mark, a.part_v, a.part_i, a.part_m, a.part_s,
-      a.part_w, a.R, a.E, a.V, a.split_cols);
+  const dim3 g((p.R + BM - 1) / BM, p.n_split);
+  readout_topk_kernel<SK><<<g, THREADS, SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int K>
-cudaError_t pass2(const Args& a, bool shallow, bool only_marked) {
-  readout_topk_pass2<K><<<(a.R + 127) / 128, 128, 0, a.stream>>>(
-      a.part_v, a.part_i, a.part_m, a.part_s, shallow ? a.part_w : nullptr,
-      a.vals, a.idx, a.lse, a.viol, a.live, a.tile_mark, only_marked ? 1 : 0,
-      a.counts, a.R, a.n_split);
-  return cudaGetLastError();
-}
-
-template <int K, int SK>
-int launch(const Args& a) {
-  const bool recover = SK < K && a.live != nullptr;
-  if (recover)
-    VAG_CHECK(cudaMemsetAsync(a.tile_mark, 0, (a.R + RT - 1) / RT, a.stream));
-  VAG_CHECK((pass1<K, SK>(a, nullptr)));
-  VAG_CHECK(pass2<K>(a, SK < K, false));
-  if (recover) {
-    VAG_CHECK((pass1<K, K>(a, a.tile_mark)));
-    VAG_CHECK(pass2<K>(a, false, true));
+cudaError_t grid_sk(const Params& p, int sk, cudaStream_t stream) {
+  switch (sk) {
+    case 1: return grid<1>(p, stream);
+    case 2: return grid<2>(p, stream);
+    case 3: return grid<3>(p, stream);
+    case 4: return grid<4>(p, stream);
+    case 5: return grid<5>(p, stream);
+    case 6: return grid<6>(p, stream);
+    case 7: return grid<7>(p, stream);
+    case 8: return grid<8>(p, stream);
+    default: return cudaErrorInvalidValue;
   }
-  return 0;
 }
 
 }  // namespace
 
 // Device pointers to contiguous tensors: t (R, E) f32, w (E, V) f32,
 // b (V,) f32, ban (R, V) uint8 or null; partials part_v/part_i (n_split, R,
-// K), part_m/part_s (n_split, R); outputs vals (R, K) f32, idx (R, K) i32,
-// lse (R,) f32. split_cols is a multiple of CT and
-// n_split * split_cols >= V. 1 <= SK <= K <= 8. With SK < K also part_w
-// (n_split, R) f32 and the output viol (R,) i32; for the per-step recovery
-// live (R,) uint8, tile_mark (ceil(R / RT),) uint8 scratch and counts (2,)
-// int64 (flagged live rows, recovering calls; added to), else null.
-// Returns 0 or a CUDA error code.
+// K), part_m/part_s (n_split, R); arrivals (ceil(R / BM),) u32, zero (and
+// left zero); outputs vals (R, K) f32, idx (R, K) i32, lse (R,) f32.
+// split_cols is a multiple of BN and n_split * split_cols >= V.
+// 1 <= SK <= K <= MAX_K. With SK < K also part_w (n_split, R) f32 and the
+// output viol (R,) i32; for the per-step recovery live (R,) uint8,
+// tile_mark (ceil(R / BM),) uint8 scratch and counts (2,) int64 (flagged
+// live rows, recovering calls; added to), else null.
+// Enqueues one grid, or with the recovery a memset and two grids. Returns
+// 0 or a CUDA error code.
 extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
                                    const void* ban, void* part_v, void* part_i,
                                    void* part_m, void* part_s, void* part_w,
-                                   void* vals, void* idx, void* lse,
-                                   void* viol, const void* live,
+                                   void* arrivals, void* vals, void* idx,
+                                   void* lse, void* viol, const void* live,
                                    void* tile_mark, void* counts, int R,
                                    int E, int V, int K, int SK, int n_split,
                                    int split_cols, void* stream) {
-  if (split_cols % CT != 0 || (long long)n_split * split_cols < V)
+  if (R < 1 || E < 1 || V < 1 || K < 1 || K > MAX_K || SK < 1 || SK > K ||
+      split_cols % BN != 0 || (long long)n_split * split_cols < V ||
+      (long long)(n_split - 1) * split_cols >= V || arrivals == nullptr)
     return (int)cudaErrorInvalidValue;
   if (SK < K && (part_w == nullptr || viol == nullptr ||
                  (live != nullptr && (tile_mark == nullptr || counts == nullptr))))
     return (int)cudaErrorInvalidValue;
-  Args a;
-  a.t = static_cast<const float*>(t);
-  a.w = static_cast<const float*>(w);
-  a.b = static_cast<const float*>(b);
-  a.ban = static_cast<const uint8_t*>(ban);
-  a.part_v = static_cast<float*>(part_v);
-  a.part_i = static_cast<int*>(part_i);
-  a.part_m = static_cast<float*>(part_m);
-  a.part_s = static_cast<float*>(part_s);
-  a.part_w = static_cast<float*>(part_w);
-  a.vals = static_cast<float*>(vals);
-  a.idx = static_cast<int*>(idx);
-  a.lse = static_cast<float*>(lse);
-  a.viol = static_cast<int*>(viol);
-  a.live = static_cast<const uint8_t*>(live);
-  a.tile_mark = static_cast<uint8_t*>(tile_mark);
-  a.counts = static_cast<unsigned long long*>(counts);
-  a.R = R;
-  a.E = E;
-  a.V = V;
-  a.n_split = n_split;
-  a.split_cols = split_cols;
-  a.stream = static_cast<cudaStream_t>(stream);
-#define VAG_CASE(KK, SS) \
-  case KK * 16 + SS:     \
-    return launch<KK, SS>(a);
-  switch (K * 16 + SK) {
-    VAG_CASE(1, 1)
-    VAG_CASE(2, 1) VAG_CASE(2, 2)
-    VAG_CASE(3, 1) VAG_CASE(3, 2) VAG_CASE(3, 3)
-    VAG_CASE(4, 1) VAG_CASE(4, 2) VAG_CASE(4, 3) VAG_CASE(4, 4)
-    VAG_CASE(5, 1) VAG_CASE(5, 2) VAG_CASE(5, 3) VAG_CASE(5, 4) VAG_CASE(5, 5)
-    VAG_CASE(6, 1) VAG_CASE(6, 2) VAG_CASE(6, 3) VAG_CASE(6, 4) VAG_CASE(6, 5)
-    VAG_CASE(6, 6)
-    VAG_CASE(7, 1) VAG_CASE(7, 2) VAG_CASE(7, 3) VAG_CASE(7, 4) VAG_CASE(7, 5)
-    VAG_CASE(7, 6) VAG_CASE(7, 7)
-    VAG_CASE(8, 1) VAG_CASE(8, 2) VAG_CASE(8, 3) VAG_CASE(8, 4) VAG_CASE(8, 5)
-    VAG_CASE(8, 6) VAG_CASE(8, 7) VAG_CASE(8, 8)
-    default:
-      return (int)cudaErrorInvalidValue;
+  Params p;
+  p.t = static_cast<const float*>(t);
+  p.w = static_cast<const float*>(w);
+  p.b = static_cast<const float*>(b);
+  p.ban = static_cast<const uint8_t*>(ban);
+  p.live = SK < K ? static_cast<const uint8_t*>(live) : nullptr;
+  p.tile_mark = static_cast<uint8_t*>(tile_mark);
+  p.counts = static_cast<unsigned long long*>(counts);
+  p.part_v = static_cast<float*>(part_v);
+  p.part_i = static_cast<int*>(part_i);
+  p.part_m = static_cast<float*>(part_m);
+  p.part_s = static_cast<float*>(part_s);
+  p.part_w = static_cast<float*>(part_w);
+  p.arrivals = static_cast<unsigned int*>(arrivals);
+  p.vals = static_cast<float*>(vals);
+  p.idx = static_cast<int*>(idx);
+  p.lse = static_cast<float*>(lse);
+  p.viol = static_cast<int*>(viol);
+  p.R = R;
+  p.E = E;
+  p.V = V;
+  p.K = K;
+  p.n_split = n_split;
+  p.split_cols = split_cols;
+  p.vec_t = E % 4 == 0 && reinterpret_cast<uintptr_t>(t) % 16 == 0;
+  p.vec_w = V % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  p.vec_b = reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  p.shallow = SK < K;
+  p.rerun = 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool recover = p.live != nullptr;
+  if (recover)
+    VAG_CHECK(cudaMemsetAsync(p.tile_mark, 0, (R + BM - 1) / BM, st));
+  VAG_CHECK(grid_sk(p, SK, st));
+  if (recover) {
+    Params d = p;                // depth K on the marked row tiles
+    d.shallow = 0;
+    d.live = nullptr;
+    d.rerun = 1;
+    VAG_CHECK(grid_sk(d, K, st));
   }
-#undef VAG_CASE
+  return 0;
 }
 
-static_assert(MAX_K == 8, "the (K, SK) switch above instantiates 1 <= SK <= K <= MAX_K");
+static_assert(MAX_K == 8, "grid_sk instantiates 1 <= SK <= MAX_K");

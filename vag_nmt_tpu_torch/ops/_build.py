@@ -10,11 +10,14 @@ with its C entry point and the ``-D`` defines that carry the tiling the
 wrapper plans with, so the tiling has one owner. Nothing here runs at
 import time: the first call of a kernel builds it, and ``build_all`` builds
 every declared kernel at once, one ``nvcc`` process per source, all started
-together.
+together. ``build_variants`` and ``loaded_as`` serve the tuning studies
+(``ops/*_tune.py``): builds of a source with text edits, put in place of
+the kernel's own library under its wrapper; no path of the port runs them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -128,6 +131,16 @@ def workspace_args(device) -> Tuple[list, tuple]:
             (work, counters))
 
 
+def _bind(name: str, path: Path) -> ctypes.CDLL:
+    """The library at ``path`` with csrc/<name>.cu's entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _KERNELS[name][0].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
     lib = _LOADED.get(name)
@@ -135,10 +148,60 @@ def load(name: str) -> ctypes.CDLL:
         job = _start(name)
         if job is not None:
             _finish(name, job)
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in _KERNELS[name][0].items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        _LOADED[name] = lib
+        lib = _LOADED[name] = _bind(name, _target(name))
     return lib
+
+
+def apply_edits(text: str, label: str, edits) -> str:
+    """``text`` with each (old, new) of ``edits`` replaced in turn; raises,
+    naming ``label``, where an old text is not there (the source changed
+    under a tuning study's edit)."""
+    for old, new in edits:
+        if old not in text:
+            raise ValueError(f"variant {label!r}: {old!r} not in the source")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(name: str, variants, out_dir: Path) -> List[ctypes.CDLL]:
+    """One library of csrc/<name>.cu for each (label, edits) of
+    ``variants``, the source edited by ``apply_edits`` and built with the
+    kernel's flags into ``out_dir``, all nvcc processes at once; each with
+    the kernel's entry points typed."""
+    src = (CSRC / f"{name}.cu").read_text()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    try:
+        for n, (label, edits) in enumerate(variants):
+            cu = out_dir / f"{name}_{n}.cu"
+            cu.write_text(apply_edits(src, label, edits))
+            jobs.append(subprocess.Popen(
+                [_nvcc(), *_flags(name), "-I", str(CSRC),
+                 "-o", str(out_dir / f"{name}_{n}.so"), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for (label, _), proc in zip(variants, jobs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu, variant "
+                                   f"{label!r}:\n{out}")
+    finally:
+        for proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [_bind(name, out_dir / f"{name}_{n}.so") for n in range(len(jobs))]
+
+
+@contextlib.contextmanager
+def loaded_as(name: str, lib: ctypes.CDLL):
+    """Within the block, the wrappers of csrc/<name>.cu launch through
+    ``lib`` (one of ``build_variants``) in place of the kernel's library."""
+    old = _LOADED.get(name)
+    _LOADED[name] = lib
+    try:
+        yield lib
+    finally:
+        if old is None:
+            _LOADED.pop(name, None)
+        else:
+            _LOADED[name] = old

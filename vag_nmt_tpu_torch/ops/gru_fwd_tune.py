@@ -17,9 +17,7 @@ chip_smoke.py's inputs (``_gru_case``) and grid timer (``_grid_ms``).
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 
 # Tilings timed by ``sweep`` (B, T, rows a thread, row_block, unit_block,
@@ -34,7 +32,8 @@ SWEEP = (
     (64, 24, 2, 16, 32, 128, 4))
 
 # Builds timed by ``probe``: (label, [(source text, replacement)]). An edit
-# whose text is not in the source fails the build step by name.
+# whose text is not in the source raises, naming the build
+# (``_build.apply_edits``; tests/test_torch_tune.py checks every edit).
 _REG_STATE = ("hv[i] = *reinterpret_cast<const float4*>(hrow + i * rstride + kq);",
               "hv[i] = make_float4(__int_as_float(kq + i + 1), 1.f, 2.f, 3.f);")
 _REG_UH = ("for (int m = 0; m < W / 4; ++m) wv[m] = w4[m];",
@@ -82,35 +81,14 @@ def sweep(torch, np, dev):
 
 
 def probe(torch, np, dev):
-    """Each build of PROBES (nvcc in parallel, gru_fwd's flags), timed."""
+    """Each build of PROBES (``_build.build_variants``), timed."""
     import chip_smoke as cs
     from vag_nmt_tpu_torch.ops import _build
     from vag_nmt_tpu_torch.ops.gru_kernel import (_device_limits, _launch,
                                                   gru_fwd_plan)
 
-    src = (_build.CSRC / "gru_fwd.cu").read_text()
-    out_dir = _build.BUILD_DIR.parent / "gru_probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for n, (label, edits) in enumerate(PROBES):
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise AssertionError(f"gru probe {label!r}: {old!r} not found")
-            text = text.replace(old, new)
-        cu = out_dir / f"probe{n}.cu"
-        cu.write_text(text)
-        jobs.append(subprocess.Popen(
-            [_build._nvcc(), *_build._flags("gru_fwd"), "-I", str(_build.CSRC),
-             "-o", str(out_dir / f"probe{n}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = []
-    for n, job in enumerate(jobs):
-        if job.wait() != 0:
-            raise AssertionError(f"gru probe build {n}: {job.stdout.read()}")
-        fn = ctypes.CDLL(str(out_dir / f"probe{n}.so")).gru_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fns.append(fn)
+    fns = [lib.gru_fwd_launch for lib in _build.build_variants(
+        "gru_fwd", PROBES, _build.BUILD_DIR.parent / "gru_probe")]
     for label, B, T in cs.GRU_SHAPES:
         _, p, xg_t, mask_t, h0 = cs._gru_case(torch, np, dev, B, T, seed=2)
         args = (xg_t, mask_t, p["uh"], p["bh"], h0)

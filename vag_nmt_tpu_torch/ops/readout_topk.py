@@ -20,7 +20,7 @@ watermark, the largest value it pushed out of them; a row is flagged
 (``viol``) when some lane's watermark reaches the row's provisional K-th
 value, and only a flagged row may differ from depth K. A lane is the
 kernel's own partition (``kernel_lanes``: a thread's 4 columns of every
-64-column tile of its vocab split), not the TPU's ``id % 128``; the plain
+64 columns of its vocab split), not the TPU's ``id % 128``; the plain
 version takes the lane map as an argument, so it models either. Recovery,
 as in the JAX package: per step (flagged live rows recomputed at depth K
 on the device, no host read), or deferred (the live-row flag returned for
@@ -39,16 +39,21 @@ from vag_nmt_tpu_torch.core.config import PAD_ID
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
 from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
 from vag_nmt_tpu_torch.ops import _build
-from vag_nmt_tpu_torch.ops.topk import _FLOOR, NEG_INF, beam_topk_plain, stable_topk
+from vag_nmt_tpu_torch.ops.topk import (_FLOOR, NEG_INF, _arrival_counters,
+                                        beam_topk_plain, stable_topk)
 
-# Tiling of the kernel's first pass; csrc/readout_topk.cu is built with it
-# (-D defines, see the declare() below), so the split plan and the lane map
-# cannot disagree with it.
-_ROW_TILE = 32
-_COL_TILE = 64
-_LANE_COLS = 4              # columns of a tile that one thread (lane) folds
+# Tiling of the kernel; csrc/readout_topk.cu is built with it (-D defines,
+# see the declare() below), so the split plan and the lane map cannot
+# disagree with it. 64-row tiles read W from L2 ten times at R=640 (32-row
+# tiles: twenty); 128-row tiles would hold twice the lane states and
+# accumulators a thread, past the 128 registers of 512 threads.
+_ROW_TILE = 64
+_COL_TILE = 128             # columns of an output tile; splits are whole tiles
+_DEPTH_CHUNK = 64           # depth of a staged chunk of t and W
+_LANE_PERIOD = 64           # a lane holds _LANE_COLS columns of every 64
+_LANE_COLS = 4
 _MAX_K = 8
-_TARGET_BLOCKS = 264        # two blocks per SM on the H100's 132 SMs
+_TARGET_BLOCKS = 132        # one block per SM on the H100's 132 SMs
 
 
 def ban_mask(ban: torch.Tensor, V: int) -> torch.Tensor:
@@ -64,22 +69,23 @@ def ban_mask(ban: torch.Tensor, V: int) -> torch.Tensor:
 
 
 def _split_plan(R: int, V: int) -> Tuple[int, int]:
-    """(n_split, split_cols) of the first pass: enough vocab splits to give
-    about _TARGET_BLOCKS blocks, each split a whole number of column tiles."""
+    """(n_split, split_cols): enough vocab splits to give at most
+    _TARGET_BLOCKS blocks (one wave), each split a whole number of column
+    tiles and none empty."""
     n_tiles = -(-V // _COL_TILE)
     row_tiles = -(-R // _ROW_TILE)
-    want = min(max(1, -(-_TARGET_BLOCKS // row_tiles)), n_tiles)
+    want = min(max(1, _TARGET_BLOCKS // row_tiles), n_tiles)
     per_split = -(-n_tiles // want)
     return -(-n_tiles // per_split), per_split * _COL_TILE
 
 
 def kernel_lanes(R: int, V: int) -> torch.Tensor:
     """(V,) int64: the lane of each vocab id in the CUDA kernel at R rows,
-    (its vocab split, its thread's column group within a tile)."""
+    (its vocab split, its column group of 4 within each 64 columns)."""
     _, split_cols = _split_plan(R, V)
     col = torch.arange(V)
-    per_split = _COL_TILE // _LANE_COLS
-    return (col // split_cols) * per_split + (col % _COL_TILE) // _LANE_COLS
+    per_split = _LANE_PERIOD // _LANE_COLS
+    return (col // split_cols) * per_split + (col % _LANE_PERIOD) // _LANE_COLS
 
 
 def _shallow(logits: torch.Tensor, k: int, sk: int, lanes: torch.Tensor):
@@ -150,8 +156,9 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     device (None until the first recovery). impl: "auto" (kernel for CUDA
     tensors, plain for CPU tensors), "kernel" or "plain". Each kernel call
     counts one in ``readout_topk_rows.launches`` and its grids in
-    ``readout_topk_rows.grids``: the vocab splits and their merge, and with
-    the per-step recovery the depth-k rerun and its merge."""
+    ``readout_topk_rows.grids``: one (the vocab splits, merged by the last
+    block of each row tile), and with the per-step recovery a second, the
+    depth-k rerun of the marked row tiles (after a memset of the marks)."""
     sk = min(slots, k) if slots else k
     recover = recover_live if sk < k else None
     if resolve_impl(impl, t) == "plain":
@@ -171,6 +178,7 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if mask is not None:
         check_kernel_arg(mask, torch.uint8, (R, V), "readout_topk: mask")
     n_split, split_cols = _split_plan(R, V)
+    row_tiles = -(-R // _ROW_TILE)
     dev = t.device
     part_v = torch.empty((n_split, R, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_split, R, k), dtype=torch.int32, device=dev)
@@ -188,7 +196,7 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if recover is not None:
         live = recover.to(torch.uint8).contiguous()
         check_kernel_arg(live, torch.uint8, (R,), "readout_topk: recover_live")
-        recovery = (live, torch.empty((-(-R // _ROW_TILE),), dtype=torch.uint8,
+        recovery = (live, torch.empty((row_tiles,), dtype=torch.uint8,
                                       device=dev), _recoveries(dev))
     part_w, viol = (None if x is None else x.data_ptr() for x in shallow)
     lib = _build.load("readout_topk")
@@ -196,7 +204,9 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         t.data_ptr(), w.data_ptr(), b.data_ptr(),
         None if mask is None else mask.data_ptr(),
         part_v.data_ptr(), part_i.data_ptr(), part_m.data_ptr(),
-        part_s.data_ptr(), part_w, vals.data_ptr(), idx.data_ptr(),
+        part_s.data_ptr(), part_w,
+        _arrival_counters(dev, row_tiles).data_ptr(),
+        vals.data_ptr(), idx.data_ptr(),
         lse.data_ptr(), viol,
         *(None if x is None else x.data_ptr() for x in recovery),
         R, E, V, k, sk, n_split, split_cols,
@@ -204,7 +214,7 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"readout_topk kernel launch failed: CUDA error {rc}")
     readout_topk_rows.launches += 1
-    readout_topk_rows.grids += 2 if recover is None else 4
+    readout_topk_rows.grids += 1 if recover is None else 2
     if not slots:
         return vals, idx, lse
     if shallow[1] is None:                     # depth k: nothing flagged
@@ -227,8 +237,9 @@ def _recoveries(dev: torch.device) -> torch.Tensor:
 
 
 _build.declare("readout_topk", "readout_topk_launch",
-               [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-               defines={"VAG_RT": _ROW_TILE, "VAG_CT": _COL_TILE,
+               [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+               defines={"VAG_BM": _ROW_TILE, "VAG_BN": _COL_TILE,
+                        "VAG_BK": _DEPTH_CHUNK, "VAG_LANE_PERIOD": _LANE_PERIOD,
                         "VAG_CPT": _LANE_COLS, "VAG_MAX_K": _MAX_K})
 
 
