@@ -47,7 +47,11 @@ Phases (each raises on failure; the script then exits non-zero):
      before it, kernels 6, 8 and 9 timed as grids alone at V=8000 and 16000,
      cold (L2 flushed) and warm, beside torch.topk on the candidates;
  10. dec_step kernel against its plain version at full width (B=128, K=5,
-     T=32) and at a ragged shape, with masked source positions;
+     T=32), at a ragged shape, at K=1 and at B=1, with masked source
+     positions, a second call bit for bit as the first; its whole call
+     timed alone, cold (L2 flushed) and warm, each of its grids' device
+     time from torch.profiler, beside the four products through torch.mm
+     in fp32;
  11. the serving path: Translator.from_run on phase 8's run dir (its
      checkpoint, plus config.json and vocab files written here), then a
      1024-line raw-text request at batch 128 in six modes: (a) the default
@@ -82,7 +86,8 @@ Phases (each raises on failure; the script then exits non-zero):
      groups its per-step recoveries mark at 32 and at 64 rows.
 Phase 1 builds all eight sources. It prints one JSON line of per-kernel
 numbers and, last, the device line. With --gru-grids it prints phase 3's
-grid times alone, with --readout-grids kernel 1's (see main).
+grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
+kernel 7's (see main).
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
 
@@ -1138,47 +1143,179 @@ def _dec_step_case(torch, np, dev, B, K, T, H, A, C, R, seed):
             mask), weights
 
 
-def phase_dec_step(torch, np, dev):
-    """dec_step against dec_step_plain at full width and at a ragged shape
-    (widths and batch that fill no tile)."""
+# phase_dec_step's ragged shape (B, K, T, H, A, C, R): widths and batch
+# that fill no tile, an empty depth split; and its shape of widths that
+# are no multiples of 4, whose rows the kernel copies 4 bytes at a time.
+DEC_STEP_RAGGED = (12, 3, 13, 96, 96, 192, 64)
+DEC_STEP_ODD = (12, 3, 13, 94, 90, 190, 62)
+
+
+def _misaligned(torch, x):
+    """x's values in a contiguous tensor that starts 4 bytes past a 16-byte
+    boundary (the kernels' 16-byte copies need aligned rows)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def _dec_step_full(K: int = 5, B: int = 128):
+    """(B, K, T, H, A, C, R) at the full width of m30k_ende_vag, T = 32."""
     import vag_nmt_tpu_torch as vt
-    from vag_nmt_tpu_torch.ops.dec_step import dec_step, dec_step_plain
 
     m = vt.preset("m30k_ende_vag").model
-    full = (128, 5, 32, m.dec_hidden_dim, m.attn_dim, m.ctx_dim, m.emb_dim)
+    return (B, K, 32, m.dec_hidden_dim, m.attn_dim, m.ctx_dim, m.emb_dim)
+
+
+def _dec_step_bound(B, K, T, H, A, C, R, weights):
+    """Kernel 7's bound (ms, by, the fp32 bound ms): its four products run
+    as three TF32 products each on the tensor cores (3xTF32) at the TF32
+    peak, the attention's energies (add, tanh, multiply-add by va) and
+    context multiply-adds on the fp32 cores; its bytes are the weights and
+    inputs read once and s', t written once. Without the tensor cores the
+    products would run at the fp32 peak (the fp32 bound)."""
+    from vag_nmt_tpu_torch.core.flops import (H100_HBM_BYTES_PER_S,
+                                              H100_PEAK_FP32_FLOPS,
+                                              H100_PEAK_TF32_FLOPS)
+
+    N = B * K
+    gemm = 2.0 * N * (H * 3 * H + H * (A + 3 * H) + C * (3 * H + R) + H * R)
+    att = N * T * (4.0 * A + 2.0 * C)
+    nbytes = 4.0 * (sum(w.numel() for w in weights) + N * (3 * H + R)
+                    + N * H + B * T * (C + A + 1) + N * (H + R))
+    t_ops = (3 * gemm / H100_PEAK_TF32_FLOPS + att / H100_PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    fp32_ms = max((gemm + att) / H100_PEAK_FP32_FLOPS * 1e3, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, fp32_ms
+
+
+def _profile_grids(torch, run, calls: int, exclude=()):
+    """Device ms per call of each kernel name that run() enqueues (called
+    ``calls`` times under torch.profiler), names in ``exclude`` left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in exclude:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    return out
+
+
+def dec_step_grid_times(torch, np, dev):
+    """Kernel 7's whole call, its device work alone, cold (L2 flushed) and
+    warm (_grid_ms) through the wrapper, at full width, (B, K, T) = (128,
+    5, 32); beside it the four products through torch.mm in fp32 (TF32
+    off), the GEMM share of the same work, and an empty device op; and each
+    grid's device ms a call from torch.profiler, cold (each call after the
+    flush, whose own kernels are left out) and warm. Through the wrapper of
+    whichever vag_nmt_tpu_torch is first on sys.path."""
+    from vag_nmt_tpu_torch.ops.dec_step import dec_step
+
+    shape = _dec_step_full()
+    B, K, T, H, A, C, R = shape
+    N = B * K
+    inputs, weights = _dec_step_case(torch, np, dev, *shape, seed=12)
+    kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+    call = lambda: dec_step(*inputs, weights, impl="kernel")  # noqa: E731
+    cold, warm = _grid_ms(torch, call, **kw)
+    floor_ms = _grid_ms(torch, lambda: torch.cuda._sleep(0))[0]
+    # the four products at the call's shapes: s @ uh1, s~ @ w_s, c @ w_c,
+    # s' @ ws (s stands in for s~ and s')
+    s = inputs[1]
+    c = torch.from_numpy(np.random.RandomState(13).randn(N, C).astype(
+        np.float32)).to(dev)
+    prods = [(s, weights[0]), (s, weights[2]), (c, weights[5]), (s, weights[7])]
+    outs = [torch.empty((N, w.shape[1]), dtype=torch.float32, device=dev)
+            for _, w in prods]
+
+    def gemms():
+        for (a, w), o in zip(prods, outs):
+            torch.mm(a, w, out=o)
+
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        addmm = _grid_ms(torch, gemms, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flushed():
+        flush.sum()
+        torch.cuda._sleep(HOLD_CYCLES)
+
+    def cold_call():
+        flushed()
+        call()
+
+    exclude = set(_profile_grids(torch, flushed, 1))
+    bound_ms, bound_by, fp32_ms = _dec_step_bound(*shape, weights)
+    out = {"B": B, "K": K, "T": T, "H": H, "A": A, "C": C, "R": R,
+           "grid_ms": cold, "grid_warm_ms": warm,
+           "addmm_grid_ms": addmm[0], "addmm_grid_warm_ms": addmm[1],
+           "grid_floor_ms": floor_ms,
+           "grids_cold_ms": _profile_grids(torch, cold_call, 20, exclude),
+           "grids_warm_ms": _profile_grids(torch, call, 20),
+           "bound_ms": bound_ms, "bound_by": bound_by, "fp32_bound_ms": fp32_ms,
+           "grid_bound_share": bound_ms / cold}
+    print(f"dec_step grid (B={B}, K={K}, T={T}): " + json.dumps(out))
+    return out
+
+
+def phase_dec_step(torch, np, dev):
+    """dec_step against dec_step_plain at full width, at a ragged shape, at
+    widths that are no multiples of 4, at the ragged shape with every input
+    and weight 4 bytes off a 16-byte boundary, at K = 1 and at B = 1
+    (DEC_STEP_RTOL), a second call bit for bit as the first; then the call
+    timed alone (dec_step_grid_times) and through the wrapper."""
+    from vag_nmt_tpu_torch.ops.dec_step import dec_step, dec_step_plain
+
+    full = _dec_step_full()
+    cases = {"full": full, "ragged": DEC_STEP_RAGGED, "odd": DEC_STEP_ODD,
+             "misaligned": DEC_STEP_RAGGED, "k1": _dec_step_full(K=1),
+             "b1": _dec_step_full(B=1)}
     max_abs = 0.0
-    for shape in (full, (12, 3, 13, 96, 96, 192, 64)):
+    for label, shape in cases.items():
         inputs, weights = _dec_step_case(torch, np, dev, *shape, seed=11)
+        if label == "misaligned":
+            inputs, weights = ([_misaligned(torch, x) for x in xs]
+                               for xs in (inputs, weights))
         got = dec_step(*inputs, weights, impl="kernel")
+        again = dec_step(*inputs, weights, impl="kernel")
         want = dec_step_plain(*inputs, weights)
         torch.cuda.synchronize()
         errs = {n: _rel_err(a, b) for n, a, b in zip(("s_new", "t"), got, want)}
         if not max(errs.values()) <= DEC_STEP_RTOL:
-            raise AssertionError(f"dec_step {shape}: relative errors {errs}")
+            raise AssertionError(f"dec_step {label} {shape}: relative errors {errs}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"dec_step {label} {shape}: a second call differs")
         max_abs = max([max_abs] + [float((a - b).abs().max())
                                    for a, b in zip(got, want)])
-        print(f"dec_step (B, K, T, H, A, C, R)={shape}: ok, relative errors "
-              f"{json.dumps(errs)}")
+        print(f"dec_step {label} (B, K, T, H, A, C, R)={shape}: ok, relative "
+              f"errors {json.dumps(errs)}")
 
+    grid = dec_step_grid_times(torch, np, dev)
     inputs, weights = _dec_step_case(torch, np, dev, *full, seed=12)
     ms = _time_ms(torch, lambda: dec_step(*inputs, weights, impl="kernel"))
     plain_ms = _time_ms(torch, lambda: dec_step_plain(*inputs, weights))
-    B, K, T, H, A, C, R = full
-    N = B * K
-    # the four GEMMs, then the energies (add, tanh, multiply-add by va) and
-    # the context's multiply-adds per position of the sentence's source
-    flops = (2.0 * N * (H * 3 * H + H * (A + 3 * H) + C * (3 * H + R) + H * R)
-             + N * T * (4.0 * A + 2.0 * C))
-    nbytes = 4.0 * (sum(w.numel() for w in weights) + N * (3 * H + R)
-                    + N * H + B * T * (C + A + 1) + N * (H + R))
-    bound_ms, bound_by = _bound(flops, nbytes)
-    print(f"dec_step (B={B}, K={K}, T={T}): kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    print(f"dec_step (B, K, T)={full[:3]}: wrapper_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} grid_ms={grid['grid_ms']:.4f} "
+          f"bound_ms={grid['bound_ms']:.4f} ({grid['bound_by']})")
     return {"name": "dec_step", "route": "cuda",
             "source": "vag_nmt_tpu_torch/csrc/dec_step.cu",
             "replaces": "vag_nmt_tpu/ops/pallas_dec_step.py:106",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": grid["bound_ms"], "bound_by": grid["bound_by"],
+            "library_ms": None,
+            **{f: grid[f] for f in ("grid_ms", "grid_warm_ms", "addmm_grid_ms",
+                                    "addmm_grid_warm_ms", "grid_floor_ms",
+                                    "grids_cold_ms")}}
 
 
 def _legacy_case(torch, np, dev, kind, B, K, V, seed):
@@ -1802,6 +1939,8 @@ def phase_profile(torch, what: str, run):
                           if "gru_fwd" in name) / 1e3,
         "readout_topk_ms": sum(us for name, us in kernels.items()
                                if "readout_topk" in name) / 1e3,
+        "dec_step_ms": sum(us for name, us in kernels.items()
+                           if "dec_step" in name) / 1e3,
         "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top]}))
 
 
@@ -1829,6 +1968,11 @@ def main() -> int:
         # kernel 1's whole call alone at READOUT_GRID_V and nothing else,
         # the same way for another tree's kernel: {V: fields}.
         print(json.dumps({"readout_grids": readout_grid_times(torch, np, dev)}))
+        return 0
+    if sys.argv[1:] == ["--dec-step-grids"]:
+        # kernel 7's whole call alone and each of its grids, and nothing
+        # else, the same way for another tree's kernel: fields.
+        print(json.dumps({"dec_step_grids": dec_step_grid_times(torch, np, dev)}))
         return 0
     print(f"build_s: {_build.build_all():.2f}")
     t0 = time.perf_counter()

@@ -2,7 +2,8 @@
 ``ops/readout_topk_tune.py``), on the CPU.
 
 Each study builds its kernel's source with text edits
-(``_build.build_variants``), which only the card's machine compiles. Here
+(``_build.build_variants``, on ``_build.source``: the source with its
+csrc/ headers inlined), which only the card's machine compiles. Here
 every edit of every build is applied to the current source, so an edit of a
 kernel that moves a study's text fails on the CPU and not on the card;
 ``apply_edits`` raises by name where a text is missing, and ``loaded_as``
@@ -21,7 +22,7 @@ CASES = [(name, label, edits) for name, probes in STUDIES
 @pytest.mark.parametrize("name,label,edits", CASES,
                          ids=[f"{n}:{lb}" for n, lb, _ in CASES])
 def test_probe_edits_apply_to_the_source(name, label, edits):
-    src = (_build.CSRC / f"{name}.cu").read_text()
+    src = _build.source(name)
     out = _build.apply_edits(src, label, edits)
     assert (out == src) == (not edits)
     for old, new in edits:
@@ -52,3 +53,15 @@ def test_loaded_as_restores_the_kernel_library():
         with _build.loaded_as(name, stand_in):
             raise RuntimeError("a failed timing")
     assert _build._LOADED.get(name) is before
+
+
+@pytest.mark.parametrize("name", ["readout_topk", "dec_step"])
+def test_source_inlines_the_csrc_headers(name):
+    """The text the studies edit holds the shared headers' helpers (the
+    TF32 split the readout probes edit lives in tf32_mma.cuh) and no
+    include of a csrc/ header."""
+    src = _build.source(name)
+    assert '#include "tf32_mma.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+    assert '#include "' not in src and "#pragma once" not in src
+    assert "__device__ __forceinline__ uint32_t tf32_rna(float x)" in src
+    assert "__global__ void colsum_kernel" in src        # common.cuh

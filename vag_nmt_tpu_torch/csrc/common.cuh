@@ -185,6 +185,17 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// GRU cell of one unit from its gate pre-activations (biases added), reset
+// gate after the hidden product: ops/gru_kernel.gru_gate_algebra's order.
+__device__ __forceinline__ float gru_unit(float xr, float xz, float xn,
+                                          float hr, float hz, float hn,
+                                          float h) {
+  const float r = sigmoidf_(xr + hr);
+  const float z = sigmoidf_(xz + hz);
+  const float n = tanhf(xn + r * hn);
+  return (1.f - z) * n + z * h;
+}
+
 // GRU cell on precomputed gates (reset gate after the hidden matmul):
 // out = (1 - z) n + z h with h/out (rows, H) and the gate pre-activations
 // read from row r of xg and hg at row strides ldx and ldh (3H when packed),
@@ -206,10 +217,7 @@ __global__ void gru_cell_kernel(const float* __restrict__ xg, int ldx,
     xv[j] = xb ? x[j * H + u] + xb[j * H + u] : x[j * H + u];
     gv[j] = hb ? g[j * H + u] + hb[j * H + u] : g[j * H + u];
   }
-  const float r = sigmoidf_(xv[0] + gv[0]);
-  const float z = sigmoidf_(xv[1] + gv[1]);
-  const float n = tanhf(xv[2] + r * gv[2]);
-  out[i] = (1.f - z) * n + z * h[i];
+  out[i] = gru_unit(xv[0], xv[1], xv[2], gv[0], gv[1], gv[2], h[i]);
 }
 
 // Backward through one GRU cell, term for term as the TPU kernel

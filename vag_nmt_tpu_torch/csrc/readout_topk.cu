@@ -77,6 +77,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -125,51 +126,13 @@ static_assert((size_t)BM * TX * (2 * MAX_K + 3) <= (size_t)STAGES * STAGE_FLOATS
               "lane merge fits in the ring");
 
 using vag::better;
+using vag::cp_async16;
+using vag::cp_async4;
+using vag::cp_async_commit;
+using vag::cp_async_wait;
 using vag::insert;
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
-                                          int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// TF32 rounding of x, to nearest with ties away from zero (cvt.rna's), on
-// the bits: add half of the last kept bit to the magnitude, clear the 13
-// dropped ones (two integer operations at full rate; cvt runs at a fraction
-// of it).
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32: big = rna(x), small = rna(x - big); x - big
-// is exact.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using vag::mma_tf32;
+using vag::split_tf32;
 
 struct Params {
   const float *t, *w, *b;

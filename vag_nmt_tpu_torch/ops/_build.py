@@ -21,6 +21,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -163,12 +164,26 @@ def apply_edits(text: str, label: str, edits) -> str:
     return text
 
 
+_LOCAL_INCLUDE = re.compile(r'^#include "(\w+\.cuh)"\n', re.M)
+
+
+def source(name: str) -> str:
+    """csrc/<name>.cu with each ``#include "<header>.cuh"`` of csrc/ replaced
+    by that header's text (without its ``#pragma once``): the text that the
+    tuning studies edit, helpers shared through a header included."""
+    def inline(m):
+        hdr = (CSRC / m.group(1)).read_text()
+        return hdr.replace("#pragma once\n", "")
+
+    return _LOCAL_INCLUDE.sub(inline, (CSRC / f"{name}.cu").read_text())
+
+
 def build_variants(name: str, variants, out_dir: Path) -> List[ctypes.CDLL]:
     """One library of csrc/<name>.cu for each (label, edits) of
-    ``variants``, the source edited by ``apply_edits`` and built with the
-    kernel's flags into ``out_dir``, all nvcc processes at once; each with
-    the kernel's entry points typed."""
-    src = (CSRC / f"{name}.cu").read_text()
+    ``variants``, ``source(name)`` edited by ``apply_edits`` and built with
+    the kernel's flags into ``out_dir``, all nvcc processes at once; each
+    with the kernel's entry points typed."""
+    src = source(name)
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = []
     try:

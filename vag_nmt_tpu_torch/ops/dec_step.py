@@ -9,8 +9,11 @@ the ``gy`` row gather stays outside the kernel (a torch index, as the JAX
 package keeps it in XLA), ``ba`` is folded into ``ctx_proj`` per call, and
 the fused weight matrices ``w_s = [ua | uh2]`` and ``w_c = [wi2 | wc]``
 compute the same per-column dot products as the PyTorch tabled step. The
-kernel is not bit-identical to that step (its sums and softmax run in
-another order), so the tests hold it to a tolerance.
+kernel is not bit-identical to that step (its products run as three TF32
+products on the tensor cores, its sums and softmax in another order), so
+the tests hold it to a tolerance. ``dec_step_plan`` owns the kernel's
+tiling: its constants are the build's -D defines and its tile counts the
+launch's arguments, so the CPU tests of the plan cover what is launched.
 
 Selected by ``VAG_DEC_STEP=on`` with decode tables (``core/knobs.py``),
 default off as in the JAX package, whose default rests on a TPU
@@ -19,7 +22,9 @@ measurement; the kernel's own numbers are in PERF.md."""
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Sequence, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -29,6 +34,93 @@ from vag_nmt_tpu_torch.ops.gru_kernel import gru_gate_algebra
 
 NEG_INF = -1e9          # as ops/attention.masked_softmax
 MAX_K = 8               # beams per sentence the attention grid holds
+
+# The kernel's tiling, passed to csrc/dec_step.cu as -D defines: rows of a
+# product tile, depth of a staged chunk, hidden units of a gate tile (its
+# 3 * UB columns: the r, z and n columns of those units), columns of a qh
+# tile and of a readout (s' @ ws) tile, depth splits of the readout
+# product, stages of the cp.async ring, CTAs of the attention's cluster
+# per sentence.
+BM, BK, UB, BN, RN, SPLIT, STAGES, ATT_CLUSTER = 64, 32, 16, 80, 32, 4, 3, 4
+SMEM_LIMIT = 232448     # bytes of shared memory a block may use
+GRIDS = 5               # grids a call enqueues
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """One product of the step as the kernel tiles it: out = a (rows,
+    depth) @ b over ``col_tiles`` column tiles of ``tile_cols`` columns and
+    ``row_tiles`` tiles of BM rows. Tiles [0, gate_tiles) are gate tiles
+    (UB units of H, columns u, H + u, 2H + u of b), the rest plain tiles
+    over b's columns [col0, col0 + cols). The depth is cut into ``splits``
+    parts of ``kchunk`` (the last ones empty where the depth is short), the
+    CTAs of a tile's splits one thread-block cluster."""
+    name: str
+    rows: int
+    depth: int
+    tile_cols: int
+    H: int
+    gate_tiles: int
+    col0: int
+    cols: int
+    col_tiles: int
+    splits: int
+    kchunk: int
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.rows // BM)
+
+    def b_columns(self, ct: int) -> List[int]:
+        """b's column of each column of tile ct, -1 outside b (the same map
+        as the kernel's device function b_col)."""
+        out = []
+        for j in range(self.tile_cols):
+            if ct < self.gate_tiles:
+                u = ct * UB + j % UB
+                out.append((j // UB) * self.H + u if u < self.H else -1)
+            else:
+                c = (ct - self.gate_tiles) * self.tile_cols + j
+                out.append(self.col0 + c if c < self.cols else -1)
+        return out
+
+    @property
+    def smem_bytes(self) -> int:
+        """The CTA's ring (or its staged accumulators, whichever is more),
+        then its epilogue's operands: a gate tile's three gate rows and
+        state rows, or the readout's ty and tc."""
+        ws = self.tile_cols + 8
+        ops = (4 * BM * UB if self.gate_tiles else
+               2 * BM * self.tile_cols if self.name == "sw" else 0)
+        return 4 * (max(STAGES * (BM * (BK + 4) + BK * ws), BM * ws) + ops)
+
+
+@functools.lru_cache(maxsize=None)   # one shape a decode: once, not per step
+def dec_step_plan(N: int, H: int, A: int, C: int, R: int
+                  ) -> Tuple[GemmPlan, ...]:
+    """The four products of one call in launch order (hg1 with GRU1, qh, xc
+    with GRU2 and the tc columns, sw with the readout) for N rows and widths
+    H, A, C, R; dec_step launches csrc/dec_step.cu with its tile counts
+    (``launch_tiles``)."""
+    gt = 3 * UB
+    units = -(-H // UB)
+    kchunk = -(-(-(-H // SPLIT)) // BK) * BK
+    return (
+        GemmPlan("hg1", N, H, gt, H, units, 0, 0, units, 1, H),
+        GemmPlan("qh", N, H, BN, H, 0, 0, A + 3 * H, -(-(A + 3 * H) // BN),
+                 1, H),
+        GemmPlan("xc", N, C, gt, H, units, 3 * H, R, units + -(-R // gt), 1,
+                 C),
+        GemmPlan("sw", N, H, RN, H, 0, 0, R, -(-R // RN), SPLIT, kchunk),
+    )
+
+
+def launch_tiles(plan: Sequence[GemmPlan]) -> Tuple[int, ...]:
+    """The plan as dec_step_launch takes it: each product's gate tiles and
+    column tiles in launch order, then the last product's split depth."""
+    return tuple(x for g in plan for x in (g.gate_tiles, g.col_tiles)) + (
+        plan[-1].kchunk,)
+
 
 WEIGHTS = ("uh1", "bh1", "w_s", "bh2", "va", "w_c", "bi2", "ws", "b")
 
@@ -73,8 +165,8 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
              impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """``dec_step_plain``'s contract. impl: "auto" (kernel for CUDA
     tensors, plain for CPU tensors), "kernel" or "plain". One call of the
-    kernel path enqueues 8 grids (see csrc/dec_step.cu): it counts one in
-    ``dec_step.launches`` and those in ``dec_step.grids``."""
+    kernel path enqueues GRIDS grids (see csrc/dec_step.cu): it counts one
+    in ``dec_step.launches`` and those in ``dec_step.grids``."""
     if resolve_impl(impl, s) == "plain":
         return dec_step_plain(gy, s, ctx, ctxpb, mask, weights)
     B, T, C = ctx.shape
@@ -102,20 +194,18 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     s_new, t = new(N, H), new(N, R)
-    scratch = (new(N, 3 * H), new(N, H), new(N, A + 3 * H), new(N, C),
-               new(N, G))
+    scratch = (new(N, H), new(N, A + 3 * H), new(N, C), new(N, R))  # s~ qh c tc
+    plan = dec_step_plan(N, H, A, C, R)
     lib = _build.load("dec_step")
-    split_k, _keep = _build.workspace_args(dev)
     rc = lib.dec_step_launch(
         gy.data_ptr(), s.data_ptr(), ctx.data_ptr(), ctxpb.data_ptr(),
         mask.data_ptr(), *(w.data_ptr() for w in weights), s_new.data_ptr(),
-        t.data_ptr(), *(x.data_ptr() for x in scratch),
-        B, K, T, H, A, C, R, *split_k,
-        torch.cuda.current_stream(dev).cuda_stream)
+        t.data_ptr(), *(x.data_ptr() for x in scratch), B, K, T, H, A, C, R,
+        *launch_tiles(plan), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dec_step kernel launch failed: CUDA error {rc}")
     dec_step.launches += 1
-    dec_step.grids += 8
+    dec_step.grids += GRIDS
     return s_new, t
 
 
@@ -123,9 +213,10 @@ dec_step.launches = 0
 dec_step.grids = 0
 
 _build.declare("dec_step", "dec_step_launch",
-               [ctypes.c_void_p] * 21 + [ctypes.c_int] * 7
-               + _build.WORKSPACE_ARGTYPES + [ctypes.c_void_p],
-               defines={"VAG_MAX_K": MAX_K})
+               [ctypes.c_void_p] * 20 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
+               defines={"VAG_MAX_K": MAX_K, "VAG_BM": BM, "VAG_BK": BK,
+                        "VAG_UB": UB, "VAG_BN": BN, "VAG_RN": RN, "VAG_SPLIT": SPLIT,
+                        "VAG_STAGES": STAGES, "VAG_ATT_CLUSTER": ATT_CLUSTER})
 
 
 def decode_step_fused(params: Dict[str, Any], tables: Dict[str, torch.Tensor],
