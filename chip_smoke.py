@@ -30,16 +30,23 @@ Phases (each raises on failure; the script then exits non-zero):
      of the host wall, device launches per beam step and the top kernels;
   6. gru_bwd kernel against its plain version at the encoder's training
      shape (B=64, T=24, E=256, H=512), ragged lengths, both directions;
-  7. dec_scan_fwd and dec_scan_bwd kernels against their plain versions at
-     full width (B=64, T=Tt=24), ragged source mask: the readout, every
-     residual and all 15 gradients;
+  7. dec_scan_fwd and dec_scan_bwd kernels (one persistent grid each)
+     against their plain versions at (B, T, Tt) = (64, 24, 24) full width,
+     ikea_vag's (64, 128, 128), a ragged batch (B=37) at widths that are no
+     multiples of 4 with every operand 4 bytes off a 16-byte boundary, and
+     Tt = 1, ragged source masks: the readout, every residual and all 15
+     gradients, a second call bit for bit as the first; at the first two
+     both calls timed alone, cold (L2 flushed) and warm, with each phase's
+     device ms from the kernels' barrier stamps; the energies' tanh_fast
+     against tanhf;
   8. the training path: train_loop on the full-width m30k_ende_vag model
      (preset dropout 0.3, batch 64) from a seed's random init over a
      synthetic corpus of 2048 pairs, 40 steps and one dev eval, with each
      kernel's launch count read from that run alone, steps/s, target
      tokens/s and the first and last loss; then 5 steps through the kernels
      and through the plain versions from the same init and dropout draws;
-     then 3 steps under torch.profiler, as phase 5;
+     then 3 steps under torch.profiler, as phase 5, with the decoder scans'
+     device ms a step;
   9. beam_topk kernel against its plain version at the unfused beam step's
      shape (B=128, K=5, V=8000), exactly, with finished rows and forced ties,
      and on the split cases (ragged V=8003, B=1 over many vocab slices, ties
@@ -87,7 +94,7 @@ Phases (each raises on failure; the script then exits non-zero):
 Phase 1 builds all eight sources. It prints one JSON line of per-kernel
 numbers and, last, the device line. With --gru-grids it prints phase 3's
 grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
-kernel 7's (see main).
+kernel 7's, with --dec-scan-grids kernels 4 and 5's (see main).
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
 
@@ -627,111 +634,255 @@ def phase_gru_bwd(torch, np, dev):
             "library_ms": library_ms}
 
 
-def _dec_scan_case(torch, np, dev):
-    """Full-width decoder-scan inputs at B=TRAIN_B, T=Tt=TRAIN_T, ragged
-    source mask, random biases, the bias folding applied."""
+def _dec_scan_shapes():
+    """Phase 7's cases (label, B, T, Tt, H, A, C, R): training's (64, 24)
+    bucket at m30k_ende_vag's full width, ikea_vag training's longest
+    bucket (64, 128, 128), a ragged batch at widths that are no multiples
+    of 4 (every operand 4 bytes off a 16-byte boundary: the 4-byte copy
+    paths), a single target step, and a decoder twice m30k_ende_vag's width
+    (H = A = 1024, C = 2048, R = 512: 54 MB of recurrent weights, more than
+    the SMs' shared memory holds, so the plan keeps some phases' weight
+    slices in L2)."""
     import vag_nmt_tpu_torch as vt
-    from vag_nmt_tpu_torch.ops.dec_scan import scan_weights
 
-    m = vt.preset("m30k_ende_vag").model
-    B, T, Tt = TRAIN_B, TRAIN_T, TRAIN_T
-    H, A, C, R = m.dec_hidden_dim, m.attn_dim, m.ctx_dim, m.emb_dim
-    rng = np.random.RandomState(7)
+    def widths(name):
+        m = vt.preset(name).model
+        return (m.dec_hidden_dim, m.attn_dim, m.ctx_dim, m.emb_dim)
 
-    def cuda(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
-
-    params = vt.init_params(m, torch.Generator().manual_seed(7), device=dev)
-    d = params["decoder"]
-    for g in ("gru1", "gru2"):
-        for b in ("bi", "bh"):
-            d[g][b] = cuda(0.1 * rng.randn(3 * H))
-    weights = tuple(w.contiguous() for w in scan_weights(d))
-    lens = rng.randint(4, T + 1, B)
-    mask = cuda(np.arange(T)[None, :] < lens[:, None])
-    ctx = cuda(0.5 * rng.randn(B, T, C))
-    ctxp = (ctx @ d["attn"]["wa"] + cuda(0.1 * rng.randn(A))).contiguous()
-    inputs = (cuda(0.5 * rng.randn(Tt, B, R)),            # ty (+b)
-              cuda(0.5 * rng.randn(Tt, B, 3 * H)),        # xg1
-              cuda(0.5 * rng.randn(B, H)), ctx, ctxp, mask)
-    g_t = cuda(rng.randn(Tt, B, R))
-    return inputs, weights, g_t, (B, T, Tt, H, A, C, R)
+    full = widths("m30k_ende_vag")
+    return (("train", TRAIN_B, TRAIN_T, TRAIN_T, *full),
+            ("ikea", 64, 128, 128, *widths("ikea_vag")),
+            ("ragged", 37, 13, 9, 94, 90, 190, 62),
+            ("tt1", TRAIN_B, TRAIN_T, 1, *full),
+            ("wide", TRAIN_B, TRAIN_T, 8, 1024, 1024, 2048, 512))
 
 
-def _dec_scan_flops(B, T, Tt, H, A, C, R):
-    """(forward, backward) operations of the scan at these shapes: the GEMMs
-    (2 per multiply-add) and the attention's products over T positions."""
-    gemm = 2.0 * B * (H * 3 * H + H * A + H * 3 * H + C * 3 * H + H * R + C * R)
-    fwd = Tt * (gemm + 2.0 * B * T * (A + C))
-    # backward: every GEMM once transposed and once as a weight reduction;
-    # attention: dw, dctx, the energies' da and the dq / dva sums
-    bwd = Tt * (2 * gemm + 2.0 * B * T * (2 * C + 3 * A))
-    return fwd, bwd
+DEC_SCAN_TIMED = ("train", "ikea", "wide")   # phase 7's cases timed as grids
+
+
+def _dec_scan_case(torch, np, dev, B, T, Tt, H, A, C, R, seed=7,
+                   misaligned=False):
+    """Decoder-scan inputs (ty + b, xg1, s0, ctx, ctx_proj + ba, mask),
+    weights at 1/sqrt(fan-in) scale with random biases, and a cotangent g_t;
+    source lengths from 1 to T (the first row full)."""
+    rng = np.random.RandomState(seed)
+
+    def cuda(*shape, scale=0.5):
+        x = torch.from_numpy((scale * rng.randn(*shape)).astype(np.float32)).to(dev)
+        return _misaligned(torch, x) if misaligned else x
+
+    H3 = 3 * H
+    weights = (cuda(H, H3, scale=H ** -0.5), cuda(H3, scale=0.1),
+               cuda(H, A, scale=H ** -0.5), cuda(A, scale=A ** -0.5),
+               cuda(C, H3, scale=C ** -0.5), cuda(H3, scale=0.1),
+               cuda(H, H3, scale=H ** -0.5), cuda(H3, scale=0.1),
+               cuda(H, R, scale=H ** -0.5), cuda(C, R, scale=C ** -0.5))
+    lens = rng.randint(1, T + 1, B)
+    lens[0] = T
+    mask = torch.from_numpy((np.arange(T)[None] < lens[:, None]).astype(
+        np.float32)).to(dev)
+    if misaligned:
+        mask = _misaligned(torch, mask)
+    inputs = (cuda(Tt, B, R), cuda(Tt, B, H3), cuda(B, H), cuda(B, T, C),
+              cuda(B, T, A), mask)
+    return inputs, weights, cuda(Tt, B, R, scale=1.0)
+
+
+def _dec_scan_bound(kind, B, T, Tt, H, A, C, R):
+    """(bound ms, by, fp32 bound ms) of one call: the products (per step
+    and time-parallel) as three TF32 products on the tensor cores at the
+    TF32 peak, the attention's energies (add, tanh, multiply-add by va, and
+    in the backward the da, dq and dva terms) and its dot products with ctx
+    on the fp32 cores; bytes: weights, inputs and outputs once. The fp32
+    bound runs the products on the fp32 cores too."""
+    from vag_nmt_tpu_torch.core.flops import (H100_HBM_BYTES_PER_S,
+                                              H100_PEAK_FP32_FLOPS,
+                                              H100_PEAK_TF32_FLOPS)
+
+    H3, rows = 3 * H, Tt * B
+    w_floats = 2 * H * H3 + H * A + A + C * H3 + 3 * H3 + H * R + C * R
+    res_floats = rows * (R + 2 * H + C + T + A + 3 * H3) + B * H
+    inp_floats = rows * (R + H3) + B * H + B * T * (C + A + 1)
+    if kind == "fwd":
+        gemm = 2.0 * rows * (H * H3 + H * A + H * H3 + C * H3 + (C + H) * R)
+        att = rows * T * (4.0 * A + 2.0 * C)
+        nbytes = 4.0 * (w_floats + inp_floats + res_floats)
+    else:
+        gemm = (2.0 * rows * (H3 * C + H3 * H + A * H + H3 * H)       # carry
+                + 2.0 * rows * R * (H + C)                            # dpre @ .T
+                + 2.0 * rows * (2 * H * H3 + H * A + C * H3 + (H + C) * R)
+                + 2.0 * rows * T * C)                                 # dctx
+        att = rows * T * (2.0 * C + 12.0 * A)
+        nbytes = 4.0 * (2 * w_floats + inp_floats + 2 * res_floats + rows * R
+                        + B * T * (C + A))
+    t_ops = (3 * gemm / H100_PEAK_TF32_FLOPS + att / H100_PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    fp32_ms = max((gemm + att) / H100_PEAK_FP32_FLOPS * 1e3, t_bytes)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", fp32_ms
+
+
+def dec_scan_grid_times(torch, np, dev):
+    """Kernels 4 and 5, each whole call alone through the wrapper, cold (L2
+    flushed) and warm (_grid_ms), at phase 7's timed cases, with each grid's
+    device ms a call from torch.profiler (warm); through the wrappers of
+    whichever vag_nmt_tpu_torch is first on sys.path."""
+    from vag_nmt_tpu_torch.ops.dec_scan import (dec_scan_bwd, dec_scan_fwd,
+                                                dec_scan_fwd_plain)
+
+    kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+    out = {}
+    for label, *shape in _dec_scan_shapes():
+        if label not in DEC_SCAN_TIMED:
+            continue
+        inputs, weights, g_t = _dec_scan_case(torch, np, dev, *shape)
+        want = dec_scan_fwd_plain(*inputs, weights)
+        xg_t, ctx, ctxp, mask = inputs[1], inputs[3], inputs[4], inputs[5]
+        calls = {"fwd": lambda: dec_scan_fwd(*inputs, weights, impl="kernel"),
+                 "bwd": lambda: dec_scan_bwd(want, xg_t, ctx, ctxp, mask,
+                                             weights, g_t, impl="kernel")}
+        row = {"B": shape[0], "T": shape[1], "Tt": shape[2]}
+        for kind, call in calls.items():
+            cold, warm = _grid_ms(torch, call, **kw)
+            row[kind] = {"grid_ms": cold, "grid_warm_ms": warm,
+                         "grids_warm_ms": _profile_grids(torch, call, 5)}
+        out[label] = row
+        print(f"dec_scan grids {label}: " + json.dumps(row))
+    return out
+
+
+def _dec_scan_phases(torch, call, kind, Tt, reps=5):
+    """Device ms of each phase of one call's recurrence (median of reps),
+    from its barrier stamps (the wrapper's `timers`: thread 0 of CTA 0
+    reads the global timer after each grid sync; the launch is the same
+    with or without them), and the recurrence's whole grid."""
+    names = (("hg1_gru1", "q_hg2", "attention", "xg2_gru2") if kind == "fwd"
+             else ("dc_dst", "attention_bwd", "dstq_gru1", "ds_gru2"))
+    runs = []
+    for _ in range(reps):
+        timers = torch.zeros(4 * Tt + 2, dtype=torch.int64, device="cuda")
+        call(timers)
+        torch.cuda.synchronize()
+        d = [x / 1e6 for x in (timers[1:] - timers[:-1]).tolist()]
+        ph = {"weights" if kind == "fwd" else "weights_gru2_first": d[0]}
+        for i, name in enumerate(names):
+            ph[name] = sum(d[1 + 4 * s + i] for s in range(Tt))
+        ph["recurrence"] = sum(d)
+        runs.append(ph)
+    return {k: _median([r[k] for r in runs]) for k in runs[0]}
 
 
 def phase_dec_scan(torch, np, dev):
-    """dec_scan_fwd / dec_scan_bwd against their plain versions at full
-    width: the readout and every residual, and all grads."""
+    """dec_scan_fwd / dec_scan_bwd against their plain versions at phase 7's
+    cases (_dec_scan_shapes): the readout, every residual and all 15 grads
+    within DEC_SCAN_RTOL, a second call bit for bit as the first; then both
+    calls timed alone (dec_scan_grid_times) with each phase's device ms
+    (_dec_scan_phases) at the timed cases, and through the wrapper at
+    training's shape."""
     from vag_nmt_tpu_torch.ops.dec_scan import (
         RESIDUALS, dec_scan_bwd, dec_scan_bwd_plain, dec_scan_fwd,
-        dec_scan_fwd_plain)
+        dec_scan_fwd_plain, dec_scan_plan, tanh_fast_probe)
+    from vag_nmt_tpu_torch.ops.gru_kernel import _device_limits
 
-    inputs, weights, g_t, shape = _dec_scan_case(torch, np, dev)
-    B, T, Tt, H, A, C, R = shape
-    got = dec_scan_fwd(*inputs, weights, impl="kernel")
-    want = dec_scan_fwd_plain(*inputs, weights)
-    torch.cuda.synchronize()
-    fwd_err = fwd_abs = 0.0
-    for k in RESIDUALS:
-        err = _rel_err(got[k], want[k])
-        fwd_err = max(fwd_err, err)
-        fwd_abs = max(fwd_abs, float((got[k] - want[k]).abs().max()))
-        if not err <= DEC_SCAN_RTOL:
-            raise AssertionError(f"dec_scan_fwd {k}: relative err {err}")
-    print(f"dec_scan_fwd: ok (max relative err {fwd_err:.3g})")
-    xg_t, ctx, ctxp, mask = inputs[1], inputs[3], inputs[4], inputs[5]
-    gk = dec_scan_bwd(want, xg_t, ctx, ctxp, mask, weights, g_t, impl="kernel")
-    gp = dec_scan_bwd_plain(want, xg_t, ctx, ctxp, mask, weights, g_t)
-    torch.cuda.synchronize()
     names = ("dty", "dxg1", "ds0", "dctx", "dctx_proj", "duh1", "dbh1", "dua",
              "dva", "dwi2", "dbi2", "duh2", "dbh2", "dws", "dwc")
-    bwd_errs, bwd_abs = {}, 0.0
-    for name, a, b in zip(names, gk, gp):
-        bwd_errs[name] = _rel_err(a, b)
-        bwd_abs = max(bwd_abs, float((a - b).abs().max()))
-        if not bwd_errs[name] <= DEC_SCAN_RTOL:
-            raise AssertionError(f"dec_scan_bwd {name}: relative err "
-                                 f"{bwd_errs[name]}")
-    print(f"dec_scan_bwd: ok, relative errors {json.dumps(bwd_errs)}")
+    fwd_abs = bwd_abs = 0.0
+    for label, *shape in _dec_scan_shapes():
+        inputs, weights, g_t = _dec_scan_case(
+            torch, np, dev, *shape, misaligned=label == "ragged")
+        xg_t, ctx, ctxp, mask = inputs[1], inputs[3], inputs[4], inputs[5]
+        got = dec_scan_fwd(*inputs, weights, impl="kernel")
+        again = dec_scan_fwd(*inputs, weights, impl="kernel")
+        want = dec_scan_fwd_plain(*inputs, weights)
+        gk = dec_scan_bwd(want, xg_t, ctx, ctxp, mask, weights, g_t, impl="kernel")
+        gk2 = dec_scan_bwd(want, xg_t, ctx, ctxp, mask, weights, g_t, impl="kernel")
+        gp = dec_scan_bwd_plain(want, xg_t, ctx, ctxp, mask, weights, g_t)
+        torch.cuda.synchronize()
+        errs = {k: _rel_err(got[k], want[k]) for k in RESIDUALS}
+        errs.update({n: _rel_err(a, b) for n, a, b in zip(names, gk, gp)})
+        bad = {k: v for k, v in errs.items() if not v <= DEC_SCAN_RTOL}
+        if bad:
+            raise AssertionError(f"dec_scan {label} {shape}: relative errors {bad}")
+        if not all(torch.equal(got[k], again[k]) for k in RESIDUALS):
+            raise AssertionError(f"dec_scan_fwd {label}: a second call differs")
+        if not all(torch.equal(a, b) for a, b in zip(gk, gk2)):
+            raise AssertionError(f"dec_scan_bwd {label}: a second call differs")
+        fwd_abs = max([fwd_abs] + [float((got[k] - want[k]).abs().max())
+                                   for k in RESIDUALS])
+        bwd_abs = max([bwd_abs] + [float((a - b).abs().max())
+                                   for a, b in zip(gk, gp)])
+        print(f"dec_scan {label} (B, T, Tt, H, A, C, R)={tuple(shape)}: ok, "
+              f"max relative err fwd {max(errs[k] for k in RESIDUALS):.3g}, "
+              f"bwd {json.dumps({n: float(f'{errs[n]:.3g}') for n in names})}")
 
-    fwd_flops, bwd_flops = _dec_scan_flops(B, T, Tt, H, A, C, R)
-    w_bytes = 4.0 * sum(w.numel() for w in weights)
-    io = 4.0 * (Tt * B * (R + 3 * H) + B * H + B * T * (C + A + 1))
-    res_bytes = 4.0 * sum(want[k].numel() for k in RESIDUALS)
+    # the energies' tanh_fast against tanhf over their range
+    x = torch.linspace(-12.0, 12.0, 1 << 22, device=dev)
+    fast, ref = tanh_fast_probe(x)
+    tanh_err = float((fast - ref).abs().max())
+    print(f"dec_scan tanh_fast vs tanhf on the card: max abs diff {tanh_err:.3g} "
+          f"over [-12, 12] (bound 4.8e-7)")
+    if not tanh_err <= 4.8e-7:
+        raise AssertionError(f"tanh_fast is {tanh_err} off tanhf")
+
+    grids = dec_scan_grid_times(torch, np, dev)
+    shapes, fp32 = {}, {}
+    for label, *shape in _dec_scan_shapes():
+        if label not in DEC_SCAN_TIMED:
+            continue
+        B, T, Tt, H, A, C, R = shape
+        inputs, weights, g_t = _dec_scan_case(torch, np, dev, *shape)
+        want = dec_scan_fwd_plain(*inputs, weights)
+        xg_t, ctx, ctxp, mask = inputs[1], inputs[3], inputs[4], inputs[5]
+        plan = dec_scan_plan(B, T, H, A, C, R, *_device_limits(dev))
+        row = {}
+        for kind, call in (
+                ("fwd", lambda tm: dec_scan_fwd(*inputs, weights, impl="kernel",
+                                                timers=tm)),
+                ("bwd", lambda tm: dec_scan_bwd(want, xg_t, ctx, ctxp, mask,
+                                                weights, g_t, impl="kernel",
+                                                timers=tm))):
+            bound_ms, bound_by, fp32_ms = _dec_scan_bound(kind, *shape)
+            kp = getattr(plan, kind)
+            row[kind] = {**grids[label][kind],
+                         "phases_ms": _dec_scan_phases(torch, call, kind, Tt),
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+            # the plan is computed, not measured: printed, not in the
+            # kernels line
+            plan_of = {"ctas": kp.ctas, "att_parts": kp.att_parts,
+                       "smem_bytes": kp.smem_bytes, "l2_floats": kp.l2_floats,
+                       "products": [p.launch_args() for p in kp.products]}
+            print(f"dec_scan_{kind} {label} (B={B}, T={T}, Tt={Tt}): "
+                  + json.dumps(row[kind]) + f" fp32_bound_ms={fp32_ms:.4f} "
+                  f"plan={json.dumps(plan_of)}")
+            fp32[label, kind] = fp32_ms
+        shapes[label] = row
+
+    inputs, weights, g_t = _dec_scan_case(torch, np, dev, *_dec_scan_shapes()[0][1:])
+    want = dec_scan_fwd_plain(*inputs, weights)
+    xg_t, ctx, ctxp, mask = inputs[1], inputs[3], inputs[4], inputs[5]
     out = []
-    for name, fn, plain, flops, nbytes, err, line in (
-            ("dec_scan_fwd",
-             lambda: dec_scan_fwd(*inputs, weights, impl="kernel"),
-             lambda: dec_scan_fwd_plain(*inputs, weights),
-             fwd_flops, w_bytes + io + res_bytes, fwd_abs, 165),
-            ("dec_scan_bwd",
-             lambda: dec_scan_bwd(want, xg_t, ctx, ctxp, mask, weights, g_t,
-                                  impl="kernel"),
+    for kind, fn, plain, err, line in (
+            ("fwd", lambda: dec_scan_fwd(*inputs, weights, impl="kernel"),
+             lambda: dec_scan_fwd_plain(*inputs, weights), fwd_abs, 165),
+            ("bwd", lambda: dec_scan_bwd(want, xg_t, ctx, ctxp, mask, weights,
+                                         g_t, impl="kernel"),
              lambda: dec_scan_bwd_plain(want, xg_t, ctx, ctxp, mask, weights,
-                                        g_t),
-             bwd_flops, 2 * w_bytes + 2 * io + res_bytes + 4.0 * g_t.numel(),
-             bwd_abs, 286)):
+                                        g_t), bwd_abs, 286)):
         ms = _time_ms(torch, fn, reps=10)
         plain_ms = _time_ms(torch, plain, reps=5)
-        bound_ms, bound_by = _bound(flops, nbytes)
-        print(f"{name} (B={B}, T=Tt={T}): kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
-        out.append({"name": name, "route": "cuda",
-                    "source": f"vag_nmt_tpu_torch/csrc/{name}.cu",
+        tr = shapes["train"][kind]
+        print(f"dec_scan_{kind} (B={TRAIN_B}, T=Tt={TRAIN_T}): wrapper_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} grid_ms={tr['grid_ms']:.4f} "
+              f"bound_ms={tr['bound_ms']:.4f} ({tr['bound_by']}) "
+              f"fp32_bound_ms={fp32['train', kind]:.4f}")
+        out.append({"name": f"dec_scan_{kind}", "route": "cuda",
+                    "source": f"vag_nmt_tpu_torch/csrc/dec_scan_{kind}.cu",
                     "replaces": f"vag_nmt_tpu/ops/pallas_dec_scan.py:{line}",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None})
+                    "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"],
+                    "library_ms": None, "grid_ms": tr["grid_ms"],
+                    "grid_warm_ms": tr["grid_warm_ms"],
+                    "tanh_fast_max_abs_err": tanh_err,
+                    "shapes": {k: v[kind] for k, v in shapes.items()}})
     return out
 
 
@@ -1941,6 +2092,13 @@ def phase_profile(torch, what: str, run):
                                if "readout_topk" in name) / 1e3,
         "dec_step_ms": sum(us for name, us in kernels.items()
                            if "dec_step" in name) / 1e3,
+        # every grid of kernels 4 and 5 carries its kernel's name
+        "dec_scan_fwd_ms_per_step": sum(us for name, us in kernels.items()
+                                        if "dec_scan_fwd" in name) / 1e3
+                                    / max(1, steps),
+        "dec_scan_bwd_ms_per_step": sum(us for name, us in kernels.items()
+                                        if "dec_scan_bwd" in name) / 1e3
+                                    / max(1, steps),
         "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top]}))
 
 
@@ -1968,6 +2126,11 @@ def main() -> int:
         # kernel 1's whole call alone at READOUT_GRID_V and nothing else,
         # the same way for another tree's kernel: {V: fields}.
         print(json.dumps({"readout_grids": readout_grid_times(torch, np, dev)}))
+        return 0
+    if sys.argv[1:] == ["--dec-scan-grids"]:
+        # kernels 4 and 5, each whole call alone and each of its grids, and
+        # nothing else, the same way for another tree's kernels: fields.
+        print(json.dumps({"dec_scan_grids": dec_scan_grid_times(torch, np, dev)}))
         return 0
     if sys.argv[1:] == ["--dec-step-grids"]:
         # kernel 7's whole call alone and each of its grids, and nothing

@@ -1,5 +1,5 @@
 """The tuning studies' builds (``ops/gru_fwd_tune.py``,
-``ops/readout_topk_tune.py``), on the CPU.
+``ops/readout_topk_tune.py``, ``ops/dec_scan_tune.py``), on the CPU.
 
 Each study builds its kernel's source with text edits
 (``_build.build_variants``, on ``_build.source``: the source with its
@@ -11,10 +11,12 @@ puts a build under the kernel's wrappers only within its block."""
 
 import pytest
 
-from vag_nmt_tpu_torch.ops import _build, gru_fwd_tune, readout_topk_tune
+from vag_nmt_tpu_torch.ops import (_build, dec_scan_tune, gru_fwd_tune,
+                                   readout_topk_tune)
 
 STUDIES = [("gru_fwd", gru_fwd_tune.PROBES),
-           ("readout_topk", readout_topk_tune.PROBES)]
+           ("readout_topk", readout_topk_tune.PROBES),
+           *((name, dec_scan_tune.PROBES) for name in dec_scan_tune.KERNELS)]
 CASES = [(name, label, edits) for name, probes in STUDIES
          for label, edits in probes]
 

@@ -1,10 +1,10 @@
 // Device code shared by the kernels: a tiled fp32 GEMM with optional
-// transposes, bias, accumulation and split-K, the GRU cell forward and
-// backward as elementwise grids, a deterministic column sum (gru_bwd.cu,
-// dec_scan_fwd.cu, dec_scan_bwd.cu, dec_step.cu); warp reductions (the
-// attention grids); and the branch-free running top-K insertion ordered by
-// (value descending, index ascending) with its block-wide merge
-// (readout_topk.cu, beam_topk.cu, legacy_topk.cu).
+// transposes, bias, accumulation and split-K, the GRU cell backward as an
+// elementwise grid and a deterministic column sum (gru_bwd.cu); a GRU cell
+// unit and the fast tanh (dec_step.cu, the dec_scan kernels); warp
+// reductions (the attention grids); and the branch-free running top-K
+// insertion ordered by (value descending, index ascending) with its
+// block-wide merge (readout_topk.cu, beam_topk.cu, legacy_topk.cu).
 // Everything is fp32 FMA (no TF32), each output written by one thread, sums
 // taken in a fixed order (the only atomic is split-K's arrival ticket, which
 // orders nothing), so the results do not change from run to run.
@@ -185,6 +185,19 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// tanh on the fast exponential (ex2.approx) and division, where tanhf's
+// accurate branches cost several times the instructions; the attention's
+// energies take T * K * A of them a sentence (dec_step.cu; dec_scan.cuh's
+// attention phases). Error: __expf is within
+// 2 + 1.2 |2x| ulp (the CUDA guide's bound), which moves tanh by that
+// relative error times (1 - tanh^2) / 2, at most 1.6e-7; __fdividef is
+// within 2 ulp of 2 / (1 + e^2x) (at most 4.8e-7 near 2), and 1 - q is
+// exact there: at most 4.8e-7 in all (tests/test_torch_dec_step_plan.py
+// models these bounds; chip_smoke.py's phase 7 measures it against tanhf).
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
+}
+
 // GRU cell of one unit from its gate pre-activations (biases added), reset
 // gate after the hidden product: ops/gru_kernel.gru_gate_algebra's order.
 __device__ __forceinline__ float gru_unit(float xr, float xz, float xn,
@@ -194,30 +207,6 @@ __device__ __forceinline__ float gru_unit(float xr, float xz, float xn,
   const float z = sigmoidf_(xz + hz);
   const float n = tanhf(xn + r * hn);
   return (1.f - z) * n + z * h;
-}
-
-// GRU cell on precomputed gates (reset gate after the hidden matmul):
-// out = (1 - z) n + z h with h/out (rows, H) and the gate pre-activations
-// read from row r of xg and hg at row strides ldx and ldh (3H when packed),
-// each plus an optional (3H,) bias added first (xb / hb, or nullptr).
-__global__ void gru_cell_kernel(const float* __restrict__ xg, int ldx,
-                                const float* __restrict__ xb,
-                                const float* __restrict__ hg, int ldh,
-                                const float* __restrict__ hb,
-                                const float* __restrict__ h,
-                                float* __restrict__ out, int rows, int H) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * H) return;
-  const int row = i / H, u = i % H;
-  const float* x = xg + (size_t)row * ldx;
-  const float* g = hg + (size_t)row * ldh;
-  float xv[3], gv[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    xv[j] = xb ? x[j * H + u] + xb[j * H + u] : x[j * H + u];
-    gv[j] = hb ? g[j * H + u] + hb[j * H + u] : g[j * H + u];
-  }
-  out[i] = gru_unit(xv[0], xv[1], xv[2], gv[0], gv[1], gv[2], h[i]);
 }
 
 // Backward through one GRU cell, term for term as the TPU kernel
@@ -262,22 +251,6 @@ __global__ void gru_cell_bwd_kernel(const float* __restrict__ xg,
   dhg[o + H + u] = da_z;
   dhg[o + 2 * H + u] = da_n * r;
   dh_out[i] = dh_cell * z + dh * (1.f - m);
-}
-
-inline cudaError_t gru_cell(cudaStream_t s, const float* xg, int ldx,
-                            const float* xb, const float* hg, int ldh,
-                            const float* hb, const float* h, float* out,
-                            int rows, int H) {
-  const int n = rows * H;
-  gru_cell_kernel<<<(n + EW_THREADS - 1) / EW_THREADS, EW_THREADS, 0, s>>>(
-      xg, ldx, xb, hg, ldh, hb, h, out, rows, H);
-  return cudaGetLastError();
-}
-
-// Packed gates (row stride 3H), biases already added.
-inline cudaError_t gru_cell(cudaStream_t s, const float* xg, const float* hg,
-                            const float* h, float* out, int rows, int H) {
-  return gru_cell(s, xg, 3 * H, nullptr, hg, 3 * H, nullptr, h, out, rows, H);
 }
 
 inline cudaError_t gru_cell_bwd(cudaStream_t s, const float* xg,

@@ -15,196 +15,491 @@
 // and emits dty (= dpre), dxg1, ds0, dctx, dctx_proj and the grads of uh1,
 // bh1, ua, va, wi2, bi2, uh2, bh2, ws and wc.
 //
-// Design. The forward (dec_scan_fwd.cu) saved s~, c, w, q, hg1, xg2 and
-// hg2 for every step, so no forward GEMM is recomputed; only the attention
-// energies e = tanh(ctxp + q) are, inside the attention kernel. The readout
-// terms do not depend on the carry, so dpre, dpre @ ws^T and dpre @ wc^T
-// are time-parallel and run before the loop. Per step, 7 grids on the
-// caller's stream: GRU2 cell backward, GEMM dc += dxg2 @ wi2^T, GEMM
-// ds~ += dhg2 @ uh2^T, attention backward (one block per batch row, which
-// owns that row's dctx and dctxp and accumulates them over steps in order),
-// GEMM ds~ += dq @ ua^T, GRU1 cell backward, GEMM ds += dhg1 @ uh1^T (the
-// GEMMs split their depth over several blocks a tile, common.cuh). The
-// per-step dxg2, dhg2, dq, dhg1 and the per-row dva terms go to (Tt, B, .)
-// buffers, and after the loop the ten weight grads are reduction GEMMs and
-// column sums over the Tt*B rows: deterministic, no atomics (the TPU kernel
-// keeps dva per row too and sums outside).
+// Bound on this card at B=64, T=Tt=24, full width: the forward's products
+// twice (the input grads and the weight grads) in 3xTF32 on the tensor
+// cores, and the attention's dw, energies and context sums on the fp32
+// cores; bound by operations (chip_smoke.py's _dec_scan_bound).
 //
-// Bound on this card at B=64, T=Tt=24, full width: the same products as
-// the forward's, each once as a transposed product for the input grads and
-// once as a reduction for the weight grads, ~2x the forward's 11.8 GFLOP
-// plus the attention's ~3x, ~24 GFLOP, ~0.36 ms at 67 TFLOP/s fp32; bound
-// by operations.
+// Design. The carry runs in one persistent cooperative grid, one CTA per
+// SM, as the forward's (dec_scan_fwd.cu): the transposed recurrent weights
+// it needs (wi2^T, uh2^T, ua^T, uh1^T, read from the row-major weights)
+// stay resident in shared memory, split by output column (or, where the
+// plan says they do not fit, in a buffer read through L2). What does not
+// feed the carry runs in grids of its own, six grids a call, each named
+// dec_scan_bwd_*:
+//   1-2. dpre, then dpre @ ws^T and dpre @ wc^T as streamed 64 x 64 tiles
+//        over all Tt*B rows;
+//   3.   the recurrence: GRU2's cell backward of the last step, then per
+//        step four phases with a grid sync after each:
+//     (A) dc = dc_ro + dxg2 @ wi2^T and ds~ = ds~2 + dhg2 @ uh2^T, on
+//         disjoint CTAs;
+//     (B) the attention backward, a row taken by att_parts CTAs (each
+//         computes the row's dw and dscore, and its share of the A
+//         columns' energies): writes dscore, dq and the row's dva term;
+//     (C) ds~ += dq @ ua^T with GRU1's cell backward in the epilogue:
+//         writes dxg1, dhg1 and the carry's share ds~ z1;
+//     (D) ds = ds~ z1 + dhg1 @ uh1^T with the previous step's GRU2 cell
+//         backward in the epilogue (ds0 at the first step);
+//   4.   the ten weight grads as products over the Tt*B rows and dctx =
+//        sum_t w_t^T dc_t as a product per sentence (streamed tiles);
+//   5.   dctx_proj in one pass over (b, j, a), summing over t from the
+//        last step with the energies recomputed, and the bias grads' row
+//        blocks;
+//   6.   the bias grads: each column's row blocks added in block order.
+// Every output has one owner and a fixed sum order (no atomics), so a
+// second call repeats the first bit for bit. The tiling is ops/dec_scan.py's
+// dec_scan_plan.
 
-#include "common.cuh"
+#include "dec_scan.cuh"
 
 namespace {
 
-constexpr int ATT_THREADS = 256;
-constexpr int ATT_WARPS = ATT_THREADS / 32;
-
+namespace cg = cooperative_groups;
+using namespace vag::scan;
+using vag::tanh_fast;
 using vag::warp_sum;
 
-__global__ void dpre_kernel(const float* __restrict__ g,
-                            const float* __restrict__ t,
-                            float* __restrict__ dpre, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) dpre[i] = g[i] * (1.f - t[i] * t[i]);
+enum { P_DC = 0, P_DST = 1, P_DSTQ = 2, P_DS = 3 };
+
+struct BwdArgs {
+  const float *s, *st, *c, *w, *q, *hg1, *xg2, *hg2, *xg1, *ctx, *ctxp, *mask,
+      *va;
+  float *dty, *dxg1, *ds0, *dctx, *dctxp;
+  float *duh1, *dbh1, *dua, *dva, *dwi2, *dbi2, *duh2, *dbh2, *dws, *dwc;
+  float *ds_ro, *dc, *dxg2, *dhg2, *dhg1, *dq, *dva_rows, *dsc, *dstp, *dst,
+      *dsp, *colsum;
+  int Tt, B, T, H, A, C, R;
+  Prod p[4];
+  int att_parts, scratch_off, colsum_rows;
+  float* wl2;                   // the weight slices the plan puts in L2
+  unsigned long long* timers;   // 4 Tt + 2 barrier stamps, or null
+};
+
+// GRU2's cell backward of step t for (row, u): dh = ds + ds_ro[t]; writes
+// dxg2[t], dhg2[t] and the carry's share ds~2 = dh z2 (dstp).
+__device__ __forceinline__ void gru2_bwd(const BwdArgs& g, int t, int row, int u,
+                                         float ds) {
+  const int B = g.B, H = g.H, H3 = 3 * H;
+  const size_t o = ((size_t)t * B + row) * H3 + u;
+  const size_t oh = ((size_t)t * B + row) * H + u;
+  const float dh = ds + __ldcg(g.ds_ro + oh);
+  float dx[3], dhg[3];
+  g.dstp[(size_t)row * H + u] = gru_unit_bwd(
+      __ldg(g.xg2 + o), __ldg(g.xg2 + o + H), __ldg(g.xg2 + o + 2 * H),
+      __ldg(g.hg2 + o), __ldg(g.hg2 + o + H), __ldg(g.hg2 + o + 2 * H),
+      __ldg(g.st + oh), dh, dx, dhg);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    g.dxg2[o + k * H] = dx[k];
+    g.dhg2[o + k * H] = dhg[k];
+  }
 }
 
-// One block per batch row b, one target step. Shared: dc (C), w (T),
-// dw/dscore (T), q (A), va (A).
-__global__ void __launch_bounds__(ATT_THREADS)
-attn_bwd_kernel(const float* __restrict__ dc, const float* __restrict__ w,
-                const float* __restrict__ q, const float* __restrict__ ctx,
-                const float* __restrict__ ctxp, const float* __restrict__ mask,
-                const float* __restrict__ va, float* __restrict__ dctx,
-                float* __restrict__ dctxp, float* __restrict__ dq,
-                float* __restrict__ dva_rows, int T, int A, int C) {
-  extern __shared__ float sm[];
+// Phase (B) for step t: item i = b * att_parts + part. Each CTA of a row
+// computes the row's dw and dscore, then its part's A columns: energies
+// recomputed on tanh_fast, dq and the row's dva term. Shared
+// (att_floats_bwd): dc (C, zero-padded to a multiple of 4), w (T),
+// dw / dscore (T), q (A), va (A), the mask (T).
+__device__ void attention_bwd(const BwdArgs& g, int t, float* sm) {
+  const int B = g.B, T = g.T, A = g.A, C = g.C, P = g.att_parts;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int T4 = round_up(T, 4), A4 = round_up(A, 4);
   float* dcs = sm;
-  float* ws = dcs + C;
-  float* dws = ws + T;
-  float* qs = dws + T;
-  float* vs = qs + A;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  for (int i = tid; i < C; i += ATT_THREADS) dcs[i] = dc[(size_t)b * C + i];
-  for (int i = tid; i < T; i += ATT_THREADS) ws[i] = w[(size_t)b * T + i];
-  for (int i = tid; i < A; i += ATT_THREADS) {
-    qs[i] = q[(size_t)b * A + i];
-    vs[i] = va[i];
-  }
-  __syncthreads();
-  // dw_j = dc . ctx_j
-  for (int j = warp; j < T; j += ATT_WARPS) {
-    const float* cx = ctx + ((size_t)b * T + j) * C;
-    float acc = 0.f;
-    for (int k = lane; k < C; k += 32) acc += dcs[k] * cx[k];
-    acc = warp_sum(acc);
-    if (lane == 0) dws[j] = acc;
-  }
-  __syncthreads();
-  // dctx_j += w_j dc (this block owns row b of dctx)
-  float* dcx = dctx + (size_t)b * T * C;
-  for (int i = tid; i < T * C; i += ATT_THREADS)
-    dcx[i] += ws[i / C] * dcs[i % C];
-  if (warp == 0) {
-    float swdw = 0.f;
-    for (int j = lane; j < T; j += 32) swdw += ws[j] * dws[j];
-    swdw = warp_sum(swdw);
-    for (int j = lane; j < T; j += 32)
-      dws[j] = mask[(size_t)b * T + j] > 0.f ? ws[j] * (dws[j] - swdw) : 0.f;
-  }
-  __syncthreads();
-  // energies recomputed; da, dctxp, dq and the row's dva term
-  for (int a = tid; a < A; a += ATT_THREADS) {
-    const float qa = qs[a], vaa = vs[a];
-    float dqa = 0.f, dvaa = 0.f;
-    for (int j = 0; j < T; ++j) {
-      const size_t o = ((size_t)b * T + j) * A + a;
-      const float e = tanhf(ctxp[o] + qa);
-      const float da = dws[j] * vaa * (1.f - e * e);
-      dctxp[o] += da;
-      dqa += da;
-      dvaa += e * dws[j];
+  float* wv = dcs + round_up(C, 4);
+  float* dws = wv + T4;
+  float* qs = dws + T4;
+  float* vs = qs + A4;
+  float* msk = vs + A4;
+  const bool vc = C % 4 == 0 && al16(g.ctx);
+  const size_t tB = (size_t)t * B;
+  for (int item = blockIdx.x; item < B * P; item += gridDim.x) {
+    const int b = item / P, part = item % P;
+    for (int i = tid; i < round_up(C, 4); i += THREADS)
+      dcs[i] = i < C ? __ldcg(g.dc + (tB + b) * C + i) : 0.f;
+    for (int i = tid; i < T; i += THREADS) {
+      wv[i] = __ldg(g.w + (tB + b) * T + i);
+      msk[i] = __ldg(g.mask + (size_t)b * T + i);
     }
-    dq[(size_t)b * A + a] = dqa;
-    dva_rows[(size_t)b * A + a] = dvaa;
+    for (int i = tid; i < A; i += THREADS) {
+      qs[i] = __ldg(g.q + (tB + b) * A + i);
+      vs[i] = __ldg(g.va + i);
+    }
+    __syncthreads();
+    // dw_j = dc . ctx_j: a warp takes JB positions at once, all their ctx
+    // loads of a 512-column chunk in flight before the first product
+    for (int j0 = warp; j0 < T; j0 += WARPS * JB) {
+      float acc[JB];
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj) acc[jj] = 0.f;
+      for (int k0 = 4 * lane; k0 < C; k0 += 512) {
+        float4 x[JB][4];
+#pragma unroll
+        for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = j0 + jj * WARPS;
+            x[jj][u] = load4(g.ctx, C, b * T + j, j < T ? B * T : 0, k0 + 128 * u, C, vc);
+          }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int k = k0 + 128 * u;
+          if (k >= C) break;
+          const float4 d = *reinterpret_cast<const float4*>(dcs + k);
+#pragma unroll
+          for (int jj = 0; jj < JB; ++jj)
+            acc[jj] += d.x * x[jj][u].x + d.y * x[jj][u].y + d.z * x[jj][u].z +
+                       d.w * x[jj][u].w;
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj) {
+        const float e = warp_sum(acc[jj]);
+        if (lane == 0 && j0 + jj * WARPS < T) dws[j0 + jj * WARPS] = e;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float swdw = 0.f;
+      for (int j = lane; j < T; j += 32) swdw += wv[j] * dws[j];
+      swdw = warp_sum(swdw);
+      for (int j = lane; j < T; j += 32) {
+        dws[j] = msk[j] > 0.f ? wv[j] * (dws[j] - swdw) : 0.f;
+        if (part == 0) g.dsc[(tB + b) * T + j] = dws[j];
+      }
+    }
+    __syncthreads();
+    const int per = (A + P - 1) / P;
+    const int end = min(A, (part + 1) * per);
+    for (int a = part * per + tid; a < end; a += THREADS) {
+      const float qa = qs[a], vaa = vs[a];
+      const float* cp = g.ctxp + (size_t)b * T * A + a;
+      float dqa = 0.f, dvaa = 0.f;
+      for (int j0 = 0; j0 < T; j0 += ATT_BATCH) {
+        float x[ATT_BATCH];
+#pragma unroll
+        for (int u = 0; u < ATT_BATCH; ++u)
+          x[u] = j0 + u < T ? __ldg(cp + (size_t)(j0 + u) * A) : 0.f;
+#pragma unroll
+        for (int u = 0; u < ATT_BATCH; ++u) {
+          if (j0 + u < T) {
+            const float e = tanh_fast(x[u] + qa), ds = dws[j0 + u];
+            dqa += ds * vaa * (1.f - e * e);
+            dvaa += e * ds;
+          }
+        }
+      }
+      g.dq[(tB + b) * A + a] = dqa;
+      g.dva_rows[(tB + b) * A + a] = dvaa;
+    }
+    __syncthreads();   // the next item refills the shared row
   }
+}
+
+// GENERAL: see dec_scan.cuh's product.
+template <bool GENERAL>
+__global__ void __launch_bounds__(THREADS, 1) dec_scan_bwd_kernel(const BwdArgs g) {
+  extern __shared__ __align__(16) float smem[];
+  float* scratch = smem + g.scratch_off;
+  const int Tt = g.Tt, B = g.B, H = g.H, A = g.A, C = g.C;
+  const int H3 = 3 * H;
+  const int gtid = blockIdx.x * THREADS + threadIdx.x, gstride = gridDim.x * THREADS;
+  cg::grid_group grid = cg::this_grid();
+  int n_stamp = 0;
+  stamp(g.timers, n_stamp++);
+  for (int i = 0; i < 4; ++i) load_slice(g.p[i], smem, g.wl2);
+  // GRU2's cell backward of the last step (no carry yet)
+  for (int i = gtid; i < B * H; i += gstride) gru2_bwd(g, Tt - 1, i / H, i % H, 0.f);
+  __syncthreads();
+  grid.sync();
+  stamp(g.timers, n_stamp++);
+
+  for (int t = Tt - 1; t >= 0; --t) {
+    const size_t tB = (size_t)t * B;
+    // (A) dc += dxg2 @ wi2^T;  ds~ = ds~2 + dhg2 @ uh2^T
+    product<GENERAL>(g.p[P_DC], g.dxg2 + tB * H3, H3, B, smem, g.wl2, scratch,
+            [&](int ct, int row0, const float* part, int KS, int MT, int NI) {
+      const int nt = g.p[P_DC].nt, rt = g.p[P_DC].rt;
+      for (int i = threadIdx.x; i < rt * nt; i += THREADS) {
+        const int r = i / nt, j = i % nt, row = row0 + r, col = ct * nt + j;
+        if (row >= B || col >= C) continue;
+        float* d = g.dc + (tB + row) * C + col;
+        *d = __ldcg(d) + tile_sum(part, KS, MT, NI, r, j);
+      }
+    });
+    product<GENERAL>(g.p[P_DST], g.dhg2 + tB * H3, H3, B, smem, g.wl2, scratch,
+            [&](int ct, int row0, const float* part, int KS, int MT, int NI) {
+      const int nt = g.p[P_DST].nt, rt = g.p[P_DST].rt;
+      for (int i = threadIdx.x; i < rt * nt; i += THREADS) {
+        const int r = i / nt, j = i % nt, row = row0 + r, u = ct * nt + j;
+        if (row >= B || u >= H) continue;
+        const size_t o = (size_t)row * H + u;
+        g.dst[o] = __ldcg(g.dstp + o) + tile_sum(part, KS, MT, NI, r, j);
+      }
+    });
+    grid.sync();
+    stamp(g.timers, n_stamp++);
+    // (B) the attention backward: dscore, dq, the rows' dva terms
+    attention_bwd(g, t, scratch);
+    grid.sync();
+    stamp(g.timers, n_stamp++);
+    // (C) ds~ += dq @ ua^T, GRU1's cell backward: dxg1, dhg1, ds~ z1
+    product<GENERAL>(g.p[P_DSTQ], g.dq + tB * A, A, B, smem, g.wl2, scratch,
+            [&](int ct, int row0, const float* part, int KS, int MT, int NI) {
+      const int nt = g.p[P_DSTQ].nt, rt = g.p[P_DSTQ].rt;
+      for (int i = threadIdx.x; i < rt * nt; i += THREADS) {
+        const int r = i / nt, j = i % nt, row = row0 + r, u = ct * nt + j;
+        if (row >= B || u >= H) continue;
+        const size_t oh = (size_t)row * H + u, o = (tB + row) * H3 + u;
+        const float dh = __ldcg(g.dst + oh) + tile_sum(part, KS, MT, NI, r, j);
+        float dx[3], dhg[3];
+        g.dsp[oh] = gru_unit_bwd(
+            __ldg(g.xg1 + o), __ldg(g.xg1 + o + H), __ldg(g.xg1 + o + 2 * H),
+            __ldg(g.hg1 + o), __ldg(g.hg1 + o + H), __ldg(g.hg1 + o + 2 * H),
+            __ldg(g.s + tB * H + oh), dh, dx, dhg);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          g.dxg1[o + k * H] = dx[k];
+          g.dhg1[o + k * H] = dhg[k];
+        }
+      }
+    });
+    grid.sync();
+    stamp(g.timers, n_stamp++);
+    // (D) ds = ds~ z1 + dhg1 @ uh1^T, then GRU2's cell backward of step t - 1
+    product<GENERAL>(g.p[P_DS], g.dhg1 + tB * H3, H3, B, smem, g.wl2, scratch,
+            [&](int ct, int row0, const float* part, int KS, int MT, int NI) {
+      const int nt = g.p[P_DS].nt, rt = g.p[P_DS].rt;
+      for (int i = threadIdx.x; i < rt * nt; i += THREADS) {
+        const int r = i / nt, j = i % nt, row = row0 + r, u = ct * nt + j;
+        if (row >= B || u >= H) continue;
+        const size_t oh = (size_t)row * H + u;
+        const float ds = __ldcg(g.dsp + oh) + tile_sum(part, KS, MT, NI, r, j);
+        if (t > 0) gru2_bwd(g, t - 1, row, u, ds);
+        else g.ds0[oh] = ds;
+      }
+    });
+    grid.sync();
+    stamp(g.timers, n_stamp++);
+  }
+}
+
+// dpre = g (1 - t^2), the readout's cotangent (dty), over n values.
+__global__ void dec_scan_bwd_dpre_kernel(const float* __restrict__ g, const float* __restrict__ t,
+                            float* __restrict__ dty, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) dty[i] = g[i] * (1.f - t[i] * t[i]);
+}
+
+// The bias grads' columns: dhg1, dxg2, dhg2 (3H each), then the dva terms
+// (A): the source column and its output.
+__device__ __forceinline__ void bias_column(const BwdArgs& g, int col,
+                                            const float*& src, int& ld, float*& out) {
+  const int H3 = 3 * g.H, blk = col < 3 * H3 ? col / H3 : 3;
+  const int c = blk < 3 ? col - blk * H3 : col - 3 * H3;
+  const float* srcs[4] = {g.dhg1, g.dxg2, g.dhg2, g.dva_rows};
+  float* outs[4] = {g.dbh1, g.dbi2, g.dbh2, g.dva};
+  src = srcs[blk] + c;
+  ld = blk < 3 ? H3 : g.A;
+  out = outs[blk] + c;
+}
+
+// After the recurrence, beside the weight grads' grid: dctx_proj[b, j, a]
+// = sum over t from the last of dscore va (1 - e^2), the energies
+// recomputed on tanh_fast; and the bias grads' row blocks, each block of
+// colsum_rows rows summed in row order into colsum.
+__global__ void __launch_bounds__(THREADS) dec_scan_bwd_tail_kernel(const BwdArgs g) {
+  const int Tt = g.Tt, B = g.B, T = g.T, A = g.A, rows = Tt * B;
+  const int gtid = blockIdx.x * THREADS + threadIdx.x, gstride = gridDim.x * THREADS;
+  for (size_t i = gtid; i < (size_t)B * T * A; i += gstride) {
+    const int a = (int)(i % A), j = (int)(i / A % T), b = (int)(i / ((size_t)T * A));
+    const float cp = __ldg(g.ctxp + i), vaa = __ldg(g.va + a);
+    float acc = 0.f;
+    for (int t0 = Tt - 1; t0 >= 0; t0 -= ATT_BATCH) {
+      float qv[ATT_BATCH], dv[ATT_BATCH];
+#pragma unroll
+      for (int u = 0; u < ATT_BATCH; ++u) {
+        const size_t tb = (size_t)(t0 - u) * B + b;
+        qv[u] = t0 - u >= 0 ? __ldg(g.q + tb * A + a) : 0.f;
+        dv[u] = t0 - u >= 0 ? __ldg(g.dsc + tb * T + j) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < ATT_BATCH; ++u) {
+        if (t0 - u >= 0) {
+          const float e = tanh_fast(cp + qv[u]);
+          acc += dv[u] * vaa * (1.f - e * e);
+        }
+      }
+    }
+    g.dctxp[i] = acc;
+  }
+  const int NC = 9 * g.H + A, CR = g.colsum_rows, NP = (rows + CR - 1) / CR;
+  for (int i = gtid; i < NP * NC; i += gstride) {
+    const int pb = i / NC, col = i % NC;
+    const float* src;
+    int ld;
+    float* out;
+    bias_column(g, col, src, ld, out);
+    float acc = 0.f;
+    for (int r = pb * CR; r < min(rows, (pb + 1) * CR); ++r)
+      acc += __ldg(src + (size_t)r * ld);
+    g.colsum[i] = acc;
+  }
+}
+
+// The bias grads: each column's row blocks added in block order.
+__global__ void dec_scan_bwd_colsum_kernel(const BwdArgs g) {
+  const int NC = 9 * g.H + g.A, rows = g.Tt * g.B;
+  const int NP = (rows + g.colsum_rows - 1) / g.colsum_rows;
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= NC) return;
+  const float* src;
+  int ld;
+  float* out;
+  bias_column(g, col, src, ld, out);
+  float acc = 0.f;
+  for (int pb = 0; pb < NP; ++pb) acc += g.colsum[(size_t)pb * NC + col];
+  *out = acc;
+}
+
+// The readout terms' and the weight grads' grids of streamed tiles
+// (dec_scan.cuh's run_jobs).
+__global__ void __launch_bounds__(THREADS, 2) dec_scan_bwd_readout_kernel(const Jobs js) {
+  run_jobs(js);
+}
+__global__ void __launch_bounds__(THREADS, 2) dec_scan_bwd_wgrad_kernel(const Jobs js) {
+  run_jobs(js);
 }
 
 }  // namespace
 
-// Pointers are device pointers to contiguous fp32 tensors. Inputs: g, t
-// (Tt, B, R); the forward's residuals s (Tt + 1, B, H), st (Tt, B, H),
-// c (Tt, B, C), w (Tt, B, T), q (Tt, B, A), hg1, xg2, hg2 (Tt, B, 3H); xg1
-// (Tt, B, 3H), ctx (B, T, C), ctxp (B, T, A), mask (B, T); weights uh1,
-// ua, va, wi2, uh2, ws, wc as in dec_scan_fwd_launch. Outputs: dty
-// (Tt, B, R), dxg1 (Tt, B, 3H), ds (B, H) = ds0, dctx (B, T, C) and dctxp
-// (B, T, A), both zero on entry, and the weight grads duh1, dbh1, dua, dva,
-// dwi2, dbi2, duh2, dbh2, dws, dwc in the weights' shapes. Scratch:
-// ds_ro (Tt, B, H), dc (Tt, B, C), dxg2, dhg2, dhg1 (Tt, B, 3H), dq and
-// dva_rows (Tt, B, A), dst (B, H); work / counters: the GEMMs' split-K
-// scratch (vag::Workspace). Returns 0 or the first CUDA error code.
+// Device pointers to contiguous fp32 tensors. Inputs: g, t (Tt, B, R); the
+// forward's residuals s (Tt + 1, B, H), st (Tt, B, H), c (Tt, B, C),
+// w (Tt, B, T), q (Tt, B, A), hg1, xg2, hg2 (Tt, B, 3H); xg1 (Tt, B, 3H),
+// ctx (B, T, C), ctxp (B, T, A), mask (B, T); weights uh1, ua, va, wi2,
+// uh2, ws, wc as in dec_scan_fwd_launch. Outputs, all written: dty
+// (Tt, B, R), dxg1 (Tt, B, 3H), ds0 (B, H), dctx (B, T, C), dctxp
+// (B, T, A), and the weight grads duh1, dbh1, dua, dva, dwi2, dbi2, duh2,
+// dbh2, dws, dwc in the weights' shapes. Scratch: ds_ro (Tt, B, H), dc
+// (Tt, B, C), dxg2, dhg2, dhg1 (Tt, B, 3H), dq and dva_rows (Tt, B, A), dsc
+// (Tt, B, T), dstp, dst, dsp (B, H), colsum (ceil(Tt B / colsum_rows),
+// 9H + A). plan: n_plan ints from ops/dec_scan.py's launch_args: the
+// grid's CTAs, the attention's parts a row, the scratch region's float
+// offset, the dynamic shared memory in bytes, the floats of the weight
+// buffer wl2, the rows of a column-sum block, then for each product (dc,
+// dst, dstq, ds) ub, nt, rt, nr, col_tiles, cs, cta0, woff, l2off. wl2:
+// that many device floats, or null when the plan puts no slice in L2.
+// timers: null, or 4 Tt + 2 uint64 for the recurrence's barrier stamps
+// (entry, weights loaded and GRU2's first cell backward, the end of each
+// step's four phases). Enqueues six grids: dpre, the readout terms
+// (streamed tiles), the recurrence (one cooperative grid), the weight
+// grads and dctx (streamed tiles), dctx_proj with the bias grads' row
+// blocks, the bias grads; returns 0, cudaErrorInvalidValue for a
+// malformed plan, cudaErrorCooperativeLaunchTooLarge for a grid that is
+// not co-resident, or the launch's error.
 extern "C" int dec_scan_bwd_launch(
-    const void* g, const void* t_out, const void* s, const void* st,
+    const void* g_in, const void* t_out, const void* s, const void* st,
     const void* c, const void* w, const void* q, const void* hg1,
     const void* xg2, const void* hg2, const void* xg1, const void* ctx,
     const void* ctxp, const void* mask, const void* uh1, const void* ua,
     const void* va, const void* wi2, const void* uh2, const void* ws,
-    const void* wc, void* dty, void* dxg1, void* ds, void* dctx, void* dctxp,
+    const void* wc, void* dty, void* dxg1, void* ds0, void* dctx, void* dctxp,
     void* duh1, void* dbh1, void* dua, void* dva, void* dwi2, void* dbi2,
     void* duh2, void* dbh2, void* dws, void* dwc, void* ds_ro, void* dc,
-    void* dxg2, void* dhg2, void* dhg1, void* dq, void* dva_rows, void* dst,
-    int Tt, int B, int T, int H, int A, int C, int R, void* work,
-    long long work_floats, void* counters, int n_counters, void* stream) {
-  using namespace vag;
-  const Workspace wk{static_cast<float*>(work), work_floats,
-                     static_cast<unsigned int*>(counters), n_counters};
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const int H3 = 3 * H, rows = Tt * B;
+    void* dxg2, void* dhg2, void* dhg1, void* dq, void* dva_rows, void* dsc,
+    void* dstp, void* dst, void* dsp, void* colsum, int Tt, int B, int T,
+    int H, int A, int C, int R, const int* plan, int n_plan, void* wl2,
+    void* timers, void* stream) {
+  if (n_plan != 6 + 4 * 9 || Tt < 1 || B < 1 || T < 1 || H < 1 || A < 1 ||
+      C < 1 || R < 1 || plan[4] < 0 || (plan[4] > 0 && wl2 == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto F = [](const void* p) { return static_cast<const float*>(p); };
   auto M = [](void* p) { return static_cast<float*>(p); };
-  const size_t att_smem = sizeof(float) * (C + 2 * T + 2 * A);
-  if (att_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-
-  // Readout, time-parallel.
-  const int n = rows * R;
-  dpre_kernel<<<(n + EW_THREADS - 1) / EW_THREADS, EW_THREADS, 0, cs>>>(
-      F(g), F(t_out), M(dty), n);
-  VAG_CHECK(cudaGetLastError());
-  VAG_CHECK((gemm<false, true>(cs, wk, rows, H, R, F(dty), R, F(ws), R,
-                               M(ds_ro), H, nullptr, false)));
-  VAG_CHECK((gemm<false, true>(cs, wk, rows, C, R, F(dty), R, F(wc), R,
-                               M(dc), C, nullptr, false)));
-  VAG_CHECK(cudaMemsetAsync(ds, 0, sizeof(float) * B * H, cs));
-
-  for (int t = Tt - 1; t >= 0; --t) {
-    const size_t oB = (size_t)t * B;
-    const size_t o3 = oB * H3, o1 = oB * H;
-    float* dc_t = M(dc) + oB * C;
-    float* dq_t = M(dq) + oB * A;
-    // GRU2 (state s~ -> s'): ds' = ds + dpre @ ws^T
-    VAG_CHECK(gru_cell_bwd(cs, F(xg2) + o3, F(hg2) + o3, F(st) + o1, nullptr,
-                           M(ds), F(ds_ro) + o1, M(dxg2) + o3, M(dhg2) + o3,
-                           M(dst), B, H));
-    VAG_CHECK((gemm<false, true>(cs, wk, B, C, H3, M(dxg2) + o3, H3, F(wi2), H3,
-                                 dc_t, C, nullptr, true)));
-    VAG_CHECK((gemm<false, true>(cs, wk, B, H, H3, M(dhg2) + o3, H3, F(uh2), H3,
-                                 M(dst), H, nullptr, true)));
-    // attention
-    attn_bwd_kernel<<<B, ATT_THREADS, att_smem, cs>>>(
-        dc_t, F(w) + oB * T, F(q) + oB * A, F(ctx), F(ctxp), F(mask), F(va),
-        M(dctx), M(dctxp), dq_t, M(dva_rows) + oB * A, T, A, C);
-    VAG_CHECK(cudaGetLastError());
-    VAG_CHECK((gemm<false, true>(cs, wk, B, H, A, dq_t, A, F(ua), A, M(dst), H,
-                                 nullptr, true)));
-    // GRU1 (state s -> s~)
-    VAG_CHECK(gru_cell_bwd(cs, F(xg1) + o3, F(hg1) + o3, F(s) + o1, nullptr,
-                           M(dst), nullptr, M(dxg1) + o3, M(dhg1) + o3, M(ds),
-                           B, H));
-    VAG_CHECK((gemm<false, true>(cs, wk, B, H, H3, M(dhg1) + o3, H3, F(uh1), H3,
-                                 M(ds), H, nullptr, true)));
+  BwdArgs g{};
+  g.s = F(s); g.st = F(st); g.c = F(c);
+  g.w = F(w); g.q = F(q); g.hg1 = F(hg1); g.xg2 = F(xg2); g.hg2 = F(hg2);
+  g.xg1 = F(xg1); g.ctx = F(ctx); g.ctxp = F(ctxp); g.mask = F(mask);
+  g.va = F(va);
+  g.dty = M(dty); g.dxg1 = M(dxg1); g.ds0 = M(ds0); g.dctx = M(dctx);
+  g.dctxp = M(dctxp); g.duh1 = M(duh1); g.dbh1 = M(dbh1); g.dua = M(dua);
+  g.dva = M(dva); g.dwi2 = M(dwi2); g.dbi2 = M(dbi2); g.duh2 = M(duh2);
+  g.dbh2 = M(dbh2); g.dws = M(dws); g.dwc = M(dwc); g.ds_ro = M(ds_ro);
+  g.dc = M(dc); g.dxg2 = M(dxg2); g.dhg2 = M(dhg2); g.dhg1 = M(dhg1);
+  g.dq = M(dq); g.dva_rows = M(dva_rows); g.dsc = M(dsc); g.dstp = M(dstp);
+  g.dst = M(dst); g.dsp = M(dsp); g.colsum = M(colsum);
+  g.Tt = Tt; g.B = B; g.T = T; g.H = H; g.A = A; g.C = C; g.R = R;
+  g.timers = static_cast<unsigned long long*>(timers);
+  g.wl2 = M(wl2);
+  const int ctas = plan[0], smem_bytes = plan[3];
+  g.att_parts = plan[1];
+  g.scratch_off = plan[2];
+  g.colsum_rows = plan[5];
+  const int H3 = 3 * H;
+  // (weights read transposed, W's row stride, K, output columns) of dc,
+  // dst, dstq, ds
+  const float* wts[4] = {F(wi2), F(uh2), F(ua), F(uh1)};
+  const int ldw[4] = {H3, H3, A, H3}, K[4] = {H3, H3, A, H3}, cols[4] = {C, H, H, H};
+  int scratch_need = att_floats_bwd(T, A, C);   // the attention backward's row
+  for (int i = 0; i < 4; ++i) {
+    const int* v = plan + 6 + 9 * i;
+    g.p[i] = Prod{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], K[i], cols[i],
+                  H, wts[i], ldw[i], 1};
+    if (!prod_ok(g.p[i], ctas, g.scratch_off, plan[4]) || g.p[i].ub != 0)
+      return (int)cudaErrorInvalidValue;
+    scratch_need = max(scratch_need, prod_part_floats(g.p[i]));
   }
-
-  // Weight grads: reduction GEMMs over the Tt*B rows, and column sums.
-  const float* s_new = F(s) + (size_t)B * H;   // s' of every step
-  VAG_CHECK((gemm<true, false>(cs, wk, H, R, rows, s_new, H, F(dty), R,
-                               M(dws), R, nullptr, false)));
-  VAG_CHECK((gemm<true, false>(cs, wk, C, R, rows, F(c), C, F(dty), R,
-                               M(dwc), R, nullptr, false)));
-  VAG_CHECK((gemm<true, false>(cs, wk, C, H3, rows, F(c), C, M(dxg2), H3,
-                               M(dwi2), H3, nullptr, false)));
-  VAG_CHECK(colsum(cs, M(dxg2), rows, H3, M(dbi2)));
-  VAG_CHECK((gemm<true, false>(cs, wk, H, H3, rows, F(st), H, M(dhg2), H3,
-                               M(duh2), H3, nullptr, false)));
-  VAG_CHECK(colsum(cs, M(dhg2), rows, H3, M(dbh2)));
-  VAG_CHECK((gemm<true, false>(cs, wk, H, A, rows, F(st), H, M(dq), A,
-                               M(dua), A, nullptr, false)));
-  VAG_CHECK(colsum(cs, M(dva_rows), rows, A, M(dva)));
-  VAG_CHECK((gemm<true, false>(cs, wk, H, H3, rows, F(s), H, M(dhg1), H3,
-                               M(duh1), H3, nullptr, false)));
-  VAG_CHECK(colsum(cs, M(dhg1), rows, H3, M(dbh1)));
+  if (ctas < 1 || g.att_parts < 1 || g.colsum_rows < 1 || g.scratch_off % 4 != 0 ||
+      (long long)4 * (g.scratch_off + scratch_need) > smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const int rows = Tt * B, n = rows * R;
+  // 1. dpre; 2. the readout terms ds_ro = dpre @ ws^T and dc = dpre @ wc^T
+  // over all rows (dc gains each step's dxg2 @ wi2^T in phase (A))
+  dec_scan_bwd_dpre_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, cs>>>(
+      F(g_in), F(t_out), g.dty, n);
+  VAG_CHECK(cudaGetLastError());
+  Jobs pre{};
+  pre.n = 2;
+  for (int i = 0; i < 2; ++i) {
+    Job& j = pre.j[i];
+    j.nseg = 1; j.a[0] = g.dty; j.lda[0] = R; j.kd[0] = R;
+    j.b[0] = F(i ? wc : ws); j.ldb[0] = R; j.tb = 1;
+    j.M = rows; j.N = i ? C : H; j.out = i ? g.dc : g.ds_ro; j.ldo = j.N;
+    j.batch = 1; j.epi = STORE;
+  }
+  VAG_CHECK(launch_jobs(dec_scan_bwd_readout_kernel, pre, cs));
+  // 3. the recurrence
+  void (*kern)(BwdArgs) = plan_general(g.p, 4, plan[4]) ? &dec_scan_bwd_kernel<true>
+                                                     : &dec_scan_bwd_kernel<false>;
+  const int rc = launch_cooperative(kern, g, ctas, smem_bytes, cs);
+  if (rc != 0) return rc;
+  // 4. the weight grads over all rows, and dctx[b] = w[:, b]^T dc[:, b]
+  Jobs post{};
+  post.n = 7;
+  const float* X[6] = {g.c, g.s, g.c, g.st, g.st, g.s + (size_t)B * H};
+  const float* Y[6] = {g.dxg2, g.dhg1, g.dty, g.dhg2, g.dq, g.dty};
+  float* O[6] = {g.dwi2, g.duh1, g.dwc, g.duh2, g.dua, g.dws};
+  const int Mx[6] = {C, H, C, H, H, H}, Ny[6] = {H3, H3, R, H3, A, R};
+  for (int i = 0; i < 6; ++i) {
+    Job& j = post.j[i];
+    j.nseg = 1; j.a[0] = X[i]; j.lda[0] = Mx[i]; j.kd[0] = rows; j.ta = 1;
+    j.b[0] = Y[i]; j.ldb[0] = Ny[i];
+    j.M = Mx[i]; j.N = Ny[i]; j.out = O[i]; j.ldo = Ny[i]; j.batch = 1;
+    j.epi = STORE;
+  }
+  Job& d = post.j[6];
+  d.nseg = 1; d.a[0] = g.w; d.lda[0] = B * T; d.kd[0] = Tt; d.ta = 1;
+  d.b[0] = g.dc; d.ldb[0] = B * C;
+  d.M = T; d.N = C; d.out = g.dctx; d.ldo = C; d.epi = STORE;
+  d.batch = B; d.a_bs = T; d.b_bs = C; d.o_bs = (long long)T * C;
+  VAG_CHECK(launch_jobs(dec_scan_bwd_wgrad_kernel, post, cs));
+  // 5. dctx_proj and the bias grads' row blocks; 6. the bias grads
+  int dev = 0, sms = 0;
+  VAG_CHECK(cudaGetDevice(&dev));
+  VAG_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  dec_scan_bwd_tail_kernel<<<sms * 4, THREADS, 0, cs>>>(g);
+  VAG_CHECK(cudaGetLastError());
+  const int NC = 9 * H + A;
+  dec_scan_bwd_colsum_kernel<<<(NC + THREADS - 1) / THREADS, THREADS, 0, cs>>>(g);
+  VAG_CHECK(cudaGetLastError());
   return 0;
 }

@@ -145,6 +145,7 @@ using vag::cp_async_wait;
 using vag::gru_unit;
 using vag::mma_tf32;
 using vag::split_tf32;
+using vag::tanh_fast;
 using vag::warp_max;
 using vag::warp_sum;
 
@@ -282,18 +283,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int ld,
       }
     }
   }
-}
-
-// tanh on the fast exponential (ex2.approx) and division, where tanhf's
-// accurate branches cost several times the instructions; the attention's
-// energies take T * K * A of them a sentence. Error: __expf is within
-// 2 + 1.2 |2x| ulp (the CUDA guide's bound), which moves tanh by that
-// relative error times (1 - tanh^2) / 2, at most 1.6e-7; __fdividef is
-// within 2 ulp of 2 / (1 + e^2x) (at most 4.8e-7 near 2), and 1 - q is
-// exact there: at most 4.8e-7 in all (tests/test_torch_dec_step_plan.py
-// models these bounds; not measured against tanhf on the card).
-__device__ __forceinline__ float tanh_fast(float x) {
-  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
 }
 
 // Grid (row tiles, column tiles, depth splits) of CTAs of THREADS.

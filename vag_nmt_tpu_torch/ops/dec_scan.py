@@ -1,9 +1,10 @@
 """Teacher-forced decoder scan, forward and backward: the hand-written CUDA
-kernels (``csrc/dec_scan_fwd.cu``, ``csrc/dec_scan_bwd.cu``), their plain
-PyTorch versions, the wrappers that pick between them by the tensors'
-device, ``DecoderScan`` (the ``torch.autograd.Function`` that joins them)
-and ``decoder_scan``, the counterpart of the JAX package's
-``ops/pallas_dec_scan.py::pallas_decoder_scan``.
+kernels (``csrc/dec_scan_fwd.cu``, ``csrc/dec_scan_bwd.cu``), their tiling
+(``dec_scan_plan``), their plain PyTorch versions, the wrappers that pick
+between them by the tensors' device, ``DecoderScan`` (the
+``torch.autograd.Function`` that joins them) and ``decoder_scan``, the
+counterpart of the JAX package's ``ops/pallas_dec_scan.py::
+pallas_decoder_scan``.
 
 Per target step: GRU1 on the precomputed input gates, the query
 ``q = s~ @ ua``, masked Bahdanau attention over ctx / ctx_proj (with ``ba``
@@ -17,18 +18,33 @@ Tensors are time-major for the per-step streams: ty_t (Tt, B, R), xg_t
 weights travel as one tuple in ``WEIGHTS`` order. The forward returns the
 readout and its residuals (``RESIDUALS``), which the backward consumes, so
 the backward recomputes only the attention energies.
+
+Each kernel runs its recurrence as one persistent cooperative grid (one
+CTA per SM): the recurrent weights stay resident in shared memory, split
+over the CTAs by output column (where a phase's slices do not fit, in a
+buffer read through L2), and a step is four phases between grid syncs;
+the time-parallel work (the readout, the weight grads) runs in grids of
+its own (see the sources). ``dec_scan_plan`` owns the tiling: its
+constants are the build's -D defines, the tiles of each product and the
+memory layout the launch's arguments, so the CPU tests of the plan cover
+what is launched.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Sequence, Tuple
+import functools
+import itertools
+from dataclasses import dataclass, replace
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
 from vag_nmt_tpu_torch.ops import _build
-from vag_nmt_tpu_torch.ops.gru_kernel import gru_cell_bwd_plain, gru_gate_algebra
+from vag_nmt_tpu_torch.ops.gru_kernel import (_device_limits,
+                                              gru_cell_bwd_plain,
+                                              gru_gate_algebra)
 
 NEG_INF = -1e9          # as ops/attention.masked_softmax
 
@@ -36,6 +52,325 @@ WEIGHTS = ("uh1", "bh1", "ua", "va", "wi2", "bi2", "uh2", "bh2", "ws", "wc")
 # t (Tt, B, R); s (Tt + 1, B, H) with s[0] = s0; st = s~ (Tt, B, H);
 # c (Tt, B, C); w (Tt, B, T); q (Tt, B, A); hg1, xg2, hg2 (Tt, B, 3H)
 RESIDUALS = ("t", "s", "st", "c", "w", "q", "hg1", "xg2", "hg2")
+
+# The kernels' constants, passed to csrc/dec_scan.cuh as -D defines: depth
+# of a streamed product's chunk and stages of its cp.async ring, n8 tiles
+# of a per-step product tile at most, 16-deep slabs of the activations a
+# warp of a per-step product keeps in flight, loads a thread of the
+# attention keeps in flight, rows and columns of a streamed-product tile
+# (the time-parallel work before and after the loop). A CTA has THREADS
+# threads.
+BK, GSTAGES, NI_MAX, PREFETCH, ATT_BATCH, GM, GN = 32, 4, 3, 4, 16, 64, 64
+THREADS = 256
+WARPS = THREADS // 32
+# The plan's choices: rows of a per-step tile (m16 tiles for the 8 warps:
+# 2 or 4), units of a gate tile, columns of a plain tile, CTAs sharing an
+# attention row, rows of a column-sum block (the bias grads), and how many
+# column-pass counts of a product to try.
+TILE_ROWS = (32, 64)
+GATE_UNITS = (2, 4, 8)
+PLAIN_COLS = (8, 16, 24)
+MAX_ATT_PARTS = 4
+COLSUM_ROWS = 128
+COL_PASSES = 4   # column-pass counts the plan tries from the least that fits
+FWD_GRIDS, BWD_GRIDS = 2, 6   # grids a call of each kernel enqueues
+_DEFINES = {"VAG_BK": BK, "VAG_GSTAGES": GSTAGES, "VAG_NI_MAX": NI_MAX,
+            "VAG_PREFETCH": PREFETCH, "VAG_ATT_BATCH": ATT_BATCH, "VAG_GM": GM,
+            "VAG_GN": GN}
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclass(frozen=True)
+class ScanProduct:
+    """One per-step product out (rows, cols) = a (rows, depth) @ W as the
+    kernel tiles it (csrc/dec_scan.cuh's Prod): ``col_tiles`` column tiles
+    of ``tile_cols`` columns, either gate tiles (``unit_block`` units of H,
+    their r, z and n columns at tile columns [0, ub), [ub, 2ub), [2ub, 3ub))
+    or plain tiles of consecutive columns, and row parts of ``tile_rows``
+    rows, on ``col_slots`` column slots of ``row_slots`` CTAs each. CTAs
+    [cta0, cta0 + ctas) take it: CTA cta0 + c * row_slots + i takes column
+    tiles c, c + col_slots, ... and row parts i, i + row_slots, ...; the
+    weight slice of its k-th column tile sits in its shared memory at float
+    ``woff`` + k * slice_floats or, when ``l2off`` >= 0, in the launch's
+    weight buffer at l2off + ((cta - cta0) * col_passes + k) *
+    slice_floats, read through L2."""
+    name: str
+    rows: int
+    depth: int
+    cols: int
+    H: int
+    unit_block: int
+    tile_cols: int
+    tile_rows: int
+    row_slots: int
+    col_tiles: int
+    col_slots: int
+    cta0: int = 0
+    woff: int = 0
+    l2off: int = -1
+
+    @property
+    def row_parts(self) -> int:
+        return -(-self.rows // self.tile_rows)
+
+    @property
+    def ctas(self) -> int:
+        return self.col_slots * self.row_slots
+
+    @property
+    def col_passes(self) -> int:
+        """Column tiles of the busiest CTA."""
+        return -(-self.col_tiles // self.col_slots)
+
+    @property
+    def slice_floats(self) -> int:
+        """One column tile's weight slice, its depth padded to 16-deep
+        slabs."""
+        return _up(self.depth, 16) * self.tile_cols
+
+    @property
+    def region_floats(self) -> int:
+        """A CTA's weight slices."""
+        return self.col_passes * self.slice_floats
+
+    @property
+    def passes(self) -> int:
+        """Tiles (column tile, row part) of the busiest CTA a step."""
+        return self.col_passes * -(-self.row_parts // self.row_slots)
+
+    @property
+    def work(self) -> int:
+        """Multiply-adds of the busiest CTA a step (padding included)."""
+        return self.passes * self.tile_rows * self.tile_cols * _up(self.depth, 16)
+
+    @property
+    def part_floats(self) -> int:
+        """The warps' k-slice accumulators, added in the epilogue."""
+        return WARPS * (self.tile_cols // 8) * 32 * 4
+
+    def launch_args(self) -> Tuple[int, ...]:
+        return (self.unit_block, self.tile_cols, self.tile_rows,
+                self.row_slots, self.col_tiles, self.col_slots, self.cta0,
+                self.woff, self.l2off)
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """One kernel's recurrence, one cooperative grid: ``ctas`` CTAs (one
+    per SM), its four products in launch order, grouped into the phases of
+    ``phases`` (a phase's products on disjoint CTAs), each phase's weight
+    slices at one offset of the shared memory or (where they do not fit)
+    of the weight buffer of ``l2_floats`` floats, the scratch region (the
+    k-slices' accumulators and the attention's shared row) at float
+    ``scratch_off``, ``smem_bytes`` of dynamic shared memory, ``att_parts``
+    CTAs a sentence in the attention, and (backward) the rows of a
+    column-sum block. The streamed products' grids take fixed GM x GN
+    tiles."""
+    kernel: str
+    ctas: int
+    products: Tuple[ScanProduct, ...]
+    phases: Tuple[Tuple[str, ...], ...]
+    att_parts: int
+    scratch_off: int
+    smem_bytes: int
+    l2_floats: int
+    colsum_rows: int
+
+    def product(self, name: str) -> ScanProduct:
+        return next(p for p in self.products if p.name == name)
+
+    def launch_args(self) -> Tuple[int, ...]:
+        head = (self.ctas, self.att_parts, self.scratch_off, self.smem_bytes,
+                self.l2_floats)
+        if self.kernel == "dec_scan_bwd":
+            head += (self.colsum_rows,)
+        return head + tuple(x for p in self.products for x in p.launch_args())
+
+
+@dataclass(frozen=True)
+class DecScanPlan:
+    fwd: ScanPlan
+    bwd: ScanPlan
+
+
+# Each kernel's products (name, depth, output columns, gate tiles?) in
+# launch order, by phase. Forward: (a) hg1 = s @ uh1 with GRU1, (b) q =
+# s~ @ ua and hg2 = s~ @ uh2, (d) xg2 = c @ wi2 with GRU2 (the attention
+# is phase (c)). Backward: (A) dc = dxg2 @ wi2^T and ds~ = dhg2 @ uh2^T,
+# (C) dq @ ua^T with GRU1's cell backward, (D) dhg1 @ uh1^T with GRU2's
+# (the attention is phase (B)).
+def _specs(kernel: str, H: int, A: int, C: int):
+    if kernel == "dec_scan_fwd":
+        return ((("hg1", H, 3 * H, True),),
+                (("q", H, A, False), ("hg2", H, 3 * H, False)),
+                (("xg2", C, 3 * H, True),))
+    return ((("dc", 3 * H, C, False), ("dst", 3 * H, H, False)),
+            (("dstq", A, H, False),),
+            (("ds", 3 * H, H, False),))
+
+
+def _col_slots(col_tiles: int, most: int) -> List[int]:
+    """Column slots of a product on at most ``most`` CTAs: the fewest
+    column passes that fit and up to COL_PASSES - 1 more, and the passes
+    that fit a half, a third and a quarter of ``most`` (room for a phase's
+    other product); each as the fewest slots that give its passes."""
+    if most < 1:
+        return []
+    least = -(-col_tiles // most)
+    passes = set(range(least, least + COL_PASSES))
+    passes |= {-(-col_tiles // max(1, most // d)) for d in (2, 3, 4)}
+    return sorted({-(-col_tiles // m) for m in passes}, reverse=True)
+
+
+def _product_options(spec, B: int, H: int, n_sms: int) -> List[ScanProduct]:
+    name, depth, cols, gate = spec
+    out = []
+    widths = ([(ub, _up(3 * ub, 8)) for ub in GATE_UNITS] if gate
+              else [(0, nt) for nt in PLAIN_COLS])
+    for ub, nt in widths:
+        if nt // 8 > NI_MAX:
+            continue
+        col_tiles = -(-H // ub) if gate else -(-cols // nt)
+        for rt in TILE_ROWS:
+            for nr in range(1, min(n_sms, -(-B // rt)) + 1):
+                for cs in _col_slots(col_tiles, n_sms // nr):
+                    out.append(ScanProduct(name, B, depth, cols, H, ub, nt,
+                                           rt, nr, col_tiles, cs))
+    return out
+
+
+def _phase_options(phase, B: int, H: int, n_sms: int):
+    """Pareto set of (cost, slice floats, products) for one phase: its
+    products on disjoint CTAs, at most n_sms in all."""
+    opts = {}
+    for combo in itertools.product(*(_product_options(s, B, H, n_sms)
+                                      for s in phase)):
+        if sum(p.ctas for p in combo) > n_sms:
+            continue
+        cost = max(p.work for p in combo)
+        region = _up(max(p.region_floats for p in combo), 32)
+        key = (cost, region)
+        # ties: fewer passes over row parts a CTA, then fewer CTAs
+        rank = (max(p.passes for p in combo),
+                sum(p.ctas for p in combo),
+                tuple((p.tile_rows, p.tile_cols) for p in combo))
+        if key not in opts or rank < opts[key][0]:
+            opts[key] = (rank, combo)
+    front, best_region = [], None
+    for (cost, region), (_, combo) in sorted(opts.items()):
+        if best_region is None or region < best_region:
+            front.append((cost, region, combo))
+            best_region = region
+    return front
+
+
+def _att_parts(B: int, n_sms: int) -> int:
+    return max(1, min(MAX_ATT_PARTS, n_sms // B))
+
+
+def _att_floats(kernel: str, T: int, A: int, C: int, parts: int) -> int:
+    """Shared floats of an attention row (csrc/dec_scan.cuh's att_floats_*):
+    forward q, va, the mask, the scores and two halves of the part's
+    columns; backward dc, w, dscore, q, va, the mask; each padded to a
+    multiple of 4."""
+    if kernel == "dec_scan_fwd":
+        return 2 * _up(A, 4) + 2 * _up(T, 4) + 2 * _up(-(-C // parts), 4)
+    return _up(C, 4) + 3 * _up(T, 4) + 2 * _up(A, 4)
+
+
+def _kernel_plan(kernel: str, B: int, T: int, H: int, A: int, C: int,
+                 n_sms: int, max_smem: int) -> ScanPlan:
+    phases = _specs(kernel, H, A, C)
+    fronts = [_phase_options(ph, B, H, n_sms) for ph in phases]
+    if not all(fronts):
+        raise ValueError(f"{kernel}: no tiling of B={B}, H={H}, A={A}, "
+                         f"C={C} on {n_sms} SMs")
+    # Each phase: its Pareto front with the slices resident, or its least
+    # cost with the slices in L2 (every CTA's slices, in L2 floats).
+    options = [[(cost, region, combo, 0) for cost, region, combo in front]
+               + [(front[0][0], 0, front[0][2],
+                   sum(p.ctas * p.region_floats for p in front[0][2]))]
+               for front in fronts]
+    parts = _att_parts(B, n_sms)
+    att = _att_floats(kernel, T, A, C, parts)
+    best, best_key = None, None
+    for choice in itertools.product(*options):
+        prods = [p for _, _, combo, _ in choice for p in combo]
+        scratch = _up(max([att] + [p.part_floats for p in prods]), 32)
+        region = sum(r for _, r, _, _ in choice)
+        smem = 4 * (region + scratch)
+        if smem > max_smem:
+            continue
+        # the fewest floats in L2, then the least cost, then shared memory
+        key = (sum(x for *_, x in choice), sum(c for c, *_ in choice), smem)
+        if best_key is None or key < best_key:
+            best, best_key = (choice, region, smem), key
+    if best is None:
+        raise ValueError(f"{kernel}: the attention row and the products' "
+                         f"accumulators of T={T}, A={A}, C={C} do not fit "
+                         f"{max_smem} bytes of shared memory")
+    choice, scratch_off, smem = best
+    placed, woff, l2off = [], 0, 0
+    for _, region, combo, in_l2 in choice:
+        cta0 = 0
+        for p in combo:
+            if in_l2:
+                placed.append(replace(p, cta0=cta0, l2off=l2off))
+                l2off += p.ctas * p.region_floats
+            else:
+                placed.append(replace(p, cta0=cta0, woff=woff))
+            cta0 += p.ctas
+        woff += region
+    return ScanPlan(kernel, n_sms, tuple(placed),
+                    tuple(tuple(s[0] for s in ph) for ph in phases),
+                    parts, scratch_off, smem, l2off,
+                    COLSUM_ROWS if kernel == "dec_scan_bwd" else 0)
+
+
+@functools.lru_cache(maxsize=None)   # one shape a batch bucket
+def dec_scan_plan(B: int, T: int, H: int, A: int, C: int, R: int,
+                  n_sms: int, max_smem: int) -> DecScanPlan:
+    """The tiling of both kernels for B rows, T source positions and widths
+    H, A, C, R on a card of ``n_sms`` SMs with ``max_smem`` bytes of shared
+    memory a block: one CTA per SM; for each phase the products' tiles
+    (each CTA one or more column tiles of a phase, their weight slices
+    resident in shared memory or, for a phase whose slices do not fit, in
+    L2) with the fewest floats in L2, then the least multiply-adds of the
+    busiest CTA summed over the phases, then the least shared memory; the
+    resident slices, the scratch and the attention's shared row within
+    ``max_smem``. R shapes only the streamed products, whose tiles are
+    fixed (GM x GN). Raises ValueError where nothing fits: fewer SMs than a
+    phase has products, or an attention row or the accumulators beyond
+    ``max_smem``."""
+    if min(B, T, H, A, C, R, n_sms) < 1:
+        raise ValueError(f"dec_scan_plan: B={B}, T={T}, H={H}, A={A}, "
+                         f"C={C}, R={R}, n_sms={n_sms} must be positive")
+    return DecScanPlan(
+        _kernel_plan("dec_scan_fwd", B, T, H, A, C, n_sms, max_smem),
+        _kernel_plan("dec_scan_bwd", B, T, H, A, C, n_sms, max_smem))
+
+
+def _timer_ptr(timers: Optional[torch.Tensor], n: int) -> Optional[int]:
+    if timers is None:
+        return None
+    check_kernel_arg(timers, torch.int64, (n,), "dec_scan timers")
+    return timers.data_ptr()
+
+
+def _plan_args(plan: ScanPlan):
+    args = plan.launch_args()
+    return (ctypes.c_int * len(args))(*args), len(args)
+
+
+def _l2_buffer(plan: ScanPlan, dev: torch.device) -> Optional[torch.Tensor]:
+    """The weight slices the plan puts in L2 (written by the launch), or
+    None."""
+    if not plan.l2_floats:
+        return None
+    return torch.empty(plan.l2_floats, dtype=torch.float32, device=dev)
 
 
 def scan_weights(params: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
@@ -80,14 +415,24 @@ def dec_scan_fwd_plain(ty_t, xg_t, s0, ctx, ctxp, mask,
     return res
 
 
+def _kernel_plan_for(dev: torch.device, B: int, T: int, H: int, A: int,
+                     C: int, R: int) -> DecScanPlan:
+    return dec_scan_plan(B, T, H, A, C, R, *_device_limits(dev))
+
+
 def dec_scan_fwd(ty_t, xg_t, s0, ctx, ctxp, mask,
-                 weights: Sequence[torch.Tensor], *,
-                 impl: str = "auto") -> Dict[str, torch.Tensor]:
+                 weights: Sequence[torch.Tensor], *, impl: str = "auto",
+                 timers: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
     """The readout t and the residuals of the decoder scan (``RESIDUALS``).
     impl: "auto" (kernel for CUDA tensors, plain for CPU tensors), "kernel"
-    or "plain". One call of the kernel path enqueues 7 grids per step and 3
-    after the loop (see csrc/dec_scan_fwd.cu): it counts one in
-    ``dec_scan_fwd.launches`` and those in ``dec_scan_fwd.grids``."""
+    or "plain". One call of the kernel path enqueues FWD_GRIDS grids (the
+    recurrence, one cooperative grid, and the readout; see
+    csrc/dec_scan_fwd.cu): it counts one in ``dec_scan_fwd.launches`` and
+    those in ``dec_scan_fwd.grids``. Raises when the plan or the launch
+    fails (no fallback). ``timers``, a CUDA int64 tensor of 4 Tt + 2
+    elements, receives the recurrence's barrier stamps (ns; see the
+    source)."""
     if resolve_impl(impl, xg_t) == "plain":
         return dec_scan_fwd_plain(ty_t, xg_t, s0, ctx, ctxp, mask, weights)
     Tt, B, R = ty_t.shape
@@ -105,20 +450,21 @@ def dec_scan_fwd(ty_t, xg_t, s0, ctx, ctxp, mask,
            "c": new(Tt, B, C), "w": new(Tt, B, T), "q": new(Tt, B, A),
            "hg1": new(Tt, B, 3 * H), "xg2": new(Tt, B, 3 * H),
            "hg2": new(Tt, B, 3 * H)}
-    res["s"][0].copy_(s0)
+    kp = _kernel_plan_for(dev, B, T, H, A, C, R).fwd
+    plan, n_plan = _plan_args(kp)
+    wl2 = _l2_buffer(kp, dev)
     lib = _build.load("dec_scan_fwd")
-    split_k, _keep = _build.workspace_args(dev)
     rc = lib.dec_scan_fwd_launch(
-        ty_t.data_ptr(), xg_t.data_ptr(), ctx.data_ptr(), ctxp.data_ptr(),
-        mask.data_ptr(), *(w.data_ptr() for w in weights),
+        ty_t.data_ptr(), xg_t.data_ptr(), s0.data_ptr(), ctx.data_ptr(),
+        ctxp.data_ptr(), mask.data_ptr(), *(w.data_ptr() for w in weights),
         *(res[k].data_ptr() for k in ("s", "st", "c", "w", "q", "hg1", "xg2",
                                       "hg2", "t")),
-        Tt, B, T, H, A, C, R, *split_k,
-        torch.cuda.current_stream(dev).cuda_stream)
+        Tt, B, T, H, A, C, R, plan, n_plan, None if wl2 is None else wl2.data_ptr(),
+        _timer_ptr(timers, 4 * Tt + 2), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dec_scan_fwd kernel launch failed: CUDA error {rc}")
     dec_scan_fwd.launches += 1
-    dec_scan_fwd.grids += 7 * Tt + 3
+    dec_scan_fwd.grids += FWD_GRIDS
     return res
 
 
@@ -126,8 +472,29 @@ dec_scan_fwd.launches = 0
 dec_scan_fwd.grids = 0
 
 _build.declare("dec_scan_fwd", "dec_scan_fwd_launch",
-               [ctypes.c_void_p] * 24 + [ctypes.c_int] * 7
-               + _build.WORKSPACE_ARGTYPES + [ctypes.c_void_p])
+               [ctypes.c_void_p] * 25 + [ctypes.c_int] * 7
+               + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+               + [ctypes.c_void_p] * 3,
+               defines=_DEFINES)
+
+
+def tanh_fast_probe(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tanh_fast(x), tanhf(x)) on the card: the attention energies' tanh
+    (csrc/common.cuh) beside the accurate one, for chip_smoke.py's
+    measurement of its error."""
+    check_kernel_arg(x, torch.float32, tuple(x.shape), "tanh_fast_probe: x")
+    fast, ref = torch.empty_like(x), torch.empty_like(x)
+    rc = _build.load("dec_scan_fwd").dec_scan_tanh_probe(
+        x.data_ptr(), fast.data_ptr(), ref.data_ptr(), x.numel(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tanh_fast_probe launch failed: CUDA error {rc}")
+    return fast, ref
+
+
+_build.declare("dec_scan_fwd", "dec_scan_tanh_probe",
+               [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p],
+               defines=_DEFINES)
 
 
 def dec_scan_bwd_plain(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
@@ -191,13 +558,15 @@ def dec_scan_bwd_plain(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
 
 
 def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
-                 weights: Sequence[torch.Tensor], g_t, *, impl: str = "auto"):
+                 weights: Sequence[torch.Tensor], g_t, *, impl: str = "auto",
+                 timers: Optional[torch.Tensor] = None):
     """Gradients of the decoder scan given the forward's residuals and the
     cotangent g_t (Tt, B, R) of the readout; returns what
-    ``dec_scan_bwd_plain`` returns. One call of the kernel path enqueues 3
-    grids before the loop, 7 per step and 10 after it, and a memset (see
-    csrc/dec_scan_bwd.cu): it counts one in ``dec_scan_bwd.launches`` and
-    those in ``dec_scan_bwd.grids``."""
+    ``dec_scan_bwd_plain`` returns. One call of the kernel path enqueues
+    BWD_GRIDS grids (the recurrence is one cooperative grid; see
+    csrc/dec_scan_bwd.cu), which write every output: it counts one in
+    ``dec_scan_bwd.launches`` and those in ``dec_scan_bwd.grids``. Raises
+    when the plan or the launch fails. ``timers``: as dec_scan_fwd's."""
     if resolve_impl(impl, xg_t) == "plain":
         return dec_scan_bwd_plain(res, xg_t, ctx, ctxp, mask, weights, g_t)
     Tt, B, R = g_t.shape
@@ -216,29 +585,35 @@ def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
+    plan = _kernel_plan_for(dev, B, T, H, A, C, R).bwd
     uh1, _, ua, va, wi2, _, uh2, _, ws, wc = weights
     dty, dxg1, ds0 = new(Tt, B, R), new(Tt, B, 3 * H), new(B, H)
-    dctx = torch.zeros_like(ctx)
-    dctxp = torch.zeros_like(ctxp)
+    dctx, dctxp = new(B, T, C), new(B, T, A)
     dw = [torch.empty_like(w) for w in weights]
     duh1, dbh1, dua, dva, dwi2, dbi2, duh2, dbh2, dws, dwc = dw
+    # ds_ro, dc, dxg2, dhg2, dhg1, dq, dva_rows, dscore, dstp, dst, dsp,
+    # the column sums' row blocks
     scratch = (new(Tt, B, H), new(Tt, B, C), new(Tt, B, 3 * H),
                new(Tt, B, 3 * H), new(Tt, B, 3 * H), new(Tt, B, A),
-               new(Tt, B, A), new(B, H))
+               new(Tt, B, A), new(Tt, B, T), new(B, H), new(B, H), new(B, H),
+               new(-(-Tt * B // plan.colsum_rows), 9 * H + A))
+    args, n_plan = _plan_args(plan)
+    wl2 = _l2_buffer(plan, dev)
     lib = _build.load("dec_scan_bwd")
-    split_k, _keep = _build.workspace_args(dev)
     ptrs = [g_t, res["t"], res["s"], res["st"], res["c"], res["w"], res["q"],
             res["hg1"], res["xg2"], res["hg2"], xg_t, ctx, ctxp, mask,
             uh1, ua, va, wi2, uh2, ws, wc,
             dty, dxg1, ds0, dctx, dctxp,
             duh1, dbh1, dua, dva, dwi2, dbi2, duh2, dbh2, dws, dwc, *scratch]
     rc = lib.dec_scan_bwd_launch(*(p.data_ptr() for p in ptrs),
-                                 Tt, B, T, H, A, C, R, *split_k,
+                                 Tt, B, T, H, A, C, R, args, n_plan,
+                                 None if wl2 is None else wl2.data_ptr(),
+                                 _timer_ptr(timers, 4 * Tt + 2),
                                  torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dec_scan_bwd kernel launch failed: CUDA error {rc}")
     dec_scan_bwd.launches += 1
-    dec_scan_bwd.grids += 7 * Tt + 13
+    dec_scan_bwd.grids += BWD_GRIDS
     return (dty, dxg1, ds0, dctx, dctxp, *dw)
 
 
@@ -246,8 +621,10 @@ dec_scan_bwd.launches = 0
 dec_scan_bwd.grids = 0
 
 _build.declare("dec_scan_bwd", "dec_scan_bwd_launch",
-               [ctypes.c_void_p] * 44 + [ctypes.c_int] * 7
-               + _build.WORKSPACE_ARGTYPES + [ctypes.c_void_p])
+               [ctypes.c_void_p] * 48 + [ctypes.c_int] * 7
+               + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+               + [ctypes.c_void_p] * 3,
+               defines=_DEFINES)
 
 
 def _check_inputs(what, first, xg_t, s0, ctx, ctxp, mask, weights,
