@@ -28,8 +28,13 @@ Phases (each raises on failure; the script then exits non-zero):
   5. where the time goes: the kernel path once more under torch.profiler
      (device activity only), giving the device's busy time, its idle share
      of the host wall, device launches per beam step and the top kernels;
-  6. gru_bwd kernel against its plain version at the encoder's training
-     shape (B=64, T=24, E=256, H=512), ragged lengths, both directions;
+  6. gru_bwd kernel (three grids a call, the carry one persistent grid)
+     against its plain version at the encoder's training shape (B=64,
+     T=24, E=256, H=512), its longest source bucket (T=128), a ragged
+     batch at a narrow width (B=37, H=94) and H=1024, ragged lengths, both
+     directions, a second call bit for bit as the first; at the first two
+     its whole call timed alone, cold (L2 flushed) and warm, with each
+     grid's device ms, beside cuDNN's backward;
   7. dec_scan_fwd and dec_scan_bwd kernels (one persistent grid each)
      against their plain versions at (B, T, Tt) = (64, 24, 24) full width,
      ikea_vag's (64, 128, 128), a ragged batch (B=37) at widths that are no
@@ -50,7 +55,8 @@ Phases (each raises on failure; the script then exits non-zero):
   9. beam_topk kernel against its plain version at the unfused beam step's
      shape (B=128, K=5, V=8000), exactly, with finished rows and forced ties,
      and on the split cases (ragged V=8003, B=1 over many vocab slices, ties
-     straddling a slice boundary and across beams, K=1, K=8, all finished);
+     straddling a slice boundary and across beams, K=1, K=8, all finished;
+     kernels 8 and 9 on them in phase 12);
      before it, kernels 6, 8 and 9 timed as grids alone at V=8000 and 16000,
      cold (L2 flushed) and warm, beside torch.topk on the candidates;
  10. dec_step kernel against its plain version at full width (B=128, K=5,
@@ -69,8 +75,8 @@ Phases (each raises on failure; the script then exits non-zero):
  12. legacy_topk_blocks and legacy_topk_rows (the two legacy beam top-K
      kernels) against their plain versions at (B, K, V) = (128, 5, 16000)
      and (128, 5, 8000), exactly: random, all-finished and forced ties
-     across 512-blocks, where each follows its own tie rule; gen 2 on the
-     split cases of phase 9;
+     across 512-blocks, where each follows its own tie rule; both gens on
+     the split cases of phase 9;
  13. the readout_topk kernel's shallow-slot watermark mode at R=640, E=256,
      V=16000 and at a part-full last row tile (R=35, V=8003), slot depths
      1 and 3: every row's viol as the plain version's
@@ -89,12 +95,13 @@ Phases (each raises on failure; the script then exits non-zero):
      with the deferred chunk rerun, per-step, unrolled; the unfused step
      through kernels 8, 9 and 6), each kernel's launches read from its own
      mode, the shares of identical hypotheses between modes, (a), (b),
-     (g) and (h) under the profiler, and (b) once more counting the row
+     (f), (g) and (h) under the profiler, and (b) once more counting the row
      groups its per-step recoveries mark at 32 and at 64 rows.
 Phase 1 builds all eight sources. It prints one JSON line of per-kernel
 numbers and, last, the device line. With --gru-grids it prints phase 3's
 grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
-kernel 7's, with --dec-scan-grids kernels 4 and 5's (see main).
+kernel 7's, with --dec-scan-grids kernels 4 and 5's, with --gru-bwd-grids
+kernel 3's (see main).
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
 
@@ -559,56 +566,131 @@ def _rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
-def phase_gru_bwd(torch, np, dev):
-    """gru_bwd against gru_bwd_plain at the encoder's training shape."""
-    from vag_nmt_tpu_torch.ops.gru import init_gru_params
-    from vag_nmt_tpu_torch.ops.gru_kernel import gru_bwd, gru_bwd_plain, gru_fwd
+# Phase 6's cases (label, B, T, H): the m30k training bucket (64, 24), its
+# longest source bucket (64, 128), a ragged batch at a narrow width (a part
+# full row part, widths that are no multiple of 16), and twice m30k's width
+# (H = 1024: a CTA's Uh^T slice 192 KB); E = GRU_E, both directions.
+GRU_BWD_CASES = (("train", TRAIN_B, TRAIN_T, 512), ("long", 64, 128, 512),
+                 ("ragged", 37, 13, 94), ("wide", TRAIN_B, TRAIN_T, 1024))
+GRU_BWD_TIMED = ("train", "long")   # timed as whole calls (--gru-bwd-grids)
 
-    B, T, E, H = TRAIN_B, TRAIN_T, 256, 512
-    rng = np.random.RandomState(6)
+
+def _gru_bwd_case(torch, np, dev, B, T, H, seed=6):
+    """(args of gru_bwd for the forward direction, x, the states of the
+    reverse one): params from init_gru_params with random biases, ragged
+    lengths (every row at least min(4, T) tokens), h0 and a cotangent from
+    numpy; the states from the plain forward."""
+    from vag_nmt_tpu_torch.ops.gru import init_gru_params
+    from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd_plain
+
+    rng = np.random.RandomState(seed)
 
     def cuda(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
     p = {k: v.to(dev) for k, v in
-         init_gru_params(torch.Generator().manual_seed(6), E, H).items()}
+         init_gru_params(torch.Generator().manual_seed(seed), GRU_E, H).items()}
     bh = cuda(0.1 * rng.randn(3 * H))
-    x = cuda(0.5 * rng.randn(T, B, E))
+    x = cuda(0.5 * rng.randn(T, B, GRU_E))
     xg_t = (x @ p["wi"] + cuda(0.1 * rng.randn(3 * H))).contiguous()
-    lens = torch.from_numpy(rng.randint(4, T + 1, B)).to(dev)
+    lens = torch.from_numpy(rng.randint(min(4, T), T + 1, B)).to(dev)
     mask_t = (torch.arange(T, device=dev)[:, None] < lens[None, :]).float().contiguous()
     h0 = cuda(0.5 * rng.randn(B, H))
     g_t = cuda(rng.randn(T, B, H))
+    hs = {rev: gru_fwd_plain(xg_t, mask_t, p["uh"], bh, h0, reverse=rev)
+          for rev in (False, True)}
+    return (xg_t, mask_t, p["uh"], bh, h0, hs[False], g_t), x, hs[True]
+
+
+def gru_bwd_grid_times(torch, np, dev):
+    """gru_bwd's whole call alone through the wrapper, cold (L2 flushed)
+    and warm (_grid_ms), at GRU_BWD_TIMED, with each grid's device ms a
+    call from torch.profiler (warm); through the wrapper of whichever
+    vag_nmt_tpu_torch is first on sys.path (its only device work is the
+    kernel's grids and the scratch it makes). {label: fields}."""
+    from vag_nmt_tpu_torch.ops.gru_kernel import gru_bwd
+
+    kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+    out = {}
+    for label, B, T, H in GRU_BWD_CASES:
+        if label not in GRU_BWD_TIMED:
+            continue
+        args, _, _ = _gru_bwd_case(torch, np, dev, B, T, H)
+
+        def call():
+            return gru_bwd(*args, impl="kernel")
+
+        cold, warm = _grid_ms(torch, call, **kw)
+        out[label] = {"B": B, "T": T, "H": H, "grid_ms": cold,
+                      "grid_warm_ms": warm,
+                      "grids_warm_ms": _profile_grids(torch, call, 5)}
+        print(f"gru_bwd grids {label}: " + json.dumps(out[label]))
+    return out
+
+
+def _gru_bwd_bound(B, T, H):
+    """(bound ms, by, fp32 bound ms) of one call: the three products
+    (recompute, dhg @ Uh^T, h_prev^T dhg) as three TF32 products each at
+    the TF32 peak; bytes: xg, mask, uh, bh, h0, hs, g in, dxg, dh0, duh,
+    dbh out, once. The fp32 bound runs the products on the fp32 cores."""
+    from vag_nmt_tpu_torch.core.flops import H100_PEAK_TF32_FLOPS
+
+    flops = 3 * 2.0 * T * B * H * 3 * H
+    nbytes = 4.0 * (2 * T * B * 3 * H + T * B + H * 3 * H + 3 * H + 2 * B * H
+                    + 2 * T * B * H + H * 3 * H + 3 * H)
+    bound_ms, bound_by = _bound(3 * flops, nbytes, H100_PEAK_TF32_FLOPS)
+    return bound_ms, bound_by, _bound(flops, nbytes)[0]
+
+
+def phase_gru_bwd(torch, np, dev):
+    """gru_bwd against gru_bwd_plain at GRU_BWD_CASES, both directions:
+    every output within GRU_BWD_RTOL, dxg 0 at masked steps, a second call
+    bit for bit; then the whole call timed alone (gru_bwd_grid_times)
+    beside cuDNN's backward, and through the wrapper at training's shape."""
+    from vag_nmt_tpu_torch.ops.gru_kernel import (_device_limits, gru_bwd,
+                                                  gru_bwd_plain, gru_bwd_plan)
+
     errs, abs_err = {}, 0.0
-    for reverse in (False, True):
-        hs_t = gru_fwd(xg_t, mask_t, p["uh"], bh, h0, reverse=reverse,
-                       impl="plain")
-        got = gru_bwd(xg_t, mask_t, p["uh"], bh, h0, hs_t, g_t,
-                      reverse=reverse, impl="kernel")
-        want = gru_bwd_plain(xg_t, mask_t, p["uh"], bh, h0, hs_t, g_t,
-                             reverse=reverse)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("dxg", "duh", "dbh", "dh0"), got, want):
-            err = _rel_err(a, b)
-            errs[name] = max(errs.get(name, 0.0), err)
-            abs_err = max(abs_err, float((a - b).abs().max()))
-            if not err <= GRU_BWD_RTOL:
-                raise AssertionError(f"gru_bwd reverse={reverse} {name}: "
-                                     f"relative err {err}")
-        masked = (mask_t == 0)[:, :, None].expand(T, B, 3 * H)
-        if masked.any() and float(got[0][masked].abs().max()) != 0.0:
-            raise AssertionError("gru_bwd: dxg is not 0 at masked steps")
-        print(f"gru_bwd reverse={reverse}: ok")
+    for label, B, T, H in GRU_BWD_CASES:
+        fwd_args, _, hs_rev = _gru_bwd_case(torch, np, dev, B, T, H)
+        plan = gru_bwd_plan(B, H, *_device_limits(dev))
+        for reverse in (False, True):
+            args = fwd_args[:5] + ((hs_rev if reverse else fwd_args[5]),
+                                   fwd_args[6])
+            got = gru_bwd(*args, reverse=reverse, impl="kernel")
+            again = gru_bwd(*args, reverse=reverse, impl="kernel")
+            want = gru_bwd_plain(*args, reverse=reverse)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dxg", "duh", "dbh", "dh0"), got, want):
+                err = _rel_err(a, b)
+                errs[name] = max(errs.get(name, 0.0), err)
+                abs_err = max(abs_err, float((a - b).abs().max()))
+                if not err <= GRU_BWD_RTOL:
+                    raise AssertionError(f"gru_bwd {label} reverse={reverse} "
+                                         f"{name}: relative err {err}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"gru_bwd {label} reverse={reverse}: a "
+                                     "second call differs")
+            mask_t = args[1]
+            masked = (mask_t == 0)[:, :, None].expand(T, B, 3 * H)
+            if masked.any() and float(got[0][masked].abs().max()) != 0.0:
+                raise AssertionError(f"gru_bwd {label}: dxg is not 0 at masked "
+                                     "steps")
+        q = plan.product
+        print(f"gru_bwd {label} (B={B}, T={T}, H={H}): ok, both directions, "
+              f"plan ctas={q.ctas} tile={q.tile_rows}x{q.tile_cols} "
+              f"smem={plan.smem_bytes} l2_floats={plan.l2_floats}")
     print(f"gru_bwd relative errors: {json.dumps(errs)}")
 
-    hs_t = gru_fwd(xg_t, mask_t, p["uh"], bh, h0, impl="plain")
-    args = (xg_t, mask_t, p["uh"], bh, h0, hs_t, g_t)
+    grids = gru_bwd_grid_times(torch, np, dev)
+    B, T, H = TRAIN_B, TRAIN_T, 512
+    args, x, _ = _gru_bwd_case(torch, np, dev, B, T, H)
     ms = _time_ms(torch, lambda: gru_bwd(*args, impl="kernel"), reps=20)
     plain_ms = _time_ms(torch, lambda: gru_bwd_plain(*args), reps=10)
     # Yardstick only (the port never calls it): cuDNN's GRU forward +
     # backward minus its forward at the same (T, B, E, H), TF32 off; it also
     # does the input projection's backward.
-    cudnn = torch.nn.GRU(E, H).to(dev)
+    cudnn = torch.nn.GRU(GRU_E, H).to(dev)
     xr = x.clone().requires_grad_(True)
     gy = torch.randn(T, B, H, device=dev)
 
@@ -619,19 +701,21 @@ def phase_gru_bwd(torch, np, dev):
     with torch.no_grad():
         cudnn_fwd_ms = _time_ms(torch, lambda: cudnn(x), reps=20)
     library_ms = _time_ms(torch, fwd_bwd, reps=20) - cudnn_fwd_ms
-    flops = 3 * 2.0 * T * B * H * 3 * H
-    nbytes = 4.0 * (2 * T * B * 3 * H + T * B + H * 3 * H + 3 * H + 2 * B * H
-                    + 2 * T * B * H + H * 3 * H + 3 * H)
-    bound_ms, bound_by = _bound(flops, nbytes)
-    print(f"gru_bwd (one direction, B={B}, T={T}): kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by})")
+    bound_ms, bound_by, fp32_ms = _gru_bwd_bound(B, T, H)
+    tr = grids["train"]
+    print(f"gru_bwd (one direction, B={B}, T={T}): wrapper_ms={ms:.4f} "
+          f"grid_ms={tr['grid_ms']:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+          f"fp32_bound_ms={fp32_ms:.4f}")
     return {"name": "gru_bwd", "route": "cuda",
             "source": "vag_nmt_tpu_torch/csrc/gru_bwd.cu",
             "replaces": "vag_nmt_tpu/ops/pallas_gru.py:180",
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "grid_ms": tr["grid_ms"],
+            "grid_warm_ms": tr["grid_warm_ms"],
+            "shapes": {k: {**v, "bound_ms": _gru_bwd_bound(v["B"], v["T"], v["H"])[0]}
+                       for k, v in grids.items()}}
 
 
 def _dec_scan_shapes():
@@ -1098,7 +1182,7 @@ def phase_train(torch, np, dev):
 
 
 def _split_cases(torch, np, dev):
-    """Exactness cases of the split top-K kernels (6 and 9) beyond the
+    """Exactness cases of the split top-K kernels (6, 8 and 9) beyond the
     paths' shapes: (label, (logits, scores, finished), expected leading ids
     or None). A ragged V and a logits view one float into its storage
     (rows not 16-byte aligned), a single sentence over
@@ -1496,8 +1580,9 @@ def phase_legacy_topk(torch, np, dev):
     plain versions, ids and values exactly, at (B, K, V) = (128, 5, 16000)
     and (128, 5, 8000) (neither V a multiple of the 512-block): random,
     all-finished and forced cross-block ties, where gen 1 and gen 2 must
-    each follow their own rule and differ; then gen 2 on the split cases
-    of _split_cases."""
+    each follow their own rule and differ; then both on the split cases of
+    _split_cases (the boundary ties lie in one 512-block, where gen 1's
+    order is the flat one)."""
     from vag_nmt_tpu_torch.ops import topk
 
     kernels = (("legacy_topk_blocks", topk.legacy_topk_blocks,
@@ -1526,8 +1611,9 @@ def phase_legacy_topk(torch, np, dev):
                     raise AssertionError(f"forced ties V={V}: gen 1 took "
                                          f"{g1[0].tolist()}, gen 2 {g2[0].tolist()}")
             print(f"legacy top-K {kind} (B={B}, K={K}, V={V}): ok (exact)")
-    _split_exactness(torch, "legacy_topk_rows", topk.legacy_topk_rows,
-                     topk.legacy_topk_rows_plain, _split_cases(torch, np, dev))
+    split_cases = _split_cases(torch, np, dev)
+    for name, fn, plain, _, _ in kernels:
+        _split_exactness(torch, name, fn, plain, split_cases)
 
     B, K, V = 128, 5, 16000
     args = _legacy_case(torch, np, dev, "random", B, K, V, seed=1)
@@ -1947,7 +2033,7 @@ def phase_ikea(torch, np, dev):
             raise AssertionError(f"ikea ({a}) vs ({b}): only {share:.4f} of "
                                  "hypotheses identical")
     _recovery_marks(torch, envs["b"], run, out["b"][0])
-    for mode in ("a", "b", "g", "h"):
+    for mode in ("a", "b", "f", "g", "h"):
         phase_profile(torch, f"ikea ({mode}) (beam steps)",
                       lambda: _with_env(envs[mode], run)[1]["beam_loop_steps"])
     pick = {"legacy_topk_blocks": ("f", "legacy_topk_blocks"),
@@ -2092,6 +2178,13 @@ def phase_profile(torch, what: str, run):
                                if "readout_topk" in name) / 1e3,
         "dec_step_ms": sum(us for name, us in kernels.items()
                            if "dec_step" in name) / 1e3,
+        # kernel 8's grid (legacy_topk.cu's blocks_kernel)
+        "legacy_topk_blocks_ms": sum(us for name, us in kernels.items()
+                                     if "blocks_kernel" in name) / 1e3,
+        # every grid of kernel 3 carries its name (gru_bwd_*)
+        "gru_bwd_ms_per_step": sum(us for name, us in kernels.items()
+                                   if "gru_bwd" in name) / 1e3
+                               / max(1, steps),
         # every grid of kernels 4 and 5 carries its kernel's name
         "dec_scan_fwd_ms_per_step": sum(us for name, us in kernels.items()
                                         if "dec_scan_fwd" in name) / 1e3
@@ -2131,6 +2224,12 @@ def main() -> int:
         # kernels 4 and 5, each whole call alone and each of its grids, and
         # nothing else, the same way for another tree's kernels: fields.
         print(json.dumps({"dec_scan_grids": dec_scan_grid_times(torch, np, dev)}))
+        return 0
+    if sys.argv[1:] == ["--gru-bwd-grids"]:
+        # kernel 3's whole call alone and each of its grids at
+        # GRU_BWD_TIMED, and nothing else, the same way for another tree's
+        # kernel: {label: fields}.
+        print(json.dumps({"gru_bwd_grids": gru_bwd_grid_times(torch, np, dev)}))
         return 0
     if sys.argv[1:] == ["--dec-step-grids"]:
         # kernel 7's whole call alone and each of its grids, and nothing

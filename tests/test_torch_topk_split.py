@@ -1,14 +1,17 @@
-"""The split design of the port's beam top-K kernels 6 and 9 (gen 2),
-``csrc/topk_split.cuh``, modelled in plain torch on the CPU: stage 1 takes
-the K best of each (row, vocab slice) at the slice bounds the kernels use
-(``split_plan``, ``split_bounds``), finished rows in closed form; stage 2
-merges a sentence's partials (kernel 6) or a row's partials with the
-floored columns past V, then the beam-major K*K -> K combine (gen 2). The
-model must equal ``beam_topk_plain`` and ``legacy_topk_rows_plain`` bit for
-bit, ids and values, and through them the JAX functions (ids exactly,
-values to 1e-5: the frameworks sum the log-sum-exp in another order). The
-CUDA kernels are held against the same plain versions on the card by
-chip_smoke.py."""
+"""The split design of the port's beam top-K kernels 6, 8 (gen 1) and 9
+(gen 2), ``csrc/topk_split.cuh``, modelled in plain torch on the CPU:
+stage 1 takes the K best of each (row, vocab slice) at the slice bounds
+the kernels use (``split_plan``, ``split_bounds``) under each kernel's id
+(flat index, gen 1's first-occurrence rank, vocab id), finished rows in
+closed form; stage 2 merges a sentence's partials (kernel 6; gen 1 by
+rank with the floored columns past V, the ranks turned back into flat
+ids) or a row's partials with the floored columns past V, then the
+beam-major K*K -> K combine (gen 2). The model must equal
+``beam_topk_plain``, ``legacy_topk_blocks_plain`` and
+``legacy_topk_rows_plain`` bit for bit, ids and values, and through them
+the JAX functions and gen 1's JAX kernel (ids exactly, values to 1e-5: the
+frameworks sum the log-sum-exp in another order). The CUDA kernels are
+held against the same plain versions on the card by chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +30,7 @@ from vag_nmt_tpu_torch.ops.topk import (
     _base,
     beam_topk_plain,
     candidates,
+    legacy_topk_blocks_plain,
     legacy_topk_rows_plain,
     split_bounds,
     split_plan,
@@ -62,14 +66,23 @@ def _ordered(vals, ids, k):
     return vals.gather(-1, o), ids.gather(-1, o)
 
 
-def stage1(logits, scores, finished, S, flat_ids, pad_id=0):
-    """(R, S, K) partial values and ids of every (row, slice), R = B*K."""
+def block_rank(k, v, K):
+    """Gen 1's id of beam k's column v (legacy_topk.cu's BlockRank): the
+    TPU kernel's first-occurrence order (512-block, beam, v)."""
+    return (v // LEGACY_BLOCK) * (K * LEGACY_BLOCK) + k * LEGACY_BLOCK + v % LEGACY_BLOCK
+
+
+def stage1(logits, scores, finished, S, flat_ids, pad_id=0, ranked=False):
+    """(R, S, K) partial values and ids of every (row, slice), R = B*K;
+    ids are flat indices, vocab ids, or with ``ranked`` gen 1's ranks."""
     B, K, V = logits.shape
     R = B * K
     base = _base(logits, scores, finished).reshape(R, 1)
     cand = base + logits.reshape(R, V)
     ids = torch.arange(V, dtype=torch.int64).expand(R, V)
-    if flat_ids:
+    if ranked:
+        ids = block_rank((torch.arange(R) % K)[:, None], ids, K)
+    elif flat_ids:
         ids = ids + (torch.arange(R) % K * V)[:, None]
     pv = torch.full((R, S, K), FLOOR)
     pi = torch.full((R, S, K), EMPTY, dtype=torch.int64)
@@ -238,3 +251,107 @@ def test_finished_rows_in_closed_form(K, pad_id):
     got6, got9 = _check(args, 4, pad_id=pad_id)
     for got in (got6, got9):
         assert (got[1][:, 0] % V == pad_id).all()
+
+
+# --- gen 1 (kernel 8): the split keyed by rank --------------------------------
+
+def stage2_blocks(pv, pi, B, K, V):
+    """Gen 1: each sentence's K*S*K partials and the K floored columns past
+    V that rank first (beam 0's first) -> the K best by (value, rank), the
+    ranks turned back into flat ids k * V + v."""
+    npad = -(-V // LEGACY_BLOCK) * LEGACY_BLOCK - V
+    vals, ranks = pv.reshape(B, -1), pi.reshape(B, -1)
+    if npad:
+        lane = torch.arange(K)
+        padi = block_rank(lane // npad, V + lane % npad, K).expand(B, K)
+        vals = torch.cat([vals, torch.full((B, K), FLOOR)], 1)
+        ranks = torch.cat([ranks, padi], 1)
+    top, rk = _ordered(vals, ranks, K)
+    rem = rk % (K * LEGACY_BLOCK)
+    return top, (rem // LEGACY_BLOCK) * V + rk // (K * LEGACY_BLOCK) * LEGACY_BLOCK + rem % LEGACY_BLOCK
+
+
+def _check_gen1(args, S, pad_id=0):
+    """Gen 1's model at S slices equals legacy_topk_blocks_plain exactly."""
+    B, K, V = args[0].shape
+    pv, pi = stage1(*args, S, flat_ids=False, pad_id=pad_id, ranked=True)
+    got = stage2_blocks(pv, pi, B, K, V)
+    want = legacy_topk_blocks_plain(*args, pad_id=pad_id)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    return got
+
+
+def test_block_rank_orders_as_block_beam_id_and_grows_with_v():
+    """A strict total order over a sentence's (k, v), as (v // 512, k, v),
+    and increasing in v within a row (the closed form of a finished row
+    and the early reject rely on it)."""
+    K, V = 5, 1303
+    k, v = torch.meshgrid(torch.arange(K), torch.arange(V), indexing="ij")
+    r = block_rank(k, v, K).flatten()
+    assert len(set(r.tolist())) == K * V
+    key = sorted(zip((v // LEGACY_BLOCK).flatten().tolist(), k.flatten().tolist(),
+                     v.flatten().tolist()))
+    order = torch.argsort(r)
+    got = list(zip((v.flatten()[order] // LEGACY_BLOCK).tolist(),
+                   k.flatten()[order].tolist(), v.flatten()[order].tolist()))
+    assert got == key
+    assert (block_rank(k, v, K).diff(dim=1) > 0).all()
+
+
+@pytest.mark.parametrize("B,K,V", PLAN_SHAPES)
+def test_gen1_split_model_matches_plain_at_plan(B, K, V):
+    _check_gen1(_case(B, K, V, 0.2, seed=V + K + 1), split_plan(B, K, V))
+
+
+@settings(max_examples=40, deadline=None, derandomize=True)
+@given(S=st.integers(1, 40), seed=st.integers(0, 2 ** 16),
+       K=st.sampled_from([1, 2, 5, 8]), V=st.integers(8, 1700),
+       ties=st.booleans())
+def test_gen1_split_model_any_slice_count(S, seed, K, V, ties):
+    """Every S gives gen 1's answer: the rank order is total."""
+    _check_gen1(_case(3, K, V, 0.25, seed=seed, ties=ties), S)
+
+
+@pytest.mark.parametrize("B,K,V,S", [(1, 5, 8003, 15), (2, 8, 1003, 3),
+                                     (4, 5, 1303, 3), (2, 5, 1000, 2)])
+def test_gen1_ties_across_slices_blocks_and_beams(B, K, V, S):
+    """The maxima on both sides of a slice boundary and of the first
+    512-block boundary, in every beam under equal scores: gen 1 lists the
+    earlier block's columns of every beam first, then the later block's."""
+    args, edge = _boundary_ties(B, K, V, S)
+    args[0][:, :, [LEGACY_BLOCK - 1, LEGACY_BLOCK]] = 5.0
+    got = _check_gen1(args, S)
+    cols = sorted({edge - 1, edge, LEGACY_BLOCK - 1, LEGACY_BLOCK})
+    want = sorted(((c // LEGACY_BLOCK, k, c) for k in range(K) for c in cols))[:K]
+    assert got[1][0].tolist() == [k * V + c for _, k, c in want]
+
+
+@pytest.mark.parametrize("pad_id", [0, 3, 9, 999])
+@pytest.mark.parametrize("K", [1, 5, 8])
+def test_gen1_finished_rows_in_closed_form(K, pad_id):
+    """All beams finished, pad_id below K and at or past it: the closed form
+    under ranks equals gen 1's plain version bit for bit."""
+    B, V = 3, 1000
+    logits, scores, _ = _case(B, K, V, 0.0, seed=K + pad_id + 1)
+    got = _check_gen1((logits, scores, torch.ones((B, K), dtype=torch.bool)), 4,
+                      pad_id=pad_id)
+    assert (got[1][:, 0] % V == pad_id).all()
+
+
+@pytest.mark.parametrize("B,K,V,ff,ties,S", [
+    (8, 5, 1000, 0.0, True, 3),     # forced ties across blocks and beams
+    (4, 5, 1303, 0.25, True, 5),    # ties, frozen rows, a partial last block
+    (2, 1, 700, 0.0, False, 2),     # K=1
+    (4, 3, 512, 1.0, False, 2),     # everything finished
+])
+def test_gen1_split_model_matches_the_jax_kernel(B, K, V, ff, ties, S):
+    """Against gen 1's JAX kernel (beam_topk(impl="pallas"), interpret
+    mode): ids exactly, values to ATOL (the log-sum-exp's order)."""
+    args = _case(B, K, V, ff, seed=B * V + 1, ties=ties)
+    if ties:
+        args[0][:, :, [100, 600]] = 5.0
+    got = _check_gen1(args, S)
+    want = j_beam_topk(*(jnp.asarray(a.numpy()) for a in args), impl="pallas")
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=ATOL)

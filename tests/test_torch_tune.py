@@ -66,4 +66,4 @@ def test_source_inlines_the_csrc_headers(name):
     assert '#include "tf32_mma.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
     assert '#include "' not in src and "#pragma once" not in src
     assert "__device__ __forceinline__ uint32_t tf32_rna(float x)" in src
-    assert "__global__ void colsum_kernel" in src        # common.cuh
+    assert "__device__ __forceinline__ float tanh_fast(float x)" in src  # common.cuh

@@ -55,7 +55,7 @@ beam_topk_kernel(const float* __restrict__ logits,
                  unsigned int* counters, float* __restrict__ vals,
                  long long* __restrict__ idx, int V, int S, int pad_id) {
   if (!split::stage1<K>(logits, base, fin, part_v, part_i, counters, V, S,
-                        pad_id, /*flat_ids=*/true))
+                        pad_id, split::FlatId{V}))
     return;
   if (threadIdx.x >= 32) return;
   const int lane = threadIdx.x;

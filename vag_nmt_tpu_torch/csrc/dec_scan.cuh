@@ -1,5 +1,6 @@
-// Device code of the decoder-scan kernels (dec_scan_fwd.cu,
-// dec_scan_bwd.cu): the per-step products of the persistent grids against
+// Device code of the persistent recurrence kernels (the decoder scans,
+// dec_scan_fwd.cu and dec_scan_bwd.cu, and the encoder GRU's backward,
+// gru_bwd.cu): the per-step products of the persistent grids against
 // weight slices resident in shared memory, the grid of streamed-product
 // tiles that runs the time-parallel work before and after the recurrence,
 // and the GRU cell backward of one unit. Each recurrence is one cooperative
@@ -11,9 +12,9 @@
 // Products run on the tensor cores as three TF32 products (3xTF32,
 // tf32_mma.cuh's mma_tf32): a_small*b_big + a_big*b_small + a_big*b_big in
 // fp32 accumulators, about fp32's accuracy. The tiling is ops/dec_scan.py's
-// dec_scan_plan: its constants come as -D defines, the tiles of each
-// product as the Prod fields (launch arguments), checked but not derived
-// here.
+// dec_scan_plan and ops/gru_kernel.py's gru_bwd_plan: the constants come
+// as -D defines (ops/scan_tiles.py), the tiles of each product as the Prod
+// fields (launch arguments), checked but not derived here.
 
 #pragma once
 
@@ -564,9 +565,9 @@ inline cudaError_t launch_jobs(void (*kern)(Jobs), const Jobs& js, cudaStream_t 
 }
 
 // Backward through one GRU cell unit (no mask), term for term as
-// common.cuh's gru_cell_bwd_kernel: from the gate pre-activations x (input
-// side) and hg (hidden side, biases added), the previous state h and the
-// gradient dh of the new state, dxg = [da_r, da_z, da_n], dhg = [da_r,
+// ops/gru_kernel.py's gru_cell_bwd_plain: from the gate pre-activations x
+// (input side) and hg (hidden side, biases added), the previous state h and
+// the gradient dh of the new state, dxg = [da_r, da_z, da_n], dhg = [da_r,
 // da_z, da_n r] and the carry's share dh z.
 __device__ __forceinline__ float gru_unit_bwd(float xr, float xz, float xn,
                                               float hr, float hz, float hn,
@@ -588,6 +589,17 @@ __device__ __forceinline__ float gru_unit_bwd(float xr, float xz, float xn,
   dhg[1] = da_z;
   dhg[2] = da_n * r;
   return dh * z;
+}
+
+// The same with the encoder scan's carry-through mask m (0 or 1; gru_bwd.cu),
+// as gru_cell_bwd_plain with a mask: dh_cell = dh m drives the gates (so
+// dxg = dhg = 0 at a masked step) and the carry's share is dh_cell z +
+// dh (1 - m).
+__device__ __forceinline__ float gru_unit_bwd_masked(float xr, float xz, float xn,
+                                                     float hr, float hz, float hn,
+                                                     float h, float dh, float m,
+                                                     float (&dx)[3], float (&dhg)[3]) {
+  return gru_unit_bwd(xr, xz, xn, hr, hz, hn, h, dh * m, dx, dhg) + dh * (1.f - m);
 }
 
 // Phase timing (chip_smoke.py's phase breakdown): thread 0 of CTA 0 writes

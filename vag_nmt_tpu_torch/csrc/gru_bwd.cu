@@ -4,7 +4,7 @@
 // _bwd_call, the custom VJP of pallas_gru_scan): the encoder bi-GRU's
 // gradient in training.
 //
-// Given the forward's inputs, its saved states and the cotangent g of the
+// Given the forward's inputs, its states and the cotangent g of the
 // states, walks time against the scan order:
 //   hg   = h_prev @ Uh + bh;  r, z, n from xg[t] and hg
 //   dh  += g[t];  dh_cell = dh * m[t]   (a masked step sends all grad to
@@ -12,78 +12,278 @@
 //   dxg[t] = [da_r, da_z, da_n];  dhg = [da_r, da_z, da_n * r]
 //   dh   = dh_cell * z + dh * (1 - m) + dhg @ Uh^T
 // and returns dxg, dh0 = the final dh, dUh = sum_t h_prev^T dhg and
-// dbh = sum_t,b dhg.
-//
-// Design. The TPU kernel recomputes hg step by step inside its reverse
-// loop. Here the saved states make every h_prev known before the loop, so
-// the recompute is one time-parallel GEMM over all T*B rows (HG, kept as
-// scratch). What stays sequential is, per step, one elementwise grid (the
-// gate algebra's backward, writing dxg[t], dhg[t] and the carry's direct
-// part) and one GEMM grid (the carry's dhg @ Uh^T part, which needs the
-// whole dhg row of every unit): two grids per step, enqueued back to back on
-// the caller's stream, whose order is the step barrier (as gru_fwd.cu). The
-// weight gradients are then one reduction GEMM h_prev^T @ dHG over the saved
-// (T*B, H) and (T*B, 3H) streams and one column sum: deterministic, no
-// atomics. All fp32 FMA (common.cuh).
+// dbh = sum_t,b dhg. h_prev is h0 at the scan's first step and the state
+// of the step before (in scan order) elsewhere, read where the forward
+// left it (no copy).
 //
 // Bound on this card at B=64, T=24, H=512: the three products (recompute,
-// dhg @ Uh^T, h_prev^T dhg) are 3 * 2 * T*B*H*3H = 7.2 GFLOP, ~0.11 ms at
-// the H100 SXM's 67 TFLOP/s fp32 (non-tensor-core); its streams (xg, hs, g
-// in, dxg out, ~21 MB) need ~6 us of HBM. Bound by operations. Per step the
-// GEMM is only 64 x 512 outputs (8 tiles of 64 x 64), so it splits its
-// depth of 3H over ~12 blocks a tile (split-K, common.cuh) to fill the
-// card. A persistent kernel, or tensor-core (3xTF32) products, are later
-// work.
+// dhg @ Uh^T, h_prev^T dhg), 3 * 2 * T*B*H*3H = 7.2 GFLOP, run as three
+// TF32 products each on the tensor cores (3xTF32): 21.7 GFLOP at 495
+// TFLOP/s, 0.044 ms (0.11 ms on the fp32 cores); its streams (xg, hs, g
+// in, dxg out, ~21 MB) need ~6 us of HBM. Bound by operations.
+//
+// Design: three grids a call, whatever T, each named gru_bwd_* (phase 8's
+// profile sums the kernel's device time by that name):
+//   1. gru_bwd_recompute: HG = h_prev @ Uh for every step at once, as
+//      streamed 64 x 64 3xTF32 tiles (dec_scan.cuh's run_jobs): h0's rows
+//      and the states' rows are two jobs. bh is added where HG is read.
+//   2. gru_bwd_carry: the reverse recurrence, one persistent cooperative
+//      grid of one CTA a SM, as the decoder scans' (dec_scan.cuh). Uh^T's
+//      columns, sliced by output unit and read transposed from the
+//      row-major uh, stay resident in shared memory for the launch (or,
+//      where the plan says they do not fit, in a buffer read through L2).
+//      The first step of the walk is its cell backward alone (no carry
+//      yet); then each step is one product and one grid sync: a CTA's
+//      (rows, units) tile of dhg[t_prev] @ Uh^T, with, in its epilogue,
+//      dh = base + acc, dh += g[t] and step t's masked cell backward for
+//      those units, which writes dxg[t], dhg[t] and base (the carry's
+//      direct part) for the next step; after the last step the epilogue
+//      writes dh0 = base + acc. Other CTAs read dhg[t] after the sync
+//      through L2 only (load4's __ldcg).
+//   3. gru_bwd_wgrad: dUh = h_prev^T @ dHG over all T*B rows (streamed
+//      tiles, transposed A, the rows in the two segments of grid 1), and
+//      in the CTAs after the tiles dbh as column sums in a fixed order.
+// Every output has one owner and a fixed sum order (no atomics), so a
+// second call repeats the first bit for bit. The tiling of the carry is
+// ops/gru_kernel.py's gru_bwd_plan (launch ints), its constants
+// dec_scan.cuh's -D defines.
 
-#include "common.cuh"
+#include "dec_scan.cuh"
 
-// Pointers are device pointers to contiguous fp32 tensors:
-//   xg (T, B, 3H), mask (T, B), uh (H, 3H), bh (3H,),
-//   hprev (T, B, H): the state each step started from in the forward
-//     (h0 at the scan's first step), g (T, B, H): cotangent of the states;
-//   scratch hg, dhg (T, B, 3H);
-//   outputs dxg (T, B, 3H), dh (B, H) = dh0, duh (H, 3H), dbh (3H,);
-//   work / counters: the GEMMs' split-K scratch (vag::Workspace).
-// Returns 0 or the first CUDA error code.
-extern "C" int gru_bwd_launch(const void* xg, const void* mask, const void* uh,
-                              const void* bh, const void* hprev, const void* g,
-                              void* hg, void* dhg, void* dxg, void* dh,
-                              void* duh, void* dbh, int T, int B, int H,
-                              int reverse, void* work,
-                              long long work_floats, void* counters,
-                              int n_counters, void* stream) {
-  using namespace vag;
-  const Workspace wk{static_cast<float*>(work), work_floats,
-                     static_cast<unsigned int*>(counters), n_counters};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xg_f = static_cast<const float*>(xg);
-  const float* mask_f = static_cast<const float*>(mask);
-  const float* uh_f = static_cast<const float*>(uh);
-  const float* hp_f = static_cast<const float*>(hprev);
-  const float* g_f = static_cast<const float*>(g);
-  float* hg_f = static_cast<float*>(hg);
-  float* dhg_f = static_cast<float*>(dhg);
-  float* dxg_f = static_cast<float*>(dxg);
-  float* dh_f = static_cast<float*>(dh);
-  const int H3 = 3 * H;
+namespace {
 
-  // HG = hprev @ Uh + bh for every step at once.
-  VAG_CHECK((gemm<false, false>(s, wk, T * B, H3, H, hp_f, H, uh_f, H3, hg_f,
-                                H3, static_cast<const float*>(bh), false)));
-  VAG_CHECK(cudaMemsetAsync(dh_f, 0, sizeof(float) * B * H, s));
-  for (int step = 0; step < T; ++step) {
-    const int t = reverse ? step : T - 1 - step;
-    const size_t o3 = (size_t)t * B * H3, o1 = (size_t)t * B * H;
-    VAG_CHECK(gru_cell_bwd(s, xg_f + o3, hg_f + o3, hp_f + o1,
-                           mask_f + (size_t)t * B, dh_f, g_f + o1, dxg_f + o3,
-                           dhg_f + o3, dh_f, B, H));
-    // dh += dhg[t] @ Uh^T
-    VAG_CHECK((gemm<false, true>(s, wk, B, H, H3, dhg_f + o3, H3, uh_f, H3,
-                                 dh_f, H, nullptr, true)));
+namespace cg = cooperative_groups;
+using namespace vag::scan;
+
+struct CarryArgs {
+  const float *xg, *mask, *bh, *hs, *h0, *g, *hg;
+  float *dxg, *dhg, *base, *dh0;
+  int T, B, H, reverse;
+  Prod p;
+  int scratch_off;
+  float* wl2;   // the weight slices the plan puts in L2, or null
+};
+
+// Step s of the reverse walk: the scan's last step first.
+__device__ __forceinline__ int walk(const CarryArgs& a, int s) {
+  return a.reverse ? s : a.T - 1 - s;
+}
+
+// The state step t of the forward scan started from: h0 at its first step,
+// else the state of the step before in scan order.
+__device__ __forceinline__ const float* hprev(const CarryArgs& a, int t) {
+  if (t == (a.reverse ? a.T - 1 : 0)) return a.h0;
+  return a.hs + (size_t)(a.reverse ? t + 1 : t - 1) * a.B * a.H;
+}
+
+// Step t's cell backward for (row, u) from the carry into it: dh = carry +
+// g[t]; writes dxg[t], dhg[t] and base = dh_cell z + dh (1 - m).
+__device__ __forceinline__ void cell_bwd(const CarryArgs& a, int t, int row, int u,
+                                         float carry) {
+  const int B = a.B, H = a.H;
+  const size_t oh = ((size_t)t * B + row) * H + u;
+  const size_t o = ((size_t)t * B + row) * 3 * H + u;
+  const float dh = carry + __ldg(a.g + oh);
+  float dx[3], dhg[3];
+  a.base[(size_t)row * H + u] = gru_unit_bwd_masked(
+      __ldg(a.xg + o), __ldg(a.xg + o + H), __ldg(a.xg + o + 2 * H),
+      __ldg(a.hg + o) + __ldg(a.bh + u), __ldg(a.hg + o + H) + __ldg(a.bh + H + u),
+      __ldg(a.hg + o + 2 * H) + __ldg(a.bh + 2 * H + u),
+      __ldg(hprev(a, t) + (size_t)row * H + u), dh, __ldg(a.mask + (size_t)t * B + row),
+      dx, dhg);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    a.dxg[o + k * H] = dx[k];
+    a.dhg[o + k * H] = dhg[k];
   }
-  // dUh = hprev^T @ dHG over all T*B rows; dbh = column sums of dHG.
-  VAG_CHECK((gemm<true, false>(s, wk, H, H3, T * B, hp_f, H, dhg_f, H3,
-                               static_cast<float*>(duh), H3, nullptr, false)));
-  VAG_CHECK(colsum(s, dhg_f, T * B, H3, static_cast<float*>(dbh)));
-  return 0;
+}
+
+// Brings step t's streams that no earlier grid read (xg[t], g[t]) into L2
+// ahead of the step's epilogue: a 128-byte line a thread, across the grid.
+__device__ __forceinline__ void prefetch_step(const CarryArgs& a, int t) {
+  const size_t n3 = (size_t)a.B * 3 * a.H, n1 = (size_t)a.B * a.H;
+  const size_t l3 = (n3 + 31) / 32, l1 = (n1 + 31) / 32;
+  const float* xg = a.xg + (size_t)t * n3;
+  const float* g = a.g + (size_t)t * n1;
+  for (size_t i = blockIdx.x * THREADS + threadIdx.x; i < l3 + l1;
+       i += (size_t)gridDim.x * THREADS) {
+    const float* p = i < l3 ? xg + 32 * i : g + 32 * (i - l3);
+    asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+  }
+}
+
+// GENERAL: see dec_scan.cuh's product.
+template <bool GENERAL>
+__global__ void __launch_bounds__(THREADS, 1) gru_bwd_carry_kernel(const CarryArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* scratch = smem + a.scratch_off;
+  const int T = a.T, B = a.B, H = a.H;
+  cg::grid_group grid = cg::this_grid();
+  prefetch_step(a, walk(a, 0));
+  if (T > 1) prefetch_step(a, walk(a, 1));
+  load_slice(a.p, smem, a.wl2);
+  // the walk's first step: no carry yet
+  const int gtid = blockIdx.x * THREADS + threadIdx.x, gstride = gridDim.x * THREADS;
+  for (int i = gtid; i < B * H; i += gstride) cell_bwd(a, walk(a, 0), i / H, i % H, 0.f);
+  __syncthreads();
+  grid.sync();
+  for (int s = 1; s <= T; ++s) {
+    if (s + 1 < T) prefetch_step(a, walk(a, s + 1));
+    // dh = base + dhg[t_prev] @ Uh^T: the carry into step walk(s), or dh0
+    product<GENERAL>(a.p, a.dhg + (size_t)walk(a, s - 1) * B * 3 * H, 3 * H, B, smem,
+                     a.wl2, scratch,
+                     [&](int ct, int row0, const float* part, int KS, int MT, int NI) {
+      const int nt = a.p.nt, rt = a.p.rt;
+      for (int i = threadIdx.x; i < rt * nt; i += THREADS) {
+        const int r = i / nt, j = i % nt, row = row0 + r, u = ct * nt + j;
+        if (row >= B || u >= H) continue;
+        const size_t o = (size_t)row * H + u;
+        const float dh = __ldcg(a.base + o) + tile_sum(part, KS, MT, NI, r, j);
+        if (s < T) cell_bwd(a, walk(a, s), row, u, dh);
+        else a.dh0[o] = dh;
+      }
+    });
+    if (s < T) grid.sync();
+  }
+}
+
+// dbh's columns: CTA c (after the wgrad tiles) takes columns [32 c, 32 c +
+// 32), one a lane; warp w sums rows w, w + WARPS, ... in row order, then
+// lane l of warp 0 adds the warps' sums in warp order.
+struct ColSums {
+  const float* x;   // dHG (rows, cols)
+  int rows, cols, first_cta;
+  float* out;
+};
+
+__device__ void column_sums(const ColSums& c) {
+  constexpr int U = 8;   // loads a thread keeps in flight
+  __shared__ float part[WARPS][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = ((int)blockIdx.x - c.first_cta) * 32 + lane;
+  float acc = 0.f;
+  if (col < c.cols) {
+    for (int r0 = warp; r0 < c.rows; r0 += WARPS * U) {
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = r0 + u * WARPS;
+        v[u] = r < c.rows ? __ldg(c.x + (size_t)r * c.cols + col) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (r0 + u * WARPS < c.rows) acc += v[u];
+    }
+  }
+  part[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && col < c.cols) {
+    float sum = 0.f;
+    for (int w = 0; w < WARPS; ++w) sum += part[w][lane];
+    c.out[col] = sum;
+  }
+}
+
+// Three CTAs a SM (the tiles' 72 KB rings fit): measured 1.3% faster than
+// two a call at (B, T) = (64, 24) (PERF.md).
+__global__ void __launch_bounds__(THREADS, 3) gru_bwd_recompute_kernel(const Jobs js) {
+  run_jobs(js);
+}
+
+__global__ void __launch_bounds__(THREADS, 2) gru_bwd_wgrad_kernel(const Jobs js,
+                                                                   const ColSums cs) {
+  if ((int)blockIdx.x < cs.first_cta) run_jobs(js);
+  else column_sums(cs);
+}
+
+// Grid 3: js's tiles, then the column sums' CTAs.
+int launch_wgrad(const Jobs& js, ColSums cs, cudaStream_t s) {
+  int tiles = 0;
+  for (int i = 0; i < js.n; ++i) tiles += job_tiles(js.j[i]);
+  cs.first_cta = tiles;
+  const int smem = (int)sizeof(float) * GSTAGES * GSTAGE;
+  cudaError_t e = cudaFuncSetAttribute(
+      gru_bwd_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  gru_bwd_wgrad_kernel<<<tiles + (cs.cols + 31) / 32, THREADS, smem, s>>>(js, cs);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Device pointers to contiguous fp32 tensors. Inputs: xg (T, B, 3H), mask
+// (T, B), uh (H, 3H), bh (3H,), hs (T, B, H): the forward's states, h0
+// (B, H), g (T, B, H): cotangent of the states. Scratch: hg, dhg (T, B,
+// 3H), base (B, H). Outputs, all written: dxg (T, B, 3H), dh0 (B, H), duh
+// (H, 3H), dbh (3H,). reverse: the forward scanned t = T - 1 .. 0. plan:
+// n_plan ints from ops/gru_kernel.py's GruBwdPlan.launch_args: the carry
+// grid's CTAs, the scratch region's float offset, the dynamic shared
+// memory in bytes, the floats of the weight buffer wl2, then the product's
+// ub, nt, rt, nr, col_tiles, cs, cta0, woff, l2off. wl2: that many device
+// floats, or null when the plan puts no slice in L2. Enqueues three grids
+// (the recompute, the carry, the weight grads); returns 0,
+// cudaErrorInvalidValue for a malformed plan or shape,
+// cudaErrorCooperativeLaunchTooLarge for a carry grid that is not
+// co-resident, or the launch's error.
+extern "C" int gru_bwd_launch(const void* xg, const void* mask, const void* uh,
+                              const void* bh, const void* hs, const void* h0,
+                              const void* g, void* hg, void* dhg, void* base,
+                              void* dxg, void* dh0, void* duh, void* dbh, int T,
+                              int B, int H, int reverse, const int* plan,
+                              int n_plan, void* wl2, void* stream) {
+  if (n_plan != 4 + 9 || T < 1 || B < 1 || H < 1 || plan[3] < 0 ||
+      (plan[3] > 0 && wl2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto F = [](const void* p) { return static_cast<const float*>(p); };
+  auto M = [](void* p) { return static_cast<float*>(p); };
+  const int H3 = 3 * H, ctas = plan[0], smem_bytes = plan[2];
+  CarryArgs a{};
+  a.xg = F(xg); a.mask = F(mask); a.bh = F(bh); a.hs = F(hs); a.h0 = F(h0);
+  a.g = F(g); a.hg = F(hg);
+  a.dxg = M(dxg); a.dhg = M(dhg); a.base = M(base); a.dh0 = M(dh0);
+  a.T = T; a.B = B; a.H = H; a.reverse = reverse;
+  a.scratch_off = plan[1];
+  a.wl2 = M(wl2);
+  const int* v = plan + 4;
+  a.p = Prod{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], H3, H, H, F(uh), H3, 1};
+  if (ctas < 1 || a.p.ub != 0 || !prod_ok(a.p, ctas, a.scratch_off, plan[3]) ||
+      a.scratch_off % 4 != 0 ||
+      (long long)4 * (a.scratch_off + prod_part_floats(a.p)) > smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // The scan's first step (h0's rows) and the others (the states' rows):
+  // their h_prev, and their rows of HG and dHG.
+  const int tf = reverse ? T - 1 : 0;
+  const float* hs_rows = a.hs + (reverse ? (size_t)B * H : 0);
+  const size_t first_row = (size_t)tf * B, rest_row = reverse ? 0 : B;
+  // 1. HG = h_prev @ Uh
+  Jobs pre{};
+  pre.n = 2;
+  const float* xs[2] = {a.h0, hs_rows};
+  const int ms[2] = {B, (T - 1) * B};
+  const size_t rows0[2] = {first_row, rest_row};
+  for (int i = 0; i < 2; ++i) {
+    Job& j = pre.j[i];
+    j.nseg = 1; j.a[0] = xs[i]; j.lda[0] = H; j.kd[0] = H;
+    j.b[0] = F(uh); j.ldb[0] = H3;
+    j.M = ms[i]; j.N = H3; j.out = M(hg) + rows0[i] * H3; j.ldo = H3;
+    j.batch = 1; j.epi = STORE;
+  }
+  VAG_CHECK(launch_jobs(gru_bwd_recompute_kernel, pre, s));
+  // 2. the carry
+  void (*kern)(CarryArgs) = plan_general(&a.p, 1, plan[3]) ? &gru_bwd_carry_kernel<true>
+                                                           : &gru_bwd_carry_kernel<false>;
+  const int rc = launch_cooperative(kern, a, ctas, smem_bytes, s);
+  if (rc != 0) return rc;
+  // 3. dUh = h_prev^T @ dHG over all rows, h0's segment first; dbh
+  Jobs post{};
+  post.n = 1;
+  Job& w = post.j[0];
+  w.nseg = 2; w.ta = 1;
+  for (int i = 0; i < 2; ++i) {
+    w.a[i] = xs[i]; w.lda[i] = H; w.kd[i] = ms[i];
+    w.b[i] = a.dhg + rows0[i] * H3; w.ldb[i] = H3;
+  }
+  w.M = H; w.N = H3; w.out = M(duh); w.ldo = H3; w.batch = 1; w.epi = STORE;
+  return launch_wgrad(post, ColSums{a.dhg, T * B, H3, 0, M(dbh)}, s);
 }

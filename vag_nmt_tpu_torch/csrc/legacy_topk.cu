@@ -26,29 +26,29 @@
 // of the 41.0 MB of logits, ~12.2 us at 3.35 TB/s, a few operations per
 // element: bound by bytes.
 //
-// Design, gen 1. The TPU kernels run K extract-max rounds per vocab block
-// (max, then min-index over the matching lanes, then a K-round merge with
-// the running list). Here every thread keeps a running top-K in registers
-// by the branch-free insertion cascade (common.cuh, vag::insert) over a
-// strided slice of the columns, coalesced, frozen rows' logits not read;
-// the block merges its threads' lists pairwise in shared memory. Value ties
-// break by the int rank (v / 512) * K * 512 + k * 512 + v % 512, which
-// orders exactly as (block, beam, id) and is turned back into k * V + v at
-// the end. One block per sentence: 128 blocks leave 4 of 132 SMs idle at
-// B=128 (not redesigned yet).
+// Design, both gens: the split top-K of topk_split.cuh. Stage 1, one CTA
+// per (row, vocab slice), S slices a row from ops/topk.py's split_plan,
+// float4 loads, early reject against the thread's K-th entry, warp-shuffle
+// merges, K partials per CTA; stage 2 in the last CTA of each sentence to
+// arrive (an atomic ticket). One launch, and every CTA's columns read once.
 //
-// Design, gen 2: the split top-K of topk_split.cuh. Stage 1, one CTA per
-// (row, vocab slice), float4 loads, early reject against the thread's K-th
-// entry, warp-shuffle merges, K partials per CTA; stage 2 in the last CTA
-// of each sentence to arrive (an atomic ticket): one warp per row merges
-// its S partial lists with the floored columns past V, writes the per-row
-// output, and warp 0 combines the K rows. One launch where the first
-// design ran a grid of one 256-thread CTA per row with scalar loads and the
-// full cascade on every element, then ~10 torch launches of combine.
-// Measured (chip_smoke.py on an H100 SXM at 700 W; PERF.md), the grid
-// alone with L2 cold: 0.030 ms at V=8000 and 0.041 ms at V=16000 with the
-// combine, as the first design's grid without it; torch.topk on the same
-// candidates takes 0.139 and 0.237.
+// Gen 1. Stage 1 keys each candidate by the TPU kernel's first-occurrence
+// rank (v / 512) * K * 512 + k * 512 + v % 512 (BlockRank), which orders
+// exactly as (block, beam, v), is distinct across a sentence and grows
+// with v within a row: a strict total order, so the merged slice top-Ks
+// are the sentence's, bit for bit. Stage 2: one warp merges the
+// sentence's K * S partial lists (and the floored columns past V) by rank
+// and turns each rank back into k * V + v.
+//
+// Gen 2. Stage 1 keys by the vocab id (VocabId); stage 2: one warp per
+// row merges its S partial lists with the floored columns past V, writes
+// the per-row output, and warp 0 combines the K rows. One launch where the
+// first design ran a grid of one 256-thread CTA per row with scalar loads
+// and the full cascade on every element, then ~10 torch launches of
+// combine. Measured (chip_smoke.py on an H100 SXM at 700 W; PERF.md), gen
+// 2's grid alone with L2 cold: 0.030 ms at V=8000 and 0.041 ms at V=16000
+// with the combine, as the first design's grid without it; torch.topk on
+// the same candidates takes 0.139 and 0.237.
 
 #include <limits.h>
 #include <stdint.h>
@@ -63,69 +63,63 @@ namespace {
 #endif
 
 constexpr float FLOOR = -3.0e38f;
-constexpr float NEG_INF = -1e9f;     // ops/topk.py's finished-beam filler
 constexpr int BLK = 512;             // the TPU kernels' vocab block
-constexpr int THREADS = 256;
 
-using vag::insert;
 namespace split = vag::split;
 
-// One candidate of row (frozen flag, base) at vocab column v < Vp.
-__device__ __forceinline__ float cand(const float* row, bool frozen, float bs,
-                                      int v, int V, int pad_id) {
-  if (v >= V) return FLOOR;
-  if (frozen) return v == pad_id ? bs : bs + NEG_INF;
-  return bs + row[v];
-}
-
+// Gen 1's id of beam k's column v (see the head of this file).
 template <int K>
-__global__ void __launch_bounds__(THREADS)
+struct BlockRank {
+  __device__ __forceinline__ int operator()(int k, int v) const {
+    return (v / BLK) * (K * BLK) + k * BLK + v % BLK;
+  }
+};
+
+// Gen 1: stage 1 of topk_split.cuh keyed by BlockRank; stage 2 in the last
+// CTA of each sentence: one warp merges the sentence's K * S partial lists
+// and writes the K best values with their ranks turned back into flat ids
+// k * V + v.
+template <int K>
+__global__ void __launch_bounds__(split::THREADS)
 blocks_kernel(const float* __restrict__ logits, const float* __restrict__ base,
-              const uint8_t* __restrict__ fin, float* __restrict__ vals,
-              long long* __restrict__ idx, int V, int pad_id) {
-  __shared__ float lv[THREADS * K];
-  __shared__ int li[THREADS * K];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int Vp = (V + BLK - 1) / BLK * BLK;
-  float sv[K];
-  int si[K];
+              const uint8_t* __restrict__ fin, float* part_v, int* part_i,
+              unsigned int* counters, float* __restrict__ vals,
+              long long* __restrict__ idx, int V, int S, int pad_id) {
+  const BlockRank<K> rank{};
+  if (!split::stage1<K>(logits, base, fin, part_v, part_i, counters, V, S,
+                        pad_id, rank))
+    return;
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x / (S * K);
+  const size_t p0 = (size_t)b * K * S * K;
+  const int npad = (V + BLK - 1) / BLK * BLK - V;
+  float sv[K], ov[K];
+  int si[K], oi[K];
+  split::clear<K>(sv, si);
+  // partials other CTAs wrote: read through L2 (__ldcg), not L1
+  for (int e = lane; e < K * S * K; e += 32)
+    split::offer<K>(sv, si, __ldcg(part_v + p0 + e), __ldcg(part_i + p0 + e));
+  // The columns past V in the last 512-block, floored as the TPU kernel
+  // floors them: they rank after every candidate above FLOOR, and each row
+  // has V >= K of those unless its logits hold -inf. The K of them that
+  // rank first (beam 0's first) stand in for all.
+  if (npad > 0 && lane < K)
+    split::offer<K>(sv, si, FLOOR, rank(lane / npad, V + lane % npad));
+  split::warp_merge<K>(sv, si, ov, oi);
+  if (lane == 0) {
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
-    sv[s] = FLOOR;
-    si[s] = INT_MAX;
-  }
-  for (int k = 0; k < K; ++k) {
-    const size_t r = (size_t)b * K + k;
-    const float bs = base[r];
-    const bool frozen = fin[r] != 0;
-    const float* row = logits + r * V;
-    for (int v = tid; v < Vp; v += THREADS)
-      insert<K>(sv, si, cand(row, frozen, bs, v, V, pad_id),
-                (v / BLK) * (K * BLK) + k * BLK + v % BLK);
-  }
-  vag::block_merge<K>(sv, si, lv, li);
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const int rank = si[s];
-      const int rem = rank % (K * BLK);
-      const int v = rank / (K * BLK) * BLK + rem % BLK;
-      vals[(size_t)b * K + s] = sv[s];
-      idx[(size_t)b * K + s] = (long long)(rem / BLK) * V + v;
+    for (int j = 0; j < K; ++j) {
+      const int rem = oi[j] % (K * BLK);
+      vals[(size_t)b * K + j] = ov[j];
+      idx[(size_t)b * K + j] =
+          (long long)(rem / BLK) * V + oi[j] / (K * BLK) * BLK + rem % BLK;
     }
+    counters[b] = 0u;
   }
 }
 
-template <int K>
-int launch_blocks(const float* logits, const float* base, const uint8_t* fin,
-                  float* vals, long long* idx, int B, int V, int pad_id,
-                  cudaStream_t stream) {
-  blocks_kernel<K><<<B, THREADS, 0, stream>>>(logits, base, fin, vals, idx,
-                                              V, pad_id);
-  return (int)cudaGetLastError();
-}
-
-// Gen 2: stage 1 of topk_split.cuh with vocab ids; stage 2 in the last CTA
+// Gen 2: stage 1 of topk_split.cuh keyed by VocabId; stage 2 in the last CTA
 // of each sentence: one warp per row merges its S partial lists and the
 // floored columns past V into the TPU kernel's per-row output, then warp 0
 // takes the beam-major K*K -> K combine, ordered by (value, position
@@ -138,7 +132,7 @@ rows_kernel(const float* __restrict__ logits, const float* __restrict__ base,
             int* __restrict__ ridx, float* __restrict__ vals,
             long long* __restrict__ idx, int V, int S, int pad_id) {
   if (!split::stage1<K>(logits, base, fin, part_v, part_i, counters, V, S,
-                        pad_id, /*flat_ids=*/false))
+                        pad_id, split::VocabId{}))
     return;
   __shared__ float cv[K * K];
   __shared__ int ci[K * K];
@@ -183,19 +177,7 @@ rows_kernel(const float* __restrict__ logits, const float* __restrict__ base,
   }
 }
 
-template <int K>
-int launch_rows(const float* logits, const float* base, const uint8_t* fin,
-                float* part_v, int* part_i, unsigned int* counters,
-                float* rvals, int* ridx, float* vals, long long* idx, int B,
-                int V, int S, int pad_id, cudaStream_t stream) {
-  rows_kernel<K><<<B * K * S, split::THREADS, 0, stream>>>(
-      logits, base, fin, part_v, part_i, counters, rvals, ridx, vals, idx, V,
-      S, pad_id);
-  return (int)cudaGetLastError();
-}
-
-// Arguments common to both entry points; rows (gen 2) only: S, scratch,
-// counters and the per-row outputs.
+// Arguments of both entry points; rows (gen 2) only: the per-row outputs.
 struct Args {
   const float* logits;
   const float* base;
@@ -213,17 +195,21 @@ struct Args {
 
 template <int K>
 int launch(bool rows, const Args& a) {
+  const int grid = a.B * K * a.S;
   if (rows)
-    return launch_rows<K>(a.logits, a.base, a.fin, a.part_v, a.part_i,
-                          a.counters, a.rvals, a.ridx, a.vals, a.idx, a.B,
-                          a.V, a.S, a.pad_id, a.stream);
-  return launch_blocks<K>(a.logits, a.base, a.fin, a.vals, a.idx, a.B, a.V,
-                          a.pad_id, a.stream);
+    rows_kernel<K><<<grid, split::THREADS, 0, a.stream>>>(
+        a.logits, a.base, a.fin, a.part_v, a.part_i, a.counters, a.rvals,
+        a.ridx, a.vals, a.idx, a.V, a.S, a.pad_id);
+  else
+    blocks_kernel<K><<<grid, split::THREADS, 0, a.stream>>>(
+        a.logits, a.base, a.fin, a.part_v, a.part_i, a.counters, a.vals,
+        a.idx, a.V, a.S, a.pad_id);
+  return (int)cudaGetLastError();
 }
 
 int dispatch(bool rows, int K, const Args& a) {
   if (a.B <= 0) return 0;
-  // gen 1's rank and flat id, and gen 2's grid, must fit an int
+  // gen 1's rank and the grid must fit an int
   if (a.V < K || a.S < 1 || (long long)K * (a.V + BLK) >= INT_MAX ||
       (long long)a.B * K * a.S >= INT_MAX)
     return (int)cudaErrorInvalidValue;
@@ -248,27 +234,30 @@ int dispatch(bool rows, int K, const Args& a) {
 }  // namespace
 
 // Device pointers to contiguous tensors: logits (B, K, V) f32, base (B, K)
-// f32, fin (B, K) uint8; outputs vals (B, K) f32 descending and idx (B, K)
-// int64 flat ids k * V + v. K <= V, 1 <= K <= VAG_MAX_K. Returns 0 or a
-// CUDA error code.
+// f32, fin (B, K) uint8; scratch part_v (B*K*S*K) f32 and part_i int32,
+// counters (>= B) uint32, zero on entry and left zero; outputs vals (B, K)
+// f32 descending and idx (B, K) int64 flat ids k * V + v. K <= V,
+// 1 <= K <= VAG_MAX_K, S >= 1 slices per row. Returns 0 or a CUDA error
+// code.
 extern "C" int legacy_topk_blocks_launch(const void* logits, const void* base,
-                                         const void* fin, void* vals,
-                                         void* idx, int B, int K, int V,
-                                         int pad_id, void* stream) {
+                                         const void* fin, void* part_v,
+                                         void* part_i, void* counters,
+                                         void* vals, void* idx, int B, int K,
+                                         int V, int S, int pad_id,
+                                         void* stream) {
   const Args a{static_cast<const float*>(logits),
                static_cast<const float*>(base),
-               static_cast<const uint8_t*>(fin), nullptr, nullptr, nullptr,
-               nullptr, nullptr, static_cast<float*>(vals),
-               static_cast<long long*>(idx), B, V, 1, pad_id,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<const uint8_t*>(fin), static_cast<float*>(part_v),
+               static_cast<int*>(part_i),
+               static_cast<unsigned int*>(counters), nullptr, nullptr,
+               static_cast<float*>(vals), static_cast<long long*>(idx), B, V,
+               S, pad_id, static_cast<cudaStream_t>(stream)};
   return dispatch(false, K, a);
 }
 
-// As above, S slices per row, with scratch part_v (B*K*S*K) f32 and part_i
-// int32, counters (>= B) uint32, zero on entry and left zero; outputs the
-// per-row top-K rvals (B*K, K) f32 descending and ridx (B*K, K) int32
-// vocab ids, and the combined vals (B, K) f32 and idx (B, K) int64 flat
-// ids k * V + v.
+// As above, with the per-row top-K also written: rvals (B*K, K) f32
+// descending and ridx (B*K, K) int32 vocab ids; vals and idx are the
+// combined top-K.
 extern "C" int legacy_topk_rows_launch(const void* logits, const void* base,
                                        const void* fin, void* part_v,
                                        void* part_i, void* counters,

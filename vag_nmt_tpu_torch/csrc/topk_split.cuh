@@ -1,15 +1,18 @@
-// The split beam top-K shared by kernel 6 (beam_topk.cu) and kernel 9
-// (legacy_topk.cu, rows): stage 1 over (row, vocab slice) CTAs, and the
-// warp merges and the arrival ticket that stage 2 runs on.
+// The split beam top-K shared by kernel 6 (beam_topk.cu) and kernels 8
+// and 9 (legacy_topk.cu, gens 1 and 2): stage 1 over (row, vocab slice)
+// CTAs, and the warp merges and the arrival ticket that stage 2 runs on.
 //
 // Candidates, with base = scores - lse (scores alone for a finished beam)
 // computed by the wrapper with the plain version's torch ops:
 //   cand[r, v] = base[r] + logits[r, v]                        (live row r)
 //              = base[r] at v == pad_id, base[r] - 1e9 elsewhere (finished)
-// ordered by (value descending, id ascending) (`vag::better`). The order is
-// strict and total, so the top-K of any split of a sentence's candidates,
-// merged, is the top-K of the whole, bit for bit, whatever order the CTAs
-// run in.
+// ordered by (value descending, id ascending) (`vag::better`), where the id
+// of beam k's column v is the kernel's own: id(k, v), an int that grows
+// with v within a row and is distinct across what stage 2 merges (FlatId
+// and gen 1's rank in legacy_topk.cu across a sentence, VocabId across a
+// row). The order is then strict and total, so the top-K of any split of
+// the candidates, merged, is the top-K of the whole, bit for bit, whatever
+// order the CTAs run in.
 //
 // Stage 1. CTA (r, s) takes columns [s * L, min(V, (s + 1) * L)) of row r,
 // L = slice_len(V, S) (ops/topk.py plans S and holds the same bounds).
@@ -23,8 +26,8 @@
 // and bought nothing: the loop is bound by its loads, PERF.md.) The CTA
 // merges its threads' lists with warp arg-max rounds (shuffles), then its
 // warps' lists in shared memory, and writes K (value, id) partials. A
-// finished row reads no logits: its K best lie among ids 0..K-1 and
-// pad_id, whose values are the plain version's adds.
+// finished row reads no logits: its K best lie among columns 0..K-1 and
+// pad_id (ids grow with v), whose values are the plain version's adds.
 // Then the CTA takes a ticket on its sentence's arrival counter; the last
 // of the sentence's K * S CTAs runs stage 2 (in the kernel's own file) and
 // sets the counter back to 0 for the next launch.
@@ -106,23 +109,31 @@ __device__ __forceinline__ void warp_merge(float (&sv)[K], int (&si)[K],
   }
 }
 
+// Candidate ids: kernel 6's flat index k * V + v, kernel 9's vocab id v.
+struct FlatId {
+  int V;
+  __device__ __forceinline__ int operator()(int k, int v) const { return k * V + v; }
+};
+struct VocabId {
+  __device__ __forceinline__ int operator()(int, int v) const { return v; }
+};
+
 // Stage 1 of CTA blockIdx.x = r * S + s, rows r = b * K + k: writes the
-// slice's K best to part[(r * S + s) * K ...] with ids id0 + v (id0 = k * V
-// when flat_ids, else 0), then takes the sentence's ticket. Returns true,
-// in every thread, in the CTA that arrived last of sentence b's K * S.
-template <int K>
+// slice's K best to part[(r * S + s) * K ...] with ids id(k, v), then takes
+// the sentence's ticket. Returns true, in every thread, in the CTA that
+// arrived last of sentence b's K * S.
+template <int K, class Id>
 __device__ bool stage1(const float* __restrict__ logits,
                        const float* __restrict__ base,
                        const uint8_t* __restrict__ fin, float* part_v,
                        int* part_i, unsigned int* counters, int V, int S,
-                       int pad_id, bool flat_ids) {
+                       int pad_id, const Id& id) {
   __shared__ float smv[WARPS * K];
   __shared__ int smi[WARPS * K];
   __shared__ bool last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = blockIdx.x / S, s = blockIdx.x - r * S;
-  const int b = r / K;
-  const int id0 = flat_ids ? (r - b * K) * V : 0;
+  const int b = r / K, k = r - b * K;
   const float bs = base[r];
   const size_t pofs = ((size_t)r * S + s) * K;
   float sv[K];
@@ -133,8 +144,8 @@ __device__ bool stage1(const float* __restrict__ logits,
       if (s == 0) {
         const float rest = bs + NEG_INF;
         for (int v = 0; v < min(K, V); ++v)
-          insert<K>(sv, si, v == pad_id ? bs : rest, id0 + v);
-        if (pad_id >= K && pad_id < V) insert<K>(sv, si, bs, id0 + pad_id);
+          insert<K>(sv, si, v == pad_id ? bs : rest, id(k, v));
+        if (pad_id >= K && pad_id < V) insert<K>(sv, si, bs, id(k, pad_id));
       }
 #pragma unroll
       for (int j = 0; j < K; ++j) {
@@ -151,7 +162,7 @@ __device__ bool stage1(const float* __restrict__ logits,
     const int cb = c0 + head;
     const int nq = (c1 - cb) >> 2;
     const int ct = cb + 4 * nq;
-    if (tid < head) offer<K>(sv, si, bs + row[c0 + tid], id0 + c0 + tid);
+    if (tid < head) offer<K>(sv, si, bs + row[c0 + tid], id(k, c0 + tid));
     const float4* q4 = reinterpret_cast<const float4*>(row + cb);
     for (int q = tid; q < nq; q += THREADS * UNROLL) {
       float4 x[UNROLL];
@@ -162,15 +173,15 @@ __device__ bool stage1(const float* __restrict__ logits,
       for (int u = 0; u < UNROLL; ++u) {
         const int qq = q + u * THREADS;
         if (qq < nq) {
-          const int id = id0 + cb + 4 * qq;
-          offer<K>(sv, si, bs + x[u].x, id);
-          offer<K>(sv, si, bs + x[u].y, id + 1);
-          offer<K>(sv, si, bs + x[u].z, id + 2);
-          offer<K>(sv, si, bs + x[u].w, id + 3);
+          const int v = cb + 4 * qq;
+          offer<K>(sv, si, bs + x[u].x, id(k, v));
+          offer<K>(sv, si, bs + x[u].y, id(k, v + 1));
+          offer<K>(sv, si, bs + x[u].z, id(k, v + 2));
+          offer<K>(sv, si, bs + x[u].w, id(k, v + 3));
         }
       }
     }
-    if (tid < c1 - ct) offer<K>(sv, si, bs + row[ct + tid], id0 + ct + tid);
+    if (tid < c1 - ct) offer<K>(sv, si, bs + row[ct + tid], id(k, ct + tid));
     float ov[K];
     int oi[K];
     warp_merge<K>(sv, si, ov, oi);

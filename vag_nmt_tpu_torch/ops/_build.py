@@ -110,28 +110,6 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-# Split-K scratch of the GEMM in csrc/common.cuh, passed to the kernels that
-# use it: partial sums (fp32) and per-tile arrival counters (zero, and left
-# zero by the kernel).
-WORK_FLOATS = 1 << 21
-N_COUNTERS = 1024
-WORKSPACE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                      ctypes.c_int]
-
-
-def workspace_args(device) -> Tuple[list, tuple]:
-    """(the four C arguments, the tensors behind them). The caller holds
-    the tensors until the launch is enqueued; PyTorch's allocator hands
-    freed memory only to later work on the same stream, which runs after
-    the kernels."""
-    import torch
-
-    work = torch.empty(WORK_FLOATS, dtype=torch.float32, device=device)
-    counters = torch.zeros(N_COUNTERS, dtype=torch.int32, device=device)
-    return ([work.data_ptr(), WORK_FLOATS, counters.data_ptr(), N_COUNTERS],
-            (work, counters))
-
-
 def _bind(name: str, path: Path) -> ctypes.CDLL:
     """The library at ``path`` with csrc/<name>.cu's entry points typed."""
     lib = ctypes.CDLL(str(path))

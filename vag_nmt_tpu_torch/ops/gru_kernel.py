@@ -10,20 +10,23 @@ the kernels; the forward owns the sequential part: per step
 ``hg = h @ Uh + bh``, the gate algebra, and the carry-through mask (at a
 masked step the state is held and written out unchanged). Tensors are
 time-major: ``xg_t`` (T, B, 3H), ``mask_t`` (T, B), output ``hs_t``
-(T, B, H). Gate math and the carry are fp32.
+(T, B, H). Gate math and the carry are fp32; the backward kernel's
+products run as three TF32 products on the tensor cores (3xTF32).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
 from vag_nmt_tpu_torch.ops import _build
+from vag_nmt_tpu_torch.ops.scan_tiles import _DEFINES as _SCAN_DEFINES
+from vag_nmt_tpu_torch.ops.scan_tiles import ScanProduct, _product_options, _up
 
 
 def gru_gate_algebra(xg: torch.Tensor, hg: torch.Tensor,
@@ -290,14 +293,79 @@ def gru_bwd_plain(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     return dxg, duh, dbh, dh
 
 
+@dataclass(frozen=True)
+class GruBwdPlan:
+    """Tiling of the carry grid of one ``gru_bwd`` call (csrc/gru_bwd.cu):
+    ``ctas`` CTAs (one a SM) and the per-step product dh += dhg @ Uh^T as
+    ``product`` tiles it (Uh^T sliced by output unit, read transposed from
+    the row-major uh: resident in shared memory from float 0 or, when
+    ``l2_floats`` > 0, in a buffer of that many floats read through L2),
+    the k-slices' accumulators at float ``scratch_off``, ``smem_bytes`` of
+    dynamic shared memory."""
+
+    ctas: int
+    product: ScanProduct
+    scratch_off: int
+    smem_bytes: int
+    l2_floats: int
+
+    def launch_args(self) -> Tuple[int, ...]:
+        return (self.ctas, self.scratch_off, self.smem_bytes, self.l2_floats,
+                *self.product.launch_args())
+
+
+@functools.lru_cache(maxsize=256)
+def gru_bwd_plan(B: int, H: int, n_sms: int, max_smem: int) -> GruBwdPlan:
+    """The carry's tiling of a (B, H) scan on a card of ``n_sms`` SMs with
+    ``max_smem`` bytes of shared memory a block, among the product's
+    tilings (``scan_tiles._product_options``: column tiles of Uh^T's output
+    units, row parts, column slots): the slices resident where they and the
+    accumulators fit, else in L2; then the least multiply-adds of the
+    busiest CTA a step; then the fewest activation floats it reads from L2
+    a step (tiles x rows x 3H: a CTA that owns all B rows reads all of
+    dhg[t], so the row split is the same trade ``gru_fwd_plan`` makes);
+    then fewer CTAs, then less shared memory. Raises ValueError where
+    nothing fits (the accumulators alone beyond ``max_smem``) or a size is
+    not positive."""
+    if min(B, H, n_sms) < 1:
+        raise ValueError(f"gru_bwd_plan: B={B}, H={H}, n_sms={n_sms} must be "
+                         "positive")
+    best, best_key = None, None
+    for p in _product_options(("dh", 3 * H, H, False), B, H, n_sms):
+        scratch = _up(p.part_floats, 32)
+        region = _up(p.region_floats, 32)
+        resident = 4 * (region + scratch) <= max_smem
+        if not resident and 4 * scratch > max_smem:
+            continue
+        smem = 4 * (region + scratch) if resident else 4 * scratch
+        key = (not resident, p.work, p.passes * p.tile_rows * p.depth,
+               p.ctas, smem)
+        if best_key is None or key < best_key:
+            best_key = key
+            best = (GruBwdPlan(n_sms, replace(p, woff=0), region, smem, 0)
+                    if resident else
+                    GruBwdPlan(n_sms, replace(p, l2off=0), 0, smem,
+                               p.ctas * p.region_floats))
+    if best is None:
+        raise ValueError(f"gru_bwd_plan: the accumulators of B={B}, H={H} do "
+                         f"not fit {max_smem} bytes of shared memory")
+    return best
+
+
+GRU_BWD_GRIDS = 3   # grids a call of the kernel enqueues
+
+
 def gru_bwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
             bh: torch.Tensor, h0: torch.Tensor, hs_t: torch.Tensor,
             g_t: torch.Tensor, *, reverse: bool = False, impl: str = "auto"):
     """Gradients of the masked GRU scan: (dxg_t, duh, dbh, dh0) given the
     forward's inputs, its states hs_t and their cotangent g_t (T, B, H).
-    impl as gru_fwd. One call of the kernel path enqueues 2T + 3 device
-    grids and a memset (see csrc/gru_bwd.cu): it counts one in
-    ``gru_bwd.launches`` and the grids in ``gru_bwd.grids``."""
+    impl as gru_fwd. One call of the kernel path enqueues GRU_BWD_GRIDS
+    grids whatever T (the recompute, the carry as one persistent
+    cooperative grid tiled by ``gru_bwd_plan``, the weight grads; see
+    csrc/gru_bwd.cu): it counts one in ``gru_bwd.launches`` and those in
+    ``gru_bwd.grids``. Raises when the plan or the launch fails (no
+    fallback)."""
     if resolve_impl(impl, xg_t) == "plain":
         return gru_bwd_plain(xg_t, mask_t, uh, bh, h0, hs_t, g_t,
                              reverse=reverse)
@@ -310,25 +378,27 @@ def gru_bwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     check_kernel_arg(h0, torch.float32, (B, H), "gru_bwd: h0")
     check_kernel_arg(hs_t, torch.float32, (T, B, H), "gru_bwd: hs_t")
     check_kernel_arg(g_t, torch.float32, (T, B, H), "gru_bwd: g_t")
-    hprev = _prev_states(hs_t, h0, reverse)
-    hg = torch.empty_like(xg_t)
-    dhg = torch.empty_like(xg_t)
-    dxg = torch.empty_like(xg_t)
-    dh0 = torch.empty_like(h0)
-    duh = torch.empty_like(uh)
-    dbh = torch.empty_like(bh)
-    lib = _build.load("gru_bwd")
-    split_k, _keep = _build.workspace_args(xg_t.device)
-    rc = lib.gru_bwd_launch(
-        xg_t.data_ptr(), mask_t.data_ptr(), uh.data_ptr(), bh.data_ptr(),
-        hprev.data_ptr(), g_t.data_ptr(), hg.data_ptr(), dhg.data_ptr(),
-        dxg.data_ptr(), dh0.data_ptr(), duh.data_ptr(), dbh.data_ptr(),
-        T, B, H, int(reverse), *split_k,
-        torch.cuda.current_stream(xg_t.device).cuda_stream)
+    dev = xg_t.device
+    plan = gru_bwd_plan(B, H, *_device_limits(dev))
+    # scratch: hg (h_prev @ Uh), dhg, base (the carry's direct part)
+    hg, dhg = torch.empty_like(xg_t), torch.empty_like(xg_t)
+    base = torch.empty_like(h0)
+    dxg, dh0 = torch.empty_like(xg_t), torch.empty_like(h0)
+    duh, dbh = torch.empty_like(uh), torch.empty_like(bh)
+    wl2 = (torch.empty(plan.l2_floats, dtype=torch.float32, device=dev)
+           if plan.l2_floats else None)
+    args = plan.launch_args()
+    rc = _build.load("gru_bwd").gru_bwd_launch(
+        *(x.data_ptr() for x in (xg_t, mask_t, uh, bh, hs_t, h0, g_t, hg, dhg,
+                                 base, dxg, dh0, duh, dbh)),
+        T, B, H, int(reverse), (ctypes.c_int * len(args))(*args), len(args),
+        None if wl2 is None else wl2.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"gru_bwd kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gru_bwd kernel launch failed: CUDA error {rc} "
+                           f"(plan {plan})")
     gru_bwd.launches += 1
-    gru_bwd.grids += 2 * T + 3
+    gru_bwd.grids += GRU_BWD_GRIDS
     return dxg, duh, dbh, dh0
 
 
@@ -336,8 +406,9 @@ gru_bwd.launches = 0
 gru_bwd.grids = 0
 
 _build.declare("gru_bwd", "gru_bwd_launch",
-               [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
-               + _build.WORKSPACE_ARGTYPES + [ctypes.c_void_p])
+               [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+               + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+               + [ctypes.c_void_p] * 2, _SCAN_DEFINES)
 
 
 class GRUScan(torch.autograd.Function):

@@ -25,10 +25,11 @@ beam, id), not by flat index; gen 2 (``legacy_topk_rows``) takes a per-row
 top-K (ties to the smaller id) and combines the K*K per sentence
 beam-major, which is the flat-index order again.
 
-Kernel 6 and gen 2 share one split design (``csrc/topk_split.cuh``): a
-grid over (row, vocab slice) with ``split_plan``'s S slices per row, each
-CTA writing its slice's K best, and the last CTA of each sentence merging
-them (gen 2: per row, then the combine) in the same launch."""
+Kernel 6 and both gens share one split design (``csrc/topk_split.cuh``):
+a grid over (row, vocab slice) with ``split_plan``'s S slices per row,
+each CTA writing its slice's K best, and the last CTA of each sentence
+merging them (gen 1: by its rank, then back to flat ids; gen 2: per row,
+then the combine) in the same launch."""
 
 from __future__ import annotations
 
@@ -196,7 +197,7 @@ legacy_topk_rows.launches = legacy_topk_rows.grids = 0
 
 _DEFINES = {"VAG_MAX_K": MAX_K, "VAG_SPLIT_THREADS": SPLIT_THREADS}
 _build.declare("legacy_topk", "legacy_topk_blocks_launch",
-               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
                defines=_DEFINES)
 _build.declare("legacy_topk", "legacy_topk_rows_launch",
                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
@@ -269,17 +270,14 @@ def grid_call(name: str, logits, scores, finished, *, pad_id: int = PAD_ID):
     outs = (torch.empty((B, K), dtype=torch.float32, device=dev),
             torch.empty((B, K), dtype=torch.int64, device=dev))
     keep = (logits, base, fin)
-    if name == "legacy_topk_blocks":
-        return (_build.load("legacy_topk").legacy_topk_blocks_launch,
-                (logits.data_ptr(), base.data_ptr(), fin.data_ptr(),
-                 *(x.data_ptr() for x in outs), B, K, V, pad_id, stream),
-                outs, keep)
     S = split_plan(B, K, V)
     scratch = (torch.empty(B * K * S * K, dtype=torch.float32, device=dev),
                torch.empty(B * K * S * K, dtype=torch.int32, device=dev),
                _arrival_counters(dev, B))
     if name == "beam_topk":
         fn = _build.load("beam_topk").beam_topk_launch
+    elif name == "legacy_topk_blocks":
+        fn = _build.load("legacy_topk").legacy_topk_blocks_launch
     else:
         outs = (torch.empty((B * K, K), dtype=torch.float32, device=dev),
                 torch.empty((B * K, K), dtype=torch.int32, device=dev)) + outs
