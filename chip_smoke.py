@@ -11,6 +11,13 @@ Phases (each raises on failure; the script then exits non-zero):
      decode shape of m30k_ende_vag (R=640 rows, E=256, V=8000, K=5) and at
      the ragged shapes of READOUT_CASES (V=8003, E=250, 35 rows), a second
      call bit for bit as the first;
+  2b. the K-capped kernels (1, 6, 8, 9 and 7) at beams 12 and 16 (kernels
+     1 and 7 through their VAG_MAX_K = 16 instances), beside beam 5 (the
+     K <= 8 instances), against their plain versions as at beam 5 (kernel
+     1's ids exact but among candidates within READOUT_RTOL of each other
+     in float64, and exact on integer inputs), each grid timed alone, cold
+     and warm; then beam 20, past every kernel: each wrapper's kernel route
+     raises ValueError and impl="plain" gives the plain version;
   3. gru_fwd kernel (one persistent grid per scan) against its plain
      version at the encoders' shapes (B, T) = (1024, 32) m30k decode,
      (64, 24) training and (512, 120) ikea_vag (E=256, H=512), ragged
@@ -20,6 +27,9 @@ Phases (each raises on failure; the script then exits non-zero):
      grid alone, cold (L2 flushed) and warm, beside cuDNN's nn.GRU forward
      and the cuBLAS input projection alone (cuDNN minus it is the
      recurrence's yardstick), and the operations bound;
+  3b. gru_fwd at widths the H = 512 plan does not cover: H = 94 (padded
+     to 96), 1280 and 2048 (Uh's slices in L2), within GRU_ATOL, its grid
+     and bound at 2048;
   4. the main path: translate_corpus at beam 5 on the full-width
      m30k_ende_vag model (random weights from a fixed seed) over a synthetic
      corpus, through the kernels (impl="auto"), with each kernel's launch
@@ -96,8 +106,19 @@ Phases (each raises on failure; the script then exits non-zero):
      through kernels 8, 9 and 6), each kernel's launches read from its own
      mode, the shares of identical hypotheses between modes, (a), (b),
      (f), (g) and (h) under the profiler, and (b) once more counting the row
-     groups its per-step recoveries mark at 32 and at 64 rows.
-Phase 1 builds all eight sources. It prints one JSON line of per-kernel
+     groups its per-step recoveries mark at 32 and at 64 rows;
+ 15. the command line (python -m vag_nmt_tpu_torch, in this process through
+     cli.main) on a synthetic Multi30k data directory at full
+     m30k_ende_vag width: train 20 steps with a dev eval, translate at
+     beams 5 and 12 through the kernels and with --impl plain (the share of
+     identical hypotheses), translate --nbest 3, score --meteor, retrieval
+     and translate-text (also with VAG_DEC_STEP=on), each kernel's launches
+     read from each command alone;
+ 16. the JAX package's toy run checked in under tests/goldens/jax_run_toy
+     (its msgpack checkpoint read by the port) decoded on the card through
+     the kernels against the JAX package's beam golden.
+Phase 1 builds all eight sources, readout_topk.cu and dec_step.cu twice
+(K <= 8 and K <= 16), and prints ptxas's spills of every build. It prints one JSON line of per-kernel
 numbers and, last, the device line. With --gru-grids it prints phase 3's
 grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
 kernel 7's, with --dec-scan-grids kernels 4 and 5's, with --gru-bwd-grids
@@ -107,6 +128,7 @@ Needs torch with CUDA and nvcc; imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import shutil
 import subprocess
@@ -1553,6 +1575,236 @@ def phase_dec_step(torch, np, dev):
                                     "grids_cold_ms")}}
 
 
+def _ids_up_to_near_ties(torch, what, t, w, b, got, want) -> int:
+    """Kernel 1's top-K ids (R, K) against the plain version's: equal, but
+    in rows where they differ the two id lists must hold the same values to
+    within READOUT_RTOL when the logits are taken in float64 (the kernel's
+    3xTF32 products and the plain fp32 GEMM round differently, so two
+    candidates closer than that may trade places). Returns the rows that
+    differ."""
+    rows = (got != want).any(1).nonzero().flatten()
+    if rows.numel() == 0:
+        return 0
+    lg = t[rows].double() @ w.double() + b.double()   # (rows, V) in float64
+    a = torch.gather(lg, 1, got[rows].long())
+    c = torch.gather(lg, 1, want[rows].long())
+    if not torch.allclose(a, c, rtol=READOUT_RTOL, atol=0.0):
+        raise AssertionError(f"{what}: ids differ beyond near ties in rows "
+                             f"{rows.tolist()[:8]}")
+    print(f"{what}: {rows.numel()} rows differ only among candidates within "
+          f"{READOUT_RTOL} of each other (float64 logits)")
+    return int(rows.numel())
+
+
+# Phase 2b: the K-capped kernels (1, 6, 8, 9, 7) at beam sizes past 8
+# (kernels 1 and 7 through their MAX_K = 16 instance), beside K = 5 (the
+# beam-5 instance); WIDE_PLAIN_K lies past every kernel, where each
+# wrapper's kernel route raises and impl="plain" runs the plain version.
+WIDE_BEAMS = (5, 12, 16)
+WIDE_PLAIN_K = 20
+WIDE_B, WIDE_E, WIDE_V = 128, 256, 8000
+
+
+def phase_wide_beams(torch, np, dev):
+    """At each K of WIDE_BEAMS: kernel 1 at (R = 128 K, E = 256, V = 8000)
+    at depth K, at slot depth 3 with the per-step recovery and through
+    fused_readout_topk against the plain version (ids exact, values to
+    READOUT_RTOL); kernels 6, 8, 9 at (128, K, 8000) exactly; kernel 7 at
+    (128, K, 32) full width within DEC_STEP_RTOL; each grid timed alone,
+    cold and warm. Then K = WIDE_PLAIN_K through each wrapper: ValueError
+    from the kernel route (no launch) and the plain version's result with
+    impl="plain". {K: fields}."""
+    from vag_nmt_tpu_torch.ops import dec_step as ds
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+    from vag_nmt_tpu_torch.ops import topk
+
+    B, E, V = WIDE_B, WIDE_E, WIDE_V
+    out = {}
+    for K in WIDE_BEAMS:
+        rng = np.random.RandomState(300 + K)
+        R = B * K
+
+        def cuda(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        t = cuda(np.tanh(rng.randn(R, E)).astype(np.float32))
+        w = cuda((0.05 * rng.randn(E, V)).astype(np.float32))
+        b = cuda((0.1 * rng.randn(V)).astype(np.float32))
+        scores = cuda(rng.randn(B, K).astype(np.float32))
+        fin = cuda(rng.rand(B, K) < 0.2)
+        live = ~fin.reshape(-1)
+        f = {"K": K, "instance": topk.instance("readout_topk", K)}
+        got = rt.readout_topk_rows(t, w, b, K, impl="kernel")
+        want = rt.readout_topk_rows_plain(t, w, b, K)
+        sgot = rt.readout_topk_rows(t, w, b, K, slots=3, recover_live=live,
+                                    impl="kernel")
+        swant = rt.readout_topk_rows_plain(t, w, b, K, slots=3,
+                                           recover_live=live)
+        fk = rt.fused_readout_topk(t, w, b, scores, fin, impl="kernel")
+        fp = rt.fused_readout_topk(t, w, b, scores, fin, impl="plain")
+        torch.cuda.synchronize()
+        err, f["near_tie_rows"] = 0.0, 0
+        for label, g, p in (("depth K", got, want), ("slots 3", sgot, swant)):
+            f["near_tie_rows"] += _ids_up_to_near_ties(
+                torch, f"readout_topk K={K} {label}", t, w, b, g[1], p[1])
+            for a, c in zip((g[0], g[2]), (p[0], p[2])):
+                if not torch.allclose(a, c, rtol=READOUT_RTOL, atol=0.0):
+                    raise AssertionError(f"readout_topk K={K} {label}: off by "
+                                         f"{float((a - c).abs().max())}")
+                err = max(err, float((a - c).abs().max()))
+        if not torch.equal(sgot[3], swant[3]):
+            raise AssertionError(f"readout_topk K={K} slots 3: viol differs")
+        if not torch.allclose(fk[0], fp[0], rtol=READOUT_RTOL, atol=0.0):
+            raise AssertionError(f"fused_readout_topk K={K}: values differ")
+        # integer inputs: every logit exact, so the ids are too
+        ti = cuda(rng.randint(-3, 4, (R, E)).astype(np.float32))
+        wi = cuda(rng.randint(-3, 4, (E, V)).astype(np.float32))
+        bi = cuda(rng.randint(-3, 4, V).astype(np.float32))
+        gi = rt.readout_topk_rows(ti, wi, bi, K, impl="kernel")
+        pi = rt.readout_topk_rows_plain(ti, wi, bi, K)
+        if not (torch.equal(gi[0], pi[0]) and torch.equal(gi[1], pi[1])
+                and torch.allclose(gi[2], pi[2], rtol=READOUT_RTOL, atol=0.0)):
+            raise AssertionError(f"readout_topk K={K} integer: top-K not "
+                                 "exact or lse off")
+        kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+        f["readout_topk"] = dict(zip(("grid_ms", "grid_warm_ms"), _grid_ms(
+            torch, lambda: rt.readout_topk_rows(t, w, b, K, impl="kernel"),
+            **kw)), max_abs_err=err, R=R,
+            bound_ms=_readout_bound(R, E, V, K, slots=False)[0])
+
+        logits = cuda((3.0 * rng.randn(B, K, V)).astype(np.float32))
+        fin2 = cuda(rng.rand(B, K) < 0.2)
+        for name, fn, plain in (
+                ("beam_topk", topk.beam_topk, topk.beam_topk_plain),
+                ("legacy_topk_blocks", topk.legacy_topk_blocks,
+                 topk.legacy_topk_blocks_plain),
+                ("legacy_topk_rows", topk.legacy_topk_rows,
+                 topk.legacy_topk_rows_plain)):
+            g = fn(logits, scores, fin2, impl="kernel")
+            p = plain(logits, scores, fin2)
+            torch.cuda.synchronize()
+            if not (torch.equal(g[0], p[0]) and torch.equal(g[1], p[1])):
+                raise AssertionError(f"{name} K={K}: differs from plain")
+            cfn, cargs, _, keep = topk.grid_call(name, logits, scores, fin2)
+            cold, warm = _grid_ms(torch, lambda: cfn(*cargs))
+            n = B * K * V
+            f[name] = {"grid_ms": cold, "grid_warm_ms": warm,
+                       "bound_ms": _bound(2.0 * n, 4.0 * n + 17.0 * B * K)[0]}
+            del keep
+
+        shape = _dec_step_full(K=K)
+        inputs, weights = _dec_step_case(torch, np, dev, *shape, seed=K)
+        got = ds.dec_step(*inputs, weights, impl="kernel")
+        want = ds.dec_step_plain(*inputs, weights)
+        torch.cuda.synchronize()
+        errs = {n: _rel_err(a, c) for n, a, c in zip(("s_new", "t"), got, want)}
+        if not max(errs.values()) <= DEC_STEP_RTOL:
+            raise AssertionError(f"dec_step K={K}: relative errors {errs}")
+        cold, warm = _grid_ms(torch, lambda: ds.dec_step(*inputs, weights,
+                                                         impl="kernel"))
+        f["dec_step"] = {"grid_ms": cold, "grid_warm_ms": warm,
+                         "rel_err": max(errs.values()),
+                         "bound_ms": _dec_step_bound(*shape, weights)[0]}
+        out[K] = f
+        print(f"wide beams K={K}: ok " + json.dumps(f))
+
+    K = WIDE_PLAIN_K
+    rng = np.random.RandomState(400)
+    t = torch.from_numpy(np.tanh(rng.randn(4 * K, 64)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.randn(64, 300).astype(np.float32)).to(dev)
+    b = torch.zeros(300, device=dev)
+    logits = torch.from_numpy(rng.randn(4, K, 600).astype(np.float32)).to(dev)
+    scores = torch.zeros((4, K), device=dev)
+    fin = torch.zeros((4, K), dtype=torch.bool, device=dev)
+    inputs, weights = _dec_step_case(torch, np, dev, 2, K, 5, 32, 32, 64, 16,
+                                     seed=401)
+    calls = {"readout_topk": (functools.partial(rt.readout_topk_rows, t, w, b,
+                                                K),
+                              rt.readout_topk_rows_plain(t, w, b, K)),
+             "dec_step": (functools.partial(ds.dec_step, *inputs, weights),
+                          ds.dec_step_plain(*inputs, weights))}
+    for name in ("beam_topk", "legacy_topk_blocks", "legacy_topk_rows"):
+        calls[name] = (functools.partial(getattr(topk, name), logits, scores,
+                                         fin),
+                       getattr(topk, f"{name}_plain")(logits, scores, fin))
+    wrappers = _cli_wrappers()
+    launched = {name: wrappers[name].launches for name in calls}
+    for name, (call, want) in calls.items():
+        for impl in ("auto", "kernel"):
+            try:
+                call(impl=impl)
+            except ValueError as e:
+                if "takes more than" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{name} K={K} impl={impl}: no raise")
+        if not all(torch.equal(a, c) for a, c in zip(call(impl="plain"), want)):
+            raise AssertionError(f"{name} K={K}: impl='plain' differs")
+    if launched != {name: wrappers[name].launches for name in calls}:
+        raise AssertionError(f"K={K}: a kernel launched past its cap")
+    print(f"wide beams K={K}: every kernel route raised ValueError (no "
+          f"launch), impl='plain' equal to the plain version")
+    return out
+
+
+# Phase 3b: gru_fwd at widths the H = 512 plan does not cover, against the
+# plain version within GRU_ATOL: H = 94 (zero-padded to 96), 1280 and 2048
+# (Uh's slices in L2), B = 64 and the decode super chunk's 1024 rows.
+GRU_WIDTHS = ((94, 64, 24), (1280, 64, 24), (2048, 64, 24), (2048, 1024, 32))
+
+
+def phase_gru_widths(torch, np, dev):
+    """gru_fwd at GRU_WIDTHS (both directions) against gru_fwd_plain, its
+    plan, and at H = 2048 its grid alone cold and warm with its bound."""
+    from vag_nmt_tpu_torch.ops.gru_kernel import (_device_limits, gru_fwd,
+                                                  gru_fwd_plain, gru_fwd_plan,
+                                                  padded_width)
+
+    out = []
+    for H, B, T in GRU_WIDTHS:
+        rng = np.random.RandomState(H + B)
+
+        def cuda(a):
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+        xg_t = cuda(rng.randn(T, B, 3 * H))
+        uh = cuda(rng.randn(H, 3 * H) * (0.6 / np.sqrt(H)))
+        bh = cuda(0.1 * rng.randn(3 * H))
+        h0 = cuda(0.5 * rng.randn(B, H))
+        lens = rng.randint(1, T + 1, B)
+        lens[0] = T
+        mask_t = cuda((np.arange(T)[:, None] < lens[None, :]))
+        err = 0.0
+        for reverse in (False, True):
+            hk = gru_fwd(xg_t, mask_t, uh, bh, h0, reverse=reverse,
+                         impl="kernel")
+            hp = gru_fwd_plain(xg_t, mask_t, uh, bh, h0, reverse=reverse)
+            torch.cuda.synchronize()
+            err = max(err, float((hk - hp).abs().max()))
+        if not err <= GRU_ATOL:
+            raise AssertionError(f"gru_fwd H={H} (B={B}, T={T}): max abs "
+                                 f"err {err}")
+        plan = gru_fwd_plan(B, padded_width(H), *_device_limits(dev))
+        f = {"H": H, "B": B, "T": T, "max_abs_err": err,
+             "padded_H": padded_width(H),
+             "plan": {"grid": list(plan.grid), "l2": plan.l2,
+                      "row_block": plan.row_block,
+                      "unit_block": plan.unit_block, "chunk": plan.chunk,
+                      "passes": plan.passes, "smem_bytes": plan.smem_bytes}}
+        if H == 2048:
+            cold, warm = _grid_ms(torch, lambda: gru_fwd(
+                xg_t, mask_t, uh, bh, h0, impl="kernel"))
+            f["bound_ms"], f["bound_by"] = _bound(
+                2.0 * T * B * H * 3 * H,
+                4.0 * (T * B * 3 * H + T * B + H * 3 * H + 3 * H + B * H
+                       + T * B * H))
+            f["grid_ms"], f["grid_warm_ms"] = cold, warm
+        out.append(f)
+        print(f"gru_fwd width H={H} (B={B}, T={T}) both directions: ok "
+              + json.dumps(f))
+    return out
+
+
 def _legacy_case(torch, np, dev, kind, B, K, V, seed):
     """Inputs of the legacy top-K kernels: random logits with a fifth of the
     rows finished, all rows finished, or forced ties (integer logits repeated
@@ -2143,6 +2395,235 @@ def _gen1_tie_audit(torch, topk, env, run, hyps_f):
         raise AssertionError("ikea (f) differs from (h) with no tie flipped")
 
 
+# Phase 15: the port's command line on a synthetic Multi30k data directory
+# at m30k_ende_vag's width (V = 8000 both sides, 2048-wide features).
+CLI_SPLITS = {"train": (2048, 21), "val": (64, 22), "test2016": (512, 23),
+              "test2017": (256, 24)}
+CLI_TRAIN_STEPS = 20
+CLI_BEAMS = (5, 12)
+
+
+def _cli_wrappers():
+    """Every counted kernel wrapper, by kernel name."""
+    from vag_nmt_tpu_torch.ops import dec_scan, dec_step, gru_kernel, topk
+    from vag_nmt_tpu_torch.ops.readout_topk import readout_topk_rows
+
+    return {"readout_topk": readout_topk_rows, "gru_fwd": gru_kernel.gru_fwd,
+            "gru_bwd": gru_kernel.gru_bwd, "dec_scan_fwd": dec_scan.dec_scan_fwd,
+            "dec_scan_bwd": dec_scan.dec_scan_bwd,
+            "beam_topk": topk.beam_topk, "dec_step": dec_step.dec_step,
+            "legacy_topk_blocks": topk.legacy_topk_blocks,
+            "legacy_topk_rows": topk.legacy_topk_rows}
+
+
+def _cli_command(torch, argv, env=None):
+    """cli.main(argv) with every kernel's launch count set to 0 before and
+    read after: (launches, the last line it printed, seconds)."""
+    import contextlib
+    import io
+    import os
+
+    from vag_nmt_tpu_torch import cli
+
+    wrappers = _cli_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = io.StringIO()
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    lines = out.getvalue().strip().splitlines()
+    return launches, (lines[-1] if lines else ""), secs
+
+
+def _write_cli_data(np, d, m, splits):
+    """A Multi30k-layout data directory: {split}.{en,de} of Zipf tokens
+    (vocab units "s<i>" / "t<i>"), vocab.{en,de}.json, {split}_features.npy
+    with its .align.json, preprocess.json."""
+    from vag_nmt_tpu_torch.core.config import SPECIALS
+    from vag_nmt_tpu_torch.data.features import save_features
+    from vag_nmt_tpu_torch.data.vocab import Vocab
+
+    src_v = Vocab(list(SPECIALS) + [f"s{i}" for i in range(4, m.src_vocab_size)])
+    tgt_v = Vocab(list(SPECIALS) + [f"t{i}" for i in range(4, m.tgt_vocab_size)])
+    src_v.save(str(d / "vocab.en.json"))
+    tgt_v.save(str(d / "vocab.de.json"))
+    for split, (n, seed) in splits.items():
+        exs = _train_corpus(np, m, n, seed)
+        src = [" ".join(src_v.itos[t] for t in ex.src) for ex in exs]
+        (d / f"{split}.en").write_text("".join(s + "\n" for s in src))
+        (d / f"{split}.de").write_text("".join(
+            " ".join(tgt_v.itos[t] for t in ex.tgt) + "\n" for ex in exs))
+        save_features(str(d / f"{split}_features.npy"),
+                      np.stack([ex.img for ex in exs]), corpus_lines=src)
+    (d / "preprocess.json").write_text(json.dumps(
+        {"tokenizer": "simple", "lower": True, "truecase": False}))
+
+
+def phase_cli(torch, np, dev, preset="m30k_ende_vag", splits=None):
+    """The port's command line in this process (cli.main) on a synthetic
+    Multi30k data directory at full m30k_ende_vag width: train
+    CLI_TRAIN_STEPS steps (a dev eval at the last), translate test2016 at
+    each beam of CLI_BEAMS through the kernels and with --impl plain (the
+    share of identical hypotheses against MIN_IDENTICAL_SHARE), translate
+    --nbest 3, score --meteor, retrieval and translate-text; each command's
+    launches of each kernel read from it alone. ``preset`` and
+    ``splits`` (CLI_SPLITS) size it, ``dev`` is where it runs (a CPU
+    rehearsal launches no kernel and checks none). {command: fields}."""
+    from pathlib import Path
+
+    import vag_nmt_tpu_torch as vt
+
+    splits = splits or CLI_SPLITS
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    data, run = root / "data", root / "run"
+    data.mkdir(parents=True)
+    m = vt.preset(preset).model
+    _write_cli_data(np, data, m, splits)
+    out = {}
+
+    def command(label, argv, need=(), env=None):
+        launches, last, secs = _cli_command(
+            torch, argv + ["--device", dev.type], env)
+        missing = [k for k in need if dev.type == "cuda" and not launches.get(k)]
+        if missing:
+            raise AssertionError(f"cli {label}: {missing} never launched "
+                                 f"({launches})")
+        out[label] = {"launches": launches, "seconds": secs}
+        print(f"cli {label}: {secs:.2f} s, launches {json.dumps(launches)}")
+        return last
+
+    res = json.loads(command("train", [
+        "train", "--preset", preset, "--data-dir", str(data),
+        "--out-dir", str(run), "--set", "data.dataset=multi30k",
+        "--max-steps", str(CLI_TRAIN_STEPS),
+        "--set", f"train.eval_every_steps={CLI_TRAIN_STEPS}",
+        "--set", "train.log_every_steps=10"],
+        need=("gru_fwd", "gru_bwd", "dec_scan_fwd", "dec_scan_bwd",
+              "readout_topk")))
+    if res["steps"] != CLI_TRAIN_STEPS or "dev_bleu" not in res:
+        raise AssertionError(f"cli train: {res}")
+    ref = str(data / "test2016.de")
+    base = ["translate", "--data-dir", str(data), "--checkpoint", str(run),
+            "--split", "test2016"]
+    for beam in CLI_BEAMS:
+        hyps = {}
+        for impl in ("auto", "plain"):
+            path = root / f"hyp_b{beam}_{impl}.txt"
+            st = json.loads(command(f"translate beam {beam} {impl}", base + [
+                "--beam", str(beam), "--impl", impl, "--output", str(path)],
+                need=("gru_fwd", "readout_topk") if impl == "auto" else ()))
+            if impl == "plain" and out[f"translate beam {beam} plain"][
+                    "launches"]:
+                raise AssertionError("cli translate --impl plain launched "
+                                     "kernels")
+            hyps[impl] = path.read_text().splitlines()
+            out[f"translate beam {beam} {impl}"]["sentences_per_sec"] = \
+                st["sentences_per_sec"]
+        n = splits["test2016"][0]
+        if len(hyps["auto"]) != n or not any(hyps["auto"]):
+            raise AssertionError(f"cli translate beam {beam}: malformed output")
+        share = sum(a == b for a, b in zip(hyps["auto"], hyps["plain"])) / n
+        out[f"translate beam {beam} auto"]["identical_share"] = share
+        print(f"cli translate beam {beam}: identical hypotheses kernels vs "
+              f"plain {share:.4f} (threshold {MIN_IDENTICAL_SHARE})")
+        if share < MIN_IDENTICAL_SHARE:
+            raise AssertionError(f"cli beam {beam}: only {share:.4f} identical")
+    nbest = root / "nbest.txt"
+    command("translate nbest 3", base + ["--nbest", "3", "--output", str(nbest)],
+            need=("gru_fwd", "readout_topk"))
+    rows = [ln.split(" ||| ") for ln in nbest.read_text().splitlines()]
+    if len(rows) != 3 * splits["test2016"][0] or any(
+            len(r) != 3 for r in rows):
+        raise AssertionError("cli translate --nbest 3: malformed n-best list")
+    scores = json.loads(command("score", [
+        "score", "--hyp", str(root / "hyp_b5_auto.txt"), "--ref", ref,
+        "--meteor", "--lang", "de"]))
+    if not (0.0 <= scores["bleu"] <= 100.0 and 0.0 <= scores["meteor"] <= 1.0):
+        raise AssertionError(f"cli score: {scores}")
+    out["score"].update(bleu=scores["bleu"], meteor=scores["meteor"])
+    rec = json.loads(command("retrieval", [
+        "retrieval", "--data-dir", str(data), "--checkpoint", str(run),
+        "--split", "test2017"], need=("gru_fwd",)))
+    if not all(0.0 <= v <= splits["test2017"][0] for v in rec.values()):
+        raise AssertionError(f"cli retrieval: {rec}")
+    out["retrieval"]["recall"] = rec
+    lines = (data / "test2017.en").read_text().splitlines()[:128]
+    (root / "raw.txt").write_text("".join(s + "\n" for s in lines))
+    command("translate-text", [
+        "translate-text", "--checkpoint", str(run), "--input",
+        str(root / "raw.txt"), "--output", str(root / "raw_hyp.txt")],
+        need=("gru_fwd", "readout_topk"))
+    if len((root / "raw_hyp.txt").read_text().splitlines()) != len(lines):
+        raise AssertionError("cli translate-text: line count")
+    command("translate-text dec_step", [
+        "translate-text", "--checkpoint", str(run), "--input",
+        str(root / "raw.txt"), "--output", str(root / "raw_hyp7.txt")],
+        need=("gru_fwd", "readout_topk", "dec_step"),
+        env={"VAG_DEC_STEP": "on"})
+    print("cli: " + json.dumps({k: v for k, v in out.items()}))
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# Phase 16: a run the JAX package wrote (tests/goldens/jax_run_toy, checked
+# in by tests/test_torch_jax_run.py), decoded on the card: the JAX
+# package's fixed-seed beam-3 golden (tests/goldens/beam_toy.json).
+def phase_jax_run(torch, np, dev):
+    """Translator.from_run-style load of the checked-in JAX run (the
+    port's msgpack reader, the weight bridge) onto the card, then the
+    golden's 24 examples decoded at beam 3 through the kernels: the share
+    of hypotheses equal to the JAX package's golden, against
+    MIN_IDENTICAL_SHARE, and kernels 1 and 2 launched."""
+    from pathlib import Path
+
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.data.batching import Example
+    from vag_nmt_tpu_torch.data.datasets import toy_vocab
+    from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd
+    from vag_nmt_tpu_torch.ops.readout_topk import readout_topk_rows
+    from vag_nmt_tpu_torch.train.checkpoint import load_checkpoint
+
+    goldens = Path(__file__).resolve().parent / "tests" / "goldens"
+    run = goldens / "jax_run_toy"
+    cfg = vt.Config.from_json((run / "config.json").read_text())
+    state, meta = load_checkpoint(str(run / cfg.train.checkpoint_dir), "best",
+                                  device=dev, cfg=cfg.model)
+    rng = np.random.RandomState(13)      # the golden's examples
+    m = cfg.model
+    exs = [Example(src=list(rng.randint(4, m.src_vocab_size,
+                                        rng.randint(3, 14))),
+                   img=rng.randn(m.img_feat_dim).astype(np.float32), index=i)
+           for i in range(24)]
+    gru_fwd.launches = readout_topk_rows.launches = 0
+    hyps, _ = vt.translate_corpus(state.params, cfg, exs, toy_vocab(),
+                                  beam_size=3, de_bpe=False, device=dev)
+    launches = {"gru_fwd": gru_fwd.launches,
+                "readout_topk": readout_topk_rows.launches}
+    golden = json.loads((goldens / "beam_toy.json").read_text())
+    share = sum(a == b for a, b in zip(hyps, golden)) / len(golden)
+    print(f"jax run (step {state.step}, meta {json.dumps(meta)}): identical "
+          f"to the JAX golden {share:.4f} (threshold {MIN_IDENTICAL_SHARE}), "
+          f"launches {json.dumps(launches)}")
+    if share < MIN_IDENTICAL_SHARE or min(launches.values()) < 1:
+        raise AssertionError("jax run decode on the card")
+    return {"identical_share": share, "launches": launches}
+
+
 def phase_profile(torch, what: str, run):
     """One run of a path under torch.profiler, device activity only; run()
     returns its step count (beam steps or train steps). One stream, so
@@ -2237,8 +2718,19 @@ def main() -> int:
         print(json.dumps({"dec_step_grids": dec_step_grid_times(torch, np, dev)}))
         return 0
     print(f"build_s: {_build.build_all():.2f}")
+    # ptxas's spill report of every build (-Xptxas -v): kernels that spill,
+    # as {build: {kernel: [store bytes, load bytes]}}, and how many do not
+    spills = {n: _build.spills(n) for n in sorted(_build._KERNELS)}
+    print("ptxas spills: " + json.dumps({
+        "spilling": {n: {k: v for k, v in sp.items() if v != (0, 0)}
+                     for n, sp in spills.items()
+                     if any(v != (0, 0) for v in sp.values())},
+        "kernels_without_spills": sum(v == (0, 0) for sp in spills.values()
+                                      for v in sp.values())}))
     t0 = time.perf_counter()
     decode_kernels = [phase_readout(torch, np, dev), phase_gru(torch, np, dev)]
+    wide = phase_wide_beams(torch, np, dev)
+    widths = phase_gru_widths(torch, np, dev)
     train_kernels = [phase_gru_bwd(torch, np, dev), *phase_dec_scan(torch, np, dev)]
     grid_times = phase_topk_grids(torch, np, dev)
     serve_kernels = [phase_beam_topk(torch, np, dev),
@@ -2255,6 +2747,8 @@ def main() -> int:
     finally:
         shutil.rmtree(train_run[0], ignore_errors=True)
     i_launches, i_grids = phase_ikea(torch, np, dev)
+    cli = phase_cli(torch, np, dev)
+    jax_run = phase_jax_run(torch, np, dev)
     # Each kernel's launches come from the run of its own path: the decode
     # path for the decode kernels, the training path for the training
     # kernels, the serving modes that select them for beam_topk and dec_step,
@@ -2279,6 +2773,19 @@ def main() -> int:
                                         "slots1_grid_ms", "recovery_grid_ms",
                                         "addmm_grid_ms", "grid_floor_ms")})
     decode_kernels[0]["grids_by_v"] = readout_grids
+    # the K <= 16 instances (phase 2b) and kernel 2's other widths (3b);
+    # the command line's launches of each kernel, by command (phase 15)
+    # (rows with a counter of their own: the slot mode's launches count in
+    # readout_topk's, and phase 2b times depth K only)
+    wrappers = _cli_wrappers()
+    for k in kernels:
+        if k["name"] in wide[WIDE_BEAMS[-1]]:
+            k["wide_beams"] = {K: wide[K][k["name"]] for K in WIDE_BEAMS}
+        if k["name"] in wrappers:
+            k["cli_launches"] = {c: f["launches"].get(k["name"], 0)
+                                 for c, f in cli.items()}
+    decode_kernels[1]["widths"] = widths
+    print(f"jax run: {json.dumps(jax_run)}")
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -175,13 +175,17 @@ def test_translate_corpus_unsupported_paths_raise():
     exs = make_toy_examples(3)
     vocab = toy_vocab()
     calls = [
-        dict(nbest=2),
         dict(fused=False),
         dict(mesh=object()),
     ]
     for kw in calls:
         with pytest.raises(NotImplementedError, match="later slice"):
             vt.translate_corpus(params, cfg, exs, vocab, device="cpu", **kw)
+    # nbest output is supported now (tests/test_torch_nbest.py holds it
+    # against the JAX package): up to min(N, beam) pairs per example
+    got, _ = vt.translate_corpus(params, cfg, exs, vocab, device="cpu",
+                                 nbest=2)
+    assert [len(x) for x in got] == [2, 2, 2]
     # the two-phase decoder (auto at max_len >= 96) and beam_unroll > 1 are
     # supported now
     _, st = vt.translate_corpus(params, cfg, exs, vocab, device="cpu",

@@ -98,7 +98,7 @@ def test_plan_at_the_path_shapes():
 
 
 @pytest.mark.parametrize("B,H,n_sms,max_smem,why", [
-    (64, 512, 132, 6000, "shared memory"),     # no Uh slice fits
+    (64, 512, 132, 900, "shared memory"),      # not even the state ring
     (64, 512, 7, 232448, "SMs"),               # 8+ unit tiles, 7 SMs
     (64, 40, 132, 232448, "multiple of 16"),   # H not a unit block multiple
     (64, 24, 132, 232448, "multiple of 16"),
@@ -177,3 +177,104 @@ def test_tile_model_matches_plain_and_jax(B, H, n_sms, max_smem, seed,
     for ref in (hs_x, hs_p):
         np.testing.assert_allclose(got.transpose(0, 1).numpy(),
                                    np.asarray(ref), atol=ATOL, rtol=0)
+
+
+# -- widths the resident plan cannot hold: zero-padding and the L2 path -----
+
+from vag_nmt_tpu_torch.ops.gru_kernel import gru_bwd_plan, pad_units, padded_width  # noqa: E402
+
+# (B, H, n_sms, max_smem): the H100's widths past 1184, where Uh's slices
+# go to L2, and toy cards whose shared memory holds the staged ring but no
+# slice
+L2_SHAPES = [(64, 1280, *H100), (64, 2048, *H100), (1024, 2048, *H100),
+             (37, 64, 4, 13500), (37, 64, 3, 20500)]
+
+
+@pytest.mark.parametrize("B", [1, 37, 64, 1024])
+def test_plan_takes_every_width_the_backward_takes(B):
+    """Every H in 16..2048 that gru_bwd_plan plans on the H100 has a
+    forward plan at its padded width (the next multiple of 16)."""
+    for H in range(16, 2049):
+        gru_bwd_plan(B, H, *H100)
+        plan = gru_fwd_plan(B, padded_width(H), *H100)
+        assert plan.smem_bytes <= H100[1]
+        assert plan.l2 or padded_width(H) <= 1184
+
+
+@pytest.mark.parametrize("B,H,n_sms,max_smem", L2_SHAPES)
+def test_l2_plan_covers_each_output_once_within_limits(B, H, n_sms, max_smem):
+    plan = gru_fwd_plan(B, H, n_sms, max_smem)
+    assert plan.l2
+    assert plan.smem_bytes == gru_fwd_smem_bytes(H, plan.row_block,
+                                                 plan.unit_block, plan.chunk,
+                                                 l2=True)
+    assert plan.smem_bytes == 4 * GRU_STAGES * (
+        plan.row_block * (plan.chunk + GRU_PAD) + plan.chunk * 3 * plan.unit_block)
+    assert plan.smem_bytes <= max_smem
+    assert plan.row_slots * plan.unit_tiles <= n_sms
+    assert plan.threads % (plan.chunk // 4) == 0 and H % plan.chunk == 0
+    hits = np.zeros((B, H), np.int64)
+    for _, row, unit in _cells(plan, B, H):
+        hits[row, unit] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_l2_tile_model_matches_plain_and_jax(reverse):
+    """The L2 path's partition (the same walk, its slices read from one
+    copy a unit tile) in torch against the plain version and both JAX
+    scans."""
+    B, H, n_sms, max_smem = 37, 64, 4, 13500
+    p, x, mask, h0 = _case(B, 5, 12, H, seed=5)
+    plan = gru_fwd_plan(B, H, n_sms, max_smem)
+    assert plan.l2 and plan.passes > 1 and plan.unit_tiles > 1
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    xg_t = (torch.from_numpy(x) @ tp["wi"] + tp["bi"]).transpose(0, 1).contiguous()
+    mask_t = torch.from_numpy(mask).transpose(0, 1).contiguous()
+    h0_t = torch.from_numpy(h0)
+    got = _tile_model(plan, xg_t, mask_t, tp["uh"], tp["bh"], h0_t, reverse)
+    want = gru_fwd_plain(xg_t, mask_t, tp["uh"], tp["bh"], h0_t, reverse=reverse)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    args = (jp, jnp.asarray(x), jnp.asarray(mask), jnp.asarray(h0))
+    hs_x, _ = jgru.gru_scan(*args, reverse=reverse, impl="xla")
+    np.testing.assert_allclose(got.transpose(0, 1).numpy(), np.asarray(hs_x),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("H", [94, 100])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_zero_padding_is_exact(H, reverse):
+    """The wrapper's padding to a multiple of 16: each gate's block keeps
+    its units; with inputs whose products and sums are exact in fp32
+    whatever their order (multiples of 1/64, small), the step's product
+    h @ Uh + bh of the padded scan is the unpadded one's bit for bit on the
+    real units and exactly 0 on the padded ones; the padded units' states
+    stay 0 bit for bit at every step, and the real units agree with the
+    unpadded scan to 1e-6 (the CPU's elementwise kernels take another path
+    on a strided view of 94 of 96 columns than on 94 contiguous ones)."""
+    rng = np.random.RandomState(H)
+    T, B = 6, 37
+    Hp = padded_width(H)
+    assert Hp % 16 == 0 and Hp - H < 16
+
+    def dyadic(*shape):
+        return torch.from_numpy((rng.randint(-16, 17, shape) / 64.0)
+                                .astype(np.float32))
+
+    xg_t, uh, bh, h0 = dyadic(T, B, 3 * H), dyadic(H, 3 * H), dyadic(3 * H), \
+        dyadic(B, H)
+    mask_t = torch.from_numpy((rng.rand(T, B) < 0.8).astype(np.float32))
+    mask_t[0 if not reverse else T - 1] = 1.0
+    xp, up, bp, hp0 = pad_units(xg_t, uh, bh, h0, Hp)
+    for g in range(3):       # each gate's block keeps its own units
+        assert torch.equal(up[:H, g * Hp:g * Hp + H], uh[:, g * H:(g + 1) * H])
+        assert torch.equal(xp[..., g * Hp:g * Hp + H], xg_t[..., g * H:(g + 1) * H])
+    hg_p = (hp0 @ up + bp).reshape(B, 3, Hp)
+    assert torch.equal(hg_p[..., :H], (h0 @ uh + bh).reshape(B, 3, H))
+    assert not hg_p[..., H:].any()
+    want = gru_fwd_plain(xg_t, mask_t, uh, bh, h0, reverse=reverse)
+    got = gru_fwd_plain(xp, mask_t, up, bp, hp0, reverse=reverse)
+    assert not got[..., H:].any()                   # padded units: exact 0
+    np.testing.assert_allclose(got[..., :H].numpy(), want.numpy(), atol=1e-6,
+                               rtol=0)

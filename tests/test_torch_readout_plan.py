@@ -366,3 +366,65 @@ def test_model_rows_through_combine_match_jax():
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5,
                                atol=1e-5)
+
+
+# -- the K <= 16 instance (VAG_MAX_K = 16, the same tiling) ------------------
+
+@pytest.mark.parametrize("K", [9, 12, 16])
+@pytest.mark.parametrize("R,E,V", [(40, 32, 1000), (35, 64, 8003)])
+def test_split_merge_model_at_the_k16_instance(R, E, V, K):
+    """The per-split partials and the merge at K up to 16 (the K <= 16
+    instance), against the plain version bit for bit; lse to 1e-6."""
+    rng = np.random.RandomState(V + K)
+    t = torch.from_numpy(np.tanh(rng.randn(R, E)).astype(np.float32))
+    w = torch.from_numpy((0.3 * rng.randn(E, V)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.randn(V)).astype(np.float32))
+    pv, pi, pl = rt.readout_topk_rows_plain(t, w, b, K)
+    mv, mi, ml = _merge(_partials(t @ w + b, K, rt._split_plan(R, V)[1]), K)
+    assert torch.equal(mv, pv) and torch.equal(mi.to(torch.int32), pi)
+    torch.testing.assert_close(ml, pl, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("K,sk", [(12, 1), (12, 3), (16, 8), (16, 15)])
+def test_shallow_slots_at_the_k16_instance(K, sk):
+    """The watermark mode at slot depths of the K <= 16 instance's SK
+    templates (1..16): the lanes' top-sk and watermarks, the union's top-K
+    merged over the splits, viol as the plain version's, bit for bit."""
+    R, E, V = 40, 256, 1000
+    t, w, b, _ = cs._slots_case(torch, np, torch.device("cpu"), "exact", R,
+                                E, V, seed=K + sk)
+    x = t @ w + b
+    lanes = rt.kernel_lanes(R, V)
+    kept = torch.full_like(x, FLOOR)
+    wmark = torch.full((R,), FLOOR)
+    for lane in lanes.unique():
+        cols = (lanes == lane).nonzero()[:, 0]
+        v, i = stable_topk(x[:, cols], min(sk + 1, len(cols)))
+        kept.scatter_(1, cols[i[:, :sk]], v[:, :sk])
+        if len(cols) > sk:
+            wmark = torch.maximum(wmark, v[:, sk])
+    kept_ids = torch.where(kept > FLOOR, torch.arange(V), EMPTY)
+    rows = torch.arange(R)[:, None]
+    split_cols = rt._split_plan(R, V)[1]
+    parts = []
+    for c0 in range(0, V, split_cols):
+        v, i = stable_topk(kept[:, c0:c0 + split_cols], K)
+        parts.append((v, kept_ids[:, c0:][rows, i], v[:, 0], torch.ones(R)))
+    mv, mi, _ = _merge(parts, K)
+    viol = (wmark >= mv[:, K - 1]).to(torch.int32)
+    pv, pi, _, pviol = rt.readout_topk_rows_plain(t, w, b, K, slots=sk)
+    assert torch.equal(viol, pviol)
+    assert torch.equal(mv, pv) and torch.equal(mi.to(torch.int32), pi)
+
+
+def test_k16_tiling_is_the_k8_tiling():
+    """Both instances are built with one tiling; only VAG_MAX_K differs, and
+    the lane merge of 16 slots a lane still fits the ring."""
+    from vag_nmt_tpu_torch.ops import _build
+
+    a = dict(_build._KERNELS["readout_topk"][1])
+    b = dict(_build._KERNELS["readout_topk_k16"][1])
+    assert (a.pop("VAG_MAX_K"), b.pop("VAG_MAX_K")) == (8, 16) and a == b
+    BM, BN, BK = rt._ROW_TILE, rt._COL_TILE, rt._DEPTH_CHUNK
+    TX = rt._LANE_PERIOD // rt._LANE_COLS
+    assert BM * TX * (2 * 16 + 3) <= 3 * (BM * (BK + 4) + BK * (BN + 8) + BN)

@@ -41,10 +41,6 @@
 
 namespace {
 
-#if !defined(VAG_MAX_K)
-#error "build through vag_nmt_tpu_torch/ops/_build.py (VAG_MAX_K)"
-#endif
-
 namespace split = vag::split;
 
 template <int K>
@@ -95,8 +91,8 @@ int launch(const float* logits, const float* base, const uint8_t* fin,
 // f32, fin (B, K) uint8; scratch part_v (B*K*S*K) f32 and part_i int32,
 // counters (>= B) uint32, zero on entry and left zero; outputs vals (B, K)
 // f32 descending, idx (B, K) int64 flat indices k * V + v.
-// 1 <= K <= VAG_MAX_K, K * V < 2^31, S >= 1 slices per row. Returns 0 or a
-// CUDA error code.
+// 1 <= K <= 16 (ops/topk.py's MAX_K), K * V < 2^31, S >= 1 slices per row.
+// Returns 0 or a CUDA error code.
 extern "C" int beam_topk_launch(const void* logits, const void* base,
                                 const void* fin, void* part_v, void* part_i,
                                 void* counters, void* vals, void* idx, int B,
@@ -127,10 +123,16 @@ extern "C" int beam_topk_launch(const void* logits, const void* base,
     VAG_TOPK_CASE(6)
     VAG_TOPK_CASE(7)
     VAG_TOPK_CASE(8)
+    VAG_TOPK_CASE(9)
+    VAG_TOPK_CASE(10)
+    VAG_TOPK_CASE(11)
+    VAG_TOPK_CASE(12)
+    VAG_TOPK_CASE(13)
+    VAG_TOPK_CASE(14)
+    VAG_TOPK_CASE(15)
+    VAG_TOPK_CASE(16)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef VAG_TOPK_CASE
 }
-
-static_assert(VAG_MAX_K == 8, "the K switch above instantiates 1..VAG_MAX_K");

@@ -107,7 +107,8 @@ constexpr int ATT_WARPS = ATT_THREADS / 32;
 constexpr int ATT_BATCH = 8;        // ctx_proj loads a lane keeps in flight
 constexpr float NEG_INF = -1e9f;   // as ops/attention.masked_softmax
 
-static_assert(MAX_K <= ATT_WARPS, "one softmax warp per beam");
+static_assert(MAX_K == 8 || MAX_K == 16,
+              "two instances (ops/dec_step.py): K <= 8 and 9 <= K <= 16");
 static_assert(WARPS_M * WARPS_N * 32 == THREADS, "one warp per warp tile");
 static_assert(WM % 16 == 0 && BK % 8 == 0 && UB % 4 == 0, "whole mma tiles");
 static_assert(SPLIT >= 1 && SPLIT <= 8 && BM % SPLIT == 0,
@@ -511,8 +512,8 @@ dec_step_attn(const float* __restrict__ qh, int ldq,
     }
   }
   cluster.sync();   // every score in every CTA's sc
-  if (warp < K) {
-    float* s = sc + warp * T;
+  for (int k = warp; k < K; k += ATT_WARPS) {   // a softmax warp a beam
+    float* s = sc + k * T;
     float mx = -INFINITY;
     for (int j = lane; j < T; j += 32) mx = fmaxf(mx, s[j]);
     mx = warp_max(mx);

@@ -36,6 +36,17 @@
 // (they do not overlap the FMAs), the rest the state's loads, the epilogue
 // and the barrier: ~42% of the bound. Tensor-core products, which reuse
 // each loaded operand many more times, are the next step.
+//
+// The L2 path (L2W): where no tiling holds its Uh slice in shared memory
+// (H >= 1280 on this card), the plan keeps the slices in a device buffer
+// wl2 of 3 H^2 floats in the same packed layout, one copy a unit tile: the
+// CTAs of unit tile y pack a share of its slice each, a grid sync, then
+// each stage of the cp.async ring carries, beside the chunk's state rows,
+// the slice's KC-deep chunk (3 KC UB floats, contiguous in the packed
+// layout) copied from L2 (cp.async.cg), which the product reads as the
+// resident path reads its slice.
+// Widths that are no multiple of 16 are zero-padded by the wrapper
+// (ops/gru_kernel.py), which is exact: a padded unit stays 0.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -80,8 +91,10 @@ __device__ __forceinline__ float comp(const float4& v, int j) {
 // Shared memory: us, Uh's slice in k pairs: float 12 * (p * UG + up) +
 // 6 * kk + 2 * g + j holds Uh[2p + kk, g*H + unit0 + 2*up + j], so three
 // float4 loads give a thread its 2 units x 3 gates for two k; then STAGES
-// buffers of RB x (KC + PAD) state rows.
-template <int R>
+// buffers of RB x (KC + PAD) state rows. With L2W the slice lives in wl2
+// (unit tile y's at y * H * 3 * UB) and each ring stage is RB x (KC + PAD)
+// state rows, then the slice's chunk of 3 * KC * UB floats.
+template <int R, bool L2W>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
                    const float* __restrict__ mask,  // (T, B)
@@ -89,6 +102,7 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
                    const float* __restrict__ bh,    // (3H,)
                    const float* h0,                 // (B, H)
                    float* out,                      // (T, B, H)
+                   float* wl2,                      // (3 H^2,) with L2W
                    int T, int B, int H, int reverse, int RB, int UB, int KC) {
   constexpr int U = 2;            // units a thread
   constexpr int W = 6 * U;        // floats of Uh per thread and k pair
@@ -96,6 +110,7 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
   const int UG = UB / U;          // unit groups per tile
   const int RG = RB / R;          // row groups per block
   const int HS = KC + PAD;        // staged row stride
+  const int SF = RB * HS + (L2W ? 3 * KC * UB : 0);   // floats a ring stage
   const int NC = H / KC;          // chunks per step
   const int NT = blockDim.x;      // RG * UG
   const int tid = threadIdx.x;
@@ -105,10 +120,14 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
   const int u = unit0 + U * up;   // this thread's first unit
   const int n_rb = (B + RB - 1) / RB;
   const size_t H3 = 3 * (size_t)H;
-  float* us = smem;
-  float* hs = smem + (size_t)H * 3 * UB;
+  float* us = L2W ? wl2 + (size_t)blockIdx.y * H * 3 * UB : smem;
+  float* hs = L2W ? smem : smem + (size_t)H * 3 * UB;
 
-  for (int i = tid; i < H * 3 * UB; i += NT) {
+  cg::grid_group grid = cg::this_grid();
+  // The slice in the packed layout; with L2W the unit tile's CTAs share it.
+  const int pack0 = L2W ? blockIdx.x * NT + tid : tid;
+  const int pack_step = L2W ? gridDim.x * NT : NT;
+  for (int i = pack0; i < H * 3 * UB; i += pack_step) {
     const int kp = i / (W * UG), p = (i / W) % UG, c = i % W;
     const int k = 2 * kp + c / (3 * U), g = (c % (3 * U)) / U, j = c % U;
     us[i] = uh[(size_t)k * H3 + (size_t)g * H + unit0 + U * p + j];
@@ -118,9 +137,13 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
   for (int g = 0; g < 3; ++g)
 #pragma unroll
     for (int j = 0; j < U; ++j) b[g][j] = bh[g * H + u + j];
-  __syncthreads();
+  if (L2W) {
+    __threadfence();
+    grid.sync();     // every share of the slices packed
+  } else {
+    __syncthreads();
+  }
 
-  cg::grid_group grid = cg::this_grid();
   for (int step = 0; step < T; ++step) {
     const int t = reverse ? T - 1 - step : step;
     const float* hp = step == 0
@@ -142,12 +165,18 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
       // at column 4 * q4 of the chunk (NT is a multiple of KC / 4).
       const int q4 = tid % (KC / 4), r0 = tid / (KC / 4), rstep = NT / (KC / 4);
       auto load_chunk = [&](int c) {
-        float* dst = hs + (size_t)(c % STAGES) * RB * HS + 4 * q4;
+        float* dst = hs + (size_t)(c % STAGES) * SF + 4 * q4;
         const float* src = hp + (size_t)c * KC + 4 * q4;
         for (int r = r0; r < RB; r += rstep) {
           const int row = row0 + r;
           cp_async16(dst + r * HS, src + (size_t)(row < B ? row : 0) * H,
                      row < B ? 16 : 0);
+        }
+        if (L2W) {
+          float* wd = hs + (size_t)(c % STAGES) * SF + RB * HS;
+          const float* ws = us + (size_t)c * 3 * KC * UB;
+          for (int i = 4 * tid; i < 3 * KC * UB; i += 4 * NT)
+            cp_async16(wd + i, ws + i, 16);
         }
       };
 #pragma unroll
@@ -169,10 +198,13 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
         __syncthreads();
         if (c + STAGES - 1 < NC) load_chunk(c + STAGES - 1);
         cp_async_commit();
-        const float* hrow = hs + (size_t)(c % STAGES) * RB * HS + rg * HS;
+        const float* hrow = hs + (size_t)(c % STAGES) * SF + rg * HS;
         const int rstride = RG * HS;
-        const float4* uk = reinterpret_cast<const float4*>(us)
-            + ((size_t)c * KC / 2 * UG + up) * (W / 4);
+        const float4* uk = L2W
+            ? reinterpret_cast<const float4*>(hs + (size_t)(c % STAGES) * SF
+                                              + RB * HS) + (size_t)up * (W / 4)
+            : reinterpret_cast<const float4*>(us)
+                  + ((size_t)c * KC / 2 * UG + up) * (W / 4);
 #pragma unroll 2
         for (int kq = 0; kq < KC; kq += 4) {
           float4 hv[R];
@@ -248,15 +280,17 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
   }
 }
 
-template <int R>
+template <int R, bool L2W>
 int launch(const float* xg, const float* mask, const float* uh,
-           const float* bh, const float* h0, float* out, int T, int B, int H,
-           int reverse, int RB, int UB, int KC, int GX, cudaStream_t s) {
+           const float* bh, const float* h0, float* out, float* wl2, int T,
+           int B, int H, int reverse, int RB, int UB, int KC, int GX,
+           cudaStream_t s) {
   const int threads = (RB / R) * (UB / 2);
   // The layout above; ops/gru_kernel.py::gru_fwd_smem_bytes plans by it.
-  const size_t smem = sizeof(float) * ((size_t)H * 3 * UB
-                                       + (size_t)STAGES * RB * (KC + PAD));
-  auto kern = gru_fwd_persistent<R>;
+  const size_t smem = sizeof(float) * (
+      L2W ? (size_t)STAGES * (RB * (KC + PAD) + 3 * KC * UB)
+          : (size_t)H * 3 * UB + (size_t)STAGES * RB * (KC + PAD));
+  auto kern = gru_fwd_persistent<R, L2W>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -270,8 +304,8 @@ int launch(const float* xg, const float* mask, const float* uh,
   const dim3 grid(GX, H / UB);
   if ((long long)grid.x * grid.y > (long long)per_sm * sms)
     return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&xg, &mask, &uh, &bh, &h0, &out, &T, &B, &H, &reverse,
-                  &RB, &UB, &KC};
+  void* args[] = {&xg, &mask, &uh, &bh, &h0, &out, &wl2, &T, &B, &H,
+                  &reverse, &RB, &UB, &KC};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), grid,
                                   dim3(threads), args, smem, s);
   if (e != cudaSuccess) return (int)e;
@@ -297,17 +331,20 @@ extern "C" int gru_fwd_limits(int* n_sms, int* max_smem) {
 // (RB / R) * (UB / 2) threads on `stream`. Pointers are device pointers to
 // contiguous fp32 tensors: xg (T, B, 3H), mask (T, B), uh (H, 3H),
 // bh (3H,), h0 (B, H), out (T, B, H). The plan (R rows a thread in
-// {1, 2, 4, 8}, RB, UB, KC, GX) comes from gru_fwd_plan. Returns 0,
+// {1, 2, 4, 8}, RB, UB, KC, GX, and l2: Uh's slices in wl2, a scratch
+// buffer of 3 H^2 floats, else null) comes from gru_fwd_plan. Returns 0,
 // cudaErrorInvalidValue for a malformed plan,
 // cudaErrorCooperativeLaunchTooLarge when the grid is not co-resident, or
 // the launch's error code.
 extern "C" int gru_fwd_launch(const void* xg, const void* mask, const void* uh,
                               const void* bh, const void* h0, void* out,
-                              int T, int B, int H, int reverse, int R, int RB,
-                              int UB, int KC, int GX, void* stream) {
+                              void* wl2, int T, int B, int H, int reverse,
+                              int R, int RB, int UB, int KC, int GX, int l2,
+                              void* stream) {
   const int threads = R > 0 && UB > 0 ? (RB / R) * (UB / 2) : 0;
   if (threads <= 0 || threads > MAX_THREADS || RB % R || UB % 2 || H % UB ||
-      KC % 4 || H % KC || threads % (KC / 4) || GX <= 0)
+      KC % 4 || H % KC || threads % (KC / 4) || GX <= 0 ||
+      (l2 && wl2 == nullptr))
     return (int)cudaErrorInvalidValue;
   const float* a[5] = {static_cast<const float*>(xg),
                        static_cast<const float*>(mask),
@@ -315,12 +352,20 @@ extern "C" int gru_fwd_launch(const void* xg, const void* mask, const void* uh,
                        static_cast<const float*>(bh),
                        static_cast<const float*>(h0)};
   float* o = static_cast<float*>(out);
+  float* w = static_cast<float*>(wl2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VAG_GRU_CASE(RR)                                                    \
+  case RR:                                                                  \
+    return l2 ? launch<RR, true>(a[0], a[1], a[2], a[3], a[4], o, w, T, B,  \
+                                 H, reverse, RB, UB, KC, GX, s)             \
+              : launch<RR, false>(a[0], a[1], a[2], a[3], a[4], o, w, T, B, \
+                                  H, reverse, RB, UB, KC, GX, s);
   switch (R) {
-    case 1: return launch<1>(a[0], a[1], a[2], a[3], a[4], o, T, B, H, reverse, RB, UB, KC, GX, s);
-    case 2: return launch<2>(a[0], a[1], a[2], a[3], a[4], o, T, B, H, reverse, RB, UB, KC, GX, s);
-    case 4: return launch<4>(a[0], a[1], a[2], a[3], a[4], o, T, B, H, reverse, RB, UB, KC, GX, s);
-    case 8: return launch<8>(a[0], a[1], a[2], a[3], a[4], o, T, B, H, reverse, RB, UB, KC, GX, s);
+    VAG_GRU_CASE(1)
+    VAG_GRU_CASE(2)
+    VAG_GRU_CASE(4)
+    VAG_GRU_CASE(8)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef VAG_GRU_CASE
 }

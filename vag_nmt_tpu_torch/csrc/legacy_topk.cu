@@ -58,10 +58,6 @@
 
 namespace {
 
-#if !defined(VAG_MAX_K)
-#error "build through vag_nmt_tpu_torch/ops/_build.py (VAG_MAX_K)"
-#endif
-
 constexpr float FLOOR = -3.0e38f;
 constexpr int BLK = 512;             // the TPU kernels' vocab block
 
@@ -225,6 +221,14 @@ int dispatch(bool rows, int K, const Args& a) {
     VAG_LEGACY_CASE(6)
     VAG_LEGACY_CASE(7)
     VAG_LEGACY_CASE(8)
+    VAG_LEGACY_CASE(9)
+    VAG_LEGACY_CASE(10)
+    VAG_LEGACY_CASE(11)
+    VAG_LEGACY_CASE(12)
+    VAG_LEGACY_CASE(13)
+    VAG_LEGACY_CASE(14)
+    VAG_LEGACY_CASE(15)
+    VAG_LEGACY_CASE(16)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -237,8 +241,8 @@ int dispatch(bool rows, int K, const Args& a) {
 // f32, fin (B, K) uint8; scratch part_v (B*K*S*K) f32 and part_i int32,
 // counters (>= B) uint32, zero on entry and left zero; outputs vals (B, K)
 // f32 descending and idx (B, K) int64 flat ids k * V + v. K <= V,
-// 1 <= K <= VAG_MAX_K, S >= 1 slices per row. Returns 0 or a CUDA error
-// code.
+// 1 <= K <= 16 (ops/topk.py's MAX_K), S >= 1 slices per row. Returns 0 or a
+// CUDA error code.
 extern "C" int legacy_topk_blocks_launch(const void* logits, const void* base,
                                          const void* fin, void* part_v,
                                          void* part_i, void* counters,
@@ -274,5 +278,3 @@ extern "C" int legacy_topk_rows_launch(const void* logits, const void* base,
                S, pad_id, static_cast<cudaStream_t>(stream)};
   return dispatch(true, K, a);
 }
-
-static_assert(VAG_MAX_K == 8, "the K switch above instantiates 1..VAG_MAX_K");

@@ -47,7 +47,9 @@
 //    sum-exp), running top-SK (insert<SK>, early reject against the SK-th
 //    slot), watermark. The main loop takes no SK, so a depth-K call and a
 //    shallow call see the same logits bit for bit; only the fold and the
-//    merges are instantiated per SK (8 kernels).
+//    merges are instantiated per SK (MAX_K kernels: the wrapper builds
+//    this file twice, MAX_K = 8 for K <= 8 and MAX_K = 16 for K <= 16,
+//    with the same tiling).
 //  The merge: the CTA merges its lanes per row (top-K, max, sum-exp,
 //    watermark) and writes them as its split's partials; then it takes an
 //    arrival ticket on its row tile's counter, and the last CTA of the row
@@ -506,6 +508,16 @@ cudaError_t grid_sk(const Params& p, int sk, cudaStream_t stream) {
     case 6: return grid<6>(p, stream);
     case 7: return grid<7>(p, stream);
     case 8: return grid<8>(p, stream);
+#if VAG_MAX_K > 8
+    case 9: return grid<9>(p, stream);
+    case 10: return grid<10>(p, stream);
+    case 11: return grid<11>(p, stream);
+    case 12: return grid<12>(p, stream);
+    case 13: return grid<13>(p, stream);
+    case 14: return grid<14>(p, stream);
+    case 15: return grid<15>(p, stream);
+    case 16: return grid<16>(p, stream);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }
@@ -582,4 +594,6 @@ extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
   return 0;
 }
 
-static_assert(MAX_K == 8, "grid_sk instantiates 1 <= SK <= MAX_K");
+// Two instances (ops/readout_topk.py): MAX_K = 8 for K <= 8, the beam-5
+// path's, and MAX_K = 16 for 9 <= K <= 16.
+static_assert(MAX_K == 8 || MAX_K == 16, "grid_sk instantiates 1 <= SK <= MAX_K");

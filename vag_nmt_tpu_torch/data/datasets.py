@@ -1,16 +1,89 @@
-"""The synthetic toy task (own copy of the JAX package's ``toy_vocab`` and
-``make_toy_examples``): the target is the reversed source with a fixed token
-offset, and the "image" feature is a fixed random projection of the source
-bag-of-words."""
+"""Dataset readers (own copy of the JAX package's ``data/datasets.py``):
+parallel splits of a data directory, and the synthetic toy task.
+
+A data directory holds, per split (Multi30k: train, val, test2016,
+test2017; IKEA and toy: train, val, test):
+
+    <data_dir>/<split>.<src_lang>          tokenized + BPE'd source text
+    <data_dir>/<split>.<tgt_lang>          tokenized + BPE'd target text
+    <data_dir>/<split>_features.npy        (N, 2048) pool5 features (optional)
+
+with ``vocab.<lang>.json`` beside them. In the toy task the target is the
+reversed source with a fixed token offset, and the "image" feature is a
+fixed random projection of the source bag-of-words."""
 
 from __future__ import annotations
 
-from typing import List
+import os
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from vag_nmt_tpu_torch.data.batching import Example
+from vag_nmt_tpu_torch.data.features import load_features
 from vag_nmt_tpu_torch.data.vocab import Vocab
+
+
+def read_lines(path: str) -> List[str]:
+    with open(path, encoding="utf-8") as f:
+        return [ln.rstrip("\n") for ln in f]
+
+
+def load_parallel_split(
+    data_dir: str,
+    split: str,
+    src_lang: str,
+    tgt_lang: str,
+    src_vocab: Vocab,
+    tgt_vocab: Optional[Vocab] = None,
+    *,
+    with_target: bool = True,
+    feature_file: str = "",
+    max_src_len: int = 10_000,
+    max_tgt_len: int = 10_000,
+) -> List[Example]:
+    """Numericalize a split whose text files are already tokenized and
+    BPE'd (space-separated units). Raises ValueError when the two sides'
+    line counts differ or the features do not align (``load_features``)."""
+    src_lines = read_lines(os.path.join(data_dir, f"{split}.{src_lang}"))
+    tgt_lines = None
+    if with_target:
+        tgt_lines = read_lines(os.path.join(data_dir, f"{split}.{tgt_lang}"))
+        if len(tgt_lines) != len(src_lines):
+            raise ValueError(
+                f"{split}: source has {len(src_lines)} lines, target "
+                f"{len(tgt_lines)}: corpus misaligned")
+    feats = None
+    if feature_file:
+        fpath = (feature_file if os.path.isabs(feature_file)
+                 else os.path.join(data_dir, feature_file))
+        feats = load_features(fpath, expected_rows=len(src_lines),
+                              corpus_lines=src_lines)
+
+    out: List[Example] = []
+    for i, s in enumerate(src_lines):
+        src_ids = src_vocab.encode(s.split())[:max_src_len]
+        tgt_ids = None
+        if tgt_lines is not None:
+            assert tgt_vocab is not None
+            tgt_ids = tgt_vocab.encode(tgt_lines[i].split())[:max_tgt_len]
+        img = np.asarray(feats[i], np.float32) if feats is not None else None
+        out.append(Example(src=src_ids, tgt=tgt_ids, img=img, index=i))
+    return out
+
+
+def default_feature_file(split: str) -> str:
+    return f"{split}_features.npy"
+
+
+def resolve_splits(dataset: str) -> Tuple[str, str, List[str]]:
+    """(train_split, dev_split, test_splits) of a dataset family."""
+    if dataset == "multi30k":
+        return "train", "val", ["test2016", "test2017"]
+    if dataset in ("ikea", "toy"):
+        return "train", "val", ["test"]
+    raise ValueError(f"unknown dataset {dataset!r}")
+
 
 TOY_N_SYMBOLS = 30
 TOY_OFFSET = TOY_N_SYMBOLS  # tgt symbol = src symbol + offset

@@ -59,7 +59,8 @@ class Translator:
     @staticmethod
     def from_run(run_dir: str, data_dir: Optional[str] = None,
                  tag: str = "best", device: DeviceLike = None) -> "Translator":
-        """Load config + the port's checkpoint from a train out-dir.
+        """Load config + the checkpoint from a train out-dir, the port's
+        or the JAX package's (``train/checkpoint.load_checkpoint``).
         ``data_dir`` (vocab, BPE, preprocess manifest) defaults to the data
         dir recorded in the saved config. Without a preprocess.json the
         simple tokenizer and lowercasing apply. device: None = the card."""
@@ -96,7 +97,8 @@ class Translator:
                 truecaser = Truecaser.load(tc_path)
 
         state, _ = load_checkpoint(
-            os.path.join(run_dir, cfg.train.checkpoint_dir), tag, device=dev)
+            os.path.join(run_dir, cfg.train.checkpoint_dir), tag, device=dev,
+            cfg=cfg.model)
         return Translator(cfg, state.params, src_bpe, src_vocab, tgt_vocab,
                           lower=lower, tokenizer=tokenizer,
                           truecaser=truecaser, device=dev)

@@ -91,9 +91,13 @@ def _use_two_phase(cfg: Config, beam_size: int, max_len: int) -> bool:
     return max_len >= 96
 
 
-def _check_supported(nbest: int, fused: bool, mesh, cfg: Config) -> None:
+def _check_supported(nbest: int, beam_size: int, fused: bool, mesh,
+                     cfg: Config) -> None:
     if nbest:
-        raise _later_slice("nbest output")
+        if beam_size <= 1:
+            raise ValueError("nbest output requires beam_size > 1")
+        if not fused:
+            raise ValueError("nbest output requires the fused decode path")
     if not fused:
         raise _later_slice("the bucketed (fused=False) decode path")
     if mesh is not None:
@@ -143,8 +147,11 @@ def translate_corpus(
     impl: str = "auto",
     use_tables: Optional[bool] = None,
     device: DeviceLike = None,
-) -> Tuple[List[str], Dict]:
-    """Returns (hypothesis lines in example-list order, stats).
+) -> Tuple[List, Dict]:
+    """Returns (hypothesis lines in example-list order, stats); with
+    ``nbest`` = N > 0 (beam search on the fused path only, else
+    ValueError) each example's up to min(N, beam_size) (text, score)
+    pairs instead, best first, with the length-normalized beam scores.
 
     beam_size 1 decodes greedily; beam search otherwise: pooled per
     super-chunk when the streaming-refill decoder is on (VAG_STREAM_DECODE
@@ -181,7 +188,7 @@ def translate_corpus(
     B = batch_size if batch_size is not None else cfg.decode.decode_batch_size
     streaming = _use_streaming(cfg, beam_size)
     two_phase = not streaming and _use_two_phase(cfg, beam_size, max_len)
-    _check_supported(nbest, fused, mesh, cfg)
+    _check_supported(nbest, beam_size, fused, mesh, cfg)
     if use_tables is None:
         use_tables = decode_knobs().tables
     if use_tables is None:
@@ -243,8 +250,24 @@ def translate_corpus(
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     tables = decode_tables(params["decoder"]) if use_tables else None
-    out_toks = np.zeros((nb * B, max_len), np.int64)
-    out_lens = np.zeros((nb * B,), np.int64)
+    # per row: the best hypothesis, or with nbest the top nb_k beams and
+    # their scores (the beam loops rank beams best first)
+    nb_k = min(nbest, beam_size) if nbest else 0
+    rk = (nb_k,) if nbest else ()
+    out_toks = np.zeros((nb * B, *rk, max_len), np.int64)
+    out_lens = np.zeros((nb * B, *rk), np.int64)
+    out_scores = np.zeros((nb * B, nb_k), np.float32)
+
+    def keep(rows, res):
+        """The rows' results of one decode (a BeamResult) into the outputs."""
+        if nbest:
+            out_toks[rows] = res.tokens[:, :nb_k].cpu().numpy()
+            out_lens[rows] = res.lengths[:, :nb_k].cpu().numpy()
+            out_scores[rows] = res.scores[:, :nb_k].cpu().numpy()
+        else:
+            out_toks[rows] = res.best_tokens.cpu().numpy()
+            out_lens[rows] = res.best_lengths.cpu().numpy()
+
     chunk_steps: List[int] = []
     refills: List[int] = []
     phase2: List[int] = []
@@ -273,8 +296,7 @@ def translate_corpus(
             res, steps, n_refill = beam_search_streaming(
                 params, m, state, slots=B, refill_threshold=d.refill_threshold,
                 row_cap=row_cap, **beam_kw)
-            out_toks[rows] = res.best_tokens.cpu().numpy()
-            out_lens[rows] = res.best_lengths.cpu().numpy()
+            keep(rows, res)
             chunk_steps.append(steps)
             refills.append(n_refill)
             continue
@@ -283,8 +305,7 @@ def translate_corpus(
                 params, m, state, chunk=B,
                 split_len=d.split_len or max(16, max_len // 4),
                 row_cap=row_cap, **beam_kw)
-            out_toks[rows] = res.best_tokens.cpu().numpy()
-            out_lens[rows] = res.best_lengths.cpu().numpy()
+            keep(rows, res)
             chunk_steps.extend(steps1)
             phase2.append(steps2)
             continue
@@ -292,25 +313,33 @@ def translate_corpus(
             cr = slice(c * B, (c + 1) * B)
             chunk = DecodeState(*(x[cr] for x in state))
             cap = None if row_cap is None else row_cap[cr]
+            g = slice(sc * S * B + c * B, sc * S * B + (c + 1) * B)
             if beam_size <= 1:
                 res = greedy_decode(params, m, chunk, max_len, tables=tables,
                                     row_cap=cap, block_ngram=block_ngram)
-                toks, lens_c = res.tokens, res.lengths
+                out_toks[g] = res.tokens.cpu().numpy()
+                out_lens[g] = res.lengths.cpu().numpy()
             else:
                 res = beam_search(params, m, chunk, row_cap=cap,
                                   unroll=unroll, **beam_kw)
-                toks, lens_c = res.best_tokens, res.best_lengths
+                keep(g, res)
                 reruns += res.reruns
-            g = slice(sc * S * B + c * B, sc * S * B + (c + 1) * B)
-            out_toks[g] = toks.cpu().numpy()
-            out_lens[g] = lens_c.cpu().numpy()
             chunk_steps.append(res.steps)
     elapsed = time.perf_counter() - t0
 
-    lines = _detok_rows(out_toks[:n], out_lens[:n], tgt_vocab, de_bpe)
-    hyps: List[str] = [""] * n
-    for r, i in enumerate(order):
-        hyps[i] = lines[r]
+    if nbest:
+        # only the rows asked for are detokenized
+        lines = _detok_rows(out_toks[:n].reshape(n * nb_k, max_len),
+                            out_lens[:n].reshape(n * nb_k), tgt_vocab, de_bpe)
+        hyps: List = [[] for _ in range(n)]
+        for r, i in enumerate(order):
+            hyps[i] = [(lines[r * nb_k + k], float(out_scores[r, k]))
+                       for k in range(nb_k)]
+    else:
+        lines = _detok_rows(out_toks[:n], out_lens[:n], tgt_vocab, de_bpe)
+        hyps = [""] * n
+        for r, i in enumerate(order):
+            hyps[i] = lines[r]
     stats = {"sentences_per_sec": n / max(elapsed, 1e-9),
              "elapsed_s": elapsed, "sentences": n, "beam_size": beam_size,
              "beam_loop_steps": int(sum(chunk_steps) + sum(phase2)),

@@ -73,8 +73,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 def params_from_numpy(tree: Any, cfg: ModelConfig, *,
                       device: DeviceLike = None) -> Params:
     """The weight bridge: the JAX parameter tree as nested dicts/lists of
-    numpy arrays under JAX's own paths (e.g. ``jax.device_get(params)``)
-    -> the port's parameters. Strict: a missing or extra path, a list of
+    numpy arrays under JAX's own paths (e.g. ``jax.device_get(params)``,
+    or a list as flax serializes it, a dict keyed "0", "1", ...) -> the
+    port's parameters. Strict: a missing or extra path, a list of
     the wrong length or a shape that differs from what ``cfg`` implies
     raises; every leaf is used."""
     dev = resolve_device(device)
@@ -92,6 +93,10 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, *,
                                  f"unexpected {extra}")
             return {k: conv(tmpl[k], node[k], f"{path}/{k}") for k in tmpl}
         if isinstance(tmpl, list):
+            if isinstance(node, dict) and set(node) == {
+                    str(i) for i in range(len(node))}:
+                # flax's state dicts write a list as {"0": .., "1": ..}
+                node = [node[str(i)] for i in range(len(node))]
             if not isinstance(node, (list, tuple)) or len(node) != len(tmpl):
                 raise ValueError(f"{path}: expected a list of {len(tmpl)}")
             return [conv(t, n, f"{path}[{i}]")
@@ -165,6 +170,28 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         aux["vse"] = vse_l
     aux["loss"] = total
     return total, aux
+
+
+def embeddings_for_retrieval(params: Params, cfg: ModelConfig,
+                             batch: Dict[str, Any], *,
+                             device: DeviceLike = None,
+                             impl: Optional[str] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(img_emb, txt_emb) (B, D) in the shared space, for the R@K
+    evaluation. batch: src (B, T) int, src_mask (B, T), img (B, F) (tensors
+    or numpy arrays; moved to ``device``, None = the card)."""
+    if not cfg.multimodal:
+        raise ValueError("retrieval requires a multimodal config")
+    dev = resolve_device(device)
+    same_device(dev, params["decoder"]["embed"]["table"], "params")
+    b = {"src": torch.as_tensor(batch["src"], device=dev).long(),
+         "src_mask": torch.as_tensor(batch["src_mask"],
+                                     device=dev).to(torch.float32),
+         "img": torch.as_tensor(batch["img"], device=dev)}
+    with torch.no_grad():
+        _, _, img_emb, txt_emb = _encode_and_ground(params, cfg, b,
+                                                    train=False, impl=impl)
+    return img_emb, txt_emb
 
 
 def prepare_decode(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,

@@ -13,6 +13,9 @@ every declared kernel at once, one ``nvcc`` process per source, all started
 together. ``build_variants`` and ``loaded_as`` serve the tuning studies
 (``ops/*_tune.py``): builds of a source with text edits, put in place of
 the kernel's own library under its wrapper; no path of the port runs them.
+A source may be built more than once under names of its own (``declare``'s
+``src``), each with its own defines: the beam top-K kernels have one
+instance for K <= 8 and one for K <= 16.
 """
 
 from __future__ import annotations
@@ -33,20 +36,28 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# name -> ({C function name: argtypes}, -D defines); filled by each
-# kernel's wrapper module.
-_KERNELS: Dict[str, Tuple[Dict[str, list], Dict[str, int]]] = {}
+# name -> ({C function name: argtypes}, -D defines, source name); filled
+# by each kernel's wrapper module.
+_KERNELS: Dict[str, Tuple[Dict[str, list], Dict[str, int], str]] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOGS: Dict[str, str] = {}      # nvcc's output (ptxas -v) of each build here
 
 
 def declare(name: str, fn: str, argtypes: list,
-            defines: Optional[Dict[str, int]] = None) -> None:
-    """Declare C entry point ``fn`` of csrc/<name>.cu; a source with several
-    entry points declares each, with the same defines."""
-    fns, _ = _KERNELS.setdefault(name, ({}, dict(defines or {})))
+            defines: Optional[Dict[str, int]] = None,
+            src: Optional[str] = None) -> None:
+    """Declare C entry point ``fn`` of the build ``name`` of csrc/<src>.cu
+    (``src`` defaults to ``name``); a build with several entry points
+    declares each, with the same defines."""
+    fns, _, _ = _KERNELS.setdefault(name, ({}, dict(defines or {}),
+                                           src or name))
     fns[fn] = argtypes
+
+
+def _src(name: str) -> Path:
+    return CSRC / f"{_KERNELS[name][2] if name in _KERNELS else name}.cu"
 
 
 def _flags(name: str) -> List[str]:
@@ -63,7 +74,7 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src = _src(name)
     h = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
     for hdr in sorted(CSRC.glob("*.cuh")):     # shared device code
         h.update(hdr.read_bytes())
@@ -79,7 +90,7 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", tmp, str(_src(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, so
@@ -91,7 +102,29 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    _LOGS[name] = out
     os.replace(tmp, so)
+
+
+_PTXAS_FN = re.compile(r"Function properties for (\S+)")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def spills(name: str) -> Dict[str, Tuple[int, int]]:
+    """{mangled kernel name: (spill store bytes, spill load bytes)} from
+    ptxas's report of build ``name`` in this process (empty where the
+    library was already built)."""
+    out, fn = {}, None
+    for line in _LOGS.get(name, "").splitlines():
+        m = _PTXAS_FN.search(line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m and fn is not None:
+            out[fn] = (int(m.group(1)), int(m.group(2)))
+            fn = None
+    return out
 
 
 def build_all() -> float:
@@ -111,7 +144,7 @@ def build_all() -> float:
 
 
 def _bind(name: str, path: Path) -> ctypes.CDLL:
-    """The library at ``path`` with csrc/<name>.cu's entry points typed."""
+    """The library at ``path`` with build ``name``'s entry points typed."""
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in _KERNELS[name][0].items():
         f = getattr(lib, fn)
@@ -121,7 +154,7 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of build ``name``, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
         job = _start(name)
@@ -146,14 +179,15 @@ _LOCAL_INCLUDE = re.compile(r'^#include "(\w+\.cuh)"\n', re.M)
 
 
 def source(name: str) -> str:
-    """csrc/<name>.cu with each ``#include "<header>.cuh"`` of csrc/ replaced
-    by that header's text (without its ``#pragma once``): the text that the
-    tuning studies edit, helpers shared through a header included."""
+    """Build ``name``'s source with each ``#include "<header>.cuh"`` of csrc/
+    replaced by that header's text (without its ``#pragma once``): the text
+    that the tuning studies edit, helpers shared through a header
+    included."""
     def inline(m):
         hdr = (CSRC / m.group(1)).read_text()
         return hdr.replace("#pragma once\n", "")
 
-    return _LOCAL_INCLUDE.sub(inline, (CSRC / f"{name}.cu").read_text())
+    return _LOCAL_INCLUDE.sub(inline, _src(name).read_text())
 
 
 def build_variants(name: str, variants, out_dir: Path) -> List[ctypes.CDLL]:

@@ -31,9 +31,10 @@ import torch
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
 from vag_nmt_tpu_torch.ops import _build
 from vag_nmt_tpu_torch.ops.gru_kernel import gru_gate_algebra
+from vag_nmt_tpu_torch.ops.topk import (MAX_K, declare_instances, instance,
+                                        k_instance)
 
 NEG_INF = -1e9          # as ops/attention.masked_softmax
-MAX_K = 8               # beams per sentence the attention grid holds
 
 # The kernel's tiling, passed to csrc/dec_step.cu as -D defines: rows of a
 # product tile, depth of a staged chunk, hidden units of a gate tile (its
@@ -166,15 +167,21 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
     """``dec_step_plain``'s contract. impl: "auto" (kernel for CUDA
     tensors, plain for CPU tensors), "kernel" or "plain". One call of the
     kernel path enqueues GRIDS grids (see csrc/dec_step.cu): it counts one
-    in ``dec_step.launches`` and those in ``dec_step.grids``."""
-    if resolve_impl(impl, s) == "plain":
-        return dec_step_plain(gy, s, ctx, ctxpb, mask, weights)
+    in ``dec_step.launches`` and those in ``dec_step.grids``. The kernel
+    has an instance for K <= 8 beams a sentence and one for K <= 16
+    (``ops/topk.K_INSTANCES``); above 16 the kernel route raises
+    ValueError."""
     B, T, C = ctx.shape
     N, H = s.shape
-    if N % B or not 1 <= N // B <= MAX_K:
-        raise ValueError(f"dec_step kernel: {N} rows for {B} sentences "
-                         f"(1..{MAX_K} beams each)")
+    if resolve_impl(impl, s) == "plain":
+        return dec_step_plain(gy, s, ctx, ctxpb, mask, weights)
+    if N % B or N < B:
+        raise ValueError(f"dec_step kernel: {N} rows for {B} sentences")
     K = N // B
+    if k_instance(K) is None:
+        raise ValueError(f"dec_step kernel: K={K} beams a sentence, no "
+                         f"instance takes more than {MAX_K} (impl='plain' "
+                         f"runs the plain version)")
     A = weights[2].shape[1] - 3 * H
     R = weights[7].shape[1]
     G = 3 * H + R
@@ -196,7 +203,7 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
     s_new, t = new(N, H), new(N, R)
     scratch = (new(N, H), new(N, A + 3 * H), new(N, C), new(N, R))  # s~ qh c tc
     plan = dec_step_plan(N, H, A, C, R)
-    lib = _build.load("dec_step")
+    lib = _build.load(instance("dec_step", K))
     rc = lib.dec_step_launch(
         gy.data_ptr(), s.data_ptr(), ctx.data_ptr(), ctxpb.data_ptr(),
         mask.data_ptr(), *(w.data_ptr() for w in weights), s_new.data_ptr(),
@@ -212,11 +219,14 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
 dec_step.launches = 0
 dec_step.grids = 0
 
-_build.declare("dec_step", "dec_step_launch",
-               [ctypes.c_void_p] * 20 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
-               defines={"VAG_MAX_K": MAX_K, "VAG_BM": BM, "VAG_BK": BK,
-                        "VAG_UB": UB, "VAG_BN": BN, "VAG_RN": RN, "VAG_SPLIT": SPLIT,
-                        "VAG_STAGES": STAGES, "VAG_ATT_CLUSTER": ATT_CLUSTER})
+# The attention grid holds a sentence's K beams in one cluster: at K = 16,
+# T = 32 and A = 512 its shared memory is 16 * 512 + 512 + 16 * 32 floats
+# (37.9 KB), and its softmax warps take beams k, k + 8.
+declare_instances("dec_step", "dec_step_launch",
+                  [ctypes.c_void_p] * 20 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
+                  {"VAG_BM": BM, "VAG_BK": BK, "VAG_UB": UB, "VAG_BN": BN,
+                   "VAG_RN": RN, "VAG_SPLIT": SPLIT, "VAG_STAGES": STAGES,
+                   "VAG_ATT_CLUSTER": ATT_CLUSTER})
 
 
 def decode_step_fused(params: Dict[str, Any], tables: Dict[str, torch.Tensor],

@@ -75,7 +75,9 @@ class GruFwdPlan:
     ``uh[:, g*H + unit]``) and, each step, the row blocks x, x + row_slots,
     ... of the ``row_blocks`` blocks of ``row_block`` rows; a thread holds
     ``rows_per_thread`` rows x 2 units. The state streams through shared
-    memory in ``chunk``-deep slices."""
+    memory in ``chunk``-deep slices. The CTA's Uh slice sits in shared
+    memory, or with ``l2`` in a device buffer of 3 H^2 floats (one slice a
+    unit tile), its chunks staged through the ring with the state."""
 
     rows_per_thread: int
     row_block: int
@@ -84,6 +86,7 @@ class GruFwdPlan:
     row_blocks: int
     row_slots: int
     unit_tiles: int
+    l2: bool = False
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -96,7 +99,8 @@ class GruFwdPlan:
     @property
     def smem_bytes(self) -> int:
         return gru_fwd_smem_bytes(self.unit_block * self.unit_tiles,
-                                  self.row_block, self.unit_block, self.chunk)
+                                  self.row_block, self.unit_block, self.chunk,
+                                  l2=self.l2)
 
     @property
     def passes(self) -> int:
@@ -105,11 +109,43 @@ class GruFwdPlan:
 
 
 def gru_fwd_smem_bytes(H: int, row_block: int, unit_block: int,
-                       chunk: int) -> int:
+                       chunk: int, *, l2: bool = False) -> int:
     """Dynamic shared memory of one CTA: its Uh slice (H x 3*unit_block)
-    and GRU_STAGES staged chunks of row_block state rows (the layout of
-    csrc/gru_fwd.cu, whose launcher sizes it the same way)."""
-    return 4 * (H * 3 * unit_block + GRU_STAGES * row_block * (chunk + GRU_PAD))
+    and GRU_STAGES staged chunks of row_block state rows; with ``l2`` no
+    slice, and each stage also holds the slice's chunk (chunk x
+    3*unit_block). The layout of csrc/gru_fwd.cu, whose launcher sizes it
+    the same way."""
+    ring = row_block * (chunk + GRU_PAD)
+    if l2:
+        return 4 * GRU_STAGES * (ring + chunk * 3 * unit_block)
+    return 4 * (H * 3 * unit_block + GRU_STAGES * ring)
+
+
+def padded_width(H: int) -> int:
+    """The width the kernel runs a scan of width H at: H rounded up to a
+    multiple of 16 (``gru_fwd`` zero-pads the units in between)."""
+    return -(-H // 16) * 16
+
+
+def pad_units(xg_t: torch.Tensor, uh: torch.Tensor, bh: torch.Tensor,
+              h0: torch.Tensor, Hp: int):
+    """The scan's inputs at width Hp >= H, each gate's block of units
+    zero-padded: xg_t (T, B, 3Hp), uh (Hp, 3Hp), bh (3Hp,), h0 (B, Hp).
+    Exact: a padded unit's gates see r = z = 1/2 and n = tanh(0) = 0, so it
+    stays 0 from h0 = 0 on, and its zero rows of uh add nothing to a real
+    unit's sum."""
+    H = h0.shape[-1]
+
+    def gates(x, rows_too=False):
+        x = x.reshape(*x.shape[:-1], 3, H)
+        x = torch.nn.functional.pad(x, (0, Hp - H))
+        x = x.reshape(*x.shape[:-2], 3 * Hp)
+        if rows_too:
+            x = torch.nn.functional.pad(x, (0, 0, 0, Hp - H))
+        return x.contiguous()
+
+    return (gates(xg_t), gates(uh, rows_too=True), gates(bh),
+            torch.nn.functional.pad(h0, (0, Hp - H)).contiguous())
 
 
 @functools.lru_cache(maxsize=256)
@@ -121,11 +157,28 @@ def gru_fwd_plan(B: int, H: int, n_sms: int, max_smem: int) -> GruFwdPlan:
     the H100 this spreads the rows over every CTA the unit tiles leave room
     for; at the decode shape it gives up about 2% against twice the unit
     tiles of half the width to halve the L2 reads of the state (PERF.md).
-    Raises ValueError when no tiling fits ``n_sms`` SMs and ``max_smem``
-    bytes of shared memory a block, or H is not a multiple of 16."""
+    Where no tiling holds its Uh slice in shared memory (every H >= 1280
+    on the H100), the tilings whose slices sit in L2 (``l2``: their
+    chunks staged through the ring), the fewest clocks of the busiest
+    CTA a step first (its multiply-adds against its L2 reads, which a
+    small row block makes the larger), then as above. Raises ValueError
+    when no tiling fits ``n_sms`` SMs and ``max_smem`` bytes of shared
+    memory a block, or H is not a multiple of 16 (``gru_fwd`` pads it)."""
     if B < 1 or H < 16 or H % 16:
         raise ValueError(f"gru_fwd: H={H} must be a positive multiple of 16 "
                          f"(and B={B} positive)")
+    for l2 in (False, True):
+        best = _best_fwd_tiling(B, H, n_sms, max_smem, l2)
+        if best is not None:
+            return best
+    raise ValueError(f"gru_fwd: no co-resident tiling of B={B}, H={H} "
+                     f"on {n_sms} SMs with {max_smem} bytes of shared "
+                     "memory a block")
+
+
+def _best_fwd_tiling(B: int, H: int, n_sms: int, max_smem: int,
+                     l2: bool) -> Optional[GruFwdPlan]:
+    """gru_fwd_plan's search with Uh's slices resident or (``l2``) in L2."""
     best, best_key = None, None
     for R in _ROWS_PER_THREAD:
         for threads in _THREADS:
@@ -140,22 +193,26 @@ def gru_fwd_plan(B: int, H: int, n_sms: int, max_smem: int) -> GruFwdPlan:
                 chunk = next((c for c in _CHUNKS if H % c == 0
                               and (H // c >= 4 or c == 16)
                               and threads % (c // 4) == 0
-                              and gru_fwd_smem_bytes(H, rb, ub, c) <= max_smem),
+                              and gru_fwd_smem_bytes(H, rb, ub, c, l2=l2)
+                              <= max_smem),
                              None)
                 if chunk is None:
                     continue
                 row_blocks, unit_tiles = -(-B // rb), H // ub
                 plan = GruFwdPlan(R, rb, ub, chunk, row_blocks,
                                   min(row_blocks, n_sms // unit_tiles),
-                                  unit_tiles)
+                                  unit_tiles, l2)
                 key = (plan.passes * rb * ub, plan.passes, -threads,
                        unit_tiles, -chunk)
+                if l2:
+                    # each pass reads the CTA's slice (3 ub H floats) and
+                    # its rows' state (rb H) through L2: the busiest CTA's
+                    # step in SM clocks, at 128 FMA and ~64 L2 bytes a clock
+                    clocks = plan.passes * max(
+                        rb * 3 * ub * H / 128, 4 * (3 * ub + rb) * H / 64)
+                    key = (clocks,) + key
                 if best_key is None or key < best_key:
                     best, best_key = plan, key
-    if best is None:
-        raise ValueError(f"gru_fwd: no co-resident tiling of B={B}, H={H} "
-                         f"on {n_sms} SMs with {max_smem} bytes of shared "
-                         "memory a block")
     return best
 
 
@@ -181,15 +238,20 @@ def _launch(fn, plan: GruFwdPlan, xg_t: torch.Tensor, mask_t: torch.Tensor,
             uh: torch.Tensor, bh: torch.Tensor, h0: torch.Tensor,
             reverse: bool) -> torch.Tensor:
     """Enqueue one scan through C entry ``fn`` (csrc/gru_fwd.cu's
-    gru_fwd_launch) tiled by ``plan``; returns hs_t. Raises when the
+    gru_fwd_launch) tiled by ``plan`` (with ``plan.l2``, a scratch buffer
+    of 3 H^2 floats for Uh's slices); returns hs_t. Raises when the
     launcher refuses the plan (not co-resident, malformed) or the launch
     fails."""
     T, B, H3 = xg_t.shape
     out = torch.empty((T, B, H3 // 3), dtype=torch.float32, device=xg_t.device)
+    wl2 = (torch.empty(uh.numel(), dtype=torch.float32, device=xg_t.device)
+           if plan.l2 else None)
     rc = fn(xg_t.data_ptr(), mask_t.data_ptr(), uh.data_ptr(), bh.data_ptr(),
-            h0.data_ptr(), out.data_ptr(), T, B, H3 // 3, int(reverse),
-            plan.rows_per_thread, plan.row_block, plan.unit_block, plan.chunk,
-            plan.row_slots, torch.cuda.current_stream(xg_t.device).cuda_stream)
+            h0.data_ptr(), out.data_ptr(),
+            None if wl2 is None else wl2.data_ptr(), T, B, H3 // 3,
+            int(reverse), plan.rows_per_thread, plan.row_block,
+            plan.unit_block, plan.chunk, plan.row_slots, int(plan.l2),
+            torch.cuda.current_stream(xg_t.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gru_fwd kernel launch failed: CUDA error {rc} "
                            f"(plan {plan})")
@@ -205,7 +267,9 @@ def gru_fwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     One call of the kernel path enqueues the whole scan as one persistent
     cooperative grid (see csrc/gru_fwd.cu) tiled by ``gru_fwd_plan`` for
     this card: it counts one in ``gru_fwd.launches`` and one in
-    ``gru_fwd.grids``. A plan the card cannot hold co-resident raises."""
+    ``gru_fwd.grids``. A width that is no multiple of 16 runs zero-padded
+    to ``padded_width(H)`` (``pad_units``, exact), the output cut back. A
+    plan the card cannot hold co-resident raises."""
     if resolve_impl(impl, xg_t) == "plain":
         return gru_fwd_plain(xg_t, mask_t, uh, bh, h0, reverse=reverse)
     T, B, H3 = xg_t.shape
@@ -217,12 +281,15 @@ def gru_fwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     check_kernel_arg(uh, torch.float32, (H, 3 * H), "gru_fwd: uh")
     check_kernel_arg(bh, torch.float32, (3 * H,), "gru_fwd: bh")
     check_kernel_arg(h0, torch.float32, (B, H), "gru_fwd: h0")
-    plan = gru_fwd_plan(B, H, *_device_limits(xg_t.device))
+    Hp = padded_width(H)
+    if Hp != H:
+        xg_t, uh, bh, h0 = pad_units(xg_t, uh, bh, h0, Hp)
+    plan = gru_fwd_plan(B, Hp, *_device_limits(xg_t.device))
     out = _launch(_build.load("gru_fwd").gru_fwd_launch, plan, xg_t, mask_t,
                   uh, bh, h0, reverse)
     gru_fwd.launches += 1
     gru_fwd.grids += 1
-    return out
+    return out if Hp == H else out[..., :H].contiguous()
 
 
 gru_fwd.launches = 0
@@ -230,7 +297,7 @@ gru_fwd.grids = 0
 
 _GRU_DEFINES = {"VAG_GRU_STAGES": GRU_STAGES, "VAG_GRU_PAD": GRU_PAD}
 _build.declare("gru_fwd", "gru_fwd_launch",
-               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
                _GRU_DEFINES)
 _build.declare("gru_fwd", "gru_fwd_limits",
                [ctypes.POINTER(ctypes.c_int)] * 2, _GRU_DEFINES)

@@ -39,8 +39,10 @@ from vag_nmt_tpu_torch.core.config import PAD_ID
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
 from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
 from vag_nmt_tpu_torch.ops import _build
-from vag_nmt_tpu_torch.ops.topk import (_FLOOR, NEG_INF, _arrival_counters,
-                                        beam_topk_plain, stable_topk)
+from vag_nmt_tpu_torch.ops.topk import (_FLOOR, MAX_K, NEG_INF,
+                                        _arrival_counters, beam_topk_plain,
+                                        declare_instances, instance,
+                                        k_instance, stable_topk)
 
 # Tiling of the kernel; csrc/readout_topk.cu is built with it (-D defines,
 # see the declare() below), so the split plan and the lane map cannot
@@ -52,7 +54,6 @@ _COL_TILE = 128             # columns of an output tile; splits are whole tiles
 _DEPTH_CHUNK = 64           # depth of a staged chunk of t and W
 _LANE_PERIOD = 64           # a lane holds _LANE_COLS columns of every 64
 _LANE_COLS = 4
-_MAX_K = 8
 _TARGET_BLOCKS = 132        # one block per SM on the H100's 132 SMs
 
 
@@ -158,7 +159,10 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     counts one in ``readout_topk_rows.launches`` and its grids in
     ``readout_topk_rows.grids``: one (the vocab splits, merged by the last
     block of each row tile), and with the per-step recovery a second, the
-    depth-k rerun of the marked row tiles (after a memset of the marks)."""
+    depth-k rerun of the marked row tiles (after a memset of the marks).
+    The kernel has an instance for k <= 8 and one for k <= 16
+    (``ops/topk.K_INSTANCES``); above 16 the kernel route raises
+    ValueError."""
     sk = min(slots, k) if slots else k
     recover = recover_live if sk < k else None
     if resolve_impl(impl, t) == "plain":
@@ -170,8 +174,10 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return out
     R, E = t.shape
     V = w.shape[1]
-    if not 1 <= k <= _MAX_K or k > V:
-        raise ValueError(f"readout_topk: k={k} outside 1..{min(_MAX_K, V)}")
+    if not 1 <= k <= V or k_instance(k) is None:
+        raise ValueError(f"readout_topk kernel: k={k} outside "
+                         f"1..{min(V, MAX_K)} (no instance takes more than "
+                         f"{MAX_K}; impl='plain' runs the plain version)")
     check_kernel_arg(t, torch.float32, (R, E), "readout_topk: t")
     check_kernel_arg(w, torch.float32, (E, V), "readout_topk: w")
     check_kernel_arg(b, torch.float32, (V,), "readout_topk: b")
@@ -199,7 +205,7 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         recovery = (live, torch.empty((row_tiles,), dtype=torch.uint8,
                                       device=dev), _recoveries(dev))
     part_w, viol = (None if x is None else x.data_ptr() for x in shallow)
-    lib = _build.load("readout_topk")
+    lib = _build.load(instance("readout_topk", k))
     rc = lib.readout_topk_launch(
         t.data_ptr(), w.data_ptr(), b.data_ptr(),
         None if mask is None else mask.data_ptr(),
@@ -236,11 +242,14 @@ def _recoveries(dev: torch.device) -> torch.Tensor:
     return c
 
 
-_build.declare("readout_topk", "readout_topk_launch",
-               [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-               defines={"VAG_BM": _ROW_TILE, "VAG_BN": _COL_TILE,
-                        "VAG_BK": _DEPTH_CHUNK, "VAG_LANE_PERIOD": _LANE_PERIOD,
-                        "VAG_CPT": _LANE_COLS, "VAG_MAX_K": _MAX_K})
+# One tiling for both instances (K <= 8 and K <= 16): at MAX_K = 16 the
+# lane merge's BM x 16 lanes of 2 * 16 + 3 floats (35840) still fit the
+# 39552 floats of the ring.
+declare_instances("readout_topk", "readout_topk_launch",
+                  [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                  {"VAG_BM": _ROW_TILE, "VAG_BN": _COL_TILE,
+                   "VAG_BK": _DEPTH_CHUNK, "VAG_LANE_PERIOD": _LANE_PERIOD,
+                   "VAG_CPT": _LANE_COLS})
 
 
 def deferred_exactness_active(K: int) -> bool:

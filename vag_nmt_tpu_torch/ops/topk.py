@@ -34,7 +34,7 @@ then the combine) in the same launch."""
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -47,7 +47,14 @@ from vag_nmt_tpu_torch.ops import _build
 
 NEG_INF = -1e9          # finished-beam filler, matches decode/beam.py
 _FLOOR = -3.0e38        # "smaller than any candidate" for masking
-MAX_K = 8               # the kernel's register top-K (csrc/beam_topk.cu)
+# Kernels 1 (readout_topk) and 7 (dec_step) size register arrays by
+# VAG_MAX_K, so each is built twice from one source: VAG_MAX_K = 8 for
+# K <= 8 (the beam-5 path's build, defines and tiling) and 16 for
+# 9 <= K <= 16. Kernels 6, 8 and 9 (here) are built once with a K switch
+# over 1..MAX_K. No kernel takes K > MAX_K: on CUDA tensors the wrappers
+# raise there (impl="plain" runs the plain version on the card).
+K_INSTANCES = (8, 16)
+MAX_K = K_INSTANCES[-1]
 LEGACY_BLOCK = 512      # the legacy TPU kernels' vocab block (their tv)
 SPLIT_THREADS = 128     # threads of a split CTA (csrc/topk_split.cuh)
 SPLIT_MIN_COLS = 4 * SPLIT_THREADS   # one float4 per thread at least
@@ -55,6 +62,28 @@ SPLIT_TARGET_CTAS = 4 * 132          # four CTAs on each of the H100's SMs
 
 # VAG_TOPK_IMPL values -> the port's impl names
 _KNOB_IMPL = {"auto": "auto", "xla": "plain", "pallas_lanes": "kernel"}
+
+
+def k_instance(K: int) -> Optional[int]:
+    """VAG_MAX_K of the kernel instance that takes K beams (or K slots),
+    None above MAX_K."""
+    return next((m for m in K_INSTANCES if K <= m), None)
+
+
+def instance(base: str, K: int) -> str:
+    """The build name of kernel ``base``'s instance for K (``k_instance``
+    not None): ``base`` itself for K <= 8, ``base_k16`` above."""
+    m = k_instance(K)
+    return base if m == K_INSTANCES[0] else f"{base}_k{m}"
+
+
+def declare_instances(base: str, fn: str, argtypes: list,
+                      defines: Dict[str, int]) -> None:
+    """Declare C entry ``fn`` of csrc/<base>.cu in every instance, each
+    with ``defines`` and its own VAG_MAX_K."""
+    for m in K_INSTANCES:
+        _build.declare(instance(base, m), fn, argtypes,
+                       {**defines, "VAG_MAX_K": m}, src=base)
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -170,7 +199,8 @@ def legacy_topk_blocks(logits, scores, finished, *, pad_id: int = PAD_ID,
     """Gen 1: ``legacy_topk_blocks_plain``'s contract. impl: "auto" (the
     kernel for CUDA tensors, the plain version for CPU tensors), "kernel"
     or "plain". Each kernel call counts one in ``.launches`` and one grid in
-    ``.grids``."""
+    ``.grids``; the kernel takes 1 <= K <= MAX_K beams (ValueError
+    above)."""
     if resolve_impl(impl, logits) == "plain":
         return legacy_topk_blocks_plain(logits, scores, finished, pad_id=pad_id)
     out = _launch("legacy_topk_blocks", logits, scores, finished, pad_id)
@@ -195,7 +225,7 @@ def legacy_topk_rows(logits, scores, finished, *, pad_id: int = PAD_ID,
 legacy_topk_blocks.launches = legacy_topk_blocks.grids = 0
 legacy_topk_rows.launches = legacy_topk_rows.grids = 0
 
-_DEFINES = {"VAG_MAX_K": MAX_K, "VAG_SPLIT_THREADS": SPLIT_THREADS}
+_DEFINES = {"VAG_SPLIT_THREADS": SPLIT_THREADS}
 _build.declare("legacy_topk", "legacy_topk_blocks_launch",
                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
                defines=_DEFINES)
@@ -218,7 +248,8 @@ def beam_topk(
     legacy kernels "pallas" (gen 1, ``legacy_topk_blocks``) and
     "pallas_rows" (gen 2, ``legacy_topk_rows``), which, like "kernel",
     raise on CPU tensors. Each kernel call counts one in
-    ``beam_topk.launches`` and one grid in ``beam_topk.grids``."""
+    ``beam_topk.launches`` and one grid in ``beam_topk.grids``. Every
+    kernel takes 1 <= K <= MAX_K beams (ValueError above)."""
     if impl == "auto":
         impl = decode_knobs().topk_impl
     if impl == "pallas":
@@ -260,7 +291,9 @@ def grid_call(name: str, logits, scores, finished, *, pad_id: int = PAD_ID):
     B, K, V = logits.shape
     kmax = MAX_K if name == "beam_topk" else min(MAX_K, V)
     if not 1 <= K <= kmax:
-        raise ValueError(f"{name} kernel: K={K} outside 1..{kmax}")
+        raise ValueError(f"{name} kernel: K={K} outside 1..{kmax} (no kernel "
+                         f"takes more than {MAX_K} beams; impl='plain' runs "
+                         f"the plain version)")
     check_kernel_arg(logits, torch.float32, (B, K, V), f"{name}: logits")
     base = _base(logits, scores, finished).contiguous()
     fin = finished.to(torch.uint8).contiguous()

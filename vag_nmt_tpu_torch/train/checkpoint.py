@@ -1,5 +1,6 @@
 """Full train-state checkpoints with resume (counterpart of the JAX
-package's ``train/checkpoint.py``, in a torch-native format).
+package's ``train/checkpoint.py``, in a torch-native format), and the
+reader of the JAX package's own checkpoints.
 
 The whole TrainState (params, Adam moments, step, lr) and the loop's
 metadata (epoch, in-epoch cursor, best dev BLEU, eval patience) go into
@@ -7,8 +8,18 @@ ONE file, ``state_<tag>.pt``, written to a temporary name and renamed into
 place, so a crash never pairs a new state with stale metadata. A JSON
 mirror of the metadata, ``meta_<tag>.json``, is written the same way for
 people to read. Tags: ``last`` (resume) and ``best`` (best dev BLEU).
-Writes are synchronous. Reading a JAX bundle (flax msgpack) is a later
-slice of the port."""
+Writes are synchronous.
+
+``load_checkpoint`` also reads a run the JAX package wrote,
+``state_<tag>.msgpack`` (flax serialization, decoded by
+``train/flax_msgpack.py`` without flax): the bundle ``{state_bytes,
+meta_json}`` or the older layout whose file is the state itself, with its
+metadata in the ``meta_<tag>.json`` sidecar. Its TrainState (``step``,
+``params``, ``opt_state`` = the state of optax's chain (clip,
+scale_by_adam) with ``count``, ``mu`` and ``nu``, ``lr``) becomes the
+port's ``TrainState(step, params, mu, nu, lr)`` through the weight bridge
+``params_from_numpy``, so ``train_loop`` resumes a JAX run and
+``Translator.from_run`` serves one."""
 
 from __future__ import annotations
 
@@ -16,12 +27,17 @@ import json
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from vag_nmt_tpu_torch.core.config import ModelConfig
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device
+from vag_nmt_tpu_torch.models.model import params_from_numpy
+from vag_nmt_tpu_torch.train import flax_msgpack
 from vag_nmt_tpu_torch.train.state import TrainState, tree_leaves, tree_unflatten
 
 _STATE_FILE = "state_{tag}.pt"
+_JAX_STATE_FILE = "state_{tag}.msgpack"
 _META_FILE = "meta_{tag}.json"
 
 
@@ -53,12 +69,8 @@ def save_checkpoint(ckpt_dir: str, tag: str, state: TrainState,
                         write_meta)
 
 
-def load_checkpoint(ckpt_dir: str, tag: str, *, device: DeviceLike = None
-                    ) -> Tuple[TrainState, Dict[str, Any]]:
-    """The saved state, on ``device`` (None = the card), and its meta."""
-    dev = resolve_device(device)
-    payload = torch.load(os.path.join(ckpt_dir, _STATE_FILE.format(tag=tag)),
-                         map_location="cpu", weights_only=True)
+def _load_pt(path: str, dev: torch.device) -> Tuple[TrainState, Dict[str, Any]]:
+    payload = torch.load(path, map_location="cpu", weights_only=True)
 
     def put(tree):
         return tree_unflatten(tree, [x.to(dev) for x in tree_leaves(tree)])
@@ -69,5 +81,71 @@ def load_checkpoint(ckpt_dir: str, tag: str, *, device: DeviceLike = None
     return state, payload["meta"]
 
 
+def _read_jax(ckpt_dir: str, tag: str
+                        ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The JAX package's ``state_<tag>.msgpack`` as (its TrainState's dict
+    of numpy trees: step, params, opt_state, lr; its meta): the bundle
+    ``{state_bytes, meta_json}``, or the older layout (the file is the
+    state; meta from the ``meta_<tag>.json`` sidecar, {} without one)."""
+    with open(os.path.join(ckpt_dir, _JAX_STATE_FILE.format(tag=tag)),
+              "rb") as f:
+        raw = f.read()
+    bundle = flax_msgpack.msgpack_restore(raw)
+    if isinstance(bundle, dict) and "meta_json" in bundle:
+        return (flax_msgpack.msgpack_restore(bytes(bundle["state_bytes"])),
+                json.loads(bundle["meta_json"]))
+    meta: Dict[str, Any] = {}
+    meta_path = os.path.join(ckpt_dir, _META_FILE.format(tag=tag))
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return bundle, meta
+
+
+def _load_jax(ckpt_dir: str, tag: str, cfg: ModelConfig, dev: torch.device
+              ) -> Tuple[TrainState, Dict[str, Any]]:
+    tree, meta = _read_jax(ckpt_dir, tag)
+    adam = tree["opt_state"]["1"]          # chain(clip, scale_by_adam)
+
+    def bridge(t):
+        return params_from_numpy(t, cfg, device=dev)
+
+    state = TrainState(step=int(np.asarray(tree["step"])),
+                       params=bridge(tree["params"]), mu=bridge(adam["mu"]),
+                       nu=bridge(adam["nu"]),
+                       lr=torch.tensor(np.asarray(tree["lr"]),
+                                       dtype=torch.float32, device=dev))
+    return state, meta
+
+
+def load_checkpoint(ckpt_dir: str, tag: str, *, device: DeviceLike = None,
+                    cfg: Optional[ModelConfig] = None
+                    ) -> Tuple[TrainState, Dict[str, Any]]:
+    """The saved state, on ``device`` (None = the card), and its meta:
+    the port's ``state_<tag>.pt`` or the JAX package's
+    ``state_<tag>.msgpack`` (which needs the run's model config ``cfg``
+    for the weight bridge). Where both files exist, the one whose state
+    holds the larger step (the step both packages also write into its
+    meta) is read; on a tie, the ``.pt``."""
+    dev = resolve_device(device)
+    pt = os.path.join(ckpt_dir, _STATE_FILE.format(tag=tag))
+    has_jax = os.path.exists(os.path.join(ckpt_dir,
+                                          _JAX_STATE_FILE.format(tag=tag)))
+    if has_jax and cfg is None:
+        if not os.path.exists(pt):
+            raise ValueError("reading a JAX checkpoint needs the run's "
+                             "model config (cfg=)")
+        has_jax = False
+    if not has_jax:
+        return _load_pt(pt, dev)
+    jax_state = _load_jax(ckpt_dir, tag, cfg, dev)
+    if not os.path.exists(pt):
+        return jax_state
+    pt_state = _load_pt(pt, dev)
+    return jax_state if jax_state[0].step > pt_state[0].step else pt_state
+
+
 def has_checkpoint(ckpt_dir: str, tag: str) -> bool:
-    return os.path.exists(os.path.join(ckpt_dir, _STATE_FILE.format(tag=tag)))
+    """Whether ``tag`` has a checkpoint of either kind in ``ckpt_dir``."""
+    return any(os.path.exists(os.path.join(ckpt_dir, f.format(tag=tag)))
+               for f in (_STATE_FILE, _JAX_STATE_FILE))

@@ -62,16 +62,20 @@ def train_loop(
     max_steps: Optional[int] = None,
     logger: Optional[MetricsLogger] = None,
     device: DeviceLike = None,
+    debug_nans: bool = False,
 ) -> Dict[str, float]:
     """Train from the seed's init (or resume from ``last`` when
-    cfg.train.resume) and return {"steps", "best_bleu"[, "dev_bleu"]}.
-    device: None = the card. A run stopped at max_steps and resumed equals
-    an uninterrupted run bit for bit on the same device."""
+    cfg.train.resume, from the port's checkpoint or the JAX package's) and
+    return {"steps", "best_bleu"[, "dev_bleu"]}. device: None = the card.
+    A run stopped at max_steps and resumed equals an uninterrupted run bit
+    for bit on the same device. debug_nans: read each step's loss and raise
+    FloatingPointError at the first that is not finite (one host read a
+    step)."""
     dev = resolve_device(device)
     log = logger or MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
     try:
         return _train(cfg, out_dir, train_examples, dev_examples, tgt_vocab,
-                      dev_refs, max_steps, log, dev)
+                      dev_refs, max_steps, log, dev, debug_nans)
     finally:
         if logger is None:
             log.close()
@@ -80,7 +84,8 @@ def train_loop(
 def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
            dev_examples: Sequence[Example], tgt_vocab: Vocab,
            dev_refs: Sequence[str], max_steps: Optional[int],
-           log: MetricsLogger, dev: torch.device) -> Dict[str, float]:
+           log: MetricsLogger, dev: torch.device,
+           debug_nans: bool = False) -> Dict[str, float]:
     ckpt_dir = os.path.join(out_dir, cfg.train.checkpoint_dir)
     m = cfg.model
     state = create_train_state(
@@ -115,7 +120,7 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
     best_bleu = -1.0
     evals_since_best = 0
     if cfg.train.resume and has_checkpoint(ckpt_dir, "last"):
-        state, meta = load_checkpoint(ckpt_dir, "last", device=dev)
+        state, meta = load_checkpoint(ckpt_dir, "last", device=dev, cfg=m)
         start_epoch = int(meta.get("epoch", 0))
         start_cursor = int(meta.get("epoch_cursor", 0))
         best_bleu = float(meta.get("best_bleu", -1.0))
@@ -184,6 +189,9 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
         interrupted = False
         for batch in _step_rows(batcher.epoch_stacked(epoch, K), cursor):
             state, aux = step_fn(state, batch, train_img_table)
+            if debug_nans and not bool(torch.isfinite(aux["loss"])):
+                raise FloatingPointError(f"loss {float(aux['loss'])} at "
+                                         f"step {state.step}")
             cursor += 1
             if state.step % log_every == log_mod:
                 log_row(aux, batch, epoch)
