@@ -11,13 +11,15 @@ Phases (each raises on failure; the script then exits non-zero):
      decode shape of m30k_ende_vag (R=640 rows, E=256, V=8000, K=5) and at
      the ragged shapes of READOUT_CASES (V=8003, E=250, 35 rows), a second
      call bit for bit as the first;
-  2b. the K-capped kernels (1, 6, 8, 9 and 7) at beams 12 and 16 (kernels
-     1 and 7 through their VAG_MAX_K = 16 instances), beside beam 5 (the
-     K <= 8 instances), against their plain versions as at beam 5 (kernel
-     1's ids exact but among candidates within READOUT_RTOL of each other
-     in float64, and exact on integer inputs), each grid timed alone, cold
-     and warm; then beam 20, past every kernel: each wrapper's kernel route
-     raises ValueError and impl="plain" gives the plain version;
+  2b. the K-capped kernels (1, 1', 6, 8, 9 and 7) at beams 12, 16, 20 and
+     32 (kernels 1 and 7 through their VAG_MAX_K = 16 instances; above 16
+     the top-K kernels in passes of 16, kernel 7's attention in groups of
+     16 beams), beside beam 5 (the K <= 8 instances), against their plain
+     versions (kernel 1's ids exact but among candidates within
+     READOUT_RTOL of each other in float64, and exact on integer inputs),
+     each grid timed alone, cold and warm, the passes counted, torch.topk
+     on the candidates beside 6, 8, 9 above 16; then K above V: each top-K
+     wrapper's kernel route raises ValueError, with no launch;
   3. gru_fwd kernel (one persistent grid per scan) against its plain
      version at the encoders' shapes (B, T) = (1024, 32) m30k decode,
      (64, 24) training and (512, 120) ikea_vag (E=256, H=512), ragged
@@ -62,6 +64,17 @@ Phases (each raises on failure; the script then exits non-zero):
      and through the plain versions from the same init and dropout draws;
      then 3 steps under torch.profiler, as phase 5, with the decoder scans'
      device ms a step;
+  8b. the bf16-stream instances of kernels 2-5 (builds *_bf16, the
+     reference's compute_dtype="bfloat16") against their plain versions on
+     bf16 streams at (64, 24, 24) and (64, 128, 128), within
+     BF16_STATE_ATOL / BF16_RTOL, a second call bit for bit, each call
+     timed alone cold and warm beside its bound at the bf16 tensor rate
+     and cuDNN's GRU in bf16 (a bf16 carry: not the same function);
+  8c. phase 8's training at compute_dtype="bfloat16", beside it: 40 steps
+     through train_loop, steps/s, target tokens/s, launches a step, a
+     falling loss, kernels 2-5 in their bf16 instances only; 5 steps
+     through the kernels and the plain versions; 2 steps with
+     VAG_GRU_STREAM=fp32 (the fp32 instances only); 3 steps profiled;
   9. beam_topk kernel against its plain version at the unfused beam step's
      shape (B=128, K=5, V=8000), exactly, with finished rows and forced ties,
      and on the split cases (ragged V=8003, B=1 over many vocab slices, ties
@@ -110,15 +123,19 @@ Phases (each raises on failure; the script then exits non-zero):
  15. the command line (python -m vag_nmt_tpu_torch, in this process through
      cli.main) on a synthetic Multi30k data directory at full
      m30k_ende_vag width: train 20 steps with a dev eval, translate at
-     beams 5 and 12 through the kernels and with --impl plain (the share of
-     identical hypotheses), translate --nbest 3, score --meteor, retrieval
-     and translate-text (also with VAG_DEC_STEP=on), each kernel's launches
-     read from each command alone;
+     beams 5, 12 and 20 (kernel 1 in passes) through the kernels and with
+     --impl plain (the share of identical hypotheses), translate --nbest
+     3, score --meteor, retrieval and translate-text (also with
+     VAG_DEC_STEP=on), then train --set model.compute_dtype=bfloat16 and
+     translate of that run (at fp32), each kernel's launches read from each
+     command alone;
  16. the JAX package's toy run checked in under tests/goldens/jax_run_toy
      (its msgpack checkpoint read by the port) decoded on the card through
      the kernels against the JAX package's beam golden.
 Phase 1 builds all eight sources, readout_topk.cu and dec_step.cu twice
-(K <= 8 and K <= 16), and prints ptxas's spills of every build. It prints one JSON line of per-kernel
+(K <= 8 and K > 8), gru_fwd.cu, gru_bwd.cu, dec_scan_fwd.cu and
+dec_scan_bwd.cu twice (fp32 and bf16 streams), and prints ptxas's spills
+of every build. It prints one JSON line of per-kernel
 numbers and, last, the device line. With --gru-grids it prints phase 3's
 grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
 kernel 7's, with --dec-scan-grids kernels 4 and 5's, with --gru-bwd-grids
@@ -794,21 +811,18 @@ def _dec_scan_case(torch, np, dev, B, T, Tt, H, A, C, R, seed=7,
     return inputs, weights, cuda(Tt, B, R, scale=1.0)
 
 
-def _dec_scan_bound(kind, B, T, Tt, H, A, C, R):
-    """(bound ms, by, fp32 bound ms) of one call: the products (per step
-    and time-parallel) as three TF32 products on the tensor cores at the
-    TF32 peak, the attention's energies (add, tanh, multiply-add by va, and
-    in the backward the da, dq and dva terms) and its dot products with ctx
-    on the fp32 cores; bytes: weights, inputs and outputs once. The fp32
-    bound runs the products on the fp32 cores too."""
-    from vag_nmt_tpu_torch.core.flops import (H100_HBM_BYTES_PER_S,
-                                              H100_PEAK_FP32_FLOPS,
-                                              H100_PEAK_TF32_FLOPS)
-
+def _dec_scan_work(kind, B, T, Tt, H, A, C, R):
+    """One call's (product flops, attention flops, fp32 bytes, floats of
+    them that travel as bf16 in the bf16 instances): the products per step
+    and time-parallel, the attention's energies (add, tanh, multiply-add by
+    va, and in the backward the da, dq and dva terms) and its dot products
+    with ctx; bytes: weights, inputs and outputs once."""
     H3, rows = 3 * H, Tt * B
-    w_floats = 2 * H * H3 + H * A + A + C * H3 + 3 * H3 + H * R + C * R
+    w_mat = 2 * H * H3 + H * A + C * H3 + H * R + C * R
+    w_floats = w_mat + A + 3 * H3
     res_floats = rows * (R + 2 * H + C + T + A + 3 * H3) + B * H
     inp_floats = rows * (R + H3) + B * H + B * T * (C + A + 1)
+    half = w_mat + rows * H3 + B * T * C          # matrices, xg, ctx
     if kind == "fwd":
         gemm = 2.0 * rows * (H * H3 + H * A + H * H3 + C * H3 + (C + H) * R)
         att = rows * T * (4.0 * A + 2.0 * C)
@@ -821,10 +835,38 @@ def _dec_scan_bound(kind, B, T, Tt, H, A, C, R):
         att = rows * T * (2.0 * C + 12.0 * A)
         nbytes = 4.0 * (2 * w_floats + inp_floats + 2 * res_floats + rows * R
                         + B * T * (C + A))
+        half *= 2                                   # and their grads
+    return gemm, att, nbytes, half
+
+
+def _dec_scan_bound(kind, B, T, Tt, H, A, C, R):
+    """(bound ms, by, fp32 bound ms) of one call (_dec_scan_work): the
+    products as three TF32 products on the tensor cores at the TF32 peak,
+    the attention on the fp32 cores. The fp32 bound runs the products on
+    the fp32 cores too."""
+    from vag_nmt_tpu_torch.core.flops import (H100_HBM_BYTES_PER_S,
+                                              H100_PEAK_FP32_FLOPS,
+                                              H100_PEAK_TF32_FLOPS)
+
+    gemm, att, nbytes, _ = _dec_scan_work(kind, B, T, Tt, H, A, C, R)
     t_ops = (3 * gemm / H100_PEAK_TF32_FLOPS + att / H100_PEAK_FP32_FLOPS) * 1e3
     t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
     fp32_ms = max((gemm + att) / H100_PEAK_FP32_FLOPS * 1e3, t_bytes)
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", fp32_ms
+
+
+def _dec_scan_bf16_bound(kind, B, T, Tt, H, A, C, R):
+    """Kernels 4 and 5's bf16 instances: the products once at the bf16
+    tensor rate, the attention on the fp32 cores; the matrices, xg, ctx
+    (and in the backward their grads) at 2 bytes."""
+    from vag_nmt_tpu_torch.core.flops import (H100_HBM_BYTES_PER_S,
+                                              H100_PEAK_BF16_FLOPS,
+                                              H100_PEAK_FP32_FLOPS)
+
+    gemm, att, nbytes, half = _dec_scan_work(kind, B, T, Tt, H, A, C, R)
+    t_ops = (gemm / H100_PEAK_BF16_FLOPS + att / H100_PEAK_FP32_FLOPS) * 1e3
+    t_bytes = (nbytes - 2.0 * half) / H100_HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def dec_scan_grid_times(torch, np, dev):
@@ -989,6 +1031,247 @@ def phase_dec_scan(torch, np, dev):
                     "grid_warm_ms": tr["grid_warm_ms"],
                     "tanh_fast_max_abs_err": tanh_err,
                     "shapes": {k: v[kind] for k, v in shapes.items()}})
+    return out
+
+
+# Phase 8b: the bf16-stream instances of kernels 2-5 (builds *_bf16) against
+# their plain versions on bf16 streams at the training shapes: kernels 2
+# and 3 at (B, T) = (64, 24) and (64, 128), H = 512; kernels 4 and 5 at
+# (B, T, Tt) = (64, 24, 24) at m30k_ende_vag's widths and (64, 128, 128) at
+# ikea_vag's. Bounds (stated): the bf16 states and dxg within
+# BF16_STATE_ATOL (both sides sum the same exact products of bf16 values in
+# other orders, so a value next to a bf16 rounding boundary may round one
+# ulp, 2^-8 of |x| < 1, the other way); every other output within
+# BF16_RTOL of its scale (_rel_err), the weight grads being rounded to
+# bf16 once.
+BF16_GRU_SHAPES = (("train", TRAIN_B, TRAIN_T), ("long", 64, 128))
+BF16_STATE_ATOL = 1.6e-2
+BF16_RTOL = 2e-2
+
+
+def _bf16_dec_scan_case(torch, np, dev, shape, seed=7):
+    """Phase 7's decoder-scan case with the streams the bf16 path gives
+    the kernels: xg_t, ctx and the six matrices in bf16."""
+    from vag_nmt_tpu_torch.ops.dec_scan import MATRICES, WEIGHTS
+
+    inputs, weights, g_t = _dec_scan_case(torch, np, dev, *shape, seed=seed)
+    bf = torch.bfloat16
+    inputs = (inputs[0], inputs[1].to(bf), inputs[2], inputs[3].to(bf),
+              inputs[4], inputs[5])
+    weights = tuple(w.to(bf) if n in MATRICES else w
+                    for n, w in zip(WEIGHTS, weights))
+    return inputs, weights, g_t
+
+
+def _gru_fwd_bf16_bound(B, T, H):
+    """Kernel 2's bf16 instance: its products h @ Uh on bf16 operands at
+    the bf16 tensor rate; bytes with the streams (xg in, hs out) and Uh in
+    bf16, the mask, bh and h0 in fp32."""
+    from vag_nmt_tpu_torch.core.flops import H100_PEAK_BF16_FLOPS
+
+    flops = 2.0 * T * B * H * 3 * H
+    nbytes = (2.0 * (T * B * 3 * H + T * B * H + H * 3 * H)
+              + 4.0 * (T * B + 3 * H + B * H))
+    return _bound(flops, nbytes, H100_PEAK_BF16_FLOPS)
+
+
+def _gru_bwd_bf16_bound(B, T, H):
+    """Kernel 3's bf16 instance: its three products at the bf16 tensor
+    rate; bytes with the streams (xg, hs, g in, dxg out) and Uh in bf16."""
+    from vag_nmt_tpu_torch.core.flops import H100_PEAK_BF16_FLOPS
+
+    flops = 3 * 2.0 * T * B * H * 3 * H
+    nbytes = (2.0 * (2 * T * B * 3 * H + 2 * T * B * H + H * 3 * H)
+              + 4.0 * (T * B + 3 * H + 2 * B * H + H * 3 * H + 3 * H))
+    return _bound(flops, nbytes, H100_PEAK_BF16_FLOPS)
+
+
+def phase_bf16_kernels(torch, np, dev):
+    """The bf16 instances of kernels 2-5 against their plain versions on
+    bf16 streams (the bounds above), kernel 4 also in its replay from the
+    saved bf16 states and kernel 5 on the replay's residuals, a second call
+    bit for bit as the first, each whole call timed alone cold and warm;
+    returns their rows of the kernels line (launches from the bf16 training
+    run)."""
+    from vag_nmt_tpu_torch.ops.dec_scan import (RESIDUALS, dec_scan_bwd,
+                                                dec_scan_bwd_plain,
+                                                dec_scan_fwd,
+                                                dec_scan_fwd_plain)
+    from vag_nmt_tpu_torch.ops.gru_kernel import (gru_bwd, gru_bwd_plain,
+                                                  gru_fwd, gru_fwd_plain)
+
+    bf = torch.bfloat16
+    kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+    rows = {n: {"shapes": {}, "max_abs_err": 0.0} for n in
+            ("gru_fwd", "gru_bwd", "dec_scan_fwd", "dec_scan_bwd")}
+    for label, B, T in BF16_GRU_SHAPES:
+        x, p, xg32, mask_t, h0 = _gru_case(torch, np, dev, B, T, seed=12)
+        xg_t = xg32.to(bf)
+        H = GRU_H
+        g_t = torch.from_numpy(np.random.RandomState(13).randn(T, B, H).astype(
+            np.float32)).to(dev).to(bf)
+        for reverse in (False, True):
+            hk = gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse,
+                         impl="kernel")
+            hk2 = gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse,
+                          impl="kernel")
+            hp = gru_fwd_plain(xg_t, mask_t, p["uh"], p["bh"], h0,
+                               reverse=reverse)
+            args = (xg_t, mask_t, p["uh"], p["bh"], h0, hp, g_t)
+            gk = gru_bwd(*args, reverse=reverse, impl="kernel")
+            gk2 = gru_bwd(*args, reverse=reverse, impl="kernel")
+            gp = gru_bwd_plain(*args, reverse=reverse)
+            torch.cuda.synchronize()
+            if hk.dtype != bf or gk[0].dtype != bf:
+                raise AssertionError("gru bf16: streams not bf16")
+            e = float((hk.float() - hp.float()).abs().max())
+            if not e <= BF16_STATE_ATOL:
+                raise AssertionError(f"gru_fwd bf16 {label} reverse={reverse}: "
+                                     f"max abs err {e}")
+            rows["gru_fwd"]["max_abs_err"] = max(rows["gru_fwd"]["max_abs_err"], e)
+            errs = {"dxg": float((gk[0].float() - gp[0].float()).abs().max())}
+            errs.update({n: _rel_err(a, b) for n, a, b in
+                         zip(("duh", "dbh", "dh0"), gk[1:], gp[1:])})
+            if not (errs["dxg"] <= BF16_STATE_ATOL and
+                    max(errs[n] for n in ("duh", "dbh", "dh0")) <= BF16_RTOL):
+                raise AssertionError(f"gru_bwd bf16 {label} reverse={reverse}: "
+                                     f"{errs}")
+            rows["gru_bwd"]["max_abs_err"] = max(
+                [rows["gru_bwd"]["max_abs_err"]]
+                + [float((a.float() - b.float()).abs().max())
+                   for a, b in zip(gk, gp)])
+            if not (torch.equal(hk, hk2) and all(torch.equal(a, b)
+                                                 for a, b in zip(gk, gk2))):
+                raise AssertionError(f"gru bf16 {label}: a second call differs")
+        fwd = lambda: gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, impl="kernel")
+        hp = gru_fwd_plain(xg_t, mask_t, p["uh"], p["bh"], h0)
+        args = (xg_t, mask_t, p["uh"], p["bh"], h0, hp, g_t)
+        bwd = lambda: gru_bwd(*args, impl="kernel")
+        # yardstick only (never called by the port): cuDNN's GRU in bf16,
+        # whose carry is bf16 too: not the same function
+        cudnn = torch.nn.GRU(GRU_E, H).to(dev).to(bf)
+        xb = x.to(bf)
+        gy = g_t
+        with torch.no_grad():
+            cudnn_fwd = _grid_ms(torch, lambda: cudnn(xb), **kw)
+        xr = xb.clone().requires_grad_(True)
+
+        def cudnn_fwd_bwd():
+            y, _ = cudnn(xr)
+            y.backward(gy)
+
+        cudnn_fb_ms = _time_ms(torch, cudnn_fwd_bwd, reps=10)
+        for name, call, plain, bnd, lib in (
+                ("gru_fwd", fwd, lambda: gru_fwd_plain(xg_t, mask_t, p["uh"],
+                                                       p["bh"], h0),
+                 _gru_fwd_bf16_bound(B, T, H), cudnn_fwd[0]),
+                ("gru_bwd", bwd, lambda: gru_bwd_plain(*args),
+                 _gru_bwd_bf16_bound(B, T, H), cudnn_fb_ms - cudnn_fwd[0])):
+            cold, warm = _grid_ms(torch, call, **kw)
+            f = {"B": B, "T": T, "H": H, "grid_ms": cold, "grid_warm_ms": warm,
+                 "bound_ms": bnd[0], "bound_by": bnd[1],
+                 "library_ms": lib,
+                 "library": "cuDNN nn.GRU in bf16 (bf16 carry: not the same "
+                            "function)"}
+            if label == "train":
+                f["ms"] = _time_ms(torch, call, reps=20)
+                f["plain_ms"] = _time_ms(torch, plain, reps=5)
+            rows[name]["shapes"][label] = f
+            print(f"{name} bf16 {label} (B={B}, T={T}): " + json.dumps(f))
+
+    names = ("dty", "dxg1", "ds0", "dctx", "dctx_proj", "duh1", "dbh1", "dua",
+             "dva", "dwi2", "dbi2", "duh2", "dbh2", "dws", "dwc")
+    for label, *shape in _dec_scan_shapes():
+        if label not in ("train", "ikea"):
+            continue
+        inputs, weights, g_t = _bf16_dec_scan_case(torch, np, dev, shape)
+        xg_t, ctx, ctxp, mask = inputs[1], inputs[3], inputs[4], inputs[5]
+        got = dec_scan_fwd(*inputs, weights, impl="kernel")
+        again = dec_scan_fwd(*inputs, weights, impl="kernel")
+        want = dec_scan_fwd_plain(*inputs, weights)
+        # the backward's replay from the saved bf16 states, and the
+        # backward on the replay's residuals (as DecoderScan runs them)
+        states = torch.cat([inputs[2][None], want["s"][1:].to(bf).float()])
+        rk = dec_scan_fwd(*inputs, weights, impl="kernel", states=states)
+        rp = dec_scan_fwd_plain(*inputs, weights, states)
+        gk = dec_scan_bwd(rp, xg_t, ctx, ctxp, mask, weights, g_t, impl="kernel")
+        gk2 = dec_scan_bwd(rp, xg_t, ctx, ctxp, mask, weights, g_t, impl="kernel")
+        gp = dec_scan_bwd_plain(rp, xg_t, ctx, ctxp, mask, weights, g_t)
+        # what the fp32 carry's residuals would give instead (not the
+        # reference's numerics): the size of the replay's effect
+        carry = dec_scan_bwd_plain(want, xg_t, ctx, ctxp, mask, weights, g_t)
+        torch.cuda.synchronize()
+        errs = {k: _rel_err(got[k], want[k]) for k in RESIDUALS}
+        errs.update({f"replay_{k}": _rel_err(rk[k], rp[k]) for k in RESIDUALS})
+        errs.update({n: _rel_err(a.float(), b.float())
+                     for n, a, b in zip(names, gk, gp)})
+        effect = max(float((a.float() - b.float()).abs().max())
+                     / max(1e-30, float(b.float().abs().max()))
+                     for a, b in zip(carry, gp))
+        print(f"dec_scan bf16 {label}: the fp32 carry's residuals move the "
+              f"grads by up to {effect:.3g} of each grad's scale against "
+              "the replay's")
+        bad = {k: v for k, v in errs.items() if not v <= BF16_RTOL}
+        if bad:
+            raise AssertionError(f"dec_scan bf16 {label}: relative errors {bad}")
+        if (gk[1].dtype, gk[3].dtype, gk[5].dtype) != (bf, bf, bf):
+            raise AssertionError("dec_scan_bwd bf16: dxg1, dctx, duh1 not bf16")
+        if not (all(torch.equal(got[k], again[k]) for k in RESIDUALS)
+                and all(torch.equal(a, b) for a, b in zip(gk, gk2))):
+            raise AssertionError(f"dec_scan bf16 {label}: a second call differs")
+        rows["dec_scan_fwd"]["max_abs_err"] = max(
+            [rows["dec_scan_fwd"]["max_abs_err"]]
+            + [float((got[k] - want[k]).abs().max()) for k in RESIDUALS]
+            + [float((rk[k] - rp[k]).abs().max()) for k in RESIDUALS])
+        rows["dec_scan_bwd"]["max_abs_err"] = max(
+            [rows["dec_scan_bwd"]["max_abs_err"]]
+            + [float((a.float() - b.float()).abs().max()) for a, b in zip(gk, gp)])
+        print(f"dec_scan bf16 {label}: ok, relative errors "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+        for kind, call, plain in (
+                ("fwd", lambda: dec_scan_fwd(*inputs, weights, impl="kernel"),
+                 lambda: dec_scan_fwd_plain(*inputs, weights)),
+                ("bwd", lambda: dec_scan_bwd(rp, xg_t, ctx, ctxp, mask,
+                                             weights, g_t, impl="kernel"),
+                 lambda: dec_scan_bwd_plain(rp, xg_t, ctx, ctxp, mask,
+                                            weights, g_t))):
+            cold, warm = _grid_ms(torch, call, **kw)
+            bnd = _dec_scan_bf16_bound(kind, *shape)
+            f = {"B": shape[0], "T": shape[1], "Tt": shape[2], "grid_ms": cold,
+                 "grid_warm_ms": warm, "bound_ms": bnd[0], "bound_by": bnd[1],
+                 "grids_warm_ms": _profile_grids(torch, call, 5)}
+            timed = ((lambda tm: dec_scan_fwd(*inputs, weights, impl="kernel",
+                                              timers=tm)) if kind == "fwd" else
+                     (lambda tm: dec_scan_bwd(rp, xg_t, ctx, ctxp, mask,
+                                              weights, g_t, impl="kernel",
+                                              timers=tm)))
+            f["phases_ms"] = _dec_scan_phases(torch, timed, kind, shape[2])
+            if kind == "fwd":
+                f["replay_grid_ms"], f["replay_grid_warm_ms"] = _grid_ms(
+                    torch, lambda: dec_scan_fwd(*inputs, weights, impl="kernel",
+                                                states=states), **kw)
+            if label == "train":
+                f["ms"] = _time_ms(torch, call, reps=10)
+                f["plain_ms"] = _time_ms(torch, plain, reps=3)
+            rows[f"dec_scan_{kind}"]["shapes"][label] = f
+            print(f"dec_scan_{kind} bf16 {label}: " + json.dumps(f))
+
+    out = []
+    for name, src, line in (("gru_fwd", "gru_fwd", "pallas_gru.py:114"),
+                            ("gru_bwd", "gru_bwd", "pallas_gru.py:180"),
+                            ("dec_scan_fwd", "dec_scan_fwd", "pallas_dec_scan.py:165"),
+                            ("dec_scan_bwd", "dec_scan_bwd", "pallas_dec_scan.py:286")):
+        r = rows[name]
+        tr = r["shapes"]["train"]
+        out.append({"name": f"{name}_bf16", "route": "cuda",
+                    "source": f"vag_nmt_tpu_torch/csrc/{src}.cu (-DVAG_BF16=1)",
+                    "replaces": f"vag_nmt_tpu/ops/{line}",
+                    "max_abs_err": r["max_abs_err"], "ms": tr["ms"],
+                    "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"],
+                    "bound_by": tr["bound_by"],
+                    "library_ms": tr.get("library_ms"),
+                    "grid_ms": tr["grid_ms"], "grid_warm_ms": tr["grid_warm_ms"],
+                    "shapes": r["shapes"]})
     return out
 
 
@@ -1201,6 +1484,226 @@ def phase_train(torch, np, dev):
 
     # the run dir (its checkpoints) serves phase 11, which removes it
     return launches, grids, profiled, (out_dir, cfg, vocab)
+
+
+# Phase 8c: training in bf16 (model.compute_dtype="bfloat16", the
+# reference's training regime) beside phase 8's fp32 run: the same corpus,
+# preset and steps through train_loop. Kernels against plain, first from
+# the same params (the init) on each of the N_COMPARE_STEPS batches, which
+# run other length buckets: loss, grad norm and the clipped grads (the norm
+# of their difference over theirs) within BF16_TRAIN_RTOL, each param's
+# grads within BF16_RTOL of its largest (only the sums' order differs, and
+# a bf16 rounding of an activation may go one ulp, 2^-8, the other way).
+# Then N_COMPARE_STEPS steps in turn from the init: every loss within
+# BF16_TRAIN_RTOL, the later grad norms within BF16_NORM_RTOL: Adam's first
+# step moves a param by lr * g / (|g| + eps), so where a grad changed sign
+# between the two runs their params part by up to 2 lr, and the norms drift
+# further apart each step. On an H100 80GB HBM3: from the init, the grads
+# 4.7e-4 to 8.1e-4 apart, every batch; after step 1, 2136 of 16.7M grad
+# elements of opposite sign and 97 params more than lr apart; the norms
+# 1e-6, 4.3e-3, 4.5e-4, 5.6e-3, 1.09e-2 apart over five steps.
+BF16_TRAIN_RTOL = 1e-3
+BF16_NORM_RTOL = 5e-2
+
+
+def _bf16_backward_per_batch(torch, vt, cfg, plain_cfg, state0, batches,
+                             table):
+    """One step from ``state0`` on each batch through the kernels and
+    through the plain versions: loss, grad norm and the clipped grads
+    (Adam's first moment after one step, (1 - b1) times the clipped grad)
+    within BF16_TRAIN_RTOL, each leaf's max |difference| within BF16_RTOL
+    of its max |grad|. Prints each batch's target shape and relative
+    differences (grads: the norm of the difference over theirs, and the
+    largest leaf's max |difference| over its max |grad|), and for the first
+    batch the grad elements whose sign differs between the two and the
+    elements of the params after the step that differ by more than lr."""
+    from vag_nmt_tpu_torch.train.state import tree_leaves
+
+    def flat(tree):
+        return torch.cat([x.flatten() for x in tree_leaves(tree)])
+
+    step_k = vt.make_train_step(cfg, with_img_table=True)
+    step_p = vt.make_train_step(plain_cfg, with_img_table=True)
+    lr = float(state0.lr)
+    for i, b in enumerate(batches):
+        sk, ak = step_k(state0, b, table)
+        sp, ap = step_p(state0, b, table)
+        rel = {k: float((ak[k] - ap[k]).abs() / ap[k].abs())
+               for k in ("loss", "grad_norm")}
+        mk, mp = flat(sk.mu), flat(sp.mu)
+        rel["grads"] = float((mk - mp).norm() / mp.norm())
+        rel["grads_leaf_max"] = max(
+            float((a - c).abs().max() / c.abs().max())
+            for a, c in zip(tree_leaves(sk.mu), tree_leaves(sp.mu))
+            if float(c.abs().max()) > 0)
+        print(f"bf16 backward from the init, batch {i} (tgt "
+              f"{tuple(b['tgt'].shape)}): kernels vs plain relative "
+              + json.dumps({k: float(f"{v:.3g}") for k, v in rel.items()})
+              + f" (tolerance {BF16_TRAIN_RTOL}, grads_leaf_max {BF16_RTOL})")
+        if i == 0:
+            flips = int(((mk > 0) & (mp < 0) | (mk < 0) & (mp > 0)).sum())
+            dp = (flat(sk.params) - flat(sp.params)).abs()
+            print(f"bf16 step 1: {flips} of {mk.numel()} grad elements change "
+                  f"sign between kernels and plain; {int((dp > lr).sum())} "
+                  f"params differ by more than lr = {lr:g} after the step "
+                  f"(largest {float(dp.max()) / lr:.3g} lr)")
+        if not (max(rel["loss"], rel["grad_norm"], rel["grads"]) <= BF16_TRAIN_RTOL
+                and rel["grads_leaf_max"] <= BF16_RTOL):
+            raise AssertionError(f"bf16 backward, batch {i}: kernels and plain "
+                                 f"differ: {rel}")
+
+
+def phase_train_bf16(torch, np, dev):
+    """train_loop at compute_dtype="bfloat16" on phase 8's corpus and
+    preset: steps/s, target tokens/s, the first and last loss (it must
+    fall), each kernel's launches and grids a step read from this run
+    alone, and the bf16 instances' launches (every one of kernels 2-5 must
+    run in bf16, none in fp32; a replay of the forward scan for each
+    backward one); then one step from the init on each of the first
+    N_COMPARE_STEPS batches through the kernels and through the plain
+    versions (_bf16_backward_per_batch); then N_COMPARE_STEPS steps through the
+    kernels and through the plain versions; then two steps with
+    VAG_GRU_STREAM=fp32, which must run the fp32 instances only. Returns
+    (bf16 launches by instance, launches, grids, a profiled closure)."""
+    import os
+    from pathlib import Path
+
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.core.config import SPECIALS
+    from vag_nmt_tpu_torch.data.batching import BucketBatcher
+    from vag_nmt_tpu_torch.data.vocab import Vocab
+    from vag_nmt_tpu_torch.train.loop import _step_rows
+
+    cfg = vt.preset("m30k_ende_vag").replace(
+        model=dict(compute_dtype="bfloat16"),
+        train=dict(eval_every_steps=N_TRAIN_STEPS,
+                   log_every_steps=N_TRAIN_STEPS - 1))
+    m = cfg.model
+    train = _train_corpus(np, m, N_TRAIN_PAIRS, seed=8)
+    dev_set = _train_corpus(np, m, N_DEV_PAIRS, seed=9)
+    vocab = Vocab(list(SPECIALS) + [f"t{i}" for i in range(m.tgt_vocab_size - 4)])
+    refs = [" ".join(vocab.itos[t] for t in ex.tgt) for ex in dev_set]
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_train_bf16"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    wrappers = _cli_wrappers()
+    scans = ("gru_fwd", "gru_bwd", "dec_scan_fwd", "dec_scan_bwd")
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = fn.grids = 0
+        for n in scans:
+            wrappers[n].bf16_launches = 0
+        wrappers["dec_scan_fwd"].replays = 0
+
+    zero()
+    t0 = time.perf_counter()
+    final = vt.train_loop(cfg, str(out_dir), train, dev_set, vocab, refs,
+                          max_steps=N_TRAIN_STEPS, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    grids = {n: fn.grids for n, fn in wrappers.items() if fn.grids}
+    bf16 = {f"{n}_bf16": wrappers[n].bf16_launches for n in scans}
+    replays = wrappers["dec_scan_fwd"].replays
+    recs = [json.loads(line) for line in open(out_dir / "metrics.jsonl")]
+    rows = [r for r in recs if r["tag"] == "train"]
+    first, last = rows[0], rows[-1]
+    if final["steps"] != N_TRAIN_STEPS or last["step"] != N_TRAIN_STEPS:
+        raise AssertionError(f"bf16 train_loop ran {final['steps']} steps")
+    saved = json.loads((out_dir / cfg.train.checkpoint_dir
+                        / "meta_last.json").read_text())
+    if saved.get("compute_dtype") != "bfloat16":
+        raise AssertionError("the bf16 run dir does not record its dtype")
+    # every training scan in bf16: as many bf16 forward scans as backward
+    # ones (the dev eval's fp32 decode adds gru_fwd's other launches)
+    for n in scans:
+        want = launches["gru_bwd"] if n == "gru_fwd" else launches[n]
+        if not bf16[f"{n}_bf16"] or bf16[f"{n}_bf16"] != want:
+            raise AssertionError(f"bf16 training: {n} launched {launches[n]} "
+                                 f"times, {bf16[f'{n}_bf16']} in bf16")
+    # each backward scan replays the forward from the saved bf16 states
+    if replays != launches["dec_scan_bwd"]:
+        raise AssertionError(f"bf16 training: {replays} replays for "
+                             f"{launches['dec_scan_bwd']} backward scans")
+    batcher = BucketBatcher(train, cfg.data.batch_size, cfg.data.length_buckets,
+                            seed=cfg.data.shuffle_seed, image_ids=True,
+                            img_dim=m.img_feat_dim, compact=True)
+    batches, epoch = [], 0
+    while len(batches) < N_TRAIN_STEPS:
+        batches += list(_step_rows(batcher.epoch_stacked(
+            epoch, cfg.train.steps_per_dispatch), 0))
+        epoch += 1
+    batches = batches[:N_TRAIN_STEPS]
+    tokens = sum(float((((b["tgt_len"] >= 0) * (b["tgt_len"] + 1))
+                        * b["sample_mask"]).sum()) for b in batches[1:])
+    step_s = last["step_time_s"]
+    losses = (first["loss"], last["loss"])
+    print(f"train path bf16 (kernels): wall_s={wall_s:.2f} "
+          f"steps_per_sec={1.0 / step_s:.3f} "
+          f"tgt_tokens_per_sec={tokens / (step_s * (N_TRAIN_STEPS - 1)):.1f} "
+          f"first_loss={first['loss']:.5f} last_loss={last['loss']:.5f} "
+          f"dev_bleu={final.get('dev_bleu')} launches={launches} "
+          f"launches_per_step={json.dumps({n: v / N_TRAIN_STEPS for n, v in launches.items()})} "
+          f"grids_per_step={sum(grids.values()) / N_TRAIN_STEPS:.2f} "
+          f"bf16_instance_launches={bf16} dec_scan_fwd_replays={replays}")
+    if not all(np.isfinite(losses)) or not last["loss"] < first["loss"]:
+        raise AssertionError(f"bf16 loss did not fall: {losses}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    state0 = vt.create_train_state(
+        cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
+    table = vt.build_img_table(train, m.img_feat_dim, device=dev)
+    plain_cfg = cfg.replace(model=dict(gru_impl="xla", dec_scan_impl="xla"))
+    _bf16_backward_per_batch(torch, vt, cfg, plain_cfg, state0,
+                             batches[:N_COMPARE_STEPS], table)
+
+    def run(c, bs):
+        step = vt.make_train_step(c, with_img_table=True)
+        st, out = state0, []
+        for b in bs:
+            st, aux = step(st, b, table)
+            out.append(torch.stack([aux["loss"], aux["grad_norm"]]))
+        return torch.stack(out).cpu(), st
+
+    got, st_end = run(cfg, batches[:N_COMPARE_STEPS])
+    want, _ = run(plain_cfg, batches[:N_COMPARE_STEPS])
+    rel = ((got - want).abs() / want.abs())
+    first, losses, norms = (float(rel[0].max()), float(rel[:, 0].max()),
+                            float(rel[1:, 1].max()))
+    print(f"train bf16 kernels vs plain over {N_COMPARE_STEPS} steps: losses "
+          f"{got[:, 0].tolist()} vs {want[:, 0].tolist()}, grad norms "
+          f"{got[:, 1].tolist()} vs {want[:, 1].tolist()}, relative diff: "
+          f"first step {first:.3g}, losses {losses:.3g} (tolerance "
+          f"{BF16_TRAIN_RTOL}), later grad norms {norms:.3g} (tolerance "
+          f"{BF16_NORM_RTOL})")
+    if not (first <= BF16_TRAIN_RTOL and losses <= BF16_TRAIN_RTOL
+            and norms <= BF16_NORM_RTOL):
+        raise AssertionError("bf16 kernel and plain training differ: "
+                             f"{first}, {losses}, {norms}")
+
+    zero()
+    os.environ["VAG_GRU_STREAM"] = "fp32"
+    try:
+        run(cfg, batches[:2])
+    finally:
+        os.environ.pop("VAG_GRU_STREAM", None)
+    fp32_stream = {n: (wrappers[n].launches, wrappers[n].bf16_launches)
+                   for n in scans}
+    print(f"train bf16 with VAG_GRU_STREAM=fp32 (2 steps): (launches, bf16 "
+          f"instance launches) {json.dumps(fp32_stream)}")
+    if any(b or not a for a, b in fp32_stream.values()):
+        raise AssertionError("VAG_GRU_STREAM=fp32 did not run the fp32 "
+                             "instances alone")
+
+    step = vt.make_train_step(cfg, with_img_table=True)
+
+    def profiled():
+        st = st_end
+        for b in batches[N_COMPARE_STEPS:N_COMPARE_STEPS + N_PROFILE_STEPS]:
+            st, _ = step(st, b, table)
+        return N_PROFILE_STEPS
+
+    return bf16, launches, grids, profiled
 
 
 def _split_cases(torch, np, dev):
@@ -1596,33 +2099,60 @@ def _ids_up_to_near_ties(torch, what, t, w, b, got, want) -> int:
     return int(rows.numel())
 
 
+def _with_tile_rerun(torch, shallow, depth, live, tile_rows):
+    """The plain result of a shallow-slot call with the per-step recovery
+    as the kernel computes it. The plain version recovers a flagged row at
+    depth K only if it is live; the kernel reruns whole row tiles of
+    ``tile_rows`` rows (those holding a flagged live row) at depth K, so a
+    flagged FROZEN row in such a tile comes out at depth K too (_combine
+    discards its outputs). Returns the shallow plain result with those
+    rows taken from the depth-K plain result, and how many they are."""
+    flagged = shallow[3] > 0
+    tile = torch.arange(flagged.numel(), device=flagged.device) // tile_rows
+    marked = torch.zeros(int(tile[-1]) + 1, dtype=torch.bool,
+                         device=flagged.device)
+    marked[tile[flagged & live]] = True
+    pick = flagged & ~live & marked[tile]
+    return ((torch.where(pick[:, None], depth[0], shallow[0]),
+             torch.where(pick[:, None], depth[1], shallow[1]),
+             shallow[2], shallow[3]), int(pick.sum()))
+
+
 # Phase 2b: the K-capped kernels (1, 6, 8, 9, 7) at beam sizes past 8
 # (kernels 1 and 7 through their MAX_K = 16 instance), beside K = 5 (the
-# beam-5 instance); WIDE_PLAIN_K lies past every kernel, where each
-# wrapper's kernel route raises and impl="plain" runs the plain version.
-WIDE_BEAMS = (5, 12, 16)
-WIDE_PLAIN_K = 20
+# beam-5 instance), and past 16: kernels 1, 6, 8 and 9 in passes of 16
+# (ops/topk.k_plan), kernel 7 with its attention in groups of 16 beams.
+# WIDE_OVER_V puts K above V, where every top-K wrapper raises.
+WIDE_BEAMS = (5, 12, 16, 20, 32)
+WIDE_OVER_V = (20, 16)          # (K, V)
 WIDE_B, WIDE_E, WIDE_V = 128, 256, 8000
 
 
 def phase_wide_beams(torch, np, dev):
     """At each K of WIDE_BEAMS: kernel 1 at (R = 128 K, E = 256, V = 8000)
-    at depth K, at slot depth 3 with the per-step recovery and through
-    fused_readout_topk against the plain version (ids exact, values to
-    READOUT_RTOL); kernels 6, 8, 9 at (128, K, 8000) exactly; kernel 7 at
-    (128, K, 32) full width within DEC_STEP_RTOL; each grid timed alone,
-    cold and warm. Then K = WIDE_PLAIN_K through each wrapper: ValueError
-    from the kernel route (no launch) and the plain version's result with
-    impl="plain". {K: fields}."""
+    at depth K, at slot depth 3 with the per-step recovery (1') and through
+    fused_readout_topk against the plain version (ids exact, or among
+    candidates within READOUT_RTOL of each other in float64; values to
+    READOUT_RTOL; exact on integer inputs); kernels 6, 8, 9 at (128, K,
+    8000) exactly; kernel 7 at (128, K, 32) full width within
+    DEC_STEP_RTOL; each grid timed alone, cold and warm, with the passes
+    (or beam groups) each wrapper counted. Then K above V through each
+    top-K wrapper: ValueError from the kernel route, and no launch.
+    {K: fields}."""
     from vag_nmt_tpu_torch.ops import dec_step as ds
     from vag_nmt_tpu_torch.ops import readout_topk as rt
     from vag_nmt_tpu_torch.ops import topk
 
     B, E, V = WIDE_B, WIDE_E, WIDE_V
+    counted = {"readout_topk": rt.readout_topk_rows, "beam_topk": topk.beam_topk,
+               "legacy_topk_blocks": topk.legacy_topk_blocks,
+               "legacy_topk_rows": topk.legacy_topk_rows}
     out = {}
     for K in WIDE_BEAMS:
         rng = np.random.RandomState(300 + K)
         R = B * K
+        before = {n: fn.passes for n, fn in counted.items()}
+        groups0 = ds.dec_step.beam_groups
 
         def cuda(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1633,7 +2163,8 @@ def phase_wide_beams(torch, np, dev):
         scores = cuda(rng.randn(B, K).astype(np.float32))
         fin = cuda(rng.rand(B, K) < 0.2)
         live = ~fin.reshape(-1)
-        f = {"K": K, "instance": topk.instance("readout_topk", K)}
+        f = {"K": K, "instance": topk.instance("readout_topk", K),
+             "passes": topk.k_plan(K)[1]}
         got = rt.readout_topk_rows(t, w, b, K, impl="kernel")
         want = rt.readout_topk_rows_plain(t, w, b, K)
         sgot = rt.readout_topk_rows(t, w, b, K, slots=3, recover_live=live,
@@ -1643,6 +2174,8 @@ def phase_wide_beams(torch, np, dev):
         fk = rt.fused_readout_topk(t, w, b, scores, fin, impl="kernel")
         fp = rt.fused_readout_topk(t, w, b, scores, fin, impl="plain")
         torch.cuda.synchronize()
+        swant, f["tile_rerun_rows"] = _with_tile_rerun(torch, swant, want, live,
+                                                       rt._ROW_TILE)
         err, f["near_tie_rows"] = 0.0, 0
         for label, g, p in (("depth K", got, want), ("slots 3", sgot, swant)):
             f["near_tie_rows"] += _ids_up_to_near_ties(
@@ -1656,21 +2189,30 @@ def phase_wide_beams(torch, np, dev):
             raise AssertionError(f"readout_topk K={K} slots 3: viol differs")
         if not torch.allclose(fk[0], fp[0], rtol=READOUT_RTOL, atol=0.0):
             raise AssertionError(f"fused_readout_topk K={K}: values differ")
-        # integer inputs: every logit exact, so the ids are too
+        # integer inputs: every logit exact, so the ids are too (depth K,
+        # and the shallow slots with their flags and recovery)
         ti = cuda(rng.randint(-3, 4, (R, E)).astype(np.float32))
         wi = cuda(rng.randint(-3, 4, (E, V)).astype(np.float32))
         bi = cuda(rng.randint(-3, 4, V).astype(np.float32))
-        gi = rt.readout_topk_rows(ti, wi, bi, K, impl="kernel")
-        pi = rt.readout_topk_rows_plain(ti, wi, bi, K)
-        if not (torch.equal(gi[0], pi[0]) and torch.equal(gi[1], pi[1])
-                and torch.allclose(gi[2], pi[2], rtol=READOUT_RTOL, atol=0.0)):
-            raise AssertionError(f"readout_topk K={K} integer: top-K not "
-                                 "exact or lse off")
+        di = rt.readout_topk_rows_plain(ti, wi, bi, K)
+        for kw in ({}, {"slots": 3, "recover_live": live}):
+            gi = rt.readout_topk_rows(ti, wi, bi, K, impl="kernel", **kw)
+            pi = rt.readout_topk_rows_plain(ti, wi, bi, K, **kw)
+            if kw:
+                pi, _ = _with_tile_rerun(torch, pi, di, live, rt._ROW_TILE)
+            if not (torch.equal(gi[0], pi[0]) and torch.equal(gi[1], pi[1])
+                    and torch.allclose(gi[2], pi[2], rtol=READOUT_RTOL, atol=0.0)
+                    and (not kw or torch.equal(gi[3], pi[3]))):
+                raise AssertionError(f"readout_topk K={K} integer {kw.keys()}: "
+                                     "top-K not exact or lse off")
         kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
         f["readout_topk"] = dict(zip(("grid_ms", "grid_warm_ms"), _grid_ms(
             torch, lambda: rt.readout_topk_rows(t, w, b, K, impl="kernel"),
             **kw)), max_abs_err=err, R=R,
             bound_ms=_readout_bound(R, E, V, K, slots=False)[0])
+        f["readout_topk"]["slots3_grid_ms"], _ = _grid_ms(
+            torch, lambda: rt.readout_topk_rows(t, w, b, K, slots=3,
+                                                impl="kernel"), **kw)
 
         logits = cuda((3.0 * rng.randn(B, K, V)).astype(np.float32))
         fin2 = cuda(rng.rand(B, K) < 0.2)
@@ -1682,14 +2224,24 @@ def phase_wide_beams(torch, np, dev):
                  topk.legacy_topk_rows_plain)):
             g = fn(logits, scores, fin2, impl="kernel")
             p = plain(logits, scores, fin2)
+            # integer logits: ties everywhere, still exact
+            li = torch.round(logits)
+            gi, pi = fn(li, scores, fin2, impl="kernel"), plain(li, scores, fin2)
             torch.cuda.synchronize()
-            if not (torch.equal(g[0], p[0]) and torch.equal(g[1], p[1])):
+            if not (torch.equal(g[0], p[0]) and torch.equal(g[1], p[1])
+                    and torch.equal(gi[0], pi[0]) and torch.equal(gi[1], pi[1])):
                 raise AssertionError(f"{name} K={K}: differs from plain")
             cfn, cargs, _, keep = topk.grid_call(name, logits, scores, fin2)
             cold, warm = _grid_ms(torch, lambda: cfn(*cargs))
             n = B * K * V
             f[name] = {"grid_ms": cold, "grid_warm_ms": warm,
                        "bound_ms": _bound(2.0 * n, 4.0 * n + 17.0 * B * K)[0]}
+            if K > topk.MAX_K:
+                # yardstick only (never called by the port): torch.topk on
+                # the materialized candidates, each sentence's K*V
+                cand = topk.candidates(logits, scores, fin2)
+                f[name]["library_grid_ms"], f[name]["library_grid_warm_ms"] = \
+                    _grid_ms(torch, lambda: torch.topk(cand, K, dim=1))
             del keep
 
         shape = _dec_step_full(K=K)
@@ -1705,45 +2257,43 @@ def phase_wide_beams(torch, np, dev):
         f["dec_step"] = {"grid_ms": cold, "grid_warm_ms": warm,
                          "rel_err": max(errs.values()),
                          "bound_ms": _dec_step_bound(*shape, weights)[0]}
+        f["counted_passes"] = {n: fn.passes - before[n]
+                               for n, fn in counted.items()}
+        f["counted_beam_groups"] = ds.dec_step.beam_groups - groups0
+        more = K > topk.MAX_K
+        if more != all(f["counted_passes"].values()) or \
+                more != bool(f["counted_beam_groups"]):
+            raise AssertionError(f"K={K}: passes / beam groups counted "
+                                 f"{f['counted_passes']} "
+                                 f"{f['counted_beam_groups']}")
         out[K] = f
         print(f"wide beams K={K}: ok " + json.dumps(f))
 
-    K = WIDE_PLAIN_K
+    K, V = WIDE_OVER_V
     rng = np.random.RandomState(400)
     t = torch.from_numpy(np.tanh(rng.randn(4 * K, 64)).astype(np.float32)).to(dev)
-    w = torch.from_numpy(rng.randn(64, 300).astype(np.float32)).to(dev)
-    b = torch.zeros(300, device=dev)
-    logits = torch.from_numpy(rng.randn(4, K, 600).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.randn(64, V).astype(np.float32)).to(dev)
+    b = torch.zeros(V, device=dev)
+    logits = torch.from_numpy(rng.randn(4, K, V).astype(np.float32)).to(dev)
     scores = torch.zeros((4, K), device=dev)
     fin = torch.zeros((4, K), dtype=torch.bool, device=dev)
-    inputs, weights = _dec_step_case(torch, np, dev, 2, K, 5, 32, 32, 64, 16,
-                                     seed=401)
-    calls = {"readout_topk": (functools.partial(rt.readout_topk_rows, t, w, b,
-                                                K),
-                              rt.readout_topk_rows_plain(t, w, b, K)),
-             "dec_step": (functools.partial(ds.dec_step, *inputs, weights),
-                          ds.dec_step_plain(*inputs, weights))}
+    calls = {"readout_topk": functools.partial(rt.readout_topk_rows, t, w, b, K)}
     for name in ("beam_topk", "legacy_topk_blocks", "legacy_topk_rows"):
-        calls[name] = (functools.partial(getattr(topk, name), logits, scores,
-                                         fin),
-                       getattr(topk, f"{name}_plain")(logits, scores, fin))
-    wrappers = _cli_wrappers()
-    launched = {name: wrappers[name].launches for name in calls}
-    for name, (call, want) in calls.items():
+        calls[name] = functools.partial(getattr(topk, name), logits, scores, fin)
+    launched = {name: counted[name].launches for name in calls}
+    for name, call in calls.items():
         for impl in ("auto", "kernel"):
             try:
                 call(impl=impl)
             except ValueError as e:
-                if "takes more than" not in str(e):
+                if "outside 1.." not in str(e):
                     raise
             else:
-                raise AssertionError(f"{name} K={K} impl={impl}: no raise")
-        if not all(torch.equal(a, c) for a, c in zip(call(impl="plain"), want)):
-            raise AssertionError(f"{name} K={K}: impl='plain' differs")
-    if launched != {name: wrappers[name].launches for name in calls}:
-        raise AssertionError(f"K={K}: a kernel launched past its cap")
-    print(f"wide beams K={K}: every kernel route raised ValueError (no "
-          f"launch), impl='plain' equal to the plain version")
+                raise AssertionError(f"{name} K={K} > V={V} impl={impl}: no raise")
+    if launched != {name: counted[name].launches for name in calls}:
+        raise AssertionError(f"K={K} > V={V}: a kernel launched")
+    print(f"wide beams K={K} > V={V}: every top-K kernel route raised "
+          f"ValueError, no launch")
     return out
 
 
@@ -2400,7 +2950,7 @@ def _gen1_tie_audit(torch, topk, env, run, hyps_f):
 CLI_SPLITS = {"train": (2048, 21), "val": (64, 22), "test2016": (512, 23),
               "test2017": (256, 24)}
 CLI_TRAIN_STEPS = 20
-CLI_BEAMS = (5, 12)
+CLI_BEAMS = (5, 12, 20)
 
 
 def _cli_wrappers():
@@ -2418,7 +2968,9 @@ def _cli_wrappers():
 
 def _cli_command(torch, argv, env=None):
     """cli.main(argv) with every kernel's launch count set to 0 before and
-    read after: (launches, the last line it printed, seconds)."""
+    read after: (launches, the last line it printed, seconds). Beside each
+    kernel's launches, its bf16 instance's (``<name>_bf16``) and its passes
+    above 16 beams (``<name>_passes``) where it counts them."""
     import contextlib
     import io
     import os
@@ -2426,8 +2978,12 @@ def _cli_command(torch, argv, env=None):
     from vag_nmt_tpu_torch import cli
 
     wrappers = _cli_wrappers()
+    extra = ("bf16_launches", "passes")
     for fn in wrappers.values():
         fn.launches = 0
+        for a in extra:
+            if hasattr(fn, a):
+                setattr(fn, a, 0)
     out = io.StringIO()
     old = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
@@ -2445,6 +3001,10 @@ def _cli_command(torch, argv, env=None):
                 os.environ[k] = v
     secs = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    for k, fn in wrappers.items():
+        for a, suffix in zip(extra, ("bf16", "passes")):
+            if getattr(fn, a, 0):
+                launches[f"{k}_{suffix}"] = getattr(fn, a)
     lines = out.getvalue().strip().splitlines()
     return launches, (lines[-1] if lines else ""), secs
 
@@ -2524,9 +3084,12 @@ def phase_cli(torch, np, dev, preset="m30k_ende_vag", splits=None):
         hyps = {}
         for impl in ("auto", "plain"):
             path = root / f"hyp_b{beam}_{impl}.txt"
+            need = ("gru_fwd", "readout_topk") if impl == "auto" else ()
+            if impl == "auto" and beam > 16:     # kernel 1 in passes
+                need += ("readout_topk_passes",)
             st = json.loads(command(f"translate beam {beam} {impl}", base + [
                 "--beam", str(beam), "--impl", impl, "--output", str(path)],
-                need=("gru_fwd", "readout_topk") if impl == "auto" else ()))
+                need=need))
             if impl == "plain" and out[f"translate beam {beam} plain"][
                     "launches"]:
                 raise AssertionError("cli translate --impl plain launched "
@@ -2575,6 +3138,30 @@ def phase_cli(torch, np, dev, preset="m30k_ende_vag", splits=None):
         str(root / "raw.txt"), "--output", str(root / "raw_hyp7.txt")],
         need=("gru_fwd", "readout_topk", "dec_step"),
         env={"VAG_DEC_STEP": "on"})
+    # bf16 training (the reference's regime), then that run decoded at fp32
+    run16 = root / "run_bf16"
+    res = json.loads(command("train bf16", [
+        "train", "--preset", preset, "--data-dir", str(data),
+        "--out-dir", str(run16), "--set", "data.dataset=multi30k",
+        "--max-steps", str(CLI_TRAIN_STEPS),
+        "--set", f"train.eval_every_steps={CLI_TRAIN_STEPS}",
+        "--set", "train.log_every_steps=10",
+        "--set", "model.compute_dtype=bfloat16"],
+        need=("gru_fwd_bf16", "gru_bwd_bf16", "dec_scan_fwd_bf16",
+              "dec_scan_bwd_bf16", "readout_topk")))
+    saved = json.loads((run16 / "config.json").read_text())
+    if res["steps"] != CLI_TRAIN_STEPS or \
+            saved["model"]["compute_dtype"] != "bfloat16":
+        raise AssertionError(f"cli train bf16: {res}")
+    path = root / "hyp_bf16_run.txt"
+    command("translate bf16 run", [
+        "translate", "--data-dir", str(data), "--checkpoint", str(run16),
+        "--split", "test2016", "--output", str(path)],
+        need=("gru_fwd", "readout_topk"))
+    if any(k.endswith("_bf16") for k in out["translate bf16 run"]["launches"]):
+        raise AssertionError("the bf16 run's decode ran a bf16 instance")
+    if len(path.read_text().splitlines()) != splits["test2016"][0]:
+        raise AssertionError("cli translate of the bf16 run: line count")
     print("cli: " + json.dumps({k: v for k, v in out.items()}))
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -2732,6 +3319,7 @@ def main() -> int:
     wide = phase_wide_beams(torch, np, dev)
     widths = phase_gru_widths(torch, np, dev)
     train_kernels = [phase_gru_bwd(torch, np, dev), *phase_dec_scan(torch, np, dev)]
+    bf16_kernels = phase_bf16_kernels(torch, np, dev)
     grid_times = phase_topk_grids(torch, np, dev)
     serve_kernels = [phase_beam_topk(torch, np, dev),
                      phase_dec_step(torch, np, dev)]
@@ -2742,6 +3330,8 @@ def main() -> int:
     phase_profile(torch, "decode (beam steps)", run)
     t_launches, t_grids, t_run, train_run = phase_train(torch, np, dev)
     phase_profile(torch, "train (steps)", t_run)
+    b_instances, b_launches, b_grids, b_run = phase_train_bf16(torch, np, dev)
+    phase_profile(torch, "train bf16 (steps)", b_run)
     try:
         s_launches, s_grids = phase_serve(torch, np, dev, train_run)
     finally:
@@ -2761,7 +3351,15 @@ def main() -> int:
         for k in ks:
             k["launches"] = ln[k["name"]]
             k["grids"] = gr[k["name"]]    # device grids those launches enqueued
-    kernels = decode_kernels + train_kernels + serve_kernels + ikea_kernels
+    # the bf16 instances: their launches in the bf16 training run (phase
+    # 8c), where each of kernels 2-5 ran in bf16 only (the dev eval's
+    # fp32 decode adds gru_fwd's other launches), and their grids
+    for k in bf16_kernels:
+        base = k["name"][:-len("_bf16")]
+        k["launches"] = b_instances[k["name"]]
+        k["grids"] = b_grids[base] // b_launches[base] * k["launches"]
+    kernels = (decode_kernels + train_kernels + serve_kernels + ikea_kernels
+               + bf16_kernels)
     for k in kernels:
         k.update(grid_times.get((k["name"], TOPK_PATH_V.get(k["name"])), {}))
     # kernel 1: depth K at V=8000 (m30k) and the shallow slots at 16000
@@ -2782,6 +3380,14 @@ def main() -> int:
         if k["name"] in wide[WIDE_BEAMS[-1]]:
             k["wide_beams"] = {K: wide[K][k["name"]] for K in WIDE_BEAMS}
         if k["name"] in wrappers:
+            k["cli_launches"] = {c: f["launches"].get(k["name"], 0)
+                                 for c, f in cli.items()}
+            passes = {c: f["launches"][f"{k['name']}_passes"]
+                      for c, f in cli.items()
+                      if f"{k['name']}_passes" in f["launches"]}
+            if passes:
+                k["cli_passes"] = passes
+        if k["name"].endswith("_bf16"):
             k["cli_launches"] = {c: f["launches"].get(k["name"], 0)
                                  for c, f in cli.items()}
     decode_kernels[1]["widths"] = widths

@@ -3,12 +3,14 @@
 Kernels 1 and 7 size register arrays by VAG_MAX_K, so each is built twice
 from one source (``ops/topk.py``'s ``K_INSTANCES``): VAG_MAX_K = 8 for
 K <= 8, with the defines the beam-5 path has always been built with, and
-VAG_MAX_K = 16 for 9 <= K <= 16. Kernels 6, 8 and 9 are built once, their
-K switch over 1..16. Above 16 no kernel exists: the kernel route raises
-ValueError and impl="plain" runs the plain version. At K <= 16 the wrappers
-go to the kernel (which on CPU tensors raises: the kernels have no CPU
-mode). The wide-beam plain versions are held against the JAX package's
-``impl="xla"`` top-K at K = 12 and 16; the kernels against their plain
+VAG_MAX_K = 16 for K > 8. Kernels 6, 8 and 9 are built once, their K
+switch over 1..16. Above 16 the top-K kernels run ``k_plan``'s passes
+(entries ``*_passes_launch``) and kernel 7 its attention in groups of 16:
+the kernel route is taken at every K (on CPU tensors it raises, the
+kernels having no CPU mode), and impl="plain" runs the plain version. The
+wide-beam plain versions are held against the JAX package's
+``impl="xla"`` top-K at K = 12 and 16 (and at K = 17..40 in
+``tests/test_torch_topk_passes.py``); the kernels against their plain
 versions on the card by chip_smoke.py (phase 2b)."""
 
 import jax.numpy as jnp
@@ -28,7 +30,7 @@ torch.set_num_threads(1)
 
 CAPPED = ("readout_topk", "beam_topk", "legacy_topk", "dec_step")
 INSTANCED = ("readout_topk", "dec_step")    # VAG_MAX_K sizes registers
-CAP = "takes more than 16"                   # the raise above MAX_K
+ON_CPU = "CUDA tensor"     # the kernel route's raise on CPU tensors
 # The K <= 8 builds' defines before the K <= 16 instances existed.
 BEAM5_DEFINES = {
     "readout_topk": {"VAG_BM": 64, "VAG_BN": 128, "VAG_BK": 64,
@@ -43,15 +45,16 @@ BEAM5_DEFINES = {
 
 @pytest.mark.parametrize("K", range(1, 21))
 def test_instance_chosen_for_each_k(K):
-    want = 8 if K <= 8 else 16 if K <= 16 else None
+    want = 8 if K <= 8 else 16
+    passes = 1 if K <= 16 else -(-K // 16)
     assert topk.k_instance(K) == want
+    assert topk.k_plan(K) == (want, passes)
     for base in CAPPED:
         text = _build._src(base).read_text()
         case = "VAG_TOPK_CASE" if base == "beam_topk" else "VAG_LEGACY_CASE"
         if base not in INSTANCED:       # one build, its K switch 1..16
-            assert (f"{case}({K})" in text) == (want is not None)
-            continue
-        if want is None:
+            assert (f"{case}({K})" in text) == (K <= 16)
+            assert "_passes_launch" in text
             continue
         name = topk.instance(base, K)
         assert name == (base if K <= 8 else f"{base}_k16")
@@ -106,20 +109,25 @@ def _topk_case(B, K, V, seed):
                                   "legacy_topk_rows"])
 def test_topk_plain_route_above_16(monkeypatch, name):
     _kernel_route(monkeypatch, topk)
-    """Above 16 beams the kernel route raises, whatever impl selects it;
+    """Above 16 beams the kernel route goes to the kernel (the passes),
+    whatever impl selects it: on CPU tensors it raises at the kernel's
+    argument check, and launches nothing; above V it raises before.
     impl="plain" gives the plain version's result."""
     fn = getattr(topk, name)
     plain = getattr(topk, f"{name}_plain")
+    before = (fn.launches, fn.passes)
     for K in (17, 20):
         args = _topk_case(3, K, 700, K)
         for impl in ("auto", "kernel"):
-            with pytest.raises(ValueError, match=CAP):
+            with pytest.raises(ValueError, match=ON_CPU):
                 fn(*args, impl=impl)
         got = fn(*args, impl="plain")
         assert all(torch.equal(a, b) for a, b in zip(got, plain(*args)))
-    with pytest.raises((ValueError, RuntimeError)) as e:   # K = 16: the kernel
+    with pytest.raises(ValueError, match="K <= V"):
+        fn(*_topk_case(2, 20, 19, 1), impl="kernel")
+    with pytest.raises(ValueError, match=ON_CPU):   # K = 16: the kernel
         fn(*_topk_case(3, 16, 700, 1), impl="kernel")
-    assert CAP not in str(e.value)
+    assert (fn.launches, fn.passes) == before
 
 
 def test_readout_plain_route_above_16(monkeypatch):
@@ -130,14 +138,16 @@ def test_readout_plain_route_above_16(monkeypatch):
     b = torch.from_numpy(rng.randn(300).astype(np.float32))
     for K in (17, 20):
         for kw in ({}, {"slots": 3}):
-            with pytest.raises(ValueError, match=CAP):
+            with pytest.raises(ValueError, match=ON_CPU):
                 rt.readout_topk_rows(t, w, b, K, **kw)
         got = rt.readout_topk_rows(t, w, b, K, impl="plain")
         assert all(torch.equal(a, c) for a, c in
                    zip(got, rt.readout_topk_rows_plain(t, w, b, K)))
-    with pytest.raises((ValueError, RuntimeError)) as e:
+    # shallow slots above 16 below K: no instance keeps them
+    with pytest.raises(ValueError, match="slots a lane"):
+        rt.readout_topk_rows(t, w, b, 20, slots=17)
+    with pytest.raises(ValueError, match=ON_CPU):
         rt.readout_topk_rows(t, w, b, 16)
-    assert CAP not in str(e.value)
 
 
 def test_dec_step_plain_route_above_16(monkeypatch):
@@ -153,16 +163,16 @@ def test_dec_step_plain_route_above_16(monkeypatch):
     mask = torch.ones(B, T)
     for K in (17, 20):
         args = (r(B * K, 3 * H + R), r(B * K, H), r(B, T, C), r(B, T, A), mask)
-        with pytest.raises(ValueError, match=CAP):
+        with pytest.raises(ValueError, match=ON_CPU):
             ds.dec_step(*args, weights)
         got = ds.dec_step(*args, weights, impl="plain")
         want = ds.dec_step_plain(*args, weights)
         assert all(torch.equal(a, c) for a, c in zip(got, want))
     K = 16
-    with pytest.raises((ValueError, RuntimeError)) as e:
+    with pytest.raises(ValueError, match=ON_CPU):
         ds.dec_step(r(B * K, 3 * H + R), r(B * K, H), r(B, T, C), r(B, T, A),
                     mask, weights)
-    assert CAP not in str(e.value)
+    assert ds.dec_step.beam_groups == 0
 
 
 @pytest.mark.parametrize("K", [12, 16])

@@ -287,9 +287,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write an n-best list (Moses '<id> ||| <hyp> ||| "
                         "<score>' lines) instead of one line per sentence")
     p.add_argument("--impl", default="auto", choices=["auto", "plain"],
-                   help="auto: the CUDA kernels on the card (at most 16 "
-                        "beams); plain: their plain PyTorch versions, for "
-                        "beams above 16 and to check the kernels' output")
+                   help="auto: the CUDA kernels on the card (any beam "
+                        "size; above 16 the top-K kernels run in passes); "
+                        "plain: their plain PyTorch versions, to check the "
+                        "kernels' output")
     p.add_argument("--profile-dir", default="",
                    help="write a torch.profiler trace of the decode here")
     p.set_defaults(fn=cmd_translate)

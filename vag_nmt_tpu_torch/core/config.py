@@ -94,8 +94,10 @@ class DecodeConfig:
     decode: beam_finish, beam_prune, block_ngram, max_len_factor/offset,
     greedy decode (beam_size 1), beam_unroll, the two-phase straggler
     decoder (two_phase, split_len) and the streaming-refill decoder
-    (streaming, refill_threshold). compute_dtype "bfloat16" is a later
-    slice (translate_corpus raises NotImplementedError)."""
+    (streaming, refill_threshold). compute_dtype "bfloat16" (bf16 decode)
+    is a later slice (ROADMAP item 7b: translate_corpus raises
+    NotImplementedError); a run trained with model.compute_dtype
+    "bfloat16" decodes at this compute_dtype, float32 by default."""
 
     beam_size: int = 5
     max_len: int = 64

@@ -9,9 +9,9 @@ models/model.py (decoder init). Elementwise/softmax work is ignored — it is
 <2% of the matmul FLOPs at these shapes.
 
 Peak numbers: TPU v5e ≈ 197 TFLOP/s bf16, ≈ 819 GB/s HBM (public spec);
-H100 SXM 67 TFLOP/s fp32 outside the tensor cores, 495 TFLOP/s TF32 on the
-tensor cores (dense), 3.35 TB/s HBM (NVIDIA data sheet, at the full 700 W
-power limit)."""
+H100 SXM 67 TFLOP/s fp32 outside the tensor cores, 495 TFLOP/s TF32 and
+989 TFLOP/s bf16 on the tensor cores (dense), 3.35 TB/s HBM (NVIDIA data
+sheet, at the full 700 W power limit)."""
 
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ V5E_PEAK_FP32_FLOPS = 98.5e12        # bf16 rate / 2 (fp32 via 2x-pass)
 V5E_HBM_BYTES_PER_S = 819.0e9
 H100_PEAK_FP32_FLOPS = 67e12         # outside the tensor cores
 H100_PEAK_TF32_FLOPS = 495e12        # tensor cores, dense
+H100_PEAK_BF16_FLOPS = 989e12        # tensor cores, dense
 H100_HBM_BYTES_PER_S = 3.35e12
 
 

@@ -37,7 +37,15 @@ values and defaults, here, so one A/B setting drives both packages:
 
 An explicit argument to a port function wins over its variable; a config
 value does not (``translate_corpus`` lets the variable override it, as the
-JAX package does)."""
+JAX package does).
+
+One training variable, read by ``gru_stream_fp32``:
+
+- ``VAG_GRU_STREAM``: "fp32" keeps the GRU and decoder scans' time
+  streams (and their kernels' instances) in fp32 under
+  ``compute_dtype="bfloat16"``; unset (or anything else) lets them follow
+  the compute dtype, bf16 there, as ``ops/pallas_gru.py`` and
+  ``ops/pallas_dec_scan.py`` read it."""
 
 from __future__ import annotations
 
@@ -101,3 +109,8 @@ def decode_knobs() -> DecodeKnobs:
 def over(knob: Optional[T], default: T) -> T:
     """A variable's value where it is set, else ``default``."""
     return default if knob is None else knob
+
+
+def gru_stream_fp32() -> bool:
+    """Whether VAG_GRU_STREAM forces the scans' fp32 streams ("fp32")."""
+    return os.environ.get("VAG_GRU_STREAM", "") == "fp32"

@@ -23,7 +23,9 @@
 // lists into K partials with flat ids k * V + v; a finished row reads no
 // logits. Stage 2 runs in the last CTA of each sentence to arrive (an
 // atomic ticket, so one launch in all): one warp merges the sentence's
-// K * S partial lists into its K values and int64 flat ids.
+// K * S partial lists into its K values and int64 flat ids. Above 16
+// beams: ceil(K / 16) such launches, each the next 16 after the key the
+// one before wrote (topk_split.cuh's passes; beam_topk_passes_launch).
 //
 // Measured (chip_smoke.py on an H100 SXM at 700 W; PERF.md), the grid
 // alone with L2 cold: 0.027 ms at V=8000 and 0.039 ms at V=16000, 22% and
@@ -75,6 +77,46 @@ beam_topk_kernel(const float* __restrict__ logits,
   }
 }
 
+// One pass of K > 16 beams (topk_split.cuh's passes): entries [kofs, kofs +
+// 16) of each sentence's top-K, after the key vals/idx[kofs - 1] that the
+// previous pass wrote (the flat id is the kernel's own id).
+__global__ void __launch_bounds__(split::THREADS)
+beam_topk_pass_kernel(const float* __restrict__ logits,
+                      const float* __restrict__ base,
+                      const uint8_t* __restrict__ fin, float* part_v,
+                      int* part_i, unsigned int* counters,
+                      float* __restrict__ vals, long long* __restrict__ idx,
+                      int K, int V, int S, int pad_id, int kofs) {
+  constexpr int KT = split::PASS_K;
+  const int b = blockIdx.x / (S * K);
+  const size_t o = (size_t)b * K;
+  const bool filt = kofs > 0;
+  const float av = filt ? __ldcg(vals + o + kofs - 1) : 0.f;
+  const int ai = filt ? (int)__ldcg(idx + o + kofs - 1) : 0;
+  if (!split::stage1_pass(logits, base, fin, part_v, part_i, counters, V, S,
+                          pad_id, split::FlatId{V}, K, filt, av, ai))
+    return;
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const size_t p0 = (size_t)b * K * S * KT;
+  float sv[KT], ov[KT];
+  int si[KT], oi[KT];
+  split::clear<KT>(sv, si);
+  for (int e = lane; e < K * S * KT; e += 32)
+    split::offer<KT>(sv, si, __ldcg(part_v + p0 + e), __ldcg(part_i + p0 + e));
+  split::warp_merge<KT>(sv, si, ov, oi);
+  if (lane == 0) {
+    const int n = split::pass_width(K, kofs);
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+      if (j < n) {
+        vals[o + kofs + j] = ov[j];
+        idx[o + kofs + j] = oi[j];
+      }
+    counters[b] = 0u;
+  }
+}
+
 template <int K>
 int launch(const float* logits, const float* base, const uint8_t* fin,
            float* part_v, int* part_i, unsigned int* counters, float* vals,
@@ -86,6 +128,30 @@ int launch(const float* logits, const float* base, const uint8_t* fin,
 }
 
 }  // namespace
+
+// K > 16 beams: ceil(K / 16) passes, one grid each, on the arguments of
+// beam_topk_launch with part_v / part_i of B*K*S*16; K <= V.
+extern "C" int beam_topk_passes_launch(const void* logits, const void* base,
+                                       const void* fin, void* part_v,
+                                       void* part_i, void* counters,
+                                       void* vals, void* idx, int B, int K,
+                                       int V, int S, int pad_id, void* stream) {
+  if (B <= 0) return 0;
+  if (K <= split::PASS_K || K > V || S < 1 || (long long)K * V >= INT_MAX ||
+      (long long)B * K * S >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int kofs = 0; kofs < K; kofs += split::PASS_K) {
+    beam_topk_pass_kernel<<<B * K * S, split::THREADS, 0, s>>>(
+        static_cast<const float*>(logits), static_cast<const float*>(base),
+        static_cast<const uint8_t*>(fin), static_cast<float*>(part_v),
+        static_cast<int*>(part_i), static_cast<unsigned int*>(counters),
+        static_cast<float*>(vals), static_cast<long long*>(idx), K, V, S,
+        pad_id, kofs);
+    VAG_CHECK(cudaGetLastError());
+  }
+  return 0;
+}
 
 // Device pointers to contiguous tensors: logits (B, K, V) f32, base (B, K)
 // f32, fin (B, K) uint8; scratch part_v (B*K*S*K) f32 and part_i int32,

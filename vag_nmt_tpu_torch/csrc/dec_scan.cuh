@@ -15,6 +15,20 @@
 // dec_scan_plan and ops/gru_kernel.py's gru_bwd_plan: the constants come
 // as -D defines (ops/scan_tiles.py), the tiles of each product as the Prod
 // fields (launch arguments), checked but not derived here.
+//
+// The bf16 instances (built with -DVAG_BF16=1, the JAX package's
+// compute_dtype="bfloat16": ops/pallas_dec_scan.py, ops/pallas_gru.py):
+// the weights (sx_t) and the time streams arrive in bf16, and every matrix
+// product is bf16 x bf16 -> fp32 as jnp.dot(a.astype(bf16), w_bf16,
+// preferred_element_type=f32) computes it. The per-step products hold
+// their weight slices in shared memory as bf16 (half the bytes: more
+// widths resident) and run mma.sync m16n8k16 on the activations rounded
+// to bf16 as they are loaded; the streamed tiles round both operands to
+// bf16 (a bf16 value is exact in TF32, so one TF32 product of them is the
+// bf16 product) unless a job asks for fp32 (Job::rnd), and may read bf16
+// operands and store bf16 outputs. Gate math, the attention, the carries
+// and every sum stay fp32. Without VAG_BF16 the code below is the fp32
+// instances' as before.
 
 #pragma once
 
@@ -23,6 +37,13 @@
 
 #include "common.cuh"
 #include "tf32_mma.cuh"
+
+#if defined(VAG_BF16) && VAG_BF16
+#define VAG_SCAN_BF16 1
+#include <cuda_bf16.h>
+#else
+#define VAG_SCAN_BF16 0
+#endif
 
 #if !defined(VAG_BK) || !defined(VAG_GSTAGES) || !defined(VAG_NI_MAX) || \
     !defined(VAG_GM) || !defined(VAG_GN) || !defined(VAG_PREFETCH) ||     \
@@ -51,6 +72,45 @@ constexpr float NEG_INF = -1e9f;     // as ops/attention.masked_softmax
 static_assert(GM == 64 && GN == 64, "2 x 4 warps of 32 x 16 tiles");
 static_assert(GM * TS == BK * GTS, "a stage's halves hold either layout");
 
+// The weights' and the bf16 streams' element type.
+#if VAG_SCAN_BF16
+typedef __nv_bfloat16 sx_t;
+#else
+typedef float sx_t;
+#endif
+
+// An element as fp32, and a store from fp32, for either type.
+__device__ __forceinline__ float ldx(const float* p) { return __ldg(p); }
+__device__ __forceinline__ void stx(float* p, float v) { *p = v; }
+#if VAG_SCAN_BF16
+__device__ __forceinline__ float ldx(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void stx(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// x rounded to bf16 (to nearest even, as astype(bf16)), as fp32.
+__device__ __forceinline__ float rbf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// Four bf16 (one uint2) as fp32: a bf16 is the high half of its float.
+__device__ __forceinline__ float4 bf16x4(const uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// (lo, hi) rounded to bf16 in one register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint2& b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+#endif
+
 // One per-step product out (B, cols) = a (B, K) @ W as the plan tiles it:
 // col_tiles column tiles of nt columns (a gate tile: ub units of H with
 // their r, z and n columns at tile columns [0, ub), [ub, 2ub), [2ub, 3ub);
@@ -64,7 +124,7 @@ static_assert(GM * TS == BK * GTS, "a stage's halves hold either layout");
 struct Prod {
   int ub, nt, rt, nr, col_tiles, cs, cta0, woff, l2off;
   int K, cols, H;
-  const float* w;
+  const sx_t* w;
   int ldw, trans;
 };
 
@@ -102,9 +162,10 @@ __device__ __forceinline__ int prod_slot(const Prod& p) {
   return i >= 0 && i < p.cs * p.nr ? i / p.nr : -1;
 }
 
-// Floats of one column tile's weight slice (depth padded to 16-deep slabs).
+// Floats of one column tile's weight slice (depth padded to 16-deep slabs;
+// bf16 instances: two weights a float).
 __host__ __device__ inline long long slice_floats(const Prod& p) {
-  return (long long)((p.K + 15) / 16 * 16) * p.nt;
+  return (long long)((p.K + 15) / 16 * 16) * p.nt / (VAG_SCAN_BF16 ? 2 : 1);
 }
 
 // Column tiles a CTA of p takes, at most.
@@ -142,26 +203,39 @@ __device__ __forceinline__ void slab_place(int k, int& kstep, int& tg, int& whic
 // col(8 ni + g); zero past K and outside W. A warp reads one n8 tile's
 // fragments as 32 consecutive float2: no bank conflicts, no padding. W is
 // read along its rows: W^T's (a tile column's K depths) by the lanes of a
-// warp, W's (a depth's tile columns) by consecutive threads.
-__device__ void load_tile(const Prod& p, int ct, float* dst) {
+// warp, W's (a depth's tile columns) by consecutive threads. The bf16
+// instances' slice: uint2 ((slab * NI + ni) * 32 + lane) holds W's depths
+// 4 tg .. 4 tg + 3 of the 16-deep slab at column col(8 ni + g), lane =
+// 4 g + tg: the B fragment of one m16n8k16, its depths (2 tg, 2 tg + 1,
+// 2 tg + 8, 2 tg + 9) mapped onto those four as the A fragments'
+// (product_part_bf16).
+__device__ void load_tile(const Prod& p, int ct, sx_t* dst) {
   constexpr int U = 8;   // loads a thread keeps in flight
   const int NI = p.nt / 8, Kp = round_up(p.K, 16);
+#if VAG_SCAN_BF16
+  const sx_t zero = __float2bfloat16_rn(0.f);
+  auto place = [&](int k, int j) {
+    return (((k >> 4) * NI + (j >> 3)) * 32 + (j & 7) * 4 + ((k & 15) >> 2)) * 4 + (k & 3);
+  };
+#else
+  const sx_t zero = 0.f;
   auto place = [&](int k, int j) {
     int kstep, tg, which;
     slab_place(k, kstep, tg, which);
     return (((kstep * NI + (j >> 3)) * 32 + (j & 7) * 4 + tg) << 1) + which;
   };
+#endif
   if (p.trans) {   // warp w takes columns w, w + WARPS, ...; lanes the depths
     const int lane = threadIdx.x & 31;
     for (int j = threadIdx.x >> 5; j < p.nt; j += WARPS) {
       const int col = prod_col(p, ct, j);
-      const float* src = p.w + (size_t)(col < 0 ? 0 : col) * p.ldw;
+      const sx_t* src = p.w + (size_t)(col < 0 ? 0 : col) * p.ldw;
       for (int k0 = lane; k0 < Kp; k0 += 32 * U) {
-        float v[U];
+        sx_t v[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int k = k0 + 32 * u;
-          v[u] = col >= 0 && k < p.K ? __ldg(src + k) : 0.f;
+          v[u] = col >= 0 && k < p.K ? __ldg(src + k) : zero;
         }
 #pragma unroll
         for (int u = 0; u < U; ++u)
@@ -173,11 +247,11 @@ __device__ void load_tile(const Prod& p, int ct, float* dst) {
     const int col = prod_col(p, ct, j);
     if (threadIdx.x >= dk * p.nt) return;
     for (int k0 = (int)threadIdx.x / p.nt; k0 < Kp; k0 += dk * U) {
-      float v[U];
+      sx_t v[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int k = k0 + dk * u;
-        v[u] = col >= 0 && k < p.K ? __ldg(p.w + (size_t)k * p.ldw + col) : 0.f;
+        v[u] = col >= 0 && k < p.K ? __ldg(p.w + (size_t)k * p.ldw + col) : zero;
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)
@@ -191,7 +265,7 @@ __device__ void load_slice(const Prod& p, float* smem, float* wl2) {
   const int slot = prod_slot(p);
   if (slot < 0) return;
   for (int k = 0, ct = slot; ct < p.col_tiles; ++k, ct += p.cs)
-    load_tile(p, ct, prod_slice(p, k, smem, wl2));
+    load_tile(p, ct, reinterpret_cast<sx_t*>(prod_slice(p, k, smem, wl2)));
 }
 
 // The first n (< 4) of x[0..3], zero after: load4's path for rows that
@@ -213,6 +287,26 @@ __device__ __forceinline__ float4 load4(const float* a, int lda, int row, int M,
   const float* p = a + (size_t)row * lda + k;
   return vec ? __ldcg(reinterpret_cast<const float4*>(p)) : load_tail(p, K - k);
 }
+
+#if VAG_SCAN_BF16
+// The same of a bf16 array, as fp32: one 8-byte L2 load when vec (K % 4 ==
+// 0, rows 16-byte aligned), else load_tail_bf16 (out of line, as
+// load_tail, to keep the hot loops' code small).
+__device__ __noinline__ float4 load_tail_bf16(const __nv_bfloat16* x, int n) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n > 0) v.x = __bfloat162float(__ldcg(x));
+  if (n > 1) v.y = __bfloat162float(__ldcg(x + 1));
+  if (n > 2) v.z = __bfloat162float(__ldcg(x + 2));
+  if (n > 3) v.w = __bfloat162float(__ldcg(x + 3));
+  return v;
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* a, int lda, int row, int M,
+                                        int k, int K, bool vec) {
+  if (row >= M || k >= K) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const __nv_bfloat16* p = a + (size_t)row * lda + k;
+  return vec ? bf16x4(__ldcg(reinterpret_cast<const uint2*>(p))) : load_tail_bf16(p, K - k);
+}
+#endif
 
 // The value at (r, j) of a tile whose KS k-slices' accumulators the warps
 // left in `part` (fragment order), summed in k-slice order.
@@ -325,6 +419,67 @@ __device__ __noinline__ void product_part(const float* a, int lda, int M, int K,
         make_float4(v[ni][0], v[ni][1], v[ni][2], v[ni][3]);
 }
 
+#if VAG_SCAN_BF16
+// The bf16 instances' row part: per 16-deep slab one m16n8k16 an n8 tile,
+// A's fragments rounded to bf16 from the same L2 loads (lane tg's depths
+// 4 tg .. 4 tg + 3 as the logical 2 tg, 2 tg + 1, 2 tg + 8, 2 tg + 9, the
+// slice's order), B's one uint2 a lane.
+template <int NI, bool L2>
+__device__ __noinline__ void product_part_bf16(const float* a, int lda, int M, int K,
+                                               int rt, int row0, const float* wslice,
+                                               float* part) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int MT = rt / 16, KS = WARPS / MT;
+  const int mi = warp % MT, ksw = warp / MT;
+  const int nslab = (K + 15) / 16;
+  const int s_lo = ksw * nslab / KS, s_hi = (ksw + 1) * nslab / KS;
+  const bool vec = K % 4 == 0 && lda % 4 == 0 && al16(a);
+  const uint2* wres = reinterpret_cast<const uint2*>(wslice) + lane;
+  const int r = row0 + mi * 16 + g;
+  float acc[NI][4];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+  float4 lo[PREFETCH], hi[PREFETCH];
+#pragma unroll
+  for (int d = 0; d < PREFETCH; ++d) {
+    const int k = (s_lo + d) * 16 + 4 * tg;
+    const int m = s_lo + d < s_hi ? M : 0;
+    lo[d] = load4(a, lda, r, m, k, K, vec);
+    hi[d] = load4(a, lda, r + 8, m, k, K, vec);
+  }
+  for (int s0 = s_lo; s0 < s_hi; s0 += PREFETCH) {
+#pragma unroll
+    for (int d = 0; d < PREFETCH; ++d) {
+      const int s = s0 + d;
+      if (s < s_hi) {
+        const float4 l = lo[d], h = hi[d];
+        if (s + PREFETCH < s_hi) {
+          const int k = (s + PREFETCH) * 16 + 4 * tg;
+          lo[d] = load4(a, lda, r, M, k, K, vec);
+          hi[d] = load4(a, lda, r + 8, M, k, K, vec);
+        }
+        const uint32_t af[4] = {pack_bf16(l.x, l.y), pack_bf16(h.x, h.y),
+                                pack_bf16(l.z, l.w), pack_bf16(h.z, h.w)};
+        const uint2* wp = wres + (size_t)s * NI * 32;
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+          mma_bf16(acc[ni], af, L2 ? __ldcg(wp + ni * 32) : wp[ni * 32]);
+      }
+    }
+  }
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+    *reinterpret_cast<float4*>(part + (((ksw * MT + mi) * NI + ni) * 32 + lane) * 4) =
+        make_float4(acc[ni][0], acc[ni][1], acc[ni][2], acc[ni][3]);
+}
+#define VAG_PRODUCT_PART product_part_bf16
+#else
+#define VAG_PRODUCT_PART product_part
+#endif
+
 // One row part of p against the weight slice w (product_part by its n8
 // tiles).
 template <bool L2>
@@ -332,9 +487,9 @@ __device__ __forceinline__ void product_tile(const Prod& p, const float* a, int 
                                              int M, int row0, const float* w,
                                              float* part) {
   const int NI = p.nt / 8;
-  if (NI == 1) product_part<1, L2>(a, lda, M, p.K, p.rt, row0, w, part);
-  else if (NI == 2) product_part<2, L2>(a, lda, M, p.K, p.rt, row0, w, part);
-  else product_part<3, L2>(a, lda, M, p.K, p.rt, row0, w, part);
+  if (NI == 1) VAG_PRODUCT_PART<1, L2>(a, lda, M, p.K, p.rt, row0, w, part);
+  else if (NI == 2) VAG_PRODUCT_PART<2, L2>(a, lda, M, p.K, p.rt, row0, w, part);
+  else VAG_PRODUCT_PART<3, L2>(a, lda, M, p.K, p.rt, row0, w, part);
 }
 
 // One per-step product: for each of this CTA's column tiles and row
@@ -390,6 +545,13 @@ struct Job {
   float* out;
   int ldo;
   const float* add;
+#if VAG_SCAN_BF16
+  // bf16 instances: a[s] / b[s] / out point at bf16 elements where set
+  // (their strides and batch offsets in elements); rnd: both operands
+  // rounded to bf16, one TF32 product (else 3xTF32 on fp32 operands)
+  unsigned char abf[2], bbf[2];
+  int rnd, obf;
+#endif
 };
 
 __host__ __device__ inline int job_tiles(const Job& j) {
@@ -432,6 +594,65 @@ __device__ __forceinline__ void stage_operand(float* st, const float* x, int ld,
   }
 }
 
+#if VAG_SCAN_BF16
+// A bf16 operand's part of one ring stage, in two halves: fetch_bf16
+// issues its loads into registers (four elements, one uint2, in each of a
+// thread's two chunks: GM * BK / 4 = 2 * THREADS), so they are in flight
+// while the tile's products run, as the fp32 operands' cp.async copies
+// are; store_bf16 writes them, as fp32, in stage_operand's layout. One
+// 8-byte load a chunk where vec (ld % 4 == 0, x 16-byte aligned, the
+// contiguous extent a multiple of 4), else element by element.
+static_assert(GM * (BK / 4) == 2 * THREADS && BK * (GM / 4) == 2 * THREADS,
+              "two chunks of four a thread");
+struct Bf16Part {
+  uint2 v[2];
+};
+
+// Chunk c of the thread: its element offset in x and, where it lies
+// outside, how many of its four are inside (0..3; 4 = all).
+__device__ __forceinline__ int bf16_chunk(int c, int ld, bool k_contig, int s0, int side_n,
+                                          int k0, int ke, size_t& o) {
+  const int i = threadIdx.x + c * THREADS;
+  if (k_contig) {
+    const int r = i / (BK / 4), k = k0 + (i % (BK / 4)) * 4;
+    o = (size_t)(s0 + r) * ld + k;
+    return s0 + r < side_n ? max(0, min(4, ke - k)) : 0;
+  }
+  const int kk = i / (GM / 4), cc = (i % (GM / 4)) * 4, k = k0 + kk;
+  o = (size_t)k * ld + s0 + cc;
+  return k < ke ? max(0, min(4, side_n - s0 - cc)) : 0;
+}
+
+__device__ __forceinline__ void fetch_bf16(Bf16Part& f, const __nv_bfloat16* x, int ld,
+                                           bool k_contig, int s0, int side_n, int k0,
+                                           int ke, bool vec) {
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    size_t o;
+    const int n = bf16_chunk(c, ld, k_contig, s0, side_n, k0, ke, o);
+    if (vec && n == 4) {
+      f.v[c] = __ldcg(reinterpret_cast<const uint2*>(x + o));
+    } else {
+      unsigned int h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[e] = e < n ? __ldcg(xs + o + e) : 0u;
+      f.v[c] = make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+    }
+  }
+}
+
+__device__ __forceinline__ void store_bf16(const Bf16Part& f, float* st, bool k_contig) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int i = threadIdx.x + c * THREADS;
+    float* d = k_contig ? st + (i / (BK / 4)) * TS + (i % (BK / 4)) * 4
+                        : st + (i / (GM / 4)) * GTS + (i % (GM / 4)) * 4;
+    *reinterpret_cast<float4*>(d) = bf16x4(f.v[c]);
+  }
+}
+#endif
+
 // One GM x GN tile of a job: 8 warps as 2 (rows) x 4 (columns) of 32 x 16,
 // the segments' chunks through a GSTAGES-deep ring at smem.
 template <bool TA, bool TB>
@@ -445,18 +666,52 @@ __device__ void job_tile(const Job& j, int bt, int m0, int n0, float* smem) {
   const float* bp[2];
   for (int s = 0; s < j.nseg; ++s) {
     nq[s] = (j.kd[s] + BK - 1) / BK;
+#if VAG_SCAN_BF16
+    ap[s] = j.abf[s] ? reinterpret_cast<const float*>(
+                           reinterpret_cast<const __nv_bfloat16*>(j.a[s]) + bt * j.a_bs)
+                     : j.a[s] + bt * j.a_bs;
+    bp[s] = j.bbf[s] ? reinterpret_cast<const float*>(
+                           reinterpret_cast<const __nv_bfloat16*>(j.b[s]) + bt * j.b_bs)
+                     : j.b[s] + bt * j.b_bs;
+#else
     ap[s] = j.a[s] + bt * j.a_bs;
     bp[s] = j.b[s] + bt * j.b_bs;
+#endif
     va[s] = j.lda[s] % 4 == 0 && al16(ap[s]) && (TA ? j.M : j.kd[s]) % 4 == 0;
     vb[s] = j.ldb[s] % 4 == 0 && al16(bp[s]) && (TB ? j.kd[s] : j.N) % 4 == 0;
   }
   const int n_chunks = nq[0] + nq[1];
+#if VAG_SCAN_BF16
+  // bf16 operands: fetched into registers with the stage's copies, stored
+  // into the stage after the products of the stage before (land)
+  Bf16Part fa, fb;
+  auto load = [&](int q, float* st) {
+    const int s = q < nq[0] ? 0 : 1;
+    const int k0 = (q - (s ? nq[0] : 0)) * BK;
+    if (j.abf[s])
+      fetch_bf16(fa, reinterpret_cast<const __nv_bfloat16*>(ap[s]), j.lda[s], !TA, m0,
+                 j.M, k0, j.kd[s], va[s]);
+    else
+      stage_operand(st, ap[s], j.lda[s], !TA, m0, j.M, k0, j.kd[s], va[s]);
+    if (j.bbf[s])
+      fetch_bf16(fb, reinterpret_cast<const __nv_bfloat16*>(bp[s]), j.ldb[s], TB, n0,
+                 j.N, k0, j.kd[s], vb[s]);
+    else
+      stage_operand(st + GM * TS, bp[s], j.ldb[s], TB, n0, j.N, k0, j.kd[s], vb[s]);
+  };
+  auto land = [&](int q, float* st) {
+    const int s = q < nq[0] ? 0 : 1;
+    if (j.abf[s]) store_bf16(fa, st, !TA);
+    if (j.bbf[s]) store_bf16(fb, st + GM * TS, TB);
+  };
+#else
   auto load = [&](int q, float* st) {
     const int s = q < nq[0] ? 0 : 1;
     const int k0 = (q - (s ? nq[0] : 0)) * BK;
     stage_operand(st, ap[s], j.lda[s], !TA, m0, j.M, k0, j.kd[s], va[s]);
     stage_operand(st + GM * TS, bp[s], j.ldb[s], TB, n0, j.N, k0, j.kd[s], vb[s]);
   };
+#endif
   float acc[2][2][4], cor[2][2][4];   // big x big; the remainder products
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -466,7 +721,12 @@ __device__ void job_tile(const Job& j, int bt, int m0, int n0, float* smem) {
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = cor[mi][ni][e] = 0.f;
 #pragma unroll
   for (int q = 0; q < GSTAGES - 1; ++q) {
-    if (q < n_chunks) load(q, smem + q * GSTAGE);
+    if (q < n_chunks) {
+      load(q, smem + q * GSTAGE);
+#if VAG_SCAN_BF16
+      land(q, smem + q * GSTAGE);
+#endif
+    }
     cp_async_commit();
   }
   for (int q = 0; q < n_chunks; ++q) {
@@ -479,6 +739,32 @@ __device__ void job_tile(const Job& j, int bt, int m0, int n0, float* smem) {
     const float* bs = as + GM * TS;
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 8) {
+#if VAG_SCAN_BF16
+      if (j.rnd) {   // bf16 operands: exact in TF32, one product
+        uint32_t ab[2][4], bb[2][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int m = wm * 32 + mi * 16 + g, k = ks + tg;
+          auto A = [&](int mm, int kk) { return TA ? as[kk * GTS + mm] : as[mm * TS + kk]; };
+          ab[mi][0] = __float_as_uint(rbf(A(m, k)));
+          ab[mi][1] = __float_as_uint(rbf(A(m + 8, k)));
+          ab[mi][2] = __float_as_uint(rbf(A(m, k + 4)));
+          ab[mi][3] = __float_as_uint(rbf(A(m + 8, k + 4)));
+        }
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) {
+          const int n = wn * 16 + ni * 8 + g, k = ks + tg;
+          auto Bv = [&](int kk, int nn) { return TB ? bs[nn * TS + kk] : bs[kk * GTS + nn]; };
+          bb[ni][0] = __float_as_uint(rbf(Bv(k, n)));
+          bb[ni][1] = __float_as_uint(rbf(Bv(k + 4, n)));
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni) mma_tf32(acc[mi][ni], ab[mi], bb[ni]);
+        continue;
+      }
+#endif
       uint32_t ab[2][4], asl[2][4], bb[2][2], bsl[2][2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
@@ -510,9 +796,17 @@ __device__ void job_tile(const Job& j, int bt, int m0, int n0, float* smem) {
 #pragma unroll
         for (int ni = 0; ni < 2; ++ni) mma_tf32(cor[mi][ni], ab[mi], bsl[ni]);
     }
+#if VAG_SCAN_BF16
+    if (qn < n_chunks) land(qn, smem + (qn % GSTAGES) * GSTAGE);
+#endif
   }
   cp_async_wait<0>();
+#if VAG_SCAN_BF16
+  float* out = j.obf ? nullptr : j.out + bt * j.o_bs;
+  __nv_bfloat16* outb = j.obf ? reinterpret_cast<__nv_bfloat16*>(j.out) + bt * j.o_bs : nullptr;
+#else
   float* out = j.out + bt * j.o_bs;
+#endif
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -524,6 +818,12 @@ __device__ void job_tile(const Job& j, int bt, int m0, int n0, float* smem) {
         if (row >= j.M || col >= j.N) continue;
         const size_t o = (size_t)row * j.ldo + col;
         const float v = acc[mi][ni][e] + cor[mi][ni][e];
+#if VAG_SCAN_BF16
+        if (j.obf) {
+          stx(outb + o, v);
+          continue;
+        }
+#endif
         out[o] = j.epi == TANH_ADD ? tanhf(__ldg(j.add + o) + v) : v;
       }
 }

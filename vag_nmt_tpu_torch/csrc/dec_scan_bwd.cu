@@ -62,10 +62,12 @@ using vag::warp_sum;
 enum { P_DC = 0, P_DST = 1, P_DSTQ = 2, P_DS = 3 };
 
 struct BwdArgs {
-  const float *s, *st, *c, *w, *q, *hg1, *xg2, *hg2, *xg1, *ctx, *ctxp, *mask,
-      *va;
-  float *dty, *dxg1, *ds0, *dctx, *dctxp;
-  float *duh1, *dbh1, *dua, *dva, *dwi2, *dbi2, *duh2, *dbh2, *dws, *dwc;
+  const float *s, *st, *c, *w, *q, *hg1, *xg2, *hg2, *ctxp, *mask, *va;
+  const sx_t *xg1, *ctx;        // bf16 instance: the bf16 streams
+  sx_t *dxg1, *dctx;            // and their grads
+  float *dty, *ds0, *dctxp;
+  float *dbh1, *dva, *dbi2, *dbh2;
+  sx_t *duh1, *dua, *dwi2, *duh2, *dws, *dwc;   // the weights' type
   float *ds_ro, *dc, *dxg2, *dhg2, *dhg1, *dq, *dva_rows, *dsc, *dstp, *dst,
       *dsp, *colsum;
   int Tt, B, T, H, A, C, R;
@@ -253,12 +255,12 @@ __global__ void __launch_bounds__(THREADS, 1) dec_scan_bwd_kernel(const BwdArgs 
         const float dh = __ldcg(g.dst + oh) + tile_sum(part, KS, MT, NI, r, j);
         float dx[3], dhg[3];
         g.dsp[oh] = gru_unit_bwd(
-            __ldg(g.xg1 + o), __ldg(g.xg1 + o + H), __ldg(g.xg1 + o + 2 * H),
+            ldx(g.xg1 + o), ldx(g.xg1 + o + H), ldx(g.xg1 + o + 2 * H),
             __ldg(g.hg1 + o), __ldg(g.hg1 + o + H), __ldg(g.hg1 + o + 2 * H),
             __ldg(g.s + tB * H + oh), dh, dx, dhg);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          g.dxg1[o + k * H] = dx[k];
+          stx(g.dxg1 + o + k * H, dx[k]);
           g.dhg1[o + k * H] = dhg[k];
         }
       }
@@ -413,16 +415,18 @@ extern "C" int dec_scan_bwd_launch(
       C < 1 || R < 1 || plan[4] < 0 || (plan[4] > 0 && wl2 == nullptr))
     return (int)cudaErrorInvalidValue;
   auto F = [](const void* p) { return static_cast<const float*>(p); };
+  auto X = [](const void* p) { return static_cast<const sx_t*>(p); };
   auto M = [](void* p) { return static_cast<float*>(p); };
+  auto MX = [](void* p) { return static_cast<sx_t*>(p); };
   BwdArgs g{};
   g.s = F(s); g.st = F(st); g.c = F(c);
   g.w = F(w); g.q = F(q); g.hg1 = F(hg1); g.xg2 = F(xg2); g.hg2 = F(hg2);
-  g.xg1 = F(xg1); g.ctx = F(ctx); g.ctxp = F(ctxp); g.mask = F(mask);
+  g.xg1 = X(xg1); g.ctx = X(ctx); g.ctxp = F(ctxp); g.mask = F(mask);
   g.va = F(va);
-  g.dty = M(dty); g.dxg1 = M(dxg1); g.ds0 = M(ds0); g.dctx = M(dctx);
-  g.dctxp = M(dctxp); g.duh1 = M(duh1); g.dbh1 = M(dbh1); g.dua = M(dua);
-  g.dva = M(dva); g.dwi2 = M(dwi2); g.dbi2 = M(dbi2); g.duh2 = M(duh2);
-  g.dbh2 = M(dbh2); g.dws = M(dws); g.dwc = M(dwc); g.ds_ro = M(ds_ro);
+  g.dty = M(dty); g.dxg1 = MX(dxg1); g.ds0 = M(ds0); g.dctx = MX(dctx);
+  g.dctxp = M(dctxp); g.duh1 = MX(duh1); g.dbh1 = M(dbh1); g.dua = MX(dua);
+  g.dva = M(dva); g.dwi2 = MX(dwi2); g.dbi2 = M(dbi2); g.duh2 = MX(duh2);
+  g.dbh2 = M(dbh2); g.dws = MX(dws); g.dwc = MX(dwc); g.ds_ro = M(ds_ro);
   g.dc = M(dc); g.dxg2 = M(dxg2); g.dhg2 = M(dhg2); g.dhg1 = M(dhg1);
   g.dq = M(dq); g.dva_rows = M(dva_rows); g.dsc = M(dsc); g.dstp = M(dstp);
   g.dst = M(dst); g.dsp = M(dsp); g.colsum = M(colsum);
@@ -436,7 +440,7 @@ extern "C" int dec_scan_bwd_launch(
   const int H3 = 3 * H;
   // (weights read transposed, W's row stride, K, output columns) of dc,
   // dst, dstq, ds
-  const float* wts[4] = {F(wi2), F(uh2), F(ua), F(uh1)};
+  const sx_t* wts[4] = {X(wi2), X(uh2), X(ua), X(uh1)};
   const int ldw[4] = {H3, H3, A, H3}, K[4] = {H3, H3, A, H3}, cols[4] = {C, H, H, H};
   int scratch_need = att_floats_bwd(T, A, C);   // the attention backward's row
   for (int i = 0; i < 4; ++i) {
@@ -462,9 +466,13 @@ extern "C" int dec_scan_bwd_launch(
   for (int i = 0; i < 2; ++i) {
     Job& j = pre.j[i];
     j.nseg = 1; j.a[0] = g.dty; j.lda[0] = R; j.kd[0] = R;
-    j.b[0] = F(i ? wc : ws); j.ldb[0] = R; j.tb = 1;
+    j.b[0] = reinterpret_cast<const float*>(X(i ? wc : ws)); j.ldb[0] = R; j.tb = 1;
     j.M = rows; j.N = i ? C : H; j.out = i ? g.dc : g.ds_ro; j.ldo = j.N;
     j.batch = 1; j.epi = STORE;
+#if VAG_SCAN_BF16
+    j.bbf[0] = 1;   // bf16 weights; dpre rounded
+    j.rnd = 1;
+#endif
   }
   VAG_CHECK(launch_jobs(dec_scan_bwd_readout_kernel, pre, cs));
   // 3. the recurrence
@@ -475,22 +483,30 @@ extern "C" int dec_scan_bwd_launch(
   // 4. the weight grads over all rows, and dctx[b] = w[:, b]^T dc[:, b]
   Jobs post{};
   post.n = 7;
-  const float* X[6] = {g.c, g.s, g.c, g.st, g.st, g.s + (size_t)B * H};
+  const float* Xa[6] = {g.c, g.s, g.c, g.st, g.st, g.s + (size_t)B * H};
   const float* Y[6] = {g.dxg2, g.dhg1, g.dty, g.dhg2, g.dq, g.dty};
-  float* O[6] = {g.dwi2, g.duh1, g.dwc, g.duh2, g.dua, g.dws};
+  sx_t* O[6] = {g.dwi2, g.duh1, g.dwc, g.duh2, g.dua, g.dws};
   const int Mx[6] = {C, H, C, H, H, H}, Ny[6] = {H3, H3, R, H3, A, R};
   for (int i = 0; i < 6; ++i) {
     Job& j = post.j[i];
-    j.nseg = 1; j.a[0] = X[i]; j.lda[0] = Mx[i]; j.kd[0] = rows; j.ta = 1;
+    j.nseg = 1; j.a[0] = Xa[i]; j.lda[0] = Mx[i]; j.kd[0] = rows; j.ta = 1;
     j.b[0] = Y[i]; j.ldb[0] = Ny[i];
-    j.M = Mx[i]; j.N = Ny[i]; j.out = O[i]; j.ldo = Ny[i]; j.batch = 1;
-    j.epi = STORE;
+    j.M = Mx[i]; j.N = Ny[i]; j.out = reinterpret_cast<float*>(O[i]); j.ldo = Ny[i];
+    j.batch = 1; j.epi = STORE;
+#if VAG_SCAN_BF16
+    j.rnd = 1;   // bf16 x bf16, summed in fp32, rounded to bf16 once
+    j.obf = 1;
+#endif
   }
+  // dctx = w^T dc: fp32 products (the JAX package's w * dc), in ctx's type
   Job& d = post.j[6];
   d.nseg = 1; d.a[0] = g.w; d.lda[0] = B * T; d.kd[0] = Tt; d.ta = 1;
   d.b[0] = g.dc; d.ldb[0] = B * C;
-  d.M = T; d.N = C; d.out = g.dctx; d.ldo = C; d.epi = STORE;
+  d.M = T; d.N = C; d.out = reinterpret_cast<float*>(g.dctx); d.ldo = C; d.epi = STORE;
   d.batch = B; d.a_bs = T; d.b_bs = C; d.o_bs = (long long)T * C;
+#if VAG_SCAN_BF16
+  d.obf = 1;
+#endif
   VAG_CHECK(launch_jobs(dec_scan_bwd_wgrad_kernel, post, cs));
   // 5. dctx_proj and the bias grads' row blocks; 6. the bias grads
   int dev = 0, sms = 0;

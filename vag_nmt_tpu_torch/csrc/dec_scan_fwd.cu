@@ -47,6 +47,15 @@
 // Every output has one owner and a fixed sum order, so a second call
 // repeats the first bit for bit. The tiling is ops/dec_scan.py's
 // dec_scan_plan.
+//
+// Replay (bf16 instance only). The JAX kernel under bf16 saves the states
+// s' in bf16 and its backward recomputes each step from them (s~, the
+// attention, GRU2's gates and the readout), not from the fp32 carry.
+// dec_scan_fwd_launch(..., replay = 1) runs that recompute: s is then an
+// input, s[0] = s0 and s[t + 1] the saved state of step t (bf16 values in
+// fp32), each step starts from s[t] and GRU2's s' is not written, so the
+// residuals (and the readout, on the saved s') are the ones the JAX
+// backward sees.
 
 #include "dec_scan.cuh"
 
@@ -62,7 +71,9 @@ using vag::warp_sum;
 enum { P_HG1 = 0, P_Q = 1, P_HG2 = 2, P_XG2 = 3 };
 
 struct FwdArgs {
-  const float *xg1, *s0, *ctx, *ctxp, *mask;
+  const sx_t* xg1;              // bf16 instance: the bf16 streams
+  const sx_t* ctx;
+  const float *s0, *ctxp, *mask;
   const float *bh1, *va, *bi2, *bh2;
   float *s, *st, *c, *w, *q, *hg1, *xg2, *hg2, *t;
   int Tt, B, T, H, A, C, R;
@@ -70,6 +81,9 @@ struct FwdArgs {
   int att_parts, scratch_off;
   float* wl2;                   // the weight slices the plan puts in L2
   unsigned long long* timers;   // 4 Tt + 2 barrier stamps, or null
+#if VAG_SCAN_BF16
+  int replay;                   // 1: s is the saved states (see the top)
+#endif
 };
 
 // Phase (c) for step t: item i = b * att_parts + part (items taken by the
@@ -227,10 +241,10 @@ __global__ void __launch_bounds__(THREADS, 1) dec_scan_fwd_kernel(const FwdArgs 
           hg[k] = tile_sum(part, KS, MT, NI, r, k * ub + uu) + __ldg(g.bh1 + k * H + u);
           g.hg1[(tB + row) * H3 + k * H + u] = hg[k];
         }
-        const float* x = g.xg1 + (tB + row) * H3 + u;
+        const sx_t* x = g.xg1 + (tB + row) * H3 + u;
         const float h = __ldcg(s_prev + (size_t)row * H + u);
         st_t[(size_t)row * H + u] =
-            gru_unit(__ldg(x), __ldg(x + H), __ldg(x + 2 * H), hg[0], hg[1], hg[2], h);
+            gru_unit(ldx(x), ldx(x + H), ldx(x + 2 * H), hg[0], hg[1], hg[2], h);
         if (t == 0) g.s[(size_t)row * H + u] = h;
       }
     });
@@ -277,6 +291,9 @@ __global__ void __launch_bounds__(THREADS, 1) dec_scan_fwd_kernel(const FwdArgs 
           hg[k] = __ldcg(h2 + k * H);
         }
         const float h = __ldcg(st_t + (size_t)row * H + u);
+#if VAG_SCAN_BF16
+        if (!g.replay)
+#endif
         g.s[(tB + B + row) * H + u] = gru_unit(xg[0], xg[1], xg[2], hg[0], hg[1], hg[2], h);
       }
     });
@@ -302,7 +319,8 @@ __global__ void __launch_bounds__(THREADS, 1) dec_scan_fwd_kernel(const FwdArgs 
 // when the plan puts no slice in L2. timers: null, or 4 Tt + 2 uint64 for
 // the barrier stamps (entry, weights loaded, the end of each step's four
 // phases). Enqueues the recurrence as one cooperative grid and the readout
-// as one grid of streamed tiles; returns 0,
+// as one grid of streamed tiles. replay (bf16 build only): see the top;
+// s then holds the states on entry and is not written. Returns 0,
 // cudaErrorInvalidValue for a malformed plan,
 // cudaErrorCooperativeLaunchTooLarge for a grid that is not co-resident, or
 // the launch's error.
@@ -313,14 +331,19 @@ extern "C" int dec_scan_fwd_launch(
     const void* uh2, const void* bh2, const void* ws, const void* wc, void* s,
     void* st, void* c, void* w, void* q, void* hg1, void* xg2, void* hg2,
     void* t_out, int Tt, int B, int T, int H, int A, int C, int R,
-    const int* plan, int n_plan, void* wl2, void* timers, void* stream) {
+    const int* plan, int n_plan, void* wl2, void* timers,
+#if VAG_SCAN_BF16
+    int replay,
+#endif
+    void* stream) {
   if (n_plan != 5 + 4 * 9 || Tt < 1 || B < 1 || T < 1 || H < 1 || A < 1 ||
       C < 1 || R < 1 || plan[4] < 0 || (plan[4] > 0 && wl2 == nullptr))
     return (int)cudaErrorInvalidValue;
   auto F = [](const void* p) { return static_cast<const float*>(p); };
+  auto X = [](const void* p) { return static_cast<const sx_t*>(p); };
   auto M = [](void* p) { return static_cast<float*>(p); };
   FwdArgs g{};
-  g.xg1 = F(xg1); g.s0 = F(s0); g.ctx = F(ctx); g.ctxp = F(ctxp);
+  g.xg1 = X(xg1); g.s0 = F(s0); g.ctx = X(ctx); g.ctxp = F(ctxp);
   g.mask = F(mask); g.bh1 = F(bh1); g.va = F(va); g.bi2 = F(bi2);
   g.bh2 = F(bh2);
   g.s = M(s); g.st = M(st); g.c = M(c); g.w = M(w); g.q = M(q);
@@ -328,12 +351,15 @@ extern "C" int dec_scan_fwd_launch(
   g.Tt = Tt; g.B = B; g.T = T; g.H = H; g.A = A; g.C = C; g.R = R;
   g.timers = static_cast<unsigned long long*>(timers);
   g.wl2 = M(wl2);
+#if VAG_SCAN_BF16
+  g.replay = replay;
+#endif
   const int ctas = plan[0], smem_bytes = plan[3];
   g.att_parts = plan[1];
   g.scratch_off = plan[2];
   const int H3 = 3 * H;
   // (weights, W's row stride, K, output columns) of hg1, q, hg2, xg2
-  const float* wts[4] = {F(uh1), F(ua), F(uh2), F(wi2)};
+  const sx_t* wts[4] = {X(uh1), X(ua), X(uh2), X(wi2)};
   const int ldw[4] = {H3, A, H3, H3}, K[4] = {H, H, H, C}, cols[4] = {H3, A, H3, H3};
   if (plan[1] < 1) return (int)cudaErrorInvalidValue;
   int scratch_need = att_floats_fwd(T, A, C, plan[1]);
@@ -359,9 +385,15 @@ extern "C" int dec_scan_fwd_launch(
   Job& j = ro.j[0];
   ro.n = 1;
   j.nseg = 2;
-  j.a[0] = g.c; j.lda[0] = C; j.b[0] = F(wc); j.ldb[0] = R; j.kd[0] = C;
-  j.a[1] = g.s + (size_t)B * H; j.lda[1] = H; j.b[1] = F(ws); j.ldb[1] = R;
+  j.a[0] = g.c; j.lda[0] = C; j.ldb[0] = R; j.kd[0] = C;
+  j.a[1] = g.s + (size_t)B * H; j.lda[1] = H; j.ldb[1] = R;
   j.kd[1] = H;
+  j.b[0] = reinterpret_cast<const float*>(X(wc));
+  j.b[1] = reinterpret_cast<const float*>(X(ws));
+#if VAG_SCAN_BF16
+  j.bbf[0] = j.bbf[1] = 1;   // bf16 weights; c and s' rounded
+  j.rnd = 1;
+#endif
   j.M = Tt * B; j.N = R; j.epi = TANH_ADD; j.batch = 1;
   j.out = g.t; j.ldo = R; j.add = F(ty);
   return (int)launch_jobs(dec_scan_fwd_readout_kernel, ro, cs);

@@ -63,7 +63,8 @@
 //   The attention takes one sentence per cluster of ATT_CLUSTER CTAs with
 // its K beams inside: ctx and ctx_proj are read once per sentence, the
 // scores are shared through distributed shared memory, and each thread
-// sums one ctx column for all K beams at once.
+// sums one ctx column for all K beams at once (above 16 beams, in groups
+// of 16: once a group).
 //   The energies' tanh is tanh_fast (the fast exponential and division,
 // absolute error <= 4.8e-7 by their documented bounds), the rest of the
 // arithmetic is dec_step_plain's.
@@ -108,7 +109,7 @@ constexpr int ATT_BATCH = 8;        // ctx_proj loads a lane keeps in flight
 constexpr float NEG_INF = -1e9f;   // as ops/attention.masked_softmax
 
 static_assert(MAX_K == 8 || MAX_K == 16,
-              "two instances (ops/dec_step.py): K <= 8 and 9 <= K <= 16");
+              "two instances (ops/dec_step.py): K <= 8 and K > 8");
 static_assert(WARPS_M * WARPS_N * 32 == THREADS, "one warp per warp tile");
 static_assert(WM % 16 == 0 && BK % 8 == 0 && UB % 4 == 0, "whole mma tiles");
 static_assert(SPLIT >= 1 && SPLIT <= 8 && BM % SPLIT == 0,
@@ -453,6 +454,11 @@ cudaError_t gemm(const Gemm& p, int col_tiles, cudaStream_t s) {
 // the cluster; after the cluster's barrier each CTA has all scores, takes
 // the softmax, and sums its share of the C context columns, one thread a
 // column for all K beams.
+// GROUPS (K > MAX_K, the MAX_K = 16 build): the scores and the context
+// sums loop over the sentence's beams in groups of MAX_K, each group on
+// the register arrays one group of K <= MAX_K uses (ctx_proj's row and
+// ctx's column read once a group).
+template <bool GROUPS>
 __global__ void __cluster_dims__(ATT_CLUSTER, 1, 1) __launch_bounds__(ATT_THREADS)
 dec_step_attn(const float* __restrict__ qh, int ldq,
               const float* __restrict__ ctxp, const float* __restrict__ ctx,
@@ -482,6 +488,10 @@ dec_step_attn(const float* __restrict__ qh, int ldq,
   __syncthreads();
   for (int j = rank * ATT_WARPS + warp; j < T; j += ATT_CLUSTER * ATT_WARPS) {
     const float* cp = ctxp + ((size_t)b * T + j) * A;
+    const bool live = mask[(size_t)b * T + j] > 0.f;
+    for (int k0 = 0; k0 < (GROUPS ? K : 1); k0 += MAX_K) {
+    const int kg = GROUPS ? min(MAX_K, K - k0) : K;   // beams of this group
+    const float* qg = qs + (size_t)k0 * A;
     float acc[MAX_K];
 #pragma unroll
     for (int k = 0; k < MAX_K; ++k) acc[k] = 0.f;
@@ -499,16 +509,16 @@ dec_step_attn(const float* __restrict__ qh, int ldq,
         const float v = vs[a];
 #pragma unroll
         for (int k = 0; k < MAX_K; ++k)
-          if (k < K) acc[k] += tanh_fast(xb[u] + qs[k * A + a]) * v;
+          if (k < kg) acc[k] += tanh_fast(xb[u] + qg[k * A + a]) * v;
       }
     }
-    const bool live = mask[(size_t)b * T + j] > 0.f;
 #pragma unroll
     for (int k = 0; k < MAX_K; ++k) {
-      if (k >= K) break;
+      if (k >= kg) break;
       const float e = warp_sum(acc[k]);
       if (lane < ATT_CLUSTER)
-        cluster.map_shared_rank(sc, lane)[k * T + j] = live ? e : NEG_INF;
+        cluster.map_shared_rank(sc, lane)[(k0 + k) * T + j] = live ? e : NEG_INF;
+    }
     }
   }
   cluster.sync();   // every score in every CTA's sc
@@ -531,6 +541,9 @@ dec_step_attn(const float* __restrict__ qh, int ldq,
   const int col_end = min(C, (rank + 1) * per);
   for (int col = rank * per + tid; col < col_end; col += ATT_THREADS) {
     const float* cx = ctx + (size_t)b * T * C + col;
+    for (int k0 = 0; k0 < (GROUPS ? K : 1); k0 += MAX_K) {
+    const int kg = GROUPS ? min(MAX_K, K - k0) : K;
+    const float* sg = sc + (size_t)k0 * T;
     float acc[MAX_K];
 #pragma unroll
     for (int k = 0; k < MAX_K; ++k) acc[k] = 0.f;
@@ -539,11 +552,12 @@ dec_step_attn(const float* __restrict__ qh, int ldq,
       const float x = cx[(size_t)j * C];
 #pragma unroll
       for (int k = 0; k < MAX_K; ++k)
-        if (k < K) acc[k] = fmaf(sc[k * T + j], x, acc[k]);
+        if (k < kg) acc[k] = fmaf(sg[k * T + j], x, acc[k]);
     }
 #pragma unroll
     for (int k = 0; k < MAX_K; ++k)
-      if (k < K) c[((size_t)b * K + k) * C + col] = acc[k];
+      if (k < kg) c[((size_t)b * K + k0 + k) * C + col] = acc[k];
+    }
   }
 }
 
@@ -564,7 +578,9 @@ bool al16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 //   >= H). Only the plan's form is checked here (gate tiles in the GRU
 //   products alone); every write is masked to the outputs, and that the
 //   tiles cover them is the plan's, tested on the CPU.
-// 1 <= K <= VAG_MAX_K. Enqueues 5 grids; returns 0 or the first CUDA error.
+// 1 <= K <= VAG_MAX_K, or any K >= 1 in the MAX_K = 16 build (the
+// attention in groups of 16 above 16). Enqueues 5 grids; returns 0 or the
+// first CUDA error.
 extern "C" int dec_step_launch(
     const void* gy, const void* s, const void* ctx, const void* ctxp,
     const void* mask, const void* uh1, const void* bh1, const void* w_s,
@@ -573,7 +589,7 @@ extern "C" int dec_step_launch(
     void* c, void* tc, int B, int K, int T, int H, int A, int C, int R,
     int gt1, int ct1, int gt2, int ct2, int gt3, int ct3, int gt4, int ct4,
     int kchunk, void* stream) {
-  if (K < 1 || K > MAX_K || H < 1 || A < 1 || C < 1 || R < 1 || T < 1 ||
+  if (K < 1 || (MAX_K == 8 && K > MAX_K) || H < 1 || A < 1 || C < 1 || R < 1 || T < 1 ||
       kchunk < BK || kchunk % BK != 0 || (long long)SPLIT * kchunk < H ||
       gt1 < 1 || ct1 != gt1 || gt2 != 0 || ct2 < 1 || gt3 < 1 || ct3 <= gt3 ||
       gt4 != 0 || ct4 < 1)
@@ -588,8 +604,10 @@ extern "C" int dec_step_launch(
   float* tc_f = static_cast<float*>(tc);
   float* s_new_f = static_cast<float*>(s_new);
   const size_t att_smem = sizeof(float) * ((size_t)K * A + A + (size_t)K * T);
+  const bool groups = K > MAX_K;
   if (att_smem > 48 * 1024) {
-    VAG_CHECK(cudaFuncSetAttribute(dec_step_attn,
+    VAG_CHECK(cudaFuncSetAttribute(groups ? (const void*)dec_step_attn<true>
+                                          : (const void*)dec_step_attn<false>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)att_smem));
   }
@@ -620,10 +638,16 @@ extern "C" int dec_step_launch(
   g2.out = qh_f; g2.ldo = Q;
   VAG_CHECK((gemm<BN, PLAIN>(g2, ct2, cs)));
 
-  dec_step_attn<<<B * ATT_CLUSTER, ATT_THREADS, att_smem, cs>>>(
-      qh_f, Q, static_cast<const float*>(ctxp), static_cast<const float*>(ctx),
-      static_cast<const float*>(mask), static_cast<const float*>(va), c_f, K,
-      T, A, C);
+  if (groups)
+    dec_step_attn<true><<<B * ATT_CLUSTER, ATT_THREADS, att_smem, cs>>>(
+        qh_f, Q, static_cast<const float*>(ctxp), static_cast<const float*>(ctx),
+        static_cast<const float*>(mask), static_cast<const float*>(va), c_f, K,
+        T, A, C);
+  else
+    dec_step_attn<false><<<B * ATT_CLUSTER, ATT_THREADS, att_smem, cs>>>(
+        qh_f, Q, static_cast<const float*>(ctxp), static_cast<const float*>(ctx),
+        static_cast<const float*>(mask), static_cast<const float*>(va), c_f, K,
+        T, A, C);
   VAG_CHECK(cudaGetLastError());
 
   Gemm g3{};

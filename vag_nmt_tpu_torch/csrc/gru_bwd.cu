@@ -47,6 +47,12 @@
 // second call repeats the first bit for bit. The tiling of the carry is
 // ops/gru_kernel.py's gru_bwd_plan (launch ints), its constants
 // dec_scan.cuh's -D defines.
+//
+// The bf16-stream instance (-DVAG_BF16=1, pallas_gru.py's bf16 streams):
+// xg, hs and g arrive in bf16 and dxg leaves in bf16; Uh arrives as bf16
+// (the kernel's product operand, jnp's uh.astype(bf16)), its slices held as
+// bf16 in shared memory; the three products are bf16 x bf16 -> fp32
+// (dec_scan.cuh), the cell backward, the carry and dUh, dbh, dh0 fp32.
 
 #include "dec_scan.cuh"
 
@@ -56,8 +62,10 @@ namespace cg = cooperative_groups;
 using namespace vag::scan;
 
 struct CarryArgs {
-  const float *xg, *mask, *bh, *hs, *h0, *g, *hg;
-  float *dxg, *dhg, *base, *dh0;
+  const sx_t *xg, *hs, *g;      // bf16 instance: the bf16 streams
+  const float *mask, *bh, *h0, *hg;
+  sx_t* dxg;
+  float *dhg, *base, *dh0;
   int T, B, H, reverse;
   Prod p;
   int scratch_off;
@@ -69,11 +77,12 @@ __device__ __forceinline__ int walk(const CarryArgs& a, int s) {
   return a.reverse ? s : a.T - 1 - s;
 }
 
-// The state step t of the forward scan started from: h0 at its first step,
-// else the state of the step before in scan order.
-__device__ __forceinline__ const float* hprev(const CarryArgs& a, int t) {
-  if (t == (a.reverse ? a.T - 1 : 0)) return a.h0;
-  return a.hs + (size_t)(a.reverse ? t + 1 : t - 1) * a.B * a.H;
+// Element i of the state step t of the forward scan started from: h0
+// (fp32) at its first step, else the state of the step before in scan
+// order (the stream's type).
+__device__ __forceinline__ float hprev(const CarryArgs& a, int t, size_t i) {
+  if (t == (a.reverse ? a.T - 1 : 0)) return __ldg(a.h0 + i);
+  return ldx(a.hs + (size_t)(a.reverse ? t + 1 : t - 1) * a.B * a.H + i);
 }
 
 // Step t's cell backward for (row, u) from the carry into it: dh = carry +
@@ -83,17 +92,17 @@ __device__ __forceinline__ void cell_bwd(const CarryArgs& a, int t, int row, int
   const int B = a.B, H = a.H;
   const size_t oh = ((size_t)t * B + row) * H + u;
   const size_t o = ((size_t)t * B + row) * 3 * H + u;
-  const float dh = carry + __ldg(a.g + oh);
+  const float dh = carry + ldx(a.g + oh);
   float dx[3], dhg[3];
   a.base[(size_t)row * H + u] = gru_unit_bwd_masked(
-      __ldg(a.xg + o), __ldg(a.xg + o + H), __ldg(a.xg + o + 2 * H),
+      ldx(a.xg + o), ldx(a.xg + o + H), ldx(a.xg + o + 2 * H),
       __ldg(a.hg + o) + __ldg(a.bh + u), __ldg(a.hg + o + H) + __ldg(a.bh + H + u),
       __ldg(a.hg + o + 2 * H) + __ldg(a.bh + 2 * H + u),
-      __ldg(hprev(a, t) + (size_t)row * H + u), dh, __ldg(a.mask + (size_t)t * B + row),
+      hprev(a, t, (size_t)row * H + u), dh, __ldg(a.mask + (size_t)t * B + row),
       dx, dhg);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    a.dxg[o + k * H] = dx[k];
+    stx(a.dxg + o + k * H, dx[k]);
     a.dhg[o + k * H] = dhg[k];
   }
 }
@@ -101,13 +110,14 @@ __device__ __forceinline__ void cell_bwd(const CarryArgs& a, int t, int row, int
 // Brings step t's streams that no earlier grid read (xg[t], g[t]) into L2
 // ahead of the step's epilogue: a 128-byte line a thread, across the grid.
 __device__ __forceinline__ void prefetch_step(const CarryArgs& a, int t) {
+  constexpr int PER = 128 / sizeof(sx_t);   // elements a 128-byte line
   const size_t n3 = (size_t)a.B * 3 * a.H, n1 = (size_t)a.B * a.H;
-  const size_t l3 = (n3 + 31) / 32, l1 = (n1 + 31) / 32;
-  const float* xg = a.xg + (size_t)t * n3;
-  const float* g = a.g + (size_t)t * n1;
+  const size_t l3 = (n3 + PER - 1) / PER, l1 = (n1 + PER - 1) / PER;
+  const sx_t* xg = a.xg + (size_t)t * n3;
+  const sx_t* g = a.g + (size_t)t * n1;
   for (size_t i = blockIdx.x * THREADS + threadIdx.x; i < l3 + l1;
        i += (size_t)gridDim.x * THREADS) {
-    const float* p = i < l3 ? xg + 32 * i : g + 32 * (i - l3);
+    const sx_t* p = i < l3 ? xg + PER * i : g + PER * (i - l3);
     asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
   }
 }
@@ -235,17 +245,18 @@ extern "C" int gru_bwd_launch(const void* xg, const void* mask, const void* uh,
       (plan[3] > 0 && wl2 == nullptr))
     return (int)cudaErrorInvalidValue;
   auto F = [](const void* p) { return static_cast<const float*>(p); };
+  auto X = [](const void* p) { return static_cast<const sx_t*>(p); };
   auto M = [](void* p) { return static_cast<float*>(p); };
   const int H3 = 3 * H, ctas = plan[0], smem_bytes = plan[2];
   CarryArgs a{};
-  a.xg = F(xg); a.mask = F(mask); a.bh = F(bh); a.hs = F(hs); a.h0 = F(h0);
-  a.g = F(g); a.hg = F(hg);
-  a.dxg = M(dxg); a.dhg = M(dhg); a.base = M(base); a.dh0 = M(dh0);
+  a.xg = X(xg); a.mask = F(mask); a.bh = F(bh); a.hs = X(hs); a.h0 = F(h0);
+  a.g = X(g); a.hg = F(hg);
+  a.dxg = static_cast<sx_t*>(dxg); a.dhg = M(dhg); a.base = M(base); a.dh0 = M(dh0);
   a.T = T; a.B = B; a.H = H; a.reverse = reverse;
   a.scratch_off = plan[1];
   a.wl2 = M(wl2);
   const int* v = plan + 4;
-  a.p = Prod{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], H3, H, H, F(uh), H3, 1};
+  a.p = Prod{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], H3, H, H, X(uh), H3, 1};
   if (ctas < 1 || a.p.ub != 0 || !prod_ok(a.p, ctas, a.scratch_off, plan[3]) ||
       a.scratch_off % 4 != 0 ||
       (long long)4 * (a.scratch_off + prod_part_floats(a.p)) > smem_bytes)
@@ -254,7 +265,7 @@ extern "C" int gru_bwd_launch(const void* xg, const void* mask, const void* uh,
   // The scan's first step (h0's rows) and the others (the states' rows):
   // their h_prev, and their rows of HG and dHG.
   const int tf = reverse ? T - 1 : 0;
-  const float* hs_rows = a.hs + (reverse ? (size_t)B * H : 0);
+  const float* hs_rows = reinterpret_cast<const float*>(a.hs + (reverse ? (size_t)B * H : 0));
   const size_t first_row = (size_t)tf * B, rest_row = reverse ? 0 : B;
   // 1. HG = h_prev @ Uh
   Jobs pre{};
@@ -265,9 +276,14 @@ extern "C" int gru_bwd_launch(const void* xg, const void* mask, const void* uh,
   for (int i = 0; i < 2; ++i) {
     Job& j = pre.j[i];
     j.nseg = 1; j.a[0] = xs[i]; j.lda[0] = H; j.kd[0] = H;
-    j.b[0] = F(uh); j.ldb[0] = H3;
+    j.b[0] = reinterpret_cast<const float*>(X(uh)); j.ldb[0] = H3;
     j.M = ms[i]; j.N = H3; j.out = M(hg) + rows0[i] * H3; j.ldo = H3;
     j.batch = 1; j.epi = STORE;
+#if VAG_SCAN_BF16
+    j.abf[0] = i;   // the states' rows are the bf16 stream, h0's fp32
+    j.bbf[0] = 1;
+    j.rnd = 1;
+#endif
   }
   VAG_CHECK(launch_jobs(gru_bwd_recompute_kernel, pre, s));
   // 2. the carry
@@ -283,7 +299,13 @@ extern "C" int gru_bwd_launch(const void* xg, const void* mask, const void* uh,
   for (int i = 0; i < 2; ++i) {
     w.a[i] = xs[i]; w.lda[i] = H; w.kd[i] = ms[i];
     w.b[i] = a.dhg + rows0[i] * H3; w.ldb[i] = H3;
+#if VAG_SCAN_BF16
+    w.abf[i] = i;
+#endif
   }
+#if VAG_SCAN_BF16
+  w.rnd = 1;   // bf16(h_prev)^T @ bf16(dhg), summed (and kept) in fp32
+#endif
   w.M = H; w.N = H3; w.out = M(duh); w.ldo = H3; w.batch = 1; w.epi = STORE;
   return launch_wgrad(post, ColSums{a.dhg, T * B, H3, 0, M(dbh)}, s);
 }

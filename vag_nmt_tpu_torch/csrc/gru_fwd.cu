@@ -47,11 +47,32 @@
 // resident path reads its slice.
 // Widths that are no multiple of 16 are zero-padded by the wrapper
 // (ops/gru_kernel.py), which is exact: a padded unit stays 0.
+//
+// The bf16-stream instance (-DVAG_BF16=1; pallas_gru.py's bf16 streams
+// under compute_dtype="bfloat16"): xg arrives and the states leave in
+// bf16, the carry and the gate math stay fp32, and hg is bf16(h) @
+// bf16(Uh) summed in fp32. The wrapper passes Uh rounded to bf16 (in
+// fp32, so the slice, its layout and the FMA loop are the fp32
+// instance's: products of bf16 values are exact in fp32; rounding it in
+// the slice's packing loop instead measured 0.1 ms slower a call on the
+// H100) and h0 rounded; the carry goes through hc (2, B, H) fp32, and the
+// rounded states the product stages through ps (2, B, H), both written by
+// the epilogue (slot step % 2), since the bf16 out cannot carry the fp32
+// state.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#if defined(VAG_BF16) && VAG_BF16
+#define VAG_GRU_BF16 1
+#include <cuda_bf16.h>
+typedef __nv_bfloat16 st_t;   // the streams' type
+#else
+#define VAG_GRU_BF16 0
+typedef float st_t;
+#endif
 
 // The ring depth and row padding come from ops/gru_kernel.py (GRU_STAGES,
 // GRU_PAD), which plans the shared memory they take.
@@ -88,6 +109,22 @@ __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
+// Two consecutive stream elements as fp32, and their store.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+#if VAG_GRU_BF16
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+#endif
+
 // Shared memory: us, Uh's slice in k pairs: float 12 * (p * UG + up) +
 // 6 * kk + 2 * g + j holds Uh[2p + kk, g*H + unit0 + 2*up + j], so three
 // float4 loads give a thread its 2 units x 3 gates for two k; then STAGES
@@ -96,14 +133,18 @@ __device__ __forceinline__ float comp(const float4& v, int j) {
 // state rows, then the slice's chunk of 3 * KC * UB floats.
 template <int R, bool L2W>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
-gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
+gru_fwd_persistent(const st_t* __restrict__ xg,     // (T, B, 3H)
                    const float* __restrict__ mask,  // (T, B)
                    const float* __restrict__ uh,    // (H, 3H)
                    const float* __restrict__ bh,    // (3H,)
                    const float* h0,                 // (B, H)
-                   float* out,                      // (T, B, H)
+                   st_t* out,                       // (T, B, H)
                    float* wl2,                      // (3 H^2,) with L2W
-                   int T, int B, int H, int reverse, int RB, int UB, int KC) {
+                   int T, int B, int H, int reverse, int RB, int UB, int KC
+#if VAG_GRU_BF16
+                   , float* hc, float* ps, const float* h0r   // (2, B, H) x 2, (B, H)
+#endif
+                   ) {
   constexpr int U = 2;            // units a thread
   constexpr int W = 6 * U;        // floats of Uh per thread and k pair
   extern __shared__ __align__(16) float smem[];
@@ -146,10 +187,18 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
 
   for (int step = 0; step < T; ++step) {
     const int t = reverse ? T - 1 - step : step;
+#if VAG_GRU_BF16
+    // the product's rows (bf16-rounded) and the carry (fp32) of the step before
+    const size_t prev = (size_t)((step + 1) % 2) * B * H, cur = (size_t)(step % 2) * B * H;
+    const float* hp = step == 0 ? h0r : ps + prev;
+    const float* hcar = step == 0 ? h0 : hc + prev;
+#else
     const float* hp = step == 0
         ? h0 : out + (size_t)(reverse ? t + 1 : t - 1) * B * H;
-    float* ho = out + (size_t)t * B * H;
-    const float* xt = xg + (size_t)t * B * H3;
+    const float* hcar = hp;
+#endif
+    st_t* ho = out + (size_t)t * B * H;
+    const st_t* xt = xg + (size_t)t * B * H3;
     for (int rb = blockIdx.x; rb < n_rb; rb += gridDim.x) {
       const int row0 = rb * RB;
 #pragma unroll
@@ -246,14 +295,14 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
 #pragma unroll
         for (int e = 0; e < E; ++e) {
           const int row = min(row0 + rg + RG * (i0 + e), B - 1);
-          const float* x = xt + (size_t)row * H3 + u;
+          const st_t* x = xt + (size_t)row * H3 + u;
 #pragma unroll
           for (int g = 0; g < 3; ++g) {
-            const float2 v = *reinterpret_cast<const float2*>(x + (size_t)g * H);
+            const float2 v = load2(x + (size_t)g * H);
             xs[e][g][0] = v.x;
             xs[e][g][1] = v.y;
           }
-          const float2 v = __ldcg(reinterpret_cast<const float2*>(hp + (size_t)row * H + u));
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(hcar + (size_t)row * H + u));
           hh[e][0] = v.x;
           hh[e][1] = v.y;
           keep[e] = mask[(size_t)t * B + row] > 0.f;
@@ -271,7 +320,13 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
             const float h_new = (1.f - z) * n + z * hh[e][j];
             o[j] = keep[e] ? h_new : hh[e][j];
           }
-          *reinterpret_cast<float2*>(ho + (size_t)row * H + u) = make_float2(o[0], o[1]);
+          store2(ho + (size_t)row * H + u, o[0], o[1]);
+#if VAG_GRU_BF16
+          const size_t oc = cur + (size_t)row * H + u;
+          *reinterpret_cast<float2*>(hc + oc) = make_float2(o[0], o[1]);
+          *reinterpret_cast<float2*>(ps + oc) =
+              __bfloat1622float2(__floats2bfloat162_rn(o[0], o[1]));
+#endif
         }
       }
       __syncthreads();   // the next row block refills the ring
@@ -281,10 +336,14 @@ gru_fwd_persistent(const float* __restrict__ xg,    // (T, B, 3H)
 }
 
 template <int R, bool L2W>
-int launch(const float* xg, const float* mask, const float* uh,
-           const float* bh, const float* h0, float* out, float* wl2, int T,
+int launch(const st_t* xg, const float* mask, const float* uh,
+           const float* bh, const float* h0, st_t* out, float* wl2, int T,
            int B, int H, int reverse, int RB, int UB, int KC, int GX,
-           cudaStream_t s) {
+           cudaStream_t s
+#if VAG_GRU_BF16
+           , float* hc, float* ps, const float* h0r
+#endif
+           ) {
   const int threads = (RB / R) * (UB / 2);
   // The layout above; ops/gru_kernel.py::gru_fwd_smem_bytes plans by it.
   const size_t smem = sizeof(float) * (
@@ -305,7 +364,11 @@ int launch(const float* xg, const float* mask, const float* uh,
   if ((long long)grid.x * grid.y > (long long)per_sm * sms)
     return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&xg, &mask, &uh, &bh, &h0, &out, &wl2, &T, &B, &H,
-                  &reverse, &RB, &UB, &KC};
+                  &reverse, &RB, &UB, &KC
+#if VAG_GRU_BF16
+                  , &hc, &ps, &h0r
+#endif
+                  };
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), grid,
                                   dim3(threads), args, smem, s);
   if (e != cudaSuccess) return (int)e;
@@ -329,7 +392,9 @@ extern "C" int gru_fwd_limits(int* n_sms, int* max_smem) {
 
 // Enqueues the whole scan as one cooperative grid of (GX, H / UB) CTAs of
 // (RB / R) * (UB / 2) threads on `stream`. Pointers are device pointers to
-// contiguous fp32 tensors: xg (T, B, 3H), mask (T, B), uh (H, 3H),
+// contiguous fp32 tensors (xg and out bf16 in the bf16 instance, which
+// also takes hc, ps (2, B, H) fp32 scratch and h0r, h0 rounded to bf16,
+// in fp32): xg (T, B, 3H), mask (T, B), uh (H, 3H),
 // bh (3H,), h0 (B, H), out (T, B, H). The plan (R rows a thread in
 // {1, 2, 4, 8}, RB, UB, KC, GX, and l2: Uh's slices in wl2, a scratch
 // buffer of 3 H^2 floats, else null) comes from gru_fwd_plan. Returns 0,
@@ -340,26 +405,38 @@ extern "C" int gru_fwd_launch(const void* xg, const void* mask, const void* uh,
                               const void* bh, const void* h0, void* out,
                               void* wl2, int T, int B, int H, int reverse,
                               int R, int RB, int UB, int KC, int GX, int l2,
-                              void* stream) {
+                              void* stream
+#if VAG_GRU_BF16
+                              , void* hc, void* ps, const void* h0r
+#endif
+                              ) {
   const int threads = R > 0 && UB > 0 ? (RB / R) * (UB / 2) : 0;
   if (threads <= 0 || threads > MAX_THREADS || RB % R || UB % 2 || H % UB ||
       KC % 4 || H % KC || threads % (KC / 4) || GX <= 0 ||
       (l2 && wl2 == nullptr))
     return (int)cudaErrorInvalidValue;
-  const float* a[5] = {static_cast<const float*>(xg),
+  const st_t* x = static_cast<const st_t*>(xg);
+  const float* a[5] = {nullptr,
                        static_cast<const float*>(mask),
                        static_cast<const float*>(uh),
                        static_cast<const float*>(bh),
                        static_cast<const float*>(h0)};
-  float* o = static_cast<float*>(out);
+  st_t* o = static_cast<st_t*>(out);
   float* w = static_cast<float*>(wl2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if VAG_GRU_BF16
+  if (hc == nullptr || ps == nullptr || h0r == nullptr) return (int)cudaErrorInvalidValue;
+#define VAG_GRU_EXTRA , static_cast<float*>(hc), static_cast<float*>(ps), \
+                        static_cast<const float*>(h0r)
+#else
+#define VAG_GRU_EXTRA
+#endif
 #define VAG_GRU_CASE(RR)                                                    \
   case RR:                                                                  \
-    return l2 ? launch<RR, true>(a[0], a[1], a[2], a[3], a[4], o, w, T, B,  \
-                                 H, reverse, RB, UB, KC, GX, s)             \
-              : launch<RR, false>(a[0], a[1], a[2], a[3], a[4], o, w, T, B, \
-                                  H, reverse, RB, UB, KC, GX, s);
+    return l2 ? launch<RR, true>(x, a[1], a[2], a[3], a[4], o, w, T, B,     \
+                                 H, reverse, RB, UB, KC, GX, s VAG_GRU_EXTRA) \
+              : launch<RR, false>(x, a[1], a[2], a[3], a[4], o, w, T, B,    \
+                                  H, reverse, RB, UB, KC, GX, s VAG_GRU_EXTRA);
   switch (R) {
     VAG_GRU_CASE(1)
     VAG_GRU_CASE(2)
@@ -368,4 +445,5 @@ extern "C" int gru_fwd_launch(const void* xg, const void* mask, const void* uh,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VAG_GRU_CASE
+#undef VAG_GRU_EXTRA
 }

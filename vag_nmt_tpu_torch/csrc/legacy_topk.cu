@@ -45,7 +45,12 @@
 // the per-row output, and warp 0 combines the K rows. One launch where the
 // first design ran a grid of one 256-thread CTA per row with scalar loads
 // and the full cascade on every element, then ~10 torch launches of
-// combine. Measured (chip_smoke.py on an H100 SXM at 700 W; PERF.md), gen
+// combine.
+//
+// Above 16 beams both gens run ceil(K / 16) passes of 16 (topk_split.cuh),
+// one launch each: gen 1 keyed after the last rank the pass before wrote,
+// gen 2 after each row's last entry, its combine in the last pass as
+// rounds of 16 after the round before (the *_passes_launch entries). Measured (chip_smoke.py on an H100 SXM at 700 W; PERF.md), gen
 // 2's grid alone with L2 cold: 0.030 ms at V=8000 and 0.041 ms at V=16000
 // with the combine, as the first design's grid without it; torch.topk on
 // the same candidates takes 0.139 and 0.237.
@@ -173,6 +178,169 @@ rows_kernel(const float* __restrict__ logits, const float* __restrict__ base,
   }
 }
 
+// ---- Passes: K > 16 beams (topk_split.cuh's passes), one launch a pass ----
+
+// Gen 1's rank at K beams known only at run time.
+struct BlockRankK {
+  int K;
+  __device__ __forceinline__ int operator()(int k, int v) const {
+    return (v / BLK) * (K * BLK) + k * BLK + v % BLK;
+  }
+};
+
+// The first 16 of the floored columns past V (BlockRankK ranks, value
+// FLOOR, ordered k-major) strictly after (av, ai), offered by lanes 0..15:
+// start = how many of them rank at or before the key.
+__device__ __forceinline__ void offer_floored(float (&sv)[split::PASS_K],
+                                             int (&si)[split::PASS_K],
+                                             const BlockRankK& rank, int V,
+                                             bool filt, float av, int ai,
+                                             int lane) {
+  const int npad = (V + BLK - 1) / BLK * BLK - V;
+  if (npad == 0 || lane >= split::PASS_K) return;
+  const int n = rank.K * npad;
+  int start = 0;
+  if (filt && av < FLOOR) start = n;
+  if (filt && av == FLOOR) {
+    const int base = (V / BLK) * (rank.K * BLK);   // the last block's rank 0
+    if (ai >= base) {
+      const int rem = ai - base, kk = rem / BLK, c = rem % BLK - V % BLK;
+      start = kk * npad + min(npad, max(0, c + 1));
+    }
+  }
+  const int e = start + lane;
+  if (e < n) split::offer<split::PASS_K>(sv, si, FLOOR, rank(e / npad, V + e % npad));
+}
+
+// Gen 1, one pass: entries [kofs, kofs + 16) of each sentence's top-K in
+// gen 1's order, after the key of entry kofs - 1 (its flat id turned back
+// into the rank).
+__global__ void __launch_bounds__(split::THREADS)
+blocks_pass_kernel(const float* __restrict__ logits,
+                   const float* __restrict__ base,
+                   const uint8_t* __restrict__ fin, float* part_v, int* part_i,
+                   unsigned int* counters, float* __restrict__ vals,
+                   long long* __restrict__ idx, int K, int V, int S,
+                   int pad_id, int kofs) {
+  constexpr int KT = split::PASS_K;
+  const BlockRankK rank{K};
+  const int b = blockIdx.x / (S * K);
+  const size_t o = (size_t)b * K;
+  const bool filt = kofs > 0;
+  float av = 0.f;
+  int ai = 0;
+  if (filt) {
+    const long long f = __ldcg(idx + o + kofs - 1);
+    av = __ldcg(vals + o + kofs - 1);
+    ai = rank((int)(f / V), (int)(f % V));
+  }
+  if (!split::stage1_pass(logits, base, fin, part_v, part_i, counters, V, S,
+                          pad_id, rank, K, filt, av, ai))
+    return;
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const size_t p0 = (size_t)b * K * S * KT;
+  float sv[KT], ov[KT];
+  int si[KT], oi[KT];
+  split::clear<KT>(sv, si);
+  for (int e = lane; e < K * S * KT; e += 32)
+    split::offer<KT>(sv, si, __ldcg(part_v + p0 + e), __ldcg(part_i + p0 + e));
+  offer_floored(sv, si, rank, V, filt, av, ai, lane);
+  split::warp_merge<KT>(sv, si, ov, oi);
+  if (lane == 0) {
+    const int n = split::pass_width(K, kofs);
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+      if (j < n) {
+        const int rem = oi[j] % (K * BLK);
+        vals[o + kofs + j] = ov[j];
+        idx[o + kofs + j] =
+            (long long)(rem / BLK) * V + oi[j] / (K * BLK) * BLK + rem % BLK;
+      }
+    counters[b] = 0u;
+  }
+}
+
+// Gen 2, one pass: each row's entries [kofs, kofs + 16) after its key
+// rvals/ridx[kofs - 1]; the last pass (kofs + 16 >= K) then combines the
+// sentence's K * K per-row entries beam-major into vals / idx, 16 at a
+// time in the same way (rounds after the key of the round before).
+__global__ void __launch_bounds__(split::THREADS)
+rows_pass_kernel(const float* __restrict__ logits,
+                 const float* __restrict__ base,
+                 const uint8_t* __restrict__ fin, float* part_v, int* part_i,
+                 unsigned int* counters, float* __restrict__ rvals,
+                 int* __restrict__ ridx, float* __restrict__ vals,
+                 long long* __restrict__ idx, int K, int V, int S,
+                 int pad_id, int kofs) {
+  constexpr int KT = split::PASS_K;
+  const int r = blockIdx.x / S, b = r / K;
+  const bool filt = kofs > 0;
+  const float av = filt ? __ldcg(rvals + (size_t)r * K + kofs - 1) : 0.f;
+  const int ai = filt ? __ldcg(ridx + (size_t)r * K + kofs - 1) : 0;
+  if (!split::stage1_pass(logits, base, fin, part_v, part_i, counters, V, S,
+                          pad_id, split::VocabId{}, K, filt, av, ai))
+    return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int Vp = (V + BLK - 1) / BLK * BLK;
+  const int n = split::pass_width(K, kofs);
+  float sv[KT], ov[KT];
+  int si[KT], oi[KT];
+  for (int k = warp; k < K; k += split::WARPS) {
+    const int rr = b * K + k;
+    const size_t p0 = (size_t)rr * S * KT;
+    const bool f2 = kofs > 0;
+    const float bv = f2 ? __ldcg(rvals + (size_t)rr * K + kofs - 1) : 0.f;
+    const int bi = f2 ? __ldcg(ridx + (size_t)rr * K + kofs - 1) : 0;
+    split::clear<KT>(sv, si);
+    for (int e = lane; e < S * KT; e += 32)
+      split::offer<KT>(sv, si, __ldcg(part_v + p0 + e), __ldcg(part_i + p0 + e));
+    // the floored columns past V after the row's key, the first 16
+    const int start = !f2 || bv > FLOOR ? V : bv == FLOOR ? max(V, bi + 1) : Vp;
+    if (lane < KT && start + lane < Vp)
+      split::offer<KT>(sv, si, FLOOR, start + lane);
+    split::warp_merge<KT>(sv, si, ov, oi);
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+        if (j < n) {
+          rvals[(size_t)rr * K + kofs + j] = ov[j];
+          ridx[(size_t)rr * K + kofs + j] = oi[j];
+        }
+    }
+  }
+  if (kofs + KT < K) {
+    if (threadIdx.x == 0) counters[b] = 0u;
+    return;
+  }
+  __syncthreads();   // every row's entries written (this CTA's, and earlier launches')
+  if (warp != 0) return;
+  const size_t c0 = (size_t)b * K * K;
+  float cv = 0.f;
+  int cp = 0;
+  for (int q = 0; q < K; q += KT) {
+    split::clear<KT>(sv, si);
+    for (int e = lane; e < K * K; e += 32) {
+      const float x = __ldcg(rvals + c0 + e);
+      if (q == 0 || vag::better(cv, cp, x, e)) split::offer<KT>(sv, si, x, e);
+    }
+    split::warp_merge<KT>(sv, si, ov, oi);
+    const int w = split::pass_width(K, q);
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+        if (j < w) {
+          vals[(size_t)b * K + q + j] = ov[j];
+          idx[(size_t)b * K + q + j] =
+              (long long)(oi[j] / K) * V + __ldcg(ridx + c0 + oi[j]);
+        }
+    }
+    cv = ov[KT - 1];
+    cp = oi[KT - 1];
+  }
+  if (lane == 0) counters[b] = 0u;
+}
+
 // Arguments of both entry points; rows (gen 2) only: the per-row outputs.
 struct Args {
   const float* logits;
@@ -201,6 +369,26 @@ int launch(bool rows, const Args& a) {
         a.logits, a.base, a.fin, a.part_v, a.part_i, a.counters, a.vals,
         a.idx, a.V, a.S, a.pad_id);
   return (int)cudaGetLastError();
+}
+
+int dispatch_passes(bool rows, int K, const Args& a) {
+  if (a.B <= 0) return 0;
+  if (K <= split::PASS_K || a.V < K || a.S < 1 ||
+      (long long)K * (a.V + BLK) >= INT_MAX || (long long)a.B * K * a.S >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int grid = a.B * K * a.S;
+  for (int kofs = 0; kofs < K; kofs += split::PASS_K) {
+    if (rows)
+      rows_pass_kernel<<<grid, split::THREADS, 0, a.stream>>>(
+          a.logits, a.base, a.fin, a.part_v, a.part_i, a.counters, a.rvals,
+          a.ridx, a.vals, a.idx, K, a.V, a.S, a.pad_id, kofs);
+    else
+      blocks_pass_kernel<<<grid, split::THREADS, 0, a.stream>>>(
+          a.logits, a.base, a.fin, a.part_v, a.part_i, a.counters, a.vals,
+          a.idx, K, a.V, a.S, a.pad_id, kofs);
+    VAG_CHECK(cudaGetLastError());
+  }
+  return 0;
 }
 
 int dispatch(bool rows, int K, const Args& a) {
@@ -277,4 +465,36 @@ extern "C" int legacy_topk_rows_launch(const void* logits, const void* base,
                static_cast<float*>(vals), static_cast<long long*>(idx), B, V,
                S, pad_id, static_cast<cudaStream_t>(stream)};
   return dispatch(true, K, a);
+}
+
+// K > 16 beams: ceil(K / 16) passes, one grid each, on the arguments of
+// legacy_topk_blocks_launch / legacy_topk_rows_launch with part_v / part_i
+// of B*K*S*16; K <= V.
+extern "C" int legacy_topk_blocks_passes_launch(
+    const void* logits, const void* base, const void* fin, void* part_v,
+    void* part_i, void* counters, void* vals, void* idx, int B, int K, int V,
+    int S, int pad_id, void* stream) {
+  const Args a{static_cast<const float*>(logits),
+               static_cast<const float*>(base),
+               static_cast<const uint8_t*>(fin), static_cast<float*>(part_v),
+               static_cast<int*>(part_i),
+               static_cast<unsigned int*>(counters), nullptr, nullptr,
+               static_cast<float*>(vals), static_cast<long long*>(idx), B, V,
+               S, pad_id, static_cast<cudaStream_t>(stream)};
+  return dispatch_passes(false, K, a);
+}
+
+extern "C" int legacy_topk_rows_passes_launch(
+    const void* logits, const void* base, const void* fin, void* part_v,
+    void* part_i, void* counters, void* rvals, void* ridx, void* vals,
+    void* idx, int B, int K, int V, int S, int pad_id, void* stream) {
+  const Args a{static_cast<const float*>(logits),
+               static_cast<const float*>(base),
+               static_cast<const uint8_t*>(fin), static_cast<float*>(part_v),
+               static_cast<int*>(part_i),
+               static_cast<unsigned int*>(counters),
+               static_cast<float*>(rvals), static_cast<int*>(ridx),
+               static_cast<float*>(vals), static_cast<long long*>(idx), B, V,
+               S, pad_id, static_cast<cudaStream_t>(stream)};
+  return dispatch_passes(true, K, a);
 }

@@ -66,6 +66,19 @@
 // is not flagged has every value outside the union strictly below its K-th,
 // so its vals/idx are those of depth K, bit for bit, and lse does not
 // depend on SK at all.
+// Passes (K > MAX_K, the MAX_K = 16 build): the candidates being ordered
+// strictly and totally by (value desc, id asc), a row's top-K is ceil(K /
+// 16) top-16s, pass p taking only the candidates strictly after the
+// row's entry 16 p - 1 that pass p - 1 wrote (read back from vals/idx on
+// the device). Each pass recomputes the GEMM (and the same lse): writing
+// the (R, V) logits once for the later passes to scan would cost the
+// beam-5 path's instance a store it does not need, and a pass costs what
+// the K <= 16 call costs. At depth the after test sits in the fold; with
+// shallow slots the lanes keep their unfiltered top-SK (so the union and
+// the watermarks are those of one pass) and the test sits in the lane
+// merge, and only the last pass flags rows and marks tiles, against the
+// union's K-th entry. The recovery reruns the marked tiles in passes at
+// depth.
 // Per-step recovery (the TPU's per-step lax.cond, without a host read): the
 // merge also marks each row tile holding a flagged LIVE row (a frozen row's
 // outputs are discarded by _combine) and counts the flagged rows in a
@@ -151,6 +164,7 @@ struct Params {
   int vec_t, vec_w, vec_b;      // 16-byte copies of t rows / W rows / b
   int shallow;                  // SK < K: watermark, viol (and marks)
   int rerun;                    // the recovery's depth-K rerun
+  int kout, kofs;               // passes: vals/idx row stride, this pass's first entry
 };
 
 // Copies chunk q (column tile q / kc_n, depth chunk q % kc_n) of the CTA's
@@ -249,14 +263,22 @@ __device__ __forceinline__ float kth(const float (&bv)[MAX_K], int K) {
   return x;
 }
 
-template <int SK>
+// PASS: one pass of K > MAX_K (the head of this file): lists MAX_K wide
+// (p.K), entries [kofs, kofs + MAX_K) of each row's top-K written at row
+// stride kout, only candidates strictly after the row's entry kofs - 1
+// taken (in the fold at depth, in the lane merge with shallow slots), the
+// flags of the last pass alone.
+template <int SK, bool PASS>
 __global__ void __launch_bounds__(THREADS, 1)
 readout_topk_kernel(const Params p) {
   static_assert(1 <= SK && SK <= MAX_K, "slot depth 1..MAX_K");
   const int tid = threadIdx.x;
+  const int kout = PASS ? p.kout : p.K, kofs = PASS ? p.kofs : 0;
+  const bool filt = PASS && kofs > 0;
+  const bool last_pass = !PASS || kofs + p.K >= kout;
   const int tile = blockIdx.x;
   if (p.rerun) {
-    if (tile == 0 && blockIdx.y == 0 && tid == 0) {
+    if (tile == 0 && blockIdx.y == 0 && tid == 0 && kofs == 0) {
       int any = 0;
       for (int i = 0; i < gridDim.x; ++i) any |= p.tile_mark[i];
       if (any) atomicAdd(&p.counts[1], 1ull);
@@ -282,8 +304,15 @@ readout_topk_kernel(const Params p) {
   const int gq = tid % TX, rq = tid / TX;
   float sv[RPT][SK], m[RPT], s[RPT], wmark[RPT];
   int si[RPT][SK];
+  float key_v[RPT];   // PASS at depth: the rows' keys
+  int key_i[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
+    if (PASS) {
+      const int row = min(row0 + rq + r * (THREADS / TX), p.R - 1);
+      key_v[r] = filt ? __ldcg(p.vals + (size_t)row * kout + kofs - 1) : 0.f;
+      key_i[r] = filt ? __ldcg(p.idx + (size_t)row * kout + kofs - 1) : 0;
+    }
     m[r] = FLOOR;
     s[r] = 0.f;
     wmark[r] = FLOOR;
@@ -368,7 +397,8 @@ readout_topk_kernel(const Params p) {
           const int col = c0 + cl + j;
           if (col < col_end) {
             acc_s = __fadd_rn(acc_s, expf(x[j] - m_new));
-            const float out = better(x[j], col, sv[r][SK - 1], si[r][SK - 1])
+            const bool in = !filt || p.shallow || better(key_v[r], key_i[r], x[j], col);
+            const float out = in && better(x[j], col, sv[r][SK - 1], si[r][SK - 1])
                                   ? insert<SK>(sv[r], si[r], x[j], col) : x[j];
             wmark[r] = fmaxf(wmark[r], out);
           }
@@ -411,12 +441,20 @@ readout_topk_kernel(const Params p) {
       bi[k] = INT_MAX;
     }
     float M = FLOOR, W = FLOOR;
+    float rv = 0.f;   // PASS: the row's key
+    int ri = 0;
+    if (filt) {
+      rv = __ldcg(p.vals + (size_t)row * kout + kofs - 1);
+      ri = __ldcg(p.idx + (size_t)row * kout + kofs - 1);
+    }
     for (int j = 0; j < TX; ++j) {
 #pragma unroll
       for (int k = 0; k < SK; ++k) {
         const float x = cv[(tid * TX + j) * SK + k];
         const int xi = ci[(tid * TX + j) * SK + k];
-        if (better(x, xi, bv[MAX_K - 1], bi[MAX_K - 1])) insert<MAX_K>(bv, bi, x, xi);
+        if ((!filt || better(rv, ri, x, xi)) &&
+            better(x, xi, bv[MAX_K - 1], bi[MAX_K - 1]))
+          insert<MAX_K>(bv, bi, x, xi);
       }
       M = fmaxf(M, cm[tid * TX + j]);
       W = fmaxf(W, cw[tid * TX + j]);
@@ -470,13 +508,13 @@ readout_topk_kernel(const Params p) {
     }
 #pragma unroll
     for (int k = 0; k < MAX_K; ++k)
-      if (k < p.K) {
-        p.vals[(size_t)row * p.K + k] = bv[k];
-        p.idx[(size_t)row * p.K + k] = bi[k];
+      if (k < p.K && kofs + k < kout) {
+        p.vals[(size_t)row * kout + kofs + k] = bv[k];
+        p.idx[(size_t)row * kout + kofs + k] = bi[k];
       }
     p.lse[row] = M + logf(S);
-    if (p.shallow) {
-      const int flag = W >= kth(bv, p.K) ? 1 : 0;
+    if (p.shallow && last_pass) {
+      const int flag = W >= kth(bv, kout - kofs) ? 1 : 0;
       p.viol[row] = flag;
       if (flag && p.live != nullptr && p.live[row]) {
         p.tile_mark[tile] = 1;
@@ -487,14 +525,14 @@ readout_topk_kernel(const Params p) {
   if (tid == 0) p.arrivals[tile] = 0;   // ready for the next launch
 }
 
-template <int SK>
+template <int SK, bool PASS = false>
 cudaError_t grid(const Params& p, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      readout_topk_kernel<SK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      readout_topk_kernel<SK, PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
   if (e != cudaSuccess) return e;
   const dim3 g((p.R + BM - 1) / BM, p.n_split);
-  readout_topk_kernel<SK><<<g, THREADS, SMEM_BYTES, stream>>>(p);
+  readout_topk_kernel<SK, PASS><<<g, THREADS, SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -522,6 +560,31 @@ cudaError_t grid_sk(const Params& p, int sk, cudaStream_t stream) {
   }
 }
 
+#if VAG_MAX_K > 8
+// A pass's grid: slot depth sk with shallow slots, else MAX_K (filtered).
+cudaError_t grid_pass(const Params& p, int sk, cudaStream_t stream) {
+  switch (sk) {
+    case 1: return grid<1, true>(p, stream);
+    case 2: return grid<2, true>(p, stream);
+    case 3: return grid<3, true>(p, stream);
+    case 4: return grid<4, true>(p, stream);
+    case 5: return grid<5, true>(p, stream);
+    case 6: return grid<6, true>(p, stream);
+    case 7: return grid<7, true>(p, stream);
+    case 8: return grid<8, true>(p, stream);
+    case 9: return grid<9, true>(p, stream);
+    case 10: return grid<10, true>(p, stream);
+    case 11: return grid<11, true>(p, stream);
+    case 12: return grid<12, true>(p, stream);
+    case 13: return grid<13, true>(p, stream);
+    case 14: return grid<14, true>(p, stream);
+    case 15: return grid<15, true>(p, stream);
+    case 16: return grid<16, true>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+#endif
+
 }  // namespace
 
 // Device pointers to contiguous tensors: t (R, E) f32, w (E, V) f32,
@@ -529,7 +592,9 @@ cudaError_t grid_sk(const Params& p, int sk, cudaStream_t stream) {
 // K), part_m/part_s (n_split, R); arrivals (ceil(R / BM),) u32, zero (and
 // left zero); outputs vals (R, K) f32, idx (R, K) i32, lse (R,) f32.
 // split_cols is a multiple of BN and n_split * split_cols >= V.
-// 1 <= SK <= K <= MAX_K. With SK < K also part_w (n_split, R) f32 and the
+// 1 <= SK <= K <= MAX_K, or (the MAX_K = 16 build) K > MAX_K in passes
+// with K <= V, SK == K or SK <= MAX_K, partials MAX_K wide and one grid a
+// pass (two with the recovery). With SK < K also part_w (n_split, R) f32 and the
 // output viol (R,) i32; for the per-step recovery live (R,) uint8,
 // tile_mark (ceil(R / BM),) uint8 scratch and counts (2,) int64 (flagged
 // live rows, recovering calls; added to), else null.
@@ -543,7 +608,12 @@ extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
                                    void* tile_mark, void* counts, int R,
                                    int E, int V, int K, int SK, int n_split,
                                    int split_cols, void* stream) {
-  if (R < 1 || E < 1 || V < 1 || K < 1 || K > MAX_K || SK < 1 || SK > K ||
+  const bool passes = K > MAX_K;
+#if VAG_MAX_K == 8
+  if (passes) return (int)cudaErrorInvalidValue;   // the MAX_K = 16 build's
+#endif
+  if (R < 1 || E < 1 || V < 1 || K < 1 || K > V || SK < 1 || SK > K ||
+      (passes && SK < K && SK > MAX_K) || (!passes && K > MAX_K) ||
       split_cols % BN != 0 || (long long)n_split * split_cols < V ||
       (long long)(n_split - 1) * split_cols >= V || arrivals == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -579,21 +649,45 @@ extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
   p.vec_b = reinterpret_cast<uintptr_t>(b) % 16 == 0;
   p.shallow = SK < K;
   p.rerun = 0;
+  p.kout = K;
+  p.kofs = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool recover = p.live != nullptr;
   if (recover)
     VAG_CHECK(cudaMemsetAsync(p.tile_mark, 0, (R + BM - 1) / BM, st));
-  VAG_CHECK(grid_sk(p, SK, st));
+  if (!passes) {
+    VAG_CHECK(grid_sk(p, SK, st));
+    if (recover) {
+      Params d = p;              // depth K on the marked row tiles
+      d.shallow = 0;
+      d.live = nullptr;
+      d.rerun = 1;
+      VAG_CHECK(grid_sk(d, K, st));
+    }
+    return 0;
+  }
+#if VAG_MAX_K > 8
+  // K > MAX_K: ceil(K / MAX_K) passes (part_v / part_i MAX_K wide), the
+  // recovery's rerun in passes at depth too.
+  p.K = MAX_K;
+  for (int kofs = 0; kofs < K; kofs += MAX_K) {
+    p.kofs = kofs;
+    VAG_CHECK(grid_pass(p, p.shallow ? SK : MAX_K, st));
+  }
   if (recover) {
-    Params d = p;                // depth K on the marked row tiles
+    Params d = p;
     d.shallow = 0;
     d.live = nullptr;
     d.rerun = 1;
-    VAG_CHECK(grid_sk(d, K, st));
+    for (int kofs = 0; kofs < K; kofs += MAX_K) {
+      d.kofs = kofs;
+      VAG_CHECK(grid_pass(d, MAX_K, st));
+    }
   }
+#endif
   return 0;
 }
 
 // Two instances (ops/readout_topk.py): MAX_K = 8 for K <= 8, the beam-5
-// path's, and MAX_K = 16 for 9 <= K <= 16.
+// path's, and MAX_K = 16 for K > 8 (above 16 in passes).
 static_assert(MAX_K == 8 || MAX_K == 16, "grid_sk instantiates 1 <= SK <= MAX_K");

@@ -31,6 +31,15 @@
 // Then the CTA takes a ticket on its sentence's arrival counter; the last
 // of the sentence's K * S CTAs runs stage 2 (in the kernel's own file) and
 // sets the counter back to 0 for the next launch.
+//
+// Passes (K beams above 16, `stage1_pass`). The order being strict and
+// total, a sentence's top-K is ceil(K / 16) passes of a top-16: pass p
+// keeps only the candidates strictly worse than an "after" key, the last
+// (value, id) that pass p - 1 wrote (read back from the outputs, so no
+// host sync), and its 16 best are entries 16 p .. 16 p + 15 of the top-K.
+// Each pass is one launch of the same split grid, its lists 16 wide (KT)
+// while the sentence keeps its K rows; the finished-row shortcut lists
+// columns 0..K-1 and pad_id with the full K, under the after key.
 
 #pragma once
 
@@ -118,34 +127,41 @@ struct VocabId {
   __device__ __forceinline__ int operator()(int, int v) const { return v; }
 };
 
-// Stage 1 of CTA blockIdx.x = r * S + s, rows r = b * K + k: writes the
-// slice's K best to part[(r * S + s) * K ...] with ids id(k, v), then takes
-// the sentence's ticket. Returns true, in every thread, in the CTA that
-// arrived last of sentence b's K * S.
-template <int K, class Id>
-__device__ bool stage1(const float* __restrict__ logits,
-                       const float* __restrict__ base,
-                       const uint8_t* __restrict__ fin, float* part_v,
-                       int* part_i, unsigned int* counters, int V, int S,
-                       int pad_id, const Id& id) {
+// The body of stage1 and stage1_pass: lists KT wide, nb beams a sentence
+// (KT itself but in passes), and with PASS and `filt` only candidates
+// strictly worse than (av, ai).
+template <int KT, class Id, bool PASS>
+__device__ bool stage1_body(const float* __restrict__ logits,
+                            const float* __restrict__ base,
+                            const uint8_t* __restrict__ fin, float* part_v,
+                            int* part_i, unsigned int* counters, int V, int S,
+                            int pad_id, const Id& id, int nb, bool filt,
+                            float av, int ai) {
+  constexpr int K = KT;
   __shared__ float smv[WARPS * K];
   __shared__ int smi[WARPS * K];
   __shared__ bool last;
+  const int beams = PASS ? nb : K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r = blockIdx.x / S, s = blockIdx.x - r * S;
-  const int b = r / K, k = r - b * K;
+  const int b = r / beams, k = r - b * beams;
   const float bs = base[r];
   const size_t pofs = ((size_t)r * S + s) * K;
   float sv[K];
   int si[K];
   clear<K>(sv, si);
+  // a candidate a pass may take: every one, or those after (av, ai)
+  auto take = [&](float x, int xi) { return !PASS || !filt || better(av, ai, x, xi); };
   if (fin[r]) {
     if (tid == 0) {
       if (s == 0) {
         const float rest = bs + NEG_INF;
-        for (int v = 0; v < min(K, V); ++v)
-          insert<K>(sv, si, v == pad_id ? bs : rest, id(k, v));
-        if (pad_id >= K && pad_id < V) insert<K>(sv, si, bs, id(k, pad_id));
+        for (int v = 0; v < min(beams, V); ++v) {
+          const float x = v == pad_id ? bs : rest;
+          if (take(x, id(k, v))) insert<K>(sv, si, x, id(k, v));
+        }
+        if (pad_id >= beams && pad_id < V && take(bs, id(k, pad_id)))
+          insert<K>(sv, si, bs, id(k, pad_id));
       }
 #pragma unroll
       for (int j = 0; j < K; ++j) {
@@ -162,7 +178,10 @@ __device__ bool stage1(const float* __restrict__ logits,
     const int cb = c0 + head;
     const int nq = (c1 - cb) >> 2;
     const int ct = cb + 4 * nq;
-    if (tid < head) offer<K>(sv, si, bs + row[c0 + tid], id(k, c0 + tid));
+    auto off = [&](float x, int xi) {
+      if (take(x, xi)) offer<K>(sv, si, x, xi);
+    };
+    if (tid < head) off(bs + row[c0 + tid], id(k, c0 + tid));
     const float4* q4 = reinterpret_cast<const float4*>(row + cb);
     for (int q = tid; q < nq; q += THREADS * UNROLL) {
       float4 x[UNROLL];
@@ -174,14 +193,14 @@ __device__ bool stage1(const float* __restrict__ logits,
         const int qq = q + u * THREADS;
         if (qq < nq) {
           const int v = cb + 4 * qq;
-          offer<K>(sv, si, bs + x[u].x, id(k, v));
-          offer<K>(sv, si, bs + x[u].y, id(k, v + 1));
-          offer<K>(sv, si, bs + x[u].z, id(k, v + 2));
-          offer<K>(sv, si, bs + x[u].w, id(k, v + 3));
+          off(bs + x[u].x, id(k, v));
+          off(bs + x[u].y, id(k, v + 1));
+          off(bs + x[u].z, id(k, v + 2));
+          off(bs + x[u].w, id(k, v + 3));
         }
       }
     }
-    if (tid < c1 - ct) offer<K>(sv, si, bs + row[ct + tid], id(k, ct + tid));
+    if (tid < c1 - ct) off(bs + row[ct + tid], id(k, ct + tid));
     float ov[K];
     int oi[K];
     warp_merge<K>(sv, si, ov, oi);
@@ -215,12 +234,48 @@ __device__ bool stage1(const float* __restrict__ logits,
   // Thread 0 wrote the partials: publish them, then take the ticket.
   if (tid == 0) {
     __threadfence();
-    last = atomicAdd(&counters[b], 1u) == (unsigned int)(K * S - 1);
+    last = atomicAdd(&counters[b], 1u) == (unsigned int)(beams * S - 1);
   }
   __syncthreads();
   if (!last) return false;
   __threadfence();
   return true;
+}
+
+// Stage 1 of CTA blockIdx.x = r * S + s, rows r = b * K + k: writes the
+// slice's K best to part[(r * S + s) * K ...] with ids id(k, v), then takes
+// the sentence's ticket. Returns true, in every thread, in the CTA that
+// arrived last of sentence b's K * S.
+template <int K, class Id>
+__device__ bool stage1(const float* __restrict__ logits,
+                       const float* __restrict__ base,
+                       const uint8_t* __restrict__ fin, float* part_v,
+                       int* part_i, unsigned int* counters, int V, int S,
+                       int pad_id, const Id& id) {
+  return stage1_body<K, Id, false>(logits, base, fin, part_v, part_i, counters,
+                                   V, S, pad_id, id, K, false, 0.f, 0);
+}
+
+// Stage 1 of one pass (see the head of this file): nb beams a sentence,
+// 16-wide lists at part[(r * S + s) * PASS_K ...], candidates strictly
+// worse than (av, ai) when filt (every pass after the first).
+constexpr int PASS_K = 16;
+template <class Id>
+__device__ bool stage1_pass(const float* __restrict__ logits,
+                            const float* __restrict__ base,
+                            const uint8_t* __restrict__ fin, float* part_v,
+                            int* part_i, unsigned int* counters, int V, int S,
+                            int pad_id, const Id& id, int nb, bool filt,
+                            float av, int ai) {
+  return stage1_body<PASS_K, Id, true>(logits, base, fin, part_v, part_i,
+                                       counters, V, S, pad_id, id, nb, filt,
+                                       av, ai);
+}
+
+// Entries [kofs, kofs + 16) of a sentence's top-K, with kofs = 16 p: how
+// many of them a pass of K writes.
+__device__ __forceinline__ int pass_width(int K, int kofs) {
+  return min(PASS_K, K - kofs);
 }
 
 }  // namespace split

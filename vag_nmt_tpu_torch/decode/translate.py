@@ -103,7 +103,10 @@ def _check_supported(nbest: int, beam_size: int, fused: bool, mesh,
     if mesh is not None:
         raise _later_slice("mesh-sharded decode")
     if cfg.model.compute_dtype != "float32":
-        raise _later_slice("bf16 decode")
+        raise NotImplementedError(
+            "bf16 decode (decode.compute_dtype=bfloat16) is a later slice of "
+            "the PyTorch port (ROADMAP item 7b); a run trained in bf16 "
+            "decodes at fp32, decode.compute_dtype's default")
 
 
 def _detok_rows(toks2d: np.ndarray, lens1d: np.ndarray, tgt_vocab: Vocab,

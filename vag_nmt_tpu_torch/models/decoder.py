@@ -25,6 +25,7 @@ from vag_nmt_tpu_torch.models.layers import (
     embed,
     glorot_uniform,
     init_embedding,
+    mm,
 )
 from vag_nmt_tpu_torch.ops.attention import (
     bahdanau_attend,
@@ -242,13 +243,19 @@ def teacher_forced_logits(
     (train=True with a generator) dropout applies to the target embeddings
     and to the stacked readout activations, drawn in that order. The scan
     runs per cfg.dec_scan_impl: "auto" (kernels for CUDA tensors, plain for
-    CPU tensors), "pallas" (the kernels) or "xla" (the plain versions)."""
-    y = embed(params["embed"], tgt_in)                        # (B, Tt, E)
+    CPU tensors), "pallas" (the kernels) or "xla" (the plain versions),
+    with or without grad (the JAX package's "kernel when training or
+    bf16": the port takes the kernels in fp32 eval too). Under bf16 (ctx
+    bf16) the embeddings are bf16, the scan streams bf16
+    (``ops/dec_scan.decoder_scan``) and the vocab GEMM takes t_all rounded
+    to bf16, as in the JAX package; the logits are fp32."""
+    y = embed(params["embed"], tgt_in).to(ctx.dtype)          # (B, Tt, E)
     y = dropout(generator, y, cfg.dropout, train)
     xg1 = gru_gates_from_x(params["gru1"], y)                 # (B, Tt, 3H)
-    ty = y @ params["readout"]["wy"]                          # (B, Tt, R)
+    ty = mm(y, params["readout"]["wy"])                       # (B, Tt, R)
     ctx_proj = precompute_ctx_proj(params["attn"], ctx)
     t_all = decoder_scan(params, ty, xg1, s0, ctx, ctx_proj, src_mask,
                          impl=cfg.dec_scan_impl)
     t_all = dropout(generator, t_all, cfg.dropout, train)
-    return t_all @ _out_matrix(params, cfg) + params["readout"]["b_out"]
+    return (mm(t_all.to(ctx.dtype), _out_matrix(params, cfg))
+            + params["readout"]["b_out"])

@@ -10,7 +10,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from vag_nmt_tpu_torch.core.config import ModelConfig
-from vag_nmt_tpu_torch.models.layers import dropout, embed, init_embedding
+from vag_nmt_tpu_torch.models.layers import (compute_dtype, dropout, embed,
+                                             init_embedding)
 from vag_nmt_tpu_torch.ops.gru import bidirectional_gru, init_gru_params
 
 
@@ -41,11 +42,11 @@ def encode(
     """Returns encoder states ctx (B, T, 2H). impl: the GRU scan's impl
     (None = cfg.gru_impl; see ops/gru.gru_scan). In training (train=True
     with a generator) dropout applies to the embeddings and between
-    layers, drawn from ``generator`` in that order."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("bf16 compute waits for the bf16 slices")
+    layers, drawn from ``generator`` in that order. Under
+    compute_dtype="bfloat16" the embeddings are cast to bf16 and ctx is
+    bf16, as in the JAX package."""
     impl = cfg.gru_impl if impl is None else impl
-    x = embed(params["embed"], src)
+    x = embed(params["embed"], src).to(compute_dtype(cfg))
     x = dropout(generator, x, cfg.dropout, train)
     for i, layer in enumerate(params["layers"]):
         x, _, _ = bidirectional_gru(layer["fwd"], layer["bwd"], x, src_mask,

@@ -1,6 +1,8 @@
 """Parameter init and small layer helpers (plain functions over dicts of
 tensors). Weights keep the JAX layout ``(in, out)`` and are applied as
-``x @ W``."""
+``x @ W``. Parameters stay fp32 under ``compute_dtype="bfloat16"``;
+activations take the dtypes the JAX package gives them, and its
+``jnp.dot(..., preferred_element_type=float32)`` is ``mm``."""
 
 from __future__ import annotations
 
@@ -41,8 +43,16 @@ def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
     return params["table"][ids]
 
 
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``jnp.dot(x, w, preferred_element_type=float32)``: fp32 out
+    whatever the operands' types. A bf16 operand is exact in fp32, so the
+    products are those of the bf16 values (fp32 sums); torch.matmul would
+    raise on mixed types, and round a bf16 x bf16 result to bf16."""
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["w"] + params["b"]
+    return mm(x, params["w"]) + params["b"]
 
 
 def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
@@ -69,3 +79,11 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     num = torch.einsum("btc,bt->bc", x, mask.to(x.dtype))
     den = mask.sum(-1, keepdim=True).clamp_min(1.0).to(x.dtype)
     return num / den
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """The activations' dtype of ``ModelConfig.compute_dtype``."""
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: float32 or "
+                         "bfloat16")
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32

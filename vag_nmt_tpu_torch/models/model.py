@@ -25,7 +25,7 @@ from vag_nmt_tpu_torch.core.knobs import decode_knobs
 from vag_nmt_tpu_torch.models import decoder as dec
 from vag_nmt_tpu_torch.models import encoder as enc
 from vag_nmt_tpu_torch.models import vse
-from vag_nmt_tpu_torch.models.layers import glorot_uniform, masked_mean
+from vag_nmt_tpu_torch.models.layers import glorot_uniform, masked_mean, mm
 from vag_nmt_tpu_torch.ops.attention import precompute_ctx_proj
 from vag_nmt_tpu_torch.ops.readout_topk import ban_mask, fused_readout_topk
 from vag_nmt_tpu_torch.ops.topk import beam_topk
@@ -113,9 +113,9 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, *,
 def _init_decoder_state(params: Params, cfg: ModelConfig, ctx: torch.Tensor,
                         src_mask: torch.Tensor,
                         t_vec: Optional[torch.Tensor]) -> torch.Tensor:
-    pre = masked_mean(ctx, src_mask) @ params["init"]["w_ctx"]
+    pre = mm(masked_mean(ctx, src_mask), params["init"]["w_ctx"])
     if cfg.multimodal and t_vec is not None:
-        pre = pre + t_vec @ params["init"]["w_vis"]
+        pre = pre + mm(t_vec, params["init"]["w_vis"])
     return torch.tanh(pre + params["init"]["b"]).to(ctx.dtype)
 
 

@@ -10,7 +10,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from vag_nmt_tpu_torch.models.layers import glorot_uniform
+from vag_nmt_tpu_torch.models.layers import glorot_uniform, mm
 
 Params = Dict[str, torch.Tensor]
 
@@ -28,8 +28,8 @@ def init_attention_params(gen: torch.Generator, ctx_dim: int, query_dim: int,
 
 
 def precompute_ctx_proj(params: Params, ctx: torch.Tensor) -> torch.Tensor:
-    """(N, T, C) -> (N, T, A)."""
-    return ctx @ params["wa"]
+    """(N, T, C) -> (N, T, A), fp32 whatever ctx's dtype."""
+    return mm(ctx, params["wa"])
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -45,8 +45,8 @@ def bahdanau_attend(
     ctx_proj: torch.Tensor,   # (N, T, A)
     mask: torch.Tensor,       # (N, T)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (context vector (N, C), weights (N, T))."""
-    q = query @ params["ua"]
+    """Returns (context vector (N, C) in ctx's dtype, weights (N, T))."""
+    q = mm(query, params["ua"])
     e = torch.tanh(ctx_proj + q[:, None, :] + params["ba"])
     w = masked_softmax(e @ params["va"], mask)
     c = torch.einsum("nt,ntc->nc", w.to(ctx.dtype), ctx)

@@ -28,6 +28,20 @@ its own (see the sources). ``dec_scan_plan`` owns the tiling: its
 constants are the build's -D defines, the tiles of each product and the
 memory layout the launch's arguments, so the CPU tests of the plan cover
 what is launched.
+
+Under ``compute_dtype="bfloat16"`` (``ctx`` in bf16) the scan follows
+``pallas_decoder_scan``'s bf16 path unless ``VAG_GRU_STREAM=fp32``: xg_t
+and the six weight matrices (uh1, ua, wi2, uh2, ws, wc) go to bf16, ctx
+stays bf16, ty_t, ctxp, s0, the biases and va stay fp32, every matrix
+product is bf16 x bf16 -> fp32 (``rbf``), and the backward returns dxg_t
+and dctx in bf16 and the matrices' grads summed in fp32, rounded to bf16
+once. The kernels run in their bf16 instances (builds
+``dec_scan_fwd_bf16`` / ``dec_scan_bwd_bf16``). As the JAX kernel, the
+bf16 scan keeps only its states s' for the backward, rounded to bf16, and
+the backward recomputes the residuals from them: ``dec_scan_fwd(...,
+states=)`` replays the steps from the saved states (each step from s[t],
+not from the fp32 carry), then ``dec_scan_bwd`` runs on that replay's
+residuals.
 """
 
 from __future__ import annotations
@@ -41,10 +55,11 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
+from vag_nmt_tpu_torch.core.knobs import gru_stream_fp32
 from vag_nmt_tpu_torch.ops import _build
 from vag_nmt_tpu_torch.ops.gru_kernel import (_device_limits,
                                               gru_cell_bwd_plain,
-                                              gru_gate_algebra)
+                                              gru_gate_algebra, rbf)
 from vag_nmt_tpu_torch.ops.scan_tiles import (  # noqa: F401 (re-exported)
     _DEFINES, BK, GM, GN, GSTAGES, NI_MAX, TILE_ROWS, WARPS, ScanProduct,
     _phase_options, _up)
@@ -52,6 +67,7 @@ from vag_nmt_tpu_torch.ops.scan_tiles import (  # noqa: F401 (re-exported)
 NEG_INF = -1e9          # as ops/attention.masked_softmax
 
 WEIGHTS = ("uh1", "bh1", "ua", "va", "wi2", "bi2", "uh2", "bh2", "ws", "wc")
+MATRICES = ("uh1", "ua", "wi2", "uh2", "ws", "wc")   # bf16 under bf16 streams
 # t (Tt, B, R); s (Tt + 1, B, H) with s[0] = s0; st = s~ (Tt, B, H);
 # c (Tt, B, C); w (Tt, B, T); q (Tt, B, A); hg1, xg2, hg2 (Tt, B, 3H)
 RESIDUALS = ("t", "s", "st", "c", "w", "q", "hg1", "xg2", "hg2")
@@ -133,9 +149,9 @@ def _att_floats(kernel: str, T: int, A: int, C: int, parts: int) -> int:
 
 
 def _kernel_plan(kernel: str, B: int, T: int, H: int, A: int, C: int,
-                 n_sms: int, max_smem: int) -> ScanPlan:
+                 n_sms: int, max_smem: int, bf16: bool = False) -> ScanPlan:
     phases = _specs(kernel, H, A, C)
-    fronts = [_phase_options(ph, B, H, n_sms) for ph in phases]
+    fronts = [_phase_options(ph, B, H, n_sms, bf16) for ph in phases]
     if not all(fronts):
         raise ValueError(f"{kernel}: no tiling of B={B}, H={H}, A={A}, "
                          f"C={C} on {n_sms} SMs")
@@ -183,7 +199,7 @@ def _kernel_plan(kernel: str, B: int, T: int, H: int, A: int, C: int,
 
 @functools.lru_cache(maxsize=None)   # one shape a batch bucket
 def dec_scan_plan(B: int, T: int, H: int, A: int, C: int, R: int,
-                  n_sms: int, max_smem: int) -> DecScanPlan:
+                  n_sms: int, max_smem: int, bf16: bool = False) -> DecScanPlan:
     """The tiling of both kernels for B rows, T source positions and widths
     H, A, C, R on a card of ``n_sms`` SMs with ``max_smem`` bytes of shared
     memory a block: one CTA per SM; for each phase the products' tiles
@@ -193,15 +209,16 @@ def dec_scan_plan(B: int, T: int, H: int, A: int, C: int, R: int,
     busiest CTA summed over the phases, then the least shared memory; the
     resident slices, the scratch and the attention's shared row within
     ``max_smem``. R shapes only the streamed products, whose tiles are
-    fixed (GM x GN). Raises ValueError where nothing fits: fewer SMs than a
-    phase has products, or an attention row or the accumulators beyond
-    ``max_smem``."""
+    fixed (GM x GN). ``bf16``: the bf16 instances' plan, whose weight
+    slices take half the floats. Raises ValueError where nothing fits:
+    fewer SMs than a phase has products, or an attention row or the
+    accumulators beyond ``max_smem``."""
     if min(B, T, H, A, C, R, n_sms) < 1:
         raise ValueError(f"dec_scan_plan: B={B}, T={T}, H={H}, A={A}, "
                          f"C={C}, R={R}, n_sms={n_sms} must be positive")
     return DecScanPlan(
-        _kernel_plan("dec_scan_fwd", B, T, H, A, C, n_sms, max_smem),
-        _kernel_plan("dec_scan_bwd", B, T, H, A, C, n_sms, max_smem))
+        _kernel_plan("dec_scan_fwd", B, T, H, A, C, n_sms, max_smem, bf16),
+        _kernel_plan("dec_scan_bwd", B, T, H, A, C, n_sms, max_smem, bf16))
 
 
 def _timer_ptr(timers: Optional[torch.Tensor], n: int) -> Optional[int]:
@@ -233,47 +250,66 @@ def scan_weights(params: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
 
 
 def _attend(q, ctxp, ctx, mask, va):
-    """One step of masked Bahdanau attention: (c (B, C), w (B, T))."""
+    """One step of masked Bahdanau attention: (c (B, C), w (B, T)); a bf16
+    ctx enters the fp32 sum exactly (w fp32)."""
     e = torch.tanh(ctxp + q[:, None, :])
     scores = torch.where(mask > 0, e @ va, torch.full_like(mask, NEG_INF))
     w = torch.softmax(scores, dim=-1)
-    return torch.bmm(w[:, None, :], ctx)[:, 0], w
+    return torch.bmm(w[:, None, :], ctx.to(torch.float32))[:, 0], w
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w, with a bf16 weight matrix the bf16 x bf16 -> fp32 product
+    of the bf16 instances (a rounded to bf16)."""
+    if w.dtype == torch.bfloat16:
+        return rbf(a) @ w.to(torch.float32)
+    return a @ w
 
 
 def dec_scan_fwd_plain(ty_t, xg_t, s0, ctx, ctxp, mask,
-                       weights: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+                       weights: Sequence[torch.Tensor],
+                       states: Optional[torch.Tensor] = None
+                       ) -> Dict[str, torch.Tensor]:
     """The plain PyTorch version of the forward kernel: one step per loop
-    turn, then the readout over all steps at once, as the kernel."""
+    turn, then the readout over all steps at once, as the kernel. bf16
+    streams: ``_dot``'s products, xg_t and ctx read as fp32. ``states``
+    (Tt + 1, B, H) fp32, s[0] = s0: the replay (see dec_scan_fwd), each
+    step from states[t], the readout on states[1:], res["s"] = states."""
     uh1, bh1, ua, va, wi2, bi2, uh2, bh2, ws, wc = weights
     out = {k: [] for k in RESIDUALS if k != "t"}
     s = s0
     out["s"].append(s0)
     for t in range(xg_t.shape[0]):
-        hg1 = s @ uh1 + bh1
-        st = gru_gate_algebra(xg_t[t], hg1, s)
-        q = st @ ua
-        hg2 = st @ uh2 + bh2
+        if states is not None:
+            s = states[t]
+        hg1 = _dot(s, uh1) + bh1
+        st = gru_gate_algebra(xg_t[t].to(torch.float32), hg1, s)
+        q = _dot(st, ua)
+        hg2 = _dot(st, uh2) + bh2
         c, w = _attend(q, ctxp, ctx, mask, va)
-        xg2 = c @ wi2 + bi2
+        xg2 = _dot(c, wi2) + bi2
         s = gru_gate_algebra(xg2, hg2, st)
         for k, v in (("s", s), ("st", st), ("c", c), ("w", w), ("q", q),
                      ("hg1", hg1), ("xg2", xg2), ("hg2", hg2)):
             out[k].append(v)
     res = {k: torch.stack(v) for k, v in out.items()}
-    pre = res["c"] @ wc
-    pre = pre + res["s"][1:] @ ws
+    if states is not None:
+        res["s"] = states
+    pre = _dot(res["c"], wc)
+    pre = pre + _dot(res["s"][1:], ws)
     res["t"] = torch.tanh(ty_t + pre)
     return res
 
 
 def _kernel_plan_for(dev: torch.device, B: int, T: int, H: int, A: int,
-                     C: int, R: int) -> DecScanPlan:
-    return dec_scan_plan(B, T, H, A, C, R, *_device_limits(dev))
+                     C: int, R: int, bf16: bool = False) -> DecScanPlan:
+    return dec_scan_plan(B, T, H, A, C, R, *_device_limits(dev), bf16=bf16)
 
 
 def dec_scan_fwd(ty_t, xg_t, s0, ctx, ctxp, mask,
                  weights: Sequence[torch.Tensor], *, impl: str = "auto",
-                 timers: Optional[torch.Tensor] = None
+                 timers: Optional[torch.Tensor] = None,
+                 states: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
     """The readout t and the residuals of the decoder scan (``RESIDUALS``).
     impl: "auto" (kernel for CUDA tensors, plain for CPU tensors), "kernel"
@@ -283,50 +319,74 @@ def dec_scan_fwd(ty_t, xg_t, s0, ctx, ctxp, mask,
     those in ``dec_scan_fwd.grids``. Raises when the plan or the launch
     fails (no fallback). ``timers``, a CUDA int64 tensor of 4 Tt + 2
     elements, receives the recurrence's barrier stamps (ns; see the
-    source)."""
+    source). bf16 streams (xg_t, ctx and the matrices in bf16) run the
+    bf16 instance (also counted in ``dec_scan_fwd.bf16_launches``).
+
+    ``states`` (bf16 streams only): (Tt + 1, B, H) fp32, states[0] = s0 and
+    states[t + 1] the bf16 state the forward saved at step t. The replay
+    that the JAX kernel's backward runs: each step from states[t] (not from
+    the carry), the readout on states[1:]; returns the residuals with
+    res["s"] = states (also counted in ``dec_scan_fwd.replays``)."""
     if resolve_impl(impl, xg_t) == "plain":
-        return dec_scan_fwd_plain(ty_t, xg_t, s0, ctx, ctxp, mask, weights)
+        return dec_scan_fwd_plain(ty_t, xg_t, s0, ctx, ctxp, mask, weights,
+                                  states)
     Tt, B, R = ty_t.shape
     _, T, C = ctx.shape
     H = s0.shape[1]
     A = ctxp.shape[2]
-    _check_inputs("dec_scan_fwd", ty_t, xg_t, s0, ctx, ctxp, mask, weights,
-                  Tt, B, T, H, A, C, R)
+    bf = _check_inputs("dec_scan_fwd", ty_t, xg_t, s0, ctx, ctxp, mask,
+                       weights, Tt, B, T, H, A, C, R)
+    if states is not None:
+        if not bf:
+            raise ValueError("dec_scan_fwd: states= replays bf16 streams only")
+        check_kernel_arg(states, torch.float32, (Tt + 1, B, H),
+                         "dec_scan_fwd: states")
     dev = xg_t.device
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    res = {"t": new(Tt, B, R), "s": new(Tt + 1, B, H), "st": new(Tt, B, H),
+    res = {"t": new(Tt, B, R),
+           "s": new(Tt + 1, B, H) if states is None else states,
+           "st": new(Tt, B, H),
            "c": new(Tt, B, C), "w": new(Tt, B, T), "q": new(Tt, B, A),
            "hg1": new(Tt, B, 3 * H), "xg2": new(Tt, B, 3 * H),
            "hg2": new(Tt, B, 3 * H)}
-    kp = _kernel_plan_for(dev, B, T, H, A, C, R).fwd
+    kp = _kernel_plan_for(dev, B, T, H, A, C, R, bf).fwd
     plan, n_plan = _plan_args(kp)
     wl2 = _l2_buffer(kp, dev)
-    lib = _build.load("dec_scan_fwd")
+    lib = _build.load("dec_scan_fwd_bf16" if bf else "dec_scan_fwd")
     rc = lib.dec_scan_fwd_launch(
         ty_t.data_ptr(), xg_t.data_ptr(), s0.data_ptr(), ctx.data_ptr(),
         ctxp.data_ptr(), mask.data_ptr(), *(w.data_ptr() for w in weights),
         *(res[k].data_ptr() for k in ("s", "st", "c", "w", "q", "hg1", "xg2",
                                       "hg2", "t")),
         Tt, B, T, H, A, C, R, plan, n_plan, None if wl2 is None else wl2.data_ptr(),
-        _timer_ptr(timers, 4 * Tt + 2), torch.cuda.current_stream(dev).cuda_stream)
+        _timer_ptr(timers, 4 * Tt + 2), *((int(states is not None),) if bf else ()),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dec_scan_fwd kernel launch failed: CUDA error {rc}")
     dec_scan_fwd.launches += 1
     dec_scan_fwd.grids += FWD_GRIDS
+    dec_scan_fwd.bf16_launches += bf
+    dec_scan_fwd.replays += states is not None
     return res
 
 
 dec_scan_fwd.launches = 0
 dec_scan_fwd.grids = 0
+dec_scan_fwd.bf16_launches = 0
+dec_scan_fwd.replays = 0
 
-_build.declare("dec_scan_fwd", "dec_scan_fwd_launch",
-               [ctypes.c_void_p] * 25 + [ctypes.c_int] * 7
-               + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-               + [ctypes.c_void_p] * 3,
-               defines=_DEFINES)
+_BF16_DEFINES = {**_DEFINES, "VAG_BF16": 1}
+for _name, _defines, _replay in (("dec_scan_fwd", _DEFINES, []),
+                                 ("dec_scan_fwd_bf16", _BF16_DEFINES,
+                                  [ctypes.c_int])):
+    _build.declare(_name, "dec_scan_fwd_launch",
+                   [ctypes.c_void_p] * 25 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + _replay + [ctypes.c_void_p],
+                   defines=_defines, src="dec_scan_fwd")
 
 
 def tanh_fast_probe(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -355,20 +415,26 @@ def dec_scan_bwd_plain(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
     JAX package's ``pallas_dec_scan._bwd_kernel`` (readout, GRU2,
     attention, GRU1), then the weight grads as sums over all rows. Returns
     (dty, dxg1, ds0, dctx, dctxp, duh1, dbh1, dua, dva, dwi2, dbi2, duh2,
-    dbh2, dws, dwc)."""
+    dbh2, dws, dwc). bf16 streams: ``_dot``'s products (both operands of
+    the weight grads rounded), dxg1 and dctx in bf16 and the matrices'
+    grads rounded to bf16 once, after the fp32 sums."""
     uh1, bh1, ua, va, wi2, bi2, uh2, bh2, ws, wc = weights
     Tt, B, _ = xg_t.shape
     H = uh1.shape[0]
+    f32 = torch.float32
+    bf = xg_t.dtype == torch.bfloat16
+    r = rbf if bf else (lambda x: x)
+    ctx32 = ctx.to(f32)
     dpre = g_t * (1.0 - res["t"] * res["t"])
-    ds_ro = dpre @ ws.T
-    dc_all = dpre @ wc.T
+    ds_ro = _dot(dpre, ws.T)
+    dc_all = _dot(dpre, wc.T)
     dxg1 = torch.empty_like(xg_t)
-    dxg2 = torch.empty_like(xg_t)
-    dhg1 = torch.empty_like(xg_t)
-    dhg2 = torch.empty_like(xg_t)
+    dxg2 = torch.empty(xg_t.shape, dtype=f32, device=xg_t.device)
+    dhg1 = torch.empty_like(dxg2)
+    dhg2 = torch.empty_like(dxg2)
     dq = torch.empty_like(res["q"])
     dva_rows = torch.empty_like(res["q"])
-    dctx = torch.zeros_like(ctx)
+    dctx = torch.zeros_like(ctx32)
     dctxp = torch.zeros_like(ctxp)
     ds = torch.zeros((B, H), dtype=torch.float32, device=xg_t.device)
     for t in range(Tt - 1, -1, -1):
@@ -376,10 +442,10 @@ def dec_scan_bwd_plain(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
         # GRU2 (s~ -> s')
         dxg2[t], dhg2[t], dst = gru_cell_bwd_plain(res["xg2"][t], res["hg2"][t],
                                                    st, ds + ds_ro[t])
-        dc = dc_all[t] + dxg2[t] @ wi2.T
-        dst = dst + dhg2[t] @ uh2.T
+        dc = dc_all[t] + _dot(dxg2[t], wi2.T)
+        dst = dst + _dot(dhg2[t], uh2.T)
         # attention
-        dw = torch.bmm(ctx, dc[:, :, None])[:, :, 0]            # (B, T)
+        dw = torch.bmm(ctx32, dc[:, :, None])[:, :, 0]          # (B, T)
         dctx += w[:, :, None] * dc[:, None, :]
         dsc = w * (dw - (w * dw).sum(-1, keepdim=True))
         dsc = torch.where(mask > 0, dsc, torch.zeros_like(dsc))
@@ -388,24 +454,25 @@ def dec_scan_bwd_plain(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
         dctxp += da
         dq[t] = da.sum(1)
         dva_rows[t] = (e * dsc[:, :, None]).sum(1)
-        dst = dst + dq[t] @ ua.T
+        dst = dst + _dot(dq[t], ua.T)
         # GRU1 (s -> s~)
-        dxg1[t], dhg1[t], ds = gru_cell_bwd_plain(xg_t[t], res["hg1"][t],
-                                                  res["s"][t], dst)
-        ds = ds + dhg1[t] @ uh1.T
+        dxg1[t], dhg1[t], ds = gru_cell_bwd_plain(xg_t[t].to(f32),
+                                                  res["hg1"][t], res["s"][t],
+                                                  dst)
+        ds = ds + _dot(dhg1[t], uh1.T)
 
     def rows(x):
         return x.reshape(Tt * B, -1)
 
-    def atb(a, b):
-        return rows(a).T @ rows(b)
+    def atb(a, b, w):        # the grad of matrix w, in w's dtype
+        return (r(rows(a)).T @ r(rows(b))).to(w.dtype)
 
-    return (dpre, dxg1, ds, dctx, dctxp,
-            atb(res["s"][:-1], dhg1), rows(dhg1).sum(0),
-            atb(res["st"], dq), rows(dva_rows).sum(0),
-            atb(res["c"], dxg2), rows(dxg2).sum(0),
-            atb(res["st"], dhg2), rows(dhg2).sum(0),
-            atb(res["s"][1:], dpre), atb(res["c"], dpre))
+    return (dpre, dxg1, ds, dctx.to(ctx.dtype), dctxp,
+            atb(res["s"][:-1], dhg1, uh1), rows(dhg1).sum(0),
+            atb(res["st"], dq, ua), rows(dva_rows).sum(0),
+            atb(res["c"], dxg2, wi2), rows(dxg2).sum(0),
+            atb(res["st"], dhg2, uh2), rows(dhg2).sum(0),
+            atb(res["s"][1:], dpre, ws), atb(res["c"], dpre, wc))
 
 
 def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
@@ -417,15 +484,16 @@ def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
     BWD_GRIDS grids (the recurrence is one cooperative grid; see
     csrc/dec_scan_bwd.cu), which write every output: it counts one in
     ``dec_scan_bwd.launches`` and those in ``dec_scan_bwd.grids``. Raises
-    when the plan or the launch fails. ``timers``: as dec_scan_fwd's."""
+    when the plan or the launch fails. ``timers``: as dec_scan_fwd's.
+    bf16 streams run the bf16 instance (``dec_scan_bwd.bf16_launches``)."""
     if resolve_impl(impl, xg_t) == "plain":
         return dec_scan_bwd_plain(res, xg_t, ctx, ctxp, mask, weights, g_t)
     Tt, B, R = g_t.shape
     _, T, C = ctx.shape
     H = weights[0].shape[0]
     A = ctxp.shape[2]
-    _check_inputs("dec_scan_bwd", g_t, xg_t, res["s"][0], ctx, ctxp, mask,
-                  weights, Tt, B, T, H, A, C, R)
+    bf = _check_inputs("dec_scan_bwd", g_t, xg_t, res["s"][0], ctx, ctxp,
+                       mask, weights, Tt, B, T, H, A, C, R)
     for k, shape in (("t", (Tt, B, R)), ("s", (Tt + 1, B, H)),
                      ("st", (Tt, B, H)), ("c", (Tt, B, C)), ("w", (Tt, B, T)),
                      ("q", (Tt, B, A)), ("hg1", (Tt, B, 3 * H)),
@@ -436,10 +504,11 @@ def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    plan = _kernel_plan_for(dev, B, T, H, A, C, R).bwd
+    plan = _kernel_plan_for(dev, B, T, H, A, C, R, bf).bwd
     uh1, _, ua, va, wi2, _, uh2, _, ws, wc = weights
-    dty, dxg1, ds0 = new(Tt, B, R), new(Tt, B, 3 * H), new(B, H)
-    dctx, dctxp = new(B, T, C), new(B, T, A)
+    dty, ds0 = new(Tt, B, R), new(B, H)
+    dxg1, dctx = torch.empty_like(xg_t), torch.empty_like(ctx)
+    dctxp = new(B, T, A)
     dw = [torch.empty_like(w) for w in weights]
     duh1, dbh1, dua, dva, dwi2, dbi2, duh2, dbh2, dws, dwc = dw
     # ds_ro, dc, dxg2, dhg2, dhg1, dq, dva_rows, dscore, dstp, dst, dsp,
@@ -450,7 +519,7 @@ def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
                new(-(-Tt * B // plan.colsum_rows), 9 * H + A))
     args, n_plan = _plan_args(plan)
     wl2 = _l2_buffer(plan, dev)
-    lib = _build.load("dec_scan_bwd")
+    lib = _build.load("dec_scan_bwd_bf16" if bf else "dec_scan_bwd")
     ptrs = [g_t, res["t"], res["s"], res["st"], res["c"], res["w"], res["q"],
             res["hg1"], res["xg2"], res["hg2"], xg_t, ctx, ctxp, mask,
             uh1, ua, va, wi2, uh2, ws, wc,
@@ -465,46 +534,61 @@ def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
         raise RuntimeError(f"dec_scan_bwd kernel launch failed: CUDA error {rc}")
     dec_scan_bwd.launches += 1
     dec_scan_bwd.grids += BWD_GRIDS
+    dec_scan_bwd.bf16_launches += bf
     return (dty, dxg1, ds0, dctx, dctxp, *dw)
 
 
 dec_scan_bwd.launches = 0
 dec_scan_bwd.grids = 0
+dec_scan_bwd.bf16_launches = 0
 
-_build.declare("dec_scan_bwd", "dec_scan_bwd_launch",
-               [ctypes.c_void_p] * 48 + [ctypes.c_int] * 7
-               + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-               + [ctypes.c_void_p] * 3,
-               defines=_DEFINES)
+for _name, _defines in (("dec_scan_bwd", _DEFINES),
+                        ("dec_scan_bwd_bf16", _BF16_DEFINES)):
+    _build.declare(_name, "dec_scan_bwd_launch",
+                   [ctypes.c_void_p] * 48 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+                   + [ctypes.c_void_p] * 3,
+                   defines=_defines, src="dec_scan_bwd")
 
 
 def _check_inputs(what, first, xg_t, s0, ctx, ctxp, mask, weights,
-                  Tt, B, T, H, A, C, R):
+                  Tt, B, T, H, A, C, R) -> bool:
+    """The kernels' argument checks; returns whether the streams are bf16
+    (xg_t, ctx and the matrices all bf16; every other input fp32)."""
     shapes = {"uh1": (H, 3 * H), "bh1": (3 * H,), "ua": (H, A), "va": (A,),
               "wi2": (C, 3 * H), "bi2": (3 * H,), "uh2": (H, 3 * H),
               "bh2": (3 * H,), "ws": (H, R), "wc": (C, R)}
+    bf = xg_t.dtype == torch.bfloat16
+    sdt = torch.bfloat16 if bf else torch.float32
     check_kernel_arg(first, torch.float32, (Tt, B, R), f"{what}: ty/g")
-    check_kernel_arg(xg_t, torch.float32, (Tt, B, 3 * H), f"{what}: xg_t")
+    check_kernel_arg(xg_t, sdt, (Tt, B, 3 * H), f"{what}: xg_t")
     check_kernel_arg(s0, torch.float32, (B, H), f"{what}: s0")
-    check_kernel_arg(ctx, torch.float32, (B, T, C), f"{what}: ctx")
+    check_kernel_arg(ctx, sdt, (B, T, C), f"{what}: ctx")
     check_kernel_arg(ctxp, torch.float32, (B, T, A), f"{what}: ctxp")
     check_kernel_arg(mask, torch.float32, (B, T), f"{what}: mask")
     for name, w in zip(WEIGHTS, weights):
-        check_kernel_arg(w, torch.float32, shapes[name], f"{what}: {name}")
+        check_kernel_arg(w, sdt if name in MATRICES else torch.float32,
+                         shapes[name], f"{what}: {name}")
+    return bf
 
 
 class DecoderScan(torch.autograd.Function):
     """The decoder scan with its gradient: forward through ``dec_scan_fwd``,
     backward through ``dec_scan_bwd`` (counterpart of
-    ``pallas_dec_scan._scan`` and its custom VJP)."""
+    ``pallas_dec_scan._scan`` and its custom VJP). fp32 streams save the
+    forward's residuals; bf16 streams save the states s' in bf16 alone, as
+    the JAX kernel does, and the backward replays the steps from them
+    (``dec_scan_fwd(..., states=)``) for the residuals it reads."""
 
     @staticmethod
     def forward(ctx_, impl, ty_t, xg_t, s0, ctx, ctxp, mask, *weights):
         res = dec_scan_fwd(ty_t, xg_t, s0, ctx, ctxp, mask, weights,
                            impl=impl)
         ctx_.impl = impl
-        ctx_.save_for_backward(xg_t, ctx, ctxp, mask, *weights,
-                               *(res[k] for k in RESIDUALS))
+        kept = ((ty_t, s0, res["s"][1:].to(torch.bfloat16))
+                if xg_t.dtype == torch.bfloat16 else
+                tuple(res[k] for k in RESIDUALS))
+        ctx_.save_for_backward(xg_t, ctx, ctxp, mask, *weights, *kept)
         return res["t"]
 
     @staticmethod
@@ -512,7 +596,14 @@ class DecoderScan(torch.autograd.Function):
         saved = ctx_.saved_tensors
         xg_t, ctx, ctxp, mask = saved[:4]
         weights = saved[4:4 + len(WEIGHTS)]
-        res = dict(zip(RESIDUALS, saved[4 + len(WEIGHTS):]))
+        kept = saved[4 + len(WEIGHTS):]
+        if xg_t.dtype == torch.bfloat16:
+            ty_t, s0, s_bf = kept
+            states = torch.cat([s0[None], s_bf.to(torch.float32)])
+            res = dec_scan_fwd(ty_t, xg_t, s0, ctx, ctxp, mask, weights,
+                               impl=ctx_.impl, states=states)
+        else:
+            res = dict(zip(RESIDUALS, kept))
         dty, dxg1, ds0, dctx, dctxp, *dw = dec_scan_bwd(
             res, xg_t, ctx, ctxp, mask, weights, g_t.contiguous(),
             impl=ctx_.impl)
@@ -528,13 +619,23 @@ def decoder_scan(params: Dict[str, Any], ty: torch.Tensor, xg1: torch.Tensor,
     (B, T). Returns the readout activations t_all (B, Tt, R), pre-dropout
     and before the vocab GEMM. With grad enabled it goes through
     ``DecoderScan``. No batch padding: the JAX package pads B to a multiple
-    of 8 for the TPU's tile rules, which the CUDA kernels do not have."""
+    of 8 for the TPU's tile rules, which the CUDA kernels do not have.
+
+    Under bf16 (ctx bf16) the streams follow ``pallas_decoder_scan``: xg
+    and the six matrices cast to bf16 (with grad, the casts carry the
+    grads back to the fp32 params), ctx kept bf16, ty_t, ctxpb and s0 in
+    fp32; ``VAG_GRU_STREAM=fp32`` runs the fp32 streams (ctx cast up)."""
     r, at = params["readout"], params["attn"]
-    ty_t = (ty.transpose(0, 1) + r["b"]).contiguous()
-    ctxpb = (ctx_proj + at["ba"]).contiguous()
-    args = (ty_t, xg1.transpose(0, 1).contiguous(), s0.contiguous(),
-            ctx.contiguous(), ctxpb, src_mask.to(torch.float32).contiguous())
-    weights = tuple(w.contiguous() for w in scan_weights(params))
+    f32 = torch.float32
+    stream = (torch.bfloat16 if ctx.dtype == torch.bfloat16
+              and not gru_stream_fp32() else f32)
+    ty_t = (ty.transpose(0, 1) + r["b"]).to(f32).contiguous()
+    ctxpb = (ctx_proj + at["ba"]).to(f32).contiguous()
+    args = (ty_t, xg1.transpose(0, 1).to(stream).contiguous(),
+            s0.to(f32).contiguous(), ctx.to(stream).contiguous(), ctxpb,
+            src_mask.to(f32).contiguous())
+    weights = tuple((w.to(stream) if name in MATRICES else w).contiguous()
+                    for name, w in zip(WEIGHTS, scan_weights(params)))
     if torch.is_grad_enabled():
         t_t = DecoderScan.apply(impl, *args, *weights)
     else:

@@ -31,8 +31,7 @@ import torch
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
 from vag_nmt_tpu_torch.ops import _build
 from vag_nmt_tpu_torch.ops.gru_kernel import gru_gate_algebra
-from vag_nmt_tpu_torch.ops.topk import (MAX_K, declare_instances, instance,
-                                        k_instance)
+from vag_nmt_tpu_torch.ops.topk import MAX_K, declare_instances, instance
 
 NEG_INF = -1e9          # as ops/attention.masked_softmax
 
@@ -168,9 +167,10 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
     tensors, plain for CPU tensors), "kernel" or "plain". One call of the
     kernel path enqueues GRIDS grids (see csrc/dec_step.cu): it counts one
     in ``dec_step.launches`` and those in ``dec_step.grids``. The kernel
-    has an instance for K <= 8 beams a sentence and one for K <= 16
-    (``ops/topk.K_INSTANCES``); above 16 the kernel route raises
-    ValueError."""
+    has an instance for K <= 8 beams a sentence and one for K > 8
+    (``ops/topk.K_INSTANCES``), whose attention takes the beams of a
+    sentence in groups of 16 above 16 (each such call also counts one in
+    ``dec_step.beam_groups``)."""
     B, T, C = ctx.shape
     N, H = s.shape
     if resolve_impl(impl, s) == "plain":
@@ -178,10 +178,6 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
     if N % B or N < B:
         raise ValueError(f"dec_step kernel: {N} rows for {B} sentences")
     K = N // B
-    if k_instance(K) is None:
-        raise ValueError(f"dec_step kernel: K={K} beams a sentence, no "
-                         f"instance takes more than {MAX_K} (impl='plain' "
-                         f"runs the plain version)")
     A = weights[2].shape[1] - 3 * H
     R = weights[7].shape[1]
     G = 3 * H + R
@@ -213,15 +209,19 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
         raise RuntimeError(f"dec_step kernel launch failed: CUDA error {rc}")
     dec_step.launches += 1
     dec_step.grids += GRIDS
+    if K > MAX_K:
+        dec_step.beam_groups += 1
     return s_new, t
 
 
 dec_step.launches = 0
 dec_step.grids = 0
+dec_step.beam_groups = 0
 
 # The attention grid holds a sentence's K beams in one cluster: at K = 16,
 # T = 32 and A = 512 its shared memory is 16 * 512 + 512 + 16 * 32 floats
-# (37.9 KB), and its softmax warps take beams k, k + 8.
+# (37.9 KB), and its softmax warps take beams k, k + 8; at K = 32 (two
+# groups of 16) 32 * 512 + 512 + 32 * 32 floats (71.7 KB).
 declare_instances("dec_step", "dec_step_launch",
                   [ctypes.c_void_p] * 20 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
                   {"VAG_BM": BM, "VAG_BK": BK, "VAG_UB": UB, "VAG_BN": BN,

@@ -22,7 +22,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from vag_nmt_tpu_torch.models.layers import glorot_uniform, orthogonal
+from vag_nmt_tpu_torch.core.knobs import gru_stream_fp32
+from vag_nmt_tpu_torch.models.layers import glorot_uniform, mm, orthogonal
 from vag_nmt_tpu_torch.ops.gru_kernel import GRUScan, gru_fwd, gru_gate_algebra
 
 Params = Dict[str, torch.Tensor]
@@ -40,8 +41,8 @@ def init_gru_params(gen: torch.Generator, in_dim: int, hidden: int) -> Params:
 
 
 def gru_gates_from_x(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Time-parallel input projection: (..., E) -> (..., 3H)."""
-    return x @ params["wi"] + params["bi"]
+    """Time-parallel input projection: (..., E) -> (..., 3H), fp32."""
+    return mm(x, params["wi"]) + params["bi"]
 
 
 def gru_cell_from_gates(xg: torch.Tensor, hg: torch.Tensor,
@@ -70,20 +71,28 @@ def gru_scan(
     Returns (states (B, T, H), final state (B, H)); the final state is the
     state at the last (first, if reverse) real token. impl: "auto" (kernel
     for CUDA tensors, plain for CPU tensors), "kernel", "plain", or the JAX
-    names "pallas" / "xla" (ModelConfig.gru_impl)."""
+    names "pallas" / "xla" (ModelConfig.gru_impl).
+
+    A bf16 ``x`` (compute_dtype="bfloat16") runs the scan on bf16 time
+    streams, as ``pallas_gru_scan``: xg rounded to bf16, the states
+    returned in bf16, the carry fp32 (``ops/gru_kernel.py``);
+    ``VAG_GRU_STREAM=fp32`` keeps the streams fp32 and returns the states
+    cast to bf16."""
     B, T, _ = x.shape
     H = params["uh"].shape[0]
     if h0 is None:
         h0 = torch.zeros((B, H), dtype=torch.float32, device=x.device)
-    xg_t = gru_gates_from_x(params, x).transpose(0, 1).contiguous()
+    stream = (torch.bfloat16 if x.dtype == torch.bfloat16
+              and not gru_stream_fp32() else torch.float32)
+    xg_t = gru_gates_from_x(params, x).transpose(0, 1).to(stream).contiguous()
     mask_t = mask.transpose(0, 1).to(torch.float32).contiguous()
     args = (xg_t, mask_t, params["uh"].contiguous(),
-            params["bh"].contiguous(), h0.contiguous())
+            params["bh"].contiguous(), h0.to(torch.float32).contiguous())
     if torch.is_grad_enabled():
         hs_t = GRUScan.apply(*args, reverse, impl)
     else:
         hs_t = gru_fwd(*args, reverse=reverse, impl=impl)
-    hs = hs_t.transpose(0, 1)
+    hs = hs_t.transpose(0, 1).to(x.dtype)
     return hs, (hs[:, 0] if reverse else hs[:, -1])
 
 

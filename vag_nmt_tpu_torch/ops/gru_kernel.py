@@ -12,6 +12,14 @@ masked step the state is held and written out unchanged). Tensors are
 time-major: ``xg_t`` (T, B, 3H), ``mask_t`` (T, B), output ``hs_t``
 (T, B, H). Gate math and the carry are fp32; the backward kernel's
 products run as three TF32 products on the tensor cores (3xTF32).
+
+The streams' dtype picks the numerics, as in ``pallas_gru.py`` (whose
+stream dtype is the compute dtype unless ``VAG_GRU_STREAM=fp32``): with
+``xg_t`` in bf16 the states leave in bf16 (``hs_t``), the cotangents
+arrive and ``dxg_t`` leaves in bf16, and every product is bf16 x bf16 ->
+fp32 (``h.astype(bf16) @ uh.astype(bf16)``), through the kernels' bf16
+instances (builds ``gru_fwd_bf16``, ``gru_bwd_bf16``); the carry, the gate
+math, dUh, dbh and dh0 stay fp32.
 """
 
 from __future__ import annotations
@@ -40,16 +48,28 @@ def gru_gate_algebra(xg: torch.Tensor, hg: torch.Tensor,
     return (1.0 - z) * n + z * h
 
 
+def rbf(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even, as JAX's astype), in fp32: a
+    product of two such values is exact in fp32, so ``rbf(a) @ rbf(b)``
+    is the bf16 x bf16 -> fp32 product of the bf16 instances."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def gru_fwd_plain(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
                   bh: torch.Tensor, h0: torch.Tensor, *,
                   reverse: bool = False) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: one step per loop turn."""
+    """The plain PyTorch version of the kernel: one step per loop turn.
+    bf16 ``xg_t``: hg = rbf(h) @ rbf(uh) + bh, the carry fp32, hs_t in
+    bf16."""
     T = xg_t.shape[0]
-    out = torch.empty(xg_t.shape[:2] + (uh.shape[0],), dtype=torch.float32,
+    bf = xg_t.dtype == torch.bfloat16
+    out = torch.empty(xg_t.shape[:2] + (uh.shape[0],), dtype=xg_t.dtype,
                       device=xg_t.device)
-    h = h0
+    w = rbf(uh) if bf else uh
+    h = h0.to(torch.float32)
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        h_new = gru_gate_algebra(xg_t[t], h @ uh + bh, h)
+        hg = (rbf(h) if bf else h) @ w + bh
+        h_new = gru_gate_algebra(xg_t[t].to(torch.float32), hg, h)
         h = torch.where(mask_t[t][:, None] > 0, h_new, h)
         out[t] = h
     return out
@@ -239,19 +259,26 @@ def _launch(fn, plan: GruFwdPlan, xg_t: torch.Tensor, mask_t: torch.Tensor,
             reverse: bool) -> torch.Tensor:
     """Enqueue one scan through C entry ``fn`` (csrc/gru_fwd.cu's
     gru_fwd_launch) tiled by ``plan`` (with ``plan.l2``, a scratch buffer
-    of 3 H^2 floats for Uh's slices); returns hs_t. Raises when the
-    launcher refuses the plan (not co-resident, malformed) or the launch
-    fails."""
+    of 3 H^2 floats for Uh's slices); returns hs_t. A bf16 ``xg_t`` goes
+    to the bf16 instance's entry with its carry buffers and h0 rounded
+    (``uh`` already rounded by the caller). Raises when the launcher
+    refuses the plan (not co-resident, malformed) or the launch fails."""
     T, B, H3 = xg_t.shape
-    out = torch.empty((T, B, H3 // 3), dtype=torch.float32, device=xg_t.device)
-    wl2 = (torch.empty(uh.numel(), dtype=torch.float32, device=xg_t.device)
+    dev = xg_t.device
+    out = torch.empty((T, B, H3 // 3), dtype=xg_t.dtype, device=dev)
+    wl2 = (torch.empty(uh.numel(), dtype=torch.float32, device=dev)
            if plan.l2 else None)
+    extra = ()
+    if xg_t.dtype == torch.bfloat16:   # hc, ps (the carry, its rounding), h0r
+        carry = torch.empty((2, 2, B, H3 // 3), dtype=torch.float32, device=dev)
+        h0r = rbf(h0).contiguous()
+        extra = (carry[0].data_ptr(), carry[1].data_ptr(), h0r.data_ptr())
     rc = fn(xg_t.data_ptr(), mask_t.data_ptr(), uh.data_ptr(), bh.data_ptr(),
             h0.data_ptr(), out.data_ptr(),
             None if wl2 is None else wl2.data_ptr(), T, B, H3 // 3,
             int(reverse), plan.rows_per_thread, plan.row_block,
             plan.unit_block, plan.chunk, plan.row_slots, int(plan.l2),
-            torch.cuda.current_stream(xg_t.device).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, *extra)
     if rc != 0:
         raise RuntimeError(f"gru_fwd kernel launch failed: CUDA error {rc} "
                            f"(plan {plan})")
@@ -269,14 +296,18 @@ def gru_fwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     this card: it counts one in ``gru_fwd.launches`` and one in
     ``gru_fwd.grids``. A width that is no multiple of 16 runs zero-padded
     to ``padded_width(H)`` (``pad_units``, exact), the output cut back. A
-    plan the card cannot hold co-resident raises."""
+    plan the card cannot hold co-resident raises. A bf16 ``xg_t`` runs the
+    bf16-stream instance (``gru_fwd.bf16_launches`` counts those calls)
+    and returns hs_t in bf16."""
     if resolve_impl(impl, xg_t) == "plain":
         return gru_fwd_plain(xg_t, mask_t, uh, bh, h0, reverse=reverse)
     T, B, H3 = xg_t.shape
     H = H3 // 3
     if H3 != 3 * H:
         raise ValueError(f"gru_fwd: gate width {H3} must be 3*H")
-    check_kernel_arg(xg_t, torch.float32, (T, B, 3 * H), "gru_fwd: xg_t")
+    bf = xg_t.dtype == torch.bfloat16
+    check_kernel_arg(xg_t, torch.bfloat16 if bf else torch.float32,
+                     (T, B, 3 * H), "gru_fwd: xg_t")
     check_kernel_arg(mask_t, torch.float32, (T, B), "gru_fwd: mask_t")
     check_kernel_arg(uh, torch.float32, (H, 3 * H), "gru_fwd: uh")
     check_kernel_arg(bh, torch.float32, (3 * H,), "gru_fwd: bh")
@@ -284,21 +315,29 @@ def gru_fwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     Hp = padded_width(H)
     if Hp != H:
         xg_t, uh, bh, h0 = pad_units(xg_t, uh, bh, h0, Hp)
+    if bf:
+        uh = rbf(uh).contiguous()   # the product's operand, exact in fp32
     plan = gru_fwd_plan(B, Hp, *_device_limits(xg_t.device))
-    out = _launch(_build.load("gru_fwd").gru_fwd_launch, plan, xg_t, mask_t,
-                  uh, bh, h0, reverse)
+    lib = _build.load("gru_fwd_bf16" if bf else "gru_fwd")
+    out = _launch(lib.gru_fwd_launch, plan, xg_t, mask_t, uh, bh, h0, reverse)
     gru_fwd.launches += 1
     gru_fwd.grids += 1
+    gru_fwd.bf16_launches += bf
     return out if Hp == H else out[..., :H].contiguous()
 
 
 gru_fwd.launches = 0
 gru_fwd.grids = 0
+gru_fwd.bf16_launches = 0
 
 _GRU_DEFINES = {"VAG_GRU_STAGES": GRU_STAGES, "VAG_GRU_PAD": GRU_PAD}
-_build.declare("gru_fwd", "gru_fwd_launch",
-               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
-               _GRU_DEFINES)
+_GRU_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_build.declare("gru_fwd", "gru_fwd_launch", _GRU_FWD_ARGS, _GRU_DEFINES)
+# the bf16-stream instance: the same source, its entry takes the carry
+# buffers hc, ps and the rounded h0 after the stream
+_build.declare("gru_fwd_bf16", "gru_fwd_launch",
+               _GRU_FWD_ARGS + [ctypes.c_void_p] * 3,
+               {**_GRU_DEFINES, "VAG_BF16": 1}, src="gru_fwd")
 _build.declare("gru_fwd", "gru_fwd_limits",
                [ctypes.POINTER(ctypes.c_int)] * 2, _GRU_DEFINES)
 
@@ -342,20 +381,27 @@ def gru_bwd_plain(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
                   g_t: torch.Tensor, *, reverse: bool = False):
     """The plain PyTorch version of the backward kernel: an explicit loop
     against the scan order that recomputes each step's gates from the saved
-    states. Returns (dxg_t (T, B, 3H), duh (H, 3H), dbh (3H,), dh0 (B, H))."""
+    states. Returns (dxg_t (T, B, 3H), duh (H, 3H), dbh (3H,), dh0 (B, H)).
+    bf16 streams (``pallas_gru._bwd_kernel`` at cdt = bf16): each product
+    on operands rounded to bf16 (``rbf``), the cell backward, the carry and
+    the sums in fp32, dxg_t in bf16."""
     T = xg_t.shape[0]
-    hprev = _prev_states(hs_t, h0, reverse)
+    bf = xg_t.dtype == torch.bfloat16
+    f32 = torch.float32
+    r = rbf if bf else (lambda x: x)
+    hprev = _prev_states(hs_t.to(f32), h0.to(f32), reverse)
+    w = r(uh)
     dxg = torch.empty_like(xg_t)
     duh = torch.zeros_like(uh)
     dbh = torch.zeros_like(bh)
-    dh = torch.zeros_like(h0)
+    dh = torch.zeros(h0.shape, dtype=f32, device=h0.device)
     for t in (range(T) if reverse else range(T - 1, -1, -1)):
-        hg = hprev[t] @ uh + bh
-        dh = dh + g_t[t]
-        dxg[t], dhg, base = gru_cell_bwd_plain(xg_t[t], hg, hprev[t], dh,
-                                               mask_t[t][:, None])
-        dh = base + dhg @ uh.T
-        duh += hprev[t].T @ dhg
+        hg = r(hprev[t]) @ w + bh
+        dh = dh + g_t[t].to(f32)
+        dxg[t], dhg, base = gru_cell_bwd_plain(xg_t[t].to(f32), hg, hprev[t],
+                                               dh, mask_t[t][:, None])
+        dh = base + r(dhg) @ w.T
+        duh += r(hprev[t]).T @ r(dhg)
         dbh += dhg.sum(0)
     return dxg, duh, dbh, dh
 
@@ -382,7 +428,8 @@ class GruBwdPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def gru_bwd_plan(B: int, H: int, n_sms: int, max_smem: int) -> GruBwdPlan:
+def gru_bwd_plan(B: int, H: int, n_sms: int, max_smem: int,
+                 bf16: bool = False) -> GruBwdPlan:
     """The carry's tiling of a (B, H) scan on a card of ``n_sms`` SMs with
     ``max_smem`` bytes of shared memory a block, among the product's
     tilings (``scan_tiles._product_options``: column tiles of Uh^T's output
@@ -391,14 +438,15 @@ def gru_bwd_plan(B: int, H: int, n_sms: int, max_smem: int) -> GruBwdPlan:
     busiest CTA a step; then the fewest activation floats it reads from L2
     a step (tiles x rows x 3H: a CTA that owns all B rows reads all of
     dhg[t], so the row split is the same trade ``gru_fwd_plan`` makes);
-    then fewer CTAs, then less shared memory. Raises ValueError where
-    nothing fits (the accumulators alone beyond ``max_smem``) or a size is
-    not positive."""
+    then fewer CTAs, then less shared memory. ``bf16``: the bf16-stream
+    instance's plan (Uh^T's slices in bf16, half the floats). Raises
+    ValueError where nothing fits (the accumulators alone beyond
+    ``max_smem``) or a size is not positive."""
     if min(B, H, n_sms) < 1:
         raise ValueError(f"gru_bwd_plan: B={B}, H={H}, n_sms={n_sms} must be "
                          "positive")
     best, best_key = None, None
-    for p in _product_options(("dh", 3 * H, H, False), B, H, n_sms):
+    for p in _product_options(("dh", 3 * H, H, False), B, H, n_sms, bf16):
         scratch = _up(p.part_floats, 32)
         region = _up(p.region_floats, 32)
         resident = 4 * (region + scratch) <= max_smem
@@ -432,31 +480,37 @@ def gru_bwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     cooperative grid tiled by ``gru_bwd_plan``, the weight grads; see
     csrc/gru_bwd.cu): it counts one in ``gru_bwd.launches`` and those in
     ``gru_bwd.grids``. Raises when the plan or the launch fails (no
-    fallback)."""
+    fallback). bf16 streams (xg_t, hs_t, g_t) run the bf16-stream instance
+    (counted in ``gru_bwd.bf16_launches``), Uh passed to it as bf16."""
     if resolve_impl(impl, xg_t) == "plain":
         return gru_bwd_plain(xg_t, mask_t, uh, bh, h0, hs_t, g_t,
                              reverse=reverse)
     T, B, H3 = xg_t.shape
     H = H3 // 3
-    check_kernel_arg(xg_t, torch.float32, (T, B, 3 * H), "gru_bwd: xg_t")
+    bf = xg_t.dtype == torch.bfloat16
+    sdt = torch.bfloat16 if bf else torch.float32
+    check_kernel_arg(xg_t, sdt, (T, B, 3 * H), "gru_bwd: xg_t")
     check_kernel_arg(mask_t, torch.float32, (T, B), "gru_bwd: mask_t")
     check_kernel_arg(uh, torch.float32, (H, 3 * H), "gru_bwd: uh")
     check_kernel_arg(bh, torch.float32, (3 * H,), "gru_bwd: bh")
     check_kernel_arg(h0, torch.float32, (B, H), "gru_bwd: h0")
-    check_kernel_arg(hs_t, torch.float32, (T, B, H), "gru_bwd: hs_t")
-    check_kernel_arg(g_t, torch.float32, (T, B, H), "gru_bwd: g_t")
+    check_kernel_arg(hs_t, sdt, (T, B, H), "gru_bwd: hs_t")
+    check_kernel_arg(g_t, sdt, (T, B, H), "gru_bwd: g_t")
     dev = xg_t.device
-    plan = gru_bwd_plan(B, H, *_device_limits(dev))
+    plan = gru_bwd_plan(B, H, *_device_limits(dev), bf16=bf)
     # scratch: hg (h_prev @ Uh), dhg, base (the carry's direct part)
-    hg, dhg = torch.empty_like(xg_t), torch.empty_like(xg_t)
+    f32 = torch.float32
+    hg = torch.empty((T, B, 3 * H), dtype=f32, device=dev)
+    dhg = torch.empty_like(hg)
     base = torch.empty_like(h0)
     dxg, dh0 = torch.empty_like(xg_t), torch.empty_like(h0)
     duh, dbh = torch.empty_like(uh), torch.empty_like(bh)
     wl2 = (torch.empty(plan.l2_floats, dtype=torch.float32, device=dev)
            if plan.l2_floats else None)
     args = plan.launch_args()
-    rc = _build.load("gru_bwd").gru_bwd_launch(
-        *(x.data_ptr() for x in (xg_t, mask_t, uh, bh, hs_t, h0, g_t, hg, dhg,
+    w = uh.to(torch.bfloat16).contiguous() if bf else uh
+    rc = _build.load("gru_bwd_bf16" if bf else "gru_bwd").gru_bwd_launch(
+        *(x.data_ptr() for x in (xg_t, mask_t, w, bh, hs_t, h0, g_t, hg, dhg,
                                  base, dxg, dh0, duh, dbh)),
         T, B, H, int(reverse), (ctypes.c_int * len(args))(*args), len(args),
         None if wl2 is None else wl2.data_ptr(),
@@ -466,16 +520,20 @@ def gru_bwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
                            f"(plan {plan})")
     gru_bwd.launches += 1
     gru_bwd.grids += GRU_BWD_GRIDS
+    gru_bwd.bf16_launches += bf
     return dxg, duh, dbh, dh0
 
 
 gru_bwd.launches = 0
 gru_bwd.grids = 0
+gru_bwd.bf16_launches = 0
 
-_build.declare("gru_bwd", "gru_bwd_launch",
-               [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
-               + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-               + [ctypes.c_void_p] * 2, _SCAN_DEFINES)
+for _name, _defines in (("gru_bwd", _SCAN_DEFINES),
+                        ("gru_bwd_bf16", {**_SCAN_DEFINES, "VAG_BF16": 1})):
+    _build.declare(_name, "gru_bwd_launch",
+                   [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+                   + [ctypes.c_void_p] * 2, _defines, src="gru_bwd")
 
 
 class GRUScan(torch.autograd.Function):

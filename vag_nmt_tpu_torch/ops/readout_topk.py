@@ -41,8 +41,8 @@ from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
 from vag_nmt_tpu_torch.ops import _build
 from vag_nmt_tpu_torch.ops.topk import (_FLOOR, MAX_K, NEG_INF,
                                         _arrival_counters, beam_topk_plain,
-                                        declare_instances, instance,
-                                        k_instance, stable_topk)
+                                        declare_instances, instance, k_plan,
+                                        stable_topk)
 
 # Tiling of the kernel; csrc/readout_topk.cu is built with it (-D defines,
 # see the declare() below), so the split plan and the lane map cannot
@@ -160,9 +160,11 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     ``readout_topk_rows.grids``: one (the vocab splits, merged by the last
     block of each row tile), and with the per-step recovery a second, the
     depth-k rerun of the marked row tiles (after a memset of the marks).
-    The kernel has an instance for k <= 8 and one for k <= 16
-    (``ops/topk.K_INSTANCES``); above 16 the kernel route raises
-    ValueError."""
+    The kernel has an instance for k <= 8 and one for k > 8
+    (``ops/topk.K_INSTANCES``); above 16 that one runs ``k_plan``'s
+    passes, a grid each (each rerun a grid a pass too), counted in
+    ``readout_topk_rows.passes``; there a slot depth above 16 below k has
+    no instance (ValueError)."""
     sk = min(slots, k) if slots else k
     recover = recover_live if sk < k else None
     if resolve_impl(impl, t) == "plain":
@@ -174,10 +176,14 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return out
     R, E = t.shape
     V = w.shape[1]
-    if not 1 <= k <= V or k_instance(k) is None:
-        raise ValueError(f"readout_topk kernel: k={k} outside "
-                         f"1..{min(V, MAX_K)} (no instance takes more than "
-                         f"{MAX_K}; impl='plain' runs the plain version)")
+    if not 1 <= k <= V:
+        raise ValueError(f"readout_topk kernel: k={k} outside 1..{V}")
+    passes = k_plan(k)[1]
+    if passes > 1 and MAX_K < sk < k:
+        raise ValueError(f"readout_topk kernel: slot depth {sk} of k={k}: "
+                         f"above {MAX_K} beams the passes keep at most "
+                         f"{MAX_K} slots a lane")
+    width = MAX_K if passes > 1 else k   # the partial lists' width
     check_kernel_arg(t, torch.float32, (R, E), "readout_topk: t")
     check_kernel_arg(w, torch.float32, (E, V), "readout_topk: w")
     check_kernel_arg(b, torch.float32, (V,), "readout_topk: b")
@@ -186,8 +192,8 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     n_split, split_cols = _split_plan(R, V)
     row_tiles = -(-R // _ROW_TILE)
     dev = t.device
-    part_v = torch.empty((n_split, R, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n_split, R, k), dtype=torch.int32, device=dev)
+    part_v = torch.empty((n_split, R, width), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_split, R, width), dtype=torch.int32, device=dev)
     part_m = torch.empty((n_split, R), dtype=torch.float32, device=dev)
     part_s = torch.empty((n_split, R), dtype=torch.float32, device=dev)
     vals = torch.empty((R, k), dtype=torch.float32, device=dev)
@@ -220,7 +226,9 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"readout_topk kernel launch failed: CUDA error {rc}")
     readout_topk_rows.launches += 1
-    readout_topk_rows.grids += 1 if recover is None else 2
+    readout_topk_rows.grids += passes * (1 if recover is None else 2)
+    if passes > 1:
+        readout_topk_rows.passes += passes
     if not slots:
         return vals, idx, lse
     if shallow[1] is None:                     # depth k: nothing flagged
@@ -230,6 +238,7 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 readout_topk_rows.launches = 0
 readout_topk_rows.grids = 0
+readout_topk_rows.passes = 0
 readout_topk_rows.recoveries = None
 
 
@@ -242,7 +251,7 @@ def _recoveries(dev: torch.device) -> torch.Tensor:
     return c
 
 
-# One tiling for both instances (K <= 8 and K <= 16): at MAX_K = 16 the
+# One tiling for both instances (K <= 8 and K > 8): at MAX_K = 16 the
 # lane merge's BM x 16 lanes of 2 * 16 + 3 floats (35840) still fit the
 # 39552 floats of the ring.
 declare_instances("readout_topk", "readout_topk_launch",

@@ -49,7 +49,8 @@ class ScanProduct:
     weight slice of its k-th column tile sits in its shared memory at float
     ``woff`` + k * slice_floats or, when ``l2off`` >= 0, in the launch's
     weight buffer at l2off + ((cta - cta0) * col_passes + k) *
-    slice_floats, read through L2."""
+    slice_floats, read through L2. ``bf16``: the bf16 instances' slices,
+    two weights a float."""
     name: str
     rows: int
     depth: int
@@ -64,6 +65,7 @@ class ScanProduct:
     cta0: int = 0
     woff: int = 0
     l2off: int = -1
+    bf16: bool = False
 
     @property
     def row_parts(self) -> int:
@@ -81,8 +83,8 @@ class ScanProduct:
     @property
     def slice_floats(self) -> int:
         """One column tile's weight slice, its depth padded to 16-deep
-        slabs."""
-        return _up(self.depth, 16) * self.tile_cols
+        slabs (in floats: halved for bf16 weights)."""
+        return _up(self.depth, 16) * self.tile_cols // (2 if self.bf16 else 1)
 
     @property
     def region_floats(self) -> int:
@@ -122,7 +124,8 @@ def _col_slots(col_tiles: int, most: int) -> List[int]:
     return sorted({-(-col_tiles // m) for m in passes}, reverse=True)
 
 
-def _product_options(spec, B: int, H: int, n_sms: int) -> List[ScanProduct]:
+def _product_options(spec, B: int, H: int, n_sms: int,
+                     bf16: bool = False) -> List[ScanProduct]:
     name, depth, cols, gate = spec
     out = []
     widths = ([(ub, _up(3 * ub, 8)) for ub in GATE_UNITS] if gate
@@ -135,15 +138,15 @@ def _product_options(spec, B: int, H: int, n_sms: int) -> List[ScanProduct]:
             for nr in range(1, min(n_sms, -(-B // rt)) + 1):
                 for cs in _col_slots(col_tiles, n_sms // nr):
                     out.append(ScanProduct(name, B, depth, cols, H, ub, nt,
-                                           rt, nr, col_tiles, cs))
+                                           rt, nr, col_tiles, cs, bf16=bf16))
     return out
 
 
-def _phase_options(phase, B: int, H: int, n_sms: int):
+def _phase_options(phase, B: int, H: int, n_sms: int, bf16: bool = False):
     """Pareto set of (cost, slice floats, products) for one phase: its
     products on disjoint CTAs, at most n_sms in all."""
     opts = {}
-    for combo in itertools.product(*(_product_options(s, B, H, n_sms)
+    for combo in itertools.product(*(_product_options(s, B, H, n_sms, bf16)
                                       for s in phase)):
         if sum(p.ctas for p in combo) > n_sms:
             continue

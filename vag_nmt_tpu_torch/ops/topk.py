@@ -34,7 +34,7 @@ then the combine) in the same launch."""
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -49,10 +49,13 @@ NEG_INF = -1e9          # finished-beam filler, matches decode/beam.py
 _FLOOR = -3.0e38        # "smaller than any candidate" for masking
 # Kernels 1 (readout_topk) and 7 (dec_step) size register arrays by
 # VAG_MAX_K, so each is built twice from one source: VAG_MAX_K = 8 for
-# K <= 8 (the beam-5 path's build, defines and tiling) and 16 for
-# 9 <= K <= 16. Kernels 6, 8 and 9 (here) are built once with a K switch
-# over 1..MAX_K. No kernel takes K > MAX_K: on CUDA tensors the wrappers
-# raise there (impl="plain" runs the plain version on the card).
+# K <= 8 (the beam-5 path's build, defines and tiling) and 16 for K > 8.
+# Kernels 6, 8 and 9 (here) are built once with a K switch over 1..MAX_K.
+# Above MAX_K every kernel runs passes (``k_plan``): the candidates being
+# ordered strictly and totally by (value desc, id asc), the top-K is
+# ceil(K / 16) top-16s, each of the candidates strictly after the last
+# entry the pass before wrote (csrc/topk_split.cuh); kernel 7 loops over
+# groups of 16 beams in its attention instead.
 K_INSTANCES = (8, 16)
 MAX_K = K_INSTANCES[-1]
 LEGACY_BLOCK = 512      # the legacy TPU kernels' vocab block (their tv)
@@ -64,15 +67,21 @@ SPLIT_TARGET_CTAS = 4 * 132          # four CTAs on each of the H100's SMs
 _KNOB_IMPL = {"auto": "auto", "xla": "plain", "pallas_lanes": "kernel"}
 
 
-def k_instance(K: int) -> Optional[int]:
-    """VAG_MAX_K of the kernel instance that takes K beams (or K slots),
-    None above MAX_K."""
-    return next((m for m in K_INSTANCES if K <= m), None)
+def k_instance(K: int) -> int:
+    """VAG_MAX_K of the kernel instance that takes K beams (or K slots):
+    8 for K <= 8, else 16 (above 16 in passes, ``k_plan``)."""
+    return next((m for m in K_INSTANCES if K <= m), MAX_K)
+
+
+def k_plan(K: int) -> Tuple[int, int]:
+    """(VAG_MAX_K of the instance, passes) for K beams: one pass up to
+    MAX_K, ceil(K / MAX_K) passes of MAX_K above."""
+    return k_instance(K), (1 if K <= MAX_K else -(-K // MAX_K))
 
 
 def instance(base: str, K: int) -> str:
-    """The build name of kernel ``base``'s instance for K (``k_instance``
-    not None): ``base`` itself for K <= 8, ``base_k16`` above."""
+    """The build name of kernel ``base``'s instance for K: ``base`` itself
+    for K <= 8, ``base_k16`` above."""
     m = k_instance(K)
     return base if m == K_INSTANCES[0] else f"{base}_k{m}"
 
@@ -198,15 +207,13 @@ def legacy_topk_blocks(logits, scores, finished, *, pad_id: int = PAD_ID,
                        impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Gen 1: ``legacy_topk_blocks_plain``'s contract. impl: "auto" (the
     kernel for CUDA tensors, the plain version for CPU tensors), "kernel"
-    or "plain". Each kernel call counts one in ``.launches`` and one grid in
-    ``.grids``; the kernel takes 1 <= K <= MAX_K beams (ValueError
-    above)."""
+    or "plain". Each kernel call counts one in ``.launches`` and its grids
+    in ``.grids``: one, or above MAX_K beams one a pass, also counted in
+    ``.passes``. K > MAX_K needs K <= V (ValueError else)."""
     if resolve_impl(impl, logits) == "plain":
         return legacy_topk_blocks_plain(logits, scores, finished, pad_id=pad_id)
-    out = _launch("legacy_topk_blocks", logits, scores, finished, pad_id)
-    legacy_topk_blocks.launches += 1
-    legacy_topk_blocks.grids += 1
-    return out
+    return _launch("legacy_topk_blocks", legacy_topk_blocks, logits, scores,
+                   finished, pad_id)
 
 
 def legacy_topk_rows(logits, scores, finished, *, pad_id: int = PAD_ID,
@@ -216,20 +223,25 @@ def legacy_topk_rows(logits, scores, finished, *, pad_id: int = PAD_ID,
     ``legacy_topk_blocks``."""
     if resolve_impl(impl, logits) == "plain":
         return legacy_topk_rows_plain(logits, scores, finished, pad_id=pad_id)
-    out = _launch("legacy_topk_rows", logits, scores, finished, pad_id)
-    legacy_topk_rows.launches += 1
-    legacy_topk_rows.grids += 1
-    return out
+    return _launch("legacy_topk_rows", legacy_topk_rows, logits, scores,
+                   finished, pad_id)
 
 
 legacy_topk_blocks.launches = legacy_topk_blocks.grids = 0
 legacy_topk_rows.launches = legacy_topk_rows.grids = 0
+legacy_topk_blocks.passes = legacy_topk_rows.passes = 0
 
 _DEFINES = {"VAG_SPLIT_THREADS": SPLIT_THREADS}
 _build.declare("legacy_topk", "legacy_topk_blocks_launch",
                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
                defines=_DEFINES)
 _build.declare("legacy_topk", "legacy_topk_rows_launch",
+               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+               defines=_DEFINES)
+_build.declare("legacy_topk", "legacy_topk_blocks_passes_launch",
+               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+               defines=_DEFINES)
+_build.declare("legacy_topk", "legacy_topk_rows_passes_launch",
                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
                defines=_DEFINES)
 
@@ -248,8 +260,9 @@ def beam_topk(
     legacy kernels "pallas" (gen 1, ``legacy_topk_blocks``) and
     "pallas_rows" (gen 2, ``legacy_topk_rows``), which, like "kernel",
     raise on CPU tensors. Each kernel call counts one in
-    ``beam_topk.launches`` and one grid in ``beam_topk.grids``. Every
-    kernel takes 1 <= K <= MAX_K beams (ValueError above)."""
+    ``beam_topk.launches`` and its grids in ``beam_topk.grids``: one, or
+    above MAX_K beams one a pass (``k_plan``), also counted in
+    ``beam_topk.passes``. K > MAX_K needs K <= V (ValueError else)."""
     if impl == "auto":
         impl = decode_knobs().topk_impl
     if impl == "pallas":
@@ -261,10 +274,7 @@ def beam_topk(
     impl = _KNOB_IMPL.get(impl, impl)
     if resolve_impl(impl, logits) == "plain":
         return beam_topk_plain(logits, scores, finished, pad_id=pad_id)
-    out = _launch("beam_topk", logits, scores, finished, pad_id)
-    beam_topk.launches += 1
-    beam_topk.grids += 1
-    return out
+    return _launch("beam_topk", beam_topk, logits, scores, finished, pad_id)
 
 
 # Per device: the split kernels' arrival counters, zero between launches
@@ -285,15 +295,16 @@ def grid_call(name: str, logits, scores, finished, *, pad_id: int = PAD_ID):
     """One launch of kernel ``name`` ("beam_topk", "legacy_topk_blocks" or
     "legacy_topk_rows") made ready: (C function, its arguments, its
     outputs, the tensors its pointers hold). The outputs end with (vals,
-    idx); gen 2's begin with its per-row top-K (rvals, ridx). The wrapper
+    idx); gen 2's begin with its per-row top-K (rvals, ridx). Above MAX_K
+    beams ``fn`` is the entry that enqueues one grid a pass. The wrapper
     calls ``fn(*args)`` once; chip_smoke.py times that call alone, with
     ``base``, scratch and outputs made beforehand. Counts nothing."""
     B, K, V = logits.shape
-    kmax = MAX_K if name == "beam_topk" else min(MAX_K, V)
+    kmax = V if name != "beam_topk" or K > MAX_K else MAX_K
     if not 1 <= K <= kmax:
-        raise ValueError(f"{name} kernel: K={K} outside 1..{kmax} (no kernel "
-                         f"takes more than {MAX_K} beams; impl='plain' runs "
-                         f"the plain version)")
+        raise ValueError(f"{name} kernel: K={K} outside 1..{kmax} (above "
+                         f"{MAX_K} beams the passes need K <= V)")
+    passes = k_plan(K)[1] > 1
     check_kernel_arg(logits, torch.float32, (B, K, V), f"{name}: logits")
     base = _base(logits, scores, finished).contiguous()
     fin = finished.to(torch.uint8).contiguous()
@@ -304,36 +315,43 @@ def grid_call(name: str, logits, scores, finished, *, pad_id: int = PAD_ID):
             torch.empty((B, K), dtype=torch.int64, device=dev))
     keep = (logits, base, fin)
     S = split_plan(B, K, V)
-    scratch = (torch.empty(B * K * S * K, dtype=torch.float32, device=dev),
-               torch.empty(B * K * S * K, dtype=torch.int32, device=dev),
+    width = MAX_K if passes else K       # the partial lists' width
+    scratch = (torch.empty(B * K * S * width, dtype=torch.float32, device=dev),
+               torch.empty(B * K * S * width, dtype=torch.int32, device=dev),
                _arrival_counters(dev, B))
-    if name == "beam_topk":
-        fn = _build.load("beam_topk").beam_topk_launch
-    elif name == "legacy_topk_blocks":
-        fn = _build.load("legacy_topk").legacy_topk_blocks_launch
-    else:
+    entry = f"{name}_passes_launch" if passes else f"{name}_launch"
+    if name == "legacy_topk_rows":
         outs = (torch.empty((B * K, K), dtype=torch.float32, device=dev),
                 torch.empty((B * K, K), dtype=torch.int32, device=dev)) + outs
-        fn = _build.load("legacy_topk").legacy_topk_rows_launch
+    lib = _build.load("beam_topk" if name == "beam_topk" else "legacy_topk")
+    fn = getattr(lib, entry)
     args = (logits.data_ptr(), base.data_ptr(), fin.data_ptr(),
             *(x.data_ptr() for x in scratch + outs), B, K, V, S, pad_id,
             stream)
     return fn, args, outs, keep + scratch
 
 
-def _launch(name: str, logits, scores, finished, pad_id: int):
-    """Launch kernel ``name`` once; its (vals, idx)."""
+def _launch(name: str, wrapper, logits, scores, finished, pad_id: int):
+    """Launch kernel ``name`` (one call: a grid, or a grid a pass) and
+    count it on ``wrapper``; its (vals, idx)."""
     fn, args, outs, _ = grid_call(name, logits, scores, finished,
                                   pad_id=pad_id)
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    passes = k_plan(logits.shape[1])[1]
+    wrapper.launches += 1
+    wrapper.grids += passes
+    if passes > 1:
+        wrapper.passes += passes
     return outs[-2:]
 
 
 beam_topk.launches = 0
 beam_topk.grids = 0
+beam_topk.passes = 0
 
-_build.declare("beam_topk", "beam_topk_launch",
-               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-               defines=_DEFINES)
+for _entry in ("beam_topk_launch", "beam_topk_passes_launch"):
+    _build.declare("beam_topk", _entry,
+                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                   defines=_DEFINES)

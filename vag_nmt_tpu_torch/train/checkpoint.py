@@ -7,8 +7,9 @@ metadata (epoch, in-epoch cursor, best dev BLEU, eval patience) go into
 ONE file, ``state_<tag>.pt``, written to a temporary name and renamed into
 place, so a crash never pairs a new state with stale metadata. A JSON
 mirror of the metadata, ``meta_<tag>.json``, is written the same way for
-people to read. Tags: ``last`` (resume) and ``best`` (best dev BLEU).
-Writes are synchronous.
+people to read; ``train_loop``'s metadata records the run's
+``compute_dtype`` (params are fp32 whatever it is). Tags: ``last``
+(resume) and ``best`` (best dev BLEU). Writes are synchronous.
 
 ``load_checkpoint`` also reads a run the JAX package wrote,
 ``state_<tag>.msgpack`` (flax serialization, decoded by

@@ -148,7 +148,8 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
             best_bleu = bleu
             evals_since_best = 0
             save_checkpoint(ckpt_dir, "best", state,
-                            {"epoch": epoch, "best_bleu": best_bleu})
+                            {"epoch": epoch, "best_bleu": best_bleu,
+                             "compute_dtype": cfg.model.compute_dtype})
         else:
             evals_since_best += 1
             if evals_since_best % cfg.train.lr_decay_patience == 0:
@@ -214,7 +215,8 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
                         {"epoch": epoch if interrupted else epoch + 1,
                          "epoch_cursor": cursor if interrupted else 0,
                          "best_bleu": best_bleu,
-                         "evals_since_best": evals_since_best})
+                         "evals_since_best": evals_since_best,
+                         "compute_dtype": cfg.model.compute_dtype})
         last_t, last_step = time.perf_counter(), state.step
         if stop:
             break
