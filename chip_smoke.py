@@ -131,11 +131,37 @@ Phases (each raises on failure; the script then exits non-zero):
      command alone;
  16. the JAX package's toy run checked in under tests/goldens/jax_run_toy
      (its msgpack checkpoint read by the port) decoded on the card through
-     the kernels against the JAX package's beam golden.
-Phase 1 builds all eight sources, readout_topk.cu and dec_step.cu twice
-(K <= 8 and K > 8), gru_fwd.cu, gru_bwd.cu, dec_scan_fwd.cu and
-dec_scan_bwd.cu twice (fp32 and bf16 streams), and prints ptxas's spills
-of every build. It prints one JSON line of per-kernel
+     the kernels against the JAX package's beam golden;
+ 17. kernel 1b, readout_topk's bf16 instances (bf16 t and W), against the
+     plain version at R=640, E=256, V=8000 and 16000, K=5: depth K, slots
+     1 and 3, the per-step recovery; at K = 12, 16 and 20 (passes) and
+     phase 2's ragged shapes: values within READOUT_RTOL, ids exact on
+     integer inputs and, but among near ties, on random ones; timed cold
+     and warm beside the fp32 instance and torch.addmm in bf16; a mixed
+     operand set raises;
+ 18. kernel 7b, dec_step's bf16 instances, at full width (128, 5, 32), K =
+     12, K = 20 (beam groups) and the ragged shape, within BF16_STATE_ATOL
+     (states) and BF16_RTOL (t), timed beside the fp32 instance and the
+     four products through torch.mm in bf16;
+ 19. kernel 2b at the decode shapes (1024, 32) and (512, 120) against its
+     plain version (held within BF16_STATE_ATOL; the share of identical
+     states printed), timed beside the fp32 instance;
+ 20. the bf16 decode of phase 4's corpus (decode.compute_dtype=bfloat16):
+     kernels 1b once a beam step and 2b twice an encoder pass, no fp32
+     instance; the plain path (MIN_IDENTICAL_SHARE identical), the share
+     split between kernel 2b alone and kernel 1b alone, and the fp32
+     decode in the same run; profiled; then VAG_DEC_STEP=on (7b),
+     VAG_FRT_GEMM_DTYPE=bf16 in the fp32 decode (1b), VAG_ATTN_E_DTYPE=fp32,
+     the unfused step (kernel 6), and Translator in bf16;
+ 21. translate_corpus(fused=False), the bucketed path, fp32 and bf16,
+     against the fused path (MIN_BUCKETED_SHARE), and VAG_SUPER_CHUNK=0
+     and =256 against the default, kernel 2 twice an encoder pass.
+Phase 15 also decodes the bf16 run with --set decode.compute_dtype=bfloat16
+(kernels 1b and 2b only).
+Phase 1 builds all eight sources, readout_topk.cu and dec_step.cu four
+times (K <= 8 and K > 8, each fp32 and bf16), gru_fwd.cu, gru_bwd.cu,
+dec_scan_fwd.cu and dec_scan_bwd.cu twice (fp32 and bf16 streams), and
+prints ptxas's spills of every build. It prints one JSON line of per-kernel
 numbers and, last, the device line. With --gru-grids it prints phase 3's
 grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
 kernel 7's, with --dec-scan-grids kernels 4 and 5's, with --gru-bwd-grids
@@ -1277,24 +1303,10 @@ def phase_bf16_kernels(torch, np, dev):
 
 def phase_main(torch, np, dev):
     import vag_nmt_tpu_torch as vt
-    from vag_nmt_tpu_torch.core.config import SPECIALS
-    from vag_nmt_tpu_torch.data.batching import Example
-    from vag_nmt_tpu_torch.data.vocab import Vocab
     from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd
     from vag_nmt_tpu_torch.ops.readout_topk import readout_topk_rows
 
-    cfg = vt.preset("m30k_ende_vag")
-    m = cfg.model
-    params = vt.init_params(m, torch.Generator().manual_seed(0), device=dev)
-    rng = np.random.RandomState(0)
-    examples = []
-    for i in range(N_SENT):
-        L = int(np.clip(rng.normal(13, 4), 4, 32))
-        examples.append(Example(src=list(rng.randint(4, m.src_vocab_size, L)),
-                                img=rng.randn(m.img_feat_dim).astype(np.float32),
-                                index=i))
-    vocab = Vocab(list(SPECIALS) + [f"t{i}" for i in range(m.tgt_vocab_size - 4)])
-    img_table = vt.build_img_table(examples, m.img_feat_dim, device=dev)
+    cfg, params, examples, vocab, img_table = _main_corpus(torch, np, dev)
 
     # warm-up (allocator, cuBLAS handles) on one chunk
     vt.translate_corpus(params, cfg, examples[:128], vocab, img_table=img_table)
@@ -2448,11 +2460,12 @@ READOUT_SLOTS = (1, 3)
 LANE_COLLISION = (0, 1, 2, 3, 64)
 
 
-def _slots_case(torch, np, dev, kind, R, E, V, seed):
+def _slots_case(torch, np, dev, kind, R, E, V, seed, bf16=False):
     """Readout inputs whose logits are exact in fp32 whatever the order of
     the sums (multiples of 1/512 below 2^14 / 512), so the kernel and the
     plain version see the same values: ties, watermarks and flags alike;
-    "collision" puts every row's five best logits in one kernel lane."""
+    "collision" puts every row's five best logits in one kernel lane. With
+    bf16, t and w in bf16 (their values are exact there)."""
     rng = np.random.RandomState(seed)
     t = rng.randint(-8, 9, (R, E)) / 8.0
     w = rng.randint(-8, 9, (E, V)) / 64.0
@@ -2467,7 +2480,8 @@ def _slots_case(torch, np, dev, kind, R, E, V, seed):
     def cuda(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
-    return cuda(t), cuda(w), cuda(b), mask
+    op = torch.bfloat16 if bf16 else torch.float32
+    return cuda(t).to(op), cuda(w).to(op), cuda(b), mask
 
 
 # Phase 13's shapes (R, V) at E=256: the ikea beam step, and a last row
@@ -2475,9 +2489,10 @@ def _slots_case(torch, np, dev, kind, R, E, V, seed):
 READOUT_SLOTS_SHAPES = ((640, 16000), (35, 8003))
 
 
-def _readout_slots_checks(torch, np, dev, R, E, V, K):
-    """Phase 13's checks at one shape (phase_readout_slots); returns the
-    largest lse error against the plain version."""
+def _readout_slots_checks(torch, np, dev, R, E, V, K, bf16=False):
+    """Phase 13's checks at one shape (phase_readout_slots), on the bf16
+    instance with bf16; returns the largest lse error against the plain
+    version."""
     from vag_nmt_tpu_torch.ops import readout_topk as rt
 
     lanes = rt.kernel_lanes(R, V)
@@ -2486,7 +2501,8 @@ def _readout_slots_checks(torch, np, dev, R, E, V, K):
     live = torch.ones(R, dtype=torch.bool, device=dev)
     flagged, max_err = {}, 0.0
     for kind in ("exact", "collision", "ban"):
-        t, w, b, mask = _slots_case(torch, np, dev, kind, R, E, V, seed=13)
+        t, w, b, mask = _slots_case(torch, np, dev, kind, R, E, V, seed=13,
+                                    bf16=bf16)
         deep = rt.readout_topk_rows(t, w, b, K, mask, impl="kernel")
         for sk in READOUT_SLOTS:
             kv, ki, kl, viol = rt.readout_topk_rows(t, w, b, K, mask, slots=sk,
@@ -2497,7 +2513,8 @@ def _readout_slots_checks(torch, np, dev, R, E, V, K):
             rec = rt.readout_topk_rows(t, w, b, K, mask, slots=sk,
                                        recover_live=live, impl="kernel")
             torch.cuda.synchronize()
-            what = f"readout_topk slots={sk} {kind} (R={R}, V={V})"
+            what = (f"readout_topk{'_bf16' if bf16 else ''} slots={sk} "
+                    f"{kind} (R={R}, V={V})")
             if not torch.equal(viol, pviol):
                 raise AssertionError(f"{what}: viol differs from the plain "
                                      f"version on {int((viol != pviol).sum())} rows")
@@ -2882,6 +2899,7 @@ def _recovery_marks(torch, env, run, hyps_b):
     # the kernel's wrapper counts launches; the recovery counter is looked
     # up on the module's readout_topk_rows, here counted
     counted.launches, counted.grids, counted.recoveries = 0, 0, None
+    counted.bf16_launches, counted.passes = 0, 0
     rt.readout_topk_rows = counted
     try:
         hyps, _ = _with_env(env, run)
@@ -3046,6 +3064,7 @@ def phase_cli(torch, np, dev, preset="m30k_ende_vag", splits=None):
     from pathlib import Path
 
     import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.data.vocab import Vocab
 
     splits = splits or CLI_SPLITS
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
@@ -3162,6 +3181,23 @@ def phase_cli(torch, np, dev, preset="m30k_ende_vag", splits=None):
         raise AssertionError("the bf16 run's decode ran a bf16 instance")
     if len(path.read_text().splitlines()) != splits["test2016"][0]:
         raise AssertionError("cli translate of the bf16 run: line count")
+    # ... and in bf16: kernels 1b and 2b only, the output well formed
+    path = root / "hyp_bf16_run_bf16.txt"
+    command("translate bf16 run bf16", [
+        "translate", "--data-dir", str(data), "--checkpoint", str(run16),
+        "--split", "test2016", "--output", str(path),
+        "--set", "decode.compute_dtype=bfloat16"],
+        need=("gru_fwd_bf16", "readout_topk_bf16"))
+    got = out["translate bf16 run bf16"]["launches"]
+    if dev.type == "cuda" and (
+            got.get("readout_topk") != got.get("readout_topk_bf16")
+            or got.get("gru_fwd") != got.get("gru_fwd_bf16")):
+        raise AssertionError(f"cli translate bf16: an fp32 instance ran: {got}")
+    hyp16 = path.read_text().splitlines()
+    stoi = Vocab.load(str(data / "vocab.de.json")).stoi
+    if len(hyp16) != splits["test2016"][0] or any(
+            u not in stoi for line in hyp16 for u in line.split()):
+        raise AssertionError("cli translate bf16: malformed output")
     print("cli: " + json.dumps({k: v for k, v in out.items()}))
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -3209,6 +3245,615 @@ def phase_jax_run(torch, np, dev):
     if share < MIN_IDENTICAL_SHARE or min(launches.values()) < 1:
         raise AssertionError("jax run decode on the card")
     return {"identical_share": share, "launches": launches}
+
+
+# ---- bf16 decode (phases 17-21) --------------------------------------------
+# Phase 17: kernel 1b, the bf16 instances of kernel 1 (readout_topk_bf16,
+# readout_topk_k16_bf16: t and W bf16, b and the outputs fp32, the products
+# bf16 x bf16 summed in fp32), as the bf16 decode and VAG_FRT_GEMM_DTYPE=bf16
+# give them: at R = 640, E = 256, V = 8000 and 16000, K = 5 (depth K; slots
+# 1 and 3 with their flags, the per-step recovery and a lane collision);
+# at K = 12 and 16 (the k16 build) and K = 20 (its passes of 16) at B = 128
+# sentences; at phase 2's ragged shapes (V = 8003, E = 250: rows copied a
+# value at a time). Values and lse within READOUT_RTOL; ids exact on integer
+# inputs, on random rows but among candidates within READOUT_RTOL of each
+# other in float64. The fp32 instance and torch.addmm in bf16 (the GEMM
+# alone, bf16 out) are timed in the same call.
+READOUT_BF16_V = (8000, 16000)
+READOUT_BF16_BEAMS = (12, 16, 20)
+
+
+def _readout_bf16_bound(R: int, E: int, V: int, K: int, slots: bool):
+    """Kernel 1b's bound (ms, by): 2REV operations at the bf16 tensor rate;
+    t and W read once at 2 bytes, b at 4, the top-K, lse (and viol) written
+    once."""
+    from vag_nmt_tpu_torch.core.flops import H100_PEAK_BF16_FLOPS
+
+    nbytes = (2.0 * (R * E + E * V) + 4.0 * V + 8.0 * R * K
+              + (8.0 if slots else 4.0) * R)
+    return _bound(2.0 * R * E * V, nbytes, H100_PEAK_BF16_FLOPS)
+
+
+def _readout_bf16_inputs(torch, np, dev, kind, R, E, V, seed):
+    """(t, w) in bf16 and b in fp32: small integers (every product and sum
+    exact in fp32) or random values rounded to bf16."""
+    rng = np.random.RandomState(seed)
+    if kind == "integer":
+        t, w = rng.randint(-3, 4, (R, E)), rng.randint(-3, 4, (E, V))
+        b = rng.randint(-3, 4, V)
+    else:
+        t, w = np.tanh(rng.randn(R, E)), 0.05 * rng.randn(E, V)
+        b = 0.1 * rng.randn(V)
+
+    def cuda(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    return (cuda(t).to(torch.bfloat16).contiguous(),
+            cuda(w).to(torch.bfloat16).contiguous(), cuda(b))
+
+
+def _check_readout_bf16(torch, what, t, w, b, K, integer):
+    """Kernel 1b at depth K against its plain version (and a second call
+    bit for bit); returns (largest abs error, rows differing among near
+    ties)."""
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+
+    n0 = rt.readout_topk_rows.bf16_launches
+    kv, ki, kl = rt.readout_topk_rows(t, w, b, K, impl="kernel")
+    again = rt.readout_topk_rows(t, w, b, K, impl="kernel")
+    pv, pi, pl = rt.readout_topk_rows_plain(t, w, b, K)
+    torch.cuda.synchronize()
+    if rt.readout_topk_rows.bf16_launches - n0 != 2:
+        raise AssertionError(f"{what}: the bf16 instance did not launch")
+    err = 0.0
+    for name, a, c in (("vals", kv, pv), ("lse", kl, pl)):
+        if not torch.allclose(a, c, rtol=READOUT_RTOL, atol=0.0):
+            raise AssertionError(f"{what}: {name} off by "
+                                 f"{float((a - c).abs().max())}")
+        err = max(err, float((a - c).abs().max()))
+    if integer:
+        if not (torch.equal(ki, pi) and torch.equal(kv, pv)):
+            raise AssertionError(f"{what}: integer inputs not exact")
+        near = 0
+    else:
+        near = _ids_up_to_near_ties(torch, what, t, w, b, ki, pi)
+    if not all(torch.equal(x, y) for x, y in zip(again, (kv, ki, kl))):
+        raise AssertionError(f"{what}: a second call differs")
+    return err, near
+
+
+def phase_readout_bf16(torch, np, dev):
+    """Phase 17 (above). Returns kernel 1b's row of the kernels line."""
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+
+    E, K, R = 256, 5, 640
+    max_err, near = 0.0, {}
+    for V in READOUT_BF16_V:
+        for kind in ("integer", "random"):
+            t, w, b = _readout_bf16_inputs(torch, np, dev, kind, R, E, V, V + 3)
+            e, near[f"{kind} V={V}"] = _check_readout_bf16(
+                torch, f"readout_topk_bf16 {kind} (R={R}, V={V})", t, w, b, K,
+                kind == "integer")
+            max_err = max(max_err, e)
+        max_err = max(max_err, _readout_slots_checks(torch, np, dev, R, E, V,
+                                                     K, bf16=True))
+        print(f"readout_topk_bf16 (R={R}, E={E}, V={V}): depth K, slots "
+              f"{READOUT_SLOTS} and the per-step recovery ok")
+    # phase 2's ragged shapes: rows of W (V = 8003) and of t (E = 250) off
+    # 16-byte boundaries, copied a value at a time; a part-full row tile
+    for Rr, Er, Vr in ((35, 256, 8003), (35, 250, 8003)):
+        for kind in ("integer", "random"):
+            t, w, b = _readout_bf16_inputs(torch, np, dev, kind, Rr, Er, Vr, Er)
+            e, near[f"{kind} E={Er} V={Vr}"] = _check_readout_bf16(
+                torch, f"readout_topk_bf16 {kind} (R={Rr}, E={Er}, V={Vr})",
+                t, w, b, K, kind == "integer")
+            max_err = max(max_err, e)
+        print(f"readout_topk_bf16 (R={Rr}, E={Er}, V={Vr}): ok")
+    for Kw in READOUT_BF16_BEAMS:
+        Rw = WIDE_B * Kw
+        for kind in ("integer", "random"):
+            t, w, b = _readout_bf16_inputs(torch, np, dev, kind, Rw, E, 8000, Kw)
+            p0 = rt.readout_topk_rows.passes
+            e, near[f"{kind} K={Kw}"] = _check_readout_bf16(
+                torch, f"readout_topk_bf16 {kind} (K={Kw})", t, w, b, Kw,
+                kind == "integer")
+            max_err = max(max_err, e)
+            if (rt.readout_topk_rows.passes > p0) != (Kw > 16):
+                raise AssertionError(f"readout_topk_bf16 K={Kw}: passes")
+        print(f"readout_topk_bf16 K={Kw} (R={Rw}, V=8000): ok")
+    # a mixed operand set raises before any launch
+    t, w, b = _readout_bf16_inputs(torch, np, dev, "random", R, E, 8000, 1)
+    n0 = rt.readout_topk_rows.launches
+    for tt, ww in ((t, w.float()), (t.float(), w)):
+        try:
+            rt.readout_topk_rows(tt, ww, b, K, impl="kernel")
+        except ValueError:
+            continue
+        raise AssertionError("readout_topk took a mixed bf16/fp32 operand set")
+    if rt.readout_topk_rows.launches != n0:
+        raise AssertionError("readout_topk launched on a mixed operand set")
+
+    # times: kernel 1b's whole call alone, cold and warm, beside the fp32
+    # instance on the same values and torch.addmm in bf16
+    kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+    grids = {}
+    for V in READOUT_BF16_V:
+        t, w, b = _readout_bf16_inputs(torch, np, dev, "random", R, E, V, V + 7)
+        b[list(READOUT_CLEAR_IDS)] += 100.0     # slots 1 flags no row
+        live = torch.ones(R, dtype=torch.uint8, device=dev)
+        if int(rt.readout_topk_rows(t, w, b, K, slots=1, impl="kernel")[3].sum()):
+            raise AssertionError(f"readout_topk_bf16 grid case V={V}: rows flagged")
+        t32, w32 = t.float(), w.float()
+        g = {"R": R, "E": E, "V": V, "K": K}
+        for label, fn in (
+                ("grid", lambda: rt.readout_topk_rows(t, w, b, K, impl="kernel")),
+                ("slots1_grid", lambda: rt.readout_topk_rows(
+                    t, w, b, K, slots=1, impl="kernel")),
+                ("recovery_grid", lambda: rt.readout_topk_rows(
+                    t, w, b, K, slots=1, recover_live=live, impl="kernel")),
+                ("fp32_grid", lambda: rt.readout_topk_rows(
+                    t32, w32, b, K, impl="kernel"))):
+            g[f"{label}_ms"], g[f"{label}_warm_ms"] = _grid_ms(torch, fn, **kw)
+        b16 = b.to(torch.bfloat16)
+        logits = torch.empty((R, V), dtype=torch.bfloat16, device=dev)
+        g["addmm_bf16_grid_ms"], g["addmm_bf16_grid_warm_ms"] = _grid_ms(
+            torch, lambda: torch.addmm(b16, t, w, out=logits))
+        g["bound_ms"], g["bound_by"] = _readout_bf16_bound(R, E, V, K, False)
+        g["wrapper_ms"] = _time_ms(torch, lambda: rt.readout_topk_rows(
+            t, w, b, K, impl="kernel"))
+        g["plain_ms"] = _time_ms(torch, lambda: rt.readout_topk_rows_plain(
+            t, w, b, K))
+        grids[V] = g
+        print(f"readout_topk_bf16 grid (R={R}, E={E}, V={V}): " + json.dumps(g))
+    g = grids[READOUT_BF16_V[0]]
+    print(f"readout_topk_bf16: rows differing among near ties {json.dumps(near)}")
+    return {"name": "readout_topk_bf16", "route": "cuda",
+            "source": "vag_nmt_tpu_torch/csrc/readout_topk.cu",
+            "replaces": "vag_nmt_tpu/ops/pallas_readout_topk.py:113",
+            "max_abs_err": max_err, "ms": g["grid_ms"], "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+            "library_ms": None, "grids_by_v": grids, "near_tie_rows": near,
+            **{f: g[f] for f in ("grid_warm_ms", "slots1_grid_ms",
+                                 "recovery_grid_ms", "fp32_grid_ms",
+                                 "addmm_bf16_grid_ms", "wrapper_ms")}}
+
+
+# Phase 18: kernel 7b, the bf16 instances of kernel 7 (dec_step_bf16,
+# dec_step_k16_bf16: s, ctx, uh1, w_s, w_c, ws bf16; gy, ctxpb, mask, the
+# biases, va and t fp32; s~, c and s' rounded to bf16 once each) at full
+# width (B, K, T) = (128, 5, 32), at K = 12 (the k16 build) and K = 20 (its
+# beam groups), at the ragged shape: the bf16 states within
+# BF16_STATE_ATOL, t within BF16_RTOL of its scale; a second call bit for
+# bit; at widths that are no multiples of 8 (rows copied a value at a
+# time); timed beside the fp32 instance and the four products through
+# torch.mm in bf16.
+DEC_STEP_BF16_BEAMS = (5, 12, 20)
+
+
+def _dec_step_bf16_case(torch, np, dev, shape, seed):
+    """Phase 10's dec_step case with the operands a bf16 decode gives the
+    kernel: s, ctx and the four matrices rounded to bf16."""
+    from vag_nmt_tpu_torch.ops.dec_step import MATRICES, WEIGHTS
+
+    inputs, weights = _dec_step_case(torch, np, dev, *shape, seed=seed)
+    bf = torch.bfloat16
+    gy, s, ctx, ctxpb, mask = inputs
+    weights = tuple(w.to(bf) if n in MATRICES else w
+                    for n, w in zip(WEIGHTS, weights))
+    return (gy, s.to(bf), ctx.to(bf), ctxpb, mask), weights
+
+
+def _dec_step_bf16_bound(B, K, T, H, A, C, R, weights):
+    """Kernel 7b's bound (ms, by): its four products at the bf16 tensor
+    rate, the attention on the fp32 cores; bytes with s, ctx, the matrices
+    and s' at 2 bytes."""
+    from vag_nmt_tpu_torch.core.flops import (H100_HBM_BYTES_PER_S,
+                                              H100_PEAK_BF16_FLOPS,
+                                              H100_PEAK_FP32_FLOPS)
+
+    N = B * K
+    gemm = 2.0 * N * (H * 3 * H + H * (A + 3 * H) + C * (3 * H + R) + H * R)
+    att = N * T * (4.0 * A + 2.0 * C)
+    nbytes = (sum(w.numel() * w.element_size() for w in weights)
+              + 4.0 * N * (3 * H + R) + 2.0 * N * H + B * T * (2.0 * C + 4.0 * A + 4.0)
+              + 2.0 * N * H + 4.0 * N * R)
+    t_ops = (gemm / H100_PEAK_BF16_FLOPS + att / H100_PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_dec_step_bf16(torch, np, dev):
+    """Phase 18 (above). Returns kernel 7b's row of the kernels line."""
+    from vag_nmt_tpu_torch.ops.dec_step import dec_step, dec_step_plain
+
+    bf = torch.bfloat16
+    cases = {f"k{K}": _dec_step_full(K=K) for K in DEC_STEP_BF16_BEAMS}
+    cases["ragged"] = DEC_STEP_RAGGED
+    cases["odd"] = DEC_STEP_ODD      # rows copied a value at a time
+    max_abs, errs_all = 0.0, {}
+    for label, shape in cases.items():
+        inputs, weights = _dec_step_bf16_case(torch, np, dev, shape, seed=31)
+        n0 = dec_step.bf16_launches
+        got = dec_step(*inputs, weights, impl="kernel")
+        again = dec_step(*inputs, weights, impl="kernel")
+        want = dec_step_plain(*inputs, weights)
+        torch.cuda.synchronize()
+        if dec_step.bf16_launches - n0 != 2 or got[0].dtype != bf or \
+                got[1].dtype != torch.float32:
+            raise AssertionError(f"dec_step_bf16 {label}: not the bf16 instance")
+        errs = {"s_new": float((got[0].float() - want[0].float()).abs().max()),
+                "t": _rel_err(got[1], want[1])}
+        if not (errs["s_new"] <= BF16_STATE_ATOL and errs["t"] <= BF16_RTOL):
+            raise AssertionError(f"dec_step_bf16 {label} {shape}: {errs}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"dec_step_bf16 {label}: a second call differs")
+        max_abs = max(max_abs, errs["s_new"],
+                      float((got[1] - want[1]).abs().max()))
+        errs_all[label] = errs
+        print(f"dec_step_bf16 {label} (B, K, T, H, A, C, R)={shape}: ok, "
+              f"errors {json.dumps(errs)}")
+    inputs, weights = _dec_step_bf16_case(torch, np, dev, _dec_step_full(), 32)
+    try:
+        dec_step(inputs[0], inputs[1].float(), *inputs[2:], weights,
+                 impl="kernel")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("dec_step took a mixed bf16/fp32 operand set")
+
+    full = _dec_step_full()
+    B, K, T, H, A, C, R = full
+    N = B * K
+    kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+    in32 = (inputs[0], inputs[1].float(), inputs[2].float(), *inputs[3:])
+    w32 = tuple(w.float() for w in weights)
+    g = {"B": B, "K": K, "T": T, "H": H, "A": A, "C": C, "R": R}
+    g["grid_ms"], g["grid_warm_ms"] = _grid_ms(
+        torch, lambda: dec_step(*inputs, weights, impl="kernel"), **kw)
+    g["fp32_grid_ms"], g["fp32_grid_warm_ms"] = _grid_ms(
+        torch, lambda: dec_step(*in32, w32, impl="kernel"), **kw)
+    s = inputs[1]
+    c = torch.from_numpy(np.random.RandomState(13).randn(N, C).astype(
+        np.float32)).to(dev).to(bf)
+    prods = [(s, weights[0]), (s, weights[2]), (c, weights[5]), (s, weights[7])]
+    outs = [torch.empty((N, w.shape[1]), dtype=bf, device=dev) for _, w in prods]
+
+    def gemms():
+        for (a, w), o in zip(prods, outs):
+            torch.mm(a, w, out=o)
+
+    g["mm_bf16_grid_ms"], g["mm_bf16_grid_warm_ms"] = _grid_ms(torch, gemms, **kw)
+    g["bound_ms"], g["bound_by"] = _dec_step_bf16_bound(*full, weights)
+    g["wrapper_ms"] = _time_ms(torch, lambda: dec_step(*inputs, weights,
+                                                       impl="kernel"))
+    g["plain_ms"] = _time_ms(torch, lambda: dec_step_plain(*inputs, weights))
+    print(f"dec_step_bf16 grid (B={B}, K={K}, T={T}): " + json.dumps(g))
+    return {"name": "dec_step_bf16", "route": "cuda",
+            "source": "vag_nmt_tpu_torch/csrc/dec_step.cu",
+            "replaces": "vag_nmt_tpu/ops/pallas_dec_step.py:106",
+            "max_abs_err": max_abs, "ms": g["grid_ms"], "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+            "library_ms": None, "errors": errs_all,
+            **{f: g[f] for f in ("grid_warm_ms", "fp32_grid_ms",
+                                 "fp32_grid_warm_ms", "mm_bf16_grid_ms",
+                                 "mm_bf16_grid_warm_ms", "wrapper_ms")}}
+
+
+# Phase 19: kernel 2b (gru_fwd_bf16) at the decode encoders' shapes, (B, T)
+# = (1024, 32) m30k and (512, 120) ikea_vag, both directions, against its
+# plain version within BF16_STATE_ATOL (phase 8b's tolerance; the two take
+# the gate math in one order, so their states differ only where the
+# products' fp32 sums round apart: the share of identical elements is
+# printed), a second call bit for bit; its grid cold
+# and warm beside the fp32 instance's on the same values, and its bound at
+# the bf16 rate.
+GRU_BF16_DECODE_SHAPES = (("decode", 1024, 32), ("ikea", 512, 120))
+
+
+def phase_gru_bf16_decode(torch, np, dev):
+    """Phase 19 (above). {label: fields}."""
+    from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd, gru_fwd_plain
+
+    bf = torch.bfloat16
+    kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+    out = {}
+    for label, B, T in GRU_BF16_DECODE_SHAPES:
+        _, p, xg32, mask_t, h0 = _gru_case(torch, np, dev, B, T, seed=19)
+        xg_t = xg32.to(bf)
+        err = 0.0
+        for reverse in (False, True):
+            n0 = gru_fwd.bf16_launches
+            hk = gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse,
+                         impl="kernel")
+            hk2 = gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse,
+                          impl="kernel")
+            hp = gru_fwd_plain(xg_t, mask_t, p["uh"], p["bh"], h0,
+                               reverse=reverse)
+            torch.cuda.synchronize()
+            if gru_fwd.bf16_launches - n0 != 2 or hk.dtype != bf:
+                raise AssertionError(f"gru_fwd_bf16 {label}: not the bf16 instance")
+            e = float((hk.float() - hp.float()).abs().max())
+            if not e <= BF16_STATE_ATOL:
+                raise AssertionError(f"gru_fwd_bf16 {label} reverse={reverse}: "
+                                     f"max abs err {e}")
+            if not torch.equal(hk, hk2):
+                raise AssertionError(f"gru_fwd_bf16 {label}: a second call differs")
+            err = max(err, e)
+            same = float((hk == hp).float().mean())
+        cold, warm = _grid_ms(torch, lambda: gru_fwd(
+            xg_t, mask_t, p["uh"], p["bh"], h0, impl="kernel"), **kw)
+        c32, w32 = _grid_ms(torch, lambda: gru_fwd(
+            xg32, mask_t, p["uh"], p["bh"], h0, impl="kernel"), **kw)
+        bound_ms, bound_by = _gru_fwd_bf16_bound(B, T, GRU_H)
+        out[label] = {"B": B, "T": T, "max_abs_err": err,
+                      "identical_share": same, "grid_ms": cold,
+                      "grid_warm_ms": warm, "fp32_grid_ms": c32,
+                      "fp32_grid_warm_ms": w32, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        print(f"gru_fwd_bf16 decode shape {label}: " + json.dumps(out[label]))
+    return out
+
+
+# Phase 20: the bf16 decode (decode.compute_dtype="bfloat16", the params
+# cast to bf16 once a call) of phase 4's corpus and model, three ways in
+# one run: through the kernels, plain, and fp32 through the kernels. Kernel
+# 1b launches once a beam step and kernel 2b twice an encoder pass, the fp32
+# kernels 1 and 2 never; hypotheses through the kernels equal the plain
+# path's for MIN_IDENTICAL_SHARE, and the share split between the encoder
+# (kernel 2b alone) and the readout (kernel 1b alone); the kernel run under
+# the profiler. Then:
+# VAG_DEC_STEP=on (kernel 7b once a beam step), VAG_FRT_GEMM_DTYPE=bf16 in
+# the fp32 decode (1b, not 1), VAG_ATTN_E_DTYPE=fp32 in the bf16 decode, the
+# unfused bf16 step (kernel 6 once a beam step), and Translator with
+# decode.compute_dtype=bfloat16 on raw lines.
+def _main_corpus(torch, np, dev):
+    """Phase 4's model, corpus, vocab and feature table."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.core.config import SPECIALS
+    from vag_nmt_tpu_torch.data.batching import Example
+    from vag_nmt_tpu_torch.data.vocab import Vocab
+
+    cfg = vt.preset("m30k_ende_vag")
+    m = cfg.model
+    params = vt.init_params(m, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.RandomState(0)
+    examples = []
+    for i in range(N_SENT):
+        L = int(np.clip(rng.normal(13, 4), 4, 32))
+        examples.append(Example(src=list(rng.randint(4, m.src_vocab_size, L)),
+                                img=rng.randn(m.img_feat_dim).astype(np.float32),
+                                index=i))
+    vocab = Vocab(list(SPECIALS) + [f"t{i}" for i in range(m.tgt_vocab_size - 4)])
+    img_table = vt.build_img_table(examples, m.img_feat_dim, device=dev)
+    return cfg, params, examples, vocab, img_table
+
+
+def _decode_counts():
+    """The decode kernels' wrappers: {name: (wrapper, counter attribute)},
+    the bf16 instances under <name>_bf16."""
+    from vag_nmt_tpu_torch.ops import dec_step, gru_kernel, topk
+    from vag_nmt_tpu_torch.ops.readout_topk import readout_topk_rows
+
+    out = {}
+    for name, fn in (("readout_topk", readout_topk_rows),
+                     ("gru_fwd", gru_kernel.gru_fwd),
+                     ("dec_step", dec_step.dec_step),
+                     ("beam_topk", topk.beam_topk)):
+        out[name] = (fn, "launches")
+        if hasattr(fn, "bf16_launches"):
+            out[f"{name}_bf16"] = (fn, "bf16_launches")
+    return out
+
+
+def _counted(run):
+    """run() with every decode kernel's launch count set to 0 before it and
+    read after it: (run's result, {name: launches}); fp32 instances under
+    <name>_fp32."""
+    counts = _decode_counts()
+    for fn, attr in counts.values():
+        setattr(fn, attr, 0)
+    res = run()
+    n = {name: getattr(fn, attr) for name, (fn, attr) in counts.items()}
+    for name in ("readout_topk", "gru_fwd", "dec_step"):
+        n[f"{name}_fp32"] = n[name] - n[f"{name}_bf16"]
+    return res, n
+
+
+def _decode_split(torch, run, plain_hyps, passes):
+    """Where the bf16 decode's hypotheses part from the plain path's: run()
+    once with the encoder's GRU scan through kernel 2b and the readout
+    plain, once the other way round (the two entry points rebound to a
+    fixed impl, every launch counted); {label: share of hypotheses as the
+    plain path's}."""
+    from vag_nmt_tpu_torch.models import model as model_mod
+    from vag_nmt_tpu_torch.ops import gru as gru_mod
+
+    real_scan, real_frt = gru_mod.gru_scan, model_mod.fused_readout_topk
+    out = {}
+    for label, enc, ro in (("encoder_kernel", "kernel", "plain"),
+                           ("readout_kernel", "plain", "kernel")):
+        gru_mod.gru_scan = (lambda *a, impl="auto", **k:
+                            real_scan(*a, impl=enc, **k))
+        model_mod.fused_readout_topk = (lambda *a, impl="auto", **k:
+                                        real_frt(*a, impl=ro, **k))
+        try:
+            (hyps, st), n = _counted(run)
+        finally:
+            gru_mod.gru_scan = real_scan
+            model_mod.fused_readout_topk = real_frt
+        want = ((2 * passes, 0) if enc == "kernel"
+                else (0, st["beam_loop_steps"]))
+        if (n["gru_fwd_bf16"], n["readout_topk_bf16"]) != want or \
+                n["gru_fwd_fp32"] or n["readout_topk_fp32"]:
+            raise AssertionError(f"bf16 decode split {label}: launches {n}")
+        out[label] = sum(a == b for a, b in zip(hyps, plain_hyps)) / N_SENT
+    return out
+
+
+def phase_bf16_decode(torch, np, dev):
+    """Phase 20 (above). Returns ({kernel: launches on its bf16 path},
+    fields)."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.decode.translate import super_chunks
+    from vag_nmt_tpu_torch.train.state import tree_leaves
+
+    cfg32, params, examples, vocab, img_table = _main_corpus(torch, np, dev)
+    cfg16 = cfg32.replace(decode=dict(compute_dtype="bfloat16"))
+    B = cfg32.decode.decode_batch_size
+    passes = super_chunks(-(-N_SENT // B), B)[0]
+
+    def run(cfg, impl="auto", exs=examples):
+        return vt.translate_corpus(params, cfg, exs, vocab,
+                                   img_table=img_table, impl=impl)
+
+    run(cfg16, exs=examples[:128])            # warm-up
+    torch.cuda.synchronize()
+    (hyps16, st16), n16 = _counted(lambda: run(cfg16))
+    steps = st16["beam_loop_steps"]
+    f = {"bf16": {"sentences_per_sec": st16["sentences_per_sec"],
+                  "beam_loop_steps": steps, "launches": n16,
+                  "encoder_passes": passes}}
+    print(f"bf16 decode (kernels): " + json.dumps(f["bf16"]))
+    if n16["readout_topk_bf16"] != steps or n16["readout_topk_fp32"]:
+        raise AssertionError(f"bf16 decode: kernel 1b launched "
+                             f"{n16['readout_topk_bf16']} for {steps} beam "
+                             f"steps, kernel 1 {n16['readout_topk_fp32']}")
+    if n16["gru_fwd_bf16"] != 2 * passes or n16["gru_fwd_fp32"]:
+        raise AssertionError(f"bf16 decode: kernel 2b launched "
+                             f"{n16['gru_fwd_bf16']} for {passes} encoder "
+                             f"passes, kernel 2 {n16['gru_fwd_fp32']}")
+    if len(hyps16) != N_SENT or not any(hyps16):
+        raise AssertionError("bf16 decode: malformed hypotheses")
+    (hyps16p, st16p), np16 = _counted(lambda: run(cfg16, "plain"))
+    if any(np16.values()):
+        raise AssertionError(f"bf16 decode (plain) launched kernels: {np16}")
+    share = sum(a == b for a, b in zip(hyps16, hyps16p)) / N_SENT
+    (hyps32, st32), n32 = _counted(lambda: run(cfg32))
+    if n32["readout_topk_bf16"] or n32["gru_fwd_bf16"]:
+        raise AssertionError(f"fp32 decode ran a bf16 instance: {n32}")
+    f["bf16_plain"] = {"sentences_per_sec": st16p["sentences_per_sec"],
+                       "identical_share": share}
+    f["fp32"] = {"sentences_per_sec": st32["sentences_per_sec"],
+                 "beam_loop_steps": st32["beam_loop_steps"],
+                 "share_as_bf16": sum(a == b for a, b in zip(hyps16, hyps32))
+                 / N_SENT}
+    print(f"bf16 decode (plain): {json.dumps(f['bf16_plain'])}; fp32 "
+          f"(kernels): {json.dumps(f['fp32'])}; identical hypotheses bf16 "
+          f"kernels vs plain {share:.4f} (threshold {MIN_IDENTICAL_SHARE})")
+    f["split"] = _decode_split(torch, lambda: run(cfg16), hyps16p, passes)
+    print(f"bf16 decode split: " + json.dumps(f["split"]))
+    if share < MIN_IDENTICAL_SHARE:
+        raise AssertionError(f"bf16 decode: only {share:.4f} identical")
+    phase_profile(torch, "decode bf16 (beam steps)",
+                  lambda: run(cfg16)[1]["beam_loop_steps"])
+
+    def mode(label, cfg, env, check):
+        (hyps, st), n = _counted(lambda: _with_env(env, lambda: run(cfg)))
+        s = st["beam_loop_steps"]
+        f[label] = {"sentences_per_sec": st["sentences_per_sec"],
+                    "beam_loop_steps": s, "launches": n,
+                    "share_as_bf16": sum(a == b for a, b in zip(hyps, hyps16))
+                    / N_SENT}
+        print(f"bf16 decode {label}: " + json.dumps(f[label]))
+        if not check(n, s):
+            raise AssertionError(f"bf16 decode {label}: launches {n} for {s} "
+                                 "beam steps")
+        if len(hyps) != N_SENT or not any(hyps):
+            raise AssertionError(f"bf16 decode {label}: malformed hypotheses")
+
+    mode("dec_step", cfg16, {"VAG_DEC_STEP": "on"},
+         lambda n, s: n["dec_step_bf16"] == s and not n["dec_step_fp32"]
+         and n["readout_topk_bf16"] == s)
+    mode("frt_gemm_bf16", cfg32, {"VAG_FRT_GEMM_DTYPE": "bf16"},
+         lambda n, s: n["readout_topk_bf16"] == s and not n["readout_topk_fp32"]
+         and n["gru_fwd_fp32"] == 2 * passes)
+    mode("attn_e_fp32", cfg16, {"VAG_ATTN_E_DTYPE": "fp32"},
+         lambda n, s: n["readout_topk_bf16"] == s)
+    mode("unfused", cfg16, {"VAG_READOUT_TOPK": "unfused"},
+         lambda n, s: n["beam_topk"] == s and not n["readout_topk"]
+         and n["gru_fwd_bf16"] == 2 * passes)
+    # Translator with decode.compute_dtype=bfloat16: its params cast once
+    # at construction, raw lines of vocab units through kernels 1b and 2b
+    tr = vt.Translator(cfg16, params, None, vocab, vocab, device=dev)
+    if {x.dtype for x in tree_leaves(tr.params)} != {torch.bfloat16}:
+        raise AssertionError("Translator (bf16 decode): params not cast")
+    lines = [" ".join(vocab.itos[t] for t in ex.src if t < len(vocab.itos))
+             for ex in examples[:256]]
+    out, n = _counted(lambda: tr.translate(lines))
+    f["translator"] = {"lines": len(out), "launches": n}
+    print(f"bf16 decode Translator: " + json.dumps(f["translator"]))
+    if len(out) != len(lines) or not n["readout_topk_bf16"] or \
+            n["readout_topk_fp32"] or not n["gru_fwd_bf16"]:
+        raise AssertionError(f"Translator (bf16 decode): launches {n}")
+    launches = {"readout_topk_bf16": n16["readout_topk_bf16"],
+                "gru_fwd_bf16": n16["gru_fwd_bf16"],
+                "dec_step_bf16": f["dec_step"]["launches"]["dec_step_bf16"]}
+    return launches, f
+
+
+# Phase 21: the bucketed path (translate_corpus(fused=False): BucketBatcher
+# in example order, one encode and one beam search a batch) on phase 4's
+# corpus, fp32 and bf16, against the fused path's hypotheses (at least
+# MIN_BUCKETED_SHARE identical: the batches' composition differs, and the
+# encoder and the step run at other batch sizes), kernels 1 and 2 (1b and
+# 2b in bf16) once a beam step and twice a batch; then VAG_SUPER_CHUNK=0
+# (one encoder pass a decode chunk) and =256 against the default, kernel 2
+# twice an encoder pass.
+MIN_BUCKETED_SHARE = 0.99
+SUPER_CHUNK_VALUES = ("0", "256")
+
+
+def phase_bucketed(torch, np, dev):
+    """Phase 21 (above). Returns fields."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.decode.translate import super_chunks
+
+    cfg32, params, examples, vocab, img_table = _main_corpus(torch, np, dev)
+    B = cfg32.decode.decode_batch_size
+    f = {}
+    for label, cfg in (("fp32", cfg32), ("bf16", cfg32.replace(
+            decode=dict(compute_dtype="bfloat16")))):
+        sfx = "_bf16" if label == "bf16" else "_fp32"
+
+        def run(fused, cfg=cfg):
+            return vt.translate_corpus(params, cfg, examples, vocab,
+                                       img_table=img_table, fused=fused)
+
+        (hf, stf), _ = _counted(lambda: run(True))
+        (hb, stb), n = _counted(lambda: run(False))
+        same = sum(a == b for a, b in zip(hf, hb))
+        f[label] = {"identical": same, "sentences": N_SENT,
+                    "fused_sentences_per_sec": stf["sentences_per_sec"],
+                    "bucketed_sentences_per_sec": stb["sentences_per_sec"],
+                    "batches": stb["n_chunks"],
+                    "beam_loop_steps": stb["beam_loop_steps"], "launches": n}
+        print(f"bucketed decode {label}: {same} of {N_SENT} hypotheses as the "
+              f"fused path's; " + json.dumps(f[label]))
+        if same < MIN_BUCKETED_SHARE * N_SENT:
+            raise AssertionError(f"bucketed {label}: only {same} identical")
+        if n[f"readout_topk{sfx}"] != stb["beam_loop_steps"] or \
+                n[f"gru_fwd{sfx}"] != 2 * stb["n_chunks"] or \
+                n["readout_topk"] != n[f"readout_topk{sfx}"]:
+            raise AssertionError(f"bucketed {label}: launches {n}")
+    (h0, st0), n0 = _counted(lambda: vt.translate_corpus(
+        params, cfg32, examples, vocab, img_table=img_table))
+    f["super_chunk"] = {"default": {"launches": n0["gru_fwd"]}}
+    for v in SUPER_CHUNK_VALUES:
+        (h, st), n = _counted(lambda: _with_env(
+            {"VAG_SUPER_CHUNK": v}, lambda: vt.translate_corpus(
+                params, cfg32, examples, vocab, img_table=img_table)))
+        passes = _with_env({"VAG_SUPER_CHUNK": v},
+                           lambda: super_chunks(-(-N_SENT // B), B)[0])
+        same = sum(a == b for a, b in zip(h, h0))
+        f["super_chunk"][v] = {"identical": same, "encoder_passes": passes,
+                               "gru_fwd": n["gru_fwd"],
+                               "sentences_per_sec": st["sentences_per_sec"]}
+        print(f"VAG_SUPER_CHUNK={v}: " + json.dumps(f["super_chunk"][v]))
+        if n["gru_fwd"] != 2 * passes or same < MIN_BUCKETED_SHARE * N_SENT:
+            raise AssertionError(f"VAG_SUPER_CHUNK={v}: {f['super_chunk'][v]}")
+    if n0["gru_fwd"] != 2 * super_chunks(-(-N_SENT // B), B)[0]:
+        raise AssertionError(f"default super chunks: gru_fwd {n0['gru_fwd']}")
+    return f
 
 
 def phase_profile(torch, what: str, run):
@@ -3320,6 +3965,9 @@ def main() -> int:
     widths = phase_gru_widths(torch, np, dev)
     train_kernels = [phase_gru_bwd(torch, np, dev), *phase_dec_scan(torch, np, dev)]
     bf16_kernels = phase_bf16_kernels(torch, np, dev)
+    readout16 = phase_readout_bf16(torch, np, dev)
+    dec_step16 = phase_dec_step_bf16(torch, np, dev)
+    gru16_decode = phase_gru_bf16_decode(torch, np, dev)
     grid_times = phase_topk_grids(torch, np, dev)
     serve_kernels = [phase_beam_topk(torch, np, dev),
                      phase_dec_step(torch, np, dev)]
@@ -3328,6 +3976,8 @@ def main() -> int:
     readout_grids = readout_grid_times(torch, np, dev)
     launches, grids, run = phase_main(torch, np, dev)
     phase_profile(torch, "decode (beam steps)", run)
+    launches16, bf16_decode = phase_bf16_decode(torch, np, dev)
+    bucketed = phase_bucketed(torch, np, dev)
     t_launches, t_grids, t_run, train_run = phase_train(torch, np, dev)
     phase_profile(torch, "train (steps)", t_run)
     b_instances, b_launches, b_grids, b_run = phase_train_bf16(torch, np, dev)
@@ -3358,8 +4008,17 @@ def main() -> int:
         base = k["name"][:-len("_bf16")]
         k["launches"] = b_instances[k["name"]]
         k["grids"] = b_grids[base] // b_launches[base] * k["launches"]
+    # kernels 1b and 7b: their launches in the bf16 decode (phase 20: the
+    # default path for 1b, VAG_DEC_STEP=on for 7b); kernel 2b's at decode
+    for k in (readout16, dec_step16):
+        k["launches"] = launches16[k["name"]]
+        k["grids"] = k["launches"] * (5 if k["name"] == "dec_step_bf16" else 1)
+    for k in bf16_kernels:
+        if k["name"] == "gru_fwd_bf16":
+            k["decode_shapes"] = gru16_decode
+            k["decode_launches"] = launches16["gru_fwd_bf16"]
     kernels = (decode_kernels + train_kernels + serve_kernels + ikea_kernels
-               + bf16_kernels)
+               + bf16_kernels + [readout16, dec_step16])
     for k in kernels:
         k.update(grid_times.get((k["name"], TOPK_PATH_V.get(k["name"])), {}))
     # kernel 1: depth K at V=8000 (m30k) and the shallow slots at 16000
@@ -3392,6 +4051,8 @@ def main() -> int:
                                  for c, f in cli.items()}
     decode_kernels[1]["widths"] = widths
     print(f"jax run: {json.dumps(jax_run)}")
+    print(f"bf16 decode: {json.dumps(bf16_decode)}")
+    print(f"bucketed and super-chunk decode: {json.dumps(bucketed)}")
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

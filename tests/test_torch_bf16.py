@@ -41,6 +41,7 @@ import vag_nmt_tpu_torch as vt
 from vag_nmt_tpu_torch import cli
 from vag_nmt_tpu_torch.data.batching import BucketBatcher
 from vag_nmt_tpu_torch.data.datasets import make_toy_examples
+from vag_nmt_tpu_torch.data.vocab import Vocab
 from vag_nmt_tpu_torch.models import decoder as tdec
 from vag_nmt_tpu_torch.ops import dec_scan as tds
 from vag_nmt_tpu_torch.ops import gru_kernel as tgk
@@ -490,7 +491,9 @@ def test_gru_stream_fp32_knob(monkeypatch):
 def test_cli_trains_bf16_then_translates_at_fp32(tmp_path, capsys):
     """``train --set model.compute_dtype=bfloat16`` on a data directory (the
     run records the dtype), then ``translate`` of that run: it decodes at
-    fp32 (decode.compute_dtype's default), and a bf16 decode raises."""
+    fp32 (decode.compute_dtype's default), and with ``--set
+    decode.compute_dtype=bfloat16`` in bf16, its output well formed (every
+    unit a vocab entry, as JAX tests/test_translate.py's bf16 decode)."""
     data, run = str(tmp_path / "data"), str(tmp_path / "run")
     os.makedirs(data)
     write_data_dir(data)
@@ -510,7 +513,14 @@ def test_cli_trains_bf16_then_translates_at_fp32(tmp_path, capsys):
               "cpu"])
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["sentences"] == 12 and len(hyp.read_text().splitlines()) == 12
-    with pytest.raises(NotImplementedError, match="bf16 decode"):
-        cli.main(["translate", "--data-dir", data, "--checkpoint", run,
-                  "--tag", "last", "--split", "test", "--output", str(hyp),
-                  "--set", "decode.compute_dtype=bfloat16", "--device", "cpu"])
+    hyp16 = tmp_path / "hyp16.txt"
+    cli.main(["translate", "--data-dir", data, "--checkpoint", run,
+              "--tag", "last", "--split", "test", "--output", str(hyp16),
+              "--set", "decode.compute_dtype=bfloat16", "--device", "cpu"])
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    lines = hyp16.read_text().splitlines()
+    assert stats["sentences"] == 12 and len(lines) == 12
+    stoi = Vocab.load(os.path.join(data, "vocab.de.json")).stoi
+    for line in lines:
+        for u in line.split():
+            assert u in stoi, u

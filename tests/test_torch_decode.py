@@ -4,6 +4,7 @@ same inputs give the same tokens and lengths exactly, and scores to 1e-5.
 Also the fixed-seed beam golden of the JAX package, reproduced exactly.
 All on the CPU."""
 
+import dataclasses
 import json
 import os
 
@@ -174,13 +175,14 @@ def test_translate_corpus_unsupported_paths_raise():
                             device="cpu")
     exs = make_toy_examples(3)
     vocab = toy_vocab()
-    calls = [
-        dict(fused=False),
-        dict(mesh=object()),
-    ]
-    for kw in calls:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            vt.translate_corpus(params, cfg, exs, vocab, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        vt.translate_corpus(params, cfg, exs, vocab, device="cpu",
+                            mesh=object())
+    # the bucketed path is supported now (test_bucketed_* below hold it
+    # against the fused path and the JAX package's bucketed path)
+    got, st = vt.translate_corpus(params, cfg, exs, vocab, device="cpu",
+                                  fused=False)
+    assert len(got) == 3 and st["bucketed"]
     # nbest output is supported now (tests/test_torch_nbest.py holds it
     # against the JAX package): up to min(N, beam) pairs per example
     got, _ = vt.translate_corpus(params, cfg, exs, vocab, device="cpu",
@@ -203,9 +205,83 @@ def test_translate_corpus_unsupported_paths_raise():
         vt.translate_corpus(params, cfg, bad, vocab, device="cpu")
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_input_checks_on_both_paths(fused):
+    """A source id outside the table and a short img_table raise ValueError
+    on the bucketed path as on the fused one, before any decode (on the
+    card such an id would fault in the embedding's gather)."""
+    cfg = vt.preset("toy")
+    params = vt.init_params(cfg.model, torch.Generator().manual_seed(0),
+                            device="cpu")
+    exs = make_toy_examples(3)
+    vocab = toy_vocab()
+    short = vt.build_img_table(exs[:2], cfg.model.img_feat_dim, device="cpu")
+    with pytest.raises(ValueError, match="img_table"):
+        vt.translate_corpus(params, cfg, exs, vocab, img_table=short,
+                            fused=fused, device="cpu")
+    for bad_id in (cfg.model.src_vocab_size, -1):
+        bad = exs[:2] + [Example(src=[4, bad_id], img=exs[0].img)]
+        with pytest.raises(ValueError, match="token ids"):
+            vt.translate_corpus(params, cfg, bad, vocab, fused=fused,
+                                device="cpu")
+
+
 def test_data_copies_match_jax():
     assert toy_vocab().itos == jax_toy_vocab().itos
     for a, b in zip(make_toy_examples(5, seed=1), jax_toy_examples(5, seed=1)):
         assert (a.src, a.tgt) == (b.src, b.tgt)
         np.testing.assert_array_equal(a.img, b.img)
     assert remove_bpe(["a@@", "b", "c@@", "d@@"]) == ["ab", "cd"]
+
+
+def _bucketed_setup(multimodal):
+    upd = dict(model=dict(multimodal=multimodal),
+               decode=dict(max_len_factor=1.5, max_len_offset=1))
+    jcfg = jax_preset("toy").replace(**upd)
+    cfg = vt.preset("toy").replace(**upd)
+    jp = _eos_biased(jax_init_params(jax.random.key(1), jcfg.model))
+    params = vt.params_from_numpy(jax.device_get(jp), cfg.model, device="cpu")
+    jexs = jax_toy_examples(30, seed=4)
+    exs = make_toy_examples(30, seed=4)
+    if not multimodal:
+        jexs = [dataclasses.replace(e, img=None) for e in jexs]
+        exs = [dataclasses.replace(e, img=None) for e in exs]
+    return jcfg, jp, jexs, cfg, params, exs
+
+
+@pytest.mark.parametrize("multimodal", [True, False])
+def test_bucketed_matches_fused(multimodal):
+    """fused=False (BucketBatcher's batches in example order, each at its
+    own source bucket) gives the fused path's hypotheses exactly on the
+    CPU, text-only and multimodal, beam and greedy, as the JAX package's
+    own test of its two paths; nbest stays fused-only (ValueError)."""
+    _, _, _, cfg, params, exs = _bucketed_setup(multimodal)
+    for beam in (3, 1):
+        fused, _ = vt.translate_corpus(params, cfg, exs, toy_vocab(),
+                                       batch_size=4, beam_size=beam,
+                                       device="cpu")
+        got, st = vt.translate_corpus(params, cfg, exs, toy_vocab(),
+                                      batch_size=4, beam_size=beam,
+                                      fused=False, device="cpu")
+        assert got == fused
+        assert st["bucketed"] and st["n_chunks"] >= 8
+    with pytest.raises(ValueError, match="fused"):
+        vt.translate_corpus(params, cfg, exs, toy_vocab(), beam_size=3,
+                            nbest=2, fused=False, device="cpu")
+
+
+def test_bucketed_stale_indices_and_jax():
+    """A slice keeping its original .index values decodes in list order on
+    the bucketed path (as JAX tests/test_translate.py's stale-index case),
+    equal to the fused path's slice and to the JAX package's bucketed
+    path on the same params and examples."""
+    jcfg, jp, jexs, cfg, params, exs = _bucketed_setup(True)
+    sl, jsl = exs[10:30], jexs[10:30]
+    assert [e.index for e in sl] == list(range(10, 30))
+    got, _ = vt.translate_corpus(params, cfg, sl, toy_vocab(), batch_size=4,
+                                 fused=False, device="cpu")
+    full, _ = vt.translate_corpus(params, cfg, exs, toy_vocab(), batch_size=4,
+                                  device="cpu")
+    want, _ = jax_translate(jp, jcfg, jsl, jax_toy_vocab(), batch_size=4,
+                            fused=False)
+    assert got == full[10:30] == want and len(got) == 20

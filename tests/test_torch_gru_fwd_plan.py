@@ -278,3 +278,82 @@ def test_zero_padding_is_exact(H, reverse):
     assert not got[..., H:].any()                   # padded units: exact 0
     np.testing.assert_allclose(got[..., :H].numpy(), want.numpy(), atol=1e-6,
                                rtol=0)
+
+
+# -- kernel 2b at the decode encoders' shapes (bf16 streams) -----------------
+
+# (B, T): the m30k decode's super chunk and the ikea_vag encoder, as
+# chip_smoke.py's phase 19 launches kernel 2b in a bf16 decode
+BF16_DECODE_SHAPES = [(1024, 32), (512, 120)]
+# one bf16 ulp of a state in [-1, 1)
+BF16_ULP = 2.0 ** -8
+
+
+def _tile_model_bf16(plan, xg_t, mask_t, uh, bh, h0, reverse):
+    """_tile_model on bf16 streams, as the bf16 instance: each step's
+    product on the carry rounded to bf16 and Uh rounded to bf16 (exact
+    products, each (row, unit)'s summed in fp32 one depth after another,
+    chunk by chunk, as its thread's FMA chain), the gates and the carry in
+    fp32, the states written rounded to bf16."""
+    from vag_nmt_tpu_torch.ops.gru_kernel import rbf
+
+    T, B, H3 = xg_t.shape
+    H = H3 // 3
+    RB, UB, KC = plan.row_block, plan.unit_block, plan.chunk
+    out = torch.empty((T, B, H), dtype=torch.bfloat16)
+    w = rbf(uh)
+    hp = h0.clone()
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        hn = hp.clone()
+        a = rbf(hp)
+        for y in range(plan.unit_tiles):
+            units = torch.arange(y * UB, (y + 1) * UB)
+            cols = torch.cat([g * H + units for g in range(3)])
+            # the row blocks' chains side by side (each row's is its own)
+            acc = torch.zeros((B, 3 * UB))
+            for k0 in range(0, H, KC):
+                for k in range(k0, k0 + KC):
+                    acc.addcmul_(a[:, k:k + 1], w[k, cols])
+            for rb in range(plan.row_blocks):
+                rows = torch.arange(rb * RB, min(B, (rb + 1) * RB))
+                h = hp[rows][:, units]
+                h_new = gru_gate_algebra(xg_t[t][rows][:, cols].float(),
+                                         acc[rows] + bh[cols], h)
+                keep = mask_t[t][rows][:, None] > 0
+                hn[rows[:, None], units[None, :]] = torch.where(keep, h_new, h)
+        hp = hn
+        out[t] = hp.to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("B,T", BF16_DECODE_SHAPES)
+def test_bf16_decode_shapes_plan_and_tile_model(B, T):
+    """At the decode shapes the bf16 instance runs the fp32 plan (the plan
+    reads B and H only, not T or the streams' type): one pass a step, every
+    (row, unit) once. Its tile model on bf16 streams, over the first steps
+    of a T-step scan at the full B and H = 512, both directions: the plain
+    version's states in bf16 within BF16_ULP (the two sum the exact
+    products in fp32 in their own orders: a state rounds one bf16 ulp apart
+    where the sums straddle a rounding boundary)."""
+    H = 512
+    plan = gru_fwd_plan(B, H, *H100)
+    assert plan == gru_fwd_plan(B, H, *H100) and plan.passes == 1
+    assert plan.smem_bytes <= H100[1]
+    hits = np.zeros((B, H), np.int32)
+    for _, row, unit in _cells(plan, B, H):
+        hits[row, unit] += 1
+    assert (hits == 1).all()
+    steps = 3
+    p, x, mask, h0 = _case(B, T, 16, H, seed=B + T)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    xg_t = (torch.from_numpy(x) @ tp["wi"] + tp["bi"]).transpose(0, 1)
+    xg_t = xg_t[:steps].to(torch.bfloat16).contiguous()
+    mask_t = torch.from_numpy(mask).transpose(0, 1)[:steps].contiguous()
+    h0_t = torch.from_numpy(h0)
+    for reverse in (False, True):
+        got = _tile_model_bf16(plan, xg_t, mask_t, tp["uh"], tp["bh"], h0_t,
+                               reverse)
+        want = gru_fwd_plain(xg_t, mask_t, tp["uh"], tp["bh"], h0_t,
+                             reverse=reverse)
+        assert want.dtype == torch.bfloat16 and got.dtype == want.dtype
+        assert float((got.float() - want.float()).abs().max()) <= BF16_ULP

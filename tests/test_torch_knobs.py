@@ -126,7 +126,8 @@ def _scripted(monkeypatch, max_len, lp, B, K):
         return out + (jnp.zeros((), bool),) if defer_exact else out
 
     def tstep(params, cfg, tok, s, state, scores, finished, *, impl="auto",
-              tables=None, defer_exact=False, exact=False, ban=None):
+              tables=None, defer_exact=False, exact=False, ban=None,
+              opts=None):
         t = s[:, 0, 0].long().clamp(0, max_len)
         cand = scores[:, :, None] + ttab[torch.arange(s.shape[0]), t][:, None]
         ride = torch.full((V,), -1e9)
@@ -194,3 +195,61 @@ def test_decode_knobs_read_the_variables(monkeypatch):
     assert (k.beam_prune, k.block_ngram, k.beam_unroll, k.two_phase,
             k.frt_slots, k.frt_defer, k.frt_nocond) == (
                 False, 3, 4, True, 2, False, True)
+
+
+def test_dtype_and_super_chunk_variables_read(monkeypatch):
+    """VAG_ATTN_E_DTYPE ("bf16"/"bfloat16" or "fp32"), VAG_FRT_GEMM_DTYPE
+    ("bf16"/"bfloat16") and VAG_SUPER_CHUNK (an int; "" is 0, as the JAX
+    package's ``int(... or 0)``) read as the JAX package reads them."""
+    for k in ("VAG_ATTN_E_DTYPE", "VAG_FRT_GEMM_DTYPE", "VAG_SUPER_CHUNK"):
+        monkeypatch.delenv(k, raising=False)
+    k = decode_knobs()
+    assert (k.attn_e_dtype, k.frt_gemm_bf16, k.super_chunk) == (None, False,
+                                                                None)
+    for attn, frt, sc, want in (("bf16", "bf16", "8", ("bf16", True, 8)),
+                                ("bfloat16", "bfloat16", "", ("bf16", True, 0)),
+                                ("fp32", "fp32", "0", ("fp32", False, 0)),
+                                ("x", "", "1", (None, False, 1))):
+        monkeypatch.setenv("VAG_ATTN_E_DTYPE", attn)
+        monkeypatch.setenv("VAG_FRT_GEMM_DTYPE", frt)
+        monkeypatch.setenv("VAG_SUPER_CHUNK", sc)
+        k = decode_knobs()
+        assert (k.attn_e_dtype, k.frt_gemm_bf16, k.super_chunk) == want
+
+
+@pytest.mark.parametrize("value,passes", [(None, 1), ("0", 4), ("1", 4),
+                                          ("", 4), ("8", 2)])
+def test_super_chunk_variable_sets_encoder_passes(value, passes, monkeypatch):
+    """VAG_SUPER_CHUNK alone sets the encoder passes of translate_corpus
+    (13 sentences in chunks of 4: 4 chunks; unset, SUPER_CHUNK_ROWS = 1024
+    rows take them in one pass; "", "0" and "1" one pass a chunk; "8" two
+    passes of two chunks), with the hypotheses of the default and of the
+    JAX package under the same variable."""
+    from vag_nmt_tpu_torch.decode import translate as ttranslate
+
+    monkeypatch.delenv("VAG_SUPER_CHUNK", raising=False)
+    jcfg = jax_preset("toy")
+    cfg = vt.preset("toy")
+    jp = _params(jcfg.model)
+    params = vt.params_from_numpy(jax.device_get(jp), cfg.model, device="cpu")
+    exs = make_toy_examples(13, seed=5)
+    default, _ = vt.translate_corpus(params, cfg, exs, toy_vocab(),
+                                     batch_size=4, device="cpu")
+    if value is not None:
+        monkeypatch.setenv("VAG_SUPER_CHUNK", value)
+    calls = []
+    real = ttranslate.prepare_decode
+
+    def counting(*a, **k):
+        state = real(*a, **k)
+        calls.append(state.s0.shape[0])
+        return state
+
+    monkeypatch.setattr(ttranslate, "prepare_decode", counting)
+    got, st = vt.translate_corpus(params, cfg, exs, toy_vocab(), batch_size=4,
+                                  device="cpu")
+    assert len(calls) == passes and sum(calls) == st["n_chunks"] * 4
+    assert got == default
+    want, _ = jax_translate(jp, jcfg, jax_toy_examples(13, seed=5),
+                            jax_toy_vocab(), batch_size=4)
+    assert got == want

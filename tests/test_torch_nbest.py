@@ -17,7 +17,6 @@ from vag_nmt_tpu.decode.translate import translate_corpus as jax_translate
 
 import vag_nmt_tpu_torch as vt
 from vag_nmt_tpu_torch.data.datasets import make_toy_examples, toy_vocab
-from vag_nmt_tpu_torch.decode import translate as ttranslate
 
 from tests.test_torch_serve import _params
 
@@ -51,7 +50,6 @@ def test_nbest_matches_jax(path, beam, nbest, monkeypatch):
     jexs, exs = jax_toy_examples(13, seed=5), make_toy_examples(13, seed=5)
     # 8 rows a super-chunk in both packages: two super-chunks with filler
     monkeypatch.setenv("VAG_SUPER_CHUNK", "8")
-    monkeypatch.setattr(ttranslate, "SUPER_CHUNK_ROWS", 8)
     want, wst = jax_translate(jp, jcfg, jexs, jax_toy_vocab(), batch_size=4,
                               beam_size=beam, nbest=nbest)
     got, st = vt.translate_corpus(params, cfg, exs, toy_vocab(), batch_size=4,

@@ -428,3 +428,181 @@ def test_k16_tiling_is_the_k8_tiling():
     BM, BN, BK = rt._ROW_TILE, rt._COL_TILE, rt._DEPTH_CHUNK
     TX = rt._LANE_PERIOD // rt._LANE_COLS
     assert BM * TX * (2 * 16 + 3) <= 3 * (BM * (BK + 4) + BK * (BN + 8) + BN)
+
+
+# -- kernel 1b: the bf16 instances (-DVAG_BF16=1) -----------------------------
+
+BF = torch.bfloat16
+
+
+def _bf16_stage(t, w, b, rows, split, tile, e0, BK):
+    """A ring stage of the bf16 build's load_chunk: t rows x BK and BK x BN
+    of W at 2 bytes, by 16-byte copies of 8 values (in or out) where E (t)
+    or V (W) is a multiple of 8, else one value at a time, zero-filled past
+    R, E and the split's last column; the biases fp32, 4 a copy. Returns
+    the stage and the element offsets of the 16-byte copies."""
+    t, w, b = t.float().numpy(), w.float().numpy(), b.numpy()
+    R, E = t.shape
+    V = w.shape[1]
+    BM, BN = rt._ROW_TILE, rt._COL_TILE
+    (r0, _), (_, c_end), (c0, _) = rows, split, tile
+    ts = np.zeros((BM, BK), np.float32)
+    ws = np.zeros((BK, BN), np.float32)
+    bs = np.zeros(BN, np.float32)
+    offsets = []
+    for r in range(BM):
+        for k in range(0, BK, 8):
+            row, e = r0 + r, e0 + k
+            n = [j for j in range(8) if row < R and e + j < E]
+            if E % 8 == 0 and n:
+                assert len(n) == 8
+                offsets.append(row * E + e)
+            for j in n:
+                ts[r, k + j] = t[row, e + j]
+    for k in range(BK):
+        for c in range(0, BN, 8):
+            e, col = e0 + k, c0 + c
+            n = [j for j in range(8) if e < E and col + j < c_end]
+            if V % 8 == 0 and n:
+                assert len(n) == 8
+                offsets.append(e * V + col)
+            for j in n:
+                ws[k, c + j] = w[e, col + j]
+    for c in range(0, BN, 4):
+        for j in range(max(0, min(4, c_end - (c0 + c)))):
+            bs[c + j] = b[c0 + c + j]
+    return (torch.from_numpy(ts), torch.from_numpy(ws), torch.from_numpy(bs),
+            offsets)
+
+
+def ring_floats(bf16: bool = False) -> int:
+    """Floats of the kernel's cp.async ring (csrc/readout_topk.cu's 3
+    stages x STAGE_FLOATS): each stage a t chunk [BM][BK + 16 / itemsize]
+    and a W chunk [BK][BN + 8] of the operands' type, then BN fp32
+    biases."""
+    size, bk = (2, rt._DEPTH_CHUNK_BF16) if bf16 else (4, rt._DEPTH_CHUNK)
+    ops = size * (rt._ROW_TILE * (bk + 16 // size) + bk * (rt._COL_TILE + 8))
+    return 3 * (ops // 4 + rt._COL_TILE)
+
+
+def lane_merge_floats(max_k: int) -> int:
+    """Floats of the lane merge the kernel puts in its ring: BM rows x 16
+    lanes of max_k (value, id) slots and (max, sum, watermark)."""
+    return rt._ROW_TILE * (rt._LANE_PERIOD // rt._LANE_COLS) * (2 * max_k + 3)
+
+
+def test_bf16_builds_keep_the_ring_and_the_lane_merge():
+    """The bf16 builds differ from the fp32 ones only by VAG_BF16 and
+    chunks twice as deep (VAG_BK 128): at 2 bytes a stage then holds the
+    bytes of the fp32 build's (39552 floats of ring, with the rows' 16-byte
+    padding), the lane merge of 16 slots still fits in it, the shared
+    memory stays under 227 KB, and every staged row and the biases start on
+    16-byte boundaries."""
+    from vag_nmt_tpu_torch.ops import _build
+
+    for base in ("readout_topk", "readout_topk_k16"):
+        a = dict(_build._KERNELS[base][1])
+        b = dict(_build._KERNELS[f"{base}_bf16"][1])
+        assert (b.pop("VAG_BF16"), b.pop("VAG_BK"), a.pop("VAG_BK")) == (
+            1, rt._DEPTH_CHUNK_BF16, rt._DEPTH_CHUNK)
+        assert a == b
+    BM, BN, BK = rt._ROW_TILE, rt._COL_TILE, rt._DEPTH_CHUNK_BF16
+    TS, WS = BK + 8, BN + 8                    # elements, 2 bytes each
+    ops_bytes = 2 * (BM * TS + BK * WS)
+    assert ring_floats(True) == 3 * (ops_bytes // 4 + BN) == \
+        ring_floats(False) == 39552
+    assert lane_merge_floats(16) == 35840 <= ring_floats(True)
+    assert 4 * (ring_floats(True) + BM * (BN + 8)) <= 232448
+    assert (2 * TS) % 16 == 0 and (2 * WS) % 16 == 0 and ops_bytes % 16 == 0
+    assert BK % 16 == 0                        # whole m16n8k16 steps
+
+
+@pytest.mark.parametrize("R,E,V", [(640, 256, 8000), (35, 256, 8003),
+                                   (35, 250, 8003), (35, 252, 8004),
+                                   (3, 32, 200)])
+def test_bf16_staging_of_ragged_rows_and_columns(R, E, V):
+    """The bf16 stages of a row tile's last split equal the zero-padded
+    slices of t, W (bf16) and b at every depth chunk of 128; the 16-byte
+    copies start on 16-byte boundaries (8 values), so where E or V is no
+    multiple of 8 (V = 8004: rows 8 bytes off) the values go one by one."""
+    rng = np.random.RandomState(R + V)
+    t = torch.from_numpy(rng.randn(R, E).astype(np.float32)).to(BF)
+    w = torch.from_numpy(rng.randn(E, V).astype(np.float32)).to(BF)
+    b = torch.from_numpy(rng.randn(V).astype(np.float32))
+    BM, BN, BK = rt._ROW_TILE, rt._COL_TILE, rt._DEPTH_CHUNK_BF16
+    rows, _, split, tiles = _cta_grid(R, V)[-1]
+    pad = torch.zeros((rows[0] + BM, -(-E // BK) * BK + BK))
+    pad[:R, :E] = t.float()
+    wpad = torch.zeros((-(-E // BK) * BK + BK, V + BN))
+    wpad[:E, :split[1]] = w[:, :split[1]].float()
+    for tile in (tiles[0], tiles[-1]):
+        for e0 in range(0, E, BK):
+            ts, ws, bs, offsets = _bf16_stage(t, w, b, rows, split, tile, e0,
+                                              BK)
+            assert torch.equal(ts, pad[rows[0]:rows[0] + BM, e0:e0 + BK])
+            assert torch.equal(ws, wpad[e0:e0 + BK, tile[0]:tile[0] + BN])
+            assert all(o % 8 == 0 for o in offsets)
+        want = torch.zeros(BN)
+        want[:tile[1] - tile[0]] = b[tile[0]:tile[1]]
+        assert torch.equal(bs, want)
+    assert (V % 8 == 0) == all(e * V % 8 == 0 for e in range(E))
+
+
+def product_bf16_k16(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """t @ w as the bf16 build's mma chain: each 16-deep step's products
+    exact (bf16 x bf16 is exact in fp32), its sum added to the fp32
+    accumulator step by step (the model rounds each step's sum once)."""
+    acc = torch.zeros((t.shape[0], w.shape[1]), dtype=torch.float32)
+    td, wd = t.double(), w.double()
+    for k in range(0, t.shape[1], 16):
+        acc = (acc.double() + td[:, k:k + 16] @ wd[k:k + 16]).float()
+    return acc
+
+
+def test_bf16_products_within_readout_rtol_of_fp64():
+    """At phase 17's shape and random generator, on bf16 t and W: the mma
+    chain's logits (16-deep exact steps, fp32 accumulation) and the plain
+    version's fp32 GEMM both within READOUT_RTOL / 10 of the exact products
+    in fp64, with the plain version's ids; the fp32 operands the bf16 values
+    were rounded from lie further than READOUT_RTOL off, so the bf16 and
+    fp32 instances compute different functions (neither takes the other's
+    operands by a cast)."""
+    t, w, b = _phase2_random()
+    t16, w16 = t.to(BF), w.to(BF)
+    K = 5
+    exact = t16.double() @ w16.double() + b.double()
+    model = product_bf16_k16(t16, w16).double() + b.double()
+    ev, ei = stable_topk(exact, K)
+
+    def rel(a, c):
+        return float(((a - c).abs() / c.abs()).max())
+
+    assert rel(model.gather(1, ei), ev) <= cs.READOUT_RTOL / 10
+    assert rel(torch.logsumexp(model, -1), torch.logsumexp(exact, -1)) <= \
+        cs.READOUT_RTOL / 10
+    pv, pi, pl = rt.readout_topk_rows_plain(t16, w16, b, K)
+    assert rel(pv.double(), ev) <= cs.READOUT_RTOL / 10
+    assert torch.equal(stable_topk(model.float(), K)[1].to(torch.int32), pi)
+    f32 = t.double() @ w.double() + b.double()
+    assert rel(f32.gather(1, ei), ev) > cs.READOUT_RTOL
+
+
+@pytest.mark.parametrize("kind", ["integer", "exact", "collision", "ban"])
+def test_bf16_exact_checks_are_exact(kind):
+    """Phase 17's integer inputs and the _slots_case inputs it reuses are
+    exact in bf16, and their products' sums exact in fp32: the bf16 build's
+    logits equal fp64's bit for bit, whatever the order of the sums."""
+    R, E, V = 40, 256, 1000
+    if kind == "integer":
+        rng = np.random.RandomState(1)
+        t = torch.from_numpy(rng.randint(-3, 4, (R, E)).astype(np.float32))
+        w = torch.from_numpy(rng.randint(-3, 4, (E, V)).astype(np.float32))
+    else:
+        t, w, _, _ = cs._slots_case(torch, np, torch.device("cpu"), kind, R, E,
+                                    V, seed=13, bf16=True)
+    t16, w16 = t.to(BF), w.to(BF)
+    assert torch.equal(t16.float(), t.float()) and torch.equal(w16.float(),
+                                                               w.float())
+    exact = t16.double() @ w16.double()
+    assert torch.equal(product_bf16_k16(t16, w16).double(), exact)
+    assert torch.equal(exact.float().double(), exact)

@@ -35,7 +35,6 @@ from vag_nmt_tpu.models.decoder import decode_tables as jax_decode_tables
 import vag_nmt_tpu_torch as vt
 from vag_nmt_tpu_torch.data.datasets import make_toy_examples, toy_vocab
 from vag_nmt_tpu_torch.decode import serve as tserve
-from vag_nmt_tpu_torch.decode import translate as ttranslate
 from vag_nmt_tpu_torch.models.decoder import decode_tables
 from vag_nmt_tpu_torch.train.checkpoint import save_checkpoint
 from vag_nmt_tpu_torch.train.state import state_from_params
@@ -170,7 +169,6 @@ def test_translate_corpus_matches_jax(mode, monkeypatch):
     beam = 1 if mode == "greedy" else None
     # 8 rows per super-chunk in both packages: three pools of two chunks
     monkeypatch.setenv("VAG_SUPER_CHUNK", "8")
-    monkeypatch.setattr(ttranslate, "SUPER_CHUNK_ROWS", 8)
     want, wst = jax_translate(jp, jcfg, jexs, jax_toy_vocab(), batch_size=4,
                               beam_size=beam)
     got, st = vt.translate_corpus(params, cfg, exs, toy_vocab(), batch_size=4,

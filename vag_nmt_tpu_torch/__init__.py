@@ -20,6 +20,7 @@ from vag_nmt_tpu_torch.decode.serve import Translator
 from vag_nmt_tpu_torch.decode.translate import build_img_table, translate_corpus
 from vag_nmt_tpu_torch.models.model import (
     DecodeState,
+    cast_floats,
     init_params,
     loss_fn,
     params_from_numpy,
@@ -32,7 +33,7 @@ from vag_nmt_tpu_torch.train.step import make_train_step
 __all__ = ["BeamResult", "Config", "DecodeState", "GreedyResult",
            "ModelConfig", "TrainState", "Translator", "beam_search",
            "beam_search_streaming", "beam_search_two_phase",
-           "build_img_table", "create_train_state",
+           "build_img_table", "cast_floats", "create_train_state",
            "greedy_decode", "init_params", "loss_fn", "make_train_step",
            "params_from_numpy", "prepare_decode", "preset", "train_loop",
            "translate_corpus"]

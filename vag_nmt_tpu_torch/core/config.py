@@ -90,14 +90,14 @@ class TrainConfig:
 @dataclass(frozen=True)
 class DecodeConfig:
     """Beam decoding. The semantics of each knob are documented on the JAX
-    package's DecodeConfig; the port implements all of them for fp32
-    decode: beam_finish, beam_prune, block_ngram, max_len_factor/offset,
-    greedy decode (beam_size 1), beam_unroll, the two-phase straggler
-    decoder (two_phase, split_len) and the streaming-refill decoder
-    (streaming, refill_threshold). compute_dtype "bfloat16" (bf16 decode)
-    is a later slice (ROADMAP item 7b: translate_corpus raises
-    NotImplementedError); a run trained with model.compute_dtype
-    "bfloat16" decodes at this compute_dtype, float32 by default."""
+    package's DecodeConfig; the port implements all of them: beam_finish,
+    beam_prune, block_ngram, max_len_factor/offset, greedy decode
+    (beam_size 1), beam_unroll, the two-phase straggler decoder
+    (two_phase, split_len), the streaming-refill decoder (streaming,
+    refill_threshold) and compute_dtype, "bfloat16" for a bf16 decode (the
+    params cast to bf16 once a call, the kernels' bf16 instances on the
+    card). A run trained with model.compute_dtype "bfloat16" decodes at
+    this compute_dtype, float32 by default."""
 
     beam_size: int = 5
     max_len: int = 64

@@ -34,6 +34,16 @@ values and defaults, here, so one A/B setting drives both packages:
   per-step recovery then runs).
 - ``VAG_FRT_NOCOND``: "1" skips the recovery altogether. Not exact; for
   measuring the recovery's cost only, as in the JAX package.
+- ``VAG_ATTN_E_DTYPE``: the beam attention's (B, K, T, A) energies. "fp32"
+  keeps them fp32 in a bf16 decode; "bf16" / "bfloat16" makes them bf16
+  in an fp32 decode; unset, they follow the decode's compute dtype.
+- ``VAG_FRT_GEMM_DTYPE``: "bf16" / "bfloat16" runs the fused readout
+  top-K's vocab GEMM on bf16 operands in an fp32 decode (the output
+  matrix cast once a decode, the activations once a step: kernel 1's bf16
+  instance on the card); unset, the operands keep the decode's dtype.
+- ``VAG_SUPER_CHUNK``: rows of source a corpus decode encodes in one
+  encoder pass (an int, default ``translate.SUPER_CHUNK_ROWS``); "", "0"
+  and "1" mean one encoder pass per decode chunk.
 
 An explicit argument to a port function wins over its variable; a config
 value does not (``translate_corpus`` lets the variable override it, as the
@@ -68,6 +78,9 @@ class DecodeKnobs(NamedTuple):
     frt_slots: Optional[int]     # None: K
     frt_defer: bool              # False when VAG_FRT_DEFER is "0"
     frt_nocond: bool             # True when VAG_FRT_NOCOND is "1"
+    attn_e_dtype: Optional[str]  # "bf16" | "fp32" | None (the ctx's dtype)
+    frt_gemm_bf16: bool          # VAG_FRT_GEMM_DTYPE is "bf16"/"bfloat16"
+    super_chunk: Optional[int]   # None: translate.SUPER_CHUNK_ROWS
 
 
 def _on_off(name: str) -> Optional[bool]:
@@ -82,6 +95,19 @@ def _on_off(name: str) -> Optional[bool]:
 def _int(name: str) -> Optional[int]:
     v = os.environ.get(name, "")
     return int(v) if v else None
+
+
+def _attn_e_dtype() -> Optional[str]:
+    v = os.environ.get("VAG_ATTN_E_DTYPE", "")
+    if v in ("bf16", "bfloat16"):
+        return "bf16"
+    return "fp32" if v == "fp32" else None
+
+
+def _super_chunk() -> Optional[int]:
+    # as the JAX package: int(os.environ.get(name, "1024") or 0)
+    v = os.environ.get("VAG_SUPER_CHUNK")
+    return None if v is None else int(v or 0)
 
 
 def decode_knobs() -> DecodeKnobs:
@@ -103,6 +129,10 @@ def decode_knobs() -> DecodeKnobs:
         frt_slots=_int("VAG_FRT_SLOTS"),
         frt_defer=os.environ.get("VAG_FRT_DEFER", "") != "0",
         frt_nocond=os.environ.get("VAG_FRT_NOCOND", "") == "1",
+        attn_e_dtype=_attn_e_dtype(),
+        frt_gemm_bf16=os.environ.get("VAG_FRT_GEMM_DTYPE", "") in (
+            "bf16", "bfloat16"),
+        super_chunk=_super_chunk(),
     )
 
 

@@ -68,6 +68,16 @@
 //   The energies' tanh is tanh_fast (the fast exponential and division,
 // absolute error <= 4.8e-7 by their documented bounds), the rest of the
 // arithmetic is dec_step_plain's.
+// bf16 instances (-DVAG_BF16=1; pallas_dec_step.py under the JAX
+// package's bf16 decode): the states s, s~ and s' and the attention's
+// context c are bf16, each rounded once where the JAX kernel casts it
+// (the new states after the fp32 gate algebra, c after its fp32 sum), as
+// are ctx and the four weight matrices; gy, ctxpb, mask, the biases, va,
+// qh, tc and t stay fp32. The ring stages the bf16 operands at 2 bytes
+// (16-byte copies of 8 elements, or element by element where a row is off
+// a 16-byte boundary) and each 16-deep step is one mma.sync m16n8k16 with
+// fp32 accumulators in place of the three TF32 products; the epilogues
+// read their bf16 state operands from L2 rather than staging them.
 // The tiling is ops/dec_step.py's dec_step_plan: its constants (BM, BK,
 // UB, BN, RN, SPLIT, STAGES, ATT_CLUSTER) come as -D defines, its tile
 // counts and split depth as dec_step_launch's arguments. Ragged widths and
@@ -79,6 +89,12 @@
 
 #include "common.cuh"
 #include "tf32_mma.cuh"
+
+#if defined(VAG_BF16) && VAG_BF16
+#define VAG_DS_BF16 1
+#else
+#define VAG_DS_BF16 0
+#endif
 
 namespace {
 
@@ -100,8 +116,20 @@ constexpr int STAGES = VAG_STAGES;  // the cp.async ring
 constexpr int THREADS = 128;
 constexpr int WARPS_M = 2, WARPS_N = 2;
 constexpr int WM = BM / WARPS_M;    // rows of a warp tile
-constexpr int MI = WM / 16;         // m16n8k8 row tiles of a warp
-constexpr int TS = BK + 4;          // A chunk row stride (floats)
+constexpr int MI = WM / 16;         // m16n8 row tiles of a warp
+// The products' operands (and the states, ctx and c): fp32, or bf16 in
+// the bf16 instances; VEC of them make a 16-byte copy.
+#if VAG_DS_BF16
+typedef __nv_bfloat16 op_t;
+__device__ __forceinline__ float ldf(const __nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ __nv_bfloat16 to_op(float x) { return __float2bfloat16_rn(x); }
+#else
+typedef float op_t;
+__device__ __forceinline__ float ldf(float x) { return x; }
+__device__ __forceinline__ float to_op(float x) { return x; }
+#endif
+constexpr int VEC = 16 / (int)sizeof(op_t);
+constexpr int TS = BK + VEC;        // A chunk row stride (elements)
 constexpr int ATT_CLUSTER = VAG_ATT_CLUSTER;  // CTAs of a sentence (4)
 constexpr int ATT_THREADS = 256;
 constexpr int ATT_WARPS = ATT_THREADS / 32;
@@ -111,7 +139,8 @@ constexpr float NEG_INF = -1e9f;   // as ops/attention.masked_softmax
 static_assert(MAX_K == 8 || MAX_K == 16,
               "two instances (ops/dec_step.py): K <= 8 and K > 8");
 static_assert(WARPS_M * WARPS_N * 32 == THREADS, "one warp per warp tile");
-static_assert(WM % 16 == 0 && BK % 8 == 0 && UB % 4 == 0, "whole mma tiles");
+static_assert(WM % 16 == 0 && BK % (2 * VEC) == 0 && UB % VEC == 0,
+              "whole mma tiles; a 16-byte copy within a gate's units");
 static_assert(SPLIT >= 1 && SPLIT <= 8 && BM % SPLIT == 0,
               "a cluster of SPLIT CTAs shares a tile's rows");
 
@@ -130,13 +159,15 @@ template <int TN, int EPI>
 struct Tile {
   static constexpr int WN = TN / WARPS_N;
   static constexpr int NI = WN / 8;
-  static constexpr int WS = TN + 8;
-  static constexpr int STAGE = BM * TS + BK * WS;
+  static constexpr int WS = TN + 8;   // elements of a B row; floats of et's
+  static constexpr int STAGE = (int)sizeof(op_t) * (BM * TS + BK * WS) / 4;  // floats
   static constexpr int RING = STAGES * STAGE > BM * WS ? STAGES * STAGE : BM * WS;
   static constexpr int OPS = EPI == GRU1 || EPI == GRU2 ? 4 * BM * UB
                              : EPI == READOUT ? 2 * BM * TN : 0;
   static constexpr size_t SMEM = sizeof(float) * (size_t)(RING + OPS);
   static_assert(TN % 16 == 0 && WN % 8 == 0, "warp tiles of whole n8 tiles");
+  static_assert((int)sizeof(op_t) * BM * TS % 16 == 0 && STAGE % 4 == 0,
+                "chunks on 16-byte boundaries");
   static_assert(SMEM <= 232448, "227 KB a block");
 };
 
@@ -148,27 +179,34 @@ using vag::gru_unit;
 using vag::mma_tf32;
 using vag::split_tf32;
 using vag::tanh_fast;
+#if VAG_DS_BF16
+using vag::bf16_pair;
+using vag::copy_bf16;
+using vag::mma_bf16_k16;
+#endif
 using vag::warp_max;
 using vag::warp_sum;
 
 // One product out = a (M, Kd) @ b (Kd, *) over column tiles: tiles
 // [0, gate_tiles) are gate tiles of UB units over H, the rest plain tiles
 // over b's columns [col0, col0 + cols). Epilogue operands by kind:
-//   GRU1:    x = gy (xg1, row stride ldx), hb = bh1, h = s, out = s~;
+//   GRU1:    x = gy (xg1, row stride ldx), hb = bh1, h = s, so = s~;
 //   PLAIN:   out = qh;
 //   GRU2:    xb = bi2, hg = qh + A (row stride ldh), hb = bh2, h = s~,
-//            out = s', out2 = tc (M, cols);
+//            so = s', out2 = tc (M, cols);
 //   READOUT: x = gy + 3H (ty), tc, bias = b, out = t; the depth split
 //            over SPLIT CTAs of a cluster.
 struct Gemm {
-  const float *a, *b;
+  const op_t *a, *b;
   int lda, ldb, M, Kd;
   int H, gate_tiles, col0, cols;
   int kchunk;              // depth of a split (a multiple of BK)
   int vec_a, vec_b, vec_e; // 16-byte copies of a / b / epilogue operand rows
-  const float *x, *xb, *hg, *hb, *h, *tc, *bias;
+  const float *x, *xb, *hg, *hb, *tc, *bias;
+  const op_t* h;
   int ldx, ldh, ldo;
   float *out, *out2;
+  op_t* so;                // the gate tiles' new states
 };
 
 // b's column for column j of column tile ct, or -1 outside b.
@@ -184,47 +222,100 @@ __device__ __forceinline__ int b_col(const Gemm& p, int ct, int j) {
 
 // Copies depth chunk [k0, k0 + BK) of the CTA's a rows and b columns into
 // ring stage `st`, zero-filled past M, ke and b's columns.
+// One element of a row off a 16-byte boundary (base: any valid address,
+// read from when the element is outside): a 4-byte cp.async of an fp32,
+// a plain copy of a bf16.
+__device__ __forceinline__ void copy1(float* dst, const float* src,
+                                      const float* base, bool in) {
+  cp_async4(dst, in ? src : base, in ? 4 : 0);
+}
+#if VAG_DS_BF16
+__device__ __forceinline__ void copy1(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                      const __nv_bfloat16*, bool in) {
+  copy_bf16(dst, src, in);
+}
+#endif
+
 template <int TN>
 __device__ __forceinline__ void load_chunk(const Gemm& p, float* st, int k0,
                                            int ke, int row0, int ct) {
   using L = Tile<TN, PLAIN>;
   const int tid = threadIdx.x;
-  float* as = st;
-  float* bs = st + BM * TS;
-  for (int i = tid; i < BM * (BK / 4); i += THREADS) {
-    const int r = i / (BK / 4), k = k0 + (i % (BK / 4)) * 4;
+  op_t* as = reinterpret_cast<op_t*>(st);
+  op_t* bs = as + BM * TS;
+  for (int i = tid; i < BM * (BK / VEC); i += THREADS) {
+    const int r = i / (BK / VEC), k = k0 + (i % (BK / VEC)) * VEC;
     const int row = row0 + r;
-    float* dst = as + r * TS + (k - k0);
-    if (p.vec_a) {  // Kd % 4 == 0, so ke is too: 4 depths in or out
+    op_t* dst = as + r * TS + (k - k0);
+    if (p.vec_a) {  // Kd % VEC == 0, so ke is too: VEC depths in or out
       const bool in = row < p.M && k < ke;
-      cp_async16(dst, in ? p.a + (size_t)row * p.lda + k : p.a, in ? 16 : 0);
+      cp_async16(reinterpret_cast<float*>(dst),
+                 reinterpret_cast<const float*>(in ? p.a + (size_t)row * p.lda + k : p.a),
+                 in ? 16 : 0);
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < VEC; ++j) {
         const bool in = row < p.M && k + j < ke;
-        cp_async4(dst + j, in ? p.a + (size_t)row * p.lda + k + j : p.a, in ? 4 : 0);
+        copy1(dst + j, p.a + (size_t)row * p.lda + k + j, p.a, in);
       }
     }
   }
-  for (int i = tid; i < BK * (TN / 4); i += THREADS) {
-    const int kk = i / (TN / 4), j = (i % (TN / 4)) * 4;
+  for (int i = tid; i < BK * (TN / VEC); i += THREADS) {
+    const int kk = i / (TN / VEC), j = (i % (TN / VEC)) * VEC;
     const int k = k0 + kk;
-    float* dst = bs + kk * L::WS + j;
-    if (p.vec_b) {  // H, col0 and cols multiples of 4: 4 columns in or out
+    op_t* dst = bs + kk * L::WS + j;
+    if (p.vec_b) {  // H, col0 and cols multiples of VEC: VEC columns in or out
       const int col = b_col<TN>(p, ct, j);
       const bool in = col >= 0 && k < ke;
-      cp_async16(dst, in ? p.b + (size_t)k * p.ldb + col : p.b, in ? 16 : 0);
+      cp_async16(reinterpret_cast<float*>(dst),
+                 reinterpret_cast<const float*>(in ? p.b + (size_t)k * p.ldb + col : p.b),
+                 in ? 16 : 0);
     } else {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < VEC; ++jj) {
         const int col = b_col<TN>(p, ct, j + jj);
         const bool in = col >= 0 && k < ke;
-        cp_async4(dst + jj, in ? p.b + (size_t)k * p.ldb + col : p.b, in ? 4 : 0);
+        copy1(dst + jj, p.b + (size_t)k * p.ldb + col, p.b, in);
       }
     }
   }
 }
 
+#if VAG_DS_BF16
+// acc += the bf16 product of one staged chunk, for this warp's WM x WN:
+// one m16n8k16 a 16-deep step (A's pairs one 4-byte load each along a row,
+// B's pairs of depths a row apart).
+template <int TN>
+__device__ __forceinline__ void mma_chunk(const float* st,
+                                          float (&acc)[MI][Tile<TN, PLAIN>::NI][4],
+                                          int wm, int wn, int g, int tg) {
+  using L = Tile<TN, PLAIN>;
+  const op_t* as = reinterpret_cast<const op_t*>(st);
+  const op_t* bs = as + BM * TS;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16) {
+    uint32_t a[MI][4], b[L::NI][2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const op_t* x = as + (wm * WM + mi * 16 + g) * TS + ks + 2 * tg;
+      a[mi][0] = *reinterpret_cast<const uint32_t*>(x);
+      a[mi][1] = *reinterpret_cast<const uint32_t*>(x + 8 * TS);
+      a[mi][2] = *reinterpret_cast<const uint32_t*>(x + 8);
+      a[mi][3] = *reinterpret_cast<const uint32_t*>(x + 8 * TS + 8);
+    }
+#pragma unroll
+    for (int ni = 0; ni < L::NI; ++ni) {
+      const op_t* y = bs + (ks + 2 * tg) * L::WS + wn * L::WN + ni * 8 + g;
+      b[ni][0] = bf16_pair(y[0], y[L::WS]);
+      b[ni][1] = bf16_pair(y[8 * L::WS], y[9 * L::WS]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < L::NI; ++ni) mma_bf16_k16(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+#else
 // acc += the 3xTF32 product of one staged chunk, for this warp's WM x WN.
 template <int TN>
 __device__ __forceinline__ void mma_chunk(const float* st,
@@ -260,6 +351,8 @@ __device__ __forceinline__ void mma_chunk(const float* st,
       }
   }
 }
+
+#endif
 
 // Copies rows [row0, row0 + BM) of src (row stride ld) into dst [BM][NC]:
 // column j from src's column col(j), zero where col(j) < 0 or past M;
@@ -315,8 +408,10 @@ dec_step_gemm(const Gemm p) {
     for (int gi = 0; gi < 3; ++gi)
       stage_rows<UB>(ops + gi * BM * UB, src, ld, row0, p.M, p.vec_e,
                      [&](int j) { return u0 + j < H ? gi * H + u0 + j : -1; });
+#if !VAG_DS_BF16   // the bf16 states are read in the epilogue
     stage_rows<UB>(ops + 3 * BM * UB, p.h, H, row0, p.M, p.vec_e,
                    [&](int j) { return u0 + j < H ? u0 + j : -1; });
+#endif
   } else if (EPI == READOUT) {
     const int cols = p.cols;
     auto col = [&](int j) { return c0 + j < cols ? c0 + j : -1; };
@@ -370,7 +465,11 @@ dec_step_gemm(const Gemm p) {
       if (row >= p.M || u >= H) continue;
       const float* e = et + r * L::WS + uu;
       const float* o = ops + r * UB + uu;   // [gate][BM][UB], then h
+#if VAG_DS_BF16
+      const float h = ldf(p.h[(size_t)row * H + u]);
+#else
       const float h = o[3 * BM * UB];
+#endif
       float v;
       if (EPI == GRU1) {   // gru(xg1, s @ uh1 + bh1, s)
         v = gru_unit(o[0], o[BM * UB], o[2 * BM * UB], e[0] + __ldg(p.hb + u),
@@ -382,7 +481,7 @@ dec_step_gemm(const Gemm p) {
                      o[0] + __ldg(p.hb + u), o[BM * UB] + __ldg(p.hb + H + u),
                      o[2 * BM * UB] + __ldg(p.hb + 2 * H + u), h);
       }
-      p.out[(size_t)row * p.ldo + u] = v;
+      p.so[(size_t)row * p.ldo + u] = to_op(v);
     }
     return;
   }
@@ -461,9 +560,9 @@ cudaError_t gemm(const Gemm& p, int col_tiles, cudaStream_t s) {
 template <bool GROUPS>
 __global__ void __cluster_dims__(ATT_CLUSTER, 1, 1) __launch_bounds__(ATT_THREADS)
 dec_step_attn(const float* __restrict__ qh, int ldq,
-              const float* __restrict__ ctxp, const float* __restrict__ ctx,
+              const float* __restrict__ ctxp, const op_t* __restrict__ ctx,
               const float* __restrict__ mask, const float* __restrict__ va,
-              float* __restrict__ c, int K, int T, int A, int C) {
+              op_t* __restrict__ c, int K, int T, int A, int C) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float sm[];
@@ -540,7 +639,7 @@ dec_step_attn(const float* __restrict__ qh, int ldq,
   const int per = (C + ATT_CLUSTER - 1) / ATT_CLUSTER;
   const int col_end = min(C, (rank + 1) * per);
   for (int col = rank * per + tid; col < col_end; col += ATT_THREADS) {
-    const float* cx = ctx + (size_t)b * T * C + col;
+    const op_t* cx = ctx + (size_t)b * T * C + col;
     for (int k0 = 0; k0 < (GROUPS ? K : 1); k0 += MAX_K) {
     const int kg = GROUPS ? min(MAX_K, K - k0) : K;
     const float* sg = sc + (size_t)k0 * T;
@@ -549,14 +648,14 @@ dec_step_attn(const float* __restrict__ qh, int ldq,
     for (int k = 0; k < MAX_K; ++k) acc[k] = 0.f;
 #pragma unroll 16
     for (int j = 0; j < T; ++j) {
-      const float x = cx[(size_t)j * C];
+      const float x = ldf(cx[(size_t)j * C]);
 #pragma unroll
       for (int k = 0; k < MAX_K; ++k)
         if (k < kg) acc[k] = fmaf(sg[k * T + j], x, acc[k]);
     }
 #pragma unroll
     for (int k = 0; k < MAX_K; ++k)
-      if (k < kg) c[((size_t)b * K + k0 + k) * C + col] = acc[k];
+      if (k < kg) c[((size_t)b * K + k0 + k) * C + col] = to_op(acc[k]);
     }
   }
 }
@@ -565,7 +664,8 @@ bool al16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// Device pointers to contiguous fp32 tensors (N = B * K rows, G = 3H + R):
+// Device pointers to contiguous fp32 tensors (N = B * K rows, G = 3H + R;
+// in the bf16 instances s, ctx, uh1, w_s, w_c, ws, s_new, st and c bf16):
 //   gy (N, G) the gathered table rows, s (N, H), ctx (B, T, C),
 //   ctxp (B, T, A) with ba folded in, mask (B, T),
 //   uh1 (H, 3H), bh1 (3H,), w_s (H, A + 3H), bh2 (3H,), va (A,),
@@ -598,11 +698,11 @@ extern "C" int dec_step_launch(
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const int N = B * K, H3 = 3 * H, G = H3 + R, Q = A + H3, X = H3 + R;
   const float* gy_f = static_cast<const float*>(gy);
-  float* st_f = static_cast<float*>(st);
+  op_t* st_f = static_cast<op_t*>(st);
   float* qh_f = static_cast<float*>(qh);
-  float* c_f = static_cast<float*>(c);
+  op_t* c_f = static_cast<op_t*>(c);
   float* tc_f = static_cast<float*>(tc);
-  float* s_new_f = static_cast<float*>(s_new);
+  op_t* s_new_f = static_cast<op_t*>(s_new);
   const size_t att_smem = sizeof(float) * ((size_t)K * A + A + (size_t)K * T);
   const bool groups = K > MAX_K;
   if (att_smem > 48 * 1024) {
@@ -613,68 +713,68 @@ extern "C" int dec_step_launch(
   }
 
   Gemm g1{};
-  g1.a = static_cast<const float*>(s);
-  g1.b = static_cast<const float*>(uh1);
+  g1.a = static_cast<const op_t*>(s);
+  g1.b = static_cast<const op_t*>(uh1);
   g1.lda = H; g1.ldb = H3; g1.M = N; g1.Kd = H;
   g1.H = H; g1.gate_tiles = gt1;
   g1.kchunk = H;
-  g1.vec_a = H % 4 == 0 && al16(s);
-  g1.vec_b = H % 4 == 0 && al16(uh1);
-  g1.vec_e = H % 4 == 0 && R % 4 == 0 && al16(gy) && al16(s);
+  g1.vec_a = H % VEC == 0 && al16(s);
+  g1.vec_b = H % VEC == 0 && al16(uh1);
+  g1.vec_e = H % 4 == 0 && R % 4 == 0 && al16(gy) && (VAG_DS_BF16 || al16(s));
   g1.x = gy_f; g1.ldx = G;
   g1.hb = static_cast<const float*>(bh1);
-  g1.h = static_cast<const float*>(s);
-  g1.out = st_f; g1.ldo = H;
+  g1.h = static_cast<const op_t*>(s);
+  g1.so = st_f; g1.ldo = H;
   VAG_CHECK((gemm<GT, GRU1>(g1, ct1, cs)));
 
   Gemm g2{};
   g2.a = st_f;
-  g2.b = static_cast<const float*>(w_s);
+  g2.b = static_cast<const op_t*>(w_s);
   g2.lda = H; g2.ldb = Q; g2.M = N; g2.Kd = H;
   g2.cols = Q;
   g2.kchunk = H;
-  g2.vec_a = H % 4 == 0;
-  g2.vec_b = Q % 4 == 0 && al16(w_s);
+  g2.vec_a = H % VEC == 0;
+  g2.vec_b = Q % VEC == 0 && al16(w_s);
   g2.out = qh_f; g2.ldo = Q;
   VAG_CHECK((gemm<BN, PLAIN>(g2, ct2, cs)));
 
   if (groups)
     dec_step_attn<true><<<B * ATT_CLUSTER, ATT_THREADS, att_smem, cs>>>(
-        qh_f, Q, static_cast<const float*>(ctxp), static_cast<const float*>(ctx),
+        qh_f, Q, static_cast<const float*>(ctxp), static_cast<const op_t*>(ctx),
         static_cast<const float*>(mask), static_cast<const float*>(va), c_f, K,
         T, A, C);
   else
     dec_step_attn<false><<<B * ATT_CLUSTER, ATT_THREADS, att_smem, cs>>>(
-        qh_f, Q, static_cast<const float*>(ctxp), static_cast<const float*>(ctx),
+        qh_f, Q, static_cast<const float*>(ctxp), static_cast<const op_t*>(ctx),
         static_cast<const float*>(mask), static_cast<const float*>(va), c_f, K,
         T, A, C);
   VAG_CHECK(cudaGetLastError());
 
   Gemm g3{};
   g3.a = c_f;
-  g3.b = static_cast<const float*>(w_c);
+  g3.b = static_cast<const op_t*>(w_c);
   g3.lda = C; g3.ldb = X; g3.M = N; g3.Kd = C;
   g3.H = H; g3.gate_tiles = gt3; g3.col0 = H3; g3.cols = R;
   g3.kchunk = C;
-  g3.vec_a = C % 4 == 0;
-  g3.vec_b = H % 4 == 0 && R % 4 == 0 && al16(w_c);
+  g3.vec_a = C % VEC == 0;
+  g3.vec_b = H % VEC == 0 && R % VEC == 0 && al16(w_c);
   g3.vec_e = H % 4 == 0 && A % 4 == 0;
   g3.xb = static_cast<const float*>(bi2);
   g3.hg = qh_f + A; g3.ldh = Q;
   g3.hb = static_cast<const float*>(bh2);
   g3.h = st_f;
-  g3.out = s_new_f; g3.ldo = H;
+  g3.so = s_new_f; g3.ldo = H;
   g3.out2 = tc_f;
   VAG_CHECK((gemm<GT, GRU2>(g3, ct3, cs)));
 
   Gemm g4{};
   g4.a = s_new_f;
-  g4.b = static_cast<const float*>(ws);
+  g4.b = static_cast<const op_t*>(ws);
   g4.lda = H; g4.ldb = R; g4.M = N; g4.Kd = H;
   g4.cols = R;
   g4.kchunk = kchunk;
-  g4.vec_a = H % 4 == 0;
-  g4.vec_b = R % 4 == 0 && al16(ws);
+  g4.vec_a = H % VEC == 0;
+  g4.vec_b = R % VEC == 0 && al16(ws);
   g4.vec_e = H % 4 == 0 && R % 4 == 0 && al16(gy);
   g4.x = gy_f + H3; g4.ldx = G;
   g4.tc = tc_f;

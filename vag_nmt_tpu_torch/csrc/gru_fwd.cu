@@ -51,14 +51,21 @@
 // The bf16-stream instance (-DVAG_BF16=1; pallas_gru.py's bf16 streams
 // under compute_dtype="bfloat16"): xg arrives and the states leave in
 // bf16, the carry and the gate math stay fp32, and hg is bf16(h) @
-// bf16(Uh) summed in fp32. The wrapper passes Uh rounded to bf16 (in
-// fp32, so the slice, its layout and the FMA loop are the fp32
-// instance's: products of bf16 values are exact in fp32; rounding it in
-// the slice's packing loop instead measured 0.1 ms slower a call on the
-// H100) and h0 rounded; the carry goes through hc (2, B, H) fp32, and the
-// rounded states the product stages through ps (2, B, H), both written by
-// the epilogue (slot step % 2), since the bf16 out cannot carry the fp32
-// state.
+// bf16(Uh) + bh with fp32 sums (each thread's FMA chain over k = 0, 1,
+// ..., H - 1; the products of bf16 values are exact in fp32). Its
+// epilogue takes the plain version's operations (ops/gru_kernel.py) in
+// their order, each rounded (no contraction into an FMA), with the same
+// expf and tanhf, so its states differ from the plain version's only
+// where the two products' fp32 sums round apart (chip_smoke.py's phase 19
+// prints the share of identical states): a state one bf16 ulp apart
+// feeds the next step's product and spreads along the recurrence. The
+// wrapper passes Uh rounded to bf16 (in fp32, so the slice, its layout
+// and the FMA loop are the fp32 instance's: products of bf16 values are
+// exact in fp32; rounding it in the slice's packing loop instead measured
+// 0.1 ms slower a call on the H100) and h0 rounded; the carry goes
+// through hc (2, B, H) fp32, and the rounded states the product stages
+// through ps (2, B, H), both written by the epilogue (slot step % 2),
+// since the bf16 out cannot carry the fp32 state.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -314,10 +321,23 @@ gru_fwd_persistent(const st_t* __restrict__ xg,     // (T, B, 3H)
           float o[U];
 #pragma unroll
           for (int j = 0; j < U; ++j) {
+#if VAG_GRU_BF16
+            // gru_gate_algebra's operations in torch's order, each rounded
+            float hg[3];
+#pragma unroll
+            for (int g = 0; g < 3; ++g)
+              hg[g] = __fadd_rn(acc[i][g][j], b[g][j]);
+            const float r = 1.f / (1.f + expf(-__fadd_rn(xs[e][0][j], hg[0])));
+            const float z = 1.f / (1.f + expf(-__fadd_rn(xs[e][1][j], hg[1])));
+            const float n = tanhf(__fadd_rn(xs[e][2][j], __fmul_rn(r, hg[2])));
+            const float h_new = __fadd_rn(__fmul_rn(__fsub_rn(1.f, z), n),
+                                          __fmul_rn(z, hh[e][j]));
+#else
             const float r = 1.f / (1.f + expf(-(xs[e][0][j] + (acc[i][0][j] + b[0][j]))));
             const float z = 1.f / (1.f + expf(-(xs[e][1][j] + (acc[i][1][j] + b[1][j]))));
             const float n = tanhf(xs[e][2][j] + r * (acc[i][2][j] + b[2][j]));
             const float h_new = (1.f - z) * n + z * hh[e][j];
+#endif
             o[j] = keep[e] ? h_new : hh[e][j];
           }
           store2(ho + (size_t)row * H + u, o[0], o[1]);

@@ -59,6 +59,15 @@
 //    per-device buffer (ops/topk.py) shared with kernels 6 and 9: launches
 //    on one stream only.
 //
+// bf16 instances (-DVAG_BF16=1; the JAX package's bf16 decode, and
+// VAG_FRT_GEMM_DTYPE=bf16): t and W arrive in bf16, b and every output in
+// fp32, as jnp.dot(t_bf16, w_bf16, preferred_element_type=f32) + b. The
+// ring stages t and W at 2 bytes (16-byte copies of 8 elements; where a
+// row is off a 16-byte boundary, element by element), each 16-deep step
+// is one mma.sync m16n8k16 with fp32 accumulators (every product of bf16
+// values exact, the sums fp32), and the rest is the fp32 build's. The
+// wrapper passes BK = 128: a stage then holds as many bytes as the fp32
+// build's BK = 64, so the lane merge still fits in the ring.
 // Shallow slots (SK < K): a lane keeps SK slots, and its watermark is the
 // largest value it pushed out of its last slot (its (SK+1)-th best). The
 // merge flags a row (viol) iff the maximum watermark over its lanes and
@@ -94,6 +103,12 @@
 #include "common.cuh"
 #include "tf32_mma.cuh"
 
+#if defined(VAG_BF16) && VAG_BF16
+#define VAG_RO_BF16 1
+#else
+#define VAG_RO_BF16 0
+#endif
+
 namespace {
 
 // The wrapper (ops/readout_topk.py) owns the tiling that its split plan and
@@ -114,23 +129,32 @@ constexpr int STAGES = 3;              // the cp.async ring (193 KB with the res
 constexpr int THREADS = 512;
 constexpr int WARPS_M = 2, WARPS_N = 8;            // warp grid over BM x BN
 constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // 32 x 16 a warp
-constexpr int MI = WM / 16, NI = WN / 8;           // m16n8k8 tiles a warp
+constexpr int MI = WM / 16, NI = WN / 8;           // m16n8 tiles a warp
 constexpr int TX = LP / CPT;                       // 16 lanes a row a split
 constexpr int RPT = BM / (THREADS / TX);           // 2 rows a thread
 constexpr int HALVES = BN / LP;                    // lane periods a tile
-// Shared-memory row strides (floats), padded so that the fragment loads
+// The staged operands' type, and the elements of one 16-byte copy.
+#if VAG_RO_BF16
+typedef __nv_bfloat16 op_t;
+#else
+typedef float op_t;
+#endif
+constexpr int VEC = 16 / (int)sizeof(op_t);
+// Shared-memory row strides (elements), padded so that the fragment loads
 // and the accumulator stores hit 32 distinct banks, and every row starts
 // on a 16-byte boundary.
-constexpr int TS = BK + 4;             // t chunk [BM][TS]
+constexpr int TS = BK + VEC;           // t chunk [BM][TS]
 constexpr int WS = BN + 8;             // W chunk [BK][WS]
-constexpr int LS = BN + 8;             // logits tile [BM][LS]
+constexpr int LS = BN + 8;             // logits tile [BM][LS] (floats)
 // A stage: the t chunk, the W chunk and, with a tile's last chunk, the
-// tile's BN biases (read by the fold before the stage is refilled).
-constexpr int STAGE_FLOATS = BM * TS + BK * WS + BN;
+// tile's BN fp32 biases (read by the fold before the stage is refilled).
+constexpr int OPS_BYTES = (int)sizeof(op_t) * (BM * TS + BK * WS);
+constexpr int STAGE_FLOATS = OPS_BYTES / 4 + BN;
 constexpr size_t SMEM_BYTES = sizeof(float) * ((size_t)STAGES * STAGE_FLOATS + BM * LS);
 
 static_assert(WARPS_M * WARPS_N * 32 == THREADS, "one warp per warp tile");
-static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % 8 == 0, "whole mma tiles");
+static_assert(WM % 16 == 0 && WN % 8 == 0 && BK % (2 * VEC) == 0, "whole mma tiles");
+static_assert(OPS_BYTES % 16 == 0, "the biases on a 16-byte boundary");
 static_assert(CPT == 4 && LP % CPT == 0 && BN % LP == 0, "lanes: float4 of a period");
 static_assert(THREADS % TX == 0 && BM % (THREADS / TX) == 0, "fold: whole rows");
 static_assert(BM <= THREADS, "merge: one thread a row");
@@ -148,9 +172,15 @@ using vag::cp_async_wait;
 using vag::insert;
 using vag::mma_tf32;
 using vag::split_tf32;
+#if VAG_RO_BF16
+using vag::bf16_pair;
+using vag::copy_bf16;
+using vag::mma_bf16_k16;
+#endif
 
 struct Params {
-  const float *t, *w, *b;
+  const op_t *t, *w;
+  const float* b;
   const uint8_t* ban;
   const uint8_t* live;          // per-step recovery: flagged live rows mark
   uint8_t* tile_mark;           // (row tiles,) recovery marks
@@ -167,6 +197,25 @@ struct Params {
   int kout, kofs;               // passes: vals/idx row stride, this pass's first entry
 };
 
+// One element of a row that is off a 16-byte boundary: a 4-byte
+// cp.async of an fp32, a plain copy of a bf16.
+// base: any valid address, read from when the element is outside.
+__device__ __forceinline__ void copy1(float* dst, const float* src,
+                                      const float* base, bool in) {
+  cp_async4(dst, in ? src : base, in ? 4 : 0);
+}
+#if VAG_RO_BF16
+__device__ __forceinline__ void copy1(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                      const __nv_bfloat16*, bool in) {
+  copy_bf16(dst, src, in);
+}
+#endif
+
+// The tile's biases in stage `st`, after its t and W chunks.
+__device__ __forceinline__ float* stage_bias(float* st) {
+  return reinterpret_cast<float*>(reinterpret_cast<char*>(st) + OPS_BYTES);
+}
+
 // Copies chunk q (column tile q / kc_n, depth chunk q % kc_n) of the CTA's
 // t rows and W columns into ring stage `st`, zero-filled outside.
 __device__ __forceinline__ void load_chunk(const Params& p, float* st, int q,
@@ -175,42 +224,46 @@ __device__ __forceinline__ void load_chunk(const Params& p, float* st, int q,
   const int tid = threadIdx.x;
   const int c0 = col_begin + (q / kc_n) * BN;
   const int e0 = (q % kc_n) * BK;
-  float* ts = st;
-  float* ws = st + BM * TS;
-  for (int i = tid; i < BM * (BK / 4); i += THREADS) {
-    const int r = i / (BK / 4), e = e0 + (i % (BK / 4)) * 4;
+  op_t* ts = reinterpret_cast<op_t*>(st);
+  op_t* ws = ts + BM * TS;
+  for (int i = tid; i < BM * (BK / VEC); i += THREADS) {
+    const int r = i / (BK / VEC), e = e0 + (i % (BK / VEC)) * VEC;
     const int row = row0 + r;
-    float* dst = ts + r * TS + (e - e0);
+    op_t* dst = ts + r * TS + (e - e0);
     if (p.vec_t) {
       const bool in = row < p.R && e < p.E;
-      cp_async16(dst, in ? p.t + (size_t)row * p.E + e : p.t, in ? 16 : 0);
+      cp_async16(reinterpret_cast<float*>(dst),
+                 reinterpret_cast<const float*>(in ? p.t + (size_t)row * p.E + e : p.t),
+                 in ? 16 : 0);
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < VEC; ++j) {
         const bool in = row < p.R && e + j < p.E;
-        cp_async4(dst + j, in ? p.t + (size_t)row * p.E + e + j : p.t, in ? 4 : 0);
+        copy1(dst + j, p.t + (size_t)row * p.E + e + j, p.t, in);
       }
     }
   }
-  for (int i = tid; i < BK * (BN / 4); i += THREADS) {
-    const int k = i / (BN / 4), c = (i % (BN / 4)) * 4;
+  for (int i = tid; i < BK * (BN / VEC); i += THREADS) {
+    const int k = i / (BN / VEC), c = (i % (BN / VEC)) * VEC;
     const int e = e0 + k, col = c0 + c;
-    float* dst = ws + k * WS + c;
-    if (p.vec_w) {  // V % 4 == 0, so col_end is too: 4 columns in or out
+    op_t* dst = ws + k * WS + c;
+    if (p.vec_w) {  // V % VEC == 0, so col_end is too: VEC columns in or out
       const bool in = e < p.E && col < col_end;
-      cp_async16(dst, in ? p.w + (size_t)e * p.V + col : p.w, in ? 16 : 0);
+      cp_async16(reinterpret_cast<float*>(dst),
+                 reinterpret_cast<const float*>(in ? p.w + (size_t)e * p.V + col : p.w),
+                 in ? 16 : 0);
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < VEC; ++j) {
         const bool in = e < p.E && col + j < col_end;
-        cp_async4(dst + j, in ? p.w + (size_t)e * p.V + col + j : p.w, in ? 4 : 0);
+        copy1(dst + j, p.w + (size_t)e * p.V + col + j, p.w, in);
       }
     }
   }
   if (q % kc_n == kc_n - 1 && tid < BN / 4) {
     const int col = c0 + tid * 4;
     const int n = max(0, min(4, col_end - col));   // the rest zero-filled
-    float* dst = ws + BK * WS + tid * 4;
+    float* dst = stage_bias(st) + tid * 4;
     if (p.vec_b) {
       cp_async16(dst, n ? p.b + col : p.b, 4 * n);
     } else {
@@ -221,6 +274,38 @@ __device__ __forceinline__ void load_chunk(const Params& p, float* st, int q,
   }
 }
 
+#if VAG_RO_BF16
+// acc += the bf16 product of one staged chunk, for this warp's WM x WN:
+// one m16n8k16 a 16-deep step. A's fragments are pairs along a t row (one
+// 4-byte load each), B's pairs of depths a W row apart.
+__device__ __forceinline__ void mma_chunk(const float* st, float (&acc)[MI][NI][4],
+                                          int wm, int wn, int g, int tg) {
+  const op_t* ts = reinterpret_cast<const op_t*>(st);
+  const op_t* ws = ts + BM * TS;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16) {
+    uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const op_t* x = ts + (wm * WM + mi * 16 + g) * TS + ks + 2 * tg;
+      a[mi][0] = *reinterpret_cast<const uint32_t*>(x);
+      a[mi][1] = *reinterpret_cast<const uint32_t*>(x + 8 * TS);
+      a[mi][2] = *reinterpret_cast<const uint32_t*>(x + 8);
+      a[mi][3] = *reinterpret_cast<const uint32_t*>(x + 8 * TS + 8);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const op_t* y = ws + (ks + 2 * tg) * WS + wn * WN + ni * 8 + g;
+      b[ni][0] = bf16_pair(y[0], y[WS]);
+      b[ni][1] = bf16_pair(y[8 * WS], y[9 * WS]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_bf16_k16(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+#else
 // acc += the 3xTF32 product of one staged chunk, for this warp's WM x WN.
 __device__ __forceinline__ void mma_chunk(const float* st, float (&acc)[MI][NI][4],
                                           int wm, int wn, int g, int tg) {
@@ -253,6 +338,8 @@ __device__ __forceinline__ void mma_chunk(const float* st, float (&acc)[MI][NI][
       }
   }
 }
+
+#endif
 
 // The K-th entry of a sorted list (K at run time, the list in registers).
 __device__ __forceinline__ float kth(const float (&bv)[MAX_K], int K) {
@@ -365,7 +452,7 @@ readout_topk_kernel(const Params p) {
     __syncthreads();
     // ... into the lane states, CPT columns at a time in column order.
     const int c0 = col_begin + (q / kc_n) * BN;
-    const float* bias = ring + (q % STAGES) * STAGE_FLOATS + BM * TS + BK * WS;
+    const float* bias = stage_bias(ring + (q % STAGES) * STAGE_FLOATS);
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int lr = rq + r * (THREADS / TX);
@@ -587,8 +674,8 @@ cudaError_t grid_pass(const Params& p, int sk, cudaStream_t stream) {
 
 }  // namespace
 
-// Device pointers to contiguous tensors: t (R, E) f32, w (E, V) f32,
-// b (V,) f32, ban (R, V) uint8 or null; partials part_v/part_i (n_split, R,
+// Device pointers to contiguous tensors: t (R, E) f32, w (E, V) f32
+// (both bf16 in the bf16 instances), b (V,) f32, ban (R, V) uint8 or null; partials part_v/part_i (n_split, R,
 // K), part_m/part_s (n_split, R); arrivals (ceil(R / BM),) u32, zero (and
 // left zero); outputs vals (R, K) f32, idx (R, K) i32, lse (R,) f32.
 // split_cols is a multiple of BN and n_split * split_cols >= V.
@@ -621,8 +708,8 @@ extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
                  (live != nullptr && (tile_mark == nullptr || counts == nullptr))))
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.t = static_cast<const float*>(t);
-  p.w = static_cast<const float*>(w);
+  p.t = static_cast<const op_t*>(t);
+  p.w = static_cast<const op_t*>(w);
   p.b = static_cast<const float*>(b);
   p.ban = static_cast<const uint8_t*>(ban);
   p.live = SK < K ? static_cast<const uint8_t*>(live) : nullptr;
@@ -644,8 +731,8 @@ extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
   p.K = K;
   p.n_split = n_split;
   p.split_cols = split_cols;
-  p.vec_t = E % 4 == 0 && reinterpret_cast<uintptr_t>(t) % 16 == 0;
-  p.vec_w = V % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  p.vec_t = E % VEC == 0 && reinterpret_cast<uintptr_t>(t) % 16 == 0;
+  p.vec_w = V % VEC == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   p.vec_b = reinterpret_cast<uintptr_t>(b) % 16 == 0;
   p.shallow = SK < K;
   p.rerun = 0;
@@ -689,5 +776,6 @@ extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
 }
 
 // Two instances (ops/readout_topk.py): MAX_K = 8 for K <= 8, the beam-5
-// path's, and MAX_K = 16 for K > 8 (above 16 in passes).
+// path's, and MAX_K = 16 for K > 8 (above 16 in passes); each also built
+// with -DVAG_BF16=1 for bf16 t and W.
 static_assert(MAX_K == 8 || MAX_K == 16, "grid_sk instantiates 1 <= SK <= MAX_K");

@@ -31,7 +31,8 @@ import torch
 from vag_nmt_tpu_torch.core.config import EOS_ID, ModelConfig, PAD_ID, SOS_ID
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device, same_device
 from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
-from vag_nmt_tpu_torch.models.model import DecodeState, decode_step_topk
+from vag_nmt_tpu_torch.models.model import (DecodeOpts, DecodeState,
+                                             decode_opts, decode_step_topk)
 from vag_nmt_tpu_torch.ops.readout_topk import deferred_exactness_active
 
 NEG_INF = -1e9
@@ -82,7 +83,7 @@ def ngram_ban(tokens: torch.Tensor, t, n: int, V: int) -> torch.Tensor:
 def _make_body_1(params, cfg: ModelConfig, state: DecodeState, tables,
                  mode: str, max_len: int, eos_top: bool = False, row_cap=None,
                  prune_alpha: Optional[float] = None, block_ngram: int = 0,
-                 impl: str = "auto"):
+                 impl: str = "auto", opts: Optional[DecodeOpts] = None):
     """The per-step beam body over the carry (t, last_tok (B,K), s (B,K,H),
     scores (B,K), tokens (B,K,L), finished (B,K), lengths (B,K)), plus, in
     mode "defer", the 0-dim bool flag that ORs the readout's live-row
@@ -100,8 +101,12 @@ def _make_body_1(params, cfg: ModelConfig, state: DecodeState, tables,
     achievable normalized score raw / cap ** alpha is strictly below the
     sentence's worst frozen normalized score, the sentence freezes; the
     ranking of completed hypotheses is unchanged (proof in the JAX
-    package's decode/beam.py). block_ngram > 0: no-repeat n-gram ban."""
+    package's decode/beam.py). block_ngram > 0: no-repeat n-gram ban.
+    opts: the decode's step choices (None: ``decode_opts`` at ctx's dtype,
+    read here once for the body)."""
     V = cfg.tgt_vocab_size
+    if opts is None:
+        opts = decode_opts(state.ctx.dtype)
 
     def body_1(carry):
         t, last_tok, s, scores, tokens, finished, lengths = carry[:7]
@@ -114,7 +119,7 @@ def _make_body_1(params, cfg: ModelConfig, state: DecodeState, tables,
         s_new, top_scores, idx, *flag = decode_step_topk(
             params, cfg, last_tok, s, state, scores, finished,
             impl=impl, tables=tables, ban=ban, defer_exact=mode == "defer",
-            exact=mode == "exact")
+            exact=mode == "exact", opts=opts)
         beam_idx = torch.div(idx, V, rounding_mode="floor")
         tok = idx - beam_idx * V
 
@@ -245,6 +250,7 @@ def beam_search(
     block_ngram: Optional[int] = None,
     impl: str = "auto",
     device: DeviceLike = None,
+    opts: Optional[DecodeOpts] = None,
 ) -> BeamResult:
     """Beam search over state's B sentences.
 
@@ -256,7 +262,9 @@ def beam_search(
     n-gram blocking (None: VAG_BLOCK_NGRAM, else 0; 0 disables). tables:
     optional per-vocab decode tables (models.decoder.decode_tables). impl:
     the beam step's impl (models.model.decode_step_topk). device: where the
-    search runs (None = the card); state must lie there.
+    search runs (None = the card); state must lie there. opts: the
+    decode's step choices (``models.model.DecodeOpts``; None: read from
+    the selection variables once a loop body).
 
     unroll: decoder steps per check of the exit condition (0:
     VAG_BEAM_UNROLL, else 1). The token buffer is padded to a multiple of
@@ -288,7 +296,7 @@ def beam_search(
         body = _make_body_1(params, cfg, state, tables, mode, max_len,
                             eos_top=eos_top, row_cap=row_cap,
                             prune_alpha=prune_alpha, block_ngram=block_n,
-                            impl=impl)
+                            impl=impl, opts=opts)
         return _run(body, carry, max_len_pad, U)
 
     init = _beam_init(state, K, max_len_pad)
@@ -326,6 +334,7 @@ def beam_search_two_phase(
     block_ngram: Optional[int] = None,
     impl: str = "auto",
     device: DeviceLike = None,
+    opts: Optional[DecodeOpts] = None,
 ) -> Tuple[BeamResult, List[int], int]:
     """Two-phase straggler-compacted beam search over N = S * chunk
     sentences (counterpart of the JAX package's ``beam_search_two_phase``,
@@ -374,7 +383,7 @@ def beam_search_two_phase(
         return _make_body_1(params, cfg, st, tables, "plain", max_len,
                             eos_top=eos_top, row_cap=rc,
                             prune_alpha=prune_alpha, block_ngram=block_n,
-                            impl=impl)
+                            impl=impl, opts=opts)
 
     # ---- phase 1: per-chunk early-exit loops capped at L1 ----------------
     steps1: List[int] = []
@@ -441,6 +450,7 @@ def beam_search_streaming(
     block_ngram: Optional[int] = None,
     impl: str = "auto",
     device: DeviceLike = None,
+    opts: Optional[DecodeOpts] = None,
 ) -> Tuple[BeamResult, int, int]:
     """Streaming-refill beam search over state's N-sentence pool
     (counterpart of the JAX package's ``beam_search_streaming``): a working
@@ -496,7 +506,7 @@ def beam_search_streaming(
         body = _make_body_1(params, cfg, work, tables, "plain", max_len,
                             eos_top=eos_top, row_cap=cap_w,
                             prune_alpha=prune_alpha, block_ngram=block_n,
-                            impl=impl)
+                            impl=impl, opts=opts)
         t, last_tok, s, scores, hist, finished, lengths = body(
             (t, last_tok, s, scores, hist, finished, lengths))
         steps += 1

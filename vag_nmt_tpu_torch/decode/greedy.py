@@ -12,7 +12,8 @@ import torch
 
 from vag_nmt_tpu_torch.core.config import EOS_ID, ModelConfig, PAD_ID, SOS_ID
 from vag_nmt_tpu_torch.decode.beam import _resolve_block, ngram_ban
-from vag_nmt_tpu_torch.models.model import DecodeState, decode_step
+from vag_nmt_tpu_torch.models.model import (DecodeOpts, DecodeState,
+                                             decode_opts, decode_step)
 from vag_nmt_tpu_torch.ops.readout_topk import ban_mask
 
 
@@ -30,17 +31,21 @@ def greedy_decode(
     tables=None,
     row_cap: Optional[torch.Tensor] = None,
     block_ngram: int = 0,
+    opts: Optional[DecodeOpts] = None,
 ) -> GreedyResult:
     """tables: optional per-vocab decode tables (models.decoder
     .decode_tables). row_cap: optional (B,) per-row step cap. block_ngram:
     no-repeat n-gram blocking order (n <= 1 disables), the beam paths'
     semantics at K=1: a token that would complete an n-gram already in the
     row's hypothesis gets -inf before the argmax. Ties go to the first
-    index, as ``jnp.argmax``."""
+    index, as ``jnp.argmax``. opts: the decode's step choices
+    (``models.model.DecodeOpts``; None: read once here)."""
     B = state.s0.shape[0]
     V = cfg.tgt_vocab_size
     dev = state.s0.device
     block_ngram = _resolve_block(block_ngram)
+    if opts is None:
+        opts = decode_opts(state.ctx.dtype)
     t = 0
     tok = torch.full((B,), SOS_ID, dtype=torch.long, device=dev)
     s = state.s0[:, None, :]
@@ -50,7 +55,8 @@ def greedy_decode(
     while t < max_len and not bool(finished.all()):
         if row_cap is not None:
             finished = finished | (t >= row_cap)
-        s, logits = decode_step(params, cfg, tok[:, None], s, state, tables)
+        s, logits = decode_step(params, cfg, tok[:, None], s, state, tables,
+                                opts)
         lg = logits[:, 0]
         if block_ngram > 0:
             ban = ngram_ban(tokens[:, None, :], t, block_ngram, V)[:, 0]

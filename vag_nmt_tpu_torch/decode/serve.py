@@ -23,6 +23,7 @@ import os
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from vag_nmt_tpu_torch.core.config import UNK_ID, Config
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device
@@ -31,7 +32,9 @@ from vag_nmt_tpu_torch.data.bpe import BPE
 from vag_nmt_tpu_torch.data.moses import MosesTokenizer, Truecaser, moses_detokenize
 from vag_nmt_tpu_torch.data.tokenizer import tokenize
 from vag_nmt_tpu_torch.data.vocab import Vocab
-from vag_nmt_tpu_torch.decode.translate import translate_corpus
+from vag_nmt_tpu_torch.decode.translate import decode_config, translate_corpus
+from vag_nmt_tpu_torch.models.layers import compute_dtype
+from vag_nmt_tpu_torch.models.model import cast_floats
 from vag_nmt_tpu_torch.train.checkpoint import load_checkpoint
 
 
@@ -42,7 +45,11 @@ class Translator:
                  truecaser: Optional[Truecaser] = None,
                  device: DeviceLike = None):
         self.cfg = cfg
-        self.params = params
+        # a bf16 decode casts the params here, once a load; translate_corpus's
+        # own cast then finds them bf16 already
+        dtype = compute_dtype(decode_config(cfg).model)
+        self.params = (cast_floats(params, dtype)
+                       if dtype != torch.float32 else params)
         self.src_bpe = src_bpe
         self.src_vocab = src_vocab
         self.tgt_vocab = tgt_vocab

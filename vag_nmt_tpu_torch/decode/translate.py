@@ -1,20 +1,31 @@
 """Corpus translation: batched beam or greedy decode -> text (counterpart
-of the fused path of the JAX package's ``decode/translate.py``).
+of the JAX package's ``decode/translate.py``).
 
-The corpus is sorted by source length (a chunk's beam loop runs until its
-longest hypothesis finishes, so homogeneous-length chunks exit earlier),
-padded to one source bucket, encoded in super-chunks of about 1024 rows
-(one encoder pass, whose GRU products fill the card far better than a
-128-row chunk's), and decoded in chunks of ``decode_batch_size`` rows
-(beam search, or greedy at beam_size 1), or, per super-chunk, by the
-streaming-refill decoder (one pool whose working set of
-``decode_batch_size`` rows refills as sentences finish) or the two-phase
-straggler decoder (chunks capped at a split length, then re-packed
-stragglers on a doubling ladder). Corpus order is restored afterwards and
-hypotheses are de-BPE'd on the host."""
+The fused path (the default): the corpus is sorted by source length (a
+chunk's beam loop runs until its longest hypothesis finishes, so
+homogeneous-length chunks exit earlier), padded to one source bucket,
+encoded in super-chunks of about 1024 rows (one encoder pass, whose GRU
+products fill the card far better than a 128-row chunk's;
+``VAG_SUPER_CHUNK`` sets the rows), and decoded in chunks of
+``decode_batch_size`` rows (beam search, or greedy at beam_size 1), or,
+per super-chunk, by the streaming-refill decoder (one pool whose working
+set of ``decode_batch_size`` rows refills as sentences finish) or the
+two-phase straggler decoder (chunks capped at a split length, then
+re-packed stragglers on a doubling ladder). Corpus order is restored
+afterwards and hypotheses are de-BPE'd on the host.
+
+The bucketed path (``fused=False``): ``BucketBatcher`` batches in example
+order, each batch one encode and one beam (or greedy) decode at its own
+source bucket.
+
+Under ``decode.compute_dtype="bfloat16"`` (or a model trained in bf16 with
+no decode override) the params are cast to bf16 once per call
+(``cast_floats``), as the JAX package casts them once per decode
+program."""
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -24,7 +35,7 @@ import torch
 from vag_nmt_tpu_torch.core.config import Config
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device
 from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
-from vag_nmt_tpu_torch.data.batching import Example, _bucket_for
+from vag_nmt_tpu_torch.data.batching import BucketBatcher, Example, _bucket_for
 from vag_nmt_tpu_torch.data.vocab import Vocab
 from vag_nmt_tpu_torch.decode.beam import (
     beam_search,
@@ -33,7 +44,10 @@ from vag_nmt_tpu_torch.decode.beam import (
 )
 from vag_nmt_tpu_torch.decode.greedy import greedy_decode
 from vag_nmt_tpu_torch.models.decoder import decode_tables
-from vag_nmt_tpu_torch.models.model import DecodeState, prepare_decode
+from vag_nmt_tpu_torch.models.layers import compute_dtype
+from vag_nmt_tpu_torch.models.model import (DecodeState, cast_floats,
+                                            decode_opts, decode_params,
+                                            prepare_decode)
 
 SUPER_CHUNK_ROWS = 1024
 
@@ -91,22 +105,56 @@ def _use_two_phase(cfg: Config, beam_size: int, max_len: int) -> bool:
     return max_len >= 96
 
 
-def _check_supported(nbest: int, beam_size: int, fused: bool, mesh,
-                     cfg: Config) -> None:
+def decode_config(cfg: Config) -> Config:
+    """cfg with the model's compute dtype replaced by
+    ``decode.compute_dtype`` where that is set: the dtype a decode runs at
+    (the params cast to it once, ``cast_floats``)."""
+    dd = cfg.decode.compute_dtype
+    if dd and dd != cfg.model.compute_dtype:
+        return cfg.replace(model=dict(compute_dtype=dd))
+    return cfg
+
+
+def _check_inputs(examples: Sequence[Example], t_src: int, m,
+                  img_table: Optional[torch.Tensor]) -> None:
+    """The input checks of both paths: every source id a decode reads (the
+    first t_src of each example) lies in the embedding table, and an
+    img_table has a row for every example."""
+    lo = min((min(ex.src[:t_src], default=0) for ex in examples), default=0)
+    hi = max((max(ex.src[:t_src], default=0) for ex in examples), default=0)
+    if lo < 0 or hi >= m.src_vocab_size:
+        # torch raises on (or, on the card, faults at) an index past the
+        # embedding table, where the JAX gather clamped it
+        raise ValueError(f"source token ids must lie in [0, "
+                         f"{m.src_vocab_size})")
+    if m.multimodal and img_table is not None and \
+            img_table.shape[0] < len(examples):
+        # an index past the table would raise in torch; a short table
+        # means the rows do not match examples
+        raise ValueError(f"img_table has {img_table.shape[0]} rows for "
+                         f"{len(examples)} examples (row i must be "
+                         f"examples[i]'s)")
+
+
+def _check_supported(nbest: int, beam_size: int, fused: bool, mesh) -> None:
     if nbest:
         if beam_size <= 1:
             raise ValueError("nbest output requires beam_size > 1")
         if not fused:
             raise ValueError("nbest output requires the fused decode path")
-    if not fused:
-        raise _later_slice("the bucketed (fused=False) decode path")
     if mesh is not None:
         raise _later_slice("mesh-sharded decode")
-    if cfg.model.compute_dtype != "float32":
-        raise NotImplementedError(
-            "bf16 decode (decode.compute_dtype=bfloat16) is a later slice of "
-            "the PyTorch port (ROADMAP item 7b); a run trained in bf16 "
-            "decodes at fp32, decode.compute_dtype's default")
+
+
+def super_chunks(nb: int, B: int) -> Tuple[int, int]:
+    """(ns, S): ns encoder passes of S decode chunks each for nb chunks of
+    B rows, S at most VAG_SUPER_CHUNK's rows (default SUPER_CHUNK_ROWS)
+    over B and at least 1, balanced (ns = ceil(nb / S_max), S = ceil(nb /
+    ns)) so padding adds at most S - 1 filler chunks."""
+    rows = over(decode_knobs().super_chunk, SUPER_CHUNK_ROWS)
+    s_max = min(max(1, rows // B), nb)
+    ns = -(-nb // s_max)
+    return ns, -(-nb // ns)
 
 
 def _detok_rows(toks2d: np.ndarray, lens1d: np.ndarray, tgt_vocab: Vocab,
@@ -156,6 +204,10 @@ def translate_corpus(
     ValueError) each example's up to min(N, beam_size) (text, score)
     pairs instead, best first, with the length-normalized beam scores.
 
+    fused=False takes the bucketed path (``BucketBatcher`` in example
+    order, one encode and one beam search, or greedy at beam 1, a batch;
+    with it nbest raises ValueError). mesh raises NotImplementedError.
+
     beam_size 1 decodes greedily; beam search otherwise: pooled per
     super-chunk when the streaming-refill decoder is on (VAG_STREAM_DECODE
     over cfg.decode.streaming), else by the two-phase decoder per
@@ -183,20 +235,22 @@ def translate_corpus(
     two-phase adds ``two_phase=True`` and ``phase2_steps`` (resume trips
     per super-chunk)."""
     dev = resolve_device(device)
-    dd = cfg.decode.compute_dtype
-    if dd and dd != cfg.model.compute_dtype:
-        cfg = cfg.replace(model=dict(compute_dtype=dd))
+    cfg = decode_config(cfg)
     beam_size = beam_size if beam_size is not None else cfg.decode.beam_size
     max_len = max_len if max_len is not None else cfg.decode.max_len
     B = batch_size if batch_size is not None else cfg.decode.decode_batch_size
-    streaming = _use_streaming(cfg, beam_size)
-    two_phase = not streaming and _use_two_phase(cfg, beam_size, max_len)
-    _check_supported(nbest, beam_size, fused, mesh, cfg)
+    _check_supported(nbest, beam_size, fused, mesh)
+    dtype = compute_dtype(cfg.model)
+    if dtype != torch.float32:
+        params = cast_floats(params, dtype)     # once per call
+    opts = decode_opts(dtype)                   # the step choices, once
     if use_tables is None:
         use_tables = decode_knobs().tables
     if use_tables is None:
         use_tables = dev.type == "cuda"
     m = cfg.model
+    params = decode_params(params, m, opts, beam=beam_size > 1,
+                           tables=use_tables)
     if m.multimodal and img_table is None and any(ex.img is None
                                                   for ex in examples):
         raise ValueError("multimodal decode needs features: either every "
@@ -205,16 +259,18 @@ def translate_corpus(
     if not n:
         return [], {"sentences_per_sec": 0.0, "elapsed_s": 0.0,
                     "sentences": 0, "beam_size": beam_size}
-
-    # Super-chunks of ~SUPER_CHUNK_ROWS rows, balanced so padding adds at
-    # most S-1 filler chunks.
-    nb = -(-n // B)
-    s_max = min(max(1, SUPER_CHUNK_ROWS // B), nb)
-    ns = -(-nb // s_max)
-    S = -(-nb // ns)
-    nb = ns * S
     t_src = _bucket_for(max(len(ex.src) for ex in examples),
                         cfg.data.length_buckets)
+    _check_inputs(examples, t_src, m, img_table)
+    if not fused:
+        return _translate_bucketed(params, cfg, examples, tgt_vocab,
+                                   beam_size, max_len, B, de_bpe, img_table,
+                                   impl, use_tables, opts, dev)
+    streaming = _use_streaming(cfg, beam_size)
+    two_phase = not streaming and _use_two_phase(cfg, beam_size, max_len)
+
+    ns, S = super_chunks(-(-n // B), B)
+    nb = ns * S
     order = sorted(range(n), key=lambda i: len(examples[i].src))
 
     src = np.zeros((nb * B, t_src), np.int64)
@@ -225,11 +281,6 @@ def translate_corpus(
         src[r, :len(s)] = s
         lens[r] = len(s)
     ids[:n] = order
-    if src.size and (src.min() < 0 or src.max() >= m.src_vocab_size):
-        # torch raises on (or, on the card, faults at) an index past the
-        # embedding table, where the JAX gather clamped it
-        raise ValueError(f"source token ids must lie in [0, "
-                         f"{m.src_vocab_size})")
     if n < nb * B:
         # Filler rows replicate a real row (source and features): an empty
         # source may never emit <eos> and would hold its chunk to max_len.
@@ -242,17 +293,13 @@ def translate_corpus(
     if m.multimodal:
         if img_table is None:
             img_table = build_img_table(examples, m.img_feat_dim, device=dev)
-        elif img_table.shape[0] < n:
-            # an index past the table would raise in torch; a short table
-            # means the rows do not match examples
-            raise ValueError(f"img_table has {img_table.shape[0]} rows for "
-                             f"{n} examples (row i must be examples[i]'s)")
         img_table = img_table.to(dev)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    tables = decode_tables(params["decoder"]) if use_tables else None
+    tables = (decode_tables(params["decoder"], w_out_bf16=opts.readout_bf16)
+              if use_tables else None)
     # per row: the best hypothesis, or with nbest the top nb_k beams and
     # their scores (the beam loops rank beams best first)
     nb_k = min(nbest, beam_size) if nbest else 0
@@ -276,14 +323,8 @@ def translate_corpus(
     phase2: List[int] = []
     reruns = 0
     d = cfg.decode
-    kn = decode_knobs()
-    block_ngram = over(kn.block_ngram, d.block_ngram)
-    beam_kw = dict(beam_size=beam_size, max_len=max_len,
-                   length_norm_alpha=d.length_norm_alpha, tables=tables,
-                   beam_finish=d.beam_finish,
-                   prune=over(kn.beam_prune, d.beam_prune != "off"),
-                   block_ngram=block_ngram, impl=impl, device=dev)
-    unroll = over(kn.beam_unroll, d.beam_unroll)       # the chunked loop's
+    block_ngram, unroll, beam_kw = _beam_args(cfg, beam_size, max_len,
+                                              tables, impl, opts, dev)
     for sc in range(ns):
         rows = slice(sc * S * B, (sc + 1) * S * B)
         src_d = torch.from_numpy(src[rows]).to(dev)
@@ -319,7 +360,8 @@ def translate_corpus(
             g = slice(sc * S * B + c * B, sc * S * B + (c + 1) * B)
             if beam_size <= 1:
                 res = greedy_decode(params, m, chunk, max_len, tables=tables,
-                                    row_cap=cap, block_ngram=block_ngram)
+                                    row_cap=cap, block_ngram=block_ngram,
+                                    opts=opts)
                 out_toks[g] = res.tokens.cpu().numpy()
                 out_lens[g] = res.lengths.cpu().numpy()
             else:
@@ -356,3 +398,87 @@ def translate_corpus(
         stats["two_phase"] = True
         stats["phase2_steps"] = phase2
     return hyps, stats
+
+
+def _beam_args(cfg: Config, beam_size: int, max_len: int, tables, impl: str,
+               opts, dev: torch.device):
+    """(block_ngram, unroll, beam_kw): the selection variables over
+    cfg.decode, as every decode loop of a call takes them."""
+    d = cfg.decode
+    kn = decode_knobs()
+    block_ngram = over(kn.block_ngram, d.block_ngram)
+    beam_kw = dict(beam_size=beam_size, max_len=max_len,
+                   length_norm_alpha=d.length_norm_alpha, tables=tables,
+                   beam_finish=d.beam_finish,
+                   prune=over(kn.beam_prune, d.beam_prune != "off"),
+                   block_ngram=block_ngram, impl=impl, device=dev,
+                   opts=opts)
+    return block_ngram, over(kn.beam_unroll, d.beam_unroll), beam_kw
+
+
+def _translate_bucketed(params, cfg: Config, examples: Sequence[Example],
+                        tgt_vocab: Vocab, beam_size: int, max_len: int,
+                        B: int, de_bpe: bool,
+                        img_table: Optional[torch.Tensor], impl: str,
+                        use_tables: bool, opts, dev: torch.device
+                        ) -> Tuple[List[str], Dict]:
+    """The bucketed path (the JAX package's fused=False): BucketBatcher's
+    batches in example order, each padded to its own source bucket and
+    decoded by one encode and one beam search (greedy at beam 1), with
+    the fused path's tables, row caps, n-gram blocking and prune.
+    Hypotheses come back in list order, whatever the examples' .index."""
+    m = cfg.model
+    if m.multimodal:
+        img_table = (build_img_table(examples, m.img_feat_dim, device=dev)
+                     if img_table is None else img_table.to(dev))
+    # rows keyed by list position, so output order and table rows agree
+    positioned = [dataclasses.replace(ex, index=i)
+                  for i, ex in enumerate(examples)]
+    batcher = BucketBatcher(positioned, B, cfg.data.length_buckets,
+                            image_ids=m.multimodal, img_dim=m.img_feat_dim)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tables = (decode_tables(params["decoder"], w_out_bf16=opts.readout_bf16)
+              if use_tables else None)
+    block_ngram, unroll, beam_kw = _beam_args(cfg, beam_size, max_len,
+                                              tables, impl, opts, dev)
+    pending, chunk_steps = [], []
+    for batch in batcher.epoch(0, shuffle=False):
+        src_d = torch.from_numpy(batch["src"]).to(dev)
+        mask_d = torch.from_numpy(batch["src_mask"]).to(dev)
+        b = {"src": src_d, "src_mask": mask_d}
+        if m.multimodal:
+            b["img"] = img_table[torch.from_numpy(batch["img_ids"]).to(
+                dev).long()]
+        state = prepare_decode(params, m, b, device=dev, impl=impl)
+        row_cap = _row_caps(cfg, max_len, mask_d.sum(-1).long())
+        if beam_size <= 1:
+            res = greedy_decode(params, m, state, max_len, tables=tables,
+                                row_cap=row_cap, block_ngram=block_ngram,
+                                opts=opts)
+            toks, lens = res.tokens, res.lengths
+        else:
+            res = beam_search(params, m, state, row_cap=row_cap,
+                              unroll=unroll, **beam_kw)
+            toks, lens = res.best_tokens, res.best_lengths
+        chunk_steps.append(res.steps)
+        pending.append((toks, lens, batch["index"], batch["sample_mask"]))
+    n = len(examples)
+    hyps: List[Optional[str]] = [None] * n
+    for toks, lens, index, smask in pending:
+        keep = smask != 0
+        lines = _detok_rows(toks.cpu().numpy()[keep], lens.cpu().numpy()[keep],
+                            tgt_vocab, de_bpe)
+        for i, line in zip(index[keep].tolist(), lines):
+            hyps[i] = line
+    elapsed = time.perf_counter() - t0
+    n_done = sum(h is not None for h in hyps)
+    assert n_done == n, f"decoded {n_done} of {n} sentences"
+    return hyps, {"sentences_per_sec": n / max(elapsed, 1e-9),
+                  "elapsed_s": elapsed, "sentences": n,
+                  "beam_size": beam_size, "bucketed": True,
+                  "beam_loop_steps": int(sum(chunk_steps)),
+                  "chunk_steps": chunk_steps, "n_chunks": len(chunk_steps),
+                  "rows_per_chunk": B, "device": str(dev), "impl": impl,
+                  "tables": bool(use_tables)}

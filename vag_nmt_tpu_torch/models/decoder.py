@@ -72,7 +72,8 @@ def _out_matrix(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
     return params["readout"]["w_out"]
 
 
-def decode_tables(params: Dict[str, Any]) -> Tables:
+def decode_tables(params: Dict[str, Any], *,
+                  w_out_bf16: bool = False) -> Tables:
     """Per-vocab decode tables: GRU1's input gates and the readout's y-term
     depend only on the previous token, so they are computed once over the
     whole vocab and the per-step embed -> matmul chains become one row
@@ -80,14 +81,24 @@ def decode_tables(params: Dict[str, Any]) -> Tables:
     GEMMs pairwise (same input rows, same per-column dot products):
       gy  = [embed @ wi1 + bi1 | embed @ wy]   (V, 3H + R)
       w_s = [ua | uh2]                          (H, A + 3H)
-      w_c = [wi2 | wc]                          (C, 3H + R)"""
+      w_c = [wi2 | wc]                          (C, 3H + R)
+    gy is fp32, w_s and w_c keep the params' dtype. With w_out_bf16 (the
+    decode's ``DecodeOpts.readout_bf16``: ``VAG_FRT_GEMM_DTYPE=bf16``) and
+    fp32 params the tables also carry "w_out", the output matrix cast to
+    bf16 once for the fused readout top-K (the JAX package's cast hoisted
+    out of its beam loop)."""
     emb = params["embed"]["table"]
-    return {
+    tables = {
         "gy": torch.cat([gru_gates_from_x(params["gru1"], emb),
-                         emb @ params["readout"]["wy"]], dim=1),
+                         mm(emb, params["readout"]["wy"])], dim=1),
         "w_s": torch.cat([params["attn"]["ua"], params["gru2"]["uh"]], dim=1),
         "w_c": torch.cat([params["gru2"]["wi"], params["readout"]["wc"]], dim=1),
     }
+    r = params["readout"]
+    w_out = r["w_out"] if "w_out" in r else emb.T
+    if w_out_bf16 and w_out.dtype == torch.float32:
+        tables["w_out"] = w_out.to(torch.bfloat16).contiguous()
+    return tables
 
 
 def _readout_t(
@@ -100,8 +111,8 @@ def _readout_t(
     """Readout activations t = tanh(ty + s@ws + c@wc + b)."""
     r = params["readout"]
     if tc is None:
-        tc = c @ r["wc"]
-    return torch.tanh(ty + s_new @ r["ws"] + tc + r["b"])
+        tc = mm(c, r["wc"])
+    return torch.tanh(ty + mm(s_new, r["ws"]) + tc + r["b"])
 
 
 def step_acts_from_xgates(
@@ -131,17 +142,19 @@ def _beams_step_core(
     ctx_proj: torch.Tensor,
     src_mask: torch.Tensor,
     tables: Optional[Tables] = None,
+    attn_bf16: Optional[bool] = None,
 ):
     """Shared GRU1 -> attention -> GRU2 body of a beam decoder step.
     Returns (s_new (B*K, H), ty (B*K, R), c_flat (B*K, C), tc (B*K, R) or
-    None, attn (B, K, T))."""
+    None, attn (B, K, T)). attn_bf16: the attention's energies in bf16
+    (None: under a bf16 ctx; ops/attention.py)."""
     B, K = tok.shape
     H = s.shape[-1]
     flat_tok = tok.reshape(-1)
     if tables is None:
         y = embed(params["embed"], flat_tok).to(ctx.dtype)
         xg1 = gru_gates_from_x(params["gru1"], y)
-        ty = y @ params["readout"]["wy"]
+        ty = mm(y, params["readout"]["wy"])
     else:
         gy = tables["gy"][flat_tok]
         xg1, ty = gy[:, :3 * H], gy[:, 3 * H:]
@@ -149,18 +162,19 @@ def _beams_step_core(
     if tables is not None:
         A = params["attn"]["ua"].shape[1]
         g2 = params["gru2"]
-        qh = s_tilde @ tables["w_s"]                      # (B*K, A+3H)
+        qh = mm(s_tilde, tables["w_s"])                  # (B*K, A+3H)
         c, w = bahdanau_attend_beams_q(
             params["attn"], qh[:, :A].reshape(B, K, A), ctx, ctx_proj,
-            src_mask)
+            src_mask, bf16_energies=attn_bf16)
         c_flat = c.reshape(B * K, -1)
-        xc = c_flat @ tables["w_c"]                       # (B*K, 3H+R)
+        xc = mm(c_flat, tables["w_c"])                   # (B*K, 3H+R)
         s_new = gru_cell_from_gates(xc[:, :3 * H] + g2["bi"],
                                     qh[:, A:] + g2["bh"], s_tilde)
         tc = xc[:, 3 * H:]
     else:
         c, w = bahdanau_attend_beams(params["attn"], s_tilde.reshape(B, K, H),
-                                     ctx, ctx_proj, src_mask)
+                                     ctx, ctx_proj, src_mask,
+                                     bf16_energies=attn_bf16)
         c_flat = c.reshape(B * K, -1)
         s_new = gru_cell_from_xgates(
             params["gru2"], gru_gates_from_x(params["gru2"], c_flat), s_tilde)
@@ -177,15 +191,18 @@ def decode_step_beams(
     ctx_proj: torch.Tensor,   # (B, T, A)
     src_mask: torch.Tensor,   # (B, T)
     tables: Optional[Tables] = None,
+    *,
+    attn_bf16: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder step for K beams per sentence sharing the encoder state.
     Returns (s_new (B, K, H), logits (B, K, V) fp32, attn (B, K, T))."""
     B, K = tok.shape
     H = s.shape[-1]
     s_new, ty, c_flat, tc, w = _beams_step_core(params, tok, s, ctx, ctx_proj,
-                                                src_mask, tables)
+                                                src_mask, tables, attn_bf16)
     t = _readout_t(params, ty, s_new, c_flat, tc=tc)
-    logits = t @ _out_matrix(params, cfg) + params["readout"]["b_out"]
+    logits = (mm(t.to(c_flat.dtype), _out_matrix(params, cfg))
+              + params["readout"]["b_out"]).to(torch.float32)
     return s_new.reshape(B, K, H), logits.reshape(B, K, -1), w
 
 
@@ -201,29 +218,33 @@ def decode_step_beams_readout(
     *,
     dec_step: Optional[bool] = None,
     impl: str = "auto",
+    attn_bf16: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Beam decoder step stopping at the readout activations: returns
-    (s_new (B, K, H), t (B*K, R), w_out (R, V), b_out (V,)) so the vocab
-    projection can run fused with the top-K (ops/readout_topk).
+    (s_new (B, K, H), t (B*K, R) in ctx's dtype, w_out (R, V), b_out (V,)
+    fp32) so the vocab projection can run fused with the top-K
+    (ops/readout_topk).
 
     With tables and dec_step (None: VAG_DEC_STEP, default off) the whole
     mid-section runs as one call of the fused step
     (ops/dec_step.decode_step_fused; impl: "auto", "kernel" or "plain"),
-    as the JAX package's tabled step does with VAG_DEC_STEP=on."""
+    as the JAX package's tabled step does with VAG_DEC_STEP=on. attn_bf16:
+    the attention's energies in bf16 (None: under a bf16 ctx)."""
     B, K = tok.shape
     H = s.shape[-1]
     if dec_step is None:
         dec_step = decode_knobs().dec_step
+    w_out = (tables["w_out"] if tables is not None and "w_out" in tables
+             else _out_matrix(params, cfg))
+    b_out = params["readout"]["b_out"].to(torch.float32)
     if tables is not None and dec_step:
         s_new3, t = decode_step_fused(params, tables, tok, s, ctx, ctx_proj,
                                       src_mask, impl=impl)
-        return (s_new3, t, _out_matrix(params, cfg),
-                params["readout"]["b_out"])
+        return s_new3, t.to(ctx.dtype), w_out, b_out
     s_new, ty, c_flat, tc, _ = _beams_step_core(params, tok, s, ctx, ctx_proj,
-                                                src_mask, tables)
+                                                src_mask, tables, attn_bf16)
     t = _readout_t(params, ty, s_new, c_flat, tc=tc)
-    return (s_new.reshape(B, K, H), t, _out_matrix(params, cfg),
-            params["readout"]["b_out"])
+    return s_new.reshape(B, K, H), t.to(c_flat.dtype), w_out, b_out
 
 
 def teacher_forced_logits(

@@ -1,7 +1,8 @@
 """Parameter init and small layer helpers (plain functions over dicts of
 tensors). Weights keep the JAX layout ``(in, out)`` and are applied as
-``x @ W``. Parameters stay fp32 under ``compute_dtype="bfloat16"``;
-activations take the dtypes the JAX package gives them, and its
+``x @ W``. Parameters stay fp32 in bf16 training (a bf16 decode casts
+them to bf16 once, ``model.cast_floats``); activations take the dtypes
+the JAX package gives them, and its
 ``jnp.dot(..., preferred_element_type=float32)`` is ``mm``."""
 
 from __future__ import annotations

@@ -49,6 +49,79 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def cast_floats(tree, dtype: torch.dtype):
+    """Every floating leaf cast to ``dtype``, integer leaves untouched (the
+    JAX package's ``utils/pytree.cast_floats``). A bf16 decode casts its
+    params once per decode call; a leaf already of ``dtype`` is returned
+    as it is."""
+    return _tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                     tree)
+
+
+class DecodeOpts(NamedTuple):
+    """A decode call's step choices, resolved once (``decode_opts``) and
+    passed down with the tables."""
+    structure: str       # "fused" | "unfused" (VAG_READOUT_TOPK)
+    dec_step: bool       # the fused mid-section, kernel 7 (VAG_DEC_STEP)
+    attn_bf16: bool      # the beam attention's energies in bf16
+    readout_bf16: bool   # the fused readout's GEMM on bf16 t and W
+
+
+def decode_opts(dtype: torch.dtype) -> DecodeOpts:
+    """The step choices of a decode at ``dtype`` under the selection
+    variables (``core/knobs.py``), read once: the energies in bf16 under
+    bf16 unless ``VAG_ATTN_E_DTYPE=fp32``, or with ``=bf16``; the readout's
+    GEMM in bf16 under bf16 or with ``VAG_FRT_GEMM_DTYPE=bf16``."""
+    kn = decode_knobs()
+    bf = dtype == torch.bfloat16
+    return DecodeOpts(
+        structure=kn.readout_topk, dec_step=kn.dec_step,
+        attn_bf16=(bf and kn.attn_e_dtype != "fp32")
+        or kn.attn_e_dtype == "bf16",
+        readout_bf16=bf or kn.frt_gemm_bf16)
+
+
+# The decoder leaves a bf16 decode's step reads in bf16: the embedding
+# rows (gathered), the bf16 energies' ba and va, the fused readout's output
+# matrix (kernel 1b) and, with the fused step, kernel 7b's matrices (w_s
+# and w_c are built from ua | gru2.uh and gru2.wi | readout.wc).
+_EMBED = (("embed", "table"),)
+_ENERGIES = (("attn", "ba"), ("attn", "va"))
+_READOUT_MATRIX = (("readout", "w_out"),)
+_DEC_STEP_MATRICES = (("gru1", "uh"), ("attn", "ua"), ("gru2", "uh"),
+                      ("gru2", "wi"), ("readout", "wc"), ("readout", "ws"))
+
+
+def decode_params(params: Params, cfg: ModelConfig, opts: DecodeOpts, *,
+                  beam: bool, tables: bool) -> Params:
+    """The params a bf16 decode's steps read: each bf16 decoder leaf that
+    a step reads only in fp32 (through ``layers.mm``, or added to an fp32
+    sum) widened to fp32 once, its bf16 values exactly, so every result is
+    unchanged and no step casts it; the leaves a step reads in bf16 on
+    this decode's path stay bf16. beam: a beam search (greedy's logits
+    come from ``mm``); tables: the decode tables are on (the fused step
+    needs them). fp32 params come back as they are."""
+    fused = beam and opts.structure == "fused"
+    fused_step = fused and opts.dec_step and tables
+    keep = set(_EMBED)
+    if fused:
+        # a tied output matrix is the embedding table, kept already
+        keep.update(_READOUT_MATRIX)
+    if fused_step:
+        keep.update(_DEC_STEP_MATRICES)
+    elif opts.attn_bf16:
+        keep.update(_ENERGIES)
+
+    def widen(mod, name, x):
+        if x.dtype == torch.bfloat16 and (mod, name) not in keep:
+            return x.to(torch.float32)
+        return x
+
+    dec_p = {mod: {k: widen(mod, k, v) for k, v in leaves.items()}
+             for mod, leaves in params["decoder"].items()}
+    return {**params, "decoder": dec_p}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device: DeviceLike = None) -> Params:
     """Random parameters with the same tree, shapes and distributions as
@@ -220,12 +293,16 @@ def prepare_decode(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
 
 def decode_step(params: Params, cfg: ModelConfig, tok: torch.Tensor,
                 s: torch.Tensor, state: DecodeState,
-                tables: Optional[dec.Tables] = None
+                tables: Optional[dec.Tables] = None,
+                opts: Optional[DecodeOpts] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (s_new (B, K, H), fp32 logits (B, K, V))."""
+    """Returns (s_new (B, K, H), fp32 logits (B, K, V)). opts: the
+    decode's step choices (None: ``decode_opts`` at ctx's dtype)."""
+    if opts is None:
+        opts = decode_opts(state.ctx.dtype)
     s_new, logits, _ = dec.decode_step_beams(
         params["decoder"], cfg, tok, s, state.ctx, state.ctx_proj,
-        state.src_mask, tables)
+        state.src_mask, tables, attn_bf16=opts.attn_bf16)
     return s_new, logits
 
 
@@ -243,6 +320,7 @@ def decode_step_topk(
     defer_exact: bool = False,
     exact: bool = False,
     ban: Optional[torch.Tensor] = None,
+    opts: Optional[DecodeOpts] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """One beam step fused with candidate scoring + top-K: returns
     (s_new (B, K, H), top_scores (B, K), flat_idx (B, K), flat =
@@ -266,13 +344,20 @@ def decode_step_topk(
 
     ban: optional (B, K, M) banned ids for no-repeat n-gram blocking (id V
     is the "no ban" sentinel and is dropped). Banned mass is excluded from
-    the softmax normalization on both paths."""
+    the softmax normalization on both paths.
+
+    opts: the decode's step choices, resolved once a call (None:
+    ``decode_opts`` at ctx's dtype): the structure (VAG_READOUT_TOPK), the
+    fused step (VAG_DEC_STEP), the attention's energies and the readout
+    GEMM's dtype."""
+    if opts is None:
+        opts = decode_opts(state.ctx.dtype)
     if impl in ("fused", "unfused"):
         structure, impl = impl, "auto"
     else:
-        structure = decode_knobs().readout_topk
+        structure = opts.structure
     if structure == "unfused":
-        s_new, logits = decode_step(params, cfg, tok, s, state, tables)
+        s_new, logits = decode_step(params, cfg, tok, s, state, tables, opts)
         if ban is not None:
             Bk, Kk, Vk = logits.shape
             flat = logits.reshape(Bk * Kk, Vk)
@@ -285,7 +370,12 @@ def decode_step_topk(
         return out
     s_new, t, w_out, b_out = dec.decode_step_beams_readout(
         params["decoder"], cfg, tok, s, state.ctx, state.ctx_proj,
-        state.src_mask, tables, impl=impl)
+        state.src_mask, tables, dec_step=opts.dec_step, impl=impl,
+        attn_bf16=opts.attn_bf16)
+    if opts.readout_bf16 and w_out.dtype == torch.float32:
+        # VAG_FRT_GEMM_DTYPE=bf16 without decode tables (which carry W
+        # cast once): W cast here, a step
+        w_out = w_out.to(torch.bfloat16)
     K = scores.shape[1]
     return (s_new,) + fused_readout_topk(
         t, w_out, b_out, scores, finished,

@@ -15,7 +15,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from vag_nmt_tpu_torch.core.config import ModelConfig
-from vag_nmt_tpu_torch.models.layers import dense, init_dense, l2_normalize
+from vag_nmt_tpu_torch.models.layers import (dense, init_dense, l2_normalize,
+                                             mm)
 from vag_nmt_tpu_torch.ops.attention import (
     bahdanau_attend,
     init_attention_params,
@@ -62,7 +63,7 @@ def max_margin_loss(
 ) -> torch.Tensor:
     """Bidirectional in-batch pairwise ranking loss on cosine similarity.
     Rows with sample_mask == 0 are neither anchors nor negatives."""
-    sim = txt_emb @ img_emb.T
+    sim = mm(txt_emb, img_emb.T)
     pos = torch.diagonal(sim)
     b = sim.shape[0]
     valid_pair = 1.0 - torch.eye(b, dtype=sim.dtype, device=sim.device)

@@ -6,7 +6,7 @@ each decode step does only the query projection, the tanh energies and the
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,7 +48,7 @@ def bahdanau_attend(
     """Returns (context vector (N, C) in ctx's dtype, weights (N, T))."""
     q = mm(query, params["ua"])
     e = torch.tanh(ctx_proj + q[:, None, :] + params["ba"])
-    w = masked_softmax(e @ params["va"], mask)
+    w = masked_softmax(mm(e, params["va"]), mask)
     c = torch.einsum("nt,ntc->nc", w.to(ctx.dtype), ctx)
     return c, w
 
@@ -59,12 +59,14 @@ def bahdanau_attend_beams(
     ctx: torch.Tensor,        # (B, T, C), not tiled across beams
     ctx_proj: torch.Tensor,   # (B, T, A)
     mask: torch.Tensor,       # (B, T)
+    *,
+    bf16_energies: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam-batched attention sharing the encoder state across beams:
     broadcasting over a beam axis reads ctx/ctx_proj once per sentence.
     Returns ((B, K, C), (B, K, T))."""
-    return bahdanau_attend_beams_q(params, query @ params["ua"], ctx,
-                                   ctx_proj, mask)
+    return bahdanau_attend_beams_q(params, mm(query, params["ua"]), ctx,
+                                   ctx_proj, mask, bf16_energies=bf16_energies)
 
 
 def bahdanau_attend_beams_q(
@@ -73,11 +75,26 @@ def bahdanau_attend_beams_q(
     ctx: torch.Tensor,        # (B, T, C)
     ctx_proj: torch.Tensor,   # (B, T, A)
     mask: torch.Tensor,       # (B, T)
+    *,
+    bf16_energies: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``bahdanau_attend_beams`` with the query projection already applied.
-    fp32 only: the bf16 energy broadcast of the JAX package waits for bf16
-    decode."""
-    e = torch.tanh(ctx_proj[:, None, :, :] + q[:, :, None, :] + params["ba"])
-    w = masked_softmax(e @ params["va"], mask[:, None, :])
+    With bf16_energies (None: under a bf16 ``ctx``) the (B, K, T, A)
+    energies are bf16 (the sum of ctx_proj, q and ba in bf16, then tanh)
+    and the scores their product with va summed in fp32, as the JAX
+    package; else fp32. A decode resolves it once a call from the compute
+    dtype and ``VAG_ATTN_E_DTYPE`` (``models.model.decode_opts``)."""
+    if bf16_energies is None:
+        bf16_energies = ctx.dtype == torch.bfloat16
+    if bf16_energies:
+        bf = torch.bfloat16
+        e = torch.tanh(ctx_proj.to(bf)[:, None, :, :] + q.to(bf)[:, :, None, :]
+                       + params["ba"].to(bf))
+        scores = mm(e, params["va"].to(bf))
+    else:
+        e = torch.tanh(ctx_proj[:, None, :, :] + q[:, :, None, :]
+                       + params["ba"])
+        scores = mm(e, params["va"])
+    w = masked_softmax(scores, mask[:, None, :])
     c = torch.einsum("bkt,btc->bkc", w.to(ctx.dtype), ctx)
     return c, w

@@ -17,7 +17,13 @@ launch's arguments, so the CPU tests of the plan cover what is launched.
 
 Selected by ``VAG_DEC_STEP=on`` with decode tables (``core/knobs.py``),
 default off as in the JAX package, whose default rests on a TPU
-measurement; the kernel's own numbers are in PERF.md."""
+measurement; the kernel's own numbers are in PERF.md.
+
+In a bf16 decode (the params cast to bf16) the states, ctx and the four
+weight matrices are bf16 and the step runs the kernel's bf16 instances:
+the gate algebra, the attention and every sum in fp32, each new state and
+the attention's context rounded to bf16 once, t fp32, as the JAX
+kernel under bf16."""
 
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
+from vag_nmt_tpu_torch.models.layers import mm
 from vag_nmt_tpu_torch.ops import _build
 from vag_nmt_tpu_torch.ops.gru_kernel import gru_gate_algebra
 from vag_nmt_tpu_torch.ops.topk import MAX_K, declare_instances, instance
@@ -89,10 +96,17 @@ class GemmPlan:
         """The CTA's ring (or its staged accumulators, whichever is more),
         then its epilogue's operands: a gate tile's three gate rows and
         state rows, or the readout's ty and tc."""
+        return self.smem_bytes_of(4)
+
+    def smem_bytes_of(self, itemsize: int) -> int:
+        """``smem_bytes`` with the operands staged at ``itemsize`` bytes
+        (2: the bf16 instances, whose A rows pad by 8 elements, not 4); the
+        staged accumulators and the epilogue's operands stay fp32."""
         ws = self.tile_cols + 8
         ops = (4 * BM * UB if self.gate_tiles else
                2 * BM * self.tile_cols if self.name == "sw" else 0)
-        return 4 * (max(STAGES * (BM * (BK + 4) + BK * ws), BM * ws) + ops)
+        ring = STAGES * itemsize * (BM * (BK + 16 // itemsize) + BK * ws)
+        return max(ring, 4 * BM * ws) + 4 * ops
 
 
 @functools.lru_cache(maxsize=None)   # one shape a decode: once, not per step
@@ -125,13 +139,20 @@ def launch_tiles(plan: Sequence[GemmPlan]) -> Tuple[int, ...]:
 WEIGHTS = ("uh1", "bh1", "w_s", "bh2", "va", "w_c", "bi2", "ws", "b")
 
 
+# the weights that keep the params' dtype (bf16 in a bf16 decode); the
+# biases and va go in as fp32, as the JAX kernel takes them
+MATRICES = ("uh1", "w_s", "w_c", "ws")
+
+
 def step_weights(params: Dict[str, Any],
                  tables: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-    """The step's weights in ``WEIGHTS`` order, contiguous."""
+    """The step's weights in ``WEIGHTS`` order, contiguous: the matrices
+    in the params' dtype, the biases and va in fp32."""
     g1, g2, r = params["gru1"], params["gru2"], params["readout"]
-    return tuple(w.contiguous() for w in (
-        g1["uh"], g1["bh"], tables["w_s"], g2["bh"], params["attn"]["va"],
-        tables["w_c"], g2["bi"], r["ws"], r["b"]))
+    ws = (g1["uh"], g1["bh"], tables["w_s"], g2["bh"], params["attn"]["va"],
+          tables["w_c"], g2["bi"], r["ws"], r["b"])
+    return tuple((w if n in MATRICES else w.to(torch.float32)).contiguous()
+                 for n, w in zip(WEIGHTS, ws))
 
 
 def dec_step_plain(gy, s, ctx, ctxpb, mask,
@@ -139,25 +160,29 @@ def dec_step_plain(gy, s, ctx, ctxpb, mask,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the kernel, the JAX kernel's arithmetic
     in its order: gy (N, 3H + R), s (N, H) with N = B*K, ctx (B, T, C),
-    ctxpb (B, T, A) = ctx_proj + ba, mask (B, T). Returns (s_new (N, H),
-    t (N, R))."""
+    ctxpb (B, T, A) = ctx_proj + ba, mask (B, T). Returns (s_new (N, H) in
+    s's dtype, t (N, R) fp32). Under bf16 s, ctx and matrices the products
+    are bf16 x bf16 summed in fp32 (``mm``) and s~, c and s_new are
+    rounded to bf16 once each."""
     uh1, bh1, w_s, bh2, va, w_c, bi2, ws, b = weights
     B, T, C = ctx.shape
     N, H = s.shape
     K = N // B
     A = w_s.shape[1] - 3 * H
+    sd, f32 = s.dtype, torch.float32
     xg1, ty = gy[:, :3 * H], gy[:, 3 * H:]
-    st = gru_gate_algebra(xg1, s @ uh1 + bh1, s)
-    qh = st @ w_s
+    st = gru_gate_algebra(xg1, mm(s, uh1) + bh1, s.to(f32)).to(sd)
+    qh = mm(st, w_s)
     q = qh[:, :A].reshape(B, K, A)
     e = torch.tanh(ctxpb[:, None, :, :] + q[:, :, None, :])    # (B, K, T, A)
     sc = (e * va).sum(-1)
     sc = torch.where(mask[:, None, :] > 0, sc, torch.full_like(sc, NEG_INF))
     w = torch.softmax(sc, dim=-1)
-    c = torch.einsum("bkt,btc->bkc", w, ctx).reshape(N, C)
-    xc = c @ w_c
-    s_new = gru_gate_algebra(xc[:, :3 * H] + bi2, qh[:, A:] + bh2, st)
-    t = torch.tanh(ty + s_new @ ws + xc[:, 3 * H:] + b)
+    c = torch.einsum("bkt,btc->bkc", w, ctx.to(f32)).reshape(N, C).to(sd)
+    xc = mm(c, w_c)
+    s_new = gru_gate_algebra(xc[:, :3 * H] + bi2, qh[:, A:] + bh2,
+                             st.to(f32)).to(sd)
+    t = torch.tanh(ty + mm(s_new, ws) + xc[:, 3 * H:] + b)
     return s_new, t
 
 
@@ -170,7 +195,9 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
     has an instance for K <= 8 beams a sentence and one for K > 8
     (``ops/topk.K_INSTANCES``), whose attention takes the beams of a
     sentence in groups of 16 above 16 (each such call also counts one in
-    ``dec_step.beam_groups``)."""
+    ``dec_step.beam_groups``); each has a bf16 build, taken when s is
+    bf16 (counted in ``dec_step.bf16_launches``): then s, ctx, uh1, w_s,
+    w_c and ws must be bf16 and the rest fp32, else ValueError."""
     B, T, C = ctx.shape
     N, H = s.shape
     if resolve_impl(impl, s) == "plain":
@@ -184,22 +211,26 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
     shapes = {"uh1": (H, 3 * H), "bh1": (3 * H,), "w_s": (H, A + 3 * H),
               "bh2": (3 * H,), "va": (A,), "w_c": (C, G), "bi2": (3 * H,),
               "ws": (H, R), "b": (R,)}
+    bf = s.dtype == torch.bfloat16
+    sd = torch.bfloat16 if bf else torch.float32
     for name, w in zip(WEIGHTS, weights):
-        check_kernel_arg(w, torch.float32, shapes[name], f"dec_step: {name}")
+        check_kernel_arg(w, sd if name in MATRICES else torch.float32,
+                         shapes[name], f"dec_step: {name}")
     check_kernel_arg(gy, torch.float32, (N, G), "dec_step: gy")
-    check_kernel_arg(s, torch.float32, (N, H), "dec_step: s")
-    check_kernel_arg(ctx, torch.float32, (B, T, C), "dec_step: ctx")
+    check_kernel_arg(s, sd, (N, H), "dec_step: s")
+    check_kernel_arg(ctx, sd, (B, T, C), "dec_step: ctx")
     check_kernel_arg(ctxpb, torch.float32, (B, T, A), "dec_step: ctxpb")
     check_kernel_arg(mask, torch.float32, (B, T), "dec_step: mask")
     dev = s.device
 
-    def new(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+    def new(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
-    s_new, t = new(N, H), new(N, R)
-    scratch = (new(N, H), new(N, A + 3 * H), new(N, C), new(N, R))  # s~ qh c tc
+    s_new, t = new(N, H, dtype=sd), new(N, R)
+    scratch = (new(N, H, dtype=sd), new(N, A + 3 * H), new(N, C, dtype=sd),
+               new(N, R))                                   # s~ qh c tc
     plan = dec_step_plan(N, H, A, C, R)
-    lib = _build.load(instance("dec_step", K))
+    lib = _build.load(instance("dec_step", K, bf16=bf))
     rc = lib.dec_step_launch(
         gy.data_ptr(), s.data_ptr(), ctx.data_ptr(), ctxpb.data_ptr(),
         mask.data_ptr(), *(w.data_ptr() for w in weights), s_new.data_ptr(),
@@ -208,6 +239,7 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
     if rc != 0:
         raise RuntimeError(f"dec_step kernel launch failed: CUDA error {rc}")
     dec_step.launches += 1
+    dec_step.bf16_launches += bf
     dec_step.grids += GRIDS
     if K > MAX_K:
         dec_step.beam_groups += 1
@@ -215,6 +247,7 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
 
 
 dec_step.launches = 0
+dec_step.bf16_launches = 0
 dec_step.grids = 0
 dec_step.beam_groups = 0
 
@@ -226,7 +259,8 @@ declare_instances("dec_step", "dec_step_launch",
                   [ctypes.c_void_p] * 20 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
                   {"VAG_BM": BM, "VAG_BK": BK, "VAG_UB": UB, "VAG_BN": BN,
                    "VAG_RN": RN, "VAG_SPLIT": SPLIT, "VAG_STAGES": STAGES,
-                   "VAG_ATT_CLUSTER": ATT_CLUSTER})
+                   "VAG_ATT_CLUSTER": ATT_CLUSTER},
+                  bf16_defines={})
 
 
 def decode_step_fused(params: Dict[str, Any], tables: Dict[str, torch.Tensor],

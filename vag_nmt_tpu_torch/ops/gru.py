@@ -47,14 +47,16 @@ def gru_gates_from_x(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def gru_cell_from_gates(xg: torch.Tensor, hg: torch.Tensor,
                         h: torch.Tensor) -> torch.Tensor:
-    """Gate nonlinearity given both precomputed gate sets (biases included)."""
-    return gru_gate_algebra(xg, hg, h)
+    """Gate nonlinearity given both precomputed gate sets (biases
+    included), in fp32; the new state in h's dtype (bf16 in a bf16
+    decode, rounded once)."""
+    return gru_gate_algebra(xg, hg, h.to(torch.float32)).to(h.dtype)
 
 
 def gru_cell_from_xgates(params: Params, xg: torch.Tensor,
                          h: torch.Tensor) -> torch.Tensor:
     """One step given precomputed input gates. xg: (N, 3H), h: (N, H)."""
-    return gru_cell_from_gates(xg, h @ params["uh"] + params["bh"], h)
+    return gru_cell_from_gates(xg, mm(h, params["uh"]) + params["bh"], h)
 
 
 def gru_scan(
@@ -86,8 +88,10 @@ def gru_scan(
               and not gru_stream_fp32() else torch.float32)
     xg_t = gru_gates_from_x(params, x).transpose(0, 1).to(stream).contiguous()
     mask_t = mask.transpose(0, 1).to(torch.float32).contiguous()
-    args = (xg_t, mask_t, params["uh"].contiguous(),
-            params["bh"].contiguous(), h0.to(torch.float32).contiguous())
+    # bf16 params (a bf16 decode's cast) reach the scan as fp32 values
+    args = (xg_t, mask_t, params["uh"].to(torch.float32).contiguous(),
+            params["bh"].to(torch.float32).contiguous(),
+            h0.to(torch.float32).contiguous())
     if torch.is_grad_enabled():
         hs_t = GRUScan.apply(*args, reverse, impl)
     else:

@@ -38,6 +38,7 @@ import torch
 from vag_nmt_tpu_torch.core.config import PAD_ID
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
 from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
+from vag_nmt_tpu_torch.models.layers import mm
 from vag_nmt_tpu_torch.ops import _build
 from vag_nmt_tpu_torch.ops.topk import (_FLOOR, MAX_K, NEG_INF,
                                         _arrival_counters, beam_topk_plain,
@@ -52,6 +53,9 @@ from vag_nmt_tpu_torch.ops.topk import (_FLOOR, MAX_K, NEG_INF,
 _ROW_TILE = 64
 _COL_TILE = 128             # columns of an output tile; splits are whole tiles
 _DEPTH_CHUNK = 64           # depth of a staged chunk of t and W
+# The bf16 instances stage t and W at 2 bytes: chunks twice as deep hold
+# the same bytes, so the ring (and the lane merge in it) keeps its size.
+_DEPTH_CHUNK_BF16 = 128
 _LANE_PERIOD = 64           # a lane holds _LANE_COLS columns of every 64
 _LANE_COLS = 4
 _TARGET_BLOCKS = 132        # one block per SM on the H100's 132 SMs
@@ -116,13 +120,14 @@ def readout_topk_rows_plain(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                             lanes: Optional[torch.Tensor] = None,
                             recover_live: Optional[torch.Tensor] = None):
     """The plain version of the kernel: per-row top-k (values, int32 ids,
-    ties to the smaller id) and log-sum-exp of ``t @ w + b`` with banned ids
-    floored to -3e38. With ``slots`` > 0 (sk = min(slots, k)) also the
+    ties to the smaller id) and log-sum-exp of ``t @ w + b`` (fp32 sums of
+    the products, bf16 ``t`` and ``w`` included) with banned ids floored
+    to -3e38. With ``slots`` > 0 (sk = min(slots, k)) also the
     watermark mode's per-row viol (int32) as a fourth output, under the
     lane map ``lanes`` ((V,) lane ids; None: ``kernel_lanes``), with the
     shallow union's top-k in place of the exact one unless sk == k; rows
     flagged and True in ``recover_live`` (R,) get the depth-k result."""
-    logits = t @ w + b
+    logits = mm(t, w) + b
     if mask is not None:
         logits = torch.where(mask.bool(), torch.full_like(logits, _FLOOR),
                              logits)
@@ -148,7 +153,9 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       recover_live: Optional[torch.Tensor] = None,
                       impl: str = "auto"):
     """(vals (R, k) f32, idx (R, k) int32, lse (R,) f32) of the rows of
-    ``t @ w + b``; with ``slots`` > 0 the watermark mode at slot depth
+    ``t @ w + b`` (t and w both fp32, or both bf16 with fp32 sums: the
+    kernel's bf16 instances, counted in ``readout_topk_rows.bf16_launches``;
+    b fp32); with ``slots`` > 0 the watermark mode at slot depth
     min(slots, k) and a fourth output, viol (R,) int32, as
     ``readout_topk_rows_plain``. recover_live ((R,) bool): recover the
     flagged live rows at depth k within the call (the per-step recovery);
@@ -184,8 +191,10 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          f"above {MAX_K} beams the passes keep at most "
                          f"{MAX_K} slots a lane")
     width = MAX_K if passes > 1 else k   # the partial lists' width
-    check_kernel_arg(t, torch.float32, (R, E), "readout_topk: t")
-    check_kernel_arg(w, torch.float32, (E, V), "readout_topk: w")
+    bf = t.dtype == torch.bfloat16
+    op = torch.bfloat16 if bf else torch.float32
+    check_kernel_arg(t, op, (R, E), "readout_topk: t")
+    check_kernel_arg(w, op, (E, V), "readout_topk: w (t's dtype)")
     check_kernel_arg(b, torch.float32, (V,), "readout_topk: b")
     if mask is not None:
         check_kernel_arg(mask, torch.uint8, (R, V), "readout_topk: mask")
@@ -211,7 +220,7 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         recovery = (live, torch.empty((row_tiles,), dtype=torch.uint8,
                                       device=dev), _recoveries(dev))
     part_w, viol = (None if x is None else x.data_ptr() for x in shallow)
-    lib = _build.load(instance("readout_topk", k))
+    lib = _build.load(instance("readout_topk", k, bf16=bf))
     rc = lib.readout_topk_launch(
         t.data_ptr(), w.data_ptr(), b.data_ptr(),
         None if mask is None else mask.data_ptr(),
@@ -226,6 +235,7 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"readout_topk kernel launch failed: CUDA error {rc}")
     readout_topk_rows.launches += 1
+    readout_topk_rows.bf16_launches += bf
     readout_topk_rows.grids += passes * (1 if recover is None else 2)
     if passes > 1:
         readout_topk_rows.passes += passes
@@ -237,6 +247,7 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 readout_topk_rows.launches = 0
+readout_topk_rows.bf16_launches = 0
 readout_topk_rows.grids = 0
 readout_topk_rows.passes = 0
 readout_topk_rows.recoveries = None
@@ -253,12 +264,14 @@ def _recoveries(dev: torch.device) -> torch.Tensor:
 
 # One tiling for both instances (K <= 8 and K > 8): at MAX_K = 16 the
 # lane merge's BM x 16 lanes of 2 * 16 + 3 floats (35840) still fit the
-# 39552 floats of the ring.
+# 39552 floats of the ring; the bf16 builds' chunks of 128 at 2 bytes
+# make the same 39552 (tests/test_torch_readout_plan.py).
 declare_instances("readout_topk", "readout_topk_launch",
                   [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
                   {"VAG_BM": _ROW_TILE, "VAG_BN": _COL_TILE,
                    "VAG_BK": _DEPTH_CHUNK, "VAG_LANE_PERIOD": _LANE_PERIOD,
-                   "VAG_CPT": _LANE_COLS})
+                   "VAG_CPT": _LANE_COLS},
+                  bf16_defines={"VAG_BK": _DEPTH_CHUNK_BF16})
 
 
 def deferred_exactness_active(K: int) -> bool:
@@ -317,7 +330,11 @@ def fused_readout_topk(
     (top_scores (B, K) fp32 descending, flat_idx (B, K) int64, flat =
     beam * V + token), the contract of ``beam_topk`` applied to
     ``t @ w + b``. impl: "auto" (kernel for CUDA tensors, plain for CPU
-    tensors), "kernel", "plain", or the JAX names "pallas" / "xla".
+    tensors), "kernel", "plain", or the JAX names "pallas" / "xla". A bf16
+    ``w`` (a bf16 decode's, or with ``VAG_FRT_GEMM_DTYPE=bf16`` an fp32
+    one cast once by ``decoder.decode_tables``) takes ``t`` in bf16 too:
+    the products bf16 x bf16 with fp32 sums, kernel 1's bf16 instance on
+    the card.
 
     slots: the per-lane slot depth (0: ``VAG_FRT_SLOTS``, else K). Below K
     the result stays exact: flagged live rows are recovered at depth K in
@@ -333,12 +350,14 @@ def fused_readout_topk(
         raise ValueError(f"t rows {R} != B*K = {B * K}")
     scores = scores.to(torch.float32)
     kn = decode_knobs()
+    if w.dtype == torch.bfloat16:
+        t = t.to(torch.bfloat16)
     sk = min(max(1, slots if slots > 0 else over(kn.frt_slots, K)), K)
     route = resolve_impl(impl, t)
     mask = None if ban is None else ban_mask(ban, V)
     if sk >= K:
         if route == "plain":
-            logits = t @ w + b
+            logits = mm(t, w) + b
             if mask is not None:
                 logits = torch.where(mask.bool(), logits.clamp_max(_FLOOR),
                                      logits)

@@ -34,7 +34,7 @@ _CVT_SPLIT = ("  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
               "\n  return r;")
 _RAW_SMALL = ("  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));",
               "  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));")
-_NO_W_LOADS = ("  for (int i = tid; i < BK * (BN / 4); i += THREADS) {",
+_NO_W_LOADS = ("  for (int i = tid; i < BK * (BN / VEC); i += THREADS) {",
                "  for (int i = tid; i < 0; i += THREADS) {")
 _BK32 = [("constexpr int BK = VAG_BK; ", "constexpr int BK = 32; "),
          ("constexpr int STAGES = 3; ", "constexpr int STAGES = 4; ")]

@@ -34,7 +34,7 @@ then the combine) in the same launch."""
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -79,20 +79,29 @@ def k_plan(K: int) -> Tuple[int, int]:
     return k_instance(K), (1 if K <= MAX_K else -(-K // MAX_K))
 
 
-def instance(base: str, K: int) -> str:
+def instance(base: str, K: int, bf16: bool = False) -> str:
     """The build name of kernel ``base``'s instance for K: ``base`` itself
-    for K <= 8, ``base_k16`` above."""
+    for K <= 8, ``base_k16`` above; with ``bf16`` its bf16 build
+    (``base_bf16``, ``base_k16_bf16``)."""
     m = k_instance(K)
-    return base if m == K_INSTANCES[0] else f"{base}_k{m}"
+    name = base if m == K_INSTANCES[0] else f"{base}_k{m}"
+    return f"{name}_bf16" if bf16 else name
 
 
 def declare_instances(base: str, fn: str, argtypes: list,
-                      defines: Dict[str, int]) -> None:
+                      defines: Dict[str, int],
+                      bf16_defines: Optional[Dict[str, int]] = None) -> None:
     """Declare C entry ``fn`` of csrc/<base>.cu in every instance, each
-    with ``defines`` and its own VAG_MAX_K."""
+    with ``defines`` and its own VAG_MAX_K; with ``bf16_defines`` also
+    each one's bf16 build (``-DVAG_BF16=1`` and those defines over
+    ``defines``)."""
     for m in K_INSTANCES:
         _build.declare(instance(base, m), fn, argtypes,
                        {**defines, "VAG_MAX_K": m}, src=base)
+        if bf16_defines is not None:
+            _build.declare(instance(base, m, bf16=True), fn, argtypes,
+                           {**defines, **bf16_defines, "VAG_MAX_K": m,
+                            "VAG_BF16": 1}, src=base)
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
