@@ -155,9 +155,22 @@ Phases (each raises on failure; the script then exits non-zero):
      the unfused step (kernel 6), and Translator in bf16;
  21. translate_corpus(fused=False), the bucketed path, fp32 and bf16,
      against the fused path (MIN_BUCKETED_SHARE), and VAG_SUPER_CHUNK=0
-     and =256 against the default, kernel 2 twice an encoder pass.
+     and =256 against the default, kernel 2 twice an encoder pass;
+ 22. data parallelism on one card: two ranks of this script (gloo, the
+     backend rule's pick for ranks sharing a card) train DP_STEPS steps
+     of the full-width m30k_ende_vag model (batch 64, 32 a rank, dropout
+     0.3) through make_train_step(mesh=) against the same steps in this
+     process (losses, the reduced grads, the params, the replicas bit
+     for bit), decode phase 4's corpus through translate_corpus(mesh=)
+     (DP_MIN_SHARE identical; streaming and two-phase on a smaller
+     corpus), kernels 2-5 and 1-2 counted on each rank; then train and
+     translate under python -m torch.distributed.run --nproc-per-node 2;
+     with two cards visible, the training and the decode again under
+     NCCL, a rank a card.
 Phase 15 also decodes the bf16 run with --set decode.compute_dtype=bfloat16
-(kernels 1b and 2b only).
+(kernels 1b and 2b only), and runs make-toy -> train -> translate and a raw
+synthetic Multi30k directory through preprocess -> train ->
+translate-text.
 Phase 1 builds all eight sources, readout_topk.cu and dec_step.cu four
 times (K <= 8 and K > 8, each fp32 and bf16), gru_fwd.cu, gru_bwd.cu,
 dec_scan_fwd.cu and dec_scan_bwd.cu twice (fp32 and bf16 streams), and
@@ -177,6 +190,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Kernel against plain tolerances.
 READOUT_RTOL = 1e-5      # values and lse, relative; ids must be equal
@@ -3198,9 +3212,98 @@ def phase_cli(torch, np, dev, preset="m30k_ende_vag", splits=None):
     if len(hyp16) != splits["test2016"][0] or any(
             u not in stoi for line in hyp16 for u in line.split()):
         raise AssertionError("cli translate bf16: malformed output")
+    train_need = ("gru_fwd", "gru_bwd", "dec_scan_fwd", "dec_scan_bwd",
+                  "readout_topk")
+
+    def host_command(label, argv):
+        # preprocess and make-toy write files only: no --device
+        launches, last, secs = _cli_command(torch, argv)
+        out[label] = {"launches": launches, "seconds": secs}
+        print(f"cli {label}: {secs:.2f} s: {last}")
+
+    # make-toy -> train -> translate at full width (the toy task's
+    # features at the preset's width)
+    toy, toy_run = root / "toy", root / "toy_run"
+    host_command("make-toy", ["make-toy", "--out-dir", str(toy),
+                              "--img-dim", str(m.img_feat_dim)])
+    res = json.loads(command("train toy", [
+        "train", "--preset", preset, "--data-dir", str(toy), "--out-dir",
+        str(toy_run), "--set", "data.dataset=toy", "--max-steps",
+        str(CLI_TRAIN_STEPS), "--set",
+        f"train.eval_every_steps={CLI_TRAIN_STEPS}"], need=train_need))
+    if res["steps"] != CLI_TRAIN_STEPS or "dev_bleu" not in res:
+        raise AssertionError(f"cli train toy: {res}")
+    path = root / "hyp_toy.txt"
+    command("translate toy", [
+        "translate", "--data-dir", str(toy), "--checkpoint", str(toy_run),
+        "--split", "test", "--output", str(path)],
+        need=("gru_fwd", "readout_topk"))
+    if len(path.read_text().splitlines()) != 50:
+        raise AssertionError("cli translate toy: line count")
+    # raw text -> preprocess (Moses, lowercase, BPE) -> train, then raw
+    # lines through translate-text (preprocess.json replayed)
+    raw, pre, pre_run = root / "raw", root / "pre", root / "pre_run"
+    _write_raw_multi30k(np, raw, m, CLI_RAW_SPLITS)
+    host_command("preprocess", [
+        "preprocess", "--raw-dir", str(raw), "--out-dir", str(pre),
+        "--splits", ",".join(CLI_RAW_SPLITS), "--bpe-merges",
+        str(CLI_BPE_MERGES)])
+    res = json.loads(command("train preprocessed", [
+        "train", "--preset", preset, "--data-dir", str(pre), "--out-dir",
+        str(pre_run), "--set", "data.dataset=multi30k", "--max-steps",
+        str(CLI_TRAIN_STEPS), "--set",
+        f"train.eval_every_steps={CLI_TRAIN_STEPS}"], need=train_need))
+    if res["steps"] != CLI_TRAIN_STEPS or "dev_bleu" not in res:
+        raise AssertionError(f"cli train preprocessed: {res}")
+    n_tgt = len(Vocab.load(str(pre / "vocab.de.json")))
+    out["train preprocessed"]["tgt_vocab"] = n_tgt
+    command("translate-text raw", [
+        "translate-text", "--checkpoint", str(pre_run), "--input",
+        str(raw / "test2017.en"), "--output", str(root / "raw_pre_hyp.txt")],
+        need=("gru_fwd", "readout_topk"))
+    if len((root / "raw_pre_hyp.txt").read_text().splitlines()) != \
+            CLI_RAW_SPLITS["test2017"]:
+        raise AssertionError("cli translate-text raw: line count")
     print("cli: " + json.dumps({k: v for k, v in out.items()}))
     shutil.rmtree(root, ignore_errors=True)
     return out
+
+
+# Phase 15's raw corpus: Multi30k's layout and split names, sentences of
+# Zipf words from a made-up lexicon of each language (capitals,
+# punctuation, clitics, accented letters), for the preprocess command.
+CLI_RAW_SPLITS = {"train": 2048, "val": 64, "test2016": 128, "test2017": 64}
+CLI_BPE_MERGES = 4000
+
+
+def _write_raw_multi30k(np, d, m, splits):
+    """Raw {split}.{en,de} text and {split}_features.npy (no sidecar: the
+    features are aligned by row count)."""
+    d.mkdir(parents=True)
+    rng = np.random.RandomState(41)
+    letters = {"en": "abcdefghijklmnopqrstuvwxyz",
+               "de": "abcdefghijklmnopqrstuvwxyzäöüß"}
+    lex = {lang: ["".join(rng.choice(list(al), rng.randint(2, 11)))
+                  for _ in range(3000)] for lang, al in letters.items()}
+    p = 1.0 / np.arange(1, 3001)
+    p /= p.sum()
+    for split, n in splits.items():
+        for lang in ("en", "de"):
+            rows = []
+            for _ in range(n):
+                words = [lex[lang][i] for i in
+                         rng.choice(3000, int(np.clip(rng.normal(12, 4), 3, 30)),
+                                    p=p)]
+                words[0] = words[0].capitalize()
+                if len(words) > 6 and rng.rand() < 0.4:
+                    words[3] += ","
+                if lang == "en" and rng.rand() < 0.2:
+                    words[1] += "'s"
+                rows.append(" ".join(words) + rng.choice([".", ".", "!", "?"]))
+            (d / f"{split}.{lang}").write_text("".join(r + "\n" for r in rows),
+                                               encoding="utf-8")
+        np.save(str(d / f"{split}_features.npy"),
+                np.abs(rng.randn(n, m.img_feat_dim)).astype(np.float32))
 
 
 # Phase 16: a run the JAX package wrote (tests/goldens/jax_run_toy, checked
@@ -3403,6 +3506,10 @@ def phase_readout_bf16(torch, np, dev):
             t, w, b, K, impl="kernel"))
         g["plain_ms"] = _time_ms(torch, lambda: rt.readout_topk_rows_plain(
             t, w, b, K))
+        # kernel 1b' (slots 1): its plain version and its bound
+        g["slots1_plain_ms"] = _time_ms(
+            torch, lambda: rt.readout_topk_rows_plain(t, w, b, K, slots=1))
+        g["slots1_bound_ms"], _ = _readout_bf16_bound(R, E, V, K, True)
         grids[V] = g
         print(f"readout_topk_bf16 grid (R={R}, E={E}, V={V}): " + json.dumps(g))
     g = grids[READOUT_BF16_V[0]]
@@ -3415,7 +3522,8 @@ def phase_readout_bf16(torch, np, dev):
             "library_ms": None, "grids_by_v": grids, "near_tie_rows": near,
             **{f: g[f] for f in ("grid_warm_ms", "slots1_grid_ms",
                                  "recovery_grid_ms", "fp32_grid_ms",
-                                 "addmm_bf16_grid_ms", "wrapper_ms")}}
+                                 "addmm_bf16_grid_ms", "wrapper_ms",
+                                 "slots1_plain_ms", "slots1_bound_ms")}}
 
 
 # Phase 18: kernel 7b, the bf16 instances of kernel 7 (dec_step_bf16,
@@ -3856,6 +3964,380 @@ def phase_bucketed(torch, np, dev):
     return f
 
 
+# Phase 22: data parallelism on one card. Two ranks of this script
+# (``--dp-worker``), each a process of its own on the one card under gloo
+# (the backend rule: ranks sharing a card), spawned after the parent built
+# every kernel, so the ranks only load them. (a) DP_STEPS training steps
+# of the full-width m30k_ende_vag model (batch 64, 32 a rank, dropout 0.3)
+# through make_train_step(mesh=) against the same steps in this process at
+# B = 64: step 1's loss within DP_LOSS1_RTOL, the reduced grads (step 1's
+# Adam first moment over 1 - b1, the clip undone) within DP_GRAD_RTOL (the
+# norm of the difference over the norm), the later losses within
+# DP_LOSS_RTOL, the params within the reference DP test's rtol / atol, the
+# ranks' params bit-identical. (b) Phase 4's corpus through
+# translate_corpus(mesh=): at least DP_MIN_SHARE of the hypotheses the
+# single process's (cuBLAS may pick other algorithms at half the rows,
+# which can flip a near tie), then streaming and two-phase on
+# DP_SMALL_CORPUS sentences. Kernels 2-5 (training) and 1-2 (decode) are
+# counted on each rank from its own run of the path. (c) train and
+# translate through python -m torch.distributed.run on the card (NCCL
+# where the host has a card for each rank). (d) where two cards are
+# visible, (a) and (b) again under NCCL, a rank a card. Two ranks
+# time-sharing one card are no scaling figure.
+DP_WORLD = 2
+DP_STEPS = 5
+DP_LOSS1_RTOL, DP_GRAD_RTOL, DP_LOSS_RTOL = 1e-5, 1e-5, 1e-4
+DP_PARAM_RTOL, DP_PARAM_ATOL = 2e-3, 2e-4
+DP_MIN_SHARE = 0.99
+DP_SMALL_CORPUS = 256
+DP_SPAWN_TIMEOUT_S = 420
+DP_CLI_SPLITS = {"train": (1024, 31), "val": (64, 32), "test2016": (256, 33),
+                 "test2017": (64, 34)}
+DP_CLI_STEPS = 20
+
+
+def _dp_root():
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+
+
+def _dp_train_setup(torch, np, dev):
+    """Phase 8's model, corpus and batch stream: (cfg, the first DP_STEPS
+    batches, the feature table, the seed's init)."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.data.batching import BucketBatcher
+    from vag_nmt_tpu_torch.train.loop import _step_rows
+
+    cfg = vt.preset("m30k_ende_vag")
+    m = cfg.model
+    train = _train_corpus(np, m, N_TRAIN_PAIRS, seed=8)
+    batcher = BucketBatcher(train, cfg.data.batch_size, cfg.data.length_buckets,
+                            seed=cfg.data.shuffle_seed, image_ids=True,
+                            img_dim=m.img_feat_dim, compact=True)
+    batches = list(_step_rows(batcher.epoch_stacked(
+        0, cfg.train.steps_per_dispatch), 0))[:DP_STEPS]
+    table = vt.build_img_table(train, m.img_feat_dim, device=dev)
+    state0 = vt.create_train_state(
+        cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
+    return cfg, batches, table, state0
+
+
+def _dp_train_run(torch, np, dev, mesh):
+    """DP_STEPS steps (mesh=None: this process alone): {losses, the reduced
+    grads of step 1 (flat, host), the params after the last step (flat,
+    host), their sha256, the training kernels' launches, step times}."""
+    import hashlib
+
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.train.state import tree_leaves
+
+    cfg, batches, table, state = _dp_train_setup(torch, np, dev)
+    step = vt.make_train_step(cfg, mesh=mesh, with_img_table=True)
+    wrappers = _cli_wrappers()
+    names = ("gru_fwd", "gru_bwd", "dec_scan_fwd", "dec_scan_bwd")
+    for n in names:
+        wrappers[n].launches = 0
+    losses, times, grads = [], [], None
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = step(state, b, table)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(aux["loss"]))
+        if i == 0:
+            # mu = (1 - b1) * clipped grads; undo the clip
+            norm = float(aux["grad_norm"])
+            scale = min(1.0, cfg.train.grad_clip_norm / norm)
+            grads = torch.cat([x.reshape(-1) for x in tree_leaves(state.mu)]
+                              ).cpu() / (1.0 - cfg.train.adam_b1) / scale
+    launches = {n: wrappers[n].launches for n in names}
+    flat = torch.cat([x.reshape(-1) for x in tree_leaves(state.params)]).cpu()
+    return {"losses": losses, "grads": grads, "params": flat,
+            "sha256": hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+            "launches": launches, "step_s": times}
+
+
+def _dp_decode_run(torch, np, dev, mesh):
+    """Phase 4's corpus through translate_corpus (mesh=None: this process
+    alone), then streaming and two-phase on its first DP_SMALL_CORPUS
+    sentences: {mode: (hypotheses, stats, kernel 1 and 2 launches)}."""
+    import vag_nmt_tpu_torch as vt
+
+    cfg, params, examples, vocab, img_table = _main_corpus(torch, np, dev)
+    wrappers = _cli_wrappers()
+    out = {}
+    small = examples[:DP_SMALL_CORPUS]
+    for mode, c, exs, tbl in (
+            ("chunked", cfg, examples, img_table),
+            ("streaming", cfg.replace(decode=dict(streaming="on")), small,
+             img_table[:DP_SMALL_CORPUS]),
+            ("two_phase", cfg.replace(decode=dict(two_phase="on")), small,
+             img_table[:DP_SMALL_CORPUS])):
+        for n in ("gru_fwd", "readout_topk"):
+            wrappers[n].launches = 0
+        hyps, st = vt.translate_corpus(params, c, exs, vocab, img_table=tbl,
+                                       mesh=mesh)
+        torch.cuda.synchronize()
+        out[mode] = (hyps, st, {n: wrappers[n].launches
+                                for n in ("gru_fwd", "readout_topk")})
+    return out
+
+
+def _dp_worker(torch, np, argv) -> int:
+    """One rank of phase 22: ``--dp-worker <tasks> <rank> <world> <store>
+    <out>``; tasks "train", "decode" or "train,decode"."""
+    import torch.distributed as dist
+
+    from vag_nmt_tpu_torch.parallel import init_distributed, make_mesh
+
+    tasks, rank, world, store, out = argv
+    dev = init_distributed(None, init_method=f"file://{store}")
+    mesh = make_mesh()
+    res = {"device": str(dev), "backend": mesh.backend,
+           "card": torch.cuda.get_device_name(dev)}
+    if "train" in tasks.split(","):
+        res["train"] = _dp_train_run(torch, np, dev, mesh)
+    if "decode" in tasks.split(","):
+        with torch.inference_mode():
+            res["decode"] = _dp_decode_run(torch, np, dev, mesh)
+    torch.save(res, f"{out}.{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def _mps_state() -> str:
+    """Whether the CUDA MPS daemon's pipe directory is there (MPS lets two
+    processes' kernels share the card's SMs at once; without it their
+    contexts time-slice)."""
+    import os
+
+    pipe = os.environ.get("CUDA_MPS_PIPE_DIRECTORY", "/tmp/nvidia-mps")
+    return f"MPS {'active' if os.path.exists(pipe) else 'not active'} " \
+           f"(pipe directory {pipe})"
+
+
+def _run_group(procs, logs, what, timeout):
+    """Waits for every process; on the timeout kills each one's session
+    (its children too) and raises; raises where any exits non-zero."""
+    import os
+    import signal
+
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+        raise AssertionError(f"{what}: no end within {timeout} s")
+    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = "\n".join(f"--- {what} process {i} ---\n"
+                          + logs[i].read_text()[-4000:] for i in bad)
+        raise AssertionError(f"{what}: process(es) {bad} failed\n{tails}")
+
+
+def _dp_spawn(torch, tasks, tag, cards):
+    """Runs ``tasks`` on DP_WORLD ranks of this script (each its own
+    process and session, one intra-op thread, its log under build/);
+    ``cards``: the CUDA_VISIBLE_DEVICES of the ranks ("0": one card
+    shared). Returns each rank's results."""
+    import os
+
+    root = _dp_root()
+    store, out = root / f"store_{tag}", root / f"out_{tag}"
+    env0 = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                         "LOCAL_WORLD_SIZE")}
+    procs, logs = [], []
+    for r in range(DP_WORLD):
+        env = dict(env0, RANK=str(r), WORLD_SIZE=str(DP_WORLD),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(DP_WORLD),
+                   CUDA_VISIBLE_DEVICES=cards, OMP_NUM_THREADS="1")
+        logs.append(root / f"rank{r}_{tag}.log")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+             tasks, str(r), str(DP_WORLD), str(store), str(out)],
+            cwd=str(Path(__file__).resolve().parent), env=env,
+            stdout=open(logs[-1], "w"), stderr=subprocess.STDOUT,
+            start_new_session=True))
+    _run_group(procs, logs, f"dp ranks {tag}", DP_SPAWN_TIMEOUT_S)
+    return [torch.load(f"{out}.{r}.pt", weights_only=False)
+            for r in range(DP_WORLD)]
+
+
+def _dp_check_train(torch, ranks, want, label, smi):
+    """(a)'s checks of each rank's run against this process's ``want``;
+    the measured values."""
+    f = {"backend": ranks[0]["backend"],
+         "devices": [r["device"] for r in ranks]}
+    w_loss = want["losses"]
+    for i, r in enumerate(ranks):
+        got = r["train"]
+        loss1 = abs(got["losses"][0] - w_loss[0]) / abs(w_loss[0])
+        later = max(abs(a - b) / abs(b) for a, b in
+                    zip(got["losses"][1:], w_loss[1:]))
+        gerr = float((got["grads"] - want["grads"]).norm()
+                     / want["grads"].norm())
+        d = (got["params"] - want["params"]).abs()
+        bound = DP_PARAM_ATOL + DP_PARAM_RTOL * want["params"].abs()
+        worst = float((d / bound).max())
+        f[f"rank{i}"] = {"loss1_rel": loss1, "later_loss_rel": later,
+                         "grad_rel": gerr, "param_err_over_tol": worst,
+                         "launches": got["launches"],
+                         "step_s": got["step_s"], "losses": got["losses"]}
+        if not (loss1 <= DP_LOSS1_RTOL and gerr <= DP_GRAD_RTOL
+                and later <= DP_LOSS_RTOL and worst <= 1.0):
+            raise AssertionError(f"dp train {label} rank {i}: {f[f'rank{i}']}")
+        if min(got["launches"].values()) <= 0:
+            raise AssertionError(f"dp train {label} rank {i}: a training "
+                                 f"kernel never launched {got['launches']}")
+    if ranks[0]["train"]["sha256"] != ranks[1]["train"]["sha256"]:
+        raise AssertionError(f"dp train {label}: the replicas' params differ")
+    f["replicas_identical"] = True
+    f["single_losses"] = w_loss
+    f["single_step_s"] = want["step_s"]
+    print(f"dp train {label} [{smi}]: " + json.dumps(f))
+    return f
+
+
+def _dp_check_decode(ranks, single, label, smi):
+    """(b)'s checks of each rank's decodes against this process's
+    ``single``; the measured values by mode."""
+    f = {}
+    for mode, (hyps, st, _) in single.items():
+        g = {"single_sentences_per_sec": st["sentences_per_sec"]}
+        for i, r in enumerate(ranks):
+            h, s, n = r["decode"][mode]
+            share = sum(a == b for a, b in zip(h, hyps)) / len(hyps)
+            g[f"rank{i}"] = {"identical_share": share, "launches": n,
+                             "sentences_per_sec": s["sentences_per_sec"],
+                             "rows_per_chunk": s["rows_per_chunk"],
+                             "beam_loop_steps": s["beam_loop_steps"]}
+            if len(h) != len(hyps) or share < DP_MIN_SHARE:
+                raise AssertionError(f"dp decode {label} {mode} rank {i}: {g}")
+            if min(n.values()) <= 0:
+                raise AssertionError(f"dp decode {label} {mode} rank {i}: a "
+                                     f"kernel never launched {n}")
+        if ranks[0]["decode"][mode][0] != ranks[1]["decode"][mode][0]:
+            raise AssertionError(f"dp decode {label} {mode}: the ranks' "
+                                 "hypotheses differ")
+        f[mode] = g
+        print(f"dp decode {label} {mode} [{smi}]: " + json.dumps(g))
+    return f
+
+
+def _dp_cli(torch, np, smi):
+    """(c): train DP_CLI_STEPS steps and translate test2016 under python -m
+    torch.distributed.run --nproc-per-node DP_WORLD on the card (no
+    --device: the card), each command with its own timeout."""
+    import os
+
+    import vag_nmt_tpu_torch as vt
+
+    root = _dp_root() / "cli"
+    data, run = root / "data", root / "run"
+    data.mkdir(parents=True)
+    _write_cli_data(np, data, vt.preset("m30k_ende_vag").model,
+                    DP_CLI_SPLITS)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["OMP_NUM_THREADS"] = "1"
+    f = {}
+
+    def torchrun(label, argv):
+        log = root / f"{label}.log"
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(DP_WORLD), "-m", "vag_nmt_tpu_torch",
+             *argv], cwd=str(Path(__file__).resolve().parent), env=env,
+            stdout=open(log, "w"), stderr=subprocess.STDOUT,
+            start_new_session=True)
+        _run_group([p], [log], f"torchrun {label}", DP_SPAWN_TIMEOUT_S)
+        text = log.read_text()
+        backends = sorted(set(
+            ln.split("backend ")[1].split(",")[0] for ln in text.splitlines()
+            if "[data parallel]" in ln and "backend " in ln))
+        results = [ln for ln in text.splitlines() if ln.startswith("{")]
+        f[label] = {"seconds": time.perf_counter() - t0, "backend": backends}
+        if len(results) != 1 or len(backends) != 1:
+            raise AssertionError(f"torchrun {label}: {len(results)} result "
+                                 f"lines, backends {backends}:\n{text[-3000:]}")
+        return json.loads(results[0])
+
+    res = torchrun("train", [
+        "train", "--preset", "m30k_ende_vag", "--data-dir", str(data),
+        "--out-dir", str(run), "--set", "data.dataset=multi30k",
+        "--max-steps", str(DP_CLI_STEPS),
+        "--set", f"train.eval_every_steps={DP_CLI_STEPS}",
+        "--set", "train.log_every_steps=10"])
+    if res["steps"] != DP_CLI_STEPS or "dev_bleu" not in res:
+        raise AssertionError(f"torchrun train: {res}")
+    meta = json.loads((run / "checkpoints" / "meta_last.json").read_text())
+    f["train"].update(dev_bleu=res["dev_bleu"],
+                      data_parallel=meta["data_parallel"])
+    hyp = root / "hyp.txt"
+    st = torchrun("translate", [
+        "translate", "--data-dir", str(data), "--checkpoint", str(run),
+        "--split", "test2016", "--output", str(hyp)])
+    lines = hyp.read_text().splitlines()
+    if len(lines) != DP_CLI_SPLITS["test2016"][0] or not any(lines):
+        raise AssertionError("torchrun translate: malformed output")
+    f["translate"].update(sentences_per_sec=st["sentences_per_sec"],
+                          rows_per_chunk=st["rows_per_chunk"])
+    print(f"dp cli [{smi}]: " + json.dumps(f))
+    return f
+
+
+def phase_data_parallel(torch, np, dev):
+    """Phase 22 (above). Returns fields."""
+    smi = _smi()
+    root = _dp_root()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    print(f"dp: {_mps_state()}; {torch.cuda.device_count()} card(s) visible")
+    f = {"card": smi}
+    t0 = time.perf_counter()
+    ranks = _dp_spawn(torch, "train,decode", "one_card", "0")
+    f["spawn_s"] = time.perf_counter() - t0
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"one card, two ranks: backend "
+                             f"{[r['backend'] for r in ranks]}, not gloo")
+    want = _dp_train_run(torch, np, dev, None)
+    f["train"] = _dp_check_train(torch, ranks, want, "one card (gloo)", smi)
+    with torch.inference_mode():
+        single = _dp_decode_run(torch, np, dev, None)
+    f["decode"] = _dp_check_decode(ranks, single, "one card (gloo)", smi)
+    f["cli"] = _dp_cli(torch, np, smi)
+    if torch.cuda.device_count() >= DP_WORLD:
+        nccl = _dp_spawn(torch, "train,decode", "nccl", ",".join(
+            str(i) for i in range(DP_WORLD)))
+        if {r["backend"] for r in nccl} != {"nccl"}:
+            raise AssertionError(f"a card a rank: backend "
+                                 f"{[r['backend'] for r in nccl]}")
+        f["nccl"] = {
+            "train": _dp_check_train(torch, nccl, want,
+                                     "a card a rank (nccl)", smi),
+            "decode": _dp_check_decode(nccl, single, "a card a rank (nccl)",
+                                       smi)}
+    else:
+        f["nccl"] = (f"did not run: {torch.cuda.device_count()} card visible, "
+                     f"NCCL needs a card for each of the {DP_WORLD} ranks")
+        print(f"dp nccl: {f['nccl']}")
+    print("dp: two ranks time-sharing one card; their times are no scaling "
+          "figure")
+    shutil.rmtree(root, ignore_errors=True)
+    return f
+
+
 def phase_profile(torch, what: str, run):
     """One run of a path under torch.profiler, device activity only; run()
     returns its step count (beam steps or train steps). One stream, so
@@ -3916,6 +4398,8 @@ def main() -> int:
         return 1
     import numpy as np
 
+    if sys.argv[1:2] == ["--dp-worker"]:       # a rank of phase 22
+        return _dp_worker(torch, np, sys.argv[2:])
     from vag_nmt_tpu_torch.core.device import resolve_device
     from vag_nmt_tpu_torch.ops import _build
 
@@ -3989,6 +4473,7 @@ def main() -> int:
     i_launches, i_grids = phase_ikea(torch, np, dev)
     cli = phase_cli(torch, np, dev)
     jax_run = phase_jax_run(torch, np, dev)
+    dp = phase_data_parallel(torch, np, dev)
     # Each kernel's launches come from the run of its own path: the decode
     # path for the decode kernels, the training path for the training
     # kernels, the serving modes that select them for beam_topk and dec_step,
@@ -4050,9 +4535,22 @@ def main() -> int:
             k["cli_launches"] = {c: f["launches"].get(k["name"], 0)
                                  for c, f in cli.items()}
     decode_kernels[1]["widths"] = widths
+    # each rank's launches on phase 22's paths: training (kernels 2-5) and
+    # the chunked decode (kernels 1 and 2)
+    for k in kernels:
+        n = k["name"]
+        per_rank = {}
+        for i in range(DP_WORLD):
+            r = dp["train"][f"rank{i}"]["launches"].get(n, 0) + \
+                dp["decode"]["chunked"][f"rank{i}"]["launches"].get(n, 0)
+            if r:
+                per_rank[f"rank{i}"] = r
+        if per_rank:
+            k["dp_launches"] = per_rank
     print(f"jax run: {json.dumps(jax_run)}")
     print(f"bf16 decode: {json.dumps(bf16_decode)}")
     print(f"bucketed and super-chunk decode: {json.dumps(bucketed)}")
+    print(f"data parallel: {json.dumps(dp)}")
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -175,9 +175,17 @@ def test_translate_corpus_unsupported_paths_raise():
                             device="cpu")
     exs = make_toy_examples(3)
     vocab = toy_vocab()
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the mesh decode is supported now (tests/test_torch_parallel.py holds
+    # it on two ranks): one process's mesh decodes as no mesh, and the
+    # bucketed path takes none
+    from vag_nmt_tpu_torch.parallel import make_mesh
+
+    assert vt.translate_corpus(params, cfg, exs, vocab, device="cpu",
+                               mesh=make_mesh())[0] == \
+        vt.translate_corpus(params, cfg, exs, vocab, device="cpu")[0]
+    with pytest.raises(ValueError, match="fused path"):
         vt.translate_corpus(params, cfg, exs, vocab, device="cpu",
-                            mesh=object())
+                            mesh=make_mesh(), fused=False)
     # the bucketed path is supported now (test_bucketed_* below hold it
     # against the fused path and the JAX package's bucketed path)
     got, st = vt.translate_corpus(params, cfg, exs, vocab, device="cpu",

@@ -1,6 +1,9 @@
 """The port's command line (counterpart of the JAX package's ``cli.py``):
-train, translate, score, retrieval and translate-text on a data directory.
+preprocess and make-toy (raw text to a data directory), then train,
+translate, score, retrieval and translate-text on a data directory.
 
+    python -m vag_nmt_tpu_torch preprocess --raw-dir R --out-dir D --langs en,de
+    python -m vag_nmt_tpu_torch make-toy  --out-dir D
     python -m vag_nmt_tpu_torch train     --preset m30k_ende_vag --data-dir D --out-dir O
     python -m vag_nmt_tpu_torch translate --data-dir D --checkpoint O \\
                                           --split test2016 --output hyp.txt
@@ -12,7 +15,16 @@ One parser, a preset (or a saved ``config.json``) and dotted overrides
 (``--set model.emb_dim=512``) cover every configuration. A run directory
 may be the port's or the JAX package's: its checkpoint is read by
 ``train/checkpoint.load_checkpoint``. Every command runs on the card
-unless ``--device cpu`` is given, and raises where there is no card."""
+unless ``--device cpu`` is given, and raises where there is no card.
+
+Data parallelism: under ``python -m torch.distributed.run
+--nproc-per-node N -m vag_nmt_tpu_torch ...`` (``WORLD_SIZE`` > 1) train,
+translate and retrieval join the process group (``parallel.
+init_distributed``: a card a rank where there are enough, NCCL; ranks
+sharing a card or on the CPU, gloo) and build the mesh from ``cfg.mesh``
+(``make_mesh``); one process builds none. Only rank 0 writes files and
+prints the result line; preprocess, make-toy and translate-text run on
+rank 0 alone."""
 
 from __future__ import annotations
 
@@ -27,9 +39,10 @@ import numpy as np
 import torch
 
 from vag_nmt_tpu_torch.core.config import Config, preset
-from vag_nmt_tpu_torch.core.device import resolve_device
+from vag_nmt_tpu_torch.core.device import resolve_device, world_env
+from vag_nmt_tpu_torch.parallel.sharding import host_shard
 
-NOT_PORTED = ("preprocess", "make-toy", "extract-features")
+NOT_PORTED = ("extract-features",)
 
 
 def _parse_overrides(pairs: Sequence[str]) -> Dict[str, Dict[str, Any]]:
@@ -99,6 +112,24 @@ def _sized_cfg(cfg: Config, src_vocab, tgt_vocab) -> Config:
                               "tgt_vocab_size": len(tgt_vocab)})
 
 
+def _rank0() -> bool:
+    """Whether this process writes: rank 0 of a launch, or the only one."""
+    env = world_env()
+    return env is None or env["rank"] == 0
+
+
+def _mesh_or_none(cfg: Config, dev: torch.device):
+    """The data-parallel mesh of a launch of several processes (from
+    cfg.mesh), None for one process."""
+    from vag_nmt_tpu_torch.parallel import init_distributed, make_mesh
+
+    if world_env() is None:
+        return None
+    init_distributed(dev)
+    return make_mesh(n_data=cfg.mesh.data_axis,
+                     n_model=max(1, cfg.mesh.model_axis))
+
+
 def _load_state(args, cfg: Config, dev: torch.device):
     from vag_nmt_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -110,6 +141,31 @@ def _load_state(args, cfg: Config, dev: torch.device):
 # ---------------------------------------------------------------------------
 # Commands
 # ---------------------------------------------------------------------------
+
+def cmd_preprocess(args) -> None:
+    from vag_nmt_tpu_torch.data.pipeline import preprocess_corpus
+
+    langs = args.langs.split(",")
+    splits = args.splits.split(",")
+    preprocess_corpus(args.raw_dir, args.out_dir, splits, langs,
+                      bpe_merges=args.bpe_merges,
+                      vocab_min_freq=args.vocab_min_freq,
+                      vocab_max_size=args.vocab_max_size,
+                      lower=not (args.no_lower or args.truecase),
+                      truecase=args.truecase,
+                      tokenizer=args.tokenizer)
+    print(f"preprocessed {splits} x {langs} -> {args.out_dir}")
+
+
+def cmd_make_toy(args) -> None:
+    from vag_nmt_tpu_torch.data.datasets import write_toy_corpus
+    from vag_nmt_tpu_torch.data.pipeline import preprocess_toy
+
+    write_toy_corpus(args.out_dir, n_train=args.n_train, n_val=args.n_val,
+                     n_test=args.n_test, img_dim=args.img_dim)
+    preprocess_toy(args.out_dir)
+    print(f"toy corpus -> {args.out_dir}")
+
 
 def cmd_train(args) -> None:
     from vag_nmt_tpu_torch.core.metrics import MetricsLogger
@@ -130,21 +186,26 @@ def cmd_train(args) -> None:
         cfg = cfg.replace(train={"max_epochs": args.max_epochs})
     dev_refs = [" ".join(remove_bpe(tgt_vocab.decode(ex.tgt)))
                 for ex in dev_exs]
-    os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
-    logger = MetricsLogger(os.path.join(args.out_dir, "metrics.jsonl"))
+    mesh = _mesh_or_none(cfg, dev)
+    logger = None
+    if _rank0():
+        os.makedirs(args.out_dir, exist_ok=True)
+        with open(os.path.join(args.out_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+        logger = MetricsLogger(os.path.join(args.out_dir, "metrics.jsonl"))
     anomaly = (torch.autograd.set_detect_anomaly(True) if args.debug_nans
                else contextlib.nullcontext())
     try:
-        with anomaly, maybe_trace(args.profile_dir):
+        with anomaly, maybe_trace(args.profile_dir if _rank0() else ""):
             result = train_loop(cfg, args.out_dir, train_exs, dev_exs,
-                                tgt_vocab, dev_refs, max_steps=args.max_steps,
-                                logger=logger, device=dev,
-                                debug_nans=args.debug_nans)
+                                tgt_vocab, dev_refs, mesh=mesh,
+                                max_steps=args.max_steps, logger=logger,
+                                device=dev, debug_nans=args.debug_nans)
     finally:
-        logger.close()
-    print(json.dumps(result))
+        if logger is not None:
+            logger.close()
+    if _rank0():
+        print(json.dumps(result))
 
 
 def cmd_translate(args) -> None:
@@ -158,10 +219,14 @@ def cmd_translate(args) -> None:
                                                  with_target=False)
     cfg = _sized_cfg(cfg, src_vocab, tgt_vocab)
     state = _load_state(args, cfg, dev)
-    with maybe_trace(args.profile_dir), torch.inference_mode():
+    mesh = _mesh_or_none(cfg, dev)
+    with maybe_trace(args.profile_dir if _rank0() else ""), \
+            torch.inference_mode():
         hyps, stats = translate_corpus(state.params, cfg, exs, tgt_vocab,
                                        beam_size=args.beam, nbest=args.nbest,
-                                       impl=args.impl, device=dev)
+                                       impl=args.impl, mesh=mesh, device=dev)
+    if not _rank0():
+        return
     with open(args.output, "w", encoding="utf-8") as f:
         if args.nbest:
             # Moses n-best list convention: "<sent-id> ||| <hyp> ||| <score>"
@@ -187,8 +252,9 @@ def cmd_score(args) -> None:
     if args.meteor:
         out["meteor"] = meteor_score(hyps, refs, lang=args.lang,
                                      jar=args.meteor_jar or None)
-    print(json.dumps(out))
-    print(str(r), file=sys.stderr)
+    if _rank0():
+        print(json.dumps(out))
+        print(str(r), file=sys.stderr)
 
 
 def cmd_retrieval(args) -> None:
@@ -202,19 +268,28 @@ def cmd_retrieval(args) -> None:
     exs, src_vocab, tgt_vocab = _load_split_data(cfg, args.split)
     cfg = _sized_cfg(cfg, src_vocab, tgt_vocab)
     state = _load_state(args, cfg, dev)
+    mesh = _mesh_or_none(cfg, dev)
     batcher = BucketBatcher(exs, cfg.decode.decode_batch_size,
                             cfg.data.length_buckets, include_image=True,
                             img_dim=cfg.model.img_feat_dim)
     n = len(exs)
     img = np.zeros((n, cfg.model.shared_dim), np.float32)
     txt = np.zeros((n, cfg.model.shared_dim), np.float32)
-    for batch in batcher.epoch(0, shuffle=False):
+    done = np.zeros((n,), bool)
+    # under a mesh each rank embeds every n_data-th batch
+    for batch in host_shard(list(batcher.epoch(0, shuffle=False))):
         ie, te = embeddings_for_retrieval(state.params, cfg.model, batch,
                                           device=dev)
         real = batch["sample_mask"] > 0
         img[batch["index"][real]] = ie.cpu().numpy()[real]
         txt[batch["index"][real]] = te.cpu().numpy()[real]
-    print(json.dumps(retrieval_recall(img, txt)))
+        done[batch["index"][real]] = True
+    if mesh is not None:
+        rows = torch.from_numpy(np.flatnonzero(done))
+        img, txt = (mesh.gather_rows(torch.from_numpy(x[done]), rows,
+                                     n).numpy() for x in (img, txt))
+    if _rank0():
+        print(json.dumps(retrieval_recall(img, txt)))
 
 
 def cmd_translate_text(args) -> None:
@@ -245,7 +320,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="vag_nmt_tpu_torch",
         epilog=f"Not ported yet: {', '.join(NOT_PORTED)} (the JAX package's "
-               "command line has them).")
+               "command line has it).")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def device(p):
@@ -262,6 +337,22 @@ def build_parser() -> argparse.ArgumentParser:
         if data:
             p.add_argument("--data-dir", required=True)
         device(p)
+
+    p = sub.add_parser("preprocess", help="tokenize+BPE+vocab artifacts")
+    p.add_argument("--raw-dir", required=True)
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--langs", default="en,de")
+    p.add_argument("--splits", default="train,val,test2016,test2017")
+    p.add_argument("--bpe-merges", type=int, default=10000)
+    p.add_argument("--vocab-min-freq", type=int, default=1)
+    p.add_argument("--vocab-max-size", type=int, default=0)
+    p.add_argument("--tokenizer", choices=("moses", "simple"),
+                   default="moses")
+    p.add_argument("--truecase", action="store_true",
+                   help="train+apply a truecaser instead of lowercasing")
+    p.add_argument("--no-lower", action="store_true",
+                   help="keep original casing (no truecaser, no lowercase)")
+    p.set_defaults(fn=cmd_preprocess, host=True)
 
     p = sub.add_parser("train", help="train a preset end to end")
     common(p)
@@ -323,13 +414,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="optional (N, 2048) .npy aligned with input lines")
     p.add_argument("--beam", type=int, default=None)
     device(p)
-    p.set_defaults(fn=cmd_translate_text)
+    p.set_defaults(fn=cmd_translate_text, host=True)
+
+    p = sub.add_parser("make-toy", help="materialize the synthetic toy corpus")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--n-train", type=int, default=400)
+    p.add_argument("--n-val", type=int, default=50)
+    p.add_argument("--n-test", type=int, default=50)
+    p.add_argument("--img-dim", type=int, default=64)
+    p.set_defaults(fn=cmd_make_toy, host=True)
     return ap
 
 
 def main(argv: Optional[List[str]] = None) -> None:
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    if getattr(args, "host", False) and not _rank0():
+        return        # a command without a mesh runs on rank 0 alone
+    joined = dist.is_available() and dist.is_initialized()
+    try:
+        args.fn(args)
+    finally:
+        if not joined and dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()     # the group this command joined
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ for both matmuls and cuDNN."""
 
 from __future__ import annotations
 
-from typing import Union
+import os
+from typing import Optional, Union
 
 import torch
 
@@ -18,15 +19,47 @@ DeviceLike = Union[None, str, torch.device]
 _IMPL_ALIASES = {"pallas": "kernel", "xla": "plain"}
 
 
+def world_env() -> Optional[dict]:
+    """This process's place in a launch of several processes, from the
+    variables ``python -m torch.distributed.run`` sets: {rank, world,
+    local_rank, local_world}; None outside such a launch (WORLD_SIZE unset
+    or 1)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return None
+    rank = int(os.environ["RANK"])
+    return {"rank": rank, "world": world,
+            "local_rank": int(os.environ.get("LOCAL_RANK", rank)),
+            "local_world": int(os.environ.get("LOCAL_WORLD_SIZE", world))}
+
+
+def _rank_card() -> Optional[int]:
+    """The card of this rank of a launch: ``LOCAL_RANK`` where the host
+    has a card for every local rank, else 0, shared. None outside a
+    launch."""
+    env = world_env()
+    if env is None:
+        return None
+    return (env["local_rank"]
+            if torch.cuda.device_count() >= env["local_world"] else 0)
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """None means the card. Raises when CUDA is asked for (or defaulted to)
-    and absent."""
+    """None means the card: under a launch of several processes this
+    rank's card (``cuda:LOCAL_RANK``, or ``cuda:0`` where the ranks share
+    one), made the current device. Raises when CUDA is asked for (or
+    defaulted to) and absent."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch path on the CPU")
+        if dev.index is None:
+            card = _rank_card()
+            if card is not None:
+                dev = torch.device("cuda", card)
+                torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":

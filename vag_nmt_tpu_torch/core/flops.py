@@ -1,5 +1,5 @@
-"""Analytic FLOP accounting (own copy of the train-side counts of the JAX
-package's ``core/flops.py``, with the H100 SXM's peaks beside the v5e's).
+"""Analytic FLOP and byte accounting (own copy of the JAX package's
+``core/flops.py``, with the H100 SXM's peaks beside the v5e's).
 
 Counts matmul FLOPs (2*m*k*n) mirroring the model code paths exactly:
 models/encoder.py (bidirectional GRU layers), models/decoder.py
@@ -11,9 +11,16 @@ models/model.py (decoder init). Elementwise/softmax work is ignored — it is
 Peak numbers: TPU v5e ≈ 197 TFLOP/s bf16, ≈ 819 GB/s HBM (public spec);
 H100 SXM 67 TFLOP/s fp32 outside the tensor cores, 495 TFLOP/s TF32 and
 989 TFLOP/s bf16 on the tensor cores (dense), 3.35 TB/s HBM (NVIDIA data
-sheet, at the full 700 W power limit)."""
+sheet, at the full 700 W power limit).
+
+``roofline`` takes both peaks as arguments, with no default: the roof a
+decode sits under depends on the dtype it resolves to (fp32 products on
+the tensor cores in 3xTF32, or bf16), where the JAX package defaults to
+the v5e's bf16 peak."""
 
 from __future__ import annotations
+
+from typing import Dict
 
 from vag_nmt_tpu_torch.core.config import Config, ModelConfig
 
@@ -77,3 +84,56 @@ def train_step_flops(cfg: Config, B: int, T: int, Tt: int) -> int:
     if m.multimodal:
         fwd += 2 * B * B * m.shared_dim        # VSE similarity matrix
     return 3 * fwd
+
+
+def decode_flops(cfg: Config, n_sentences: int, beam_size: int, T: int,
+                 steps_per_sentence: float) -> float:
+    """Whole-corpus beam decode: per-sentence prepare + executed loop steps
+    x (beam rows x step). ``steps_per_sentence`` should be the realized
+    loop trips (chunk max hypothesis lengths), not max_len."""
+    m = cfg.model
+    return n_sentences * (prepare_flops(m, T)
+                          + steps_per_sentence * beam_size
+                          * decode_step_flops(m, T))
+
+
+def param_count(m: ModelConfig) -> int:
+    """Matmul-weight parameter count along the decode path (embeddings and
+    biases excluded: gathers and adds stream through no product)."""
+    E, H, D, A, C = (m.emb_dim, m.hidden_dim, m.dec_hidden_dim, m.attn_dim,
+                     m.ctx_dim)
+    R, V = m.emb_dim, m.tgt_vocab_size
+    n = 0
+    for layer in range(m.enc_layers):
+        in_dim = E if layer == 0 else C
+        n += 2 * (in_dim * 3 * H + H * 3 * H)
+    n += C * A + D * A + A                      # decoder attention
+    n += E * 3 * D + D * 3 * D + C * 3 * D + D * 3 * D
+    n += E * R + D * R + C * R + R * V
+    return n
+
+
+def decode_step_bytes(m: ModelConfig, rows: int, T: int,
+                      dtype_bytes: int = 2) -> int:
+    """Memory traffic of one decode step: the whole weight set once (the
+    loop is sequential, no reuse across steps) plus each row's attention
+    reads of ctx (T, C) and ctx_proj (T, A)."""
+    weights = param_count(m) * dtype_bytes
+    acts = rows * T * (m.ctx_dim + m.attn_dim) * dtype_bytes
+    return weights + acts
+
+
+def roofline(achieved_flops_per_s: float, bytes_per_s: float,
+             peak_flops: float, peak_bytes: float) -> Dict[str, float]:
+    """Compute utilization ("mfu"), memory utilization ("hbm_util") and
+    the roof that binds ("bound"): the higher utilization's ("mxu" for
+    compute, "hbm" for memory) when it reaches 0.5, or exceeds 0.15 and
+    twice the other, else "latency"."""
+    mfu = achieved_flops_per_s / peak_flops
+    hbm = bytes_per_s / peak_bytes
+    hi, lo, hi_name = ((mfu, hbm, "mxu") if mfu >= hbm else (hbm, mfu, "hbm"))
+    if hi >= 0.5 or (hi > 2 * lo and hi > 0.15):
+        bound = hi_name
+    else:
+        bound = "latency"
+    return {"mfu": mfu, "hbm_util": hbm, "bound": bound}

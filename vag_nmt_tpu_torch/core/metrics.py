@@ -1,6 +1,6 @@
 """Structured metrics logging: a JSON-lines file plus a human-readable
-line on a stream (own copy of the JAX package's ``core/metrics.py``
-``MetricsLogger``)."""
+line on a stream, and a step timer that waits for the card (own copy of
+the JAX package's ``core/metrics.py``)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ import sys
 import time
 from pathlib import Path
 from typing import Any, Dict, IO, Optional
+
+import torch
 
 
 class MetricsLogger:
@@ -33,3 +35,20 @@ class MetricsLogger:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
+
+
+class StepTimer:
+    """Wall-clock timer that waits for the work it times: ``stop`` first
+    synchronizes the CUDA device of each tensor it is given (CPU tensors
+    need no fence: their work is done when they exist)."""
+
+    def __init__(self):
+        self._t0 = 0.0
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, *fence_on: torch.Tensor) -> float:
+        for dev in {x.device for x in fence_on if x.is_cuda}:
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - self._t0

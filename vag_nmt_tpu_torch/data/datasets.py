@@ -121,3 +121,24 @@ def make_toy_examples(
             img = bow @ proj
         out.append(Example(src=src, tgt=tgt, img=img, index=i))
     return out
+
+
+def write_toy_corpus(data_dir: str, n_train: int = 400, n_val: int = 50,
+                     n_test: int = 50, seed: int = 0,
+                     img_dim: int = 64) -> None:
+    """The toy task as text files ({split}.en, {split}.de) and feature
+    matrices ({split}_features.npy) for train, val and test, so the text
+    pipeline and the command line run end to end (``make-toy``)."""
+    os.makedirs(data_dir, exist_ok=True)
+    vocab = toy_vocab()
+    for split, n, s in (("train", n_train, seed), ("val", n_val, seed + 1),
+                        ("test", n_test, seed + 2)):
+        exs = make_toy_examples(n, seed=s, img_dim=img_dim, multimodal=True)
+        with open(os.path.join(data_dir, f"{split}.en"), "w") as f:
+            for ex in exs:
+                f.write(" ".join(vocab.itos[t] for t in ex.src) + "\n")
+        with open(os.path.join(data_dir, f"{split}.de"), "w") as f:
+            for ex in exs:
+                f.write(" ".join(vocab.itos[t] for t in ex.tgt) + "\n")
+        feats = np.stack([ex.img for ex in exs])
+        np.save(os.path.join(data_dir, f"{split}_features.npy"), feats)

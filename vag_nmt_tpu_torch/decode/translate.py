@@ -48,6 +48,7 @@ from vag_nmt_tpu_torch.models.layers import compute_dtype
 from vag_nmt_tpu_torch.models.model import (DecodeState, cast_floats,
                                             decode_opts, decode_params,
                                             prepare_decode)
+from vag_nmt_tpu_torch.parallel.sharding import rows_of_chunks
 
 SUPER_CHUNK_ROWS = 1024
 
@@ -75,10 +76,6 @@ def _row_caps(cfg: Config, max_len: int,
     cap = torch.ceil(d.max_len_factor * lens.to(torch.float32)).to(
         torch.long) + d.max_len_offset
     return cap.clamp(1, max_len)
-
-
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is a later slice of the PyTorch port")
 
 
 def _use_streaming(cfg: Config, beam_size: int) -> bool:
@@ -142,8 +139,8 @@ def _check_supported(nbest: int, beam_size: int, fused: bool, mesh) -> None:
             raise ValueError("nbest output requires beam_size > 1")
         if not fused:
             raise ValueError("nbest output requires the fused decode path")
-    if mesh is not None:
-        raise _later_slice("mesh-sharded decode")
+    if mesh is not None and not fused:
+        raise ValueError("mesh-sharded decode requires the fused path")
 
 
 def super_chunks(nb: int, B: int) -> Tuple[int, int]:
@@ -206,7 +203,17 @@ def translate_corpus(
 
     fused=False takes the bucketed path (``BucketBatcher`` in example
     order, one encode and one beam search, or greedy at beam 1, a batch;
-    with it nbest raises ValueError). mesh raises NotImplementedError.
+    with it nbest raises ValueError).
+
+    mesh: a data-parallel mesh (``parallel.make_mesh``), the same call on
+    every rank (fused path only, else ValueError). B is rounded up to a
+    multiple of the data axis; super-chunks are planned globally and each
+    rank decodes its contiguous B / n_data rows of every chunk (streaming
+    and two-phase: one pool, or one ladder, of its own rows a
+    super-chunk). The hypotheses are gathered in example order and
+    returned on every rank, equal to one process's: each row's decode is
+    its own. The trip stats are the max over the ranks of each chunk's
+    (``beam_loop_steps`` their sum), reruns their sum.
 
     beam_size 1 decodes greedily; beam search otherwise: pooled per
     super-chunk when the streaming-refill decoder is on (VAG_STREAM_DECODE
@@ -240,6 +247,10 @@ def translate_corpus(
     max_len = max_len if max_len is not None else cfg.decode.max_len
     B = batch_size if batch_size is not None else cfg.decode.decode_batch_size
     _check_supported(nbest, beam_size, fused, mesh)
+    n_data = 1 if mesh is None else mesh.n_data
+    if B % n_data:
+        # equal rows on every rank; filler rows replicate real ones
+        B += n_data - B % n_data
     dtype = compute_dtype(cfg.model)
     if dtype != torch.float32:
         params = cast_floats(params, dtype)     # once per call
@@ -295,6 +306,13 @@ def translate_corpus(
             img_table = build_img_table(examples, m.img_feat_dim, device=dev)
         img_table = img_table.to(dev)
 
+    mine = None
+    if n_data > 1:
+        # this rank's rows of every chunk; it decodes chunks of Bd rows
+        mine = rows_of_chunks(nb, B, mesh)
+        src, lens, ids = src[mine], lens[mine], ids[mine]
+    Bd = B // n_data
+
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -304,9 +322,9 @@ def translate_corpus(
     # their scores (the beam loops rank beams best first)
     nb_k = min(nbest, beam_size) if nbest else 0
     rk = (nb_k,) if nbest else ()
-    out_toks = np.zeros((nb * B, *rk, max_len), np.int64)
-    out_lens = np.zeros((nb * B, *rk), np.int64)
-    out_scores = np.zeros((nb * B, nb_k), np.float32)
+    out_toks = np.zeros((nb * Bd, *rk, max_len), np.int64)
+    out_lens = np.zeros((nb * Bd, *rk), np.int64)
+    out_scores = np.zeros((nb * Bd, nb_k), np.float32)
 
     def keep(rows, res):
         """The rows' results of one decode (a BeamResult) into the outputs."""
@@ -326,7 +344,7 @@ def translate_corpus(
     block_ngram, unroll, beam_kw = _beam_args(cfg, beam_size, max_len,
                                               tables, impl, opts, dev)
     for sc in range(ns):
-        rows = slice(sc * S * B, (sc + 1) * S * B)
+        rows = slice(sc * S * Bd, (sc + 1) * S * Bd)
         src_d = torch.from_numpy(src[rows]).to(dev)
         lens_d = torch.from_numpy(lens[rows]).to(dev)
         batch = {"src": src_d,
@@ -338,7 +356,7 @@ def translate_corpus(
         row_cap = _row_caps(cfg, max_len, lens_d)
         if streaming:
             res, steps, n_refill = beam_search_streaming(
-                params, m, state, slots=B, refill_threshold=d.refill_threshold,
+                params, m, state, slots=Bd, refill_threshold=d.refill_threshold,
                 row_cap=row_cap, **beam_kw)
             keep(rows, res)
             chunk_steps.append(steps)
@@ -346,7 +364,7 @@ def translate_corpus(
             continue
         if two_phase:
             res, steps1, steps2 = beam_search_two_phase(
-                params, m, state, chunk=B,
+                params, m, state, chunk=Bd,
                 split_len=d.split_len or max(16, max_len // 4),
                 row_cap=row_cap, **beam_kw)
             keep(rows, res)
@@ -354,10 +372,10 @@ def translate_corpus(
             phase2.append(steps2)
             continue
         for c in range(S):
-            cr = slice(c * B, (c + 1) * B)
+            cr = slice(c * Bd, (c + 1) * Bd)
             chunk = DecodeState(*(x[cr] for x in state))
             cap = None if row_cap is None else row_cap[cr]
-            g = slice(sc * S * B + c * B, sc * S * B + (c + 1) * B)
+            g = slice(sc * S * Bd + c * Bd, sc * S * Bd + (c + 1) * Bd)
             if beam_size <= 1:
                 res = greedy_decode(params, m, chunk, max_len, tables=tables,
                                     row_cap=cap, block_ngram=block_ngram,
@@ -370,6 +388,14 @@ def translate_corpus(
                 keep(g, res)
                 reruns += res.reruns
             chunk_steps.append(res.steps)
+    if mine is not None:
+        out_toks, out_lens, out_scores = (
+            mesh.gather_rows(torch.from_numpy(x), mine, nb * B).numpy()
+            for x in (out_toks, out_lens, out_scores))
+        chunk_steps, refills, phase2 = (
+            mesh.all_reduce(torch.tensor(x, dtype=torch.int64), "max").tolist()
+            if x else x for x in (chunk_steps, refills, phase2))
+        reruns = int(mesh.all_reduce(torch.tensor(reruns)))
     elapsed = time.perf_counter() - t0
 
     if nbest:

@@ -8,7 +8,7 @@ the JAX package gives them, and its
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -56,17 +56,32 @@ def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
     return mm(x, params["w"]) + params["b"]
 
 
-def dropout(gen: Optional[torch.Generator], x: torch.Tensor, rate: float,
-            train: bool) -> torch.Tensor:
+class RowDraws(NamedTuple):
+    """A step's generator under data parallelism: x holds rows [start,
+    start + len(x)) of a global batch of ``total`` rows, and each draw is
+    made at the global batch's shape, of which x takes its rows. The masks
+    are then the single process's, draw for draw."""
+    gen: torch.Generator
+    start: int
+    total: int
+
+
+def dropout(gen: Union[None, torch.Generator, RowDraws], x: torch.Tensor,
+            rate: float, train: bool) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate). Identity unless training with a
     generator and rate > 0. The draws come from ``gen`` (on x's device), so
-    they differ from the JAX package's threefry bits."""
+    they differ from the JAX package's threefry bits; a ``RowDraws`` draws
+    at the global batch's shape (dim 0 the batch) and takes x's rows."""
     if not train or rate <= 0.0 or gen is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    if isinstance(gen, RowDraws):
+        u = torch.rand((gen.total,) + tuple(x.shape[1:]), generator=gen.gen,
+                       device=x.device)[gen.start:gen.start + x.shape[0]]
+    else:
+        u = torch.rand(x.shape, generator=gen, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

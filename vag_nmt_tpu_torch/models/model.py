@@ -14,7 +14,7 @@ under the JAX package's own paths, in JAX's ``(in, out)`` layout.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,10 +25,12 @@ from vag_nmt_tpu_torch.core.knobs import decode_knobs
 from vag_nmt_tpu_torch.models import decoder as dec
 from vag_nmt_tpu_torch.models import encoder as enc
 from vag_nmt_tpu_torch.models import vse
-from vag_nmt_tpu_torch.models.layers import glorot_uniform, masked_mean, mm
+from vag_nmt_tpu_torch.models.layers import (RowDraws, glorot_uniform,
+                                             masked_mean, mm)
 from vag_nmt_tpu_torch.ops.attention import precompute_ctx_proj
 from vag_nmt_tpu_torch.ops.readout_topk import ban_mask, fused_readout_topk
 from vag_nmt_tpu_torch.ops.topk import beam_topk
+from vag_nmt_tpu_torch.parallel.sharding import BatchShard
 
 Params = Dict[str, Any]
 
@@ -210,8 +212,9 @@ def _encode_and_ground(params: Params, cfg: ModelConfig,
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            generator: Optional[torch.Generator] = None, *,
-            train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            generator: Union[None, torch.Generator, RowDraws] = None, *,
+            train: bool = True, shard: Optional[BatchShard] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Joint loss L = CE + vse_weight * VSE; returns (loss, aux) with aux
     keys ce, acc, ntokens, loss and, multimodal, vse (0-dim tensors on the
     params' device).
@@ -220,7 +223,16 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     tgt_in (B, Tt) int starting with <sos>, tgt_out (B, Tt) ending with
     <eos>, tgt_mask (B, Tt); img (B, F) when cfg.multimodal; optional
     sample_mask (B,). Dropout (train=True) draws from ``generator``: the
-    encoder's first, then the decoder's."""
+    encoder's first, then the decoder's.
+
+    shard (data parallelism): batch holds this rank's rows of a global
+    batch. CE and accuracy are normalized by the global batch's token
+    count, so ce, acc and loss are this rank's shares of the CE part: the
+    sum over the ranks of ce or acc is the global value, and of the
+    gradients the global gradient. The VSE loss takes its in-batch
+    negatives over the global batch (``BatchShard.splice``): vse is the
+    global value on every rank, its gradient this rank's part of the
+    global one; ntokens is global."""
     ctx, s0, img_emb, txt_emb = _encode_and_ground(
         params, cfg, batch, train=train, generator=generator)
     logits = dec.teacher_forced_logits(
@@ -230,15 +242,20 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     logp = torch.log_softmax(logits, dim=-1)
     tgt_logp = torch.gather(logp, -1, tgt_out[..., None])[..., 0]
     tmask = batch["tgt_mask"].to(torch.float32)
-    ntok = tmask.sum().clamp_min(1.0)
+    ntokens = tmask.sum() if shard is None else shard.ntokens
+    ntok = ntokens.clamp_min(1.0)
     ce = -(tgt_logp * tmask).sum() / ntok
     acc = ((logits.argmax(-1) == tgt_out) * tmask).sum() / ntok
-    aux = {"ce": ce, "acc": acc, "ntokens": tmask.sum()}
+    aux = {"ce": ce, "acc": acc, "ntokens": ntokens}
     total = ce
     if cfg.multimodal:
+        sample_mask = batch.get("sample_mask")
+        if shard is not None:
+            img_emb, txt_emb = shard.splice(img_emb), shard.splice(txt_emb)
+            sample_mask = shard.sample_mask
         vse_l = vse.max_margin_loss(img_emb, txt_emb, cfg.vse_margin,
                                     cfg.vse_hard_negatives,
-                                    sample_mask=batch.get("sample_mask"))
+                                    sample_mask=sample_mask)
         total = ce + cfg.vse_weight * vse_l
         aux["vse"] = vse_l
     aux["loss"] = total

@@ -9,10 +9,18 @@ port trains on the same batches in the same order as the JAX loop (which
 runs each stack as one K-step dispatch). Image features and compact
 batches are kept: the (N, F) feature table lives on the device and batches
 carry row ids. The host reads the device only at log points (one small
-row of metrics), at evals and at checkpoints."""
+row of metrics), at evals and at checkpoints.
+
+Under a data-parallel mesh every rank builds the same batch order and
+trains on its rows of each batch (``train/step.py``); only rank 0 logs
+and writes checkpoints, and every rank waits for a save at a barrier;
+resume reads on every rank. The dev eval decodes through the mesh and
+every rank scores the gathered hypotheses, so the LR-decay and
+early-stop decisions agree without a broadcast."""
 
 from __future__ import annotations
 
+import io
 import os
 import time
 from typing import Dict, Iterable, Iterator, Optional, Sequence
@@ -27,6 +35,7 @@ from vag_nmt_tpu_torch.data.batching import Batch, BucketBatcher, Example
 from vag_nmt_tpu_torch.data.vocab import Vocab
 from vag_nmt_tpu_torch.decode.translate import build_img_table, translate_corpus
 from vag_nmt_tpu_torch.evaluation.bleu import corpus_bleu
+from vag_nmt_tpu_torch.parallel.sharding import Mesh
 from vag_nmt_tpu_torch.train.checkpoint import (
     has_checkpoint,
     load_checkpoint,
@@ -59,6 +68,7 @@ def train_loop(
     tgt_vocab: Vocab,
     dev_refs: Sequence[str],          # de-BPE'd tokenized reference lines
     *,
+    mesh: Optional[Mesh] = None,
     max_steps: Optional[int] = None,
     logger: Optional[MetricsLogger] = None,
     device: DeviceLike = None,
@@ -70,12 +80,16 @@ def train_loop(
     A run stopped at max_steps and resumed equals an uninterrupted run bit
     for bit on the same device. debug_nans: read each step's loss and raise
     FloatingPointError at the first that is not finite (one host read a
-    step)."""
+    step). mesh: a data-parallel mesh (``parallel.make_mesh``), the same
+    call on every rank; ranks other than 0 write nothing (their logger
+    is not used)."""
     dev = resolve_device(device)
+    if mesh is not None and not mesh.is_main:
+        logger = MetricsLogger(None, stream=io.StringIO())
     log = logger or MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
     try:
         return _train(cfg, out_dir, train_examples, dev_examples, tgt_vocab,
-                      dev_refs, max_steps, log, dev, debug_nans)
+                      dev_refs, max_steps, log, dev, debug_nans, mesh)
     finally:
         if logger is None:
             log.close()
@@ -85,8 +99,21 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
            dev_examples: Sequence[Example], tgt_vocab: Vocab,
            dev_refs: Sequence[str], max_steps: Optional[int],
            log: MetricsLogger, dev: torch.device,
-           debug_nans: bool = False) -> Dict[str, float]:
+           debug_nans: bool = False,
+           mesh: Optional[Mesh] = None) -> Dict[str, float]:
     ckpt_dir = os.path.join(out_dir, cfg.train.checkpoint_dir)
+    run_meta = {"compute_dtype": cfg.model.compute_dtype}
+    if mesh is not None:
+        run_meta["data_parallel"] = {"n_data": mesh.n_data,
+                                     "backend": mesh.backend}
+        log.log("data_parallel", **run_meta["data_parallel"])
+
+    def save(tag: str, state: TrainState, meta: Dict) -> None:
+        if mesh is None or mesh.is_main:
+            save_checkpoint(ckpt_dir, tag, state, {**meta, **run_meta})
+        if mesh is not None:
+            mesh.barrier()
+
     m = cfg.model
     state = create_train_state(
         cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
@@ -113,7 +140,7 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
         train_examples, cfg.data.batch_size, cfg.data.length_buckets,
         seed=cfg.data.shuffle_seed, image_ids=use_table,
         img_dim=m.img_feat_dim, compact=compact)
-    step_fn = make_train_step(cfg, with_img_table=use_table)
+    step_fn = make_train_step(cfg, mesh=mesh, with_img_table=use_table)
     K = max(1, int(cfg.train.steps_per_dispatch))
 
     start_epoch = start_cursor = 0
@@ -142,14 +169,12 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
             hyps, dstats = translate_corpus(
                 state.params, cfg, dev_examples, tgt_vocab,
                 beam_size=cfg.decode.beam_size, img_table=dev_img_table,
-                device=dev)
+                mesh=mesh, device=dev)
         bleu = corpus_bleu(hyps, list(dev_refs)).bleu
         if bleu > best_bleu:
             best_bleu = bleu
             evals_since_best = 0
-            save_checkpoint(ckpt_dir, "best", state,
-                            {"epoch": epoch, "best_bleu": best_bleu,
-                             "compute_dtype": cfg.model.compute_dtype})
+            save("best", state, {"epoch": epoch, "best_bleu": best_bleu})
         else:
             evals_since_best += 1
             if evals_since_best % cfg.train.lr_decay_patience == 0:
@@ -162,6 +187,7 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
         return state, evals_since_best >= cfg.train.early_stop_patience
 
     log_every = max(cfg.train.log_every_steps, 1)
+    log_rows = mesh is None or mesh.is_main     # one host read a log row
     log_mod = 1 % log_every
     flops_by_shape: Dict = {}
     last_t, last_step = time.perf_counter(), state.step
@@ -194,7 +220,7 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
                 raise FloatingPointError(f"loss {float(aux['loss'])} at "
                                          f"step {state.step}")
             cursor += 1
-            if state.step % log_every == log_mod:
+            if state.step % log_every == log_mod and log_rows:
                 log_row(aux, batch, epoch)
             if (cfg.train.eval_every_steps > 0
                     and state.step % cfg.train.eval_every_steps == 0):
@@ -211,12 +237,10 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
         # A mid-epoch stop records the current epoch and the in-epoch
         # cursor, so resume continues at the exact next batch; an epoch's
         # end records (epoch + 1, cursor 0).
-        save_checkpoint(ckpt_dir, "last", state,
-                        {"epoch": epoch if interrupted else epoch + 1,
-                         "epoch_cursor": cursor if interrupted else 0,
-                         "best_bleu": best_bleu,
-                         "evals_since_best": evals_since_best,
-                         "compute_dtype": cfg.model.compute_dtype})
+        save("last", state, {"epoch": epoch if interrupted else epoch + 1,
+                             "epoch_cursor": cursor if interrupted else 0,
+                             "best_bleu": best_bleu,
+                             "evals_since_best": evals_since_best})
         last_t, last_step = time.perf_counter(), state.step
         if stop:
             break

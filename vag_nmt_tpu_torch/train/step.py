@@ -1,7 +1,16 @@
-"""The train step (counterpart of the single-device path of the JAX
-package's ``train/step.py``): expand a compact batch, gather the image
-rows from the device table, the joint loss, its gradient through the
-kernels' autograd Functions, then clip + Adam + apply (train/state.py).
+"""The train step (counterpart of the JAX package's ``train/step.py``):
+expand a compact batch, gather the image rows from the device table, the
+joint loss, its gradient through the kernels' autograd Functions, then
+clip + Adam + apply (train/state.py).
+
+Under a data-parallel mesh (``parallel/sharding.py``) every rank gets the
+same global batch and takes its contiguous block of rows; the loss is
+the global one (``models/model.loss_fn``'s shard), each dropout draw is
+made at the global batch's shape (``layers.RowDraws``), one all-reduce a
+step sums the gradients (and the CE's shares) through one flat buffer,
+and clip + Adam then run identically on every rank, so the replicas stay
+bit-identical and equal the single process's run on the global batch up
+to the order of the sums.
 
 The step's dropout draws come from a generator seeded from
 (cfg.train.seed + 1, state.step), as the JAX step folds ``state.step``
@@ -11,13 +20,15 @@ nothing back to the host: aux stays on the device."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vag_nmt_tpu_torch.core.config import EOS_ID, SOS_ID, Config
+from vag_nmt_tpu_torch.models.layers import RowDraws
 from vag_nmt_tpu_torch.models.model import loss_fn
+from vag_nmt_tpu_torch.parallel.sharding import BatchShard, Mesh
 from vag_nmt_tpu_torch.train.state import (
     TrainState,
     apply_update,
@@ -80,7 +91,29 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     return gen
 
 
-def make_train_step(cfg: Config, *, with_img_table: bool = False
+def _shard(mesh: Mesh, b: Dict[str, torch.Tensor]
+           ) -> Tuple[BatchShard, Dict[str, torch.Tensor]]:
+    """This rank's rows of the global batch b (every key is per row), and
+    what the loss needs of the whole batch."""
+    total = b["src"].shape[0]
+    rows = mesh.rows(total)
+    shard = BatchShard(mesh, rows.start, rows.stop, total,
+                       b["tgt_mask"].to(torch.float32).sum(),
+                       b.get("sample_mask"))
+    return shard, {k: v[rows] for k, v in b.items()}
+
+
+def _all_reduce_flat(mesh: Mesh, tensors: List[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+    """The sums over the ranks of fp32 tensors, through one flat buffer
+    and one all-reduce."""
+    flat = mesh.all_reduce(torch.cat([t.reshape(-1) for t in tensors]))
+    return [x.view_as(t) for x, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def make_train_step(cfg: Config, *, mesh: Optional[Mesh] = None,
+                    with_img_table: bool = False
                     ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns step(state, batch, img_table=None) -> (new state, aux).
 
@@ -89,7 +122,16 @@ def make_train_step(cfg: Config, *, with_img_table: bool = False
     ``img_table`` (N, F), already on the device, instead of "img" rows.
     aux: the loss_fn keys plus grad_norm (before the clip) and lr, 0-dim
     tensors on the device. The kernels run as cfg.model.gru_impl and
-    cfg.model.dec_scan_impl say ("auto": kernels for CUDA tensors)."""
+    cfg.model.dec_scan_impl say ("auto": kernels for CUDA tensors).
+
+    mesh: a data-parallel mesh (``parallel.make_mesh``): batch is the
+    global batch, the same on every rank, of which each rank trains on its
+    rows; aux holds the global values. Raises ValueError where the data
+    axis does not divide cfg.data.batch_size (or a batch's rows)."""
+    if mesh is not None and mesh.n_data > 1:
+        mesh.rows(cfg.data.batch_size)          # raises unless it divides
+    else:
+        mesh = None
 
     def step(state: TrainState, batch: Batch,
              img_table: Optional[torch.Tensor] = None):
@@ -97,16 +139,27 @@ def make_train_step(cfg: Config, *, with_img_table: bool = False
         b = to_device(batch, dev)
         if "src_len" in b:
             b = expand_compact_batch(b)
+        gen = step_generator(cfg.train.seed + 1, state.step, dev)
+        shard = None
+        if mesh is not None:
+            shard, b = _shard(mesh, b)
+            gen = RowDraws(gen, shard.start, shard.total)
         if with_img_table:
             b["img"] = img_table[b.pop("img_ids").long()]
-        gen = step_generator(cfg.train.seed + 1, state.step, dev)
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(state.params)]
         params = tree_unflatten(state.params, leaves)
-        loss, aux = loss_fn(params, cfg.model, b, gen, train=True)
+        loss, aux = loss_fn(params, cfg.model, b, gen, train=True,
+                            shard=shard)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        if shard is not None:
+            *grads, ce, acc = _all_reduce_flat(
+                mesh, grads + [aux["ce"].detach(), aux["acc"].detach()])
+            aux["ce"], aux["acc"] = ce, acc
+            aux["loss"] = ce if "vse" not in aux else \
+                ce + cfg.model.vse_weight * aux["vse"]
         new_state, norm = apply_update(cfg, state, grads)
         aux = {k: v.detach() for k, v in aux.items()}
         aux["grad_norm"] = norm
