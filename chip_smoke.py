@@ -3714,6 +3714,22 @@ def phase_gru_bf16_decode(torch, np, dev):
 # the fp32 decode (1b, not 1), VAG_ATTN_E_DTYPE=fp32 in the bf16 decode, the
 # unfused bf16 step (kernel 6 once a beam step), and Translator with
 # decode.compute_dtype=bfloat16 on raw lines.
+def _init_params(torch, m, seed, dev):
+    """init_params(m) from ``seed``, drawn under one intra-op thread:
+    torch's QR on the CPU (the orthogonal init) rounds apart with the
+    thread count, and phases 22 and 23 hold ranks started with
+    OMP_NUM_THREADS=1 against this process."""
+    import vag_nmt_tpu_torch as vt
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return vt.init_params(m, torch.Generator().manual_seed(seed),
+                              device=dev)
+    finally:
+        torch.set_num_threads(n)
+
+
 def _main_corpus(torch, np, dev):
     """Phase 4's model, corpus, vocab and feature table."""
     import vag_nmt_tpu_torch as vt
@@ -3723,7 +3739,7 @@ def _main_corpus(torch, np, dev):
 
     cfg = vt.preset("m30k_ende_vag")
     m = cfg.model
-    params = vt.init_params(m, torch.Generator().manual_seed(0), device=dev)
+    params = _init_params(torch, m, 0, dev)
     rng = np.random.RandomState(0)
     examples = []
     for i in range(N_SENT):
@@ -4002,14 +4018,17 @@ def _dp_root():
     return Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
 
 
-def _dp_train_setup(torch, np, dev):
-    """Phase 8's model, corpus and batch stream: (cfg, the first DP_STEPS
-    batches, the feature table, the seed's init)."""
+def _dp_train_setup(torch, np, dev, preset="m30k_ende_vag", mesh=None):
+    """Phase 8's corpus and batch stream at ``preset``'s width: (cfg, the
+    first DP_STEPS batches, the feature table, the seed's init; under a
+    mesh with a model axis, this rank's vocab slices of it)."""
     import vag_nmt_tpu_torch as vt
     from vag_nmt_tpu_torch.data.batching import BucketBatcher
+    from vag_nmt_tpu_torch.parallel.sharding import shard_tree
     from vag_nmt_tpu_torch.train.loop import _step_rows
+    from vag_nmt_tpu_torch.train.state import state_from_params
 
-    cfg = vt.preset("m30k_ende_vag")
+    cfg = vt.preset(preset)
     m = cfg.model
     train = _train_corpus(np, m, N_TRAIN_PAIRS, seed=8)
     batcher = BucketBatcher(train, cfg.data.batch_size, cfg.data.length_buckets,
@@ -4018,28 +4037,37 @@ def _dp_train_setup(torch, np, dev):
     batches = list(_step_rows(batcher.epoch_stacked(
         0, cfg.train.steps_per_dispatch), 0))[:DP_STEPS]
     table = vt.build_img_table(train, m.img_feat_dim, device=dev)
-    state0 = vt.create_train_state(
-        cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
+    state0 = state_from_params(cfg, shard_tree(
+        _init_params(torch, m, cfg.train.seed, dev), mesh))
     return cfg, batches, table, state0
 
 
-def _dp_train_run(torch, np, dev, mesh):
-    """DP_STEPS steps (mesh=None: this process alone): {losses, the reduced
-    grads of step 1 (flat, host), the params after the last step (flat,
-    host), their sha256, the training kernels' launches, step times}."""
+def _dp_train_run(torch, np, dev, mesh, preset="m30k_ende_vag",
+                  steps=DP_STEPS, keep=()):
+    """``steps`` steps at ``preset`` (mesh=None: this process alone):
+    {losses, the reduced grads of step 1 (flat, host), the params after
+    the last step and after each step of ``keep`` (flat, host; a model
+    axis's slices gathered), the sha256 of the leaves every rank holds
+    whole, the training kernels' launches, step times}."""
     import hashlib
 
     import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.parallel.sharding import (gather_tree,
+                                                     sharded_leaves, tp_mesh)
     from vag_nmt_tpu_torch.train.state import tree_leaves
 
-    cfg, batches, table, state = _dp_train_setup(torch, np, dev)
+    cfg, batches, table, state = _dp_train_setup(torch, np, dev, preset, mesh)
+    def flat(tree):
+        full = gather_tree(tree, mesh)
+        return torch.cat([x.reshape(-1) for x in tree_leaves(full)]).cpu()
+
     step = vt.make_train_step(cfg, mesh=mesh, with_img_table=True)
     wrappers = _cli_wrappers()
     names = ("gru_fwd", "gru_bwd", "dec_scan_fwd", "dec_scan_bwd")
     for n in names:
         wrappers[n].launches = 0
-    losses, times, grads = [], [], None
-    for i, b in enumerate(batches):
+    losses, times, grads, at = [], [], None, {}
+    for i, b in enumerate(batches[:steps]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, aux = step(state, b, table)
@@ -4050,58 +4078,156 @@ def _dp_train_run(torch, np, dev, mesh):
             # mu = (1 - b1) * clipped grads; undo the clip
             norm = float(aux["grad_norm"])
             scale = min(1.0, cfg.train.grad_clip_norm / norm)
-            grads = torch.cat([x.reshape(-1) for x in tree_leaves(state.mu)]
-                              ).cpu() / (1.0 - cfg.train.adam_b1) / scale
+            grads = flat(state.mu) / (1.0 - cfg.train.adam_b1) / scale
+        if i + 1 in keep:
+            at[i + 1] = flat(state.params)
     launches = {n: wrappers[n].launches for n in names}
-    flat = torch.cat([x.reshape(-1) for x in tree_leaves(state.params)]).cpu()
-    return {"losses": losses, "grads": grads, "params": flat,
-            "sha256": hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+    whole = [x for x, s in zip(tree_leaves(state.params),
+                               sharded_leaves(state.params))
+             if not (tp_mesh(mesh) and s)]
+    rep = torch.cat([x.reshape(-1) for x in whole]).cpu()
+    return {"losses": losses, "grads": grads, "params": flat(state.params),
+            "params_at": at,
+            "sha256": hashlib.sha256(rep.numpy().tobytes()).hexdigest(),
             "launches": launches, "step_s": times}
 
 
-def _dp_decode_run(torch, np, dev, mesh):
+# Decode modes of phases 22 and 23: (corpus: "full" = phase 4's 1024
+# sentences, "small" = its first DP_SMALL_CORPUS; cfg.decode updates;
+# environment; the kernels the mode must launch).
+DECODE_RUN_MODES = {
+    "chunked": ("full", {}, {}, ("readout_topk", "gru_fwd")),
+    "chunked_small": ("small", {}, {}, ("readout_topk", "gru_fwd")),
+    "streaming": ("small", {"streaming": "on"}, {}, ("readout_topk", "gru_fwd")),
+    "two_phase": ("small", {"two_phase": "on"}, {}, ("readout_topk", "gru_fwd")),
+    "bf16": ("small", {"compute_dtype": "bfloat16"}, {},
+             ("readout_topk_bf16", "gru_fwd_bf16")),
+    "unfused": ("small", {}, {"VAG_READOUT_TOPK": "unfused"},
+                ("beam_topk", "gru_fwd")),
+    "greedy": ("small", {"beam_size": 1}, {}, ("gru_fwd",)),
+}
+
+
+def _dp_decode_run(torch, np, dev, mesh, modes=("chunked", "streaming",
+                                                "two_phase")):
     """Phase 4's corpus through translate_corpus (mesh=None: this process
-    alone), then streaming and two-phase on its first DP_SMALL_CORPUS
-    sentences: {mode: (hypotheses, stats, kernel 1 and 2 launches)}."""
+    alone) in each of ``modes`` (DECODE_RUN_MODES): {mode: (hypotheses,
+    stats, the decode kernels' launches, the slice merges' count and
+    sha256 over their outputs' bytes in order)}. Under a model axis the
+    params are this rank's vocab slices of phase 4's."""
+    import hashlib
+
     import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+    from vag_nmt_tpu_torch.parallel.sharding import shard_tree
 
     cfg, params, examples, vocab, img_table = _main_corpus(torch, np, dev)
-    wrappers = _cli_wrappers()
+    params = shard_tree(params, mesh)
     out = {}
-    small = examples[:DP_SMALL_CORPUS]
-    for mode, c, exs, tbl in (
-            ("chunked", cfg, examples, img_table),
-            ("streaming", cfg.replace(decode=dict(streaming="on")), small,
-             img_table[:DP_SMALL_CORPUS]),
-            ("two_phase", cfg.replace(decode=dict(two_phase="on")), small,
-             img_table[:DP_SMALL_CORPUS])):
-        for n in ("gru_fwd", "readout_topk"):
-            wrappers[n].launches = 0
-        hyps, st = vt.translate_corpus(params, c, exs, vocab, img_table=tbl,
-                                       mesh=mesh)
+    for mode in modes:
+        corpus, upd, env, _ = DECODE_RUN_MODES[mode]
+        n = N_SENT if corpus == "full" else DP_SMALL_CORPUS
+        c = cfg.replace(decode=upd) if upd else cfg
+        digest, merges = hashlib.sha256(), [0]
+        orig = rt._merge_slices
+
+        def merge(*a, **k):
+            res = orig(*a, **k)
+            merges[0] += 1
+            for x in res:
+                digest.update(x.cpu().numpy().tobytes())
+            return res
+
+        rt._merge_slices = merge
+        try:
+            (hyps, st), k = _counted(lambda: _with_env(
+                env, lambda: vt.translate_corpus(
+                    params, c, examples[:n], vocab, img_table=img_table[:n],
+                    mesh=mesh)))
+        finally:
+            rt._merge_slices = orig
         torch.cuda.synchronize()
-        out[mode] = (hyps, st, {n: wrappers[n].launches
-                                for n in ("gru_fwd", "readout_topk")})
+        out[mode] = (hyps, st, k, merges[0], digest.hexdigest())
+    return out
+
+
+def _tp_step_split(torch, np, dev, mesh):
+    """The split of a beam step of the chunked decode of phase 4's first
+    DP_SMALL_CORPUS sentences under a model axis: before each call of
+    its two collectives (the embedding rows' gather, ``vocab_embed``, and
+    the slices' merge) the card is drained (torch.cuda.synchronize, timed
+    apart: the queued kernels, a sharing rank's included), then the call
+    is timed (host copies, gloo's exchange, the wait for the peer). ms a
+    beam step: drain, embed_gather, merge, the rest (the host's own), and
+    the calls."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.models import layers
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+    from vag_nmt_tpu_torch.parallel.sharding import shard_tree
+
+    cfg, params, examples, vocab, img_table = _main_corpus(torch, np, dev)
+    params = shard_tree(params, mesh)
+    n = DP_SMALL_CORPUS
+    acc = {"drain": 0.0, "embed_gather": 0.0, "merge": 0.0}
+    calls = {"embed_gather": 0, "merge": 0}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*a, **k)
+            acc["drain"] += t1 - t0
+            acc[name] += time.perf_counter() - t1
+            calls[name] += 1
+            return out
+        return run
+
+    orig = layers.vocab_embed, rt._merge_slices
+    layers.vocab_embed = timed("embed_gather", orig[0])
+    rt._merge_slices = timed("merge", orig[1])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = vt.translate_corpus(params, cfg, examples[:n], vocab,
+                                    img_table=img_table[:n], mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        layers.vocab_embed, rt._merge_slices = orig
+    steps = st["beam_loop_steps"]
+    out = {f"{k}_ms": v / steps * 1e3 for k, v in acc.items()}
+    out["step_ms"] = wall / steps * 1e3
+    out["rest_ms"] = out["step_ms"] - sum(v / steps * 1e3
+                                          for v in acc.values())
+    out.update(beam_loop_steps=steps, calls=calls)
     return out
 
 
 def _dp_worker(torch, np, argv) -> int:
-    """One rank of phase 22: ``--dp-worker <tasks> <rank> <world> <store>
-    <out>``; tasks "train", "decode" or "train,decode"."""
+    """One rank of phases 22 and 23: ``--dp-worker <spec> <rank> <world>
+    <store> <out>``; spec (JSON): {"n_model", "train": {"preset",
+    "steps"} or null, "decode": [modes], "split": whether to take
+    ``_tp_step_split``}."""
     import torch.distributed as dist
 
     from vag_nmt_tpu_torch.parallel import init_distributed, make_mesh
 
-    tasks, rank, world, store, out = argv
+    spec, rank, world, store, out = argv
+    spec = json.loads(spec)
     dev = init_distributed(None, init_method=f"file://{store}")
-    mesh = make_mesh()
+    mesh = make_mesh(n_model=spec["n_model"])
     res = {"device": str(dev), "backend": mesh.backend,
-           "card": torch.cuda.get_device_name(dev)}
-    if "train" in tasks.split(","):
-        res["train"] = _dp_train_run(torch, np, dev, mesh)
-    if "decode" in tasks.split(","):
+           "card": torch.cuda.get_device_name(dev),
+           "place": (mesh.data_index, mesh.model_index)}
+    if spec["train"]:
+        res["train"] = _dp_train_run(torch, np, dev, mesh, **spec["train"])
+    if spec["decode"]:
         with torch.inference_mode():
-            res["decode"] = _dp_decode_run(torch, np, dev, mesh)
+            res["decode"] = _dp_decode_run(torch, np, dev, mesh,
+                                           spec["decode"])
+            if spec.get("split"):
+                res["split"] = _tp_step_split(torch, np, dev, mesh)
     torch.save(res, f"{out}.{rank}.pt")
     dist.destroy_process_group()
     return 0
@@ -4143,11 +4269,11 @@ def _run_group(procs, logs, what, timeout):
         raise AssertionError(f"{what}: process(es) {bad} failed\n{tails}")
 
 
-def _dp_spawn(torch, tasks, tag, cards):
-    """Runs ``tasks`` on DP_WORLD ranks of this script (each its own
-    process and session, one intra-op thread, its log under build/);
-    ``cards``: the CUDA_VISIBLE_DEVICES of the ranks ("0": one card
-    shared). Returns each rank's results."""
+def _dp_spawn(torch, spec, tag, cards, world=DP_WORLD):
+    """Runs ``spec`` (``_dp_worker``'s) on ``world`` ranks of this script
+    (each its own process and session, one intra-op thread, its log under
+    build/); ``cards``: the CUDA_VISIBLE_DEVICES of the ranks ("0": one
+    card shared). Returns each rank's results."""
     import os
 
     root = _dp_root()
@@ -4156,92 +4282,136 @@ def _dp_spawn(torch, tasks, tag, cards):
             if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
                          "LOCAL_WORLD_SIZE")}
     procs, logs = [], []
-    for r in range(DP_WORLD):
-        env = dict(env0, RANK=str(r), WORLD_SIZE=str(DP_WORLD),
-                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(DP_WORLD),
+    for r in range(world):
+        env = dict(env0, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
                    CUDA_VISIBLE_DEVICES=cards, OMP_NUM_THREADS="1")
         logs.append(root / f"rank{r}_{tag}.log")
         procs.append(subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--dp-worker",
-             tasks, str(r), str(DP_WORLD), str(store), str(out)],
+             json.dumps(spec), str(r), str(world), str(store), str(out)],
             cwd=str(Path(__file__).resolve().parent), env=env,
             stdout=open(logs[-1], "w"), stderr=subprocess.STDOUT,
             start_new_session=True))
-    _run_group(procs, logs, f"dp ranks {tag}", DP_SPAWN_TIMEOUT_S)
+    _run_group(procs, logs, f"ranks {tag}", DP_SPAWN_TIMEOUT_S)
     return [torch.load(f"{out}.{r}.pt", weights_only=False)
-            for r in range(DP_WORLD)]
+            for r in range(world)]
 
 
-def _dp_check_train(torch, ranks, want, label, smi):
-    """(a)'s checks of each rank's run against this process's ``want``;
-    the measured values."""
+def _dp_check_train(torch, ranks, want, label, smi, loss_rtol=DP_LOSS_RTOL):
+    """(a)'s checks of each rank's run against this process's ``want``
+    (its params after as many steps as the ranks took); the measured
+    values."""
     f = {"backend": ranks[0]["backend"],
          "devices": [r["device"] for r in ranks]}
-    w_loss = want["losses"]
+    n = len(ranks[0]["train"]["losses"])
+    w_loss = want["losses"][:n]
+    w_params = want["params"] if n == len(want["losses"]) \
+        else want["params_at"][n]
     for i, r in enumerate(ranks):
         got = r["train"]
         loss1 = abs(got["losses"][0] - w_loss[0]) / abs(w_loss[0])
-        later = max(abs(a - b) / abs(b) for a, b in
-                    zip(got["losses"][1:], w_loss[1:]))
+        later = max((abs(a - b) / abs(b) for a, b in
+                     zip(got["losses"][1:], w_loss[1:])), default=0.0)
         gerr = float((got["grads"] - want["grads"]).norm()
                      / want["grads"].norm())
-        d = (got["params"] - want["params"]).abs()
-        bound = DP_PARAM_ATOL + DP_PARAM_RTOL * want["params"].abs()
+        d = (got["params"] - w_params).abs()
+        bound = DP_PARAM_ATOL + DP_PARAM_RTOL * w_params.abs()
         worst = float((d / bound).max())
         f[f"rank{i}"] = {"loss1_rel": loss1, "later_loss_rel": later,
                          "grad_rel": gerr, "param_err_over_tol": worst,
                          "launches": got["launches"],
                          "step_s": got["step_s"], "losses": got["losses"]}
         if not (loss1 <= DP_LOSS1_RTOL and gerr <= DP_GRAD_RTOL
-                and later <= DP_LOSS_RTOL and worst <= 1.0):
-            raise AssertionError(f"dp train {label} rank {i}: {f[f'rank{i}']}")
+                and later <= loss_rtol and worst <= 1.0):
+            raise AssertionError(f"train {label} rank {i}: {f[f'rank{i}']}")
         if min(got["launches"].values()) <= 0:
-            raise AssertionError(f"dp train {label} rank {i}: a training "
+            raise AssertionError(f"train {label} rank {i}: a training "
                                  f"kernel never launched {got['launches']}")
-    if ranks[0]["train"]["sha256"] != ranks[1]["train"]["sha256"]:
-        raise AssertionError(f"dp train {label}: the replicas' params differ")
+    if len({r["train"]["sha256"] for r in ranks}) != 1:
+        raise AssertionError(f"train {label}: the replicated params differ "
+                             "between the ranks")
     f["replicas_identical"] = True
     f["single_losses"] = w_loss
-    f["single_step_s"] = want["step_s"]
-    print(f"dp train {label} [{smi}]: " + json.dumps(f))
+    f["single_step_s"] = want["step_s"][:n]
+    print(f"train {label} [{smi}]: " + json.dumps(f))
     return f
 
 
 def _dp_check_decode(ranks, single, label, smi):
     """(b)'s checks of each rank's decodes against this process's
-    ``single``; the measured values by mode."""
+    ``single`` (by mode; a small corpus against the first sentences of
+    the full one where the mode has no run of its own): at least
+    DP_MIN_SHARE identical, the mode's kernels launched, the ranks of a
+    model group equal, their slice merges' checksums too, and under a
+    model axis kernel 1 once a beam step. The measured values by mode."""
     f = {}
-    for mode, (hyps, st, _) in single.items():
+    for mode in ranks[0]["decode"]:
+        base = mode if mode in single else "chunked"
+        hyps, st = single[base][:2]
+        want = N_SENT if DECODE_RUN_MODES[mode][0] == "full" \
+            else DP_SMALL_CORPUS
+        if len(hyps) < want:
+            raise AssertionError(f"decode {label} {mode}: this process's "
+                                 f"{base} run holds {len(hyps)} of {want}")
         g = {"single_sentences_per_sec": st["sentences_per_sec"]}
+        groups = {}
         for i, r in enumerate(ranks):
-            h, s, n = r["decode"][mode]
-            share = sum(a == b for a, b in zip(h, hyps)) / len(hyps)
+            h, s, n, merges, digest = r["decode"][mode]
+            share = sum(a == b for a, b in zip(h, hyps[:want])) / want
             g[f"rank{i}"] = {"identical_share": share, "launches": n,
                              "sentences_per_sec": s["sentences_per_sec"],
                              "rows_per_chunk": s["rows_per_chunk"],
-                             "beam_loop_steps": s["beam_loop_steps"]}
-            if len(h) != len(hyps) or share < DP_MIN_SHARE:
-                raise AssertionError(f"dp decode {label} {mode} rank {i}: {g}")
-            if min(n.values()) <= 0:
-                raise AssertionError(f"dp decode {label} {mode} rank {i}: a "
+                             "beam_loop_steps": s["beam_loop_steps"],
+                             "merges": merges, "sentences": len(h)}
+            if len(h) != want or share < DP_MIN_SHARE:
+                raise AssertionError(f"decode {label} {mode} rank {i}: {g}")
+            need = DECODE_RUN_MODES[mode][3]
+            if min((n[k] for k in need), default=1) <= 0:
+                raise AssertionError(f"decode {label} {mode} rank {i}: a "
                                      f"kernel never launched {n}")
-        if ranks[0]["decode"][mode][0] != ranks[1]["decode"][mode][0]:
-            raise AssertionError(f"dp decode {label} {mode}: the ranks' "
+            groups.setdefault(r["place"][0], []).append((h, digest, merges, n))
+        tp = len(next(iter(groups.values()))) > 1
+        for d, members in groups.items():
+            if any(m[0] != members[0][0] for m in members):
+                raise AssertionError(f"decode {label} {mode}: the model "
+                                     f"ranks of data index {d} differ")
+            if any(m[1] != members[0][1] for m in members):
+                raise AssertionError(f"decode {label} {mode}: the merges' "
+                                     f"checksums differ in data index {d}")
+            if tp and "readout_topk" in DECODE_RUN_MODES[mode][3] and any(
+                    m[3]["readout_topk"] != m[2] for m in members):
+                raise AssertionError(f"decode {label} {mode}: kernel 1 "
+                                     "launches != slice merges")
+        if tp:
+            g["merge_sha256"] = {str(d): m[0][1] for d, m in groups.items()}
+        if any(r["decode"][mode][0] != ranks[0]["decode"][mode][0]
+               for r in ranks):
+            raise AssertionError(f"decode {label} {mode}: the ranks' "
                                  "hypotheses differ")
+        if tp and len(groups) == 1 and "readout_topk" in \
+                DECODE_RUN_MODES[mode][3]:
+            steps = ranks[0]["decode"][mode][1]["beam_loop_steps"]
+            if ranks[0]["decode"][mode][3] != steps:
+                raise AssertionError(f"decode {label} {mode}: {steps} beam "
+                                     "steps, kernel 1 launched "
+                                     f"{ranks[0]['decode'][mode][3]} times")
         f[mode] = g
-        print(f"dp decode {label} {mode} [{smi}]: " + json.dumps(g))
+        print(f"decode {label} {mode} [{smi}]: " + json.dumps(g))
     return f
 
 
-def _dp_cli(torch, np, smi):
-    """(c): train DP_CLI_STEPS steps and translate test2016 under python -m
-    torch.distributed.run --nproc-per-node DP_WORLD on the card (no
-    --device: the card), each command with its own timeout."""
+def _dp_cli(torch, np, smi, n_model=1):
+    """(c) / (e): train DP_CLI_STEPS steps and translate test2016 under
+    python -m torch.distributed.run --nproc-per-node DP_WORLD on the card
+    (no --device: the card), each command with its own timeout; with a
+    model axis (``--set mesh.model_axis``) also translate in this process
+    from the rank-0 checkpoint, its hypotheses against the ranks'."""
     import os
 
     import vag_nmt_tpu_torch as vt
 
-    root = _dp_root() / "cli"
+    root = _dp_root() / f"cli_{n_model}"
     data, run = root / "data", root / "run"
     data.mkdir(parents=True)
     _write_cli_data(np, data, vt.preset("m30k_ende_vag").model,
@@ -4278,27 +4448,45 @@ def _dp_cli(torch, np, smi):
         "--out-dir", str(run), "--set", "data.dataset=multi30k",
         "--max-steps", str(DP_CLI_STEPS),
         "--set", f"train.eval_every_steps={DP_CLI_STEPS}",
-        "--set", "train.log_every_steps=10"])
+        "--set", "train.log_every_steps=10",
+        "--set", f"mesh.model_axis={n_model}"])
     if res["steps"] != DP_CLI_STEPS or "dev_bleu" not in res:
         raise AssertionError(f"torchrun train: {res}")
     meta = json.loads((run / "checkpoints" / "meta_last.json").read_text())
+    if meta["data_parallel"]["n_model"] != n_model:
+        raise AssertionError(f"torchrun train: meta {meta['data_parallel']}")
     f["train"].update(dev_bleu=res["dev_bleu"],
                       data_parallel=meta["data_parallel"])
     hyp = root / "hyp.txt"
-    st = torchrun("translate", [
-        "translate", "--data-dir", str(data), "--checkpoint", str(run),
-        "--split", "test2016", "--output", str(hyp)])
+    tr = ["translate", "--data-dir", str(data), "--checkpoint", str(run),
+          "--split", "test2016"]
+    st = torchrun("translate", tr + ["--output", str(hyp)])
     lines = hyp.read_text().splitlines()
     if len(lines) != DP_CLI_SPLITS["test2016"][0] or not any(lines):
         raise AssertionError("torchrun translate: malformed output")
     f["translate"].update(sentences_per_sec=st["sentences_per_sec"],
                           rows_per_chunk=st["rows_per_chunk"])
-    print(f"dp cli [{smi}]: " + json.dumps(f))
+    if n_model > 1:
+        # the run's config holds its mesh: one process asks for none
+        one = root / "one.txt"
+        _, _, secs = _cli_command(torch, tr + ["--output", str(one), "--set",
+                                               "mesh.model_axis=1"])
+        ones = one.read_text().splitlines()
+        share = sum(a == b for a, b in zip(lines, ones)) / len(ones)
+        f["one_process"] = {"seconds": secs, "identical_share": share}
+        if len(ones) != len(lines) or share < DP_MIN_SHARE:
+            raise AssertionError(f"translate under the mesh against one "
+                                 f"process: {f['one_process']}")
+    print(f"cli (n_model {n_model}) [{smi}]: " + json.dumps(f))
     return f
 
 
+DP_SPEC = {"n_model": 1, "train": {"preset": "m30k_ende_vag", "steps": DP_STEPS},
+           "decode": ["chunked", "streaming", "two_phase"]}
+
+
 def phase_data_parallel(torch, np, dev):
-    """Phase 22 (above). Returns fields."""
+    """Phase 22 (above). Returns (fields, this process's decodes)."""
     smi = _smi()
     root = _dp_root()
     shutil.rmtree(root, ignore_errors=True)
@@ -4306,34 +4494,233 @@ def phase_data_parallel(torch, np, dev):
     print(f"dp: {_mps_state()}; {torch.cuda.device_count()} card(s) visible")
     f = {"card": smi}
     t0 = time.perf_counter()
-    ranks = _dp_spawn(torch, "train,decode", "one_card", "0")
+    ranks = _dp_spawn(torch, DP_SPEC, "one_card", "0")
     f["spawn_s"] = time.perf_counter() - t0
     if {r["backend"] for r in ranks} != {"gloo"}:
         raise AssertionError(f"one card, two ranks: backend "
                              f"{[r['backend'] for r in ranks]}, not gloo")
     want = _dp_train_run(torch, np, dev, None)
-    f["train"] = _dp_check_train(torch, ranks, want, "one card (gloo)", smi)
+    f["train"] = _dp_check_train(torch, ranks, want, "dp one card (gloo)", smi)
     with torch.inference_mode():
         single = _dp_decode_run(torch, np, dev, None)
-    f["decode"] = _dp_check_decode(ranks, single, "one card (gloo)", smi)
+    f["decode"] = _dp_check_decode(ranks, single, "dp one card (gloo)", smi)
     f["cli"] = _dp_cli(torch, np, smi)
     if torch.cuda.device_count() >= DP_WORLD:
-        nccl = _dp_spawn(torch, "train,decode", "nccl", ",".join(
+        nccl = _dp_spawn(torch, DP_SPEC, "nccl", ",".join(
             str(i) for i in range(DP_WORLD)))
         if {r["backend"] for r in nccl} != {"nccl"}:
             raise AssertionError(f"a card a rank: backend "
                                  f"{[r['backend'] for r in nccl]}")
         f["nccl"] = {
             "train": _dp_check_train(torch, nccl, want,
-                                     "a card a rank (nccl)", smi),
-            "decode": _dp_check_decode(nccl, single, "a card a rank (nccl)",
-                                       smi)}
+                                     "dp a card a rank (nccl)", smi),
+            "decode": _dp_check_decode(nccl, single,
+                                       "dp a card a rank (nccl)", smi)}
     else:
         f["nccl"] = (f"did not run: {torch.cuda.device_count()} card visible, "
                      f"NCCL needs a card for each of the {DP_WORLD} ranks")
         print(f"dp nccl: {f['nccl']}")
     print("dp: two ranks time-sharing one card; their times are no scaling "
           "figure")
+    shutil.rmtree(root, ignore_errors=True)
+    return f, single
+
+
+# Phase 23: vocab-dim tensor parallelism (a mesh with a model axis) on
+# the one card, phase 22's spawn and checks with the mesh shape as their
+# parameter. (a) (1 x 2): DP_STEPS steps of m30k_scaled at full width (V =
+# 8000, 4000 a slice; E = H = A = 512; 2 encoder layers; batch 64, dropout
+# 0.3) against this process: step 1's loss within DP_LOSS1_RTOL, the later
+# ones within TP_LOSS_RTOL, the reduced grads within DP_GRAD_RTOL, the
+# slices gathered within the reference TP test's rtol / atol, the
+# replicated leaves bit-identical on the ranks; kernels 2-5 on each rank.
+# (b) (1 x 2): phase 4's corpus and weights (m30k_ende_vag), the chunked
+# decode of its 1024 sentences, then bf16 (kernel 1b on a slice), the
+# unfused structure (the logits gathered into whole rows for kernel 6)
+# and greedy on its first DP_SMALL_CORPUS: at least DP_MIN_SHARE of the
+# hypotheses this process's (the merged lse rounds apart from the
+# one-pass lse, and random weights nearly tie), the ranks' slice merges
+# equal by checksum, kernel 1 launched once a beam step on each rank;
+# then the split of a beam step (_tp_step_split). (c) kernel 1 alone on
+# slices (phase_tp_readout), also past 16 beams and in bf16 on integer
+# inputs (TP_SLICE_EXACT). (d) (2 x 2), four ranks:
+# TP_2X2_STEPS steps and the DP_SMALL_CORPUS chunked decode (the data
+# all-reduce of slices, the model merge inside data rows). (e) torchrun
+# train and translate with --set mesh.model_axis=2, and translate in this
+# process from the run's checkpoint. (f) where two cards are visible,
+# (a) and (b) under NCCL, a card a rank.
+TP_PRESET = "m30k_scaled"
+TP_LOSS_RTOL = 1e-5
+TP_2X2_STEPS = 2
+TP_SPEC = {"n_model": 2, "train": {"preset": TP_PRESET, "steps": DP_STEPS},
+           "decode": ["chunked", "bf16", "unfused", "greedy"], "split": True}
+TP_2X2_SPEC = {"n_model": 2, "train": {"preset": TP_PRESET,
+                                       "steps": TP_2X2_STEPS},
+               "decode": ["chunked_small"]}
+# Kernel 1 on a slice of m30k's 8000 ids: the last of 2 (V = 4000, id_base
+# 4000) and of 4 (V = 2000, id_base 6000), at R = 640, E = 256, K = 5.
+TP_SLICE_V = ((4000, 4000), (2000, 6000))
+
+
+def phase_tp_readout(torch, np, dev):
+    """(c): kernel 1 on a vocab slice, ids written from id_base, at depth
+    K and slots 1, against its plain version (ids + id_base and flags
+    exactly, values, lse and lse's terms within READOUT_RTOL); its whole
+    call cold and warm, the plain version's time and the bound at the
+    slice width. {V: fields}."""
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+
+    R, E, K = 640, 256, 5
+    out = {}
+    for V, base in TP_SLICE_V:
+        rng = np.random.RandomState(V + 11)
+        t = torch.from_numpy(np.tanh(rng.randn(R, E)).astype(np.float32)).to(dev)
+        w = torch.from_numpy((0.05 * rng.randn(E, V)).astype(np.float32)).to(dev)
+        b = torch.from_numpy((0.1 * rng.randn(V)).astype(np.float32)).to(dev)
+        err = 0.0
+        for slots in (0, 1):
+            got = rt.readout_topk_rows(t, w, b, K, slots=slots, impl="kernel",
+                                       id_base=base)
+            want = rt.readout_topk_rows_plain(t, w, b, K, slots=slots)
+            torch.cuda.synchronize()
+            if not torch.equal(got[1], want[1] + base):
+                raise AssertionError(f"kernel 1 on a slice V={V} slots "
+                                     f"{slots}: ids differ")
+            if slots and not torch.equal(got[3], want[3]):
+                raise AssertionError(f"kernel 1 on a slice V={V}: flags differ")
+            pairs = [(got[0], want[0]), (got[2], want[2])]
+            if not slots:
+                # lse's terms M and S, which the slices' merge takes
+                pairs += list(zip(
+                    rt.readout_topk_rows(t, w, b, K, impl="kernel",
+                                         id_base=base, lse_parts=True)[2].T,
+                    rt.readout_topk_rows_plain(t, w, b, K,
+                                               lse_parts=True)[2].T))
+            for a, c in pairs:
+                if not torch.allclose(a, c, rtol=READOUT_RTOL, atol=0.0):
+                    raise AssertionError(f"kernel 1 on a slice V={V} slots "
+                                         f"{slots}: values off by "
+                                         f"{float((a - c).abs().max())}")
+                err = max(err, float((a - c).abs().max()))
+        kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+        depth = _grid_ms(torch, lambda: rt.readout_topk_rows(
+            t, w, b, K, impl="kernel", id_base=base), **kw)
+        slots1 = _grid_ms(torch, lambda: rt.readout_topk_rows(
+            t, w, b, K, slots=1, impl="kernel", id_base=base), **kw)
+        plain_ms = _time_ms(torch, lambda: rt.readout_topk_rows_plain(t, w, b, K))
+        bound_ms, bound_by = _readout_bound(R, E, V, K, slots=False)
+        out[V] = {"R": R, "E": E, "V": V, "K": K, "id_base": base,
+                  "grid_ms": depth[0], "grid_warm_ms": depth[1],
+                  "slots1_grid_ms": slots1[0], "slots1_grid_warm_ms": slots1[1],
+                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "max_abs_err": err}
+        print(f"readout_topk on a slice (R={R}, E={E}, V={V}, id_base={base}): "
+              + json.dumps(out[V]))
+    for V, base, Kx, dtype in TP_SLICE_EXACT:
+        _check_slice_exact(torch, np, dev, R, E, V, base, Kx, dtype)
+    return out
+
+
+# Kernel 1 on a slice in passes of 16 (K = 20) and its bf16 instance 1b
+# (the key translations of the pass path and of the bf16 ring), on
+# integer inputs (every logit exact, ties everywhere): (V, id_base, K,
+# operand dtype).
+TP_SLICE_EXACT = ((4000, 4000, 20, "fp32"), (4000, 4000, 5, "bf16"),
+                  (4000, 4000, 20, "bf16"))
+
+
+def _check_slice_exact(torch, np, dev, R, E, V, base, K, dtype):
+    """Kernel 1 (1b in bf16) on integer t, W and b with id_base at depth K
+    and at slots 1 against its plain version: ids (+ id_base), values and
+    flags exactly, lse and its terms within READOUT_RTOL; the bf16
+    instance and the passes counted as launched."""
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+    from vag_nmt_tpu_torch.ops import topk
+
+    rng = np.random.RandomState(V + K)
+    op = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def cuda(shape, to):
+        return torch.from_numpy(rng.randint(-3, 4, shape).astype(
+            np.float32)).to(dev).to(to).contiguous()
+
+    t, w, b = cuda((R, E), op), cuda((E, V), op), cuda((V,), torch.float32)
+    what = f"kernel 1 on a slice V={V} id_base={base} K={K} {dtype}"
+    p0, h0 = rt.readout_topk_rows.passes, rt.readout_topk_rows.bf16_launches
+    for slots in (0, 1):
+        got = rt.readout_topk_rows(t, w, b, K, slots=slots, impl="kernel",
+                                   id_base=base, lse_parts=not slots)
+        want = rt.readout_topk_rows_plain(t, w, b, K, slots=slots,
+                                          lse_parts=not slots)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[1], want[1] + base)
+                and torch.equal(got[0], want[0])):
+            raise AssertionError(f"{what} slots {slots}: top-K not exact")
+        if slots and not torch.equal(got[3], want[3]):
+            raise AssertionError(f"{what}: flags differ")
+        if not torch.allclose(got[2], want[2], rtol=READOUT_RTOL, atol=0.0):
+            raise AssertionError(f"{what} slots {slots}: lse off by "
+                                 f"{float((got[2] - want[2]).abs().max())}")
+    if (rt.readout_topk_rows.passes > p0) != (topk.k_plan(K)[1] > 1):
+        raise AssertionError(f"{what}: passes {rt.readout_topk_rows.passes - p0}")
+    if (rt.readout_topk_rows.bf16_launches - h0) != (2 if op != torch.float32
+                                                      else 0):
+        raise AssertionError(f"{what}: the bf16 instance's launches")
+    print(f"{what} (R={R}, E={E}): depth K and slots 1 exact")
+
+
+def phase_tensor_parallel(torch, np, dev, single):
+    """Phase 23 (above); ``single``: phase 22's decodes in this process.
+    Returns fields."""
+    smi = _smi()
+    root = _dp_root()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    f = {"card": smi, "slices": phase_tp_readout(torch, np, dev)}
+    ranks = _dp_spawn(torch, TP_SPEC, "tp_one_card", "0")
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"tp one card: backend "
+                             f"{[r['backend'] for r in ranks]}, not gloo")
+    want = _dp_train_run(torch, np, dev, None, TP_PRESET, keep=(TP_2X2_STEPS,))
+    f["train"] = _dp_check_train(torch, ranks, want, "tp 1x2 one card (gloo)",
+                                 smi, TP_LOSS_RTOL)
+    with torch.inference_mode():
+        single = dict(single, **_dp_decode_run(torch, np, dev, None,
+                                               ("bf16", "unfused", "greedy")))
+    f["decode"] = _dp_check_decode(ranks, single, "tp 1x2 one card (gloo)",
+                                   smi)
+    st = single["chunked"][1]
+    f["step_split"] = {f"rank{i}": r["split"] for i, r in enumerate(ranks)}
+    f["step_split"]["one_process_step_ms"] = \
+        st["elapsed_s"] / st["beam_loop_steps"] * 1e3
+    print(f"tp 1x2 beam step split [{smi}]: " + json.dumps(f["step_split"]))
+    four = _dp_spawn(torch, TP_2X2_SPEC, "tp_2x2", "0", world=4)
+    f["mesh_2x2"] = {
+        "train": _dp_check_train(torch, four, want, "tp 2x2 one card (gloo)",
+                                 smi, TP_LOSS_RTOL),
+        "decode": _dp_check_decode(four, single, "tp 2x2 one card (gloo)",
+                                   smi)}
+    f["cli"] = _dp_cli(torch, np, smi, n_model=2)
+    if torch.cuda.device_count() >= DP_WORLD:
+        nccl = _dp_spawn(torch, TP_SPEC, "tp_nccl", ",".join(
+            str(i) for i in range(DP_WORLD)))
+        if {r["backend"] for r in nccl} != {"nccl"}:
+            raise AssertionError(f"tp a card a rank: backend "
+                                 f"{[r['backend'] for r in nccl]}")
+        f["nccl"] = {
+            "train": _dp_check_train(torch, nccl, want,
+                                     "tp a card a rank (nccl)", smi,
+                                     TP_LOSS_RTOL),
+            "decode": _dp_check_decode(nccl, single,
+                                       "tp a card a rank (nccl)", smi)}
+    else:
+        f["nccl"] = (f"did not run: {torch.cuda.device_count()} card visible, "
+                     f"NCCL needs a card for each of the {DP_WORLD} ranks")
+        print(f"tp nccl: {f['nccl']}")
+    f["phase_s"] = time.perf_counter() - t0
+    print(f"tp: ranks time-sharing one card; their times are no scaling "
+          f"figure; phase 23 took {f['phase_s']:.1f} s")
     shutil.rmtree(root, ignore_errors=True)
     return f
 
@@ -4398,7 +4785,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    if sys.argv[1:2] == ["--dp-worker"]:       # a rank of phase 22
+    if sys.argv[1:2] == ["--dp-worker"]:       # a rank of phase 22 or 23
         return _dp_worker(torch, np, sys.argv[2:])
     from vag_nmt_tpu_torch.core.device import resolve_device
     from vag_nmt_tpu_torch.ops import _build
@@ -4473,7 +4860,8 @@ def main() -> int:
     i_launches, i_grids = phase_ikea(torch, np, dev)
     cli = phase_cli(torch, np, dev)
     jax_run = phase_jax_run(torch, np, dev)
-    dp = phase_data_parallel(torch, np, dev)
+    dp, dp_single = phase_data_parallel(torch, np, dev)
+    tp = phase_tensor_parallel(torch, np, dev, dp_single)
     # Each kernel's launches come from the run of its own path: the decode
     # path for the decode kernels, the training path for the training
     # kernels, the serving modes that select them for beam_topk and dec_step,
@@ -4547,10 +4935,27 @@ def main() -> int:
                 per_rank[f"rank{i}"] = r
         if per_rank:
             k["dp_launches"] = per_rank
+    # each rank's launches on phase 23's (1 x 2) paths: training (kernels
+    # 2-5), the decodes (1 on its slices in fp32, 1b in bf16, 6 on the
+    # gathered rows, 2 and 2b); kernel 1 alone on slices
+    for k in kernels:
+        n = k["name"]
+        per_rank = {}
+        for i in range(DP_WORLD):
+            r = tp["train"][f"rank{i}"]["launches"].get(n, 0)
+            for mode in TP_SPEC["decode"]:
+                got = tp["decode"][mode][f"rank{i}"]["launches"]
+                r += got.get(f"{n}_fp32", got.get(n, 0))
+            if r:
+                per_rank[f"rank{i}"] = r
+        if per_rank:
+            k["tp_launches"] = per_rank
+    decode_kernels[0]["tp_slices"] = tp["slices"]
     print(f"jax run: {json.dumps(jax_run)}")
     print(f"bf16 decode: {json.dumps(bf16_decode)}")
     print(f"bucketed and super-chunk decode: {json.dumps(bucketed)}")
     print(f"data parallel: {json.dumps(dp)}")
+    print(f"tensor parallel: {json.dumps(tp)}")
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

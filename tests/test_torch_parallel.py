@@ -75,22 +75,24 @@ def _wait_all(procs, what):
     return logs
 
 
-def _spawn(tmp_path, task, **args):
-    """Runs ``task`` on WORLD ranks; returns each rank's outputs (the
-    dict its worker wrote with torch.save)."""
+def _spawn(tmp_path, task, *, world=WORLD, module="tests.test_torch_parallel",
+           **args):
+    """Runs ``task`` on ``world`` ranks, each ``python -m <module>
+    --worker ...``; returns each rank's outputs (the dict its worker
+    wrote with torch.save)."""
     args["out"] = str(tmp_path / f"{task}_out")
     path = tmp_path / f"{task}_args.json"
     path.write_text(json.dumps(args))
     store = tmp_path / f"{task}_store"
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "tests.test_torch_parallel", "--worker", task,
-         str(r), str(WORLD), str(store), str(path)],
+        [sys.executable, "-m", module, "--worker", task,
+         str(r), str(world), str(store), str(path)],
         cwd=REPO, env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, start_new_session=True)
-        for r in range(WORLD)]
+        for r in range(world)]
     _wait_all(procs, task)
     return [torch.load(f"{args['out']}.{r}.pt", weights_only=False)
-            for r in range(WORLD)]
+            for r in range(world)]
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +225,11 @@ def test_make_mesh_takes_the_world_and_raises(monkeypatch):
     mesh = make_mesh()
     assert (mesh.n_data, mesh.n_model, mesh.rank) == (1, 1, 0) and mesh.is_main
     assert make_mesh(n_data=1) == mesh
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # a model axis is a mesh like any other: it must take the world
+    with pytest.raises(ValueError, match="whole world"):
         make_mesh(n_data=1, n_model=2)
+    with pytest.raises(ValueError, match="whole world"):
+        make_mesh(n_model=2)
     with pytest.raises(ValueError, match="whole world"):
         make_mesh(n_data=2)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
@@ -444,7 +449,7 @@ def test_dp_train_loop_matches_single_process_with_dropout(tmp_path):
         recs[0]["backend"] == "gloo" and recs[0]["n_data"] == 2
     for out in outs:
         assert out["result"]["dev_bleu"] == res["dev_bleu"]
-        assert out["meta"]["data_parallel"] == {"n_data": 2,
+        assert out["meta"]["data_parallel"] == {"n_data": 2, "n_model": 1,
                                                 "backend": "gloo"}
         for g, w in zip(out["params"], _leaves(state.params)):
             np.testing.assert_allclose(g, w, rtol=2e-3, atol=2e-4)
@@ -634,7 +639,8 @@ def test_cli_under_torchrun_matches_one_process(tmp_path, capsys):
     b, meta = load_checkpoint(os.path.join(dp, "checkpoints"), "last",
                               device="cpu")
     assert a.step == b.step == CLI_STEPS
-    assert meta["data_parallel"] == {"n_data": 2, "backend": "gloo"}
+    assert meta["data_parallel"] == {"n_data": 2, "n_model": 1,
+                                     "backend": "gloo"}
     for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
         np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=2e-3, atol=2e-4)
     tr = ["translate", "--data-dir", data, "--checkpoint", one, "--split",

@@ -24,7 +24,10 @@ init_distributed``: a card a rank where there are enough, NCCL; ranks
 sharing a card or on the CPU, gloo) and build the mesh from ``cfg.mesh``
 (``make_mesh``); one process builds none. Only rank 0 writes files and
 prints the result line; preprocess, make-toy and translate-text run on
-rank 0 alone."""
+rank 0 alone. ``--set mesh.model_axis=N`` (N > 1) adds the model axis,
+vocab-dim tensor parallelism: train, translate and retrieval hold the
+embedding and output tables as vocab slices over groups of N ranks
+(``parallel/tensor.py``); one process with it raises ValueError."""
 
 from __future__ import annotations
 
@@ -119,22 +122,30 @@ def _rank0() -> bool:
 
 
 def _mesh_or_none(cfg: Config, dev: torch.device):
-    """The data-parallel mesh of a launch of several processes (from
-    cfg.mesh), None for one process."""
+    """The mesh of a launch of several processes (from cfg.mesh), None for
+    one process; one process with mesh.model_axis > 1 raises ValueError
+    (the mesh would not take the world of one)."""
     from vag_nmt_tpu_torch.parallel import init_distributed, make_mesh
 
     if world_env() is None:
+        if cfg.mesh.model_axis > 1:
+            raise ValueError(f"mesh (data_axis {cfg.mesh.data_axis} x "
+                             f"model_axis {cfg.mesh.model_axis}) must take "
+                             "the whole world of 1 process")
         return None
     init_distributed(dev)
     return make_mesh(n_data=cfg.mesh.data_axis,
                      n_model=max(1, cfg.mesh.model_axis))
 
 
-def _load_state(args, cfg: Config, dev: torch.device):
+def _load_state(args, cfg: Config, dev: torch.device, mesh=None):
+    """The run's state at --tag; with a mesh's model axis, this rank's
+    vocab slices of it."""
     from vag_nmt_tpu_torch.train.checkpoint import load_checkpoint
 
     ckpt_dir = os.path.join(args.checkpoint, cfg.train.checkpoint_dir)
-    state, _ = load_checkpoint(ckpt_dir, args.tag, device=dev, cfg=cfg.model)
+    state, _ = load_checkpoint(ckpt_dir, args.tag, device=dev, cfg=cfg.model,
+                               mesh=mesh)
     return state
 
 
@@ -218,8 +229,8 @@ def cmd_translate(args) -> None:
     exs, src_vocab, tgt_vocab = _load_split_data(cfg, args.split,
                                                  with_target=False)
     cfg = _sized_cfg(cfg, src_vocab, tgt_vocab)
-    state = _load_state(args, cfg, dev)
     mesh = _mesh_or_none(cfg, dev)
+    state = _load_state(args, cfg, dev, mesh)
     with maybe_trace(args.profile_dir if _rank0() else ""), \
             torch.inference_mode():
         hyps, stats = translate_corpus(state.params, cfg, exs, tgt_vocab,
@@ -267,8 +278,8 @@ def cmd_retrieval(args) -> None:
     cfg = _load_cfg(args)
     exs, src_vocab, tgt_vocab = _load_split_data(cfg, args.split)
     cfg = _sized_cfg(cfg, src_vocab, tgt_vocab)
-    state = _load_state(args, cfg, dev)
     mesh = _mesh_or_none(cfg, dev)
+    state = _load_state(args, cfg, dev, mesh)
     batcher = BucketBatcher(exs, cfg.decode.decode_batch_size,
                             cfg.data.length_buckets, include_image=True,
                             img_dim=cfg.model.img_feat_dim)
@@ -276,10 +287,14 @@ def cmd_retrieval(args) -> None:
     img = np.zeros((n, cfg.model.shared_dim), np.float32)
     txt = np.zeros((n, cfg.model.shared_dim), np.float32)
     done = np.zeros((n,), bool)
-    # under a mesh each rank embeds every n_data-th batch
-    for batch in host_shard(list(batcher.epoch(0, shuffle=False))):
+    # under a mesh each data index embeds every n_data-th batch (the
+    # ranks of a model group the same ones: the source gather is theirs)
+    batches = list(batcher.epoch(0, shuffle=False))
+    if mesh is not None:
+        batches = host_shard(batches, mesh.data_index, mesh.n_data)
+    for batch in batches:
         ie, te = embeddings_for_retrieval(state.params, cfg.model, batch,
-                                          device=dev)
+                                          device=dev, mesh=mesh)
         real = batch["sample_mask"] > 0
         img[batch["index"][real]] = ie.cpu().numpy()[real]
         txt[batch["index"][real]] = te.cpu().numpy()[real]

@@ -189,13 +189,24 @@ struct Params {
   int* part_i;
   unsigned int* arrivals;       // (row tiles,) zero between launches
   float *vals, *lse;
+  float* lse_parts;             // (R, 2) the row's max and sum of exp(x - max), or null
   int *idx, *viol;
   int R, E, V, K, n_split, split_cols;
   int vec_t, vec_w, vec_b;      // 16-byte copies of t rows / W rows / b
   int shallow;                  // SK < K: watermark, viol (and marks)
   int rerun;                    // the recovery's depth-K rerun
   int kout, kofs;               // passes: vals/idx row stride, this pass's first entry
+  int id_base;                  // added to the ids written to idx (a vocab slice's v0)
 };
+
+// An id as idx holds it (the vocab slice's base added) and back; INT_MAX,
+// an empty slot, stays INT_MAX.
+__device__ __forceinline__ int id_out(int i, int base) {
+  return i == INT_MAX ? INT_MAX : i + base;
+}
+__device__ __forceinline__ int id_in(int i, int base) {
+  return i == INT_MAX ? INT_MAX : i - base;
+}
 
 // One element of a row that is off a 16-byte boundary: a 4-byte
 // cp.async of an fp32, a plain copy of a bf16.
@@ -398,7 +409,8 @@ readout_topk_kernel(const Params p) {
     if (PASS) {
       const int row = min(row0 + rq + r * (THREADS / TX), p.R - 1);
       key_v[r] = filt ? __ldcg(p.vals + (size_t)row * kout + kofs - 1) : 0.f;
-      key_i[r] = filt ? __ldcg(p.idx + (size_t)row * kout + kofs - 1) : 0;
+      key_i[r] = filt ? id_in(__ldcg(p.idx + (size_t)row * kout + kofs - 1), p.id_base)
+                      : 0;
     }
     m[r] = FLOOR;
     s[r] = 0.f;
@@ -532,7 +544,7 @@ readout_topk_kernel(const Params p) {
     int ri = 0;
     if (filt) {
       rv = __ldcg(p.vals + (size_t)row * kout + kofs - 1);
-      ri = __ldcg(p.idx + (size_t)row * kout + kofs - 1);
+      ri = id_in(__ldcg(p.idx + (size_t)row * kout + kofs - 1), p.id_base);
     }
     for (int j = 0; j < TX; ++j) {
 #pragma unroll
@@ -597,9 +609,13 @@ readout_topk_kernel(const Params p) {
     for (int k = 0; k < MAX_K; ++k)
       if (k < p.K && kofs + k < kout) {
         p.vals[(size_t)row * kout + kofs + k] = bv[k];
-        p.idx[(size_t)row * kout + kofs + k] = bi[k];
+        p.idx[(size_t)row * kout + kofs + k] = id_out(bi[k], p.id_base);
       }
     p.lse[row] = M + logf(S);
+    if (p.lse_parts != nullptr) {
+      p.lse_parts[2 * (size_t)row] = M;
+      p.lse_parts[2 * (size_t)row + 1] = S;
+    }
     if (p.shallow && last_pass) {
       const int flag = W >= kth(bv, kout - kofs) ? 1 : 0;
       p.viol[row] = flag;
@@ -677,8 +693,14 @@ cudaError_t grid_pass(const Params& p, int sk, cudaStream_t stream) {
 // Device pointers to contiguous tensors: t (R, E) f32, w (E, V) f32
 // (both bf16 in the bf16 instances), b (V,) f32, ban (R, V) uint8 or null; partials part_v/part_i (n_split, R,
 // K), part_m/part_s (n_split, R); arrivals (ceil(R / BM),) u32, zero (and
-// left zero); outputs vals (R, K) f32, idx (R, K) i32, lse (R,) f32.
-// split_cols is a multiple of BN and n_split * split_cols >= V.
+// left zero); outputs vals (R, K) f32, idx (R, K) i32, lse (R,) f32 and,
+// where lse_parts is not null, (R, 2) f32: the terms of lse = M + log(S),
+// M and S (for a caller that merges the lse of several vocab slices as
+// the last CTA merges the splits).
+// split_cols is a multiple of BN and n_split * split_cols >= V. id_base
+// (>= 0, id_base + V <= INT_MAX) is added to every id written to idx: W
+// holds columns id_base.. of a larger vocab (a slice under tensor
+// parallelism); the partials keep the slice's own ids.
 // 1 <= SK <= K <= MAX_K, or (the MAX_K = 16 build) K > MAX_K in passes
 // with K <= V, SK == K or SK <= MAX_K, partials MAX_K wide and one grid a
 // pass (two with the recovery). With SK < K also part_w (n_split, R) f32 and the
@@ -691,10 +713,11 @@ extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
                                    const void* ban, void* part_v, void* part_i,
                                    void* part_m, void* part_s, void* part_w,
                                    void* arrivals, void* vals, void* idx,
-                                   void* lse, void* viol, const void* live,
+                                   void* lse, void* lse_parts, void* viol,
+                                   const void* live,
                                    void* tile_mark, void* counts, int R,
                                    int E, int V, int K, int SK, int n_split,
-                                   int split_cols, void* stream) {
+                                   int split_cols, int id_base, void* stream) {
   const bool passes = K > MAX_K;
 #if VAG_MAX_K == 8
   if (passes) return (int)cudaErrorInvalidValue;   // the MAX_K = 16 build's
@@ -724,6 +747,7 @@ extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
   p.vals = static_cast<float*>(vals);
   p.idx = static_cast<int*>(idx);
   p.lse = static_cast<float*>(lse);
+  p.lse_parts = static_cast<float*>(lse_parts);
   p.viol = static_cast<int*>(viol);
   p.R = R;
   p.E = E;
@@ -738,6 +762,7 @@ extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
   p.rerun = 0;
   p.kout = K;
   p.kofs = 0;
+  p.id_base = id_base;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool recover = p.live != nullptr;
   if (recover)

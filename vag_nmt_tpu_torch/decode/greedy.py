@@ -15,6 +15,7 @@ from vag_nmt_tpu_torch.decode.beam import _resolve_block, ngram_ban
 from vag_nmt_tpu_torch.models.model import (DecodeOpts, DecodeState,
                                              decode_opts, decode_step)
 from vag_nmt_tpu_torch.ops.readout_topk import ban_mask
+from vag_nmt_tpu_torch.parallel.tensor import vocab_parallel_argmax, vocab_shard
 
 
 class GreedyResult(NamedTuple):
@@ -39,13 +40,16 @@ def greedy_decode(
     semantics at K=1: a token that would complete an n-gram already in the
     row's hypothesis gets -inf before the argmax. Ties go to the first
     index, as ``jnp.argmax``. opts: the decode's step choices
-    (``models.model.DecodeOpts``; None: read once here)."""
+    (``models.model.DecodeOpts``; None: read once here); under tensor
+    parallelism (``opts.tp``) each rank holds its vocab slice's logits
+    and the argmax is ``vocab_parallel_argmax``'s."""
     B = state.s0.shape[0]
     V = cfg.tgt_vocab_size
     dev = state.s0.device
     block_ngram = _resolve_block(block_ngram)
     if opts is None:
         opts = decode_opts(state.ctx.dtype)
+    vocab = vocab_shard(opts.tp, V)
     t = 0
     tok = torch.full((B,), SOS_ID, dtype=torch.long, device=dev)
     s = state.s0[:, None, :]
@@ -60,9 +64,12 @@ def greedy_decode(
         lg = logits[:, 0]
         if block_ngram > 0:
             ban = ngram_ban(tokens[:, None, :], t, block_ngram, V)[:, 0]
-            lg = torch.where(ban_mask(ban, V).bool(),
-                             torch.full_like(lg, float("-inf")), lg)
-        nxt = torch.argmax(lg, dim=-1)
+            mask = ban_mask(ban, V).bool()
+            if vocab is not None:
+                mask = mask[:, vocab.v0:vocab.v1]
+            lg = torch.where(mask, torch.full_like(lg, float("-inf")), lg)
+        nxt = (torch.argmax(lg, dim=-1) if vocab is None
+               else vocab_parallel_argmax(lg, vocab))
         nxt = torch.where(finished, torch.full_like(nxt, PAD_ID), nxt)
         tokens[:, t] = nxt
         lengths = torch.where(finished, lengths, lengths + 1)

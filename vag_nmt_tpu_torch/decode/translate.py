@@ -26,6 +26,7 @@ program."""
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -48,7 +49,8 @@ from vag_nmt_tpu_torch.models.layers import compute_dtype
 from vag_nmt_tpu_torch.models.model import (DecodeState, cast_floats,
                                             decode_opts, decode_params,
                                             prepare_decode)
-from vag_nmt_tpu_torch.parallel.sharding import rows_of_chunks
+from vag_nmt_tpu_torch.parallel.sharding import rows_of_chunks, tp_mesh
+from vag_nmt_tpu_torch.parallel.tensor import vocab_shard
 
 SUPER_CHUNK_ROWS = 1024
 
@@ -213,7 +215,15 @@ def translate_corpus(
     super-chunk). The hypotheses are gathered in example order and
     returned on every rank, equal to one process's: each row's decode is
     its own. The trip stats are the max over the ranks of each chunk's
-    (``beam_loop_steps`` their sum), reruns their sum.
+    (``beam_loop_steps`` their sum), reruns their sum. A mesh with a
+    model axis (tensor parallelism) takes params holding this rank's
+    vocab slices: the ranks of a model group decode the same rows, each
+    beam step's readout merged over the group (``fused_readout_topk
+    (vocab=)``), and the gathers and trip maxima run over the data axis.
+    There streaming and two-phase are off, as the JAX package turns them
+    off on such a mesh (``_mesh_repack_ok``): the chunked loop runs, the
+    stats say ``streaming: False`` and ``two_phase: False``, and a call
+    that asked for either says so on stderr.
 
     beam_size 1 decodes greedily; beam search otherwise: pooled per
     super-chunk when the streaming-refill decoder is on (VAG_STREAM_DECODE
@@ -248,13 +258,14 @@ def translate_corpus(
     B = batch_size if batch_size is not None else cfg.decode.decode_batch_size
     _check_supported(nbest, beam_size, fused, mesh)
     n_data = 1 if mesh is None else mesh.n_data
+    tp = tp_mesh(mesh)
     if B % n_data:
         # equal rows on every rank; filler rows replicate real ones
         B += n_data - B % n_data
     dtype = compute_dtype(cfg.model)
     if dtype != torch.float32:
         params = cast_floats(params, dtype)     # once per call
-    opts = decode_opts(dtype)                   # the step choices, once
+    opts = decode_opts(dtype, mesh)             # the step choices, once
     if use_tables is None:
         use_tables = decode_knobs().tables
     if use_tables is None:
@@ -279,6 +290,12 @@ def translate_corpus(
                                    impl, use_tables, opts, dev)
     streaming = _use_streaming(cfg, beam_size)
     two_phase = not streaming and _use_two_phase(cfg, beam_size, max_len)
+    if tp is not None and (streaming or two_phase):
+        if mesh.is_main:
+            print(f"[tensor parallel] {'streaming' if streaming else 'two-phase'}"
+                  " decode is off on a mesh with a model axis: the chunked "
+                  "loop runs", file=sys.stderr)
+        streaming = two_phase = False
 
     ns, S = super_chunks(-(-n // B), B)
     nb = ns * S
@@ -316,7 +333,8 @@ def translate_corpus(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    tables = (decode_tables(params["decoder"], w_out_bf16=opts.readout_bf16)
+    tables = (decode_tables(params["decoder"], w_out_bf16=opts.readout_bf16,
+                            vocab=vocab_shard(tp, m.tgt_vocab_size))
               if use_tables else None)
     # per row: the best hypothesis, or with nbest the top nb_k beams and
     # their scores (the beam loops rank beams best first)
@@ -352,7 +370,8 @@ def translate_corpus(
                               < lens_d[:, None]).to(torch.float32)}
         if m.multimodal:
             batch["img"] = img_table[torch.from_numpy(ids[rows]).to(dev)]
-        state = prepare_decode(params, m, batch, device=dev, impl=impl)
+        state = prepare_decode(params, m, batch, device=dev, impl=impl,
+                               mesh=mesh)
         row_cap = _row_caps(cfg, max_len, lens_d)
         if streaming:
             res, steps, n_refill = beam_search_streaming(
@@ -417,6 +436,8 @@ def translate_corpus(
              "chunk_steps": chunk_steps, "n_chunks": nb,
              "rows_per_chunk": B, "t_src": int(t_src), "reruns": reruns,
              "device": str(dev), "impl": impl, "tables": bool(use_tables)}
+    if tp is not None:
+        stats["streaming"] = stats["two_phase"] = False
     if streaming:
         stats["streaming"] = True
         stats["refills"] = refills

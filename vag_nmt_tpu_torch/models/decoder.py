@@ -42,6 +42,7 @@ from vag_nmt_tpu_torch.ops.gru import (
     gru_gates_from_x,
     init_gru_params,
 )
+from vag_nmt_tpu_torch.parallel.tensor import VocabShard, copy_to_model
 
 Tables = Dict[str, torch.Tensor]
 
@@ -73,7 +74,8 @@ def _out_matrix(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
 
 
 def decode_tables(params: Dict[str, Any], *,
-                  w_out_bf16: bool = False) -> Tables:
+                  w_out_bf16: bool = False,
+                  vocab: Optional[VocabShard] = None) -> Tables:
     """Per-vocab decode tables: GRU1's input gates and the readout's y-term
     depend only on the previous token, so they are computed once over the
     whole vocab and the per-step embed -> matmul chains become one row
@@ -86,7 +88,12 @@ def decode_tables(params: Dict[str, Any], *,
     decode's ``DecodeOpts.readout_bf16``: ``VAG_FRT_GEMM_DTYPE=bf16``) and
     fp32 params the tables also carry "w_out", the output matrix cast to
     bf16 once for the fused readout top-K (the JAX package's cast hoisted
-    out of its beam loop)."""
+    out of its beam loop).
+
+    vocab (tensor parallelism): the params hold this rank's slice of the
+    target vocab, so ``gy`` holds the slice's rows (a step gathers them
+    through ``vocab_embed``); a tied output matrix, the slice's columns
+    of the embedding's transpose, is made contiguous here once."""
     emb = params["embed"]["table"]
     tables = {
         "gy": torch.cat([gru_gates_from_x(params["gru1"], emb),
@@ -98,6 +105,8 @@ def decode_tables(params: Dict[str, Any], *,
     w_out = r["w_out"] if "w_out" in r else emb.T
     if w_out_bf16 and w_out.dtype == torch.float32:
         tables["w_out"] = w_out.to(torch.bfloat16).contiguous()
+    elif vocab is not None and "w_out" not in r:
+        tables["w_out"] = w_out.contiguous()
     return tables
 
 
@@ -143,20 +152,23 @@ def _beams_step_core(
     src_mask: torch.Tensor,
     tables: Optional[Tables] = None,
     attn_bf16: Optional[bool] = None,
+    vocab: Optional[VocabShard] = None,
 ):
     """Shared GRU1 -> attention -> GRU2 body of a beam decoder step.
     Returns (s_new (B*K, H), ty (B*K, R), c_flat (B*K, C), tc (B*K, R) or
     None, attn (B, K, T)). attn_bf16: the attention's energies in bf16
-    (None: under a bf16 ctx; ops/attention.py)."""
+    (None: under a bf16 ctx; ops/attention.py). vocab: the target vocab's
+    slice under tensor parallelism (the token rows through
+    ``vocab_embed``)."""
     B, K = tok.shape
     H = s.shape[-1]
     flat_tok = tok.reshape(-1)
     if tables is None:
-        y = embed(params["embed"], flat_tok).to(ctx.dtype)
+        y = embed(params["embed"], flat_tok, vocab).to(ctx.dtype)
         xg1 = gru_gates_from_x(params["gru1"], y)
         ty = mm(y, params["readout"]["wy"])
     else:
-        gy = tables["gy"][flat_tok]
+        gy = embed({"table": tables["gy"]}, flat_tok, vocab)
         xg1, ty = gy[:, :3 * H], gy[:, 3 * H:]
     s_tilde = gru_cell_from_xgates(params["gru1"], xg1, s.reshape(B * K, H))
     if tables is not None:
@@ -193,13 +205,17 @@ def decode_step_beams(
     tables: Optional[Tables] = None,
     *,
     attn_bf16: Optional[bool] = None,
+    vocab: Optional[VocabShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder step for K beams per sentence sharing the encoder state.
-    Returns (s_new (B, K, H), logits (B, K, V) fp32, attn (B, K, T))."""
+    Returns (s_new (B, K, H), logits (B, K, V) fp32, attn (B, K, T)); with
+    a vocab slice (tensor parallelism) the logits of the slice, (B, K,
+    v1 - v0)."""
     B, K = tok.shape
     H = s.shape[-1]
     s_new, ty, c_flat, tc, w = _beams_step_core(params, tok, s, ctx, ctx_proj,
-                                                src_mask, tables, attn_bf16)
+                                                src_mask, tables, attn_bf16,
+                                                vocab)
     t = _readout_t(params, ty, s_new, c_flat, tc=tc)
     logits = (mm(t.to(c_flat.dtype), _out_matrix(params, cfg))
               + params["readout"]["b_out"]).to(torch.float32)
@@ -219,6 +235,7 @@ def decode_step_beams_readout(
     dec_step: Optional[bool] = None,
     impl: str = "auto",
     attn_bf16: Optional[bool] = None,
+    vocab: Optional[VocabShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Beam decoder step stopping at the readout activations: returns
     (s_new (B, K, H), t (B*K, R) in ctx's dtype, w_out (R, V), b_out (V,)
@@ -229,7 +246,9 @@ def decode_step_beams_readout(
     mid-section runs as one call of the fused step
     (ops/dec_step.decode_step_fused; impl: "auto", "kernel" or "plain"),
     as the JAX package's tabled step does with VAG_DEC_STEP=on. attn_bf16:
-    the attention's energies in bf16 (None: under a bf16 ctx)."""
+    the attention's energies in bf16 (None: under a bf16 ctx). vocab: the
+    target vocab's slice under tensor parallelism (w_out and b_out are
+    the slice's)."""
     B, K = tok.shape
     H = s.shape[-1]
     if dec_step is None:
@@ -239,10 +258,11 @@ def decode_step_beams_readout(
     b_out = params["readout"]["b_out"].to(torch.float32)
     if tables is not None and dec_step:
         s_new3, t = decode_step_fused(params, tables, tok, s, ctx, ctx_proj,
-                                      src_mask, impl=impl)
+                                      src_mask, impl=impl, vocab=vocab)
         return s_new3, t.to(ctx.dtype), w_out, b_out
     s_new, ty, c_flat, tc, _ = _beams_step_core(params, tok, s, ctx, ctx_proj,
-                                                src_mask, tables, attn_bf16)
+                                                src_mask, tables, attn_bf16,
+                                                vocab)
     t = _readout_t(params, ty, s_new, c_flat, tc=tc)
     return s_new.reshape(B, K, H), t.to(c_flat.dtype), w_out, b_out
 
@@ -257,6 +277,7 @@ def teacher_forced_logits(
     *,
     train: bool = False,
     generator: Optional[torch.Generator] = None,
+    vocab: Optional[VocabShard] = None,
 ) -> torch.Tensor:
     """Logits for every target position, (B, Tt, V) fp32. The GRU1 input
     gates and the readout y-term run time-parallel before the scan, the
@@ -269,8 +290,12 @@ def teacher_forced_logits(
     bf16": the port takes the kernels in fp32 eval too). Under bf16 (ctx
     bf16) the embeddings are bf16, the scan streams bf16
     (``ops/dec_scan.decoder_scan``) and the vocab GEMM takes t_all rounded
-    to bf16, as in the JAX package; the logits are fp32."""
-    y = embed(params["embed"], tgt_in).to(ctx.dtype)          # (B, Tt, E)
+    to bf16, as in the JAX package; the logits are fp32. vocab (tensor
+    parallelism): the params hold this rank's slice of the target vocab;
+    the logits are the slice's, (B, Tt, v1 - v0), and t_all enters the
+    slice's GEMM through ``copy_to_model`` (its grad summed over the
+    model group)."""
+    y = embed(params["embed"], tgt_in, vocab).to(ctx.dtype)   # (B, Tt, E)
     y = dropout(generator, y, cfg.dropout, train)
     xg1 = gru_gates_from_x(params["gru1"], y)                 # (B, Tt, 3H)
     ty = mm(y, params["readout"]["wy"])                       # (B, Tt, R)
@@ -278,5 +303,7 @@ def teacher_forced_logits(
     t_all = decoder_scan(params, ty, xg1, s0, ctx, ctx_proj, src_mask,
                          impl=cfg.dec_scan_impl)
     t_all = dropout(generator, t_all, cfg.dropout, train)
+    if vocab is not None:
+        t_all = copy_to_model(t_all, vocab.mesh)
     return (mm(t_all.to(ctx.dtype), _out_matrix(params, cfg))
             + params["readout"]["b_out"])

@@ -12,6 +12,8 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from vag_nmt_tpu_torch.parallel.tensor import VocabShard, vocab_embed
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -40,7 +42,13 @@ def init_dense(gen: torch.Generator, in_dim: int, out_dim: int) -> Params:
             "b": torch.zeros((out_dim,), dtype=torch.float32)}
 
 
-def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
+def embed(params: Params, ids: torch.Tensor,
+          vocab: Optional[VocabShard] = None) -> torch.Tensor:
+    """The table's rows ``ids``; with a vocab slice (tensor parallelism)
+    the table is this rank's slice and the rows come through
+    ``parallel/tensor.vocab_embed``."""
+    if vocab is not None:
+        return vocab_embed(params["table"], ids, vocab)
     return params["table"][ids]
 
 

@@ -30,7 +30,14 @@ from vag_nmt_tpu_torch.models.layers import (RowDraws, glorot_uniform,
 from vag_nmt_tpu_torch.ops.attention import precompute_ctx_proj
 from vag_nmt_tpu_torch.ops.readout_topk import ban_mask, fused_readout_topk
 from vag_nmt_tpu_torch.ops.topk import beam_topk
-from vag_nmt_tpu_torch.parallel.sharding import BatchShard
+from vag_nmt_tpu_torch.parallel.sharding import (BatchShard, Mesh, shard_tree,
+                                                 tp_mesh)
+from vag_nmt_tpu_torch.parallel.tensor import (
+    gather_logits,
+    vocab_parallel_argmax,
+    vocab_parallel_log_softmax_target,
+    vocab_shard,
+)
 
 Params = Dict[str, Any]
 
@@ -67,20 +74,25 @@ class DecodeOpts(NamedTuple):
     dec_step: bool       # the fused mid-section, kernel 7 (VAG_DEC_STEP)
     attn_bf16: bool      # the beam attention's energies in bf16
     readout_bf16: bool   # the fused readout's GEMM on bf16 t and W
+    tp: Optional[Mesh] = None   # a mesh with a model axis: vocab slices
 
 
-def decode_opts(dtype: torch.dtype) -> DecodeOpts:
+def decode_opts(dtype: torch.dtype, mesh: Optional[Mesh] = None
+                ) -> DecodeOpts:
     """The step choices of a decode at ``dtype`` under the selection
     variables (``core/knobs.py``), read once: the energies in bf16 under
     bf16 unless ``VAG_ATTN_E_DTYPE=fp32``, or with ``=bf16``; the readout's
-    GEMM in bf16 under bf16 or with ``VAG_FRT_GEMM_DTYPE=bf16``."""
+    GEMM in bf16 under bf16 or with ``VAG_FRT_GEMM_DTYPE=bf16``. mesh:
+    the decode's mesh; with a model axis (tensor parallelism) the params
+    hold vocab slices and the steps take them as such (``tp``)."""
     kn = decode_knobs()
     bf = dtype == torch.bfloat16
     return DecodeOpts(
         structure=kn.readout_topk, dec_step=kn.dec_step,
         attn_bf16=(bf and kn.attn_e_dtype != "fp32")
         or kn.attn_e_dtype == "bf16",
-        readout_bf16=bf or kn.frt_gemm_bf16)
+        readout_bf16=bf or kn.frt_gemm_bf16,
+        tp=tp_mesh(mesh))
 
 
 # The decoder leaves a bf16 decode's step reads in bf16: the embedding
@@ -146,13 +158,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 
 def params_from_numpy(tree: Any, cfg: ModelConfig, *,
-                      device: DeviceLike = None) -> Params:
+                      device: DeviceLike = None,
+                      mesh: Optional[Mesh] = None) -> Params:
     """The weight bridge: the JAX parameter tree as nested dicts/lists of
     numpy arrays under JAX's own paths (e.g. ``jax.device_get(params)``,
     or a list as flax serializes it, a dict keyed "0", "1", ...) -> the
     port's parameters. Strict: a missing or extra path, a list of
     the wrong length or a shape that differs from what ``cfg`` implies
-    raises; every leaf is used."""
+    raises; every leaf is used. mesh: with a model axis, this rank's
+    vocab slices of the tree (``parallel.sharding.shard_tree``)."""
     dev = resolve_device(device)
     template = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
@@ -182,7 +196,7 @@ def params_from_numpy(tree: Any, cfg: ModelConfig, *,
                              f"{tuple(tmpl.shape)}")
         return torch.tensor(arr, dtype=torch.float32, device=dev)
 
-    return conv(template, tree, "")
+    return shard_tree(conv(template, tree, ""), mesh)
 
 
 def _init_decoder_state(params: Params, cfg: ModelConfig, ctx: torch.Tensor,
@@ -197,12 +211,15 @@ def _init_decoder_state(params: Params, cfg: ModelConfig, ctx: torch.Tensor,
 def _encode_and_ground(params: Params, cfg: ModelConfig,
                        batch: Dict[str, torch.Tensor], *, train: bool,
                        generator: Optional[torch.Generator] = None,
-                       impl: Optional[str] = None):
+                       impl: Optional[str] = None,
+                       mesh: Optional[Mesh] = None):
     """Encoder, image embedding + grounding and decoder init on tensors
-    already on the params' device. Returns (ctx, s0, img_emb, txt_emb)."""
+    already on the params' device. Returns (ctx, s0, img_emb, txt_emb).
+    mesh: with a model axis the source embedding is a vocab slice."""
     src_mask = batch["src_mask"]
     ctx = enc.encode(params["encoder"], cfg, batch["src"].long(), src_mask,
-                     impl=impl, train=train, generator=generator)
+                     impl=impl, train=train, generator=generator,
+                     vocab=vocab_shard(mesh, cfg.src_vocab_size))
     img_emb = txt_emb = t_vec = None
     if cfg.multimodal:
         img_emb = vse.image_embedding(params["vse"], batch["img"].to(ctx.dtype))
@@ -232,20 +249,33 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     gradients the global gradient. The VSE loss takes its in-batch
     negatives over the global batch (``BatchShard.splice``): vse is the
     global value on every rank, its gradient this rank's part of the
-    global one; ntokens is global."""
+    global one; ntokens is global.
+
+    A shard whose mesh has a model axis (tensor parallelism): params hold
+    this rank's vocab slices; the logits are the target slice's, CE comes
+    from ``vocab_parallel_log_softmax_target`` and accuracy from
+    ``vocab_parallel_argmax``. Every value of aux is then the same on the
+    ranks of a model group, and the shares add up over the data axis."""
+    tp = None if shard is None else tp_mesh(shard.mesh)
+    tgt_v = vocab_shard(tp, cfg.tgt_vocab_size)
     ctx, s0, img_emb, txt_emb = _encode_and_ground(
-        params, cfg, batch, train=train, generator=generator)
+        params, cfg, batch, train=train, generator=generator, mesh=tp)
     logits = dec.teacher_forced_logits(
         params["decoder"], cfg, batch["tgt_in"].long(), s0, ctx,
-        batch["src_mask"], train=train, generator=generator)
+        batch["src_mask"], train=train, generator=generator, vocab=tgt_v)
     tgt_out = batch["tgt_out"].long()
-    logp = torch.log_softmax(logits, dim=-1)
-    tgt_logp = torch.gather(logp, -1, tgt_out[..., None])[..., 0]
+    if tgt_v is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        tgt_logp = torch.gather(logp, -1, tgt_out[..., None])[..., 0]
+        pred = logits.argmax(-1)
+    else:
+        tgt_logp = vocab_parallel_log_softmax_target(logits, tgt_out, tgt_v)
+        pred = vocab_parallel_argmax(logits.detach(), tgt_v)
     tmask = batch["tgt_mask"].to(torch.float32)
     ntokens = tmask.sum() if shard is None else shard.ntokens
     ntok = ntokens.clamp_min(1.0)
     ce = -(tgt_logp * tmask).sum() / ntok
-    acc = ((logits.argmax(-1) == tgt_out) * tmask).sum() / ntok
+    acc = ((pred == tgt_out) * tmask).sum() / ntok
     aux = {"ce": ce, "acc": acc, "ntokens": ntokens}
     total = ce
     if cfg.multimodal:
@@ -265,11 +295,14 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def embeddings_for_retrieval(params: Params, cfg: ModelConfig,
                              batch: Dict[str, Any], *,
                              device: DeviceLike = None,
-                             impl: Optional[str] = None
+                             impl: Optional[str] = None,
+                             mesh: Optional[Mesh] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(img_emb, txt_emb) (B, D) in the shared space, for the R@K
     evaluation. batch: src (B, T) int, src_mask (B, T), img (B, F) (tensors
-    or numpy arrays; moved to ``device``, None = the card)."""
+    or numpy arrays; moved to ``device``, None = the card). mesh: with a
+    model axis, params hold vocab slices (the source gather is a
+    collective: every rank of the model group calls this)."""
     if not cfg.multimodal:
         raise ValueError("retrieval requires a multimodal config")
     dev = resolve_device(device)
@@ -280,18 +313,20 @@ def embeddings_for_retrieval(params: Params, cfg: ModelConfig,
          "img": torch.as_tensor(batch["img"], device=dev)}
     with torch.no_grad():
         _, _, img_emb, txt_emb = _encode_and_ground(params, cfg, b,
-                                                    train=False, impl=impl)
+                                                    train=False, impl=impl,
+                                                    mesh=mesh)
     return img_emb, txt_emb
 
 
 def prepare_decode(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
                    device: DeviceLike = None,
-                   impl: Optional[str] = None) -> DecodeState:
+                   impl: Optional[str] = None,
+                   mesh: Optional[Mesh] = None) -> DecodeState:
     """Encode once per batch: encoder, image embedding + grounding, decoder
     init and the attention's context projection. batch: src (B, T) int,
     src_mask (B, T) float, img (B, F) when cfg.multimodal (tensors or numpy
     arrays; moved to ``device``). impl: the encoder GRU scan's impl (None =
-    cfg.gru_impl)."""
+    cfg.gru_impl). mesh: with a model axis, params hold vocab slices."""
     dev = resolve_device(device)
     same_device(dev, params["decoder"]["embed"]["table"], "params")
     src_mask = torch.as_tensor(batch["src_mask"], device=dev).to(torch.float32)
@@ -299,7 +334,8 @@ def prepare_decode(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
          "src_mask": src_mask}
     if cfg.multimodal:
         b["img"] = torch.as_tensor(batch["img"], device=dev)
-    ctx, s0, _, _ = _encode_and_ground(params, cfg, b, train=False, impl=impl)
+    ctx, s0, _, _ = _encode_and_ground(params, cfg, b, train=False, impl=impl,
+                                       mesh=mesh)
     return DecodeState(
         ctx=ctx,
         ctx_proj=precompute_ctx_proj(params["decoder"]["attn"], ctx),
@@ -314,12 +350,15 @@ def decode_step(params: Params, cfg: ModelConfig, tok: torch.Tensor,
                 opts: Optional[DecodeOpts] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (s_new (B, K, H), fp32 logits (B, K, V)). opts: the
-    decode's step choices (None: ``decode_opts`` at ctx's dtype)."""
+    decode's step choices (None: ``decode_opts`` at ctx's dtype); under
+    tensor parallelism (``opts.tp``) the logits are this rank's vocab
+    slice's, (B, K, v1 - v0)."""
     if opts is None:
         opts = decode_opts(state.ctx.dtype)
     s_new, logits, _ = dec.decode_step_beams(
         params["decoder"], cfg, tok, s, state.ctx, state.ctx_proj,
-        state.src_mask, tables, attn_bf16=opts.attn_bf16)
+        state.src_mask, tables, attn_bf16=opts.attn_bf16,
+        vocab=vocab_shard(opts.tp, cfg.tgt_vocab_size))
     return s_new, logits
 
 
@@ -366,15 +405,22 @@ def decode_step_topk(
     opts: the decode's step choices, resolved once a call (None:
     ``decode_opts`` at ctx's dtype): the structure (VAG_READOUT_TOPK), the
     fused step (VAG_DEC_STEP), the attention's energies and the readout
-    GEMM's dtype."""
+    GEMM's dtype. Under tensor parallelism (``opts.tp``) the fused
+    structure runs the readout on this rank's vocab slice and merges the
+    slices (``fused_readout_topk(vocab=)``); the unfused one gathers the
+    logits' slices into whole rows, exactly, for the top-K kernels, which
+    compute their own lse."""
     if opts is None:
         opts = decode_opts(state.ctx.dtype)
+    vocab = vocab_shard(opts.tp, cfg.tgt_vocab_size)
     if impl in ("fused", "unfused"):
         structure, impl = impl, "auto"
     else:
         structure = opts.structure
     if structure == "unfused":
         s_new, logits = decode_step(params, cfg, tok, s, state, tables, opts)
+        if vocab is not None:
+            logits = gather_logits(logits, vocab)
         if ban is not None:
             Bk, Kk, Vk = logits.shape
             flat = logits.reshape(Bk * Kk, Vk)
@@ -388,7 +434,7 @@ def decode_step_topk(
     s_new, t, w_out, b_out = dec.decode_step_beams_readout(
         params["decoder"], cfg, tok, s, state.ctx, state.ctx_proj,
         state.src_mask, tables, dec_step=opts.dec_step, impl=impl,
-        attn_bf16=opts.attn_bf16)
+        attn_bf16=opts.attn_bf16, vocab=vocab)
     if opts.readout_bf16 and w_out.dtype == torch.float32:
         # VAG_FRT_GEMM_DTYPE=bf16 without decode tables (which carry W
         # cast once): W cast here, a step
@@ -397,4 +443,4 @@ def decode_step_topk(
     return (s_new,) + fused_readout_topk(
         t, w_out, b_out, scores, finished,
         None if ban is None else ban.reshape(t.shape[0], -1), impl=impl,
-        slots=K if exact else 0, defer_exact=defer_exact)
+        slots=K if exact else 0, defer_exact=defer_exact, vocab=vocab)

@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import torch
 
 from vag_nmt_tpu_torch.core.device import check_kernel_arg, resolve_impl
-from vag_nmt_tpu_torch.models.layers import mm
+from vag_nmt_tpu_torch.models.layers import embed, mm
 from vag_nmt_tpu_torch.ops import _build
 from vag_nmt_tpu_torch.ops.gru_kernel import gru_gate_algebra
 from vag_nmt_tpu_torch.ops.topk import MAX_K, declare_instances, instance
@@ -266,13 +266,16 @@ declare_instances("dec_step", "dec_step_launch",
 def decode_step_fused(params: Dict[str, Any], tables: Dict[str, torch.Tensor],
                       tok: torch.Tensor, s: torch.Tensor, ctx: torch.Tensor,
                       ctx_proj: torch.Tensor, src_mask: torch.Tensor, *,
-                      impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+                      impl: str = "auto",
+                      vocab=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused beam decode step off the decode tables: tok (B, K), s
     (B, K, H), ctx (B, T, C), ctx_proj (B, T, A), src_mask (B, T). Returns
-    (s_new (B, K, H), t (B*K, R)), the inputs of the fused readout top-K."""
+    (s_new (B, K, H), t (B*K, R)), the inputs of the fused readout top-K.
+    vocab: the target vocab's slice under tensor parallelism (``gy``
+    holds its rows; the step's rows come through ``vocab_embed``)."""
     B, K = tok.shape
     H = s.shape[-1]
-    gy = tables["gy"][tok.reshape(-1)]
+    gy = embed({"table": tables["gy"]}, tok.reshape(-1), vocab)
     ctxpb = (ctx_proj + params["attn"]["ba"]).contiguous()
     s_new, t = dec_step(gy, s.reshape(B * K, H).contiguous(), ctx.contiguous(),
                         ctxpb, src_mask.to(torch.float32).contiguous(),

@@ -44,6 +44,7 @@ from vag_nmt_tpu_torch.ops.topk import (_FLOOR, MAX_K, NEG_INF,
                                         _arrival_counters, beam_topk_plain,
                                         declare_instances, instance, k_plan,
                                         stable_topk)
+from vag_nmt_tpu_torch.parallel.tensor import VocabShard
 
 # Tiling of the kernel; csrc/readout_topk.cu is built with it (-D defines,
 # see the declare() below), so the split plan and the lane map cannot
@@ -118,7 +119,8 @@ def readout_topk_rows_plain(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                             k: int, mask: Optional[torch.Tensor] = None, *,
                             slots: int = 0,
                             lanes: Optional[torch.Tensor] = None,
-                            recover_live: Optional[torch.Tensor] = None):
+                            recover_live: Optional[torch.Tensor] = None,
+                            lse_parts: bool = False):
     """The plain version of the kernel: per-row top-k (values, int32 ids,
     ties to the smaller id) and log-sum-exp of ``t @ w + b`` (fp32 sums of
     the products, bf16 ``t`` and ``w`` included) with banned ids floored
@@ -126,13 +128,19 @@ def readout_topk_rows_plain(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     watermark mode's per-row viol (int32) as a fourth output, under the
     lane map ``lanes`` ((V,) lane ids; None: ``kernel_lanes``), with the
     shallow union's top-k in place of the exact one unless sk == k; rows
-    flagged and True in ``recover_live`` (R,) get the depth-k result."""
+    flagged and True in ``recover_live`` (R,) get the depth-k result.
+    lse_parts: the third output is (R, 2), the terms of lse = M + log(S),
+    the row's max M and S = sum of exp(logit - M), in place of lse."""
     logits = mm(t, w) + b
     if mask is not None:
         logits = torch.where(mask.bool(), torch.full_like(logits, _FLOOR),
                              logits)
     vals, idx = stable_topk(logits, k)
-    lse = torch.logsumexp(logits, dim=-1)
+    if lse_parts:
+        top = logits.amax(-1)
+        lse = torch.stack([top, torch.exp(logits - top[:, None]).sum(-1)], 1)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
     if not slots:
         return vals, idx.to(torch.int32), lse
     R, V = logits.shape
@@ -151,7 +159,8 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       k: int, mask: Optional[torch.Tensor] = None, *,
                       slots: int = 0,
                       recover_live: Optional[torch.Tensor] = None,
-                      impl: str = "auto"):
+                      impl: str = "auto", id_base: int = 0,
+                      lse_parts: bool = False):
     """(vals (R, k) f32, idx (R, k) int32, lse (R,) f32) of the rows of
     ``t @ w + b`` (t and w both fp32, or both bf16 with fp32 sums: the
     kernel's bf16 instances, counted in ``readout_topk_rows.bf16_launches``;
@@ -171,12 +180,19 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     (``ops/topk.K_INSTANCES``); above 16 that one runs ``k_plan``'s
     passes, a grid each (each rerun a grid a pass too), counted in
     ``readout_topk_rows.passes``; there a slot depth above 16 below k has
-    no instance (ValueError)."""
+    no instance (ValueError). id_base: added to every id the call
+    returns (w holds columns id_base.. of a larger vocab: a vocab slice
+    under tensor parallelism); the kernel writes the ids so. lse_parts:
+    the third output is (R, 2), lse's terms M and S (lse = M + log(S)),
+    as ``readout_topk_rows_plain``'s."""
     sk = min(slots, k) if slots else k
     recover = recover_live if sk < k else None
     if resolve_impl(impl, t) == "plain":
         out = readout_topk_rows_plain(t, w, b, k, mask, slots=slots,
-                                      recover_live=recover)
+                                      recover_live=recover,
+                                      lse_parts=lse_parts)
+        if id_base:
+            out = (out[0], out[1] + id_base) + tuple(out[2:])
         if recover is not None:
             fix = (out[3] > 0) & recover
             _recoveries(t.device).add_(torch.stack([fix.sum(), fix.any().long()]))
@@ -208,6 +224,8 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     vals = torch.empty((R, k), dtype=torch.float32, device=dev)
     idx = torch.empty((R, k), dtype=torch.int32, device=dev)
     lse = torch.empty((R,), dtype=torch.float32, device=dev)
+    parts = (torch.empty((R, 2), dtype=torch.float32, device=dev)
+             if lse_parts else None)
     # shallow slots: (part_w, viol); per-step recovery: (live, tile marks,
     # the recovery counter)
     shallow, recovery = (None, None), (None, None, None)
@@ -228,9 +246,9 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         part_s.data_ptr(), part_w,
         _arrival_counters(dev, row_tiles).data_ptr(),
         vals.data_ptr(), idx.data_ptr(),
-        lse.data_ptr(), viol,
+        lse.data_ptr(), None if parts is None else parts.data_ptr(), viol,
         *(None if x is None else x.data_ptr() for x in recovery),
-        R, E, V, k, sk, n_split, split_cols,
+        R, E, V, k, sk, n_split, split_cols, id_base,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"readout_topk kernel launch failed: CUDA error {rc}")
@@ -239,6 +257,8 @@ def readout_topk_rows(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     readout_topk_rows.grids += passes * (1 if recover is None else 2)
     if passes > 1:
         readout_topk_rows.passes += passes
+    if lse_parts:
+        lse = parts
     if not slots:
         return vals, idx, lse
     if shallow[1] is None:                     # depth k: nothing flagged
@@ -267,7 +287,7 @@ def _recoveries(dev: torch.device) -> torch.Tensor:
 # 39552 floats of the ring; the bf16 builds' chunks of 128 at 2 bytes
 # make the same 39552 (tests/test_torch_readout_plan.py).
 declare_instances("readout_topk", "readout_topk_launch",
-                  [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                  [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
                   {"VAG_BM": _ROW_TILE, "VAG_BN": _COL_TILE,
                    "VAG_BK": _DEPTH_CHUNK, "VAG_LANE_PERIOD": _LANE_PERIOD,
                    "VAG_CPT": _LANE_COLS},
@@ -325,6 +345,7 @@ def fused_readout_topk(
     impl: str = "auto",
     slots: int = 0,
     defer_exact: bool = False,
+    vocab: Optional[VocabShard] = None,
 ):
     """Top-K next-beam candidates straight from the readout activations:
     (top_scores (B, K) fp32 descending, flat_idx (B, K) int64, flat =
@@ -342,7 +363,13 @@ def fused_readout_topk(
     a 0-dim bool tensor on the device (no sync) that is True iff a LIVE row
     was flagged (frozen rows' outputs are discarded by ``_combine``), or
     ``VAG_FRT_NOCOND=1``, where nothing is recovered (not exact). At depth
-    K the appended flag is always False."""
+    K the appended flag is always False.
+
+    vocab (tensor parallelism): w and b are this rank's columns [v0, v1)
+    of a vocab of ``vocab.total``, ban holds global ids; each rank runs
+    the rows' top-K on its slice and the slices are merged
+    (``_merge_slices``), the result the same on every rank of the model
+    group."""
     B, K = scores.shape
     E, V = w.shape
     R = t.shape[0]
@@ -354,6 +381,11 @@ def fused_readout_topk(
         t = t.to(torch.bfloat16)
     sk = min(max(1, slots if slots > 0 else over(kn.frt_slots, K)), K)
     route = resolve_impl(impl, t)
+    if vocab is not None:
+        return _merge_slices(t, w, b, scores, finished, ban, sk=sk,
+                             route=route, pad_id=pad_id,
+                             recover=not defer_exact and not kn.frt_nocond,
+                             defer_exact=defer_exact, vocab=vocab)
     mask = None if ban is None else ban_mask(ban, V)
     if sk >= K:
         if route == "plain":
@@ -378,4 +410,60 @@ def fused_readout_topk(
     out = _combine(rvals, ridx, lse, scores, finished, V, pad_id)
     if defer_exact:
         out = out + (((viol > 0) & live).any(),)
+    return out
+
+
+def _merge_slices(t, w, b, scores, finished, ban, *, sk: int, route: str,
+                  pad_id: int, recover: bool, defer_exact: bool,
+                  vocab: VocabShard):
+    """fused_readout_topk on a vocab slice: the rows' top-K, lse and
+    watermark flags of this rank's slice (kernel 1 writing global ids
+    through id_base, or its plain version, at depth min(K, v1 - v0); a
+    narrower slice pads its rows with -inf entries, below every logit
+    and floored ban, whose ids sort last), one exact gather of them over
+    the model group, then in model_index order: the K largest of the
+    n_model * K values, ties to the smaller id (a slice's list holds its
+    ids in order, and slices hold increasing ids, so the position breaks
+    ties as the id does); the row's lse from each slice's terms (M_j,
+    S_j), lse_j = M_j + log(S_j), as the kernel's last CTA merges its
+    vocab splits: M = max_j M_j, lse = M + log(sum_j S_j exp(M_j - M))
+    (a merge of the lse_j themselves, m + log sum_j exp(lse_j - m), would
+    round each slice's lse through log and exp, ~1e-6 on a row's lse of
+    ~9: enough to flip an untrained model's near ties between beams); the
+    flags OR'ed (a slice's own K-th value is at most the
+    row's, so the OR is conservative and the recovery stays exact).
+    Every rank holds the same bits; then ``_combine`` with the global V."""
+    B, K = scores.shape
+    R, Vj = t.shape[0], w.shape[1]
+    mask = None
+    if ban is not None:
+        local, inside = vocab.local(ban.long())
+        mask = ban_mask(torch.where(inside, local, Vj), Vj)
+    k = min(K, Vj)
+    live = ~finished.reshape(-1)
+    vals, idx, ms, viol = readout_topk_rows(
+        t.contiguous(), w.contiguous(), b.contiguous(), k, mask,
+        slots=min(sk, k), recover_live=live if recover else None,
+        impl=route, id_base=vocab.v0, lse_parts=True)
+    if k < K:
+        vals = torch.cat([vals, vals.new_full((R, K - k), float("-inf"))], 1)
+        idx = torch.cat([idx, idx.new_full((R, K - k), 2 ** 31 - 1)], 1)
+    packed = torch.cat([vals.view(torch.int32), idx, ms.view(torch.int32),
+                        viol.to(torch.int32)[:, None]], 1)
+    g = vocab.mesh.model_all_gather(packed[None])      # (n, R, 2K + 3)
+    n = g.shape[0]
+    allv = g[..., :K].contiguous().view(torch.float32)
+    alli = g[..., K:2 * K]
+    ms = g[..., 2 * K:2 * K + 2].contiguous().view(torch.float32)
+    top, pos = stable_topk(allv.permute(1, 0, 2).reshape(R, n * K), K)
+    ids = torch.gather(alli.permute(1, 0, 2).reshape(R, n * K), 1, pos)
+    m = ms[..., 0].amax(0)
+    s = ms[0, :, 1] * torch.exp(ms[0, :, 0] - m)
+    for j in range(1, n):
+        s = s + ms[j, :, 1] * torch.exp(ms[j, :, 0] - m)
+    lse = m + torch.log(s)
+    flag = (g[..., 2 * K + 2] > 0).any(0)
+    out = _combine(top, ids, lse, scores, finished, vocab.total, pad_id)
+    if defer_exact:
+        out = out + ((flag & live).any(),)
     return out

@@ -20,7 +20,13 @@ metadata in the ``meta_<tag>.json`` sidecar. Its TrainState (``step``,
 scale_by_adam) with ``count``, ``mu`` and ``nu``, ``lr``) becomes the
 port's ``TrainState(step, params, mu, nu, lr)`` through the weight bridge
 ``params_from_numpy``, so ``train_loop`` resumes a JAX run and
-``Translator.from_run`` serves one."""
+``Translator.from_run`` serves one.
+
+Under tensor parallelism (a mesh with a model axis) the files hold the
+full tensors all the same: ``save_checkpoint(mesh=)`` gathers the vocab
+slices over the model group (every rank calls it) before rank 0 writes,
+and ``load_checkpoint(mesh=)`` reads the full state and keeps this
+rank's slices, from either format."""
 
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 from vag_nmt_tpu_torch.core.config import ModelConfig
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device
 from vag_nmt_tpu_torch.models.model import params_from_numpy
+from vag_nmt_tpu_torch.parallel.sharding import Mesh, gather_tree, shard_tree
 from vag_nmt_tpu_torch.train import flax_msgpack
 from vag_nmt_tpu_torch.train.state import TrainState, tree_leaves, tree_unflatten
 
@@ -49,7 +56,17 @@ def _replace_atomically(path: str, write) -> None:
 
 
 def save_checkpoint(ckpt_dir: str, tag: str, state: TrainState,
-                    meta: Optional[Dict[str, Any]] = None) -> None:
+                    meta: Optional[Dict[str, Any]] = None, *,
+                    mesh: Optional[Mesh] = None) -> None:
+    """Writes ``state`` and ``meta`` under ``tag``. mesh: the run's mesh;
+    every rank calls it, the vocab slices are gathered over the model
+    group and rank 0 alone writes."""
+    if mesh is not None:
+        state = state._replace(params=gather_tree(state.params, mesh),
+                               mu=gather_tree(state.mu, mesh),
+                               nu=gather_tree(state.nu, mesh))
+        if not mesh.is_main:
+            return
     os.makedirs(ckpt_dir, exist_ok=True)
     meta = {"step": int(state.step), **(meta or {})}
 
@@ -120,15 +137,24 @@ def _load_jax(ckpt_dir: str, tag: str, cfg: ModelConfig, dev: torch.device
 
 
 def load_checkpoint(ckpt_dir: str, tag: str, *, device: DeviceLike = None,
-                    cfg: Optional[ModelConfig] = None
+                    cfg: Optional[ModelConfig] = None,
+                    mesh: Optional[Mesh] = None
                     ) -> Tuple[TrainState, Dict[str, Any]]:
     """The saved state, on ``device`` (None = the card), and its meta:
     the port's ``state_<tag>.pt`` or the JAX package's
     ``state_<tag>.msgpack`` (which needs the run's model config ``cfg``
     for the weight bridge). Where both files exist, the one whose state
     holds the larger step (the step both packages also write into its
-    meta) is read; on a tie, the ``.pt``."""
-    dev = resolve_device(device)
+    meta) is read; on a tie, the ``.pt``. mesh: with a model axis, this
+    rank's vocab slices of the state."""
+    state, meta = _load_full(ckpt_dir, tag, resolve_device(device), cfg)
+    return state._replace(params=shard_tree(state.params, mesh),
+                          mu=shard_tree(state.mu, mesh),
+                          nu=shard_tree(state.nu, mesh)), meta
+
+
+def _load_full(ckpt_dir: str, tag: str, dev: torch.device,
+               cfg: Optional[ModelConfig]) -> Tuple[TrainState, Dict[str, Any]]:
     pt = os.path.join(ckpt_dir, _STATE_FILE.format(tag=tag))
     has_jax = os.path.exists(os.path.join(ckpt_dir,
                                           _JAX_STATE_FILE.format(tag=tag)))

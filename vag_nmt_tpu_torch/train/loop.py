@@ -11,12 +11,14 @@ batches are kept: the (N, F) feature table lives on the device and batches
 carry row ids. The host reads the device only at log points (one small
 row of metrics), at evals and at checkpoints.
 
-Under a data-parallel mesh every rank builds the same batch order and
-trains on its rows of each batch (``train/step.py``); only rank 0 logs
-and writes checkpoints, and every rank waits for a save at a barrier;
-resume reads on every rank. The dev eval decodes through the mesh and
-every rank scores the gathered hypotheses, so the LR-decay and
-early-stop decisions agree without a broadcast."""
+Under a mesh every rank builds the same batch order and trains on its
+data index's rows of each batch (``train/step.py``); with a model axis
+each rank holds its vocab slices from the init on. Only rank 0 logs and
+writes checkpoints (full tensors: every rank takes part in the gather of
+the slices) and every rank waits for a save at a barrier; resume reads on
+every rank. The dev eval decodes through the mesh and every rank scores
+the gathered hypotheses, so the LR-decay and early-stop decisions agree
+without a broadcast."""
 
 from __future__ import annotations
 
@@ -80,9 +82,9 @@ def train_loop(
     A run stopped at max_steps and resumed equals an uninterrupted run bit
     for bit on the same device. debug_nans: read each step's loss and raise
     FloatingPointError at the first that is not finite (one host read a
-    step). mesh: a data-parallel mesh (``parallel.make_mesh``), the same
-    call on every rank; ranks other than 0 write nothing (their logger
-    is not used)."""
+    step). mesh: a mesh (``parallel.make_mesh``, a model axis included),
+    the same call on every rank; ranks other than 0 write nothing (their
+    logger is not used)."""
     dev = resolve_device(device)
     if mesh is not None and not mesh.is_main:
         logger = MetricsLogger(None, stream=io.StringIO())
@@ -105,18 +107,19 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
     run_meta = {"compute_dtype": cfg.model.compute_dtype}
     if mesh is not None:
         run_meta["data_parallel"] = {"n_data": mesh.n_data,
+                                     "n_model": mesh.n_model,
                                      "backend": mesh.backend}
         log.log("data_parallel", **run_meta["data_parallel"])
 
     def save(tag: str, state: TrainState, meta: Dict) -> None:
-        if mesh is None or mesh.is_main:
-            save_checkpoint(ckpt_dir, tag, state, {**meta, **run_meta})
+        save_checkpoint(ckpt_dir, tag, state, {**meta, **run_meta}, mesh=mesh)
         if mesh is not None:
             mesh.barrier()
 
     m = cfg.model
     state = create_train_state(
-        cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
+        cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev,
+        mesh=mesh)
 
     use_table = m.multimodal
     train_img_table = dev_img_table = None
@@ -147,7 +150,8 @@ def _train(cfg: Config, out_dir: str, train_examples: Sequence[Example],
     best_bleu = -1.0
     evals_since_best = 0
     if cfg.train.resume and has_checkpoint(ckpt_dir, "last"):
-        state, meta = load_checkpoint(ckpt_dir, "last", device=dev, cfg=m)
+        state, meta = load_checkpoint(ckpt_dir, "last", device=dev, cfg=m,
+                                      mesh=mesh)
         start_epoch = int(meta.get("epoch", 0))
         start_cursor = int(meta.get("epoch_cursor", 0))
         best_bleu = float(meta.get("best_bleu", -1.0))

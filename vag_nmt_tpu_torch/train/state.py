@@ -15,17 +15,24 @@ decays on a dev-BLEU plateau. The update is exactly optax's chain
 
 (``torch.nn.utils.clip_grad_norm_`` is not this clip: it scales by
 max_norm / (norm + 1e-6) whenever norm > max_norm.)
+
+Under tensor parallelism the state holds this rank's vocab slices of
+the ``_TP_RULES`` leaves (params and moments alike); the norm adds the
+slices' squares over the model group once, and the clip and Adam run on
+each rank's leaves: the JAX package's update of the sharded tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from vag_nmt_tpu_torch.core.config import Config
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device
 from vag_nmt_tpu_torch.models.model import init_params
+from vag_nmt_tpu_torch.parallel.sharding import (Mesh, shard_tree,
+                                                 sharded_leaves, tp_mesh)
 
 
 class TrainState(NamedTuple):
@@ -61,11 +68,13 @@ def tree_unflatten(template, leaves: List[torch.Tensor]):
 
 
 def create_train_state(cfg: Config, generator: torch.Generator, *,
-                       device: DeviceLike = None) -> TrainState:
+                       device: DeviceLike = None,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """Fresh state: random params from ``generator`` (see init_params),
-    zero moments, step 0, lr = cfg.train.learning_rate."""
+    zero moments, step 0, lr = cfg.train.learning_rate. mesh: with a
+    model axis, this rank's vocab slices of those params."""
     dev = resolve_device(device)
-    params = init_params(cfg.model, generator, device=dev)
+    params = shard_tree(init_params(cfg.model, generator, device=dev), mesh)
     return state_from_params(cfg, params)
 
 
@@ -82,20 +91,32 @@ def state_from_params(cfg: Config, params: Dict[str, Any]) -> TrainState:
                                       device=leaves[0].device))
 
 
-def global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+def global_norm(leaves: List[torch.Tensor], sliced: Optional[List[bool]] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf. With ``sliced`` (a flag
+    a leaf: a vocab slice under ``mesh``'s model axis): the replicated
+    leaves' squares summed here, the slices' over the model group, so
+    each slice counts once and no replicated leaf n_model times."""
+    if sliced is None:
+        return torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+    rep = sum(torch.sum(g * g) for g, s in zip(leaves, sliced) if not s)
+    part = sum(torch.sum(g * g) for g, s in zip(leaves, sliced) if s)
+    return torch.sqrt(rep + mesh.model_all_reduce(part))
 
 
 @torch.no_grad()
-def apply_update(cfg: Config, state: TrainState,
-                 grads: List[torch.Tensor]) -> Tuple[TrainState, torch.Tensor]:
+def apply_update(cfg: Config, state: TrainState, grads: List[torch.Tensor],
+                 mesh: Optional[Mesh] = None
+                 ) -> Tuple[TrainState, torch.Tensor]:
     """One clip + Adam + apply update with grads in tree_leaves order.
     Returns (new state, the grads' global norm before the clip). Nothing is
-    read back to the host."""
+    read back to the host (but for gloo's collectives under a mesh with
+    a model axis, whose norm is a sum over the model group)."""
     t = cfg.train
     b1, b2, eps = t.adam_b1, t.adam_b2, t.adam_eps
     params = tree_leaves(state.params)
-    norm = global_norm(grads)
+    norm = global_norm(grads, sharded_leaves(state.params)
+                       if tp_mesh(mesh) else None, mesh)
     n = state.step + 1
     bc1 = 1.0 - b1 ** n
     bc2 = 1.0 - b2 ** n

@@ -12,6 +12,14 @@ and clip + Adam then run identically on every rank, so the replicas stay
 bit-identical and equal the single process's run on the global batch up
 to the order of the sums.
 
+Under a mesh with a model axis (tensor parallelism) the state holds this
+rank's vocab slices (``parallel/sharding.py``'s ``_TP_RULES``); the ranks
+of a model group take the same rows, the loss runs its vocab-parallel
+operations (``parallel/tensor.py``), the flat all-reduce runs over the
+data group only (a slice's grads with the same slice's of the other data
+ranks), and the clip's norm adds the slices' squares over the model
+group.
+
 The step's dropout draws come from a generator seeded from
 (cfg.train.seed + 1, state.step), as the JAX step folds ``state.step``
 into ``base_rng``: a resumed run draws the same masks as an uninterrupted
@@ -124,11 +132,13 @@ def make_train_step(cfg: Config, *, mesh: Optional[Mesh] = None,
     tensors on the device. The kernels run as cfg.model.gru_impl and
     cfg.model.dec_scan_impl say ("auto": kernels for CUDA tensors).
 
-    mesh: a data-parallel mesh (``parallel.make_mesh``): batch is the
-    global batch, the same on every rank, of which each rank trains on its
-    rows; aux holds the global values. Raises ValueError where the data
-    axis does not divide cfg.data.batch_size (or a batch's rows)."""
-    if mesh is not None and mesh.n_data > 1:
+    mesh: a mesh (``parallel.make_mesh``): batch is the global batch, the
+    same on every rank, of which each rank trains on its data index's
+    rows; aux holds the global values. With a model axis the state holds
+    vocab slices (``create_train_state(mesh=)``). Raises ValueError where
+    the data axis does not divide cfg.data.batch_size (or a batch's
+    rows)."""
+    if mesh is not None and (mesh.n_data > 1 or mesh.n_model > 1):
         mesh.rows(cfg.data.batch_size)          # raises unless it divides
     else:
         mesh = None
@@ -160,7 +170,7 @@ def make_train_step(cfg: Config, *, mesh: Optional[Mesh] = None,
             aux["ce"], aux["acc"] = ce, acc
             aux["loss"] = ce if "vse" not in aux else \
                 ce + cfg.model.vse_weight * aux["vse"]
-        new_state, norm = apply_update(cfg, state, grads)
+        new_state, norm = apply_update(cfg, state, grads, mesh)
         aux = {k: v.detach() for k, v in aux.items()}
         aux["grad_norm"] = norm
         aux["lr"] = state.lr
