@@ -166,7 +166,14 @@ Phases (each raises on failure; the script then exits non-zero):
      corpus), kernels 2-5 and 1-2 counted on each rank; then train and
      translate under python -m torch.distributed.run --nproc-per-node 2;
      with two cards visible, the training and the decode again under
-     NCCL, a rank a card.
+     NCCL, a rank a card;
+ 23. vocab-dim tensor parallelism on the one card (see the comment at
+     phase_tensor_parallel);
+ 24. the host modules: init_params at one thread and at this process's
+     count bit for bit, ResNet50 (random weights in torchvision's
+     format) on a batch of 32 against its CPU forward with the card's
+     images/s, and the extract-features command on 64 PNGs where PIL
+     imports.
 Phase 15 also decodes the bf16 run with --set decode.compute_dtype=bfloat16
 (kernels 1b and 2b only), and runs make-toy -> train -> translate and a raw
 synthetic Multi30k directory through preprocess -> train ->
@@ -3714,22 +3721,6 @@ def phase_gru_bf16_decode(torch, np, dev):
 # the fp32 decode (1b, not 1), VAG_ATTN_E_DTYPE=fp32 in the bf16 decode, the
 # unfused bf16 step (kernel 6 once a beam step), and Translator with
 # decode.compute_dtype=bfloat16 on raw lines.
-def _init_params(torch, m, seed, dev):
-    """init_params(m) from ``seed``, drawn under one intra-op thread:
-    torch's QR on the CPU (the orthogonal init) rounds apart with the
-    thread count, and phases 22 and 23 hold ranks started with
-    OMP_NUM_THREADS=1 against this process."""
-    import vag_nmt_tpu_torch as vt
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return vt.init_params(m, torch.Generator().manual_seed(seed),
-                              device=dev)
-    finally:
-        torch.set_num_threads(n)
-
-
 def _main_corpus(torch, np, dev):
     """Phase 4's model, corpus, vocab and feature table."""
     import vag_nmt_tpu_torch as vt
@@ -3739,7 +3730,7 @@ def _main_corpus(torch, np, dev):
 
     cfg = vt.preset("m30k_ende_vag")
     m = cfg.model
-    params = _init_params(torch, m, 0, dev)
+    params = vt.init_params(m, torch.Generator().manual_seed(0), device=dev)
     rng = np.random.RandomState(0)
     examples = []
     for i in range(N_SENT):
@@ -4038,7 +4029,8 @@ def _dp_train_setup(torch, np, dev, preset="m30k_ende_vag", mesh=None):
         0, cfg.train.steps_per_dispatch), 0))[:DP_STEPS]
     table = vt.build_img_table(train, m.img_feat_dim, device=dev)
     state0 = state_from_params(cfg, shard_tree(
-        _init_params(torch, m, cfg.train.seed, dev), mesh))
+        vt.init_params(m, torch.Generator().manual_seed(cfg.train.seed),
+                       device=dev), mesh))
     return cfg, batches, table, state0
 
 
@@ -4725,6 +4717,212 @@ def phase_tensor_parallel(torch, np, dev, single):
     return f
 
 
+# Phase 24: the host modules of the last slice. (a) init_params draws the
+# same bits at one intra-op thread and at this process's count (phases 22
+# and 23 also hold OMP_NUM_THREADS=1 ranks against this process through
+# it). (b) ResNet50 from a seeded
+# state dict in torchvision's format, written to a file and loaded from
+# it: a batch of RESNET_BATCH seeded 3 x 224 x 224 inputs on the card,
+# pool5 held against the CPU forward of the same module on its first
+# RESNET_CPU_ROWS images within RESNET_RTOL of the largest value, and the
+# card's images/s at that batch, warm, the median of RESNET_REPS timed
+# calls. (c) where PIL imports, the extract-features command (cli.main)
+# on EXTRACT_IMAGES PNGs with a corpus, its weights found under
+# TORCH_HOME: the sidecar checked by load_features, its rows against the
+# CPU forward on RESNET_CPU_ROWS of them. The weights are random: no
+# figure here is a pretrained network's.
+RESNET_BATCH = 32
+RESNET_CPU_ROWS = 4
+RESNET_REPS = 10
+# fp32 on the card (cuDNN, TF32 off) against fp32 on the CPU, over the
+# largest pool5 value: both sum 53 convolutions in their own orders.
+RESNET_RTOL = 1e-4
+EXTRACT_IMAGES = 64
+
+
+def _resnet_state(torch, seed=24):
+    """Random weights in torchvision's resnet50 format (fc included):
+    He-normal convolutions, BN scales and running variances in [0.5,
+    1.5), small shifts."""
+    from vag_nmt_tpu_torch.data.extract_features import ResNet50
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in ResNet50().state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            out[k] = torch.zeros((), dtype=torch.int64)
+        elif v.dim() == 4:
+            out[k] = torch.randn(v.shape, generator=g) * (2.0 / v[0].numel()) ** 0.5
+        elif k.endswith(("weight", "running_var")):
+            out[k] = 0.5 + torch.rand(v.shape, generator=g)
+        else:
+            out[k] = 0.1 * torch.randn(v.shape, generator=g)
+    out["fc.weight"] = 0.01 * torch.randn((1000, 2048), generator=g)
+    out["fc.bias"] = torch.zeros(1000)
+    return out
+
+
+def _phase_resnet(torch, np, dev, weights):
+    from vag_nmt_tpu_torch.data import extract_features as ef
+
+    model = ef.load_resnet50(weights)
+    cpu_model = ef.load_resnet50(weights)
+    model = model.to(dev)
+    g = torch.Generator().manual_seed(24)
+    x = torch.randn((RESNET_BATCH, 3, 224, 224), generator=g)
+    xd = x.to(dev)
+    with torch.inference_mode():
+        got = model(xd)
+        torch.cuda.synchronize()
+        want = cpu_model(x[:RESNET_CPU_ROWS])
+        if tuple(got.shape) != (RESNET_BATCH, ef.POOL5_DIM) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"resnet50 pool5: shape {tuple(got.shape)}, "
+                                 f"finite {bool(torch.isfinite(got).all())}")
+        scale = float(want.abs().max())
+        err = float((got[:RESNET_CPU_ROWS].cpu() - want).abs().max())
+        if not err <= RESNET_RTOL * scale:
+            raise AssertionError(f"resnet50 pool5 on the card against the "
+                                 f"CPU: max abs err {err} over scale {scale} "
+                                 f"> {RESNET_RTOL}")
+        ms = _time_ms(torch, lambda: model(xd), reps=RESNET_REPS, warmup=3)
+    flops = _conv_flops(torch, model, x[:1]) * RESNET_BATCH
+    bound = flops / FP32_PEAK_FLOPS * 1e3
+    return {"batch": RESNET_BATCH, "max_abs_err": err, "scale": scale,
+            "rtol": RESNET_RTOL, "batch_ms": ms,
+            "images_per_s": RESNET_BATCH / ms * 1e3,
+            "conv_gflop": flops / 1e9, "fp32_bound_ms": bound,
+            "bound_share": bound / ms,
+            "tf32": bool(torch.backends.cudnn.allow_tf32)}
+
+
+# The H100 SXM's published fp32 rate outside the tensor cores (TF32 is off).
+FP32_PEAK_FLOPS = 67e12
+
+
+def _conv_flops(torch, model, x):
+    """2 x the multiply-adds of every convolution of one forward of x (on
+    the CPU, counted from each output's shape by forward hooks)."""
+    total = [0]
+
+    def hook(mod, _, out):
+        k = mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+        total[0] += 2 * out.numel() * k
+
+    cpu = type(model)()
+    hooks = [m.register_forward_hook(hook) for m in cpu.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            cpu(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _phase_extract_command(np, root, weights_state):
+    """(c): False where PIL does not import, else the command's fields."""
+    import os
+
+    try:
+        from PIL import Image
+    except ImportError:
+        return False
+    from vag_nmt_tpu_torch import cli
+    from vag_nmt_tpu_torch.data import extract_features as ef
+    from vag_nmt_tpu_torch.data.features import load_features
+
+    imgs = root / "imgs"
+    imgs.mkdir()
+    rng = np.random.RandomState(24)
+    names = []
+    for i in range(EXTRACT_IMAGES):
+        w, h = int(rng.randint(160, 640)), int(rng.randint(160, 640))
+        names.append(f"img_{i:03d}.png")
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(
+            imgs / names[-1])
+    (root / "images.txt").write_text("\n".join(names) + "\n")
+    lines = [f"a synthetic caption number {i}" for i in range(EXTRACT_IMAGES)]
+    (root / "corpus.en").write_text("\n".join(lines) + "\n")
+    home = root / "torch_home"
+    (home / "hub" / "checkpoints").mkdir(parents=True)
+    os.replace(root / "resnet50.pth",
+               home / "hub" / "checkpoints" / ef.WEIGHTS_FILE)
+    out = root / "feats.npy"
+    old = os.environ.get("TORCH_HOME")
+    os.environ["TORCH_HOME"] = str(home)
+    try:
+        t0 = time.perf_counter()
+        cli.main(["extract-features", "--image-dir", str(imgs),
+                  "--image-list", str(root / "images.txt"),
+                  "--corpus", str(root / "corpus.en"), "--out", str(out)])
+        command_s = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("TORCH_HOME", None)
+        else:
+            os.environ["TORCH_HOME"] = old
+    feats = np.asarray(load_features(str(out), expected_rows=EXTRACT_IMAGES,
+                                     corpus_lines=lines))
+    if not np.isfinite(feats).all():
+        raise AssertionError("extract-features wrote non-finite features")
+    try:
+        load_features(str(out), expected_rows=EXTRACT_IMAGES,
+                      corpus_lines=lines[::-1])
+        raise AssertionError("extract-features: a reordered corpus passed "
+                             "the sidecar's checksum")
+    except ValueError:
+        pass
+    want = ef.extract_resnet50_pool5(
+        [str(imgs / n) for n in names[:RESNET_CPU_ROWS]], device="cpu",
+        weights=weights_state)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(feats[:RESNET_CPU_ROWS] - want).max())
+    if not err <= RESNET_RTOL * scale:
+        raise AssertionError(f"extract-features on the card against the CPU: "
+                             f"max abs err {err} over scale {scale}")
+    return {"images": EXTRACT_IMAGES, "command_s": command_s,
+            "max_abs_err": err, "scale": scale,
+            "sidecar": json.loads((root / "feats.npy.align.json").read_text())}
+
+
+def phase_host_modules(torch, np, dev):
+    """Phase 24 (above). Returns fields."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.train.state import tree_leaves
+
+    smi = _smi()
+    t0 = time.perf_counter()
+    m = vt.preset("m30k_ende_vag").model
+    n = torch.get_num_threads()
+    draws = {}
+    for threads in (1, n):
+        torch.set_num_threads(threads)
+        try:
+            draws[threads] = tree_leaves(vt.init_params(
+                m, torch.Generator().manual_seed(0), device="cpu"))
+        finally:
+            torch.set_num_threads(n)
+    if not all(torch.equal(a, b) for a, b in zip(draws[1], draws[n])):
+        raise AssertionError(f"init_params differs at 1 and {n} threads")
+    f = {"card": smi, "init_threads": [1, n], "init_identical": True}
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_host"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        state = _resnet_state(torch)
+        torch.save(state, root / "resnet50.pth")
+        f["resnet50"] = _phase_resnet(torch, np, dev, root / "resnet50.pth")
+        print(f"host resnet50 [{smi}]: " + json.dumps(f["resnet50"]))
+        f["extract_command"] = _phase_extract_command(np, root, state)
+        print(f"host extract-features ran: {bool(f['extract_command'])}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    f["phase_s"] = time.perf_counter() - t0
+    return f
+
+
 def phase_profile(torch, what: str, run):
     """One run of a path under torch.profiler, device activity only; run()
     returns its step count (beam steps or train steps). One stream, so
@@ -4862,6 +5060,7 @@ def main() -> int:
     jax_run = phase_jax_run(torch, np, dev)
     dp, dp_single = phase_data_parallel(torch, np, dev)
     tp = phase_tensor_parallel(torch, np, dev, dp_single)
+    host = phase_host_modules(torch, np, dev)
     # Each kernel's launches come from the run of its own path: the decode
     # path for the decode kernels, the training path for the training
     # kernels, the serving modes that select them for beam_topk and dec_step,
@@ -4956,6 +5155,7 @@ def main() -> int:
     print(f"bucketed and super-chunk decode: {json.dumps(bucketed)}")
     print(f"data parallel: {json.dumps(dp)}")
     print(f"tensor parallel: {json.dumps(tp)}")
+    print(f"host modules: {json.dumps(host)}")
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

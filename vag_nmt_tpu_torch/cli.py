@@ -1,9 +1,12 @@
 """The port's command line (counterpart of the JAX package's ``cli.py``):
-preprocess and make-toy (raw text to a data directory), then train,
-translate, score, retrieval and translate-text on a data directory.
+preprocess and make-toy (raw text to a data directory), extract-features
+(images to a feature matrix), then train, translate, score, retrieval and
+translate-text on a data directory.
 
     python -m vag_nmt_tpu_torch preprocess --raw-dir R --out-dir D --langs en,de
     python -m vag_nmt_tpu_torch make-toy  --out-dir D
+    python -m vag_nmt_tpu_torch extract-features --image-dir I --image-list L \\
+                                          --corpus train.en --out F.npy
     python -m vag_nmt_tpu_torch train     --preset m30k_ende_vag --data-dir D --out-dir O
     python -m vag_nmt_tpu_torch translate --data-dir D --checkpoint O \\
                                           --split test2016 --output hyp.txt
@@ -44,9 +47,6 @@ import torch
 from vag_nmt_tpu_torch.core.config import Config, preset
 from vag_nmt_tpu_torch.core.device import resolve_device, world_env
 from vag_nmt_tpu_torch.parallel.sharding import host_shard
-
-NOT_PORTED = ("extract-features",)
-
 
 def _parse_overrides(pairs: Sequence[str]) -> Dict[str, Dict[str, Any]]:
     """['model.emb_dim=512', 'train.seed=7'] -> {'model': {'emb_dim': 512},
@@ -329,13 +329,20 @@ def cmd_translate_text(args) -> None:
             out.close()
 
 
+def cmd_extract_features(args) -> None:
+    from vag_nmt_tpu_torch.data.extract_features import extract_to_file
+
+    dev = resolve_device(args.device)
+    extract_to_file(args.image_dir, args.image_list, args.out,
+                    corpus_path=args.corpus or None,
+                    batch_size=args.batch_size, device=dev)
+    print(f"features -> {args.out}")
+
+
 # ---------------------------------------------------------------------------
 
 def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        prog="vag_nmt_tpu_torch",
-        epilog=f"Not ported yet: {', '.join(NOT_PORTED)} (the JAX package's "
-               "command line has it).")
+    ap = argparse.ArgumentParser(prog="vag_nmt_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def device(p):
@@ -430,6 +437,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--beam", type=int, default=None)
     device(p)
     p.set_defaults(fn=cmd_translate_text, host=True)
+
+    p = sub.add_parser("extract-features",
+                       help="offline ResNet-50 pool5 features -> .npy")
+    p.add_argument("--image-dir", required=True)
+    p.add_argument("--image-list", required=True,
+                   help="one image filename per corpus line")
+    p.add_argument("--out", required=True)
+    p.add_argument("--corpus", default="",
+                   help="corpus text file for the alignment checksum")
+    p.add_argument("--batch-size", type=int, default=32)
+    device(p)
+    p.set_defaults(fn=cmd_extract_features, host=True)
 
     p = sub.add_parser("make-toy", help="materialize the synthetic toy corpus")
     p.add_argument("--out-dir", required=True)

@@ -1,6 +1,9 @@
 """Byte-pair encoding, subword-nmt semantics (own copy of the pure-Python
 path of the JAX package's ``data/bpe.py``, which that package names its
-semantics oracle; the native fast path is not loaded here).
+semantics oracle). A line splits where ``str.split()`` does, Unicode
+whitespace included. There is no native path: with the per-word cache a
+line costs about as much as the list of its units, which a native call
+has to build as well (``PERF.md``, host modules).
 
 - learn: iteratively merge the most frequent adjacent symbol pair over a
   word frequency dict (ties: the lexicographically largest pair); word

@@ -140,20 +140,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device: DeviceLike = None) -> Params:
     """Random parameters with the same tree, shapes and distributions as
     the JAX package's ``init_params`` (not the same numbers: the draws come
-    from ``generator``). Drawn on the CPU, then moved to ``device``."""
+    from ``generator``). Drawn on the CPU under one intra-op thread, then
+    moved to ``device``: torch's CPU QR (the orthogonal init) rounds apart
+    with the thread count, so the draw is made at one count whatever the
+    caller's, and one seed gives the same bits in every process (the
+    replicas of a mesh start equal). The thread count is a setting of the
+    whole process: torch work on another thread during the draw runs on
+    one thread too, and a change of the count made there is undone when
+    the draw ends, so do not call this alongside other torch work."""
     dev = resolve_device(device)
-    p: Params = {
-        "encoder": enc.init_encoder(generator, cfg),
-        "decoder": dec.init_decoder(generator, cfg),
-        "init": {
-            "w_ctx": glorot_uniform(generator, (cfg.ctx_dim, cfg.dec_hidden_dim)),
-            "b": torch.zeros((cfg.dec_hidden_dim,), dtype=torch.float32),
-        },
-    }
-    if cfg.multimodal:
-        p["vse"] = vse.init_vse(generator, cfg)
-        p["init"]["w_vis"] = glorot_uniform(generator,
-                                            (cfg.ctx_dim, cfg.dec_hidden_dim))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        p: Params = {
+            "encoder": enc.init_encoder(generator, cfg),
+            "decoder": dec.init_decoder(generator, cfg),
+            "init": {
+                "w_ctx": glorot_uniform(generator,
+                                        (cfg.ctx_dim, cfg.dec_hidden_dim)),
+                "b": torch.zeros((cfg.dec_hidden_dim,), dtype=torch.float32),
+            },
+        }
+        if cfg.multimodal:
+            p["vse"] = vse.init_vse(generator, cfg)
+            p["init"]["w_vis"] = glorot_uniform(
+                generator, (cfg.ctx_dim, cfg.dec_hidden_dim))
+    finally:
+        torch.set_num_threads(threads)
     return _tree_map(lambda x: x.to(dev), p)
 
 
