@@ -173,7 +173,17 @@ Phases (each raises on failure; the script then exits non-zero):
      count bit for bit, ResNet50 (random weights in torchvision's
      format) on a batch of 32 against its CPU forward with the card's
      images/s, and the extract-features command on 64 PNGs where PIL
-     imports.
+     imports;
+ 25. the decode loops as CUDA graphs (decode/graphs.py), each case in both
+     dispatches in one run, every loop's tokens and lengths identical:
+     phase 4's corpus at U = 1 and 4, in bf16, with VAG_DEC_STEP=on, the
+     unfused step through kernels 6, 8 and 9, ikea_vag two-phase at depth
+     K and at slots 1, greedy; walls in turns and profiles of both
+     dispatches; two captured loops replayed at once on two streams
+     against a serial run, bit for bit (the arrival counters' keying).
+Every decode through translate_corpus on the card runs its loops as CUDA
+graphs (dispatch None), but the streaming-refill loop and the ranks of
+phases 22 and 23; the launch gates count through the replays.
 Phase 15 also decodes the bf16 run with --set decode.compute_dtype=bfloat16
 (kernels 1b and 2b only), and runs make-toy -> train -> translate and a raw
 synthetic Multi30k directory through preprocess -> train ->
@@ -185,7 +195,8 @@ prints ptxas's spills of every build. It prints one JSON line of per-kernel
 numbers and, last, the device line. With --gru-grids it prints phase 3's
 grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
 kernel 7's, with --dec-scan-grids kernels 4 and 5's, with --gru-bwd-grids
-kernel 3's (see main).
+kernel 3's; with --decode-graphs it builds the kernels and runs phase 25
+alone (see main).
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
 
@@ -1348,7 +1359,12 @@ def phase_main(torch, np, dev):
     print(f"main path (kernels): sentences_per_sec={st['sentences_per_sec']:.1f} "
           f"elapsed_s={st['elapsed_s']:.4f} t_src={st['t_src']} "
           f"n_chunks={st['n_chunks']} beam_loop_steps={st['beam_loop_steps']} "
-          f"chunk_steps={st['chunk_steps']} launches={launches} grids={grids}")
+          f"chunk_steps={st['chunk_steps']} dispatch={st['dispatch']} "
+          f"captures={st['captures']} replays={st['replays']} "
+          f"launches={launches} grids={grids}")
+    if st["dispatch"] != "graph" or not st["replays"]:
+        raise AssertionError(f"main path: dispatch {st['dispatch']}, "
+                             f"{st['replays']} replays")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if launches["readout_topk"] != st["beam_loop_steps"]:
@@ -2700,10 +2716,17 @@ def phase_serve(torch, np, dev, run):
               f"wall_s={wall:.4f} decode_s={decode_s:.4f} "
               f"calls={len(tr.last_stats)} "
               f"streaming={[bool(s.get('streaming')) for s in tr.last_stats]} "
+              f"dispatch={sorted({s['dispatch'] for s in tr.last_stats})} "
               f"steps={steps} trips={trips} refills={refills} "
               f"launches={launches} grids={grids}")
         if len(hyps) != n or not any(hyps):
             raise AssertionError(f"serve ({mode}): malformed or empty hypotheses")
+        # the dispatch rule: every call's loops graphs, the streaming pool's
+        # host loop aside
+        if any(s["dispatch"] != ("eager" if s.get("streaming") else "graph")
+               for s in tr.last_stats):
+            raise AssertionError(f"serve ({mode}): dispatch "
+                                 f"{[s['dispatch'] for s in tr.last_stats]}")
         if launches["gru_fwd"] <= 0:
             raise AssertionError(f"serve ({mode}): the encoder kernel never ran")
         beam = mode != "f"
@@ -2789,29 +2812,15 @@ def phase_ikea(torch, np, dev):
     Returns the launches and grids of legacy_topk_blocks from (f),
     legacy_topk_rows from (g) and the readout's shallow slots from (b)."""
     import vag_nmt_tpu_torch as vt
-    from vag_nmt_tpu_torch.core.config import SPECIALS
-    from vag_nmt_tpu_torch.data.batching import Example
-    from vag_nmt_tpu_torch.data.vocab import Vocab
     from vag_nmt_tpu_torch.ops import topk
     from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd
     from vag_nmt_tpu_torch.ops.readout_topk import readout_topk_rows
 
-    cfg = vt.preset("ikea_vag")
-    m = cfg.model
-    params = vt.init_params(m, torch.Generator().manual_seed(0), device=dev)
-    params["decoder"]["readout"]["w_out"].mul_(IKEA_READOUT_SCALE)
-    rng = np.random.RandomState(20)
-    lo, hi = IKEA_SRC_LENS
-    examples = [Example(src=list(rng.randint(4, m.src_vocab_size, L)),
-                        img=rng.randn(m.img_feat_dim).astype(np.float32),
-                        index=i)
-                for i, L in enumerate(rng.randint(lo, hi + 1, IKEA_N_SENT))]
-    vocab = Vocab(list(SPECIALS) + [f"t{i}" for i in range(m.tgt_vocab_size - 4)])
-    img_table = vt.build_img_table(examples, m.img_feat_dim, device=dev)
+    cfg, params, examples, vocab, img_table = _ikea_corpus(torch, np, dev)
 
-    def run():
+    def run(dispatch=None):
         return vt.translate_corpus(params, cfg, examples, vocab,
-                                   img_table=img_table)
+                                   img_table=img_table, dispatch=dispatch)
 
     run()                                 # warm-up (allocator, cuBLAS)
     wrappers = {"gru_fwd": gru_fwd, "readout_topk": readout_topk_rows,
@@ -2868,11 +2877,13 @@ def phase_ikea(torch, np, dev):
         print(f"ikea identical hypotheses ({a}) vs ({b}): {share:.4f} "
               f"(threshold {least})")
         if share < least and (a, b) == ("f", "h"):
-            _gen1_tie_audit(torch, topk, envs["f"], run, out["f"][0])
+            _gen1_tie_audit(torch, topk, envs["f"], lambda: run("eager"),
+                            out["f"][0])
         elif share < least:
             raise AssertionError(f"ikea ({a}) vs ({b}): only {share:.4f} of "
                                  "hypotheses identical")
-    _recovery_marks(torch, envs["b"], run, out["b"][0])
+    # the audits count on the host at every step: eager loops
+    _recovery_marks(torch, envs["b"], lambda: run("eager"), out["b"][0])
     for mode in ("a", "b", "f", "g", "h"):
         phase_profile(torch, f"ikea ({mode}) (beam steps)",
                       lambda: _with_env(envs[mode], run)[1]["beam_loop_steps"])
@@ -2881,6 +2892,29 @@ def phase_ikea(torch, np, dev):
             "readout_topk_slots": ("b", "readout_topk")}
     return ({k: out[mode][1][w] for k, (mode, w) in pick.items()},
             {k: out[mode][2][w] for k, (mode, w) in pick.items()})
+
+
+def _ikea_corpus(torch, np, dev):
+    """Phase 14's model (ikea_vag, the output matrix scaled by
+    IKEA_READOUT_SCALE), captions, vocab and feature table."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.core.config import SPECIALS
+    from vag_nmt_tpu_torch.data.batching import Example
+    from vag_nmt_tpu_torch.data.vocab import Vocab
+
+    cfg = vt.preset("ikea_vag")
+    m = cfg.model
+    params = vt.init_params(m, torch.Generator().manual_seed(0), device=dev)
+    params["decoder"]["readout"]["w_out"].mul_(IKEA_READOUT_SCALE)
+    rng = np.random.RandomState(20)
+    lo, hi = IKEA_SRC_LENS
+    examples = [Example(src=list(rng.randint(4, m.src_vocab_size, L)),
+                        img=rng.randn(m.img_feat_dim).astype(np.float32),
+                        index=i)
+                for i, L in enumerate(rng.randint(lo, hi + 1, IKEA_N_SENT))]
+    vocab = Vocab(list(SPECIALS) + [f"t{i}" for i in range(m.tgt_vocab_size - 4)])
+    img_table = vt.build_img_table(examples, m.img_feat_dim, device=dev)
+    return cfg, params, examples, vocab, img_table
 
 
 # Row groups of the per-step recovery's marks counted by _recovery_marks:
@@ -4923,6 +4957,330 @@ def phase_host_modules(torch, np, dev):
     return f
 
 
+# Phase 25: the decode loops as CUDA graphs (decode/graphs.py). Each case
+# decodes in both dispatches in one run ("eager", then "graph"): every
+# loop's tokens and lengths identical for every sentence, the largest score
+# difference printed (bit equality expected), the hypotheses and trips
+# equal, and every loop kernel's counters moved alike (the replay
+# accounting). (a) phase 4's corpus at U = 1 and U = 4; (b) its bf16
+# decode (kernels 1b, 2b); (c) VAG_DEC_STEP=on (kernel 7's cluster launches
+# in a graph); (d) the unfused step through kernels 6, 8 and 9
+# (VAG_TOPK_IMPL) on its first GRAPH_UNFUSED_SENT; (e) phase 14's ikea_vag
+# captions two-phase, at depth K and at slots 1 with the per-step recovery
+# (its device-side counts equal too); (f) greedy on GRAPH_GREEDY_LINES.
+# (a), (b) and (e) are timed in turns eager, graph, graph, eager and
+# profiled in both. (g) two captured loops of the unfused step (kernel 6),
+# and of the fused one (kernel 1), on two chunks, replayed
+# GRAPH_CONCURRENT_REPLAYS times at once on two streams against the same
+# replays one loop after the other: bit for bit.
+GRAPH_UNFUSED_SENT = 512
+GRAPH_GREEDY_LINES = 128
+GRAPH_CONCURRENT_REPLAYS = 48
+
+
+def _loop_results(run):
+    """run() with the result of every loop translate_corpus runs
+    (beam_search, beam_search_two_phase, greedy_decode) copied to the
+    host: (run's result, [(tokens, lengths, scores or None)])."""
+    from vag_nmt_tpu_torch.decode import translate as tr
+
+    names = ("beam_search", "beam_search_two_phase", "greedy_decode")
+    real = {n: getattr(tr, n) for n in names}
+    got = []
+
+    def recorded(name):
+        def call(*a, **k):
+            out = real[name](*a, **k)
+            res = out[0] if name == "beam_search_two_phase" else out
+            got.append((res.tokens.cpu(), res.lengths.cpu(),
+                        res.scores.cpu() if hasattr(res, "scores") else None))
+            return out
+        return call
+
+    for n in names:
+        setattr(tr, n, recorded(n))
+    try:
+        return run(), got
+    finally:
+        for n in names:
+            setattr(tr, n, real[n])
+
+
+def _graph_case(torch, label, run, kernel=None, bf16=False):
+    """One case of phase 25: run(dispatch) -> translate_corpus's (hyps,
+    stats), eager then graph, each run's loop results recorded and its
+    loop kernels' counters read (decode/graphs.read_counts) with the
+    readout's recovery counter. Raises unless the two agree (see above)
+    and ``kernel`` launched once a beam step (its bf16 instance with
+    ``bf16``); returns the case's fields."""
+    from vag_nmt_tpu_torch.decode import graphs
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+
+    runs = {}
+    for dispatch in ("eager", "graph"):
+        rt.readout_topk_rows.recoveries = None
+        before = graphs.read_counts()
+        torch.cuda.synchronize()
+        (hyps, st), loops = _loop_results(lambda: run(dispatch))
+        torch.cuda.synchronize()
+        rec = rt.readout_topk_rows.recoveries
+        runs[dispatch] = (hyps, st, loops,
+                          graphs.counter_deltas(before, graphs.read_counts()),
+                          [0, 0] if rec is None else rec.tolist())
+    (he, se, le, ne, re_), (hg, sg, lg, ng, rg) = runs["eager"], runs["graph"]
+    if len(le) != len(lg) or not le:
+        raise AssertionError(f"graphs ({label}): {len(le)} eager loops, "
+                             f"{len(lg)} graph loops")
+    rows = sum(a[0].shape[0] for a in le)
+    diff_rows, score_diff = 0, 0.0
+    for (te, ln_e, sc_e), (tg, ln_g, sc_g) in zip(le, lg):
+        bad = ((te != tg).reshape(te.shape[0], -1).any(1)
+               | (ln_e != ln_g).reshape(te.shape[0], -1).any(1))
+        diff_rows += int(bad.sum())
+        if sc_e is not None:
+            score_diff = max(score_diff, float((sc_e - sc_g).abs().max()))
+    steps = se["beam_loop_steps"]
+    f = {"sentences": len(he), "loops": len(le), "rows": rows,
+         "rows_differing": diff_rows, "max_score_diff": score_diff,
+         "hypotheses_differing": sum(a != b for a, b in zip(he, hg)),
+         "beam_loop_steps": steps, "graph_beam_loop_steps": sg["beam_loop_steps"],
+         "eager_sentences_per_sec": se["sentences_per_sec"],
+         "graph_sentences_per_sec": sg["sentences_per_sec"],
+         "dispatch": [se["dispatch"], sg["dispatch"]],
+         "two_phase": bool(sg.get("two_phase")),
+         "captures": sg["captures"], "replays": sg["replays"],
+         "capture_s": sg["capture_s"], "recoveries": [re_, rg],
+         "launches": {f"{n}.{a}": v for (n, a), v in ng.items()}}
+    print(f"graphs ({label}): " + json.dumps(f))
+    if diff_rows or f["hypotheses_differing"]:
+        raise AssertionError(f"graphs ({label}): {diff_rows} rows and "
+                             f"{f['hypotheses_differing']} hypotheses differ "
+                             "between the dispatches")
+    if se["chunk_steps"] != sg["chunk_steps"] or steps != sg["beam_loop_steps"]:
+        raise AssertionError(f"graphs ({label}): trips differ")
+    if (se["dispatch"], sg["dispatch"]) != ("eager", "graph") or \
+            not sg["captures"] or not sg["replays"] or se["replays"]:
+        raise AssertionError(f"graphs ({label}): dispatch stats {f}")
+    if ne != ng or re_ != rg:
+        raise AssertionError(f"graphs ({label}): counters eager {ne} "
+                             f"{re_}, graph {ng} {rg}")
+    if kernel is not None:
+        attr = "bf16_launches" if bf16 else "launches"
+        if ng.get((kernel, attr), 0) != steps:
+            raise AssertionError(f"graphs ({label}): {kernel}.{attr} "
+                                 f"{ng.get((kernel, attr), 0)} for {steps} "
+                                 "beam steps")
+    return f
+
+
+def _dispatch_profile(torch, run):
+    """run() (translate_corpus's (hyps, stats)) under torch.profiler,
+    device activity and the CUDA runtime calls CUPTI records beside it:
+    the device's busy ms and idle share of the wall (one stream, so
+    kernels do not overlap), device operations, host kernel launches and
+    graph launches per beam step (None where the profiler recorded no
+    runtime call: not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, st = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, ops, launches, graph_launches, runtime = 0.0, 0, 0, 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            ops += 1
+            continue
+        if e.name.startswith("cu"):
+            runtime += 1
+            if "GraphLaunch" in e.name:
+                graph_launches += 1
+            elif "Launch" in e.name and "Kernel" in e.name:
+                launches += 1
+    steps = max(1, st["beam_loop_steps"])
+    busy_ms = busy_us / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+            "device_ops_per_step": ops / steps,
+            "host_kernel_launches_per_step": launches / steps if runtime else None,
+            "graph_launches_per_step": graph_launches / steps if runtime else None,
+            "captures": st["captures"], "replays": st["replays"],
+            "capture_s": st["capture_s"]}
+
+
+def _graph_walls(torch, label, run):
+    """translate_corpus's sentences/s in turns eager, graph, graph, eager,
+    then one profiled run of each dispatch."""
+    rates = {"eager": [], "graph": []}
+    for dispatch in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        rates[dispatch].append(run(dispatch)[1]["sentences_per_sec"])
+    f = {"sentences_per_sec": rates,
+         "graph_over_eager": sum(rates["graph"]) / sum(rates["eager"]),
+         "profile": {d: _dispatch_profile(torch, lambda: run(d))
+                     for d in ("eager", "graph")}}
+    print(f"graphs ({label}) walls: " + json.dumps(f))
+    return f
+
+
+def _chunk_state(torch, np, dev, params, m, examples, img_table, rows):
+    """prepare_decode's state of examples[rows] at their own source bucket
+    (translate_corpus's layout)."""
+    from vag_nmt_tpu_torch.models.model import prepare_decode
+
+    exs = examples[rows]
+    T = max(len(ex.src) for ex in exs)
+    src = np.zeros((len(exs), T), np.int64)
+    for r, ex in enumerate(exs):
+        src[r, :len(ex.src)] = ex.src
+    src_d = torch.from_numpy(src).to(dev)
+    lens = torch.tensor([len(ex.src) for ex in exs], device=dev)
+    batch = {"src": src_d,
+             "src_mask": (torch.arange(T, device=dev)[None, :]
+                          < lens[:, None]).to(torch.float32),
+             "img": img_table[torch.tensor([ex.index for ex in exs],
+                                           device=dev)]}
+    return prepare_decode(params, m, batch, device=dev)
+
+
+def _concurrent_replays(torch, np, dev, cfg, params, examples, img_table):
+    """Phase 25 (g) (above): {step: fields}."""
+    from vag_nmt_tpu_torch.decode import beam, graphs
+    from vag_nmt_tpu_torch.models.decoder import decode_tables
+    from vag_nmt_tpu_torch.models.model import decode_opts
+
+    m, d = cfg.model, cfg.decode
+    B, K, L = d.decode_batch_size, d.beam_size, d.max_len
+    R = GRAPH_CONCURRENT_REPLAYS
+    tables = decode_tables(params["decoder"])
+    states = [_chunk_state(torch, np, dev, params, m, examples, img_table,
+                           slice(c * B, (c + 1) * B)) for c in range(2)]
+
+    def build():
+        """The two loops, captured, each on its own counters."""
+        opts = decode_opts(torch.float32)
+        loops = []
+        for st in states:
+            def make_body(s, rc):
+                return beam._make_body_1(params, m, s, tables, "plain", L,
+                                         prune_alpha=1.0, opts=opts)
+            init = beam._beam_init(st, K, L)
+            lp = graphs._Loop(make_body, st, None, init, 1, 5)
+            lp.load(st, None, init)
+            lp.capture()
+            loops.append((lp, st, init))
+        return loops
+
+    def replay(loops, streams):
+        main = torch.cuda.current_stream()
+        for lp, st, init in loops:
+            lp.load(st, None, init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if streams is None:
+            for lp, _, _ in loops:
+                for _ in range(R):
+                    lp.graph.replay()
+        else:
+            for s in streams:
+                s.wait_stream(main)
+            for _ in range(R):
+                for (lp, _, _), s in zip(loops, streams):
+                    with torch.cuda.stream(s):
+                        lp.graph.replay()
+            for s in streams:
+                main.wait_stream(s)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return [[x.clone() for x in lp.carry] for lp, _, _ in loops], ms
+
+    out = {}
+    for step, env in (("unfused", {"VAG_READOUT_TOPK": "unfused"}),
+                      ("fused", {})):
+        loops = _with_env(env, build)
+        streams = [torch.cuda.Stream() for _ in loops]
+        ref, serial_ms = replay(loops, None)
+        got, both_ms = replay(loops, streams)
+        same = all(torch.equal(a, b) for ra, rb in zip(ref, got)
+                   for a, b in zip(ra, rb))
+        distinct = loops[0][0].counters.data_ptr() != \
+            loops[1][0].counters.data_ptr()
+        out[step] = {"replays": R, "identical": same,
+                     "own_counters": distinct, "serial_ms": serial_ms,
+                     "concurrent_ms": both_ms}
+        print(f"graphs (g) {step}: " + json.dumps(out[step]))
+        if not same or not distinct:
+            raise AssertionError(f"graphs (g) {step}: {out[step]}")
+    return out
+
+
+def phase_graphs(torch, np, dev):
+    """Phase 25 (above): {case: fields}."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+
+    cfg32, params, examples, vocab, img_table = _main_corpus(torch, np, dev)
+    cfg16 = cfg32.replace(decode=dict(compute_dtype="bfloat16"))
+
+    def m30k(cfg, exs=examples, env=None, **kw):
+        def run(dispatch):
+            return _with_env(env or {}, lambda: vt.translate_corpus(
+                params, cfg, exs, vocab, img_table=img_table,
+                dispatch=dispatch, **kw))
+        return run
+
+    out = {}
+
+    def case(label, run, timed=False, **check):
+        out[label] = _graph_case(torch, label, run, **check)
+        if timed:
+            out[label]["walls"] = _graph_walls(torch, label, run)
+
+    readout = "readout_topk_rows"
+    m30k(cfg32, exs=examples[:128])("graph")          # warm-up
+    case("a", m30k(cfg32), timed=True, kernel=readout)
+    case("a_unroll4", m30k(cfg32, env={"VAG_BEAM_UNROLL": "4"}),
+         kernel=readout)
+    m30k(cfg16, exs=examples[:128])("graph")
+    case("b_bf16", m30k(cfg16), timed=True, kernel=readout, bf16=True)
+    case("c_dec_step", m30k(cfg32, env={"VAG_DEC_STEP": "on"}),
+         kernel="dec_step")
+    for k, impl, wrapper in (("6", "pallas_lanes", "beam_topk"),
+                             ("8", "pallas", "legacy_topk_blocks"),
+                             ("9", "pallas_rows", "legacy_topk_rows")):
+        case(f"d_unfused_{k}",
+             m30k(cfg32, exs=examples[:GRAPH_UNFUSED_SENT],
+                  env={"VAG_READOUT_TOPK": "unfused", "VAG_TOPK_IMPL": impl}),
+             kernel=wrapper)
+    icfg, iparams, iexs, ivocab, iimg = _ikea_corpus(torch, np, dev)
+
+    def ikea(env):
+        def run(dispatch):
+            return _with_env(env, lambda: vt.translate_corpus(
+                iparams, icfg, iexs, ivocab, img_table=iimg,
+                dispatch=dispatch))
+        return run
+
+    ikea({})("graph")                                  # warm-up
+    case("e_two_phase", ikea({}), timed=True, kernel=readout)
+    case("e_slots1_recovery", ikea({"VAG_FRT_SLOTS": "1"}), timed=True,
+         kernel=readout)
+    if not (out["e_two_phase"]["two_phase"]
+            and out["e_slots1_recovery"]["two_phase"]):
+        raise AssertionError("graphs (e): the two-phase decoder did not run")
+    if out["e_slots1_recovery"]["recoveries"][1][0] <= 0:
+        raise AssertionError("graphs (e): no per-step recovery ran")
+    rt.readout_topk_rows.recoveries = None
+    case("f_greedy", m30k(cfg32, exs=examples[:GRAPH_GREEDY_LINES],
+                          beam_size=1))
+    out["g"] = _concurrent_replays(torch, np, dev, cfg32, params, examples,
+                                   img_table)
+    return out
+
+
 def phase_profile(torch, what: str, run):
     """One run of a path under torch.profiler, device activity only; run()
     returns its step count (beam steps or train steps). One stream, so
@@ -5019,6 +5377,11 @@ def main() -> int:
         print(json.dumps({"dec_step_grids": dec_step_grid_times(torch, np, dev)}))
         return 0
     print(f"build_s: {_build.build_all():.2f}")
+    if sys.argv[1:] == ["--decode-graphs"]:
+        # phase 25 alone after the build: the decode loops as CUDA graphs
+        # against eager, {case: fields}
+        print(json.dumps({"decode_graphs": phase_graphs(torch, np, dev)}))
+        return 0
     # ptxas's spill report of every build (-Xptxas -v): kernels that spill,
     # as {build: {kernel: [store bytes, load bytes]}}, and how many do not
     spills = {n: _build.spills(n) for n in sorted(_build._KERNELS)}
@@ -5061,6 +5424,7 @@ def main() -> int:
     dp, dp_single = phase_data_parallel(torch, np, dev)
     tp = phase_tensor_parallel(torch, np, dev, dp_single)
     host = phase_host_modules(torch, np, dev)
+    graph_cases = phase_graphs(torch, np, dev)
     # Each kernel's launches come from the run of its own path: the decode
     # path for the decode kernels, the training path for the training
     # kernels, the serving modes that select them for beam_topk and dec_step,
@@ -5156,6 +5520,7 @@ def main() -> int:
     print(f"data parallel: {json.dumps(dp)}")
     print(f"tensor parallel: {json.dumps(tp)}")
     print(f"host modules: {json.dumps(host)}")
+    print(f"decode graphs: {json.dumps(graph_cases)}")
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -56,8 +56,8 @@
 //    tile to arrive merges the splits in index order (never in arrival
 //    order, so results repeat bit for bit), lse = M + log(sum s_i
 //    exp(m_i - M)), and sets the counter back to 0. The counters are a
-//    per-device buffer (ops/topk.py) shared with kernels 6 and 9: launches
-//    on one stream only.
+//    buffer per (device, stream), or per captured graph (ops/topk.py),
+//    shared with kernels 6, 8 and 9 on that stream.
 //
 // bf16 instances (-DVAG_BF16=1; the JAX package's bf16 decode, and
 // VAG_FRT_GEMM_DTYPE=bf16): t and W arrive in bf16, b and every output in

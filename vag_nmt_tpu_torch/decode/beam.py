@@ -8,8 +8,9 @@ streaming-refill decoder).
 - finished hypotheses emit <pad> at log-prob 0, so they ride along frozen
   and keep competing in the top-K at their final score;
 - the loop exits when every hypothesis of the batch is finished (the JAX
-  ``while_loop`` is a Python loop here; its condition reads one number
-  from the device per step);
+  ``while_loop``: on the card a CUDA graph of U steps replayed until its
+  exit flag is set, one device read a replay; on the CPU, or with
+  ``dispatch="eager"``, a host loop; ``decode/graphs.py``);
 - the final ranking divides by length ** alpha.
 
 With the readout top-K at a slot depth below K (``VAG_FRT_SLOTS``), the
@@ -31,6 +32,7 @@ import torch
 from vag_nmt_tpu_torch.core.config import EOS_ID, ModelConfig, PAD_ID, SOS_ID
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device, same_device
 from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
+from vag_nmt_tpu_torch.decode.graphs import Dispatch, loop_graphs, run_loop
 from vag_nmt_tpu_torch.models.model import (DecodeOpts, DecodeState,
                                              decode_opts, decode_step_topk)
 from vag_nmt_tpu_torch.ops.readout_topk import deferred_exactness_active
@@ -51,31 +53,29 @@ class BeamResult(NamedTuple):
 def ngram_ban(tokens: torch.Tensor, t, n: int, V: int) -> torch.Tensor:
     """Per-step no-repeat n-gram ban list (fairseq semantics).
 
-    tokens: (B, K, L) token buffer; t: current decode position, an int or
-    a (B,) tensor of per-row positions; n: n-gram order (> 1); V: vocab
+    tokens: (B, K, L) token buffer; t: current decode position, an int, a
+    0-dim tensor or a (B,) tensor of per-row positions (an int is a host
+    position, made a device tensor here); n: n-gram order (> 1); V: vocab
     size, the "no ban" sentinel. Returns (B, K, L) banned ids: each entry
     is the token that would complete an n-gram already present in that
     beam's own hypothesis, or V."""
     nm1 = n - 1
     B, K, L = tokens.shape
     dev = tokens.device
+    if isinstance(t, int):
+        t = _device_t(t, dev)
+    t = t.expand(B)
     # -1 tail padding never equals a real id, so windows past L never match.
     padded = torch.cat([tokens, torch.full((B, K, nm1), -1, dtype=tokens.dtype,
                                            device=dev)], dim=-1)
     match = torch.ones((B, K, L), dtype=torch.bool, device=dev)
-    if isinstance(t, int):
-        for j in range(nm1):
-            # suffix token at absolute position t - (n-1) + j
-            idx = min(max(t + j - nm1, 0), L - 1)
-            match &= padded[:, :, j:j + L] == tokens[:, :, idx:idx + 1]
-        # window [i, i+n-1] must lie fully in the decoded past
-        valid = torch.arange(L, device=dev) <= t - n
-    else:
-        for j in range(nm1):
-            idx = (t + (j - nm1)).clamp(0, L - 1)[:, None, None]
-            last = torch.gather(tokens, 2, idx.expand(B, K, 1))
-            match &= padded[:, :, j:j + L] == last
-        valid = (torch.arange(L, device=dev)[None, :] <= t[:, None] - n)[:, None]
+    for j in range(nm1):
+        # suffix token at absolute position t - (n-1) + j
+        idx = (t + (j - nm1)).clamp(0, L - 1)[:, None, None]
+        last = torch.gather(tokens, 2, idx.expand(B, K, 1))
+        match &= padded[:, :, j:j + L] == last
+    # window [i, i+n-1] must lie fully in the decoded past
+    valid = (torch.arange(L, device=dev)[None, :] <= t[:, None] - n)[:, None]
     return torch.where(match & valid, padded[:, :, nm1:nm1 + L],
                        torch.full_like(tokens, V))
 
@@ -88,12 +88,14 @@ def _make_body_1(params, cfg: ModelConfig, state: DecodeState, tables,
     scores (B,K), tokens (B,K,L), finished (B,K), lengths (B,K)), plus, in
     mode "defer", the 0-dim bool flag that ORs the readout's live-row
     watermark flags (mode: "plain" | "defer" | "exact", the last running the
-    readout at slot depth K; see beam_search). t is an int (all rows in
-    step) or a (B,) tensor of per-row positions (the streaming-refill
-    loop): freezing then compares per row, and the token lands at each
-    row's own position by a one-hot mask over the length axis; a row whose
-    t has run past the buffer writes nothing. Rows freeze at t >= max_len,
-    so the steps an unrolled loop runs past max_len are no-ops.
+    readout at slot depth K; see beam_search). t is a tensor on the
+    device, never a host int, so a captured graph replays the body at
+    every step: 0-dim (all rows in step) or (B,) per-row positions (the
+    streaming-refill loop), where freezing compares per row. The token
+    lands at t by a one-hot mask over the length axis; a row whose t has
+    run past the buffer writes nothing. Rows freeze at t >= max_len, so
+    the steps an unrolled loop runs past max_len are no-ops. The body
+    makes no host copy and reads nothing back (a graph captures it).
 
     eos_top: once a sentence's top-ranked beam is finished, every beam of
     that sentence freezes. row_cap: optional (B,) per-row step cap. Exact
@@ -107,10 +109,13 @@ def _make_body_1(params, cfg: ModelConfig, state: DecodeState, tables,
     V = cfg.tgt_vocab_size
     if opts is None:
         opts = decode_opts(state.ctx.dtype)
+    dev = state.s0.device
+    # the prune's cap without row caps, made once (torch.full: no host copy)
+    max_capf = torch.full((), float(max_len), dtype=torch.float32, device=dev)
 
     def body_1(carry):
         t, last_tok, s, scores, tokens, finished, lengths = carry[:7]
-        per_row = not isinstance(t, int)
+        per_row = t.dim() > 0
         t_col = t[:, None] if per_row else t
         ban = ngram_ban(tokens, t, block_ngram, V) if block_ngram > 0 else None
         finished = finished | (t_col >= max_len)
@@ -127,12 +132,9 @@ def _make_body_1(params, cfg: ModelConfig, state: DecodeState, tables,
         tokens = torch.gather(tokens, 1, beam_idx[..., None].expand_as(tokens))
         fin_sel = torch.gather(finished, 1, beam_idx)
         len_sel = torch.gather(lengths, 1, beam_idx)
-        if per_row:
-            L = tokens.shape[-1]
-            hit = torch.arange(L, device=tokens.device) == t[:, None, None]
-            tokens = torch.where(hit, tok[:, :, None], tokens)
-        else:
-            tokens[:, :, t] = tok              # finished rows wrote PAD
+        hit = torch.arange(tokens.shape[-1], device=dev) == (
+            t[:, None, None] if per_row else t)
+        tokens = torch.where(hit, tok[:, :, None], tokens)  # finished: PAD
         lengths = torch.where(fin_sel, len_sel, len_sel + 1)
         finished = fin_sel | (tok == EOS_ID)
         if eos_top:
@@ -144,10 +146,8 @@ def _make_body_1(params, cfg: ModelConfig, state: DecodeState, tables,
             frozen_norm_min = torch.where(finished, fnorm, inf).amin(
                 1, keepdim=True)
             any_frozen = finished.any(1, keepdim=True)
-            if row_cap is None:
-                capf = torch.tensor(float(max_len), device=fnorm.device)
-            else:
-                capf = row_cap.clamp_max(max_len).to(torch.float32)[:, None]
+            capf = (max_capf if row_cap is None else
+                    row_cap.clamp_max(max_len).to(torch.float32)[:, None])
             bound = top_scores / capf ** a
             ok = finished | (bound < frozen_norm_min)
             finished = finished | (any_frozen & ok.all(1, keepdim=True))
@@ -185,12 +185,17 @@ def _fresh_scores(n: int, K: int, dev) -> torch.Tensor:
     return scores
 
 
+def _device_t(t: int, dev) -> torch.Tensor:
+    """A loop's position t as the 0-dim int64 tensor its carry holds."""
+    return torch.full((), t, dtype=torch.long, device=dev)
+
+
 def _beam_init(state: DecodeState, K: int, buf_len: int):
     """Initial carry for a beam search over state's B sentences."""
     B, H = state.s0.shape
     dev = state.s0.device
     return (
-        0,
+        _device_t(0, dev),
         torch.full((B, K), SOS_ID, dtype=torch.long, device=dev),
         state.s0[:, None, :].expand(B, K, H),
         _fresh_scores(B, K, dev),
@@ -225,15 +230,6 @@ def _finalize(tokens, lengths, scores, max_len: int, length_norm_alpha: float,
                       steps=steps, reruns=reruns)
 
 
-def _run(body, carry, t_end: int, unroll: int = 1):
-    """The host loop: ``unroll`` bodies per check of the exit condition
-    (t < t_end and not every hypothesis finished, one device read)."""
-    while carry[0] < t_end and not bool(carry[5].all()):
-        for _ in range(unroll):
-            carry = body(carry)
-    return carry
-
-
 def beam_search(
     params: Dict[str, Any],
     cfg: ModelConfig,
@@ -251,6 +247,7 @@ def beam_search(
     impl: str = "auto",
     device: DeviceLike = None,
     opts: Optional[DecodeOpts] = None,
+    dispatch: Dispatch = None,
 ) -> BeamResult:
     """Beam search over state's B sentences.
 
@@ -264,7 +261,11 @@ def beam_search(
     the beam step's impl (models.model.decode_step_topk). device: where the
     search runs (None = the card); state must lie there. opts: the
     decode's step choices (``models.model.DecodeOpts``; None: read from
-    the selection variables once a loop body).
+    the selection variables once a loop body). dispatch: "graph" (the
+    loop's U steps a replayed CUDA graph), "eager" (a host loop), None
+    ("graph" on a CUDA device unless ``opts`` holds a mesh of several
+    ranks, else "eager"; ``decode/graphs.resolve_dispatch``), or a
+    caller's ``LoopGraphs``, shared by its loops; a failed capture raises.
 
     unroll: decoder steps per check of the exit condition (0:
     VAG_BEAM_UNROLL, else 1). The token buffer is padded to a multiple of
@@ -275,7 +276,8 @@ def beam_search(
     in the deferred mode (``deferred_exactness_active``) one more at the
     chunk's end, the OR of the readout's live-row watermark flags; when it
     is set, the chunk runs again from the same initial carry with the
-    readout at depth K. ``steps`` counts every decoder step run, the
+    readout at depth K (under "graph" a loop of its own, captured only
+    when a flag fires). ``steps`` counts every decoder step run, the
     rerun's included; ``reruns`` the reruns."""
     dev = resolve_device(device)
     same_device(dev, state.s0, "decode state")
@@ -291,27 +293,30 @@ def beam_search(
     K = beam_size
     prune_alpha = _resolve_prune(prune, length_norm_alpha)
     block_n = _resolve_block(block_ngram)
+    graphs = loop_graphs(dispatch, dev, None if opts is None else opts.tp)
 
     def run(mode, carry):
-        body = _make_body_1(params, cfg, state, tables, mode, max_len,
-                            eos_top=eos_top, row_cap=row_cap,
-                            prune_alpha=prune_alpha, block_ngram=block_n,
-                            impl=impl, opts=opts)
-        return _run(body, carry, max_len_pad, U)
+        def make_body(st, rc):
+            return _make_body_1(params, cfg, st, tables, mode, max_len,
+                                eos_top=eos_top, row_cap=rc,
+                                prune_alpha=prune_alpha, block_ngram=block_n,
+                                impl=impl, opts=opts)
+        key = ("beam", mode, eos_top, prune_alpha, block_n, impl, max_len,
+               id(params), id(tables), opts)
+        return run_loop(make_body, state, row_cap, carry, 0, max_len_pad,
+                        unroll=U, graphs=graphs, key=key)
 
     init = _beam_init(state, K, max_len_pad)
     reruns = 0
     if deferred_exactness_active(K):
-        out = run("defer", init + (torch.zeros((), dtype=torch.bool,
-                                               device=dev),))
-        steps = out[0]
+        out, steps = run("defer", init + (torch.zeros((), dtype=torch.bool,
+                                                      device=dev),))
         if bool(out[7]):
-            out = run("exact", init)
-            steps += out[0]
+            out, rerun_steps = run("exact", init)
+            steps += rerun_steps
             reruns = 1
     else:
-        out = run("plain", init)
-        steps = out[0]
+        out, steps = run("plain", init)
     _, _, _, scores, tokens, _, lengths = out[:7]
     return _finalize(tokens, lengths, scores, max_len, length_norm_alpha,
                      mask_incomplete=eos_top, steps=steps, reruns=reruns)
@@ -335,6 +340,7 @@ def beam_search_two_phase(
     impl: str = "auto",
     device: DeviceLike = None,
     opts: Optional[DecodeOpts] = None,
+    dispatch: Dispatch = None,
 ) -> Tuple[BeamResult, List[int], int]:
     """Two-phase straggler-compacted beam search over N = S * chunk
     sentences (counterpart of the JAX package's ``beam_search_two_phase``,
@@ -351,7 +357,10 @@ def beam_search_two_phase(
     hypotheses do not depend on the chunk it rides in.
 
     The bodies run in mode "plain": at a readout slot depth below K each
-    step recovers its flagged rows itself. Other arguments as beam_search.
+    step recovers its flagged rows itself. Other arguments as beam_search;
+    under "graph" phase 1 and every rung replay one graph (a chunk of B
+    rows whatever its t), each resume copying its t_start into the device
+    t.
 
     Device reads: one per loop trip (all finished?), and one per rung, the
     count of unfinished sentences.
@@ -378,12 +387,20 @@ def beam_search_two_phase(
         rungs.append(cap)
     prune_alpha = _resolve_prune(prune, length_norm_alpha)
     block_n = _resolve_block(block_ngram)
+    graphs = loop_graphs(dispatch, dev, None if opts is None else opts.tp)
 
-    def body_of(st, rc):
+    def make_body(st, rc):
         return _make_body_1(params, cfg, st, tables, "plain", max_len,
                             eos_top=eos_top, row_cap=rc,
                             prune_alpha=prune_alpha, block_ngram=block_n,
                             impl=impl, opts=opts)
+
+    key = ("two_phase", eos_top, prune_alpha, block_n, impl, max_len,
+           id(params), id(tables), opts)
+
+    def run(st, rc, carry, t0, t_end):
+        return run_loop(make_body, st, rc, carry, t0, t_end, graphs=graphs,
+                        key=key)
 
     # ---- phase 1: per-chunk early-exit loops capped at L1 ----------------
     steps1: List[int] = []
@@ -392,8 +409,8 @@ def beam_search_two_phase(
         sl = slice(c * B, (c + 1) * B)
         st = DecodeState(*(x[sl] for x in state))
         rc = None if row_cap is None else row_cap[sl]
-        out = _run(body_of(st, rc), _beam_init(st, K, max_len), L1)
-        steps1.append(out[0])
+        out, t = run(st, rc, _beam_init(st, K, max_len), 0, L1)
+        steps1.append(t)
         outs.append(out[1:])
     # (last_tok, s, scores, tokens, finished, lengths) over the N rows
     packed = [torch.cat([o[j] for o in outs]) for j in range(6)]
@@ -417,11 +434,11 @@ def beam_search_two_phase(
             sl = slice(i * B, (i + 1) * B)
             st = DecodeState(*(x[sl] for x in work))
             rc = None if cap_p is None else cap_p[sl]
-            out = _run(body_of(st, rc),
-                       (t_start,) + tuple(a[sl] for a in packed), t_end)
+            out, t = run(st, rc, (_device_t(t_start, dev),)
+                         + tuple(a[sl] for a in packed), t_start, t_end)
             for a, v in zip(packed, out[1:]):
                 a[sl] = v
-            steps2 += out[0] - t_start
+            steps2 += t - t_start
             i += 1
         t_start = t_end
 

@@ -1,0 +1,297 @@
+"""The decode loops as device programs (counterpart of the JAX package's
+jitted loops: a chunk's beam search is one ``lax.while_loop``, the corpus
+one program, ``make_fused_corpus_fn``).
+
+A loop body maps a carry to the next one: (t, ..., finished, ...), t a
+0-dim int64 tensor on the device, finished the (rows, ...) bool tensor at
+index ``fin``. ``run_loop`` runs U bodies per check of the exit condition
+(t < t_end and not every entry of finished set), one device read a check,
+in one of two dispatches:
+
+- "eager": the host enqueues every operation of every step;
+- "graph": ``LoopGraphs`` captures U bodies once as a ``torch.cuda
+  .CUDAGraph`` over static carry and state buffers (``_Loop.advance``) and
+  replays it; each replay runs U steps, and the host reads the exit flag
+  once a replay. The host mirrors t as an int, since t grows by exactly U
+  a replay. Tokens, lengths, scores and trip counts are the eager loop's,
+  bit for bit: both run the same body.
+
+One ``LoopGraphs`` serves one decode call (``translate_corpus``, or one
+``beam_search`` / ``greedy_decode``) and is freed with it (nothing holds
+it past the call): params and decode tables are per call, and a graph
+baked on their addresses would decode a later call's params with this
+call's weights. Within the call a
+loop is captured once per key (its body's arguments and the carry's and
+state's shapes and dtypes) and each chunk copies its initial carry and
+its ``DecodeState`` rows into the loop's static buffers.
+
+The kernels' launch counters (``.launches``, ``.grids``, ``.passes``,
+``.bf16_launches``, ``.beam_groups``) count host calls, which a replay
+does not make: a graph records their deltas over its capture, and each
+replay adds them (``counter_deltas``, ``replayed``). The warm-up before a
+capture counts nothing, and the readout's device-side recovery counter is
+set back after it. Each graph is captured on a stream of its own, with
+arrival counters of its own (``ops/topk.stream_counters``)."""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional, Tuple, Union
+
+import torch
+
+from vag_nmt_tpu_torch.core.knobs import decode_knobs
+from vag_nmt_tpu_torch.models.model import DecodeState
+from vag_nmt_tpu_torch.ops import dec_step as _dec_step
+from vag_nmt_tpu_torch.ops import readout_topk as _readout
+from vag_nmt_tpu_torch.ops import topk as _topk
+
+DISPATCHES = ("graph", "eager")
+
+# (module, wrapper name): the kernels a decode loop body may launch; each
+# wrapper's integer counters are read and written through the module, so
+# a caller that rebinds a wrapper is counted on its own.
+_WRAPPERS = ((_topk, "beam_topk"), (_topk, "legacy_topk_blocks"),
+             (_topk, "legacy_topk_rows"), (_readout, "readout_topk_rows"),
+             (_dec_step, "dec_step"))
+_COUNTS = ("launches", "grids", "passes", "bf16_launches", "beam_groups")
+
+Carry = Tuple[torch.Tensor, ...]
+MakeBody = Callable[[DecodeState, Optional[torch.Tensor]],
+                    Callable[[Carry], Carry]]
+
+
+def resolve_dispatch(dispatch: Optional[str], dev: torch.device,
+                     mesh=None) -> str:
+    """"graph" or "eager" for a loop on ``dev``. None: "graph" on a CUDA
+    device with no mesh (or a 1 x 1 one), else "eager": the CPU, and a mesh
+    of several ranks, whose gloo collectives pass through the host.
+    "graph" on the CPU or on such a mesh raises ValueError."""
+    multi = mesh is not None and mesh.n_data * mesh.n_model > 1
+    if dispatch is None:
+        return "graph" if dev.type == "cuda" and not multi else "eager"
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"unknown dispatch {dispatch!r}; one of {DISPATCHES}")
+    if dispatch == "graph" and dev.type != "cuda":
+        raise ValueError("dispatch='graph' needs a CUDA device (CUDA graphs); "
+                         f"the loop runs on {dev}")
+    if dispatch == "graph" and multi:
+        raise ValueError("dispatch='graph' runs no mesh of several ranks: "
+                         "its collectives pass through the host")
+    return dispatch
+
+
+def counter_deltas(before: Dict, after: Dict) -> Dict:
+    """The counters that moved between two readings, by how much."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def replayed(counts: Dict, deltas: Dict, n: int) -> Dict:
+    """``counts`` after ``n`` replays of a graph whose capture moved them by
+    ``deltas``."""
+    out = dict(counts)
+    for k, d in deltas.items():
+        out[k] = out.get(k, 0) + n * d
+    return out
+
+
+def read_counts() -> Dict:
+    """{(wrapper name, counter): value} of every loop kernel's wrapper."""
+    out = {}
+    for mod, name in _WRAPPERS:
+        fn = getattr(mod, name)
+        for attr in _COUNTS:
+            v = getattr(fn, attr, None)
+            if isinstance(v, int):
+                out[(name, attr)] = v
+    return out
+
+
+def write_counts(counts: Dict) -> None:
+    mods = {name: mod for mod, name in _WRAPPERS}
+    for (name, attr), v in counts.items():
+        setattr(getattr(mods[name], name), attr, v)
+
+
+def _buffer(x: torch.Tensor) -> torch.Tensor:
+    """A static, contiguous buffer of x's shape and dtype (x expanded
+    views included), filled by ``copy_``."""
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def _signature(x: Optional[torch.Tensor]):
+    return None if x is None else (tuple(x.shape), x.dtype)
+
+
+class _Loop:
+    """One loop's static buffers, body and graph."""
+
+    def __init__(self, make_body: MakeBody, state: DecodeState,
+                 row_cap: Optional[torch.Tensor], carry: Carry, unroll: int,
+                 fin: int):
+        self.state = DecodeState(*(_buffer(x) for x in state))
+        self.row_cap = None if row_cap is None else _buffer(row_cap)
+        self.carry = tuple(_buffer(x) for x in carry)
+        self.done = torch.zeros((), dtype=torch.bool,
+                                device=self.carry[0].device)
+        self.body = make_body(self.state, self.row_cap)
+        self.unroll, self.fin = unroll, fin
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.counters: Optional[torch.Tensor] = None   # kept with the graph
+        self.deltas: Dict = {}
+        self.capture_s = 0.0
+
+    def load(self, state: DecodeState, row_cap, carry: Carry) -> None:
+        srcs = (*state, *(() if row_cap is None else (row_cap,)), *carry)
+        dsts = (*self.state, *(() if row_cap is None else (self.row_cap,)),
+                *self.carry)
+        for dst, src in zip(dsts, srcs):
+            dst.copy_(src)
+
+    def advance(self) -> None:
+        """U bodies from the static carry back into it, and the exit flag:
+        the code a graph captures (and, eagerly, the tests' model of a
+        replay)."""
+        c = self.carry
+        for _ in range(self.unroll):
+            c = self.body(c)
+        for dst, src in zip(self.carry, c):
+            dst.copy_(src)
+        self.done.copy_(c[self.fin].all())
+
+    def capture(self) -> None:
+        """Warm up once on a side stream (kernel builds, module loads,
+        cuBLAS handles), then capture ``advance`` on it. Neither counts a
+        launch; the capture's counter deltas are kept for the replays, and
+        its host seconds in ``capture_s``."""
+        t0 = time.perf_counter()
+        dev = self.carry[0].device
+        stream = torch.cuda.Stream(dev)
+        rows = max(x.shape[0] for x in self.carry if x.dim())
+        before = read_counts()
+        rec = _readout.readout_topk_rows.recoveries
+        rec_saved = None if rec is None else rec.clone()
+        with _topk.stream_counters(dev, stream.cuda_stream, rows) as buf:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self.body(self.carry)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            rec = _readout.readout_topk_rows.recoveries
+            if rec is not None and rec_saved is not None:
+                rec.copy_(rec_saved)     # the warm-up's recoveries undone
+            elif rec is not None:
+                rec.zero_()
+            write_counts(before)
+            graph = torch.cuda.CUDAGraph()
+            # capture_begin / capture_end on the loop's stream, not
+            # torch.cuda.graph, which also empties the allocator's cache
+            # at every capture (a decode call captures once a loop)
+            with torch.cuda.stream(stream):
+                graph.capture_begin()
+                try:
+                    self.advance()
+                finally:
+                    graph.capture_end()
+            self.deltas = counter_deltas(before, read_counts())
+            write_counts(before)
+        self.graph, self.counters = graph, buf
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, state: DecodeState, row_cap, carry: Carry, t0: int,
+            t_end: int, capture: bool) -> Tuple[Carry, int, int]:
+        """From ``carry`` at t0: (the last carry, its t, the replays)."""
+        self.load(state, row_cap, carry)
+        t, n = t0, 0
+        if t < t_end and not bool(self.carry[self.fin].all()):
+            if self.graph is None and capture:
+                self.capture()
+            replay = self.graph.replay if self.graph is not None else self.advance
+            while True:
+                replay()
+                n += 1
+                t += self.unroll
+                if t >= t_end or bool(self.done):
+                    break
+        if self.graph is not None:
+            write_counts(replayed(read_counts(), self.deltas, n))
+        return tuple(x.clone() for x in self.carry), t, n
+
+
+class LoopGraphs:
+    """The captured loops of one decode call, keyed by their body's
+    arguments and their buffers' shapes and dtypes; ``captures`` and
+    ``replays`` count what it did. ``capture=False`` runs each loop's
+    captured code (``_Loop.advance``) eagerly in place of a replay: the
+    CPU tests' model of the graph path. ``capture_s``: the host seconds
+    of the warm-ups and captures."""
+
+    def __init__(self, capture: bool = True):
+        self.capture = capture
+        self.loops: Dict = {}
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0
+
+    def run(self, key, make_body: MakeBody, state: DecodeState,
+            row_cap: Optional[torch.Tensor], carry: Carry, t0: int,
+            t_end: int, unroll: int, fin: int) -> Tuple[Carry, int]:
+        sig = (key, decode_knobs(), unroll, fin, _signature(row_cap),
+               tuple(_signature(x) for x in (*state, *carry)))
+        loop = self.loops.get(sig)
+        if loop is None:
+            loop = self.loops[sig] = _Loop(make_body, state, row_cap, carry,
+                                           unroll, fin)
+        captured = loop.graph is not None
+        carry, t, n = loop.run(state, row_cap, carry, t0, t_end, self.capture)
+        if loop.graph is not None and not captured:
+            self.captures += 1
+            self.capture_s += loop.capture_s
+        self.replays += n
+        return carry, t
+
+
+Dispatch = Union[None, str, LoopGraphs]
+
+
+def loop_graphs(dispatch: Dispatch, dev: torch.device,
+                mesh=None) -> Optional[LoopGraphs]:
+    """The loops' runner of one call: ``dispatch`` itself where it is a
+    ``LoopGraphs`` (a caller's, shared by its loops), a new one where it
+    resolves to "graph" (``resolve_dispatch``), else None: eager."""
+    if isinstance(dispatch, LoopGraphs):
+        return dispatch
+    if resolve_dispatch(dispatch, dev, mesh) == "eager":
+        return None
+    return LoopGraphs()
+
+
+def dispatch_stats(graphs: Optional[LoopGraphs]) -> Dict:
+    """A decode call's stats of its loops' dispatch."""
+    if graphs is None:
+        return {"dispatch": "eager", "captures": 0, "replays": 0,
+                "capture_s": 0.0}
+    return {"dispatch": "graph", "captures": graphs.captures,
+            "replays": graphs.replays, "capture_s": graphs.capture_s}
+
+
+def run_loop(make_body: MakeBody, state: DecodeState,
+             row_cap: Optional[torch.Tensor], carry: Carry, t0: int,
+             t_end: int, *, unroll: int = 1, fin: int = 5,
+             graphs: Optional[LoopGraphs] = None, key=()) -> Tuple[Carry, int]:
+    """Run a loop from ``carry`` (its t at ``t0``) while t < t_end and not
+    every entry of ``carry[fin]`` is set, ``unroll`` bodies per check:
+    eagerly where ``graphs`` is None, else as replays of ``graphs``'s loop
+    for ``key`` (the body's arguments). ``make_body(state, row_cap)``
+    builds the body over the rows' decode state and step caps. Returns
+    (the last carry, its t)."""
+    if graphs is not None:
+        return graphs.run(key, make_body, state, row_cap, carry, t0, t_end,
+                          unroll, fin)
+    body = make_body(state, row_cap)
+    t = t0
+    while t < t_end and not bool(carry[fin].all()):
+        for _ in range(unroll):
+            carry = body(carry)
+        t += unroll
+    return carry, t

@@ -43,6 +43,8 @@ from vag_nmt_tpu_torch.decode.beam import (
     beam_search_streaming,
     beam_search_two_phase,
 )
+from vag_nmt_tpu_torch.decode.graphs import (Dispatch, dispatch_stats,
+                                             loop_graphs)
 from vag_nmt_tpu_torch.decode.greedy import greedy_decode
 from vag_nmt_tpu_torch.models.decoder import decode_tables
 from vag_nmt_tpu_torch.models.layers import compute_dtype
@@ -197,6 +199,7 @@ def translate_corpus(
     impl: str = "auto",
     use_tables: Optional[bool] = None,
     device: DeviceLike = None,
+    dispatch: Dispatch = None,
 ) -> Tuple[List, Dict]:
     """Returns (hypothesis lines in example-list order, stats); with
     ``nbest`` = N > 0 (beam search on the fused path only, else
@@ -241,6 +244,16 @@ def translate_corpus(
     untabled). device: None = the card. img_table: optional (N, F) feature
     table from build_img_table (row i = examples[i]).
 
+    dispatch: how the decode loops run: "graph" (each loop's U steps a
+    CUDA graph, captured once a call per loop shape and replayed, one
+    device read a replay; ``decode/graphs.py``), "eager" (host loops), or
+    None: "graph" on a CUDA device with no mesh of several ranks, else
+    "eager" (``resolve_dispatch``). The streaming-refill loop is a host
+    loop whatever None resolves to (its refill is host logic between
+    trips); "graph" with it raises ValueError, as on the CPU or a mesh of
+    several ranks. A capture that fails raises: nothing falls back to
+    eager.
+
     stats: sentences_per_sec, elapsed_s (host clock from the first upload
     to the last hypothesis on the host, de-BPE excluded), chunk_steps (the
     realized decode-loop trips of each chunk in length order; streaming:
@@ -250,7 +263,10 @@ def translate_corpus(
     readout's depth K in the deferred mode); streaming adds
     ``streaming=True`` and ``refills`` (refill events per super-chunk);
     two-phase adds ``two_phase=True`` and ``phase2_steps`` (resume trips
-    per super-chunk)."""
+    per super-chunk); every path adds ``dispatch`` ("graph" or "eager"),
+    ``captures`` (graphs captured), ``replays`` (graph replays) and
+    ``capture_s`` (their warm-ups' and captures' host seconds, inside
+    elapsed_s)."""
     dev = resolve_device(device)
     cfg = decode_config(cfg)
     beam_size = beam_size if beam_size is not None else cfg.decode.beam_size
@@ -287,7 +303,8 @@ def translate_corpus(
     if not fused:
         return _translate_bucketed(params, cfg, examples, tgt_vocab,
                                    beam_size, max_len, B, de_bpe, img_table,
-                                   impl, use_tables, opts, dev)
+                                   impl, use_tables, opts, dev,
+                                   loop_graphs(dispatch, dev))
     streaming = _use_streaming(cfg, beam_size)
     two_phase = not streaming and _use_two_phase(cfg, beam_size, max_len)
     if tp is not None and (streaming or two_phase):
@@ -296,6 +313,12 @@ def translate_corpus(
                   " decode is off on a mesh with a model axis: the chunked "
                   "loop runs", file=sys.stderr)
         streaming = two_phase = False
+    if streaming and dispatch == "graph":
+        raise ValueError("dispatch='graph': the streaming-refill loop has no "
+                         "graph form (its refill is host logic between trips)")
+    # the call's loop graphs (None: eager), freed with the call
+    graphs = None if streaming else loop_graphs(dispatch, dev, mesh)
+    loops = "eager" if graphs is None else graphs
 
     ns, S = super_chunks(-(-n // B), B)
     nb = ns * S
@@ -385,7 +408,7 @@ def translate_corpus(
             res, steps1, steps2 = beam_search_two_phase(
                 params, m, state, chunk=Bd,
                 split_len=d.split_len or max(16, max_len // 4),
-                row_cap=row_cap, **beam_kw)
+                row_cap=row_cap, dispatch=loops, **beam_kw)
             keep(rows, res)
             chunk_steps.extend(steps1)
             phase2.append(steps2)
@@ -398,12 +421,12 @@ def translate_corpus(
             if beam_size <= 1:
                 res = greedy_decode(params, m, chunk, max_len, tables=tables,
                                     row_cap=cap, block_ngram=block_ngram,
-                                    opts=opts)
+                                    opts=opts, dispatch=loops)
                 out_toks[g] = res.tokens.cpu().numpy()
                 out_lens[g] = res.lengths.cpu().numpy()
             else:
                 res = beam_search(params, m, chunk, row_cap=cap,
-                                  unroll=unroll, **beam_kw)
+                                  unroll=unroll, dispatch=loops, **beam_kw)
                 keep(g, res)
                 reruns += res.reruns
             chunk_steps.append(res.steps)
@@ -435,7 +458,8 @@ def translate_corpus(
              "beam_loop_steps": int(sum(chunk_steps) + sum(phase2)),
              "chunk_steps": chunk_steps, "n_chunks": nb,
              "rows_per_chunk": B, "t_src": int(t_src), "reruns": reruns,
-             "device": str(dev), "impl": impl, "tables": bool(use_tables)}
+             "device": str(dev), "impl": impl, "tables": bool(use_tables),
+             **dispatch_stats(graphs)}
     if tp is not None:
         stats["streaming"] = stats["two_phase"] = False
     if streaming:
@@ -467,13 +491,15 @@ def _translate_bucketed(params, cfg: Config, examples: Sequence[Example],
                         tgt_vocab: Vocab, beam_size: int, max_len: int,
                         B: int, de_bpe: bool,
                         img_table: Optional[torch.Tensor], impl: str,
-                        use_tables: bool, opts, dev: torch.device
-                        ) -> Tuple[List[str], Dict]:
+                        use_tables: bool, opts, dev: torch.device,
+                        graphs) -> Tuple[List[str], Dict]:
     """The bucketed path (the JAX package's fused=False): BucketBatcher's
     batches in example order, each padded to its own source bucket and
     decoded by one encode and one beam search (greedy at beam 1), with
-    the fused path's tables, row caps, n-gram blocking and prune.
-    Hypotheses come back in list order, whatever the examples' .index."""
+    the fused path's tables, row caps, n-gram blocking and prune, its
+    loops on ``graphs`` (the call's LoopGraphs, one loop a batch shape;
+    None: eager). Hypotheses come back in list order, whatever the
+    examples' .index."""
     m = cfg.model
     if m.multimodal:
         img_table = (build_img_table(examples, m.img_feat_dim, device=dev)
@@ -488,6 +514,7 @@ def _translate_bucketed(params, cfg: Config, examples: Sequence[Example],
     t0 = time.perf_counter()
     tables = (decode_tables(params["decoder"], w_out_bf16=opts.readout_bf16)
               if use_tables else None)
+    loops = "eager" if graphs is None else graphs
     block_ngram, unroll, beam_kw = _beam_args(cfg, beam_size, max_len,
                                               tables, impl, opts, dev)
     pending, chunk_steps = [], []
@@ -503,11 +530,11 @@ def _translate_bucketed(params, cfg: Config, examples: Sequence[Example],
         if beam_size <= 1:
             res = greedy_decode(params, m, state, max_len, tables=tables,
                                 row_cap=row_cap, block_ngram=block_ngram,
-                                opts=opts)
+                                opts=opts, dispatch=loops)
             toks, lens = res.tokens, res.lengths
         else:
             res = beam_search(params, m, state, row_cap=row_cap,
-                              unroll=unroll, **beam_kw)
+                              unroll=unroll, dispatch=loops, **beam_kw)
             toks, lens = res.best_tokens, res.best_lengths
         chunk_steps.append(res.steps)
         pending.append((toks, lens, batch["index"], batch["sample_mask"]))
@@ -528,4 +555,4 @@ def _translate_bucketed(params, cfg: Config, examples: Sequence[Example],
                   "beam_loop_steps": int(sum(chunk_steps)),
                   "chunk_steps": chunk_steps, "n_chunks": len(chunk_steps),
                   "rows_per_chunk": B, "device": str(dev), "impl": impl,
-                  "tables": bool(use_tables)}
+                  "tables": bool(use_tables), **dispatch_stats(graphs)}

@@ -323,7 +323,9 @@ def _combine(rvals, ridx, lse, scores, finished, V: int, pad_id: int):
     # Frozen-row candidates as beam_topk sees them: base at pad_id, then
     # base + NEG_INF at the smallest vocab ids != pad_id (tie-break order).
     rest = slot[:-1] + (slot[:-1] >= pad_id).long()
-    froz_idx = torch.cat([torch.tensor([pad_id], device=dev), rest])
+    # torch.full, not torch.tensor: no host copy, so a graph can capture it
+    froz_idx = torch.cat([torch.full((1,), pad_id, dtype=torch.long,
+                                     device=dev), rest])
 
     fin3 = finished[..., None]
     vals = torch.where(fin3, froz_vals, live_vals)

@@ -33,6 +33,7 @@ then the combine) in the same launch."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, List, Optional, Tuple
 
@@ -286,18 +287,63 @@ def beam_topk(
     return _launch("beam_topk", beam_topk, logits, scores, finished, pad_id)
 
 
-# Per device: the split kernels' arrival counters, zero between launches
-# (the last CTA of each sentence sets its counter back to 0). Launches on
-# one stream run in order, so they share the buffer.
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+# The split kernels' arrival counters (kernel 1's row-tile tickets too),
+# zero between launches (the last CTA of each sentence or row tile sets
+# its counter back to 0). Launches on one stream run in order and may
+# share a buffer; launches on two streams may not. So there is one buffer
+# per (device, stream): an eager launch takes its stream's, and a CUDA
+# graph is captured on a stream of its own whose buffer ``stream_counters``
+# binds before the capture and the graph keeps (decode/graphs.py), so two
+# graphs, or a graph and an eager launch, never share a ticket.
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+COUNTER_MIN = 1024       # a new buffer's least length
+
+
+def counters_for(table: Dict, key, n: int, make) -> torch.Tensor:
+    """``table[key]``, replaced by ``make(max(n, COUNTER_MIN))`` where it is
+    missing or shorter than ``n``: one buffer per key, grown, never
+    shared between keys."""
+    c = table.get(key)
+    if c is None or c.numel() < n:
+        c = table[key] = make(max(n, COUNTER_MIN))
+    return c
+
+
+def _zeros(dev: torch.device):
+    return lambda n: torch.zeros(n, dtype=torch.int32, device=dev)
 
 
 def _arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
-    c = _COUNTERS.get(dev)
-    if c is None or c.numel() < n:
-        c = _COUNTERS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                         device=dev)
-    return c
+    """The counters of the current stream on ``dev``, at least ``n``. Under
+    a capture the stream's buffer must have been bound before it
+    (``stream_counters``): an allocation there would belong to the graph's
+    pool, so a missing or short one raises."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    if torch.cuda.is_current_stream_capturing():
+        c = _COUNTERS.get(key)
+        if c is None or c.numel() < n:
+            raise RuntimeError(f"no arrival counters of {n} bound to the "
+                               "capturing stream (ops/topk.stream_counters)")
+        return c
+    return counters_for(_COUNTERS, key, n, _zeros(dev))
+
+
+@contextlib.contextmanager
+def stream_counters(dev: torch.device, stream_id: int, n: int):
+    """Bind a fresh buffer of at least ``n`` counters to the stream
+    ``stream_id`` on ``dev`` for the block (a graph's warm-up and capture
+    on its own stream); yields it for the graph to keep. The stream's
+    earlier binding, if any, comes back after the block."""
+    key = (dev, stream_id)
+    old = _COUNTERS.pop(key, None)
+    buf = counters_for(_COUNTERS, key, n, _zeros(dev))
+    try:
+        yield buf
+    finally:
+        if old is None:
+            _COUNTERS.pop(key, None)
+        else:
+            _COUNTERS[key] = old
 
 
 def grid_call(name: str, logits, scores, finished, *, pad_id: int = PAD_ID):
