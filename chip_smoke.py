@@ -180,10 +180,16 @@ Phases (each raises on failure; the script then exits non-zero):
      unfused step through kernels 6, 8 and 9, ikea_vag two-phase at depth
      K and at slots 1, greedy; walls in turns and profiles of both
      dispatches; two captured loops replayed at once on two streams
-     against a serial run, bit for bit (the arrival counters' keying).
+     against a serial run, bit for bit (the arrival counters' keying);
+ 26. training as CUDA graphs (train/graphs.py): train_loop's K-stacks as
+     replayed graphs against the eager K-step call over the first 240
+     steps of a 29000-pair corpus, fp32 and bf16, every loss, grad norm
+     and the final params equal, kernels 2-5 counted through the replays
+     (see the comment at phase_train_graphs).
 Every decode through translate_corpus on the card runs its loops as CUDA
 graphs (dispatch None), but the streaming-refill loop and the ranks of
-phases 22 and 23; the launch gates count through the replays.
+phases 22 and 23; the launch gates count through the replays. train_loop
+runs its K-stacks as graphs too (phase 8's corpus forms none).
 Phase 15 also decodes the bf16 run with --set decode.compute_dtype=bfloat16
 (kernels 1b and 2b only), and runs make-toy -> train -> translate and a raw
 synthetic Multi30k directory through preprocess -> train ->
@@ -196,7 +202,7 @@ numbers and, last, the device line. With --gru-grids it prints phase 3's
 grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
 kernel 7's, with --dec-scan-grids kernels 4 and 5's, with --gru-bwd-grids
 kernel 3's; with --decode-graphs it builds the kernels and runs phase 25
-alone (see main).
+alone, with --train-graphs phase 26 (see main).
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
 
@@ -5074,41 +5080,18 @@ def _graph_case(torch, label, run, kernel=None, bf16=False):
 
 
 def _dispatch_profile(torch, run):
-    """run() (translate_corpus's (hyps, stats)) under torch.profiler,
-    device activity and the CUDA runtime calls CUPTI records beside it:
-    the device's busy ms and idle share of the wall (one stream, so
-    kernels do not overlap), device operations, host kernel launches and
-    graph launches per beam step (None where the profiler recorded no
-    runtime call: not measured)."""
-    from torch.profiler import ProfilerActivity, profile
+    """run() (translate_corpus's (hyps, stats)) under ``_runtime_profile``,
+    per beam step, with the call's dispatch stats."""
+    st = {}
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, st = run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, ops, launches, graph_launches, runtime = 0.0, 0, 0, 0, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += e.time_range.elapsed_us()
-            ops += 1
-            continue
-        if e.name.startswith("cu"):
-            runtime += 1
-            if "GraphLaunch" in e.name:
-                graph_launches += 1
-            elif "Launch" in e.name and "Kernel" in e.name:
-                launches += 1
-    steps = max(1, st["beam_loop_steps"])
-    busy_ms = busy_us / 1e3
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
-            "device_ops_per_step": ops / steps,
-            "host_kernel_launches_per_step": launches / steps if runtime else None,
-            "graph_launches_per_step": graph_launches / steps if runtime else None,
-            "captures": st["captures"], "replays": st["replays"],
-            "capture_s": st["capture_s"]}
+    def steps():
+        st.update(run()[1])
+        return st["beam_loop_steps"]
+
+    f = _runtime_profile(torch, steps)
+    f.update(captures=st["captures"], replays=st["replays"],
+             capture_s=st["capture_s"])
+    return f
 
 
 def _graph_walls(torch, label, run):
@@ -5281,6 +5264,284 @@ def phase_graphs(torch, np, dev):
     return out
 
 
+# Phase 26: training as CUDA graphs (train/graphs.py): train_loop on the
+# full-width m30k_ende_vag model (batch 64, dropout 0.3, K = 8) over the
+# first TRAIN_GRAPH_STEPS steps of epoch 0 of TRAIN_GRAPH_PAIRS synthetic
+# pairs (Multi30k's train size: the smallest corpus on which stacks form;
+# the window is 30 stacks over 14 shape keys), no eval, a log row every
+# step. fp32 in turns eager, graph, graph, eager; bf16 once each way.
+# Gate: every loss and grad norm and the final params of a graph run equal
+# to those of an eager run bit for bit; where two eager runs of the same
+# steps already differ, that difference is printed and the gate becomes
+# "graph differs from eager by no more than eager from itself" (the phase
+# says which held; bf16 then gets a second eager run of its own). Kernels
+# 2-5 (2b-5b in bf16) counted through the replays, equal to the eager
+# run's and to the steps x each kernel's launches a step; captures equal
+# to the shape keys of the window's stacks. Then one profiled stretch of
+# TRAIN_GRAPH_PROFILE_STACKS stacks, replays (captured beforehand)
+# against the eager K-step call: device ms, idle share, host kernel
+# launches and graph launches a step.
+TRAIN_GRAPH_PAIRS = 29000
+TRAIN_GRAPH_STEPS = 240
+TRAIN_GRAPH_PROFILE_STACKS = 4
+
+
+def _runtime_profile(torch, run):
+    """run() (its step count) under torch.profiler: device activity and the
+    CUDA runtime calls CUPTI records beside it. The device's busy ms and
+    idle share of the wall (one stream, so kernels do not overlap), device
+    operations, host kernel launches and graph launches per step (None
+    where the profiler recorded no runtime call: not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, ops, launches, graph_launches, runtime = 0.0, 0, 0, 0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            ops += 1
+            continue
+        if e.name.startswith("cu"):
+            runtime += 1
+            if "GraphLaunch" in e.name:
+                graph_launches += 1
+            elif "Launch" in e.name and "Kernel" in e.name:
+                launches += 1
+    steps = max(1, steps)
+    busy_ms = busy_us / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+            "device_ops_per_step": ops / steps,
+            "host_kernel_launches_per_step": launches / steps if runtime else None,
+            "graph_launches_per_step": graph_launches / steps if runtime else None}
+
+
+def _train_graph_window(np, batcher, K: int, steps: int):
+    """The window's dispatches as train_loop makes them: (the stacks run
+    whole, their shape keys, the single steps)."""
+    from vag_nmt_tpu_torch.train.graphs import stack_key
+
+    stacks, singles, done = [], 0, 0
+    for hb in batcher.epoch_stacked(0, K):
+        k = hb["src"].shape[0] if hb["src"].ndim == 3 else 1
+        if hb["src"].ndim == 3 and done + k <= steps:
+            stacks.append(hb)
+        else:
+            singles += min(k, steps - done)
+        done += k
+        if done >= steps:
+            break
+    return stacks, {stack_key(s) for s in stacks}, singles
+
+
+def _train_graph_run(torch, vt, cfg, corpus, vocab, dev, dispatch, tag):
+    """One train_loop over the window: {rows: [(loss, grad_norm)], stats,
+    window_s, counts (kernels 2-5's counter deltas), params (host leaves),
+    wall_s}."""
+    import io
+
+    from vag_nmt_tpu_torch.core.graphs import counter_deltas
+    from vag_nmt_tpu_torch.core.metrics import MetricsLogger
+    from vag_nmt_tpu_torch.train import graphs as tg
+    from vag_nmt_tpu_torch.train.checkpoint import load_checkpoint
+    from vag_nmt_tpu_torch.train.state import tree_leaves
+
+    out = Path(__file__).resolve().parent / "build" / f"chip_smoke_tg_{tag}"
+    shutil.rmtree(out, ignore_errors=True)
+    log = MetricsLogger(str(out / "metrics.jsonl"), stream=io.StringIO())
+    before = tg.read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        vt.train_loop(cfg, str(out), corpus, [], vocab, [],
+                      max_steps=TRAIN_GRAPH_STEPS, device=dev,
+                      dispatch=dispatch, logger=log)
+    finally:
+        log.close()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = counter_deltas(before, tg.read_counts())
+    recs = [json.loads(line) for line in open(out / "metrics.jsonl")]
+    rows = sorted((r for r in recs if r["tag"] == "train"),
+                  key=lambda r: r["step"])
+    if [r["step"] for r in rows] != list(range(1, TRAIN_GRAPH_STEPS + 1)):
+        raise AssertionError(f"train graphs ({tag}): log rows at "
+                             f"{[r['step'] for r in rows][:12]} ...")
+    stats = next(r for r in recs if r["tag"] == "dispatch")
+    state, _ = load_checkpoint(str(out / cfg.train.checkpoint_dir), "last",
+                               device="cpu")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"rows": [(r["loss"], r["grad_norm"]) for r in rows],
+            "window_s": sum(r["step_time_s"] for r in rows),
+            "stats": stats, "counts": counts, "wall_s": wall_s,
+            "params": tree_leaves(state.params)}
+
+
+def _train_graph_diff(a, b):
+    """(largest |difference| of the losses and grad norms, of the final
+    params; whether every one of them is equal bit for bit)."""
+    import numpy as np
+
+    ra, rb = np.array(a["rows"]), np.array(b["rows"])
+    rows = float(np.abs(ra - rb).max())
+    params = max(float((x - y).abs().max())
+                 for x, y in zip(a["params"], b["params"]))
+    same = (ra.tobytes() == rb.tobytes()
+            and all(x.equal(y) for x, y in zip(a["params"], b["params"])))
+    return rows, params, same
+
+
+def _train_graph_profile(torch, vt, cfg, stacks, table, dev):
+    """The profiled stretch: the same stacks as replays (captured in a
+    pass before it) and through the eager K-step call, each from the init;
+    {dispatch: fields}."""
+    from vag_nmt_tpu_torch.train.graphs import StepGraphs
+
+    def init():
+        return vt.create_train_state(
+            cfg, torch.Generator().manual_seed(cfg.train.seed), device=dev)
+
+    steps = sum(s["src"].shape[0] for s in stacks)
+    graphs = StepGraphs(cfg, init(), img_table=table, with_img_table=True)
+    for s in stacks:                                  # the captures
+        graphs.run(graphs.state, s)
+
+    def replays():
+        for s in stacks:
+            graphs.run(graphs.state, s)
+        return steps
+
+    multi = vt.make_multi_step(cfg, with_img_table=True)
+    st = [init()]
+    st[0], _ = multi(st[0], stacks[0], table)        # warm-up
+
+    def eager():
+        for s in stacks:
+            st[0], _ = multi(st[0], s, table)
+        return steps
+
+    out = {"graph": _runtime_profile(torch, replays),
+           "eager": _runtime_profile(torch, eager)}
+    out["graph"].update(captures=graphs.captures,
+                        pool_bytes=graphs.pool_bytes())
+    return out
+
+
+def _train_graph_gate(label, pair, self_diff):
+    """Graph against eager: bit for bit, or within eager's own
+    run-to-run difference ``self_diff`` (rows, params) where that is not
+    zero. Returns which held; raises where neither did."""
+    rows, params, same = pair
+    if same:
+        return "bit for bit"
+    if self_diff is not None and (self_diff[0] or self_diff[1]) and \
+            rows <= self_diff[0] and params <= self_diff[1]:
+        return "within eager's own difference"
+    raise AssertionError(f"train graphs ({label}): graph differs from eager "
+                         f"by {rows} (losses, grad norms) and {params} "
+                         f"(params); eager from itself by {self_diff}")
+
+
+def phase_train_graphs(torch, np, dev):
+    """Phase 26 (above): fields."""
+    import vag_nmt_tpu_torch as vt
+    from vag_nmt_tpu_torch.core.config import SPECIALS
+    from vag_nmt_tpu_torch.data.batching import BucketBatcher
+    from vag_nmt_tpu_torch.data.vocab import Vocab
+
+    t0 = time.perf_counter()
+    smi = _smi()
+    cfg = vt.preset("m30k_ende_vag").replace(train=dict(
+        eval_every_steps=0, log_every_steps=1, steps_per_dispatch=8))
+    m = cfg.model
+    corpus = _train_corpus(np, m, TRAIN_GRAPH_PAIRS, seed=8)
+    vocab = Vocab(list(SPECIALS) + [f"t{i}" for i in range(m.tgt_vocab_size - 4)])
+    K = cfg.train.steps_per_dispatch
+    batcher = BucketBatcher(corpus, cfg.data.batch_size,
+                            cfg.data.length_buckets,
+                            seed=cfg.data.shuffle_seed, image_ids=True,
+                            img_dim=m.img_feat_dim, compact=True)
+    stacks, keys, singles = _train_graph_window(np, batcher, K,
+                                                TRAIN_GRAPH_STEPS)
+    f = {"card": smi, "pairs": TRAIN_GRAPH_PAIRS, "steps": TRAIN_GRAPH_STEPS,
+         "K": K, "stacks": len(stacks), "shape_keys": len(keys),
+         "single_steps": singles, "corpus_s": time.perf_counter() - t0}
+    print("train graphs window: " + json.dumps(f))
+    cfg16 = cfg.replace(model=dict(compute_dtype="bfloat16"))
+    runs = {}
+    for label, c, turns in (("fp32", cfg, ("eager", "graph", "graph", "eager")),
+                            ("bf16", cfg16, ("eager", "graph"))):
+        runs[label] = [(d, _train_graph_run(torch, vt, c, corpus, vocab, dev,
+                                            d, f"{label}_{i}"))
+                       for i, d in enumerate(turns)]
+    for label, rs in runs.items():
+        eager = [r for d, r in rs if d == "eager"]
+        graph = [r for d, r in rs if d == "graph"]
+        g = {}
+        pairs = [_train_graph_diff(eager[0], r) for r in graph]
+        if len(eager) == 1 and not all(p[2] for p in pairs):
+            # bf16's one eager run: a second only where graph and eager part
+            eager.append(_train_graph_run(torch, vt, cfg16, corpus, vocab,
+                                          dev, "eager", f"{label}_again"))
+        self_diff = (_train_graph_diff(eager[0], eager[1])[:2]
+                     if len(eager) > 1 else None)
+        g["eager_self_diff"] = self_diff
+        print(f"train graphs ({label}): two eager runs differ by "
+              f"{self_diff} (losses and grad norms, params)")
+        g["graph_vs_eager"] = [p[:2] for p in pairs]
+        g["gate"] = [_train_graph_gate(label, p, self_diff) for p in pairs]
+        # launches through the replays against the eager run's host calls
+        ce, cg = eager[0]["counts"], graph[0]["counts"]
+        per_step = {k: v / TRAIN_GRAPH_STEPS for k, v in ce.items()}
+        g["launches"] = {f"{n}.{a}": [ce.get((n, a), 0), cg.get((n, a), 0)]
+                         for n, a in sorted(set(ce) | set(cg))}
+        g["launches_per_step"] = {f"{n}.{a}": v
+                                  for (n, a), v in per_step.items()}
+        attr = "bf16_launches" if label == "bf16" else "launches"
+        for n in ("gru_fwd", "gru_bwd", "dec_scan_fwd", "dec_scan_bwd"):
+            got = cg.get((n, attr), 0)
+            if got <= 0 or got != ce.get((n, attr), 0) or \
+                    got % TRAIN_GRAPH_STEPS:
+                raise AssertionError(f"train graphs ({label}): {n}.{attr} "
+                                     f"{got} through the replays, eager "
+                                     f"{ce.get((n, attr), 0)}, steps "
+                                     f"{TRAIN_GRAPH_STEPS}")
+        st = [r["stats"] for r in graph]
+        if any(s["captures"] != len(keys) or s["replays"] != len(stacks)
+               or s["dispatch"] != "graph" for s in st):
+            raise AssertionError(f"train graphs ({label}): stats {st}, "
+                                 f"{len(keys)} keys, {len(stacks)} stacks")
+        if any(r["stats"]["dispatch"] != "eager" for r in eager):
+            raise AssertionError(f"train graphs ({label}): eager stats")
+        g["steps_per_sec"] = {
+            d: [TRAIN_GRAPH_STEPS / r["window_s"] for dd, r in rs if dd == d]
+            for d in ("eager", "graph")}
+        g["graph_steps_per_sec_without_captures"] = [
+            TRAIN_GRAPH_STEPS / (r["window_s"] - r["stats"]["capture_s"])
+            for r in graph]
+        g["captures"] = [s["captures"] for s in st]
+        g["replays"] = [s["replays"] for s in st]
+        g["capture_s"] = [s["capture_s"] for s in st]
+        g["pool_bytes"] = [s["pool_bytes"] for s in st]
+        g["wall_s"] = {d: [r["wall_s"] for dd, r in rs if dd == d]
+                       for d in ("eager", "graph")}
+        f[label] = g
+        print(f"train graphs ({label}) [{smi}]: " + json.dumps(g))
+    table = vt.build_img_table(corpus, m.img_feat_dim, device=dev)
+    for label, c in (("fp32", cfg), ("bf16", cfg16)):
+        f[label]["profile"] = _train_graph_profile(
+            torch, vt, c, stacks[:TRAIN_GRAPH_PROFILE_STACKS], table, dev)
+        print(f"train graphs ({label}) profile [{smi}]: "
+              + json.dumps(f[label]["profile"]))
+    f["phase_s"] = time.perf_counter() - t0
+    return f
+
+
 def phase_profile(torch, what: str, run):
     """One run of a path under torch.profiler, device activity only; run()
     returns its step count (beam steps or train steps). One stream, so
@@ -5382,6 +5643,12 @@ def main() -> int:
         # against eager, {case: fields}
         print(json.dumps({"decode_graphs": phase_graphs(torch, np, dev)}))
         return 0
+    if sys.argv[1:] == ["--train-graphs"]:
+        # phase 26 alone after the build: the K-step train dispatch as CUDA
+        # graphs against eager, fields
+        print(json.dumps({"train_graphs": phase_train_graphs(torch, np,
+                                                             dev)}))
+        return 0
     # ptxas's spill report of every build (-Xptxas -v): kernels that spill,
     # as {build: {kernel: [store bytes, load bytes]}}, and how many do not
     spills = {n: _build.spills(n) for n in sorted(_build._KERNELS)}
@@ -5425,6 +5692,7 @@ def main() -> int:
     tp = phase_tensor_parallel(torch, np, dev, dp_single)
     host = phase_host_modules(torch, np, dev)
     graph_cases = phase_graphs(torch, np, dev)
+    train_graphs = phase_train_graphs(torch, np, dev)
     # Each kernel's launches come from the run of its own path: the decode
     # path for the decode kernels, the training path for the training
     # kernels, the serving modes that select them for beam_topk and dec_step,
@@ -5514,6 +5782,15 @@ def main() -> int:
         if per_rank:
             k["tp_launches"] = per_rank
     decode_kernels[0]["tp_slices"] = tp["slices"]
+    # kernels 2-5 (2b-5b) counted through the replays of phase 26's graph
+    # run (fp32; bf16)
+    for k in kernels:
+        label = "bf16" if k["name"].endswith("_bf16") else "fp32"
+        base = k["name"][:-len("_bf16")] if label == "bf16" else k["name"]
+        attr = "bf16_launches" if label == "bf16" else "launches"
+        got = train_graphs[label]["launches"].get(f"{base}.{attr}")
+        if got is not None:
+            k["graph_launches"] = got[1]
     print(f"jax run: {json.dumps(jax_run)}")
     print(f"bf16 decode: {json.dumps(bf16_decode)}")
     print(f"bucketed and super-chunk decode: {json.dumps(bucketed)}")
@@ -5521,6 +5798,7 @@ def main() -> int:
     print(f"tensor parallel: {json.dumps(tp)}")
     print(f"host modules: {json.dumps(host)}")
     print(f"decode graphs: {json.dumps(graph_cases)}")
+    print(f"train graphs: {json.dumps(train_graphs)}")
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,12 +28,13 @@ from vag_nmt_tpu_torch.models.model import (
 )
 from vag_nmt_tpu_torch.train.loop import train_loop
 from vag_nmt_tpu_torch.train.state import TrainState, create_train_state
-from vag_nmt_tpu_torch.train.step import make_train_step
+from vag_nmt_tpu_torch.train.step import make_multi_step, make_train_step
 
 __all__ = ["BeamResult", "Config", "DecodeState", "GreedyResult",
            "ModelConfig", "TrainState", "Translator", "beam_search",
            "beam_search_streaming", "beam_search_two_phase",
            "build_img_table", "cast_floats", "create_train_state",
-           "greedy_decode", "init_params", "loss_fn", "make_train_step",
+           "greedy_decode", "init_params", "loss_fn", "make_multi_step",
+           "make_train_step",
            "params_from_numpy", "prepare_decode", "preset", "train_loop",
            "translate_corpus"]

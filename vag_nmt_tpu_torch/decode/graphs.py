@@ -28,8 +28,8 @@ its ``DecodeState`` rows into the loop's static buffers.
 The kernels' launch counters (``.launches``, ``.grids``, ``.passes``,
 ``.bf16_launches``, ``.beam_groups``) count host calls, which a replay
 does not make: a graph records their deltas over its capture, and each
-replay adds them (``counter_deltas``, ``replayed``). The warm-up before a
-capture counts nothing, and the readout's device-side recovery counter is
+replay adds them (``core/graphs.py``). The warm-up before a capture
+counts nothing, and the readout's device-side recovery counter is
 set back after it. Each graph is captured on a stream of its own, with
 arrival counters of its own (``ops/topk.stream_counters``)."""
 
@@ -40,78 +40,32 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from vag_nmt_tpu_torch.core import graphs as _graphs
+from vag_nmt_tpu_torch.core.graphs import (counter_deltas, replayed,
+                                           resolve_dispatch)
 from vag_nmt_tpu_torch.core.knobs import decode_knobs
 from vag_nmt_tpu_torch.models.model import DecodeState
 from vag_nmt_tpu_torch.ops import dec_step as _dec_step
 from vag_nmt_tpu_torch.ops import readout_topk as _readout
 from vag_nmt_tpu_torch.ops import topk as _topk
 
-DISPATCHES = ("graph", "eager")
-
-# (module, wrapper name): the kernels a decode loop body may launch; each
-# wrapper's integer counters are read and written through the module, so
-# a caller that rebinds a wrapper is counted on its own.
+# (module, wrapper name): the kernels a decode loop body may launch
 _WRAPPERS = ((_topk, "beam_topk"), (_topk, "legacy_topk_blocks"),
              (_topk, "legacy_topk_rows"), (_readout, "readout_topk_rows"),
              (_dec_step, "dec_step"))
-_COUNTS = ("launches", "grids", "passes", "bf16_launches", "beam_groups")
 
 Carry = Tuple[torch.Tensor, ...]
 MakeBody = Callable[[DecodeState, Optional[torch.Tensor]],
                     Callable[[Carry], Carry]]
 
 
-def resolve_dispatch(dispatch: Optional[str], dev: torch.device,
-                     mesh=None) -> str:
-    """"graph" or "eager" for a loop on ``dev``. None: "graph" on a CUDA
-    device with no mesh (or a 1 x 1 one), else "eager": the CPU, and a mesh
-    of several ranks, whose gloo collectives pass through the host.
-    "graph" on the CPU or on such a mesh raises ValueError."""
-    multi = mesh is not None and mesh.n_data * mesh.n_model > 1
-    if dispatch is None:
-        return "graph" if dev.type == "cuda" and not multi else "eager"
-    if dispatch not in DISPATCHES:
-        raise ValueError(f"unknown dispatch {dispatch!r}; one of {DISPATCHES}")
-    if dispatch == "graph" and dev.type != "cuda":
-        raise ValueError("dispatch='graph' needs a CUDA device (CUDA graphs); "
-                         f"the loop runs on {dev}")
-    if dispatch == "graph" and multi:
-        raise ValueError("dispatch='graph' runs no mesh of several ranks: "
-                         "its collectives pass through the host")
-    return dispatch
-
-
-def counter_deltas(before: Dict, after: Dict) -> Dict:
-    """The counters that moved between two readings, by how much."""
-    return {k: v - before.get(k, 0) for k, v in after.items()
-            if v != before.get(k, 0)}
-
-
-def replayed(counts: Dict, deltas: Dict, n: int) -> Dict:
-    """``counts`` after ``n`` replays of a graph whose capture moved them by
-    ``deltas``."""
-    out = dict(counts)
-    for k, d in deltas.items():
-        out[k] = out.get(k, 0) + n * d
-    return out
-
-
 def read_counts() -> Dict:
     """{(wrapper name, counter): value} of every loop kernel's wrapper."""
-    out = {}
-    for mod, name in _WRAPPERS:
-        fn = getattr(mod, name)
-        for attr in _COUNTS:
-            v = getattr(fn, attr, None)
-            if isinstance(v, int):
-                out[(name, attr)] = v
-    return out
+    return _graphs.read_counts(_WRAPPERS)
 
 
 def write_counts(counts: Dict) -> None:
-    mods = {name: mod for mod, name in _WRAPPERS}
-    for (name, attr), v in counts.items():
-        setattr(getattr(mods[name], name), attr, v)
+    _graphs.write_counts(counts, _WRAPPERS)
 
 
 def _buffer(x: torch.Tensor) -> torch.Tensor:

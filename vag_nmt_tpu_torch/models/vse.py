@@ -67,11 +67,12 @@ def max_margin_loss(
     pos = torch.diagonal(sim)
     b = sim.shape[0]
     valid_pair = 1.0 - torch.eye(b, dtype=sim.dtype, device=sim.device)
-    n_valid = torch.tensor(float(b), dtype=sim.dtype, device=sim.device)
     if sample_mask is not None:
         sm = sample_mask.to(sim.dtype)
         valid_pair = valid_pair * sm[:, None] * sm[None, :]
         n_valid = sm.sum().clamp_min(1.0)
+    else:   # made on the device: no host copy (a CUDA graph captures it)
+        n_valid = torch.full((), float(b), dtype=sim.dtype, device=sim.device)
     # sentence -> wrong images, and image -> wrong sentences
     cost_s = torch.relu(margin + sim - pos[:, None]) * valid_pair
     cost_i = torch.relu(margin + sim - pos[None, :]) * valid_pair

@@ -18,9 +18,11 @@ meta_json}`` or the older layout whose file is the state itself, with its
 metadata in the ``meta_<tag>.json`` sidecar. Its TrainState (``step``,
 ``params``, ``opt_state`` = the state of optax's chain (clip,
 scale_by_adam) with ``count``, ``mu`` and ``nu``, ``lr``) becomes the
-port's ``TrainState(step, params, mu, nu, lr)`` through the weight bridge
-``params_from_numpy``, so ``train_loop`` resumes a JAX run and
-``Translator.from_run`` serves one.
+port's ``TrainState`` through the weight bridge ``params_from_numpy``, so
+``train_loop`` resumes a JAX run and ``Translator.from_run`` serves one.
+Either format's step gives the state's device copy ``count``.
+``load_checkpoint(into=state)`` writes the saved values into a state's
+own tensors (a CUDA graph captured on them stays valid).
 
 Under tensor parallelism (a mesh with a model axis) the files hold the
 full tensors all the same: ``save_checkpoint(mesh=)`` gathers the vocab
@@ -42,7 +44,9 @@ from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device
 from vag_nmt_tpu_torch.models.model import params_from_numpy
 from vag_nmt_tpu_torch.parallel.sharding import Mesh, gather_tree, shard_tree
 from vag_nmt_tpu_torch.train import flax_msgpack
-from vag_nmt_tpu_torch.train.state import TrainState, tree_leaves, tree_unflatten
+from vag_nmt_tpu_torch.train.state import (TrainState, copy_state,
+                                           device_count, tree_leaves,
+                                           tree_unflatten)
 
 _STATE_FILE = "state_{tag}.pt"
 _JAX_STATE_FILE = "state_{tag}.msgpack"
@@ -93,9 +97,10 @@ def _load_pt(path: str, dev: torch.device) -> Tuple[TrainState, Dict[str, Any]]:
     def put(tree):
         return tree_unflatten(tree, [x.to(dev) for x in tree_leaves(tree)])
 
-    state = TrainState(step=int(payload["step"]), params=put(payload["params"]),
+    step = int(payload["step"])
+    state = TrainState(step=step, params=put(payload["params"]),
                        mu=put(payload["mu"]), nu=put(payload["nu"]),
-                       lr=payload["lr"].to(dev))
+                       lr=payload["lr"].to(dev), count=device_count(step, dev))
     return state, payload["meta"]
 
 
@@ -128,17 +133,20 @@ def _load_jax(ckpt_dir: str, tag: str, cfg: ModelConfig, dev: torch.device
     def bridge(t):
         return params_from_numpy(t, cfg, device=dev)
 
-    state = TrainState(step=int(np.asarray(tree["step"])),
+    step = int(np.asarray(tree["step"]))
+    state = TrainState(step=step,
                        params=bridge(tree["params"]), mu=bridge(adam["mu"]),
                        nu=bridge(adam["nu"]),
                        lr=torch.tensor(np.asarray(tree["lr"]),
-                                       dtype=torch.float32, device=dev))
+                                       dtype=torch.float32, device=dev),
+                       count=device_count(step, dev))
     return state, meta
 
 
 def load_checkpoint(ckpt_dir: str, tag: str, *, device: DeviceLike = None,
                     cfg: Optional[ModelConfig] = None,
-                    mesh: Optional[Mesh] = None
+                    mesh: Optional[Mesh] = None,
+                    into: Optional[TrainState] = None
                     ) -> Tuple[TrainState, Dict[str, Any]]:
     """The saved state, on ``device`` (None = the card), and its meta:
     the port's ``state_<tag>.pt`` or the JAX package's
@@ -146,11 +154,14 @@ def load_checkpoint(ckpt_dir: str, tag: str, *, device: DeviceLike = None,
     for the weight bridge). Where both files exist, the one whose state
     holds the larger step (the step both packages also write into its
     meta) is read; on a tie, the ``.pt``. mesh: with a model axis, this
-    rank's vocab slices of the state."""
+    rank's vocab slices of the state. into: a state of the same tree whose
+    tensors receive the saved values (``copy_``, not a rebind: CUDA
+    graphs captured on them stay valid); returned with the saved step."""
     state, meta = _load_full(ckpt_dir, tag, resolve_device(device), cfg)
-    return state._replace(params=shard_tree(state.params, mesh),
-                          mu=shard_tree(state.mu, mesh),
-                          nu=shard_tree(state.nu, mesh)), meta
+    state = state._replace(params=shard_tree(state.params, mesh),
+                           mu=shard_tree(state.mu, mesh),
+                           nu=shard_tree(state.nu, mesh))
+    return (state if into is None else copy_state(into, state)), meta
 
 
 def _load_full(ckpt_dir: str, tag: str, dev: torch.device,

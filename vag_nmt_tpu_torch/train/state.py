@@ -13,6 +13,15 @@ decays on a dev-BLEU plateau. The update is exactly optax's chain
     u    = (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps),  n = step + 1
     p    = p + (-lr u)
 
+The update reads nothing from the host: n is the state's ``count``, a
+0-dim tensor on the params' device that each update increments (its bias
+corrections computed from it there, in float64 and rounded to fp32 once,
+as a host float was), and the rate is the state's ``lr`` tensor, which
+the loop decays in place. So a CUDA graph of train steps replays with the
+count and rate of each replay (``train/graphs.py``). ``step`` is the
+host's mirror of the count, for the loop's bookkeeping and the dropout
+seeds.
+
 (``torch.nn.utils.clip_grad_norm_`` is not this clip: it scales by
 max_norm / (norm + 1e-6) whenever norm > max_norm.)
 
@@ -36,11 +45,17 @@ from vag_nmt_tpu_torch.parallel.sharding import (Mesh, shard_tree,
 
 
 class TrainState(NamedTuple):
-    step: int                  # updates applied so far (host-side counter)
+    step: int                  # updates applied so far (the host's mirror)
     params: Dict[str, Any]
     mu: Dict[str, Any]         # Adam first moments, the params' tree
     nu: Dict[str, Any]         # Adam second moments
     lr: torch.Tensor           # () fp32 on the params' device
+    count: torch.Tensor        # () int64 on the params' device: step there
+
+
+def device_count(step: int, device: torch.device) -> torch.Tensor:
+    """The device's copy of a step count, for ``TrainState.count``."""
+    return torch.full((), int(step), dtype=torch.int64, device=device)
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -85,10 +100,33 @@ def state_from_params(cfg: Config, params: Dict[str, Any]) -> TrainState:
     def zeros():
         return tree_unflatten(params, [torch.zeros_like(x) for x in leaves])
 
+    dev = leaves[0].device
     return TrainState(step=0, params=params, mu=zeros(), nu=zeros(),
                       lr=torch.tensor(cfg.train.learning_rate,
-                                      dtype=torch.float32,
-                                      device=leaves[0].device))
+                                      dtype=torch.float32, device=dev),
+                      count=device_count(0, dev))
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """The state's tensors in a fixed order: the params', mu's and nu's
+    leaves, lr, count."""
+    return [*tree_leaves(state.params), *tree_leaves(state.mu),
+            *tree_leaves(state.nu), state.lr, state.count]
+
+
+@torch.no_grad()
+def copy_state(dst: TrainState, src: TrainState) -> TrainState:
+    """``dst`` with ``src``'s values copied into its tensors (``copy_``,
+    not a rebind: a CUDA graph captured on them stays valid; a tensor
+    ``src`` shares with ``dst`` is left as it is) and ``src``'s step.
+    Raises ValueError where the trees' tensors differ in shape or dtype."""
+    for d, s in zip(state_tensors(dst), state_tensors(src), strict=True):
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"copy_state: {tuple(s.shape)} {s.dtype} into "
+                             f"{tuple(d.shape)} {d.dtype}")
+        if d is not s:
+            d.copy_(s)
+    return dst._replace(step=src.step)
 
 
 def global_norm(leaves: List[torch.Tensor], sliced: Optional[List[bool]] = None,
@@ -110,16 +148,18 @@ def apply_update(cfg: Config, state: TrainState, grads: List[torch.Tensor],
                  ) -> Tuple[TrainState, torch.Tensor]:
     """One clip + Adam + apply update with grads in tree_leaves order.
     Returns (new state, the grads' global norm before the clip). Nothing is
-    read back to the host (but for gloo's collectives under a mesh with
-    a model axis, whose norm is a sum over the model group)."""
+    read back to the host and nothing copied to the device (but for gloo's
+    collectives under a mesh with a model axis, whose norm is a sum over
+    the model group)."""
     t = cfg.train
     b1, b2, eps = t.adam_b1, t.adam_b2, t.adam_eps
     params = tree_leaves(state.params)
     norm = global_norm(grads, sharded_leaves(state.params)
                        if tp_mesh(mesh) else None, mesh)
-    n = state.step + 1
-    bc1 = 1.0 - b1 ** n
-    bc2 = 1.0 - b2 ** n
+    count = state.count + 1
+    n = count.to(torch.float64)
+    bc1 = (1.0 - torch.pow(b1, n)).to(torch.float32)
+    bc2 = (1.0 - torch.pow(b2, n)).to(torch.float32)
     new_p, new_mu, new_nu = [], [], []
     for p, g, m, v in zip(params, grads, tree_leaves(state.mu),
                           tree_leaves(state.nu)):
@@ -130,7 +170,8 @@ def apply_update(cfg: Config, state: TrainState, grads: List[torch.Tensor],
         new_p.append(p + (-state.lr) * u)
         new_mu.append(m)
         new_nu.append(v)
-    return TrainState(step=n, params=tree_unflatten(state.params, new_p),
+    return TrainState(step=state.step + 1,
+                      params=tree_unflatten(state.params, new_p),
                       mu=tree_unflatten(state.params, new_mu),
                       nu=tree_unflatten(state.params, new_nu),
-                      lr=state.lr), norm
+                      lr=state.lr, count=count), norm
