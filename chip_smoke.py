@@ -93,8 +93,10 @@ Phases (each raises on failure; the script then exits non-zero):
      1024-line raw-text request at batch 128 in six modes: (a) the default
      streaming pool, (b) the pool with VAG_DEC_STEP=on, (c) streaming off,
      (d) VAG_READOUT_TOPK=unfused, (e) bulk=True, (f) greedy on 128 lines;
-     each kernel's launches read from each mode alone, the shares of
-     identical hypotheses between modes, and (a) and (b) under the profiler;
+     every call's loops CUDA graphs (the pools' trips and refills too);
+     each kernel's launches read from each mode alone, counted through the
+     replays, the shares of identical hypotheses between modes, and (a)
+     and (b) under the profiler;
  12. legacy_topk_blocks and legacy_topk_rows (the two legacy beam top-K
      kernels) against their plain versions at (B, K, V) = (128, 5, 16000)
      and (128, 5, 8000), exactly: random, all-finished and forced ties
@@ -185,9 +187,17 @@ Phases (each raises on failure; the script then exits non-zero):
      replayed graphs against the eager K-step call over the first 240
      steps of a 29000-pair corpus, fp32 and bf16, every loss, grad norm
      and the final params equal, kernels 2-5 counted through the replays
-     (see the comment at phase_train_graphs).
+     (see the comment at phase_train_graphs);
+ 27. serving's streaming pool as CUDA graphs (decode/graphs.py's
+     _StreamLoop: a trip graph replayed each trip, a refill graph replayed
+     only on the trips that flag it): phase 4's corpus pooled at slots 128
+     (fp32, timed in turns and profiled; with per-row caps, so refills
+     fire with partial sets), at slots 32, with VAG_DEC_STEP=on, through
+     kernels 6, 8 and 9, and in bf16, each in both dispatches, every pool
+     row identical, trips and refills equal (see the comment at
+     phase_stream_graphs).
 Every decode through translate_corpus on the card runs its loops as CUDA
-graphs (dispatch None), but the streaming-refill loop and the ranks of
+graphs (dispatch None), the streaming pools included, but on the ranks of
 phases 22 and 23; the launch gates count through the replays. train_loop
 runs its K-stacks as graphs too (phase 8's corpus forms none).
 Phase 15 also decodes the bf16 run with --set decode.compute_dtype=bfloat16
@@ -202,7 +212,8 @@ numbers and, last, the device line. With --gru-grids it prints phase 3's
 grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
 kernel 7's, with --dec-scan-grids kernels 4 and 5's, with --gru-bwd-grids
 kernel 3's; with --decode-graphs it builds the kernels and runs phase 25
-alone, with --train-graphs phase 26 (see main).
+alone, with --train-graphs phase 26, with --stream-graphs phase 27 (see
+main).
 Needs torch with CUDA and nvcc; imports nothing of JAX.
 """
 
@@ -2727,10 +2738,9 @@ def phase_serve(torch, np, dev, run):
               f"launches={launches} grids={grids}")
         if len(hyps) != n or not any(hyps):
             raise AssertionError(f"serve ({mode}): malformed or empty hypotheses")
-        # the dispatch rule: every call's loops graphs, the streaming pool's
-        # host loop aside
-        if any(s["dispatch"] != ("eager" if s.get("streaming") else "graph")
-               for s in tr.last_stats):
+        # the dispatch rule: every call's loops graphs, the streaming
+        # pools' trips and refills included
+        if any(s["dispatch"] != "graph" for s in tr.last_stats):
             raise AssertionError(f"serve ({mode}): dispatch "
                                  f"{[s['dispatch'] for s in tr.last_stats]}")
         if launches["gru_fwd"] <= 0:
@@ -4986,18 +4996,20 @@ GRAPH_CONCURRENT_REPLAYS = 48
 
 def _loop_results(run):
     """run() with the result of every loop translate_corpus runs
-    (beam_search, beam_search_two_phase, greedy_decode) copied to the
-    host: (run's result, [(tokens, lengths, scores or None)])."""
+    (beam_search, beam_search_two_phase, beam_search_streaming,
+    greedy_decode) copied to the host: (run's result, [(tokens, lengths,
+    scores or None)])."""
     from vag_nmt_tpu_torch.decode import translate as tr
 
-    names = ("beam_search", "beam_search_two_phase", "greedy_decode")
+    names = ("beam_search", "beam_search_two_phase", "beam_search_streaming",
+             "greedy_decode")
     real = {n: getattr(tr, n) for n in names}
     got = []
 
     def recorded(name):
         def call(*a, **k):
             out = real[name](*a, **k)
-            res = out[0] if name == "beam_search_two_phase" else out
+            res = out if name in ("beam_search", "greedy_decode") else out[0]
             got.append((res.tokens.cpu(), res.lengths.cpu(),
                         res.scores.cpu() if hasattr(res, "scores") else None))
             return out
@@ -5054,6 +5066,8 @@ def _graph_case(torch, label, run, kernel=None, bf16=False):
          "graph_sentences_per_sec": sg["sentences_per_sec"],
          "dispatch": [se["dispatch"], sg["dispatch"]],
          "two_phase": bool(sg.get("two_phase")),
+         "streaming": bool(sg.get("streaming")),
+         "refills": [se.get("refills"), sg.get("refills")],
          "captures": sg["captures"], "replays": sg["replays"],
          "capture_s": sg["capture_s"], "recoveries": [re_, rg],
          "launches": {f"{n}.{a}": v for (n, a), v in ng.items()}}
@@ -5062,8 +5076,10 @@ def _graph_case(torch, label, run, kernel=None, bf16=False):
         raise AssertionError(f"graphs ({label}): {diff_rows} rows and "
                              f"{f['hypotheses_differing']} hypotheses differ "
                              "between the dispatches")
-    if se["chunk_steps"] != sg["chunk_steps"] or steps != sg["beam_loop_steps"]:
-        raise AssertionError(f"graphs ({label}): trips differ")
+    if se["chunk_steps"] != sg["chunk_steps"] or \
+            steps != sg["beam_loop_steps"] or \
+            se.get("refills") != sg.get("refills"):
+        raise AssertionError(f"graphs ({label}): trips or refills differ")
     if (se["dispatch"], sg["dispatch"]) != ("eager", "graph") or \
             not sg["captures"] or not sg["replays"] or se["replays"]:
         raise AssertionError(f"graphs ({label}): dispatch stats {f}")
@@ -5261,6 +5277,119 @@ def phase_graphs(torch, np, dev):
                           beam_size=1))
     out["g"] = _concurrent_replays(torch, np, dev, cfg32, params, examples,
                                    img_table)
+    return out
+
+
+# Phase 27: serving's streaming pool as CUDA graphs (decode/graphs.py's
+# _StreamLoop: the trip and the refill two captured graphs on one stream
+# and one memory pool, the refill replayed only on the trips that flag it).
+# Phase 4's model and corpus (m30k_ende_vag at full width, beam 5, max_len
+# 64) through translate_corpus with VAG_STREAM_DECODE=on, each case in
+# both dispatches ("eager", then "graph" through a LoopGraphs kept for its
+# counts): (a) 1024 sentences, slots 128, the default R (32), fp32, kernel
+# 1, timed in turns eager, graph, graph, eager and profiled in both;
+# (a_caps) the same with per-row caps (decode.max_len_factor 1.5,
+# max_len_offset 5): with random weights every row runs to its cap, so
+# without caps a whole set finishes on one trip and refills at once (N /
+# slots - 1 = 7 refills), while caps finish rows on different trips and
+# refills fire with partial sets; (a_serve32) the reference's serving
+# shape, slots 32, one pool of STREAM_SERVE32_SENT sentences, R 8; (b)
+# VAG_DEC_STEP=on (kernel 7 in the trip graph); (d) the unfused step through
+# kernels 6, 8 and 9 (VAG_TOPK_IMPL) on the first GRAPH_UNFUSED_SENT;
+# (bf16) decode.compute_dtype=bfloat16 (kernel 1b). Gate per case: phase
+# 25's (every pool row's tokens, lengths and scores identical, trips,
+# refills and every loop kernel's counters equal between the dispatches),
+# the case's kernel launched once a trip through the replays, two captures
+# a pool shape, the refill graph's replays equal to the refills and every
+# other replay a trip; (a_caps) more than N / slots - 1 refills.
+STREAM_SERVE32_SLOTS = 32
+STREAM_SERVE32_SENT = 256
+
+
+def _stream_case(torch, label, run, kernel, bf16=False, min_refills=0):
+    """One case of phase 27: ``_graph_case`` over run(dispatch), the graph
+    run through a LoopGraphs kept for its counts, then the pool's gate;
+    returns the case's fields."""
+    from vag_nmt_tpu_torch.decode import graphs
+
+    kept = []
+
+    def run_kept(dispatch):
+        if dispatch == "graph":
+            kept.append(graphs.LoopGraphs())
+            return run(kept[-1])
+        return run(dispatch)
+
+    f = _graph_case(torch, label, run_kept, kernel=kernel, bf16=bf16)
+    g = kept[-1]
+    refills = f["refills"][1]
+    f.update(pool_shapes=len(g.loops), refill_replays=g.refill_replays,
+             graph_pool_bytes=g.pool_bytes())
+    print(f"stream graphs ({label}): " + json.dumps(
+        {k: f[k] for k in ("beam_loop_steps", "refills", "captures",
+                           "replays", "refill_replays", "pool_shapes",
+                           "capture_s", "graph_pool_bytes",
+                           "eager_sentences_per_sec",
+                           "graph_sentences_per_sec")}))
+    if not f["streaming"] or refills is None:
+        raise AssertionError(f"stream graphs ({label}): no streaming pool")
+    if g.captures != 2 * len(g.loops) or \
+            g.refill_replays != sum(refills) or \
+            g.replays != f["beam_loop_steps"] + sum(refills):
+        raise AssertionError(f"stream graphs ({label}): captures "
+                             f"{g.captures} for {len(g.loops)} pool shapes, "
+                             f"refill replays {g.refill_replays}, replays "
+                             f"{g.replays}, refills {refills}, trips "
+                             f"{f['beam_loop_steps']}")
+    if sum(refills) <= min_refills:
+        raise AssertionError(f"stream graphs ({label}): {sum(refills)} "
+                             f"refills, need more than {min_refills}")
+    return f
+
+
+def phase_stream_graphs(torch, np, dev):
+    """Phase 27 (above): {case: fields}."""
+    import vag_nmt_tpu_torch as vt
+
+    cfg32, params, examples, vocab, img_table = _main_corpus(torch, np, dev)
+    cfg16 = cfg32.replace(decode=dict(compute_dtype="bfloat16"))
+    caps = cfg32.replace(decode=dict(max_len_factor=1.5, max_len_offset=5))
+    stream = {"VAG_STREAM_DECODE": "on"}
+
+    def pool(cfg, exs=examples, env=None, **kw):
+        def run(dispatch):
+            return _with_env({**stream, **(env or {})},
+                             lambda: vt.translate_corpus(
+                                 params, cfg, exs, vocab,
+                                 img_table=img_table, dispatch=dispatch,
+                                 **kw))
+        return run
+
+    readout = "readout_topk_rows"
+    out = {}
+    pool(cfg32, exs=examples[:256])("graph")           # warm-up
+    out["a"] = _stream_case(torch, "a", pool(cfg32), readout)
+    out["a"]["walls"] = _graph_walls(torch, "stream a", pool(cfg32))
+    d = cfg32.decode
+    out["a_caps"] = _stream_case(
+        torch, "a_caps", pool(caps), readout,
+        min_refills=N_SENT // d.decode_batch_size - 1)
+    out["a_serve32"] = _stream_case(
+        torch, "a_serve32", pool(cfg32, exs=examples[:STREAM_SERVE32_SENT],
+                                 batch_size=STREAM_SERVE32_SLOTS), readout)
+    out["b_dec_step"] = _stream_case(
+        torch, "b_dec_step", pool(cfg32, env={"VAG_DEC_STEP": "on"}),
+        "dec_step")
+    for k, impl, wrapper in (("6", "pallas_lanes", "beam_topk"),
+                             ("8", "pallas", "legacy_topk_blocks"),
+                             ("9", "pallas_rows", "legacy_topk_rows")):
+        out[f"d_unfused_{k}"] = _stream_case(
+            torch, f"d_unfused_{k}",
+            pool(cfg32, exs=examples[:GRAPH_UNFUSED_SENT],
+                 env={"VAG_READOUT_TOPK": "unfused", "VAG_TOPK_IMPL": impl}),
+            wrapper)
+    pool(cfg16, exs=examples[:256])("graph")           # warm-up
+    out["bf16"] = _stream_case(torch, "bf16", pool(cfg16), readout, bf16=True)
     return out
 
 
@@ -5643,6 +5772,12 @@ def main() -> int:
         # against eager, {case: fields}
         print(json.dumps({"decode_graphs": phase_graphs(torch, np, dev)}))
         return 0
+    if sys.argv[1:] == ["--stream-graphs"]:
+        # phase 27 alone after the build: serving's streaming pool as CUDA
+        # graphs against eager, {case: fields}
+        print(json.dumps({"stream_graphs": phase_stream_graphs(torch, np,
+                                                               dev)}))
+        return 0
     if sys.argv[1:] == ["--train-graphs"]:
         # phase 26 alone after the build: the K-step train dispatch as CUDA
         # graphs against eager, fields
@@ -5693,6 +5828,7 @@ def main() -> int:
     host = phase_host_modules(torch, np, dev)
     graph_cases = phase_graphs(torch, np, dev)
     train_graphs = phase_train_graphs(torch, np, dev)
+    stream_graphs = phase_stream_graphs(torch, np, dev)
     # Each kernel's launches come from the run of its own path: the decode
     # path for the decode kernels, the training path for the training
     # kernels, the serving modes that select them for beam_topk and dec_step,
@@ -5791,6 +5927,21 @@ def main() -> int:
         got = train_graphs[label]["launches"].get(f"{base}.{attr}")
         if got is not None:
             k["graph_launches"] = got[1]
+    # kernels 1, 1b, 6, 7, 8 and 9 counted through phase 27's trip replays
+    stream_kernels = {"readout_topk": ("a", "readout_topk_rows.launches"),
+                      "readout_topk_bf16": ("bf16",
+                                            "readout_topk_rows.bf16_launches"),
+                      "beam_topk": ("d_unfused_6", "beam_topk.launches"),
+                      "dec_step": ("b_dec_step", "dec_step.launches"),
+                      "legacy_topk_blocks": ("d_unfused_8",
+                                             "legacy_topk_blocks.launches"),
+                      "legacy_topk_rows": ("d_unfused_9",
+                                           "legacy_topk_rows.launches")}
+    for k in kernels:
+        if k["name"] in stream_kernels:
+            case, counter = stream_kernels[k["name"]]
+            k["stream_graph_launches"] = \
+                stream_graphs[case]["launches"].get(counter, 0)
     print(f"jax run: {json.dumps(jax_run)}")
     print(f"bf16 decode: {json.dumps(bf16_decode)}")
     print(f"bucketed and super-chunk decode: {json.dumps(bucketed)}")
@@ -5799,6 +5950,7 @@ def main() -> int:
     print(f"host modules: {json.dumps(host)}")
     print(f"decode graphs: {json.dumps(graph_cases)}")
     print(f"train graphs: {json.dumps(train_graphs)}")
+    print(f"stream graphs: {json.dumps(stream_graphs)}")
     print(f"phases_s: {time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -327,8 +327,9 @@ def test_graph_dispatch_on_the_cpu_raises(setup):
                                   "bucketed", "streaming"])
 def test_translate_corpus_dispatch(mode, monkeypatch):
     """translate_corpus on the CPU: eager by default and under a mesh
-    (here 1 x 1), the stats say so; "graph" raises (and with streaming on
-    any device); a caller's LoopGraphs runs the graph path's code."""
+    (here 1 x 1), the stats say so; "graph" raises; a caller's LoopGraphs
+    runs the graph path's code (streaming: each super-chunk's pool loaded
+    into its loop, the refills replayed as flagged)."""
     cfg = vt.preset("toy").replace(decode=dict(max_len=10))
     m = cfg.model
     tp = vt.params_from_numpy(jax.device_get(_params(jax_preset("toy").model)),
@@ -352,12 +353,14 @@ def test_translate_corpus_dispatch(mode, monkeypatch):
         assert st1["dispatch"] == "eager"
     with pytest.raises(ValueError, match="graph"):
         vt.translate_corpus(tp, cfg, exs, vocab, dispatch="graph", **kw)
-    if mode == "streaming":
-        return
     g = graphs.LoopGraphs(capture=False)
     hyps_g, st_g = vt.translate_corpus(tp, cfg, exs, vocab, dispatch=g, **kw)
     assert hyps_g == hyps and st_g["beam_loop_steps"] == st["beam_loop_steps"]
     assert st_g["dispatch"] == "graph" and st_g["replays"] == g.replays > 0
+    if mode == "streaming":
+        assert st["streaming"] and st_g["refills"] == st["refills"]
+        assert g.refill_replays == sum(st["refills"])
+        assert g.replays == st["beam_loop_steps"] + g.refill_replays
 
 
 def test_arrival_counters_one_buffer_per_key():

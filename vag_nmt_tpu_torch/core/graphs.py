@@ -1,5 +1,6 @@
-"""What the port's CUDA graphs share: the dispatch rule, and the
-accounting that carries the kernels' launch counters through replays.
+"""What the port's CUDA graphs share: the dispatch rule, the memory their
+pools hold, and the accounting that carries the kernels' launch counters
+through replays.
 
 The kernels' wrappers count their host calls in integer attributes
 (``.launches``, ``.grids``, ...), which a replay of a captured graph does
@@ -78,3 +79,13 @@ def write_counts(counts: Dict, wrappers: Wrappers) -> None:
     mods = {name: mod for mod, name in wrappers}
     for (name, attr), v in counts.items():
         setattr(getattr(mods[name], name), attr, v)
+
+
+def pool_bytes(pools) -> int:
+    """Device memory that the graph memory pools ``pools``
+    (``torch.cuda.graph_pool_handle``s) hold."""
+    ids = {tuple(p) for p in pools}
+    if not ids:
+        return 0
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) in ids)

@@ -32,7 +32,9 @@ import torch
 from vag_nmt_tpu_torch.core.config import EOS_ID, ModelConfig, PAD_ID, SOS_ID
 from vag_nmt_tpu_torch.core.device import DeviceLike, resolve_device, same_device
 from vag_nmt_tpu_torch.core.knobs import decode_knobs, over
-from vag_nmt_tpu_torch.decode.graphs import Dispatch, loop_graphs, run_loop
+from vag_nmt_tpu_torch.decode.graphs import (DONE, REFILL, Dispatch, Stream,
+                                             loop_graphs, run_loop,
+                                             run_stream)
 from vag_nmt_tpu_torch.models.model import (DecodeOpts, DecodeState,
                                              decode_opts, decode_step_topk)
 from vag_nmt_tpu_torch.ops.readout_topk import deferred_exactness_active
@@ -450,6 +452,152 @@ def beam_search_two_phase(
     return res, steps1, steps2
 
 
+class StreamSet(NamedTuple):
+    """The streaming loop's device state (the JAX loop's carry): the
+    working set's W slots, each at its own position t, and the loop's
+    outputs. The trip and the refill write it in place."""
+    ids: torch.Tensor        # (W,) each slot's pool row; N: exhausted
+    t: torch.Tensor          # (W,) each slot's position
+    last_tok: torch.Tensor   # (W, K)
+    s: torch.Tensor          # (W, K, H)
+    scores: torch.Tensor     # (W, K)
+    hist: torch.Tensor       # (W, K, max_len)
+    finished: torch.Tensor   # (W, K)
+    lengths: torch.Tensor    # (W, K)
+    ctx: torch.Tensor        # the slots' DecodeState rows
+    ctx_proj: torch.Tensor
+    src_mask: torch.Tensor
+    s0: torch.Tensor
+    cap: Optional[torch.Tensor]   # (W,) the slots' step caps
+    nxt: torch.Tensor        # () the next pool row
+    refills: torch.Tensor    # () refills run
+    o_tok: torch.Tensor      # (N + 1, K, max_len) per pool row; N: scratch
+    o_sc: torch.Tensor       # (N + 1, K)
+    o_len: torch.Tensor      # (N + 1, K)
+    flag: torch.Tensor       # () the trip's verdict (decode/graphs REFILL,
+                             # DONE, else 0)
+
+    def carry(self) -> Tuple[torch.Tensor, ...]:
+        """The beam body's carry (t, last_tok, s, scores, hist, finished,
+        lengths)."""
+        return (self.t, self.last_tok, self.s, self.scores, self.hist,
+                self.finished, self.lengths)
+
+    def slot_rows(self) -> Tuple[Optional[torch.Tensor], ...]:
+        """Every tensor with one row a slot."""
+        return (self.ids, *self.carry(), self.ctx, self.ctx_proj,
+                self.src_mask, self.s0, self.cap)
+
+
+def _stream_init(pool: DecodeState, row_cap: Optional[torch.Tensor], W: int,
+                 K: int, max_len: int) -> StreamSet:
+    """The set over pool rows [0, W), and empty outputs."""
+    N, H = pool.s0.shape
+    dev = pool.s0.device
+
+    def scalar(v):
+        return torch.full((), v, dtype=torch.long, device=dev)
+
+    return StreamSet(
+        ids=torch.arange(W, device=dev),
+        t=torch.zeros((W,), dtype=torch.long, device=dev),
+        last_tok=torch.full((W, K), SOS_ID, dtype=torch.long, device=dev),
+        s=pool.s0[:W, None, :].expand(W, K, H),
+        scores=_fresh_scores(W, K, dev),
+        hist=torch.full((W, K, max_len), PAD_ID, dtype=torch.long,
+                        device=dev),
+        finished=torch.zeros((W, K), dtype=torch.bool, device=dev),
+        lengths=torch.zeros((W, K), dtype=torch.long, device=dev),
+        ctx=pool.ctx[:W], ctx_proj=pool.ctx_proj[:W],
+        src_mask=pool.src_mask[:W], s0=pool.s0[:W],
+        cap=None if row_cap is None else row_cap[:W],
+        nxt=scalar(W), refills=scalar(0),
+        o_tok=torch.full((N + 1, K, max_len), PAD_ID, dtype=torch.long,
+                         device=dev),
+        o_sc=torch.zeros((N + 1, K), dtype=torch.float32, device=dev),
+        o_len=torch.zeros((N + 1, K), dtype=torch.long, device=dev),
+        flag=scalar(0))
+
+
+def _refill(pool: DecodeState, row_cap: Optional[torch.Tensor],
+            st: StreamSet, slot: torch.Tensor, fresh: torch.Tensor) -> None:
+    """One refill of the set, in place: the reference's masked form, on
+    device tensors of fixed shapes over all W slots (no host read, no
+    shape from a device value). A stable argsort of the finished flags
+    puts the live slots first; the n_fin slots [W - n_fin, W) emit their
+    rows into the outputs (every other slot into scratch row N) and take
+    pool rows nxt, nxt + 1, ..., those at N or beyond the exhausted
+    sentinel N, finished at once. slot: arange(W); fresh: the (W, K)
+    initial scores."""
+    N, W = pool.s0.shape[0], slot.shape[0]
+    fin = st.finished.all(1)
+    n_fin = fin.sum()
+    perm = torch.argsort(fin.to(torch.int32), stable=True)
+    for x in st.slot_rows():
+        if x is not None:
+            x.copy_(x[perm])
+    n_live = W - n_fin
+    new = slot >= n_live                        # the slots refilled
+    emit = torch.where(new, st.ids, N)
+    st.o_tok.index_copy_(0, emit, st.hist)
+    st.o_sc.index_copy_(0, emit, st.scores)
+    st.o_len.index_copy_(0, emit, st.lengths)
+    cand = st.nxt + slot - n_live
+    sent = cand >= N
+    ids = torch.where(new, torch.where(sent, N, cand), st.ids)
+    gid = ids.clamp_max(N - 1)
+    for w, p in zip((st.ctx, st.ctx_proj, st.src_mask, st.s0, st.cap),
+                    (*pool, row_cap)):
+        if w is not None:
+            m = new.view(W, *(1,) * (w.dim() - 1))
+            w.copy_(torch.where(m, p[gid], w))
+    st.s.copy_(torch.where(new[:, None, None], st.s0[:, None, :], st.s))
+    st.t.masked_fill_(new, 0)
+    st.last_tok.masked_fill_(new[:, None], SOS_ID)
+    st.scores.copy_(torch.where(new[:, None], fresh, st.scores))
+    st.hist.masked_fill_(new[:, None, None], PAD_ID)
+    st.finished.copy_(torch.where(new[:, None], (new & sent)[:, None],
+                                  st.finished))
+    st.lengths.masked_fill_(new[:, None], 0)
+    st.nxt.copy_((st.nxt + n_fin).clamp_max(N))
+    st.refills.add_(1)
+    st.ids.copy_(ids)
+
+
+def _make_stream(params, cfg: ModelConfig, tables, max_len: int, R: int,
+                 **body_kw):
+    """make_stream for ``decode/graphs.run_stream``: over the static pool,
+    its step caps and the set, the trip (one step of the set's beam body,
+    built once, written back in place; then on the device the set's
+    finished count n_fin and the flag: REFILL where n_fin >= R and the
+    pool has rows left, DONE where it has none and every slot is
+    finished) and the refill (``_refill``)."""
+    def make(pool: DecodeState, row_cap, st: StreamSet) -> Stream:
+        N, W = pool.s0.shape[0], st.ids.shape[0]
+        dev = st.ids.device
+        body = _make_body_1(params, cfg, DecodeState(st.ctx, st.ctx_proj,
+                                                     st.src_mask, st.s0),
+                            tables, "plain", max_len, row_cap=st.cap,
+                            **body_kw)
+        slot = torch.arange(W, device=dev)
+        fresh = _fresh_scores(W, st.scores.shape[1], dev)
+
+        def trip():
+            carry = st.carry()
+            for dst, src in zip(carry, body(carry)):
+                dst.copy_(src)
+            n_fin = st.finished.all(1).sum()
+            refill = (n_fin >= R) & (st.nxt < N)
+            done = (st.nxt >= N) & (n_fin == W)
+            st.flag.copy_(refill.long() * REFILL + done.long() * DONE)
+
+        return Stream(trip=trip,
+                      refill=lambda: _refill(pool, row_cap, st, slot, fresh),
+                      flag=st.flag)
+
+    return make
+
+
 def beam_search_streaming(
     params: Dict[str, Any],
     cfg: ModelConfig,
@@ -468,6 +616,7 @@ def beam_search_streaming(
     impl: str = "auto",
     device: DeviceLike = None,
     opts: Optional[DecodeOpts] = None,
+    dispatch: Dispatch = None,
 ) -> Tuple[BeamResult, int, int]:
     """Streaming-refill beam search over state's N-sentence pool
     (counterpart of the JAX package's ``beam_search_streaming``): a working
@@ -479,10 +628,21 @@ def beam_search_streaming(
     their slots. Exact per sentence: the step body is row-local, so a row's
     hypotheses do not depend on the slot it rides in or its neighbours.
 
-    Each trip reads one number from the device: the count of finished
-    sentences in the set, from which the host knows the all-finished flag
-    and the next pool row (the JAX loop's ``nxt``) as well. The bodies run
-    in mode "plain" (see beam_search_two_phase); prune and block_ngram as
+    The loop is two programs over device tensors (``StreamSet``), a trip
+    and the masked refill (``_refill``), both in place; the next pool row
+    and the refill count stay on the device. Each trip ends in a flag on
+    the device (refill next, done, or neither), which the host reads once
+    a trip; it runs the refill only on the trips that flag it, as the
+    reference's ``lax.cond`` fires. dispatch as beam_search: "graph" (the
+    trip and the refill each a captured CUDA graph, one stream and one
+    memory pool, the refill graph replayed only when flagged;
+    ``decode/graphs.run_stream``), "eager" (the host enqueues both
+    programs), None ("graph" on a CUDA device unless ``opts`` holds a
+    mesh of several ranks), or a caller's ``LoopGraphs``, which keeps one
+    loop per pool shape and loads each pool into it; a failed capture
+    raises. Both dispatches run the same programs, so their hypotheses,
+    scores, trips and refills are equal bit for bit. The bodies run in
+    mode "plain" (see beam_search_two_phase); prune and block_ngram as
     beam_search.
 
     Returns (BeamResult over the N pool rows in pool order, steps (loop
@@ -494,80 +654,25 @@ def beam_search_streaming(
     eos_top = beam_finish == "eos_top"
     prune_alpha = _resolve_prune(prune, length_norm_alpha)
     block_n = _resolve_block(block_ngram)
-    N, H = state.s0.shape
+    N = state.s0.shape[0]
     W = min(slots, N)
-    K = beam_size
     R = refill_threshold if refill_threshold > 0 else max(1, W // 4)
     R = min(R, W)
-    pool = state
-
-    # Working set: pool rows [0, W). ids == N marks an exhausted slot.
-    ids = torch.arange(W, device=dev)
-    t = torch.zeros((W,), dtype=torch.long, device=dev)
-    last_tok = torch.full((W, K), SOS_ID, dtype=torch.long, device=dev)
-    s = pool.s0[:W, None, :].expand(W, K, H)
-    scores = _fresh_scores(W, K, dev)
-    hist = torch.full((W, K, max_len), PAD_ID, dtype=torch.long, device=dev)
-    finished = torch.zeros((W, K), dtype=torch.bool, device=dev)
-    lengths = torch.zeros((W, K), dtype=torch.long, device=dev)
-    work = DecodeState(ctx=pool.ctx[:W], ctx_proj=pool.ctx_proj[:W],
-                       src_mask=pool.src_mask[:W], s0=pool.s0[:W])
-    cap_w = None if row_cap is None else row_cap[:W]
-    # Per-pool-row outputs, plus scratch row N for exhausted slots.
-    o_tok = torch.full((N + 1, K, max_len), PAD_ID, dtype=torch.long,
-                       device=dev)
-    o_sc = torch.zeros((N + 1, K), dtype=torch.float32, device=dev)
-    o_len = torch.zeros((N + 1, K), dtype=torch.long, device=dev)
-    nxt, steps, refills = W, 0, 0
-    while True:
-        body = _make_body_1(params, cfg, work, tables, "plain", max_len,
-                            eos_top=eos_top, row_cap=cap_w,
-                            prune_alpha=prune_alpha, block_ngram=block_n,
-                            impl=impl, opts=opts)
-        t, last_tok, s, scores, hist, finished, lengths = body(
-            (t, last_tok, s, scores, hist, finished, lengths))
-        steps += 1
-        fin_sent = finished.all(1)
-        n_fin = int(fin_sent.sum())
-        if n_fin >= R and nxt < N:
-            # compact: live rows first, in their order; the finished rows
-            # [n_live, W) are emitted and take the next pool rows
-            perm = torch.argsort(fin_sent.to(torch.int32), stable=True)
-            (ids, t, last_tok, s, scores, hist, finished, lengths) = (
-                x[perm] for x in (ids, t, last_tok, s, scores, hist,
-                                  finished, lengths))
-            work = DecodeState(*(x[perm] for x in work))
-            cap_w = None if cap_w is None else cap_w[perm]
-            n_live = W - n_fin
-            out = ids[n_live:]
-            o_tok[out] = hist[n_live:]
-            o_sc[out] = scores[n_live:]
-            o_len[out] = lengths[n_live:]
-            new = torch.arange(nxt, nxt + n_fin, device=dev)
-            sent = new >= N
-            ids[n_live:] = torch.where(sent, torch.full_like(new, N), new)
-            gid = new.clamp_max(N - 1)
-            for w, p in zip(work, pool):
-                w[n_live:] = p[gid]
-            if cap_w is not None:
-                cap_w[n_live:] = row_cap[gid]
-            s[n_live:] = pool.s0[gid][:, None, :]
-            t[n_live:] = 0
-            last_tok[n_live:] = SOS_ID
-            scores[n_live:] = _fresh_scores(n_fin, K, dev)
-            hist[n_live:] = PAD_ID
-            finished[n_live:] = sent[:, None]
-            lengths[n_live:] = 0
-            nxt = min(N, nxt + n_fin)
-            refills += 1
-            continue    # a refill always brings a live row
-        if nxt >= N and n_fin == W:
-            break
+    graphs = loop_graphs(dispatch, dev, None if opts is None else opts.tp)
+    make = _make_stream(params, cfg, tables, max_len, R, eos_top=eos_top,
+                        prune_alpha=prune_alpha, block_ngram=block_n,
+                        impl=impl, opts=opts)
+    key = ("stream", eos_top, prune_alpha, block_n, impl, max_len, R,
+           id(params), id(tables), opts)
+    st, steps, _ = run_stream(make, state, row_cap,
+                              _stream_init(state, row_cap, W, beam_size,
+                                           max_len),
+                              graphs=graphs, key=key)
     # Final emission: every resident slot holds a distinct pool row (or the
     # scratch row).
-    o_tok[ids] = hist
-    o_sc[ids] = scores
-    o_len[ids] = lengths
-    res = _finalize(o_tok[:N], o_len[:N], o_sc[:N], max_len,
+    st.o_tok[st.ids] = st.hist
+    st.o_sc[st.ids] = st.scores
+    st.o_len[st.ids] = st.lengths
+    res = _finalize(st.o_tok[:N], st.o_len[:N], st.o_sc[:N], max_len,
                     length_norm_alpha, mask_incomplete=eos_top, steps=steps)
-    return res, steps, refills
+    return res, steps, int(st.refills)

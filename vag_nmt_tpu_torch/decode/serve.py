@@ -130,7 +130,10 @@ class Translator:
         size, and for each q in ``streaming_chunks`` one pooled request of
         q chunks per bucket. Returns the number of requests driven. On the
         card this warms the allocator, cuBLAS and the kernel builds before
-        the first live request."""
+        the first live request. It captures nothing that a later request
+        reuses: a decode call's CUDA graphs (its chunks' loops, its pools'
+        trips and refills) are captured within the call and freed with it
+        (``decode/graphs.py``)."""
         m = self.cfg.model
         img = (np.zeros((m.img_feat_dim,), np.float32)
                if m.multimodal else None)

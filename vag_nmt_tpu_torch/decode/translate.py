@@ -246,13 +246,14 @@ def translate_corpus(
 
     dispatch: how the decode loops run: "graph" (each loop's U steps a
     CUDA graph, captured once a call per loop shape and replayed, one
-    device read a replay; ``decode/graphs.py``), "eager" (host loops), or
-    None: "graph" on a CUDA device with no mesh of several ranks, else
-    "eager" (``resolve_dispatch``). The streaming-refill loop is a host
-    loop whatever None resolves to (its refill is host logic between
-    trips); "graph" with it raises ValueError, as on the CPU or a mesh of
-    several ranks. A capture that fails raises: nothing falls back to
-    eager.
+    device read a replay; a streaming pool's trip and refill two graphs,
+    the refill replayed only on the trips that flag it, one read a trip;
+    ``decode/graphs.py``), "eager" (host loops), or None: "graph" on a
+    CUDA device with no mesh of several ranks, else "eager"
+    (``resolve_dispatch``); "graph" on the CPU or such a mesh raises
+    ValueError. One ``LoopGraphs`` serves the call: every super-chunk's
+    pool or chunk of one shape is loaded into the same loop. A capture
+    that fails raises: nothing falls back to eager.
 
     stats: sentences_per_sec, elapsed_s (host clock from the first upload
     to the last hypothesis on the host, de-BPE excluded), chunk_steps (the
@@ -313,11 +314,8 @@ def translate_corpus(
                   " decode is off on a mesh with a model axis: the chunked "
                   "loop runs", file=sys.stderr)
         streaming = two_phase = False
-    if streaming and dispatch == "graph":
-        raise ValueError("dispatch='graph': the streaming-refill loop has no "
-                         "graph form (its refill is host logic between trips)")
     # the call's loop graphs (None: eager), freed with the call
-    graphs = None if streaming else loop_graphs(dispatch, dev, mesh)
+    graphs = loop_graphs(dispatch, dev, mesh)
     loops = "eager" if graphs is None else graphs
 
     ns, S = super_chunks(-(-n // B), B)
@@ -399,7 +397,7 @@ def translate_corpus(
         if streaming:
             res, steps, n_refill = beam_search_streaming(
                 params, m, state, slots=Bd, refill_threshold=d.refill_threshold,
-                row_cap=row_cap, **beam_kw)
+                row_cap=row_cap, dispatch=loops, **beam_kw)
             keep(rows, res)
             chunk_steps.append(steps)
             refills.append(n_refill)

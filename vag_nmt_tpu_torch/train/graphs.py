@@ -264,9 +264,7 @@ class StepGraphs:
         captures)."""
         if self.pool is None or not self.captures:
             return 0
-        pool = tuple(self.pool)
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s.get("segment_pool_id", ())) == pool)
+        return _graphs.pool_bytes([self.pool])
 
     def stats(self) -> Dict[str, Any]:
         return {"dispatch": "graph", "captures": self.captures,
