@@ -66,10 +66,12 @@ Phases (each raises on failure; the script then exits non-zero):
      device ms a step;
   8b. the bf16-stream instances of kernels 2-5 (builds *_bf16, the
      reference's compute_dtype="bfloat16") against their plain versions on
-     bf16 streams at (64, 24, 24) and (64, 128, 128), within
-     BF16_STATE_ATOL / BF16_RTOL, a second call bit for bit, each call
-     timed alone cold and warm beside its bound at the bf16 tensor rate
-     and cuDNN's GRU in bf16 (a bf16 carry: not the same function);
+     bf16 streams, kernels 4 and 5 and the backward's time-parallel replay
+     at all of phase 7's shapes, within BF16_STATE_ATOL / BF16_RTOL, a
+     second call bit for bit, each bf16 copy its fp32 residual rounded
+     once; each call timed alone cold and warm at (64, 24, 24) and (64,
+     128, 128) beside its bound at the bf16 tensor rate and cuDNN's GRU in
+     bf16 (a bf16 carry: not the same function);
   8c. phase 8's training at compute_dtype="bfloat16", beside it: 40 steps
      through train_loop, steps/s, target tokens/s, launches a step, a
      falling loss, kernels 2-5 in their bf16 instances only; 5 steps
@@ -210,7 +212,9 @@ dec_scan_fwd.cu and dec_scan_bwd.cu twice (fp32 and bf16 streams), and
 prints ptxas's spills of every build. It prints one JSON line of per-kernel
 numbers and, last, the device line. With --gru-grids it prints phase 3's
 grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
-kernel 7's, with --dec-scan-grids kernels 4 and 5's, with --gru-bwd-grids
+kernel 7's, with --dec-scan-grids kernels 4 and 5's, with
+--dec-scan-bf16-grids kernels 4b and 5b's and the replay's beside the fp32
+instances (after building those four libraries), with --gru-bwd-grids
 kernel 3's; with --decode-graphs it builds the kernels and runs phase 25
 alone, with --train-graphs phase 26, with --stream-graphs phase 27 (see
 main).
@@ -221,6 +225,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -933,13 +938,27 @@ def _dec_scan_bound(kind, B, T, Tt, H, A, C, R):
 def _dec_scan_bf16_bound(kind, B, T, Tt, H, A, C, R):
     """Kernels 4 and 5's bf16 instances: the products once at the bf16
     tensor rate, the attention on the fp32 cores; the matrices, xg, ctx
-    (and in the backward their grads) at 2 bytes."""
+    (and in the backward their grads) at 2 bytes. kind "replay": the
+    backward's replay (dec_scan_fwd(..., states=)), the forward's
+    operations; its bytes the inputs once (the states in fp32, xg, ctx
+    and the matrices in bf16) and its outputs once (the fp32 residuals
+    and the bf16 copies of s, s~ and c)."""
     from vag_nmt_tpu_torch.core.flops import (H100_HBM_BYTES_PER_S,
                                               H100_PEAK_BF16_FLOPS,
                                               H100_PEAK_FP32_FLOPS)
 
-    gemm, att, nbytes, half = _dec_scan_work(kind, B, T, Tt, H, A, C, R)
+    gemm, att, nbytes, half = _dec_scan_work(
+        "fwd" if kind == "replay" else kind, B, T, Tt, H, A, C, R)
     t_ops = (gemm / H100_PEAK_BF16_FLOPS + att / H100_PEAK_FP32_FLOPS) * 1e3
+    if kind == "replay":
+        H3, rows = 3 * H, Tt * B
+        w_mat = 2 * H * H3 + H * A + C * H3 + H * R + C * R
+        nbytes = (2.0 * (w_mat + rows * H3 + B * T * C)
+                  + 4.0 * (A + 3 * H3 + rows * R + (rows + B) * H
+                           + B * T * (A + 1))
+                  + 4.0 * rows * (R + H + C + T + A + 3 * H3)
+                  + 2.0 * (rows * (H + C) + (rows + B) * H))
+        half = 0.0
     t_bytes = (nbytes - 2.0 * half) / H100_HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -1111,9 +1130,10 @@ def phase_dec_scan(torch, np, dev):
 
 # Phase 8b: the bf16-stream instances of kernels 2-5 (builds *_bf16) against
 # their plain versions on bf16 streams at the training shapes: kernels 2
-# and 3 at (B, T) = (64, 24) and (64, 128), H = 512; kernels 4 and 5 at
-# (B, T, Tt) = (64, 24, 24) at m30k_ende_vag's widths and (64, 128, 128) at
-# ikea_vag's. Bounds (stated): the bf16 states and dxg within
+# and 3 at (B, T) = (64, 24) and (64, 128), H = 512; kernels 4 and 5 (and
+# the backward's replay) at phase 7's shapes, timed at (B, T, Tt) = (64,
+# 24, 24) at m30k_ende_vag's widths and (64, 128, 128) at ikea_vag's.
+# Bounds (stated): the bf16 states and dxg within
 # BF16_STATE_ATOL (both sides sum the same exact products of bf16 values in
 # other orders, so a value next to a bf16 rounding boundary may round one
 # ulp, 2^-8 of |x| < 1, the other way); every other output within
@@ -1161,6 +1181,80 @@ def _gru_bwd_bf16_bound(B, T, H):
     return _bound(flops, nbytes, H100_PEAK_BF16_FLOPS)
 
 
+DEC_SCAN_BF16_TIMED = ("train", "ikea")
+DEC_SCAN_BUILDS = ("dec_scan_fwd", "dec_scan_bwd", "dec_scan_fwd_bf16",
+                   "dec_scan_bwd_bf16")
+
+
+def _build_some(names):
+    """Build the named kernels in parallel (one nvcc each) through
+    ops/_build.py's _start / _finish, which every tree since the first
+    slice has; returns the seconds spent."""
+    from vag_nmt_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    jobs = [(n, _build._start(n)) for n in names]
+    for n, job in jobs:
+        if job is not None:
+            _build._finish(n, job)
+    return time.perf_counter() - t0
+
+
+def dec_scan_bf16_grid_times(torch, np, dev):
+    """Kernels 4b and 5b and the backward's replay (dec_scan_fwd(...,
+    states=)) beside the fp32 instances at the same shapes
+    (DEC_SCAN_BF16_TIMED): each whole call alone, cold and warm
+    (_grid_ms), each grid's device ms a call (warm, torch.profiler) and,
+    where the call runs a recurrence that takes stamps, each phase's
+    (_dec_scan_phases; None where the wrapper refuses timers); through the
+    wrappers of whichever vag_nmt_tpu_torch is first on sys.path, so a
+    copy of this script in another tree's root times that tree's
+    kernels."""
+    from vag_nmt_tpu_torch.ops.dec_scan import (dec_scan_bwd, dec_scan_fwd,
+                                                dec_scan_fwd_plain)
+
+    kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+    bf = torch.bfloat16
+    out = {}
+    for label, *shape in _dec_scan_shapes():
+        if label not in DEC_SCAN_BF16_TIMED:
+            continue
+        Tt = shape[2]
+        i32, w32, g_t = _dec_scan_case(torch, np, dev, *shape)
+        inputs, weights, _ = _bf16_dec_scan_case(torch, np, dev, shape)
+        want = dec_scan_fwd_plain(*inputs, weights)
+        states = torch.cat([inputs[2][None], want["s"][1:].to(bf).float()])
+        # the backward's residuals as DecoderScan gives them: the replay's
+        rp = dec_scan_fwd(*inputs, weights, impl="kernel", states=states)
+        want32 = dec_scan_fwd_plain(*i32, w32)
+        a16 = (inputs[1], inputs[3], inputs[4], inputs[5])
+        a32 = (i32[1], i32[3], i32[4], i32[5])
+        calls = {
+            "fwd_bf16": ("fwd", lambda tm=None: dec_scan_fwd(
+                *inputs, weights, impl="kernel", timers=tm)),
+            "replay": ("fwd", lambda tm=None: dec_scan_fwd(
+                *inputs, weights, impl="kernel", states=states, timers=tm)),
+            "bwd_bf16": ("bwd", lambda tm=None: dec_scan_bwd(
+                rp, *a16, weights, g_t, impl="kernel", timers=tm)),
+            "fwd_fp32": ("fwd", lambda tm=None: dec_scan_fwd(
+                *i32, w32, impl="kernel", timers=tm)),
+            "bwd_fp32": ("bwd", lambda tm=None: dec_scan_bwd(
+                want32, *a32, w32, g_t, impl="kernel", timers=tm))}
+        row = {"B": shape[0], "T": shape[1], "Tt": Tt}
+        for name, (kind, call) in calls.items():
+            cold, warm = _grid_ms(torch, call, **kw)
+            try:
+                phases = _dec_scan_phases(torch, call, kind, Tt)
+            except ValueError:
+                phases = None
+            row[name] = {"grid_ms": cold, "grid_warm_ms": warm,
+                         "grids_warm_ms": _profile_grids(torch, call, 5),
+                         "phases_ms": phases}
+        out[label] = row
+        print(f"dec_scan bf16 grids {label}: " + json.dumps(row), flush=True)
+    return out
+
+
 def phase_bf16_kernels(torch, np, dev):
     """The bf16 instances of kernels 2-5 against their plain versions on
     bf16 streams (the bounds above), kernel 4 also in its replay from the
@@ -1168,10 +1262,12 @@ def phase_bf16_kernels(torch, np, dev):
     bit for bit as the first, each whole call timed alone cold and warm;
     returns their rows of the kernels line (launches from the bf16 training
     run)."""
-    from vag_nmt_tpu_torch.ops.dec_scan import (RESIDUALS, dec_scan_bwd,
+    from vag_nmt_tpu_torch.ops.dec_scan import (BF16_COPIES, RESIDUALS,
+                                                dec_scan_bwd,
                                                 dec_scan_bwd_plain,
                                                 dec_scan_fwd,
-                                                dec_scan_fwd_plain)
+                                                dec_scan_fwd_plain,
+                                                dec_scan_replay_plain)
     from vag_nmt_tpu_torch.ops.gru_kernel import (gru_bwd, gru_bwd_plain,
                                                   gru_fwd, gru_fwd_plain)
 
@@ -1257,9 +1353,10 @@ def phase_bf16_kernels(torch, np, dev):
     names = ("dty", "dxg1", "ds0", "dctx", "dctx_proj", "duh1", "dbh1", "dua",
              "dva", "dwi2", "dbi2", "duh2", "dbh2", "dws", "dwc")
     for label, *shape in _dec_scan_shapes():
-        if label not in ("train", "ikea"):
-            continue
         inputs, weights, g_t = _bf16_dec_scan_case(torch, np, dev, shape)
+        if label == "ragged":   # every operand off a 16-byte boundary
+            inputs = tuple(_misaligned(torch, x) for x in inputs)
+            weights = tuple(_misaligned(torch, w) for w in weights)
         xg_t, ctx, ctxp, mask = inputs[1], inputs[3], inputs[4], inputs[5]
         got = dec_scan_fwd(*inputs, weights, impl="kernel")
         again = dec_scan_fwd(*inputs, weights, impl="kernel")
@@ -1268,10 +1365,15 @@ def phase_bf16_kernels(torch, np, dev):
         # backward on the replay's residuals (as DecoderScan runs them)
         states = torch.cat([inputs[2][None], want["s"][1:].to(bf).float()])
         rk = dec_scan_fwd(*inputs, weights, impl="kernel", states=states)
-        rp = dec_scan_fwd_plain(*inputs, weights, states)
+        rk2 = dec_scan_fwd(*inputs, weights, impl="kernel", states=states)
+        rp = dec_scan_replay_plain(inputs[0], xg_t, ctx, ctxp, mask, weights,
+                                   states)
         gk = dec_scan_bwd(rp, xg_t, ctx, ctxp, mask, weights, g_t, impl="kernel")
         gk2 = dec_scan_bwd(rp, xg_t, ctx, ctxp, mask, weights, g_t, impl="kernel")
         gp = dec_scan_bwd_plain(rp, xg_t, ctx, ctxp, mask, weights, g_t)
+        # as DecoderScan runs them: the backward on the replay kernel's
+        # residuals and bf16 copies
+        gr = dec_scan_bwd(rk, xg_t, ctx, ctxp, mask, weights, g_t, impl="kernel")
         # what the fp32 carry's residuals would give instead (not the
         # reference's numerics): the size of the replay's effect
         carry = dec_scan_bwd_plain(want, xg_t, ctx, ctxp, mask, weights, g_t)
@@ -1280,6 +1382,10 @@ def phase_bf16_kernels(torch, np, dev):
         errs.update({f"replay_{k}": _rel_err(rk[k], rp[k]) for k in RESIDUALS})
         errs.update({n: _rel_err(a.float(), b.float())
                      for n, a, b in zip(names, gk, gp)})
+        errs.update({f"on_replay_{n}": _rel_err(a.float(), b.float())
+                     for n, a, b in zip(names, gr, gp)})
+        errs.update({f"copy_{k}": _rel_err(got[k].float(), want[k].float())
+                     for k in BF16_COPIES})
         effect = max(float((a.float() - b.float()).abs().max())
                      / max(1e-30, float(b.float().abs().max()))
                      for a, b in zip(carry, gp))
@@ -1291,9 +1397,15 @@ def phase_bf16_kernels(torch, np, dev):
             raise AssertionError(f"dec_scan bf16 {label}: relative errors {bad}")
         if (gk[1].dtype, gk[3].dtype, gk[5].dtype) != (bf, bf, bf):
             raise AssertionError("dec_scan_bwd bf16: dxg1, dctx, duh1 not bf16")
-        if not (all(torch.equal(got[k], again[k]) for k in RESIDUALS)
+        if not (all(torch.equal(got[k], again[k]) and torch.equal(rk[k], rk2[k])
+                    for k in RESIDUALS + BF16_COPIES)
                 and all(torch.equal(a, b) for a, b in zip(gk, gk2))):
             raise AssertionError(f"dec_scan bf16 {label}: a second call differs")
+        # each kernel's bf16 copies are its fp32 residuals rounded once
+        if not all(torch.equal(r[k], r[k[:-1]].to(bf))
+                   for r in (got, rk) for k in BF16_COPIES):
+            raise AssertionError(f"dec_scan bf16 {label}: a bf16 copy is not "
+                                 "its residual rounded")
         rows["dec_scan_fwd"]["max_abs_err"] = max(
             [rows["dec_scan_fwd"]["max_abs_err"]]
             + [float((got[k] - want[k]).abs().max()) for k in RESIDUALS]
@@ -1303,6 +1415,10 @@ def phase_bf16_kernels(torch, np, dev):
             + [float((a.float() - b.float()).abs().max()) for a, b in zip(gk, gp)])
         print(f"dec_scan bf16 {label}: ok, relative errors "
               + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+        if label not in DEC_SCAN_BF16_TIMED:
+            continue
+        replay = (lambda: dec_scan_fwd(*inputs, weights, impl="kernel",
+                                       states=states))
         for kind, call, plain in (
                 ("fwd", lambda: dec_scan_fwd(*inputs, weights, impl="kernel"),
                  lambda: dec_scan_fwd_plain(*inputs, weights)),
@@ -1321,13 +1437,20 @@ def phase_bf16_kernels(torch, np, dev):
                                               weights, g_t, impl="kernel",
                                               timers=tm)))
             f["phases_ms"] = _dec_scan_phases(torch, timed, kind, shape[2])
-            if kind == "fwd":
-                f["replay_grid_ms"], f["replay_grid_warm_ms"] = _grid_ms(
-                    torch, lambda: dec_scan_fwd(*inputs, weights, impl="kernel",
-                                                states=states), **kw)
+            # the backward's replay: no recurrence, so no stamps
+            rb = _dec_scan_bf16_bound("replay", *shape)
+            f["replay_grid_ms"], f["replay_grid_warm_ms"] = _grid_ms(
+                torch, replay, **kw)
+            f["replay_grids_warm_ms"] = _profile_grids(torch, replay, 5)
+            f["replay_bound_ms"], f["replay_bound_by"] = rb
             if label == "train":
                 f["ms"] = _time_ms(torch, call, reps=10)
                 f["plain_ms"] = _time_ms(torch, plain, reps=3)
+                f["replay_ms"] = _time_ms(torch, replay, reps=10)
+                f["replay_plain_ms"] = _time_ms(
+                    torch, lambda: dec_scan_replay_plain(
+                        inputs[0], xg_t, ctx, ctxp, mask, weights, states),
+                    reps=3)
             rows[f"dec_scan_{kind}"]["shapes"][label] = f
             print(f"dec_scan_{kind} bf16 {label}: " + json.dumps(f))
 
@@ -1338,15 +1461,22 @@ def phase_bf16_kernels(torch, np, dev):
                             ("dec_scan_bwd", "dec_scan_bwd", "pallas_dec_scan.py:286")):
         r = rows[name]
         tr = r["shapes"]["train"]
-        out.append({"name": f"{name}_bf16", "route": "cuda",
-                    "source": f"vag_nmt_tpu_torch/csrc/{src}.cu (-DVAG_BF16=1)",
-                    "replaces": f"vag_nmt_tpu/ops/{line}",
-                    "max_abs_err": r["max_abs_err"], "ms": tr["ms"],
-                    "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"],
-                    "bound_by": tr["bound_by"],
-                    "library_ms": tr.get("library_ms"),
-                    "grid_ms": tr["grid_ms"], "grid_warm_ms": tr["grid_warm_ms"],
-                    "shapes": r["shapes"]})
+        row = {"name": f"{name}_bf16", "route": "cuda",
+               "source": f"vag_nmt_tpu_torch/csrc/{src}.cu (-DVAG_BF16=1)",
+               "replaces": f"vag_nmt_tpu/ops/{line}",
+               "max_abs_err": r["max_abs_err"], "ms": tr["ms"],
+               "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"],
+               "bound_by": tr["bound_by"],
+               "library_ms": tr.get("library_ms"),
+               "grid_ms": tr["grid_ms"], "grid_warm_ms": tr["grid_warm_ms"],
+               "shapes": r["shapes"]}
+        if name.startswith("dec_scan"):
+            # the backward's replay, in kernel 4b's build, run by 5b's
+            # caller (DecoderScan.backward) before each backward
+            row.update({k: tr[k] for k in (
+                "replay_grid_ms", "replay_grid_warm_ms", "replay_bound_ms",
+                "replay_bound_by", "replay_ms", "replay_plain_ms")})
+        out.append(row)
     return out
 
 
@@ -1769,6 +1899,7 @@ def phase_train_bf16(torch, np, dev):
             st, _ = step(st, b, table)
         return N_PROFILE_STEPS
 
+    bf16["dec_scan_fwd_bf16_replays"] = replays
     return bf16, launches, grids, profiled
 
 
@@ -5755,6 +5886,14 @@ def main() -> int:
         # nothing else, the same way for another tree's kernels: fields.
         print(json.dumps({"dec_scan_grids": dec_scan_grid_times(torch, np, dev)}))
         return 0
+    if sys.argv[1:] == ["--dec-scan-bf16-grids"]:
+        # kernels 4b, 5b and the replay beside the fp32 instances, each
+        # whole call, grid and phase, and nothing else, the same way for
+        # another tree's kernels: {label: fields}.
+        print(f"build_s: {_build_some(DEC_SCAN_BUILDS):.2f}")
+        print(json.dumps({"dec_scan_bf16_grids":
+                          dec_scan_bf16_grid_times(torch, np, dev)}))
+        return 0
     if sys.argv[1:] == ["--gru-bwd-grids"]:
         # kernel 3's whole call alone and each of its grids at
         # GRU_BWD_TIMED, and nothing else, the same way for another tree's
@@ -5848,6 +5987,9 @@ def main() -> int:
         base = k["name"][:-len("_bf16")]
         k["launches"] = b_instances[k["name"]]
         k["grids"] = b_grids[base] // b_launches[base] * k["launches"]
+        if base.startswith("dec_scan"):
+            # of 4b's launches, the backward's replays (REPLAY_GRIDS each)
+            k["replay_launches"] = b_instances["dec_scan_fwd_bf16_replays"]
     # kernels 1b and 7b: their launches in the bf16 decode (phase 20: the
     # default path for 1b, VAG_DEC_STEP=on for 7b); kernel 2b's at decode
     for k in (readout16, dec_step16):

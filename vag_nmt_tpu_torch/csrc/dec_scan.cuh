@@ -22,13 +22,21 @@
 // product is bf16 x bf16 -> fp32 as jnp.dot(a.astype(bf16), w_bf16,
 // preferred_element_type=f32) computes it. The per-step products hold
 // their weight slices in shared memory as bf16 (half the bytes: more
-// widths resident) and run mma.sync m16n8k16 on the activations rounded
-// to bf16 as they are loaded; the streamed tiles round both operands to
-// bf16 (a bf16 value is exact in TF32, so one TF32 product of them is the
-// bf16 product) unless a job asks for fp32 (Job::rnd), and may read bf16
-// operands and store bf16 outputs. Gate math, the attention, the carries
-// and every sum stay fp32. Without VAG_BF16 the code below is the fp32
-// instances' as before.
+// widths resident) and run mma.sync m16n8k16 on the fp32 activations
+// rounded to bf16 as they are loaded (loading the bf16 copies below
+// instead made every product phase slower: PERF.md's decoder scans); the
+// attention phases load the bf16 ctx 16 bytes (8 values) a lane. The
+// decoder scans' recurrences write bf16 copies of the activations the
+// time-parallel products read (s, s~ and c forward; dpre, dxg2, dhg2, dq
+// and dhg1 backward), and those products (the forward's readout; the
+// backward's readout terms and weight grads) and the backward's replay,
+// whose steps are independent (dec_scan_fwd.cu), run on bf16_tile.cuh's
+// m16n8k16 tiles of the bf16 copies; gru_bwd.cu's streamed tiles round
+// both operands to bf16 (a bf16 value is exact in TF32, so one TF32
+// product of them is the bf16 product) unless a job asks for fp32
+// (Job::rnd), and may read bf16 operands and store bf16 outputs. Gate
+// math, the attention, the carries and every sum stay fp32. Without
+// VAG_BF16 the code below is the fp32 instances' as before.
 
 #pragma once
 
@@ -41,6 +49,8 @@
 #if defined(VAG_BF16) && VAG_BF16
 #define VAG_SCAN_BF16 1
 #include <cuda_bf16.h>
+
+#include "bf16_tile.cuh"
 #else
 #define VAG_SCAN_BF16 0
 #endif
@@ -306,6 +316,18 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* a, int lda, int row
   const __nv_bfloat16* p = a + (size_t)row * lda + k;
   return vec ? bf16x4(__ldcg(reinterpret_cast<const uint2*>(p))) : load_tail_bf16(p, K - k);
 }
+
+// Depths [k, k + 8) of a bf16 array's row `row` as they lie in memory (one
+// 16-byte L2 load; zero past M and K): for lda and k multiples of 8, a
+// 16-byte aligned, K a multiple of 8 (the attention phases' eight-wide
+// paths check it). bf_lo / bf_hi read the halves of one of its words.
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* a, int lda, int row, int M,
+                                       int k, int K) {
+  if (row >= M || k >= K) return make_uint4(0u, 0u, 0u, 0u);
+  return __ldcg(reinterpret_cast<const uint4*>(a + (size_t)row * lda + k));
+}
+__device__ __forceinline__ float bf_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 #endif
 
 // The value at (r, j) of a tile whose KS k-slices' accumulators the warps

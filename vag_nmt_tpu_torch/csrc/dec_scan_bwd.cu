@@ -49,6 +49,14 @@
 // Every output has one owner and a fixed sum order (no atomics), so a
 // second call repeats the first bit for bit. The tiling is ops/dec_scan.py's
 // dec_scan_plan.
+//
+// The bf16 instance (-DVAG_BF16=1) takes the forward's bf16 copies of s,
+// s~ and c (under bf16 the backward runs on the replay's residuals:
+// dec_scan_fwd.cu), writes bf16 copies of dpre, dxg2, dhg2, dq and dhg1
+// beside them (the recurrence's products read those, dec_scan.cuh), and
+// runs the readout terms and the weight grads on bf16_tile.cuh's m16n8k16
+// tiles of the copies, summed in fp32, each grad rounded to bf16 once;
+// dctx stays a grid of fp32 (3xTF32) products: seven grids a call.
 
 #include "dec_scan.cuh"
 
@@ -75,6 +83,12 @@ struct BwdArgs {
   int att_parts, scratch_off, colsum_rows;
   float* wl2;                   // the weight slices the plan puts in L2
   unsigned long long* timers;   // 4 Tt + 2 barrier stamps, or null
+#if VAG_SCAN_BF16
+  // the forward's bf16 copies of s, s~, c (the weight grads' operands)
+  const __nv_bfloat16 *sb, *stb, *cb;
+  // bf16 copies the epilogues write beside dpre, dxg2, dhg2, dhg1, dq
+  __nv_bfloat16 *dpreb, *dxg2b, *dhg2b, *dhg1b, *dqb;
+#endif
 };
 
 // GRU2's cell backward of step t for (row, u): dh = ds + ds_ro[t]; writes
@@ -94,8 +108,59 @@ __device__ __forceinline__ void gru2_bwd(const BwdArgs& g, int t, int row, int u
   for (int k = 0; k < 3; ++k) {
     g.dxg2[o + k * H] = dx[k];
     g.dhg2[o + k * H] = dhg[k];
+#if VAG_SCAN_BF16
+    g.dxg2b[o + k * H] = __float2bfloat16_rn(dx[k]);
+    g.dhg2b[o + k * H] = __float2bfloat16_rn(dhg[k]);
+#endif
   }
 }
+
+#if VAG_SCAN_BF16
+// dw_j = dc . ctx_j for the bf16 ctx (C a multiple of 8, ctx 16-byte
+// aligned): eight columns a lane from one 16-byte load a position, kept in
+// bf16 until used, so a lane's loads of one batch cover twice the columns
+// of the four-wide path for the same registers and its chain of batches is
+// half as long. dcs: dc in shared memory; dws: the row's dw.
+__device__ __forceinline__ void dw_bf16(const BwdArgs& g, int b, const float* dcs,
+                                        float* dws) {
+  const int B = g.B, T = g.T, C = g.C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j0 = warp; j0 < T; j0 += WARPS * JB) {
+    float acc[JB];
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj) acc[jj] = 0.f;
+    for (int k0 = 8 * lane; k0 < C; k0 += 1024) {
+      uint4 x[JB][4];
+#pragma unroll
+      for (int jj = 0; jj < JB; ++jj)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + jj * WARPS;
+          x[jj][u] = load8(g.ctx, C, b * T + j, j < T ? B * T : 0, k0 + 256 * u, C);
+        }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = k0 + 256 * u;
+        if (k >= C) break;
+        const float4 d0 = *reinterpret_cast<const float4*>(dcs + k);
+        const float4 d1 = *reinterpret_cast<const float4*>(dcs + k + 4);
+#pragma unroll
+        for (int jj = 0; jj < JB; ++jj) {
+          const uint4 v = x[jj][u];
+          acc[jj] += d0.x * bf_lo(v.x) + d0.y * bf_hi(v.x) + d0.z * bf_lo(v.y) +
+                     d0.w * bf_hi(v.y) + d1.x * bf_lo(v.z) + d1.y * bf_hi(v.z) +
+                     d1.z * bf_lo(v.w) + d1.w * bf_hi(v.w);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < JB; ++jj) {
+      const float e = warp_sum(acc[jj]);
+      if (lane == 0 && j0 + jj * WARPS < T) dws[j0 + jj * WARPS] = e;
+    }
+  }
+}
+#endif
 
 // Phase (B) for step t: item i = b * att_parts + part. Each CTA of a row
 // computes the row's dw and dscore, then its part's A columns: energies
@@ -113,6 +178,9 @@ __device__ void attention_bwd(const BwdArgs& g, int t, float* sm) {
   float* vs = qs + A4;
   float* msk = vs + A4;
   const bool vc = C % 4 == 0 && al16(g.ctx);
+#if VAG_SCAN_BF16
+  const bool c8 = C % 8 == 0 && al16(g.ctx);
+#endif
   const size_t tB = (size_t)t * B;
   for (int item = blockIdx.x; item < B * P; item += gridDim.x) {
     const int b = item / P, part = item % P;
@@ -127,6 +195,10 @@ __device__ void attention_bwd(const BwdArgs& g, int t, float* sm) {
       vs[i] = __ldg(g.va + i);
     }
     __syncthreads();
+#if VAG_SCAN_BF16
+    if (c8) dw_bf16(g, b, dcs, dws);
+    else
+#endif
     // dw_j = dc . ctx_j: a warp takes JB positions at once, all their ctx
     // loads of a 512-column chunk in flight before the first product
     for (int j0 = warp; j0 < T; j0 += WARPS * JB) {
@@ -192,6 +264,9 @@ __device__ void attention_bwd(const BwdArgs& g, int t, float* sm) {
       }
       g.dq[(tB + b) * A + a] = dqa;
       g.dva_rows[(tB + b) * A + a] = dvaa;
+#if VAG_SCAN_BF16
+      g.dqb[(tB + b) * A + a] = __float2bfloat16_rn(dqa);
+#endif
     }
     __syncthreads();   // the next item refills the shared row
   }
@@ -262,6 +337,9 @@ __global__ void __launch_bounds__(THREADS, 1) dec_scan_bwd_kernel(const BwdArgs 
         for (int k = 0; k < 3; ++k) {
           stx(g.dxg1 + o + k * H, dx[k]);
           g.dhg1[o + k * H] = dhg[k];
+#if VAG_SCAN_BF16
+          g.dhg1b[o + k * H] = __float2bfloat16_rn(dhg[k]);
+#endif
         }
       }
     });
@@ -291,6 +369,32 @@ __global__ void dec_scan_bwd_dpre_kernel(const float* __restrict__ g, const floa
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) dty[i] = g[i] * (1.f - t[i] * t[i]);
 }
+
+#if VAG_SCAN_BF16
+// The same, and its bf16 copy (the readout terms' and ws / wc grads'
+// operand).
+__global__ void dec_scan_bwd_dpre_bf16_kernel(const float* __restrict__ g,
+                                              const float* __restrict__ t,
+                                              float* __restrict__ dty,
+                                              __nv_bfloat16* __restrict__ dtyb, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float v = g[i] * (1.f - t[i] * t[i]);
+  dty[i] = v;
+  dtyb[i] = __float2bfloat16_rn(v);
+}
+
+// The bf16 instance's grids of bf16 tiles (bf16_tile.cuh): the readout
+// terms, and the weight grads.
+__global__ void __launch_bounds__(vag::bt::THREADS, 3)
+    dec_scan_bwd_readout_tiles_kernel(const vag::bt::Jobs js) {
+  vag::bt::run(js);
+}
+__global__ void __launch_bounds__(vag::bt::THREADS, 3)
+    dec_scan_bwd_wgrad_tiles_kernel(const vag::bt::Jobs js) {
+  vag::bt::run(js);
+}
+#endif
 
 // The bias grads' columns: dhg1, dxg2, dhg2 (3H each), then the dva terms
 // (A): the source column and its output.
@@ -392,10 +496,13 @@ __global__ void __launch_bounds__(THREADS, 2) dec_scan_bwd_wgrad_kernel(const Jo
 // that many device floats, or null when the plan puts no slice in L2.
 // timers: null, or 4 Tt + 2 uint64 for the recurrence's barrier stamps
 // (entry, weights loaded and GRU2's first cell backward, the end of each
-// step's four phases). Enqueues six grids: dpre, the readout terms
-// (streamed tiles), the recurrence (one cooperative grid), the weight
-// grads and dctx (streamed tiles), dctx_proj with the bias grads' row
-// blocks, the bias grads; returns 0, cudaErrorInvalidValue for a
+// step's four phases). bf16 build, after colsum: the forward's bf16 copies
+// sb (Tt + 1, B, H), stb (Tt, B, H), cb (Tt, B, C), and bf16 scratch
+// dpreb (Tt, B, R), dxg2b, dhg2b, dhg1b (Tt, B, 3H), dqb (Tt, B, A).
+// Enqueues six grids: dpre, the readout terms (streamed tiles), the
+// recurrence (one cooperative grid), the weight grads and dctx (streamed
+// tiles), dctx_proj with the bias grads' row blocks, the bias grads (the
+// bf16 build seven: dctx a grid of its own); returns 0, cudaErrorInvalidValue for a
 // malformed plan, cudaErrorCooperativeLaunchTooLarge for a grid that is
 // not co-resident, or the launch's error.
 extern "C" int dec_scan_bwd_launch(
@@ -408,9 +515,13 @@ extern "C" int dec_scan_bwd_launch(
     void* duh1, void* dbh1, void* dua, void* dva, void* dwi2, void* dbi2,
     void* duh2, void* dbh2, void* dws, void* dwc, void* ds_ro, void* dc,
     void* dxg2, void* dhg2, void* dhg1, void* dq, void* dva_rows, void* dsc,
-    void* dstp, void* dst, void* dsp, void* colsum, int Tt, int B, int T,
-    int H, int A, int C, int R, const int* plan, int n_plan, void* wl2,
-    void* timers, void* stream) {
+    void* dstp, void* dst, void* dsp, void* colsum,
+#if VAG_SCAN_BF16
+    const void* sb, const void* stb, const void* cb, void* dpreb, void* dxg2b,
+    void* dhg2b, void* dhg1b, void* dqb,
+#endif
+    int Tt, int B, int T, int H, int A, int C, int R, const int* plan, int n_plan,
+    void* wl2, void* timers, void* stream) {
   if (n_plan != 6 + 4 * 9 || Tt < 1 || B < 1 || T < 1 || H < 1 || A < 1 ||
       C < 1 || R < 1 || plan[4] < 0 || (plan[4] > 0 && wl2 == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -433,6 +544,11 @@ extern "C" int dec_scan_bwd_launch(
   g.Tt = Tt; g.B = B; g.T = T; g.H = H; g.A = A; g.C = C; g.R = R;
   g.timers = static_cast<unsigned long long*>(timers);
   g.wl2 = M(wl2);
+#if VAG_SCAN_BF16
+  g.sb = X(sb); g.stb = X(stb); g.cb = X(cb);
+  g.dpreb = MX(dpreb); g.dxg2b = MX(dxg2b); g.dhg2b = MX(dhg2b);
+  g.dhg1b = MX(dhg1b); g.dqb = MX(dqb);
+#endif
   const int ctas = plan[0], smem_bytes = plan[3];
   g.att_parts = plan[1];
   g.scratch_off = plan[2];
@@ -456,6 +572,25 @@ extern "C" int dec_scan_bwd_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const int rows = Tt * B, n = rows * R;
+#if VAG_SCAN_BF16
+  namespace bt = vag::bt;
+  // 1. dpre and its bf16 copy; 2. the readout terms ds_ro = dpre @ ws^T
+  // and dc = dpre @ wc^T over all rows on bf16 tiles (dc gains each
+  // step's dxg2 @ wi2^T in phase (A))
+  dec_scan_bwd_dpre_bf16_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, cs>>>(
+      F(g_in), F(t_out), g.dty, g.dpreb, n);
+  VAG_CHECK(cudaGetLastError());
+  bt::Jobs pre{};
+  pre.n = 2;
+  for (int i = 0; i < 2; ++i) {
+    bt::Job& j = pre.j[i];
+    j.nseg = 1;
+    j.s[0] = bt::Seg{g.dpreb, X(i ? wc : ws), R, R, R};
+    j.tb = 1; j.M = rows; j.N = i ? C : H; j.epi = bt::STORE;
+    j.out = i ? g.dc : g.ds_ro; j.ldo = j.N;
+  }
+  VAG_CHECK(bt::launch(dec_scan_bwd_readout_tiles_kernel, pre, cs));
+#else
   // 1. dpre; 2. the readout terms ds_ro = dpre @ ws^T and dc = dpre @ wc^T
   // over all rows (dc gains each step's dxg2 @ wi2^T in phase (A))
   dec_scan_bwd_dpre_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, cs>>>(
@@ -469,17 +604,43 @@ extern "C" int dec_scan_bwd_launch(
     j.b[0] = reinterpret_cast<const float*>(X(i ? wc : ws)); j.ldb[0] = R; j.tb = 1;
     j.M = rows; j.N = i ? C : H; j.out = i ? g.dc : g.ds_ro; j.ldo = j.N;
     j.batch = 1; j.epi = STORE;
-#if VAG_SCAN_BF16
-    j.bbf[0] = 1;   // bf16 weights; dpre rounded
-    j.rnd = 1;
-#endif
   }
   VAG_CHECK(launch_jobs(dec_scan_bwd_readout_kernel, pre, cs));
+#endif
   // 3. the recurrence
   void (*kern)(BwdArgs) = plan_general(g.p, 4, plan[4]) ? &dec_scan_bwd_kernel<true>
                                                      : &dec_scan_bwd_kernel<false>;
   const int rc = launch_cooperative(kern, g, ctas, smem_bytes, cs);
   if (rc != 0) return rc;
+#if VAG_SCAN_BF16
+  // 4. the weight grads over all rows on bf16 tiles of the bf16 copies
+  // (bf16 x bf16, summed in fp32, rounded to bf16 once), then dctx[b] =
+  // w[:, b]^T dc[:, b] in fp32 products (the JAX package's w * dc), in
+  // ctx's type, as streamed 3xTF32 tiles
+  bt::Jobs post{};
+  post.n = 6;
+  const bt::bf16* Xb[6] = {g.cb, g.sb, g.cb, g.stb, g.stb, g.sb + (size_t)B * H};
+  const bt::bf16* Yb[6] = {g.dxg2b, g.dhg1b, g.dpreb, g.dhg2b, g.dqb, g.dpreb};
+  sx_t* O[6] = {g.dwi2, g.duh1, g.dwc, g.duh2, g.dua, g.dws};
+  const int Mx[6] = {C, H, C, H, H, H}, Ny[6] = {H3, H3, R, H3, A, R};
+  for (int i = 0; i < 6; ++i) {
+    bt::Job& j = post.j[i];
+    j.nseg = 1;
+    j.s[0] = bt::Seg{Xb[i], Yb[i], Mx[i], Ny[i], rows};
+    j.ta = 1; j.M = Mx[i]; j.N = Ny[i]; j.epi = bt::STORE;
+    j.outb = O[i]; j.ldo = Ny[i];
+  }
+  VAG_CHECK(bt::launch(dec_scan_bwd_wgrad_tiles_kernel, post, cs));
+  Jobs dj{};
+  dj.n = 1;
+  Job& d = dj.j[0];
+  d.nseg = 1; d.a[0] = g.w; d.lda[0] = B * T; d.kd[0] = Tt; d.ta = 1;
+  d.b[0] = g.dc; d.ldb[0] = B * C;
+  d.M = T; d.N = C; d.out = reinterpret_cast<float*>(g.dctx); d.ldo = C; d.epi = STORE;
+  d.batch = B; d.a_bs = T; d.b_bs = C; d.o_bs = (long long)T * C;
+  d.obf = 1;
+  VAG_CHECK(launch_jobs(dec_scan_bwd_wgrad_kernel, dj, cs));
+#else
   // 4. the weight grads over all rows, and dctx[b] = w[:, b]^T dc[:, b]
   Jobs post{};
   post.n = 7;
@@ -493,10 +654,6 @@ extern "C" int dec_scan_bwd_launch(
     j.b[0] = Y[i]; j.ldb[0] = Ny[i];
     j.M = Mx[i]; j.N = Ny[i]; j.out = reinterpret_cast<float*>(O[i]); j.ldo = Ny[i];
     j.batch = 1; j.epi = STORE;
-#if VAG_SCAN_BF16
-    j.rnd = 1;   // bf16 x bf16, summed in fp32, rounded to bf16 once
-    j.obf = 1;
-#endif
   }
   // dctx = w^T dc: fp32 products (the JAX package's w * dc), in ctx's type
   Job& d = post.j[6];
@@ -504,10 +661,8 @@ extern "C" int dec_scan_bwd_launch(
   d.b[0] = g.dc; d.ldb[0] = B * C;
   d.M = T; d.N = C; d.out = reinterpret_cast<float*>(g.dctx); d.ldo = C; d.epi = STORE;
   d.batch = B; d.a_bs = T; d.b_bs = C; d.o_bs = (long long)T * C;
-#if VAG_SCAN_BF16
-  d.obf = 1;
-#endif
   VAG_CHECK(launch_jobs(dec_scan_bwd_wgrad_kernel, post, cs));
+#endif
   // 5. dctx_proj and the bias grads' row blocks; 6. the bias grads
   int dev = 0, sms = 0;
   VAG_CHECK(cudaGetDevice(&dev));

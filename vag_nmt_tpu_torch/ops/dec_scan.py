@@ -41,7 +41,10 @@ bf16 scan keeps only its states s' for the backward, rounded to bf16, and
 the backward recomputes the residuals from them: ``dec_scan_fwd(...,
 states=)`` replays the steps from the saved states (each step from s[t],
 not from the fp32 carry), then ``dec_scan_bwd`` runs on that replay's
-residuals.
+residuals. Step t of the replay reads only states[t], so its steps are
+independent: the replay runs no recurrence but time-parallel grids over
+all Tt * B rows at once (``dec_scan_replay_launch`` of the bf16 build;
+``dec_scan_replay_plain`` is its plain version).
 """
 
 from __future__ import annotations
@@ -71,12 +74,21 @@ MATRICES = ("uh1", "ua", "wi2", "uh2", "ws", "wc")   # bf16 under bf16 streams
 # t (Tt, B, R); s (Tt + 1, B, H) with s[0] = s0; st = s~ (Tt, B, H);
 # c (Tt, B, C); w (Tt, B, T); q (Tt, B, A); hg1, xg2, hg2 (Tt, B, 3H)
 RESIDUALS = ("t", "s", "st", "c", "w", "q", "hg1", "xg2", "hg2")
+# bf16 streams' copies of the residuals the bf16 products read: s (Tt + 1,
+# B, H), st (Tt, B, H), c (Tt, B, C) in bf16. dec_scan_bwd takes the
+# residuals of either forward path (the forward's, as fp32 streams do, or
+# the replay's, as DecoderScan gives it), so both write all three; the
+# forward's st copy costs it one bf16 store a state unit a step (32 KiB a
+# step at B = 64, H = 256) beside its fp32 st.
+BF16_COPIES = ("sb", "stb", "cb")
 
 # The plan's choices beside the products' (ops/scan_tiles.py): CTAs sharing
 # an attention row and rows of a column-sum block (the bias grads).
 MAX_ATT_PARTS = 4
 COLSUM_ROWS = 128
 FWD_GRIDS, BWD_GRIDS = 2, 6   # grids a call of each kernel enqueues
+BWD_GRIDS_BF16 = 7            # the bf16 backward's (dctx a grid of its own)
+REPLAY_GRIDS = 4              # and the backward's replay (bf16 streams)
 
 
 @dataclass(frozen=True)
@@ -267,21 +279,16 @@ def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def dec_scan_fwd_plain(ty_t, xg_t, s0, ctx, ctxp, mask,
-                       weights: Sequence[torch.Tensor],
-                       states: Optional[torch.Tensor] = None
+                       weights: Sequence[torch.Tensor]
                        ) -> Dict[str, torch.Tensor]:
     """The plain PyTorch version of the forward kernel: one step per loop
     turn, then the readout over all steps at once, as the kernel. bf16
-    streams: ``_dot``'s products, xg_t and ctx read as fp32. ``states``
-    (Tt + 1, B, H) fp32, s[0] = s0: the replay (see dec_scan_fwd), each
-    step from states[t], the readout on states[1:], res["s"] = states."""
+    streams: ``_dot``'s products, xg_t and ctx read as fp32."""
     uh1, bh1, ua, va, wi2, bi2, uh2, bh2, ws, wc = weights
     out = {k: [] for k in RESIDUALS if k != "t"}
     s = s0
     out["s"].append(s0)
     for t in range(xg_t.shape[0]):
-        if states is not None:
-            s = states[t]
         hg1 = _dot(s, uh1) + bh1
         st = gru_gate_algebra(xg_t[t].to(torch.float32), hg1, s)
         q = _dot(st, ua)
@@ -293,12 +300,46 @@ def dec_scan_fwd_plain(ty_t, xg_t, s0, ctx, ctxp, mask,
                      ("hg1", hg1), ("xg2", xg2), ("hg2", hg2)):
             out[k].append(v)
     res = {k: torch.stack(v) for k, v in out.items()}
-    if states is not None:
-        res["s"] = states
     pre = _dot(res["c"], wc)
     pre = pre + _dot(res["s"][1:], ws)
     res["t"] = torch.tanh(ty_t + pre)
+    return _with_copies(res, xg_t)
+
+
+def _with_copies(res, xg_t):
+    """res with ``BF16_COPIES`` (s, s~, c rounded to bf16) for bf16
+    streams, as the kernels write them."""
+    if xg_t.dtype == torch.bfloat16:
+        res.update({k: res[k[:-1]].to(torch.bfloat16) for k in BF16_COPIES})
     return res
+
+
+def dec_scan_replay_plain(ty_t, xg_t, ctx, ctxp, mask,
+                          weights: Sequence[torch.Tensor],
+                          states: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The plain version of the backward's replay as its kernel runs it
+    (``dec_scan_replay_launch``): no step reads another (step t starts
+    from states[t], not from the carry), so each product runs once over
+    all Tt * B rows, and the attention over every (t, b) row at once;
+    res["s"] = states, the readout on states[1:]."""
+    uh1, bh1, ua, va, wi2, bi2, uh2, bh2, ws, wc = weights
+    Tt, B, H3 = xg_t.shape
+    H = H3 // 3
+    s = states[:-1].reshape(Tt * B, H)
+    hg1 = _dot(s, uh1) + bh1
+    st = gru_gate_algebra(xg_t.reshape(Tt * B, H3).to(torch.float32), hg1, s)
+    q = _dot(st, ua)
+    hg2 = _dot(st, uh2) + bh2
+    # row t * B + b attends over sentence b
+    c, w = _attend(q, ctxp.repeat(Tt, 1, 1), ctx.repeat(Tt, 1, 1),
+                   mask.repeat(Tt, 1), va)
+    xg2 = _dot(c, wi2) + bi2
+    pre = _dot(c, wc) + _dot(states[1:].reshape(Tt * B, H), ws)
+    res = {"s": states, "st": st, "c": c, "w": w, "q": q, "hg1": hg1,
+           "xg2": xg2, "hg2": hg2}
+    res = {k: v if k == "s" else v.reshape(Tt, B, -1) for k, v in res.items()}
+    res["t"] = torch.tanh(ty_t + pre.reshape(Tt, B, -1))
+    return _with_copies(res, xg_t)
 
 
 def _kernel_plan_for(dev: torch.device, B: int, T: int, H: int, A: int,
@@ -326,10 +367,17 @@ def dec_scan_fwd(ty_t, xg_t, s0, ctx, ctxp, mask,
     states[t + 1] the bf16 state the forward saved at step t. The replay
     that the JAX kernel's backward runs: each step from states[t] (not from
     the carry), the readout on states[1:]; returns the residuals with
-    res["s"] = states (also counted in ``dec_scan_fwd.replays``)."""
+    res["s"] = states and their bf16 copies ``BF16_COPIES``. Its steps are
+    independent, so it runs no recurrence: REPLAY_GRIDS time-parallel
+    grids over all Tt * B rows (csrc/dec_scan_fwd.cu's
+    dec_scan_replay_launch; plain version ``dec_scan_replay_plain``),
+    counted in ``dec_scan_fwd.replays`` (and in launches, grids and
+    bf16_launches); it takes no ``timers``."""
     if resolve_impl(impl, xg_t) == "plain":
-        return dec_scan_fwd_plain(ty_t, xg_t, s0, ctx, ctxp, mask, weights,
-                                  states)
+        if states is not None:
+            return dec_scan_replay_plain(ty_t, xg_t, ctx, ctxp, mask, weights,
+                                         states)
+        return dec_scan_fwd_plain(ty_t, xg_t, s0, ctx, ctxp, mask, weights)
     Tt, B, R = ty_t.shape
     _, T, C = ctx.shape
     H = s0.shape[1]
@@ -339,19 +387,14 @@ def dec_scan_fwd(ty_t, xg_t, s0, ctx, ctxp, mask,
     if states is not None:
         if not bf:
             raise ValueError("dec_scan_fwd: states= replays bf16 streams only")
+        if timers is not None:
+            raise ValueError("dec_scan_fwd: the replay runs no recurrence to "
+                             "stamp (timers=)")
         check_kernel_arg(states, torch.float32, (Tt + 1, B, H),
                          "dec_scan_fwd: states")
+        return _replay(ty_t, xg_t, ctx, ctxp, mask, weights, states)
     dev = xg_t.device
-
-    def new(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    res = {"t": new(Tt, B, R),
-           "s": new(Tt + 1, B, H) if states is None else states,
-           "st": new(Tt, B, H),
-           "c": new(Tt, B, C), "w": new(Tt, B, T), "q": new(Tt, B, A),
-           "hg1": new(Tt, B, 3 * H), "xg2": new(Tt, B, 3 * H),
-           "hg2": new(Tt, B, 3 * H)}
+    res = _residual_buffers(dev, Tt, B, T, H, A, C, R, bf)
     kp = _kernel_plan_for(dev, B, T, H, A, C, R, bf).fwd
     plan, n_plan = _plan_args(kp)
     wl2 = _l2_buffer(kp, dev)
@@ -360,16 +403,53 @@ def dec_scan_fwd(ty_t, xg_t, s0, ctx, ctxp, mask,
         ty_t.data_ptr(), xg_t.data_ptr(), s0.data_ptr(), ctx.data_ptr(),
         ctxp.data_ptr(), mask.data_ptr(), *(w.data_ptr() for w in weights),
         *(res[k].data_ptr() for k in ("s", "st", "c", "w", "q", "hg1", "xg2",
-                                      "hg2", "t")),
+                                      "hg2", "t") + (BF16_COPIES if bf else ())),
         Tt, B, T, H, A, C, R, plan, n_plan, None if wl2 is None else wl2.data_ptr(),
-        _timer_ptr(timers, 4 * Tt + 2), *((int(states is not None),) if bf else ()),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _timer_ptr(timers, 4 * Tt + 2), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dec_scan_fwd kernel launch failed: CUDA error {rc}")
     dec_scan_fwd.launches += 1
     dec_scan_fwd.grids += FWD_GRIDS
     dec_scan_fwd.bf16_launches += bf
-    dec_scan_fwd.replays += states is not None
+    return res
+
+
+def _residual_buffers(dev, Tt, B, T, H, A, C, R, bf16: bool):
+    """Empty ``RESIDUALS`` (fp32) and, for bf16 streams, ``BF16_COPIES``."""
+    shapes = {"t": (Tt, B, R), "s": (Tt + 1, B, H), "st": (Tt, B, H),
+              "c": (Tt, B, C), "w": (Tt, B, T), "q": (Tt, B, A),
+              "hg1": (Tt, B, 3 * H), "xg2": (Tt, B, 3 * H),
+              "hg2": (Tt, B, 3 * H)}
+    res = {k: torch.empty(v, dtype=torch.float32, device=dev)
+           for k, v in shapes.items()}
+    if bf16:
+        res.update({k: torch.empty(shapes[k[:-1]], dtype=torch.bfloat16,
+                                   device=dev) for k in BF16_COPIES})
+    return res
+
+
+def _replay(ty_t, xg_t, ctx, ctxp, mask, weights, states):
+    """dec_scan_fwd(..., states=)'s kernel path (inputs checked): the
+    states are res["s"], their bf16 copy a cast (s0 rounded)."""
+    Tt, B, R = ty_t.shape
+    _, T, C = ctx.shape
+    H, A = states.shape[2], ctxp.shape[2]
+    dev = xg_t.device
+    res = _residual_buffers(dev, Tt, B, T, H, A, C, R, True)
+    res["s"], res["sb"] = states, states.to(torch.bfloat16)
+    rc = _build.load("dec_scan_fwd_bf16").dec_scan_replay_launch(
+        ty_t.data_ptr(), xg_t.data_ptr(), states.data_ptr(),
+        res["sb"].data_ptr(), ctx.data_ptr(), ctxp.data_ptr(), mask.data_ptr(),
+        *(w.data_ptr() for w in weights),
+        *(res[k].data_ptr() for k in ("st", "stb", "c", "cb", "w", "q", "hg1",
+                                      "xg2", "hg2", "t")),
+        Tt, B, T, H, A, C, R, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dec_scan_fwd replay launch failed: CUDA error {rc}")
+    dec_scan_fwd.launches += 1
+    dec_scan_fwd.grids += REPLAY_GRIDS
+    dec_scan_fwd.bf16_launches += 1
+    dec_scan_fwd.replays += 1
     return res
 
 
@@ -379,14 +459,16 @@ dec_scan_fwd.bf16_launches = 0
 dec_scan_fwd.replays = 0
 
 _BF16_DEFINES = {**_DEFINES, "VAG_BF16": 1}
-for _name, _defines, _replay in (("dec_scan_fwd", _DEFINES, []),
-                                 ("dec_scan_fwd_bf16", _BF16_DEFINES,
-                                  [ctypes.c_int])):
+for _name, _defines, _copies in (("dec_scan_fwd", _DEFINES, 0),
+                                 ("dec_scan_fwd_bf16", _BF16_DEFINES, 3)):
     _build.declare(_name, "dec_scan_fwd_launch",
-                   [ctypes.c_void_p] * 25 + [ctypes.c_int] * 7
+                   [ctypes.c_void_p] * (25 + _copies) + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + _replay + [ctypes.c_void_p],
+                   + [ctypes.c_void_p] * 3,
                    defines=_defines, src="dec_scan_fwd")
+_build.declare("dec_scan_fwd_bf16", "dec_scan_replay_launch",
+               [ctypes.c_void_p] * 27 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+               defines=_BF16_DEFINES, src="dec_scan_fwd")
 
 
 def tanh_fast_probe(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -485,7 +567,10 @@ def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
     csrc/dec_scan_bwd.cu), which write every output: it counts one in
     ``dec_scan_bwd.launches`` and those in ``dec_scan_bwd.grids``. Raises
     when the plan or the launch fails. ``timers``: as dec_scan_fwd's.
-    bf16 streams run the bf16 instance (``dec_scan_bwd.bf16_launches``)."""
+    bf16 streams run the bf16 instance (``dec_scan_bwd.bf16_launches``;
+    BWD_GRIDS_BF16 grids), which also reads the residuals' bf16 copies
+    ``BF16_COPIES`` (every forward path returns them for bf16 streams) and
+    raises without them."""
     if resolve_impl(impl, xg_t) == "plain":
         return dec_scan_bwd_plain(res, xg_t, ctx, ctxp, mask, weights, g_t)
     Tt, B, R = g_t.shape
@@ -499,6 +584,12 @@ def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
                      ("q", (Tt, B, A)), ("hg1", (Tt, B, 3 * H)),
                      ("xg2", (Tt, B, 3 * H)), ("hg2", (Tt, B, 3 * H))):
         check_kernel_arg(res[k], torch.float32, shape, f"dec_scan_bwd: {k}")
+        if bf and k + "b" in BF16_COPIES:
+            if k + "b" not in res:
+                raise ValueError(f"dec_scan_bwd: bf16 streams need the "
+                                 f"residuals' bf16 copies ({k}b)")
+            check_kernel_arg(res[k + "b"], torch.bfloat16, shape,
+                             f"dec_scan_bwd: {k}b")
     dev = xg_t.device
 
     def new(*shape):
@@ -517,6 +608,11 @@ def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
                new(Tt, B, 3 * H), new(Tt, B, 3 * H), new(Tt, B, A),
                new(Tt, B, A), new(Tt, B, T), new(B, H), new(B, H), new(B, H),
                new(-(-Tt * B // plan.colsum_rows), 9 * H + A))
+    if bf:   # the bf16 copies: the forward's, then dpre, dxg2, dhg2, dhg1, dq
+        scratch += tuple(res[k] for k in BF16_COPIES) + tuple(
+            torch.empty(shape, dtype=torch.bfloat16, device=dev) for shape in (
+                (Tt, B, R), (Tt, B, 3 * H), (Tt, B, 3 * H), (Tt, B, 3 * H),
+                (Tt, B, A)))
     args, n_plan = _plan_args(plan)
     wl2 = _l2_buffer(plan, dev)
     lib = _build.load("dec_scan_bwd_bf16" if bf else "dec_scan_bwd")
@@ -533,7 +629,7 @@ def dec_scan_bwd(res: Dict[str, torch.Tensor], xg_t, ctx, ctxp, mask,
     if rc != 0:
         raise RuntimeError(f"dec_scan_bwd kernel launch failed: CUDA error {rc}")
     dec_scan_bwd.launches += 1
-    dec_scan_bwd.grids += BWD_GRIDS
+    dec_scan_bwd.grids += BWD_GRIDS_BF16 if bf else BWD_GRIDS
     dec_scan_bwd.bf16_launches += bf
     return (dty, dxg1, ds0, dctx, dctxp, *dw)
 
@@ -542,10 +638,10 @@ dec_scan_bwd.launches = 0
 dec_scan_bwd.grids = 0
 dec_scan_bwd.bf16_launches = 0
 
-for _name, _defines in (("dec_scan_bwd", _DEFINES),
-                        ("dec_scan_bwd_bf16", _BF16_DEFINES)):
+for _name, _defines, _copies in (("dec_scan_bwd", _DEFINES, 0),
+                                 ("dec_scan_bwd_bf16", _BF16_DEFINES, 8)):
     _build.declare(_name, "dec_scan_bwd_launch",
-                   [ctypes.c_void_p] * 48 + [ctypes.c_int] * 7
+                   [ctypes.c_void_p] * (48 + _copies) + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
                    + [ctypes.c_void_p] * 3,
                    defines=_defines, src="dec_scan_bwd")
@@ -578,14 +674,17 @@ class DecoderScan(torch.autograd.Function):
     ``pallas_dec_scan._scan`` and its custom VJP). fp32 streams save the
     forward's residuals; bf16 streams save the states s' in bf16 alone, as
     the JAX kernel does, and the backward replays the steps from them
-    (``dec_scan_fwd(..., states=)``) for the residuals it reads."""
+    (``dec_scan_fwd(..., states=)``) for the residuals it reads: each step
+    from its saved state, none from another, so the replay runs as
+    time-parallel grids over all Tt * B rows (no recurrence), counted in
+    ``dec_scan_fwd.replays``."""
 
     @staticmethod
     def forward(ctx_, impl, ty_t, xg_t, s0, ctx, ctxp, mask, *weights):
         res = dec_scan_fwd(ty_t, xg_t, s0, ctx, ctxp, mask, weights,
                            impl=impl)
         ctx_.impl = impl
-        kept = ((ty_t, s0, res["s"][1:].to(torch.bfloat16))
+        kept = ((ty_t, s0, res["sb"][1:])
                 if xg_t.dtype == torch.bfloat16 else
                 tuple(res[k] for k in RESIDUALS))
         ctx_.save_for_backward(xg_t, ctx, ctxp, mask, *weights, *kept)
