@@ -71,7 +71,9 @@ Phases (each raises on failure; the script then exits non-zero):
      second call bit for bit, each bf16 copy its fp32 residual rounded
      once; each call timed alone cold and warm at (64, 24, 24) and (64,
      128, 128) beside its bound at the bf16 tensor rate and cuDNN's GRU in
-     bf16 (a bf16 carry: not the same function);
+     bf16 (a bf16 carry: not the same function); kernels 2b and 3b also at
+     BF16_GRU_CHECKS (phase 19's decode shapes, H = 94 and 1280), both
+     directions;
   8c. phase 8's training at compute_dtype="bfloat16", beside it: 40 steps
      through train_loop, steps/s, target tokens/s, launches a step, a
      falling loss, kernels 2-5 in their bf16 instances only; 5 steps
@@ -149,7 +151,8 @@ Phases (each raises on failure; the script then exits non-zero):
      four products through torch.mm in bf16;
  19. kernel 2b at the decode shapes (1024, 32) and (512, 120) against its
      plain version (held within BF16_STATE_ATOL; the share of identical
-     states printed), timed beside the fp32 instance;
+     states printed), both instances: the decode's, which sums in k order,
+     and training's, on the tensor cores; timed beside the fp32 instance;
  20. the bf16 decode of phase 4's corpus (decode.compute_dtype=bfloat16):
      kernels 1b once a beam step and 2b twice an encoder pass, no fp32
      instance; the plain path (MIN_IDENTICAL_SHARE identical), the share
@@ -206,16 +209,19 @@ Phase 15 also decodes the bf16 run with --set decode.compute_dtype=bfloat16
 (kernels 1b and 2b only), and runs make-toy -> train -> translate and a raw
 synthetic Multi30k directory through preprocess -> train ->
 translate-text.
-Phase 1 builds all eight sources, readout_topk.cu and dec_step.cu four
+Phase 1 builds all nine sources, readout_topk.cu and dec_step.cu four
 times (K <= 8 and K > 8, each fp32 and bf16), gru_fwd.cu, gru_bwd.cu,
-dec_scan_fwd.cu and dec_scan_bwd.cu twice (fp32 and bf16 streams), and
+dec_scan_fwd.cu and dec_scan_bwd.cu twice (fp32 and bf16 streams),
+gru_fwd_bf16.cu once, and
 prints ptxas's spills of every build. It prints one JSON line of per-kernel
 numbers and, last, the device line. With --gru-grids it prints phase 3's
 grid times alone, with --readout-grids kernel 1's, with --dec-step-grids
 kernel 7's, with --dec-scan-grids kernels 4 and 5's, with
 --dec-scan-bf16-grids kernels 4b and 5b's and the replay's beside the fp32
-instances (after building those four libraries), with --gru-bwd-grids
-kernel 3's; with --decode-graphs it builds the kernels and runs phase 25
+instances (after building those four libraries), with --gru-bf16-grids
+kernels 2b and 3b's beside the fp32 instances and cuDNN's GRU in bf16 (after
+building their four libraries), with --gru-bwd-grids kernel 3's; with
+--decode-graphs it builds the kernels and runs phase 25
 alone, with --train-graphs phase 26, with --stream-graphs phase 27 (see
 main).
 Needs torch with CUDA and nvcc; imports nothing of JAX.
@@ -1255,6 +1261,213 @@ def dec_scan_bf16_grid_times(torch, np, dev):
     return out
 
 
+# Kernels 2b and 3b's other cases in phase 8b (label, B, T, H): phase 19's
+# decode shapes, and the widths phase 3b runs the fp32 instance at: H = 94
+# (padded to 96) and 1280 (kernel 2's slices in L2; 2b's bf16 slices fit).
+BF16_GRU_CHECKS = (("decode", 1024, 32, 512), ("ikea", 512, 120, 512),
+                   ("narrow", 37, 13, 94), ("wide", TRAIN_B, TRAIN_T, 1280))
+# Their cotangents' scale: dxg (bf16) is held to BF16_STATE_ATOL, whose
+# premise is one bf16 ulp of a value below 4 (2^-6); at unit scale over
+# 120 steps and 512 rows some |dxg| reach [4, 8), where one ulp is 2^-5,
+# and a value that rounds one ulp apart fails the gate whatever the
+# kernel: kernel 3b's design before this one (streamed TF32 tiles) fails
+# it at (512, 120) as the present one does (PERF.md).
+BF16_GRU_CHECK_G = 0.25
+GRU_BUILDS = ("gru_fwd", "gru_bwd", "gru_fwd_bf16", "gru_bwd_bf16")
+
+
+def _bf16_ulps(torch, a, b):
+    """Of two bf16 tensors: at the largest absolute difference, that
+    difference in bf16 ulps of the larger magnitude and the magnitude of
+    b there; and the share of elements that differ at all."""
+    import math
+
+    a, b = a.float().flatten(), b.float().flatten()
+    d = (a - b).abs()
+    i = int(d.argmax())
+    m = max(abs(float(a[i])), abs(float(b[i])), 2.0 ** -126)
+    ulp = 2.0 ** (math.floor(math.log2(m)) - 7)
+    return float(d[i]) / ulp, abs(float(b[i])), float((d > 0).float().mean())
+
+
+def _check_gru_bf16(torch, label, xg_t, mask_t, uh, bh, h0, g_t, errs):
+    """Kernels 2b and 3b against their plain versions on bf16 streams (xg_t,
+    g_t bf16), both directions, 3b on the plain forward's states: the
+    states and dxg within BF16_STATE_ATOL, dUh, dbh and dh0 within
+    BF16_RTOL of their scale, a second call bit for bit. Raises on a
+    miss; keeps the max abs errors in errs ("gru_fwd", "gru_bwd")."""
+    from vag_nmt_tpu_torch.ops.gru_kernel import (gru_bwd, gru_bwd_plain,
+                                                  gru_fwd, gru_fwd_plain)
+
+    bf = torch.bfloat16
+    for reverse in (False, True):
+        hk = gru_fwd(xg_t, mask_t, uh, bh, h0, reverse=reverse, impl="kernel")
+        hk2 = gru_fwd(xg_t, mask_t, uh, bh, h0, reverse=reverse, impl="kernel")
+        hp = gru_fwd_plain(xg_t, mask_t, uh, bh, h0, reverse=reverse)
+        args = (xg_t, mask_t, uh, bh, h0, hp, g_t)
+        gk = gru_bwd(*args, reverse=reverse, impl="kernel")
+        gk2 = gru_bwd(*args, reverse=reverse, impl="kernel")
+        gp = gru_bwd_plain(*args, reverse=reverse)
+        torch.cuda.synchronize()
+        if hk.dtype != bf or gk[0].dtype != bf:
+            raise AssertionError("gru bf16: streams not bf16")
+        e = float((hk.float() - hp.float()).abs().max())
+        if not e <= BF16_STATE_ATOL:
+            raise AssertionError(f"gru_fwd bf16 {label} reverse={reverse}: "
+                                 f"max abs err {e}")
+        errs["gru_fwd"] = max(errs.get("gru_fwd", 0.0), e)
+        bwd = {"dxg": float((gk[0].float() - gp[0].float()).abs().max())}
+        bwd.update({n: _rel_err(a, b) for n, a, b in
+                    zip(("duh", "dbh", "dh0"), gk[1:], gp[1:])})
+        # dxg's largest difference in bf16 ulps and the plain value's
+        # magnitude there, the share of elements that differ at all
+        bwd["dxg_ulps"], bwd["dxg_at"], bwd["dxg_differ"] = _bf16_ulps(
+            torch, gk[0], gp[0])
+        if not (bwd["dxg"] <= BF16_STATE_ATOL and
+                max(bwd[n] for n in ("duh", "dbh", "dh0")) <= BF16_RTOL):
+            raise AssertionError(f"gru_bwd bf16 {label} reverse={reverse}: "
+                                 f"{json.dumps(bwd)}")
+        errs["gru_bwd"] = max([errs.get("gru_bwd", 0.0)]
+                              + [float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(gk, gp)])
+        if not (torch.equal(hk, hk2) and all(torch.equal(a, b)
+                                             for a, b in zip(gk, gk2))):
+            raise AssertionError(f"gru bf16 {label}: a second call differs")
+        print(f"gru bf16 {label} reverse={reverse}: ok, states identical to "
+              f"the plain version's: {float((hk == hp).float().mean()):.4f}, "
+              f"errors {json.dumps(bwd)}")
+
+
+def _gru_bf16_case(torch, np, dev, B, T, H, seed, g_scale=1.0):
+    """(xg_t, mask_t, uh, bh, h0, g_t) on bf16 streams at any H (phase 6's
+    case: random h0, biases and ragged lengths; the cotangent times
+    g_scale)."""
+    args, _, _ = _gru_bwd_case(torch, np, dev, B, T, H, seed)
+    bf = torch.bfloat16
+    xg_t, mask_t, uh, bh, h0, _, g_t = args
+    return xg_t.to(bf), mask_t, uh, bh, h0, (g_scale * g_t).to(bf)
+
+
+def _pair_calls(first, second, g_f, g_b):
+    """Closures of both directions in one call (gru_fwd_pair, gru_bwd_pair)
+    on the bf16-stream scans first and second ((xg_t, mask_t, uh, bh, h0);
+    the mask is first's): fwd(impl) -> (hs_f, hs_b), bwd(states, impl) ->
+    each direction's grads with cotangents g_f, g_b."""
+    from vag_nmt_tpu_torch.ops.gru_kernel import gru_bwd_pair, gru_fwd_pair
+
+    (xf, mask_t, uf, bf_, hf0), (xb, _, ub, bb, hb0) = first, second
+    w = (uf, bf_, ub, bb, hf0, hb0)
+
+    def fwd(impl="kernel"):
+        return gru_fwd_pair(xf, xb, mask_t, *w, impl=impl)
+
+    def bwd(states, impl="kernel"):
+        return gru_bwd_pair(xf, xb, mask_t, *w, *states, g_f, g_b, impl=impl)
+
+    return fwd, bwd
+
+
+def _check_gru_pair(torch, label, fwd, bwd, errs):
+    """Both directions in one call (_pair_calls' fwd, bwd on bf16 streams)
+    against the plain versions, within _check_gru_bf16's bounds, a second
+    call bit for bit; keeps the max abs errors in errs."""
+    (hf, hb), (hf2, hb2) = fwd(), fwd()
+    want = fwd("plain")
+    gk, gk2, gp = bwd(want), bwd(want), bwd(want, "plain")
+    torch.cuda.synchronize()
+    for d in range(2):
+        e = float(((hf, hb)[d].float() - want[d].float()).abs().max())
+        dx = float((gk[d][0].float() - gp[d][0].float()).abs().max())
+        rel = max(_rel_err(a, b) for a, b in zip(gk[d][1:], gp[d][1:]))
+        if not (e <= BF16_STATE_ATOL and dx <= BF16_STATE_ATOL and rel <= BF16_RTOL):
+            raise AssertionError(f"gru pair {label} direction {d}: states {e}, "
+                                 f"dxg {dx}, grads {rel}")
+        errs["gru_fwd"] = max(errs.get("gru_fwd", 0.0), e)
+        errs["gru_bwd"] = max([errs.get("gru_bwd", 0.0)]
+                              + [float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(gk[d], gp[d])])
+    if not (torch.equal(hf, hf2) and torch.equal(hb, hb2) and
+            all(torch.equal(a, b) for x, y in zip(gk, gk2) for a, b in zip(x, y))):
+        raise AssertionError(f"gru pair {label}: a second call differs")
+    print(f"gru pair {label}: ok, both directions")
+
+
+def gru_bf16_grid_times(torch, np, dev):
+    """Kernels 2b and 3b beside the fp32 instances at BF16_GRU_SHAPES, held
+    first against their plain versions (_check_gru_bf16): each whole call
+    alone, cold and warm (_grid_ms), each grid's device ms a call (warm,
+    torch.profiler), and cuDNN's GRU in bf16 (a bf16 carry: not the same
+    function) forward and forward + backward minus forward; where the tree
+    has the pair wrappers (both directions in one call), the pair's
+    forward and backward beside two single calls, the same ways. Through
+    the wrappers of whichever vag_nmt_tpu_torch is first on sys.path, so a
+    copy of this script in another tree's root times that tree's
+    kernels."""
+    from vag_nmt_tpu_torch.ops import gru_kernel as gk
+    from vag_nmt_tpu_torch.ops.gru_kernel import (gru_bwd, gru_fwd,
+                                                  gru_fwd_plain)
+
+    kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+    bf, H = torch.bfloat16, GRU_H
+    out = {}
+    for label, B, T in BF16_GRU_SHAPES:
+        x, p, xg32, mask_t, h0 = _gru_case(torch, np, dev, B, T, seed=12)
+        g32 = torch.from_numpy(np.random.RandomState(13).randn(T, B, H).astype(
+            np.float32)).to(dev)
+        xg16, g16 = xg32.to(bf), g32.to(bf)
+        w = (p["uh"], p["bh"], h0)
+        _check_gru_bf16(torch, label, xg16, mask_t, *w, g16, {})
+        hs16 = gru_fwd_plain(xg16, mask_t, *w)
+        hs32 = gru_fwd_plain(xg32, mask_t, *w)
+        calls = {
+            "fwd_bf16": lambda: gru_fwd(xg16, mask_t, *w, impl="kernel"),
+            "bwd_bf16": lambda: gru_bwd(xg16, mask_t, *w, hs16, g16,
+                                        impl="kernel"),
+            "fwd_fp32": lambda: gru_fwd(xg32, mask_t, *w, impl="kernel"),
+            "bwd_fp32": lambda: gru_bwd(xg32, mask_t, *w, hs32, g32,
+                                        impl="kernel")}
+        if hasattr(gk, "gru_fwd_pair"):
+            # the other direction: its own weights, the same inputs
+            _, q, xgb32, _, _ = _gru_case(torch, np, dev, B, T, seed=14)
+            xgb = xgb32.to(bf)
+            wb = (q["uh"], q["bh"], h0)
+            hsb = gru_fwd_plain(xgb, mask_t, *wb, reverse=True)
+            pair_fwd, pair_bwd = _pair_calls((xg16, mask_t, *w),
+                                             (xgb, mask_t, *wb), g16, g16)
+            _check_gru_pair(torch, label, pair_fwd, pair_bwd, {})
+            calls["fwd_pair_bf16"] = pair_fwd
+            calls["fwd_two_bf16"] = lambda: (
+                gru_fwd(xg16, mask_t, *w, impl="kernel"),
+                gru_fwd(xgb, mask_t, *wb, reverse=True, impl="kernel"))
+            calls["bwd_pair_bf16"] = lambda: pair_bwd((hs16, hsb))
+            calls["bwd_two_bf16"] = lambda: (
+                gru_bwd(xg16, mask_t, *w, hs16, g16, impl="kernel"),
+                gru_bwd(xgb, mask_t, *wb, hsb, g16, reverse=True,
+                        impl="kernel"))
+        row = {"B": B, "T": T, "H": H}
+        for name, call in calls.items():
+            cold, warm = _grid_ms(torch, call, **kw)
+            row[name] = {"grid_ms": cold, "grid_warm_ms": warm,
+                         "grids_warm_ms": _profile_grids(torch, call, 5)}
+        cudnn = torch.nn.GRU(GRU_E, H).to(dev).to(bf)
+        cudnn.flatten_parameters()
+        xb = x.to(bf)
+        with torch.no_grad():
+            row["cudnn_bf16_fwd_ms"], row["cudnn_bf16_fwd_warm_ms"] = \
+                _grid_ms(torch, lambda: cudnn(xb), **kw)
+        xr = xb.clone().requires_grad_(True)
+
+        def cudnn_fwd_bwd():
+            y, _ = cudnn(xr)
+            y.backward(g16)
+
+        row["cudnn_bf16_bwd_ms"] = (_time_ms(torch, cudnn_fwd_bwd, reps=10)
+                                    - row["cudnn_bf16_fwd_ms"])
+        out[label] = row
+        print(f"gru bf16 grids {label}: " + json.dumps(row), flush=True)
+    return out
+
+
 def phase_bf16_kernels(torch, np, dev):
     """The bf16 instances of kernels 2-5 against their plain versions on
     bf16 streams (the bounds above), kernel 4 also in its replay from the
@@ -1275,45 +1488,31 @@ def phase_bf16_kernels(torch, np, dev):
     kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
     rows = {n: {"shapes": {}, "max_abs_err": 0.0} for n in
             ("gru_fwd", "gru_bwd", "dec_scan_fwd", "dec_scan_bwd")}
+    gru_errs = {}
+    for label, B, T, H in BF16_GRU_CHECKS:
+        first = _gru_bf16_case(torch, np, dev, B, T, H, seed=B + T + H,
+                               g_scale=BF16_GRU_CHECK_G)
+        _check_gru_bf16(torch, label, *first, gru_errs)
+        if B > TRAIN_B:   # the decode shapes: no pair (a decode's scans
+            continue      # need no gradient)
+        # both directions in one call, the second with weights of its own
+        second = _gru_bf16_case(torch, np, dev, B, T, H, seed=B + T + H + 1,
+                                g_scale=BF16_GRU_CHECK_G)
+        _check_gru_pair(torch, label, *_pair_calls(
+            first[:5], (second[0], first[1]) + second[2:5], first[5],
+            second[5]), gru_errs)
     for label, B, T in BF16_GRU_SHAPES:
         x, p, xg32, mask_t, h0 = _gru_case(torch, np, dev, B, T, seed=12)
         xg_t = xg32.to(bf)
         H = GRU_H
         g_t = torch.from_numpy(np.random.RandomState(13).randn(T, B, H).astype(
             np.float32)).to(dev).to(bf)
-        for reverse in (False, True):
-            hk = gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse,
-                         impl="kernel")
-            hk2 = gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse,
-                          impl="kernel")
-            hp = gru_fwd_plain(xg_t, mask_t, p["uh"], p["bh"], h0,
-                               reverse=reverse)
-            args = (xg_t, mask_t, p["uh"], p["bh"], h0, hp, g_t)
-            gk = gru_bwd(*args, reverse=reverse, impl="kernel")
-            gk2 = gru_bwd(*args, reverse=reverse, impl="kernel")
-            gp = gru_bwd_plain(*args, reverse=reverse)
-            torch.cuda.synchronize()
-            if hk.dtype != bf or gk[0].dtype != bf:
-                raise AssertionError("gru bf16: streams not bf16")
-            e = float((hk.float() - hp.float()).abs().max())
-            if not e <= BF16_STATE_ATOL:
-                raise AssertionError(f"gru_fwd bf16 {label} reverse={reverse}: "
-                                     f"max abs err {e}")
-            rows["gru_fwd"]["max_abs_err"] = max(rows["gru_fwd"]["max_abs_err"], e)
-            errs = {"dxg": float((gk[0].float() - gp[0].float()).abs().max())}
-            errs.update({n: _rel_err(a, b) for n, a, b in
-                         zip(("duh", "dbh", "dh0"), gk[1:], gp[1:])})
-            if not (errs["dxg"] <= BF16_STATE_ATOL and
-                    max(errs[n] for n in ("duh", "dbh", "dh0")) <= BF16_RTOL):
-                raise AssertionError(f"gru_bwd bf16 {label} reverse={reverse}: "
-                                     f"{errs}")
-            rows["gru_bwd"]["max_abs_err"] = max(
-                [rows["gru_bwd"]["max_abs_err"]]
-                + [float((a.float() - b.float()).abs().max())
-                   for a, b in zip(gk, gp)])
-            if not (torch.equal(hk, hk2) and all(torch.equal(a, b)
-                                                 for a, b in zip(gk, gk2))):
-                raise AssertionError(f"gru bf16 {label}: a second call differs")
+        _check_gru_bf16(torch, label, xg_t, mask_t, p["uh"], p["bh"], h0, g_t,
+                        gru_errs)
+        _, q, xgb32, _, _ = _gru_case(torch, np, dev, B, T, seed=14)
+        _check_gru_pair(torch, label, *_pair_calls(
+            (xg_t, mask_t, p["uh"], p["bh"], h0),
+            (xgb32.to(bf), mask_t, q["uh"], q["bh"], h0), g_t, g_t), gru_errs)
         fwd = lambda: gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, impl="kernel")
         hp = gru_fwd_plain(xg_t, mask_t, p["uh"], p["bh"], h0)
         args = (xg_t, mask_t, p["uh"], p["bh"], h0, hp, g_t)
@@ -1454,8 +1653,10 @@ def phase_bf16_kernels(torch, np, dev):
             rows[f"dec_scan_{kind}"]["shapes"][label] = f
             print(f"dec_scan_{kind} bf16 {label}: " + json.dumps(f))
 
+    for name in ("gru_fwd", "gru_bwd"):
+        rows[name]["max_abs_err"] = gru_errs[name]
     out = []
-    for name, src, line in (("gru_fwd", "gru_fwd", "pallas_gru.py:114"),
+    for name, src, line in (("gru_fwd", "gru_fwd_bf16", "pallas_gru.py:114"),
                             ("gru_bwd", "gru_bwd", "pallas_gru.py:180"),
                             ("dec_scan_fwd", "dec_scan_fwd", "pallas_dec_scan.py:165"),
                             ("dec_scan_bwd", "dec_scan_bwd", "pallas_dec_scan.py:286")):
@@ -3847,7 +4048,9 @@ GRU_BF16_DECODE_SHAPES = (("decode", 1024, 32), ("ikea", 512, 120))
 
 
 def phase_gru_bf16_decode(torch, np, dev):
-    """Phase 19 (above). {label: fields}."""
+    """Phase 19 (above), for both of kernel 2b's instances: the decode's
+    (k_order: csrc/gru_fwd.cu's bf16 build) and training's (the tensor
+    cores). {label: fields; the decode's instance's at the top level}."""
     from vag_nmt_tpu_torch.ops.gru_kernel import gru_fwd, gru_fwd_plain
 
     bf = torch.bfloat16
@@ -3856,37 +4059,44 @@ def phase_gru_bf16_decode(torch, np, dev):
     for label, B, T in GRU_BF16_DECODE_SHAPES:
         _, p, xg32, mask_t, h0 = _gru_case(torch, np, dev, B, T, seed=19)
         xg_t = xg32.to(bf)
-        err = 0.0
-        for reverse in (False, True):
-            n0 = gru_fwd.bf16_launches
-            hk = gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse,
-                         impl="kernel")
-            hk2 = gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0, reverse=reverse,
-                          impl="kernel")
-            hp = gru_fwd_plain(xg_t, mask_t, p["uh"], p["bh"], h0,
-                               reverse=reverse)
-            torch.cuda.synchronize()
-            if gru_fwd.bf16_launches - n0 != 2 or hk.dtype != bf:
-                raise AssertionError(f"gru_fwd_bf16 {label}: not the bf16 instance")
-            e = float((hk.float() - hp.float()).abs().max())
-            if not e <= BF16_STATE_ATOL:
-                raise AssertionError(f"gru_fwd_bf16 {label} reverse={reverse}: "
-                                     f"max abs err {e}")
-            if not torch.equal(hk, hk2):
-                raise AssertionError(f"gru_fwd_bf16 {label}: a second call differs")
-            err = max(err, e)
-            same = float((hk == hp).float().mean())
-        cold, warm = _grid_ms(torch, lambda: gru_fwd(
-            xg_t, mask_t, p["uh"], p["bh"], h0, impl="kernel"), **kw)
-        c32, w32 = _grid_ms(torch, lambda: gru_fwd(
-            xg32, mask_t, p["uh"], p["bh"], h0, impl="kernel"), **kw)
-        bound_ms, bound_by = _gru_fwd_bf16_bound(B, T, GRU_H)
-        out[label] = {"B": B, "T": T, "max_abs_err": err,
-                      "identical_share": same, "grid_ms": cold,
-                      "grid_warm_ms": warm, "fp32_grid_ms": c32,
-                      "fp32_grid_warm_ms": w32, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
-        print(f"gru_fwd_bf16 decode shape {label}: " + json.dumps(out[label]))
+        row = {"B": B, "T": T}
+        for name, k_order in (("k_order", True), ("tensor_cores", False)):
+            err = 0.0
+            for reverse in (False, True):
+                n0 = gru_fwd.bf16_launches
+                hk, hk2 = (gru_fwd(xg_t, mask_t, p["uh"], p["bh"], h0,
+                                   reverse=reverse, impl="kernel",
+                                   k_order=k_order) for _ in range(2))
+                hp = gru_fwd_plain(xg_t, mask_t, p["uh"], p["bh"], h0,
+                                   reverse=reverse)
+                torch.cuda.synchronize()
+                if gru_fwd.bf16_launches - n0 != 2 or hk.dtype != bf:
+                    raise AssertionError(f"gru_fwd_bf16 {label} {name}: not a "
+                                         "bf16 instance")
+                e = float((hk.float() - hp.float()).abs().max())
+                if not e <= BF16_STATE_ATOL:
+                    raise AssertionError(f"gru_fwd_bf16 {label} {name} "
+                                         f"reverse={reverse}: max abs err {e}")
+                if not torch.equal(hk, hk2):
+                    raise AssertionError(f"gru_fwd_bf16 {label} {name}: a "
+                                         "second call differs")
+                err = max(err, e)
+                same = float((hk == hp).float().mean())
+            cold, warm = _grid_ms(torch, lambda: gru_fwd(
+                xg_t, mask_t, p["uh"], p["bh"], h0, impl="kernel",
+                k_order=k_order), **kw)
+            f = {"max_abs_err": err, "identical_share": same,
+                 "grid_ms": cold, "grid_warm_ms": warm}
+            if k_order:
+                row.update(f)
+            else:
+                row["tensor_cores"] = f
+        row["fp32_grid_ms"], row["fp32_grid_warm_ms"] = _grid_ms(
+            torch, lambda: gru_fwd(xg32, mask_t, p["uh"], p["bh"], h0,
+                                   impl="kernel"), **kw)
+        row["bound_ms"], row["bound_by"] = _gru_fwd_bf16_bound(B, T, GRU_H)
+        out[label] = row
+        print(f"gru_fwd_bf16 decode shape {label}: " + json.dumps(row))
     return out
 
 
@@ -5894,6 +6104,13 @@ def main() -> int:
         print(json.dumps({"dec_scan_bf16_grids":
                           dec_scan_bf16_grid_times(torch, np, dev)}))
         return 0
+    if sys.argv[1:] == ["--gru-bf16-grids"]:
+        # kernels 2b and 3b beside the fp32 instances and cuDNN's bf16 GRU,
+        # each whole call and grid, and nothing else, the same way for
+        # another tree's kernels: {label: fields}.
+        print(f"build_s: {_build_some(GRU_BUILDS):.2f}")
+        print(json.dumps({"gru_bf16_grids": gru_bf16_grid_times(torch, np, dev)}))
+        return 0
     if sys.argv[1:] == ["--gru-bwd-grids"]:
         # kernel 3's whole call alone and each of its grids at
         # GRU_BWD_TIMED, and nothing else, the same way for another tree's
@@ -5986,7 +6203,10 @@ def main() -> int:
     for k in bf16_kernels:
         base = k["name"][:-len("_bf16")]
         k["launches"] = b_instances[k["name"]]
-        k["grids"] = b_grids[base] // b_launches[base] * k["launches"]
+        # the run's grids of the kernel but its fp32 launches' (gru_fwd's
+        # dev eval: one grid each); a bi-GRU's pair of bf16 scans is one
+        # grid of 2b and GRU_BWD_GRIDS of 3b
+        k["grids"] = b_grids[base] - (b_launches[base] - k["launches"])
         if base.startswith("dec_scan"):
             # of 4b's launches, the backward's replays (REPLAY_GRIDS each)
             k["replay_launches"] = b_instances["dec_scan_fwd_bf16_replays"]
@@ -5997,6 +6217,8 @@ def main() -> int:
         k["grids"] = k["launches"] * (5 if k["name"] == "dec_step_bf16" else 1)
     for k in bf16_kernels:
         if k["name"] == "gru_fwd_bf16":
+            # the decode's encoder runs 2b's instance that sums in k order
+            k["decode_source"] = "vag_nmt_tpu_torch/csrc/gru_fwd.cu (-DVAG_BF16=1)"
             k["decode_shapes"] = gru16_decode
             k["decode_launches"] = launches16["gru_fwd_bf16"]
     kernels = (decode_kernels + train_kernels + serve_kernels + ikea_kernels

@@ -1,16 +1,18 @@
-// bf16 tensor-core tiles of the decoder scans' bf16 instances: the
+// bf16 tensor-core tiles of the recurrences' bf16 instances: the
 // time-parallel products of dec_scan_fwd.cu's replay (the steps the
 // backward recomputes from the saved states: none of them reads another,
-// so each product runs over all Tt * B rows at once, as one grid) and of
-// the bf16 builds' streamed grids (the forward's readout; the backward's
-// readout terms and weight grads). Built only with -DVAG_BF16=1.
+// so each product runs over all Tt * B rows at once, as one grid), of the
+// decoder scans' streamed grids (the forward's readout; the backward's
+// readout terms and weight grads) and of gru_bwd.cu's recompute and weight
+// grads. Built only with -DVAG_BF16=1.
 //
 // A job is out (M, N) = sum over its segments of A_s (M, K_s) @ B_s (K_s,
 // N) on bf16 operands, bf16 x bf16 -> fp32 on mma.sync m16n8k16 with fp32
 // accumulators (every product exact, only the sums round), with the
 // epilogue in the same CTA: a store in fp32 and / or bf16, a bias add, the
-// readout's tanh(add + acc), or GRU1's cell (gate tiles: the r, z and n
-// columns of a block of units in one tile). A(m, k) = ta ? a[k * lda + m]
+// readout's tanh(add + acc), GRU1's cell or the encoder GRU's cell
+// backward coefficients (gate tiles: the r, z and n columns of a block of
+// units in one tile). A(m, k) = ta ? a[k * lda + m]
 // : a[m * lda + k], B(k, n) = tb ? b[n * ldb + k] : b[k * ldb + n] (not
 // both transposed: no product of the scans needs it).
 //
@@ -58,7 +60,7 @@ static_assert(3 * GATE_UNITS <= BN, "a gate tile's columns fit the tile");
 
 typedef __nv_bfloat16 bf16;
 
-enum Epi { STORE = 0, BIAS = 1, TANH_ADD = 2, GRU1 = 3 };
+enum Epi { STORE = 0, BIAS = 1, TANH_ADD = 2, GRU1 = 3, GRU_COEF = 4 };
 
 struct Seg {
   const bf16* a;
@@ -66,14 +68,18 @@ struct Seg {
   int lda, ldb, K;
 };
 
-// One job (see the top). N: output columns, or (GRU1) units: its tiles are
-// gate tiles of GATE_UNITS units, tile column j < 3 GATE_UNITS reading W's
-// column (j / GATE_UNITS) H + u0 + j % GATE_UNITS (N = H). Outputs: out
-// (fp32) and / or outb (bf16), row stride ldo. add: BIAS the bias (N),
-// TANH_ADD an (M, ldo) array added before the tanh, GRU1 the bias (3H).
-// GRU1 also reads xg (M, 3H, bf16) and h (M, H, fp32) and writes hg = acc +
-// bias to out (M, 3H), the cell's state to out2 (M, H, fp32) and to outb
-// (bf16).
+// One job (see the top). N: output columns, or (GRU1, GRU_COEF) units: its
+// tiles are gate tiles of GATE_UNITS units, tile column j < 3 GATE_UNITS
+// reading W's column (j / GATE_UNITS) H + u0 + j % GATE_UNITS (N = H).
+// Outputs: out (fp32) and / or outb (bf16), row stride ldo. add: BIAS the
+// bias (N), TANH_ADD an (M, ldo) array added before the tanh, GRU1 and
+// GRU_COEF the bias (3H). GRU1 also reads xg (M, 3H, bf16) and h (M, H,
+// fp32) and writes hg = acc + bias to out (M, 3H), the cell's state to
+// out2 (M, H, fp32) and to outb (bf16). GRU_COEF reads xg, the mask m (M,
+// fp32) and the state the row's step started from (h, or where h is null
+// the bf16 A operand's row: A is those states) and writes gru_unit_coef's
+// five coefficients of hg = acc + bias to out (M, 5H: coefficient k at
+// column k H + u).
 struct Job {
   Seg s[2];
   int nseg, M, N, ta, tb, epi;
@@ -84,6 +90,7 @@ struct Job {
   const bf16* xg;
   const float* h;
   float* out2;
+  const float* m;
 };
 
 // Up to 7 jobs of one grid (a kernel argument), their tiles in job order.
@@ -93,7 +100,7 @@ struct Jobs {
 };
 
 __host__ __device__ inline int tile_cols(const Job& j) {
-  return j.epi == GRU1 ? GATE_UNITS : BN;
+  return j.epi == GRU1 || j.epi == GRU_COEF ? GATE_UNITS : BN;
 }
 __host__ __device__ inline int job_tiles(const Job& j) {
   return ((j.M + BM - 1) / BM) * ((j.N + tile_cols(j) - 1) / tile_cols(j));
@@ -187,12 +194,12 @@ __device__ __forceinline__ void stage(bf16* st, const bf16* x, int ld, bool k_co
 }
 
 // One BM x BN tile of job j (rows from m0, tile columns from n0: for
-// GRU1 units from n0).
+// gate tiles units from n0).
 template <bool TA, bool TB>
 __device__ void tile(const Job& j, int m0, int n0, bf16* smem) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;
-  const bool gate = j.epi == GRU1;
+  const bool gate = j.epi == GRU1 || j.epi == GRU_COEF;
   const int H = j.N;
   int nq[2] = {0, 0};
   for (int s = 0; s < j.nseg; ++s) nq[s] = (j.s[s].K + BK - 1) / BK;
@@ -264,6 +271,25 @@ __device__ void tile(const Job& j, int m0, int n0, bf16* smem) {
         }
   }
   __syncthreads();
+  if (j.epi == GRU_COEF) {   // hg = acc + bias, then the cell's coefficients
+    const int H3 = 3 * H;
+    for (int i = tid; i < BM * GATE_UNITS; i += THREADS) {
+      const int rr = i / GATE_UNITS, uu = i % GATE_UNITS, row = m0 + rr, u = n0 + uu;
+      if (row >= j.M || u >= H) continue;
+      float hg[3], x[3], c[5];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        hg[k] = et[rr * ES + k * GATE_UNITS + uu] + __ldg(j.add + k * H + u);
+        x[k] = __bfloat162float(j.xg[(size_t)row * H3 + k * H + u]);
+      }
+      const float h = j.h ? __ldg(j.h + (size_t)row * H + u)
+                          : __bfloat162float(j.s[0].a[(size_t)row * j.s[0].lda + u]);
+      vag::gru_unit_coef(x[0], x[1], x[2], hg[0], hg[1], hg[2], h, __ldg(j.m + row), c);
+#pragma unroll
+      for (int k = 0; k < 5; ++k) j.out[(size_t)row * j.ldo + k * H + u] = c[k];
+    }
+    return;
+  }
   if (gate) {   // hg = acc + bias, then GRU1's cell: s~ in fp32 and bf16
     const int H3 = 3 * H;
     for (int i = tid; i < BM * GATE_UNITS; i += THREADS) {

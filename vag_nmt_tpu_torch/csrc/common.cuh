@@ -1,5 +1,6 @@
-// Device code shared by the kernels: the sigmoid, a GRU cell unit and the
-// fast tanh (dec_step.cu, the dec_scan kernels, gru_bwd.cu); warp
+// Device code shared by the kernels: the sigmoid, a GRU cell unit, its
+// backward's coefficients and the fast tanh (dec_step.cu, the dec_scan
+// kernels, gru_bwd.cu); warp
 // reductions (the attention grids); the branch-free running top-K
 // insertion ordered by (value descending, index ascending)
 // (readout_topk.cu, topk_split.cuh); and the launchers' error check.
@@ -38,6 +39,28 @@ __device__ __forceinline__ float gru_unit(float xr, float xz, float xn,
   const float z = sigmoidf_(xz + hz);
   const float n = tanhf(xn + r * hn);
   return (1.f - z) * n + z * h;
+}
+
+// The masked GRU cell backward's coefficients of one unit that do not
+// depend on the gradient dh of the new state (gru_bwd.cu's bf16 instance:
+// its recompute writes them, its carry reads them): with r, z, n the gates
+// and hn the hidden side's n pre-activation (bias added), c_n = (1 - z)
+// (1 - n^2), and for the mask m (0 or 1) c = {m c_n hn r (1 - r), m (h -
+// n) z (1 - z), m c_n, m c_n r, m > 0 ? z : 1}, so that the cell backward
+// of dh is dxg = dh {c0, c1, c2}, dhg = dh {c0, c1, c3} and the carry's
+// share dh c4 (ops/gru_kernel.py's gru_cell_coef, its torch model).
+__device__ __forceinline__ void gru_unit_coef(float xr, float xz, float xn,
+                                              float hr, float hz, float hn,
+                                              float h, float m, float (&c)[5]) {
+  const float r = sigmoidf_(xr + hr);
+  const float z = sigmoidf_(xz + hz);
+  const float n = tanhf(xn + r * hn);
+  const float cn = (1.f - z) * (1.f - n * n);
+  c[0] = m * (cn * hn * (r * (1.f - r)));
+  c[1] = m * ((h - n) * (z * (1.f - z)));
+  c[2] = m * cn;
+  c[3] = m * (cn * r);
+  c[4] = m > 0.f ? z : 1.f;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -31,10 +31,9 @@
 // and dhg1 backward), and those products (the forward's readout; the
 // backward's readout terms and weight grads) and the backward's replay,
 // whose steps are independent (dec_scan_fwd.cu), run on bf16_tile.cuh's
-// m16n8k16 tiles of the bf16 copies; gru_bwd.cu's streamed tiles round
-// both operands to bf16 (a bf16 value is exact in TF32, so one TF32
-// product of them is the bf16 product) unless a job asks for fp32
-// (Job::rnd), and may read bf16 operands and store bf16 outputs. Gate
+// m16n8k16 tiles of the bf16 copies, as do gru_bwd.cu's recompute and
+// weight grads; the streamed 3xTF32 tiles below stay for fp32 products,
+// and may store a bf16 output (Job::obf: dec_scan_bwd.cu's dctx). Gate
 // math, the attention, the carries and every sum stay fp32. Without
 // VAG_BF16 the code below is the fp32 instances' as before.
 
@@ -97,10 +96,6 @@ __device__ __forceinline__ float ldx(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
 }
 __device__ __forceinline__ void stx(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-// x rounded to bf16 (to nearest even, as astype(bf16)), as fp32.
-__device__ __forceinline__ float rbf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 // Four bf16 (one uint2) as fp32: a bf16 is the high half of its float.
 __device__ __forceinline__ float4 bf16x4(const uint2 u) {
   return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
@@ -568,11 +563,7 @@ struct Job {
   int ldo;
   const float* add;
 #if VAG_SCAN_BF16
-  // bf16 instances: a[s] / b[s] / out point at bf16 elements where set
-  // (their strides and batch offsets in elements); rnd: both operands
-  // rounded to bf16, one TF32 product (else 3xTF32 on fp32 operands)
-  unsigned char abf[2], bbf[2];
-  int rnd, obf;
+  int obf;   // bf16 instances: out points at bf16 elements
 #endif
 };
 
@@ -616,65 +607,6 @@ __device__ __forceinline__ void stage_operand(float* st, const float* x, int ld,
   }
 }
 
-#if VAG_SCAN_BF16
-// A bf16 operand's part of one ring stage, in two halves: fetch_bf16
-// issues its loads into registers (four elements, one uint2, in each of a
-// thread's two chunks: GM * BK / 4 = 2 * THREADS), so they are in flight
-// while the tile's products run, as the fp32 operands' cp.async copies
-// are; store_bf16 writes them, as fp32, in stage_operand's layout. One
-// 8-byte load a chunk where vec (ld % 4 == 0, x 16-byte aligned, the
-// contiguous extent a multiple of 4), else element by element.
-static_assert(GM * (BK / 4) == 2 * THREADS && BK * (GM / 4) == 2 * THREADS,
-              "two chunks of four a thread");
-struct Bf16Part {
-  uint2 v[2];
-};
-
-// Chunk c of the thread: its element offset in x and, where it lies
-// outside, how many of its four are inside (0..3; 4 = all).
-__device__ __forceinline__ int bf16_chunk(int c, int ld, bool k_contig, int s0, int side_n,
-                                          int k0, int ke, size_t& o) {
-  const int i = threadIdx.x + c * THREADS;
-  if (k_contig) {
-    const int r = i / (BK / 4), k = k0 + (i % (BK / 4)) * 4;
-    o = (size_t)(s0 + r) * ld + k;
-    return s0 + r < side_n ? max(0, min(4, ke - k)) : 0;
-  }
-  const int kk = i / (GM / 4), cc = (i % (GM / 4)) * 4, k = k0 + kk;
-  o = (size_t)k * ld + s0 + cc;
-  return k < ke ? max(0, min(4, side_n - s0 - cc)) : 0;
-}
-
-__device__ __forceinline__ void fetch_bf16(Bf16Part& f, const __nv_bfloat16* x, int ld,
-                                           bool k_contig, int s0, int side_n, int k0,
-                                           int ke, bool vec) {
-  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    size_t o;
-    const int n = bf16_chunk(c, ld, k_contig, s0, side_n, k0, ke, o);
-    if (vec && n == 4) {
-      f.v[c] = __ldcg(reinterpret_cast<const uint2*>(x + o));
-    } else {
-      unsigned int h[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) h[e] = e < n ? __ldcg(xs + o + e) : 0u;
-      f.v[c] = make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
-    }
-  }
-}
-
-__device__ __forceinline__ void store_bf16(const Bf16Part& f, float* st, bool k_contig) {
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int i = threadIdx.x + c * THREADS;
-    float* d = k_contig ? st + (i / (BK / 4)) * TS + (i % (BK / 4)) * 4
-                        : st + (i / (GM / 4)) * GTS + (i % (GM / 4)) * 4;
-    *reinterpret_cast<float4*>(d) = bf16x4(f.v[c]);
-  }
-}
-#endif
-
 // One GM x GN tile of a job: 8 warps as 2 (rows) x 4 (columns) of 32 x 16,
 // the segments' chunks through a GSTAGES-deep ring at smem.
 template <bool TA, bool TB>
@@ -688,52 +620,18 @@ __device__ void job_tile(const Job& j, int bt, int m0, int n0, float* smem) {
   const float* bp[2];
   for (int s = 0; s < j.nseg; ++s) {
     nq[s] = (j.kd[s] + BK - 1) / BK;
-#if VAG_SCAN_BF16
-    ap[s] = j.abf[s] ? reinterpret_cast<const float*>(
-                           reinterpret_cast<const __nv_bfloat16*>(j.a[s]) + bt * j.a_bs)
-                     : j.a[s] + bt * j.a_bs;
-    bp[s] = j.bbf[s] ? reinterpret_cast<const float*>(
-                           reinterpret_cast<const __nv_bfloat16*>(j.b[s]) + bt * j.b_bs)
-                     : j.b[s] + bt * j.b_bs;
-#else
     ap[s] = j.a[s] + bt * j.a_bs;
     bp[s] = j.b[s] + bt * j.b_bs;
-#endif
     va[s] = j.lda[s] % 4 == 0 && al16(ap[s]) && (TA ? j.M : j.kd[s]) % 4 == 0;
     vb[s] = j.ldb[s] % 4 == 0 && al16(bp[s]) && (TB ? j.kd[s] : j.N) % 4 == 0;
   }
   const int n_chunks = nq[0] + nq[1];
-#if VAG_SCAN_BF16
-  // bf16 operands: fetched into registers with the stage's copies, stored
-  // into the stage after the products of the stage before (land)
-  Bf16Part fa, fb;
-  auto load = [&](int q, float* st) {
-    const int s = q < nq[0] ? 0 : 1;
-    const int k0 = (q - (s ? nq[0] : 0)) * BK;
-    if (j.abf[s])
-      fetch_bf16(fa, reinterpret_cast<const __nv_bfloat16*>(ap[s]), j.lda[s], !TA, m0,
-                 j.M, k0, j.kd[s], va[s]);
-    else
-      stage_operand(st, ap[s], j.lda[s], !TA, m0, j.M, k0, j.kd[s], va[s]);
-    if (j.bbf[s])
-      fetch_bf16(fb, reinterpret_cast<const __nv_bfloat16*>(bp[s]), j.ldb[s], TB, n0,
-                 j.N, k0, j.kd[s], vb[s]);
-    else
-      stage_operand(st + GM * TS, bp[s], j.ldb[s], TB, n0, j.N, k0, j.kd[s], vb[s]);
-  };
-  auto land = [&](int q, float* st) {
-    const int s = q < nq[0] ? 0 : 1;
-    if (j.abf[s]) store_bf16(fa, st, !TA);
-    if (j.bbf[s]) store_bf16(fb, st + GM * TS, TB);
-  };
-#else
   auto load = [&](int q, float* st) {
     const int s = q < nq[0] ? 0 : 1;
     const int k0 = (q - (s ? nq[0] : 0)) * BK;
     stage_operand(st, ap[s], j.lda[s], !TA, m0, j.M, k0, j.kd[s], va[s]);
     stage_operand(st + GM * TS, bp[s], j.ldb[s], TB, n0, j.N, k0, j.kd[s], vb[s]);
   };
-#endif
   float acc[2][2][4], cor[2][2][4];   // big x big; the remainder products
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -743,12 +641,7 @@ __device__ void job_tile(const Job& j, int bt, int m0, int n0, float* smem) {
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = cor[mi][ni][e] = 0.f;
 #pragma unroll
   for (int q = 0; q < GSTAGES - 1; ++q) {
-    if (q < n_chunks) {
-      load(q, smem + q * GSTAGE);
-#if VAG_SCAN_BF16
-      land(q, smem + q * GSTAGE);
-#endif
-    }
+    if (q < n_chunks) load(q, smem + q * GSTAGE);
     cp_async_commit();
   }
   for (int q = 0; q < n_chunks; ++q) {
@@ -761,32 +654,6 @@ __device__ void job_tile(const Job& j, int bt, int m0, int n0, float* smem) {
     const float* bs = as + GM * TS;
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 8) {
-#if VAG_SCAN_BF16
-      if (j.rnd) {   // bf16 operands: exact in TF32, one product
-        uint32_t ab[2][4], bb[2][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int m = wm * 32 + mi * 16 + g, k = ks + tg;
-          auto A = [&](int mm, int kk) { return TA ? as[kk * GTS + mm] : as[mm * TS + kk]; };
-          ab[mi][0] = __float_as_uint(rbf(A(m, k)));
-          ab[mi][1] = __float_as_uint(rbf(A(m + 8, k)));
-          ab[mi][2] = __float_as_uint(rbf(A(m, k + 4)));
-          ab[mi][3] = __float_as_uint(rbf(A(m + 8, k + 4)));
-        }
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-          const int n = wn * 16 + ni * 8 + g, k = ks + tg;
-          auto Bv = [&](int kk, int nn) { return TB ? bs[nn * TS + kk] : bs[kk * GTS + nn]; };
-          bb[ni][0] = __float_as_uint(rbf(Bv(k, n)));
-          bb[ni][1] = __float_as_uint(rbf(Bv(k + 4, n)));
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 2; ++ni) mma_tf32(acc[mi][ni], ab[mi], bb[ni]);
-        continue;
-      }
-#endif
       uint32_t ab[2][4], asl[2][4], bb[2][2], bsl[2][2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
@@ -818,9 +685,6 @@ __device__ void job_tile(const Job& j, int bt, int m0, int n0, float* smem) {
 #pragma unroll
         for (int ni = 0; ni < 2; ++ni) mma_tf32(cor[mi][ni], ab[mi], bsl[ni]);
     }
-#if VAG_SCAN_BF16
-    if (qn < n_chunks) land(qn, smem + (qn % GSTAGES) * GSTAGE);
-#endif
   }
   cp_async_wait<0>();
 #if VAG_SCAN_BF16

@@ -48,24 +48,28 @@
 // Widths that are no multiple of 16 are zero-padded by the wrapper
 // (ops/gru_kernel.py), which is exact: a padded unit stays 0.
 //
-// The bf16-stream instance (-DVAG_BF16=1; pallas_gru.py's bf16 streams
-// under compute_dtype="bfloat16"): xg arrives and the states leave in
-// bf16, the carry and the gate math stay fp32, and hg is bf16(h) @
-// bf16(Uh) + bh with fp32 sums (each thread's FMA chain over k = 0, 1,
-// ..., H - 1; the products of bf16 values are exact in fp32). Its
-// epilogue takes the plain version's operations (ops/gru_kernel.py) in
-// their order, each rounded (no contraction into an FMA), with the same
-// expf and tanhf, so its states differ from the plain version's only
-// where the two products' fp32 sums round apart (chip_smoke.py's phase 19
-// prints the share of identical states): a state one bf16 ulp apart
-// feeds the next step's product and spreads along the recurrence. The
-// wrapper passes Uh rounded to bf16 (in fp32, so the slice, its layout
-// and the FMA loop are the fp32 instance's: products of bf16 values are
-// exact in fp32; rounding it in the slice's packing loop instead measured
-// 0.1 ms slower a call on the H100) and h0 rounded; the carry goes
-// through hc (2, B, H) fp32, and the rounded states the product stages
-// through ps (2, B, H), both written by the epilogue (slot step % 2),
-// since the bf16 out cannot carry the fp32 state.
+// The bf16-stream instance (-DVAG_BF16=1, build gru_fwd_bf16_fma) is
+// kernel 2b for scans that need no gradient, the bf16 decode's encoder:
+// its sums run in the plain version's k order, so its states are the plain
+// version's bit for bit where cuBLAS sums in k order (training's kernel
+// 2b, csrc/gru_fwd_bf16.cu, sums on the tensor cores; PERF.md). As
+// pallas_gru.py's bf16 streams under compute_dtype="bfloat16", xg arrives
+// and the states leave in bf16, the carry and the gate math stay fp32, and
+// hg is bf16(h) @ bf16(Uh) + bh with fp32 sums (each thread's FMA chain
+// over k = 0, 1, ..., H - 1; the products of bf16 values are exact in
+// fp32). Its epilogue takes the plain version's operations
+// (ops/gru_kernel.py) in their order, each rounded (no contraction into an
+// FMA), with the same expf and tanhf, so its states differ from the plain
+// version's only where the two products' fp32 sums round apart
+// (chip_smoke.py's phase 19 prints the share of identical states): a state
+// one bf16 ulp apart feeds the next step's product and spreads along the
+// recurrence. The wrapper passes Uh rounded to bf16 (in fp32, so the
+// slice, its layout and the FMA loop are the fp32 instance's: products of
+// bf16 values are exact in fp32; rounding it in the slice's packing loop
+// instead measured 0.1 ms slower a call on the H100) and h0 rounded; the
+// carry goes through hc (2, B, H) fp32, and the rounded states the product
+// stages through ps (2, B, H), both written by the epilogue (slot step %
+// 2), since the bf16 out cannot carry the fp32 state.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -17,9 +17,12 @@ The streams' dtype picks the numerics, as in ``pallas_gru.py`` (whose
 stream dtype is the compute dtype unless ``VAG_GRU_STREAM=fp32``): with
 ``xg_t`` in bf16 the states leave in bf16 (``hs_t``), the cotangents
 arrive and ``dxg_t`` leaves in bf16, and every product is bf16 x bf16 ->
-fp32 (``h.astype(bf16) @ uh.astype(bf16)``), through the kernels' bf16
-instances (builds ``gru_fwd_bf16``, ``gru_bwd_bf16``); the carry, the gate
-math, dUh, dbh and dh0 stay fp32.
+fp32 (``h.astype(bf16) @ uh.astype(bf16)``), through the bf16 instances
+(builds ``gru_fwd_bf16``, ``csrc/gru_fwd_bf16.cu``: the per-step product on
+the bf16 tensor cores, tiled by ``gru_fwd_bf16_plan``; ``gru_bwd_bf16``:
+the recompute and the weight grads on bf16 tiles, the cell backward's
+coefficients precomputed for the carry, ``gru_cell_coef``); the carry, the
+gate math, dUh, dbh and dh0 stay fp32.
 """
 
 from __future__ import annotations
@@ -260,9 +263,10 @@ def _launch(fn, plan: GruFwdPlan, xg_t: torch.Tensor, mask_t: torch.Tensor,
     """Enqueue one scan through C entry ``fn`` (csrc/gru_fwd.cu's
     gru_fwd_launch) tiled by ``plan`` (with ``plan.l2``, a scratch buffer
     of 3 H^2 floats for Uh's slices); returns hs_t. A bf16 ``xg_t`` goes
-    to the bf16 instance's entry with its carry buffers and h0 rounded
-    (``uh`` already rounded by the caller). Raises when the launcher
-    refuses the plan (not co-resident, malformed) or the launch fails."""
+    to the bf16 build's entry (gru_fwd_bf16_fma) with its carry buffers
+    and h0 rounded (``uh`` already rounded by the caller). Raises when the
+    launcher refuses the plan (not co-resident, malformed) or the launch
+    fails."""
     T, B, H3 = xg_t.shape
     dev = xg_t.device
     out = torch.empty((T, B, H3 // 3), dtype=xg_t.dtype, device=dev)
@@ -285,9 +289,49 @@ def _launch(fn, plan: GruFwdPlan, xg_t: torch.Tensor, mask_t: torch.Tensor,
     return out
 
 
+def _ptrs(xs) -> ctypes.Array:
+    """The device pointers of tensors xs as a C array (one a scan)."""
+    return (ctypes.c_void_p * len(xs))(*(x.data_ptr() for x in xs))
+
+
+def _ints(xs) -> ctypes.Array:
+    return (ctypes.c_int * len(xs))(*xs)
+
+
+def _launch_bf16(plan: "PersistentPlan", mask_t: torch.Tensor,
+                 scans) -> list:
+    """Enqueue len(scans) bf16-stream scans (1, or 2 on plan's disjoint CTA
+    ranges), each (xg_t, uh, bh, h0, reverse), as one grid of
+    csrc/gru_fwd_bf16.cu tiled by ``plan`` (gru_fwd_bf16_plan,
+    gru_fwd_pair_plan), with each scan's (2, B, H) fp32 carry and, where
+    the plan puts Uh's slices in L2, their buffer; Uh passed in bf16.
+    Returns each scan's hs_t in bf16; raises when the launcher refuses the
+    plan or the launch fails."""
+    T, B, H3 = scans[0][0].shape
+    H, dev = H3 // 3, mask_t.device
+    outs = [torch.empty((T, B, H), dtype=torch.bfloat16, device=dev)
+            for _ in scans]
+    carry = [torch.empty((2, B, H), dtype=torch.float32, device=dev)
+             for _ in scans]
+    wl2 = (torch.empty(plan.l2_floats, dtype=torch.float32, device=dev)
+           if plan.l2_floats else None)
+    w = [sc[1].to(torch.bfloat16).contiguous() for sc in scans]
+    args = plan.launch_args()
+    rc = _build.load("gru_fwd_bf16").gru_fwd_bf16_launch(
+        len(scans), _ptrs([sc[0] for sc in scans]), mask_t.data_ptr(),
+        _ptrs(w), _ptrs([sc[2] for sc in scans]), _ptrs([sc[3] for sc in scans]),
+        _ptrs(outs), _ptrs(carry), _ints([int(sc[4]) for sc in scans]), T, B,
+        H, _ints(args), len(args), None if wl2 is None else wl2.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gru_fwd_bf16 kernel launch failed: CUDA error "
+                           f"{rc} (plan {plan})")
+    return outs
+
+
 def gru_fwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
             bh: torch.Tensor, h0: torch.Tensor, *, reverse: bool = False,
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", k_order: bool = False) -> torch.Tensor:
     """hs_t (T, B, H) of the masked GRU recurrence. impl: "auto" (kernel for
     CUDA tensors, plain for CPU tensors), "kernel" or "plain".
 
@@ -296,9 +340,14 @@ def gru_fwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     this card: it counts one in ``gru_fwd.launches`` and one in
     ``gru_fwd.grids``. A width that is no multiple of 16 runs zero-padded
     to ``padded_width(H)`` (``pad_units``, exact), the output cut back. A
-    plan the card cannot hold co-resident raises. A bf16 ``xg_t`` runs the
+    plan the card cannot hold co-resident raises. A bf16 ``xg_t`` runs a
     bf16-stream instance (``gru_fwd.bf16_launches`` counts those calls)
-    and returns hs_t in bf16."""
+    and returns hs_t in bf16: csrc/gru_fwd_bf16.cu, tiled by
+    ``gru_fwd_bf16_plan``, its sums on the tensor cores; with ``k_order``
+    csrc/gru_fwd.cu's bf16 build, tiled by ``gru_fwd_plan``, each sum an
+    FMA chain in k order as the plain version's (ops/gru.py takes it for
+    scans that need no gradient: the decode's states then are the plain
+    version's where cuBLAS sums in k order)."""
     if resolve_impl(impl, xg_t) == "plain":
         return gru_fwd_plain(xg_t, mask_t, uh, bh, h0, reverse=reverse)
     T, B, H3 = xg_t.shape
@@ -315,11 +364,16 @@ def gru_fwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     Hp = padded_width(H)
     if Hp != H:
         xg_t, uh, bh, h0 = pad_units(xg_t, uh, bh, h0, Hp)
-    if bf:
-        uh = rbf(uh).contiguous()   # the product's operand, exact in fp32
-    plan = gru_fwd_plan(B, Hp, *_device_limits(xg_t.device))
-    lib = _build.load("gru_fwd_bf16" if bf else "gru_fwd")
-    out = _launch(lib.gru_fwd_launch, plan, xg_t, mask_t, uh, bh, h0, reverse)
+    limits = _device_limits(xg_t.device)
+    if bf and not k_order:
+        out, = _launch_bf16(gru_fwd_bf16_plan(B, Hp, *limits), mask_t,
+                            [(xg_t, uh, bh, h0, reverse)])
+    else:
+        if bf:
+            uh = rbf(uh).contiguous()   # the product's operand, exact in fp32
+        lib = _build.load("gru_fwd_bf16_fma" if bf else "gru_fwd")
+        out = _launch(lib.gru_fwd_launch, gru_fwd_plan(B, Hp, *limits), xg_t,
+                      mask_t, uh, bh, h0, reverse)
     gru_fwd.launches += 1
     gru_fwd.grids += 1
     gru_fwd.bf16_launches += bf
@@ -331,15 +385,29 @@ gru_fwd.grids = 0
 gru_fwd.bf16_launches = 0
 
 _GRU_DEFINES = {"VAG_GRU_STAGES": GRU_STAGES, "VAG_GRU_PAD": GRU_PAD}
+# The bf16 GRU builds' depth of a per-step product's activation prefetch
+# (16-deep slabs in flight a warp; dec_scan.cuh's PREFETCH, 4 in the other
+# builds): their products read the fp32 carry (2b) or dhg (3b, depth 3H)
+# from L2, latency-bound at B = 64 (PERF.md).
+GRU_BF16_PREFETCH = 12
+_GRU_BF16_DEFINES = {**_SCAN_DEFINES, "VAG_BF16": 1,
+                     "VAG_PREFETCH": GRU_BF16_PREFETCH}
 _GRU_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _build.declare("gru_fwd", "gru_fwd_launch", _GRU_FWD_ARGS, _GRU_DEFINES)
-# the bf16-stream instance: the same source, its entry takes the carry
-# buffers hc, ps and the rounded h0 after the stream
-_build.declare("gru_fwd_bf16", "gru_fwd_launch",
-               _GRU_FWD_ARGS + [ctypes.c_void_p] * 3,
-               {**_GRU_DEFINES, "VAG_BF16": 1}, src="gru_fwd")
 _build.declare("gru_fwd", "gru_fwd_limits",
                [ctypes.POINTER(ctypes.c_int)] * 2, _GRU_DEFINES)
+# its bf16-stream build (k_order): the entry takes the carry buffers hc, ps
+# and the rounded h0 after the stream
+_build.declare("gru_fwd_bf16_fma", "gru_fwd_launch",
+               _GRU_FWD_ARGS + [ctypes.c_void_p] * 3,
+               {**_GRU_DEFINES, "VAG_BF16": 1}, src="gru_fwd")
+# the bf16-stream instance, a source of its own on dec_scan.cuh's products;
+# its entry takes one or two scans, their pointers in arrays
+_VP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+_build.declare("gru_fwd_bf16", "gru_fwd_bf16_launch",
+               [ctypes.c_int, _VP, ctypes.c_void_p] + [_VP] * 5 + [_IP]
+               + [ctypes.c_int] * 3 + [_IP, ctypes.c_int]
+               + [ctypes.c_void_p] * 2, _GRU_BF16_DEFINES)
 
 
 def gru_cell_bwd_plain(xg: torch.Tensor, hg: torch.Tensor, h: torch.Tensor,
@@ -366,6 +434,38 @@ def gru_cell_bwd_plain(xg: torch.Tensor, hg: torch.Tensor, h: torch.Tensor,
     dhg = torch.cat([da_r, da_z, da_n * r], dim=-1)
     base = dh_cell * z if m is None else dh_cell * z + dh * (1.0 - m)
     return dxg, dhg, base
+
+
+def gru_cell_coef(xg: torch.Tensor, hg: torch.Tensor, h: torch.Tensor,
+                  m: torch.Tensor) -> torch.Tensor:
+    """The masked cell backward's coefficients that do not depend on the
+    gradient dh of the new state, as the bf16 backward's recompute writes
+    them (common.cuh's gru_unit_coef): (N, 5H), blocks [c_r, c_z, c_n,
+    c_nr, share] with c_n = (1 - z)(1 - n^2) and, for the (N, 1) 0/1 mask
+    m, c_r = m c_n hn r (1 - r), c_z = m (h - n) z (1 - z), c_n m, c_nr = m
+    c_n r and share = z where m > 0, else 1. ``gru_cell_bwd_coef`` takes
+    them to gru_cell_bwd_plain's outputs."""
+    H = h.shape[-1]
+    r = torch.sigmoid(xg[:, :H] + hg[:, :H])
+    z = torch.sigmoid(xg[:, H:2 * H] + hg[:, H:2 * H])
+    hn = hg[:, 2 * H:]
+    n = torch.tanh(xg[:, 2 * H:] + r * hn)
+    cn = (1.0 - z) * (1.0 - n * n)
+    return torch.cat([m * (cn * hn * (r * (1.0 - r))),
+                      m * ((h - n) * (z * (1.0 - z))), m * cn, m * (cn * r),
+                      torch.where(m > 0, z, torch.ones_like(z))], dim=-1)
+
+
+def gru_cell_bwd_coef(c: torch.Tensor, dh: torch.Tensor):
+    """The carry's epilogue of the bf16 backward on ``gru_cell_coef``'s
+    coefficients c (N, 5H): (dxg, dhg, base) = (dh [c_r, c_z, c_n], dh
+    [c_r, c_z, c_nr], dh share), gru_cell_bwd_plain's outputs up to the
+    rounding of its products in another order."""
+    H = dh.shape[-1]
+    cr, cz, cn, cnr, share = (c[:, k * H:(k + 1) * H] for k in range(5))
+    dr, dz = dh * cr, dh * cz
+    return (torch.cat([dr, dz, dh * cn], dim=-1),
+            torch.cat([dr, dz, dh * cnr], dim=-1), dh * share)
 
 
 def _prev_states(hs_t: torch.Tensor, h0: torch.Tensor,
@@ -407,11 +507,14 @@ def gru_bwd_plain(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
 
 
 @dataclass(frozen=True)
-class GruBwdPlan:
-    """Tiling of the carry grid of one ``gru_bwd`` call (csrc/gru_bwd.cu):
-    ``ctas`` CTAs (one a SM) and the per-step product dh += dhg @ Uh^T as
-    ``product`` tiles it (Uh^T sliced by output unit, read transposed from
-    the row-major uh: resident in shared memory from float 0 or, when
+class PersistentPlan:
+    """Tiling of a persistent cooperative grid that runs one of
+    dec_scan.cuh's per-step products each step: the carry of one
+    ``gru_bwd`` call (csrc/gru_bwd.cu, dh += dhg @ Uh^T, Uh^T sliced by
+    output unit and read transposed from the row-major uh) or the bf16
+    forward's scan (csrc/gru_fwd_bf16.cu, hg = h @ Uh on gate tiles):
+    ``ctas`` CTAs (one a SM at most) and the product as ``product`` tiles
+    it (its weight slices resident in shared memory from float 0 or, when
     ``l2_floats`` > 0, in a buffer of that many floats read through L2),
     the k-slices' accumulators at float ``scratch_off``, ``smem_bytes`` of
     dynamic shared memory."""
@@ -421,15 +524,112 @@ class GruBwdPlan:
     scratch_off: int
     smem_bytes: int
     l2_floats: int
+    # the bi-GRU's other direction on CTAs of its own (the pair plans)
+    second: Optional[ScanProduct] = None
+
+    @property
+    def products(self) -> Tuple[ScanProduct, ...]:
+        return (self.product,) + ((self.second,) if self.second else ())
 
     def launch_args(self) -> Tuple[int, ...]:
         return (self.ctas, self.scratch_off, self.smem_bytes, self.l2_floats,
-                *self.product.launch_args())
+                *(a for p in self.products for a in p.launch_args()))
+
+
+def _persistent_plan(spec, B: int, H: int, n_sms: int, max_smem: int,
+                     bf16: bool, all_sms: bool,
+                     fewest_passes: bool = False) -> Optional[PersistentPlan]:
+    """The best tiling of product ``spec`` (scan_tiles' (name, depth,
+    cols, gate)) by gru_bwd_plan's order, or None where nothing fits; the
+    grid of ``n_sms`` CTAs when ``all_sms``, else of the product's;
+    ``fewest_passes``: among tilings of equal work and reads, the fewest
+    tiles a CTA a step (each a product and an epilogue in turn)."""
+    best, best_key = None, None
+    for p in _product_options(spec, B, H, n_sms, bf16):
+        scratch = _up(p.part_floats, 32)
+        region = _up(p.region_floats, 32)
+        resident = 4 * (region + scratch) <= max_smem
+        if not resident and 4 * scratch > max_smem:
+            continue
+        smem = 4 * (region + scratch) if resident else 4 * scratch
+        key = (not resident, p.work, p.passes * p.tile_rows * p.depth,
+               p.passes if fewest_passes else 0, p.ctas, smem)
+        if best_key is None or key < best_key:
+            best_key = key
+            ctas = n_sms if all_sms else p.ctas
+            best = (PersistentPlan(ctas, replace(p, woff=0), region, smem, 0)
+                    if resident else
+                    PersistentPlan(ctas, replace(p, l2off=0), 0, smem,
+                                   p.ctas * p.region_floats))
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def gru_fwd_bf16_plan(B: int, H: int, n_sms: int,
+                      max_smem: int) -> PersistentPlan:
+    """Kernel 2b's tiling of a (B, H) scan (csrc/gru_fwd_bf16.cu): the
+    per-step product hg = h @ Uh on gate tiles (a block of ub units, their
+    r, z and n columns in one tile, so the cell runs in the product's
+    epilogue) with Uh's bf16 slices, chosen as ``gru_bwd_plan`` chooses
+    (resident slices first, then the least work and activation reads of
+    the busiest CTA a step, then the fewest tiles a CTA a step, fewer
+    CTAs, less shared memory); the grid is the product's CTAs. Raises
+    ValueError where nothing fits or H is not a positive multiple of 16
+    (the wrapper pads it)."""
+    if B < 1 or n_sms < 1 or H < 16 or H % 16:
+        raise ValueError(f"gru_fwd_bf16_plan: H={H} must be a positive "
+                         f"multiple of 16 (and B={B}, n_sms={n_sms} "
+                         "positive)")
+    plan = _persistent_plan(("hg", H, 3 * H, True), B, H, n_sms, max_smem,
+                            True, False, fewest_passes=True)
+    if plan is None:
+        raise ValueError(f"gru_fwd_bf16_plan: the accumulators of B={B}, "
+                         f"H={H} do not fit {max_smem} bytes of shared "
+                         "memory")
+    return plan
+
+
+def _pair(plan: PersistentPlan, half: int) -> PersistentPlan:
+    """Both directions of the bi-GRU in one grid: ``plan`` (made for
+    ``half`` SMs) for the first and its copy on the CTAs from ``half`` on
+    (its L2 slices after the first's) for the second."""
+    p = plan.product
+    second = replace(p, cta0=half,
+                     l2off=p.l2off + plan.l2_floats if p.l2off >= 0 else -1)
+    return replace(plan, ctas=2 * half, l2_floats=2 * plan.l2_floats,
+                   second=second)
+
+
+@functools.lru_cache(maxsize=256)
+def gru_fwd_pair_plan(B: int, H: int, n_sms: int,
+                      max_smem: int) -> PersistentPlan:
+    """Kernel 2b's tiling of both directions' (B, H) scans in one grid:
+    each direction ``gru_fwd_bf16_plan`` on half of the SMs, the second on
+    CTAs of its own. Raises as gru_fwd_bf16_plan (and on a card of one
+    SM)."""
+    if n_sms < 2:
+        raise ValueError(f"gru_fwd_pair_plan: n_sms={n_sms} must be at least "
+                         "2 (positive)")
+    half = gru_fwd_bf16_plan(B, H, n_sms // 2, max_smem)
+    return _pair(half, half.ctas)
+
+
+@functools.lru_cache(maxsize=256)
+def gru_bwd_pair_plan(B: int, H: int, n_sms: int,
+                      max_smem: int) -> PersistentPlan:
+    """Kernel 3b's carry tiling of both directions in one grid: each
+    direction ``gru_bwd_plan`` (bf16) on half of the SMs, the second on
+    CTAs of its own."""
+    if n_sms < 2:
+        raise ValueError(f"gru_bwd_pair_plan: n_sms={n_sms} must be at least "
+                         "2 (positive)")
+    return _pair(gru_bwd_plan(B, H, n_sms // 2, max_smem, bf16=True),
+                 n_sms // 2)
 
 
 @functools.lru_cache(maxsize=256)
 def gru_bwd_plan(B: int, H: int, n_sms: int, max_smem: int,
-                 bf16: bool = False) -> GruBwdPlan:
+                 bf16: bool = False) -> PersistentPlan:
     """The carry's tiling of a (B, H) scan on a card of ``n_sms`` SMs with
     ``max_smem`` bytes of shared memory a block, among the product's
     tilings (``scan_tiles._product_options``: column tiles of Uh^T's output
@@ -445,22 +645,8 @@ def gru_bwd_plan(B: int, H: int, n_sms: int, max_smem: int,
     if min(B, H, n_sms) < 1:
         raise ValueError(f"gru_bwd_plan: B={B}, H={H}, n_sms={n_sms} must be "
                          "positive")
-    best, best_key = None, None
-    for p in _product_options(("dh", 3 * H, H, False), B, H, n_sms, bf16):
-        scratch = _up(p.part_floats, 32)
-        region = _up(p.region_floats, 32)
-        resident = 4 * (region + scratch) <= max_smem
-        if not resident and 4 * scratch > max_smem:
-            continue
-        smem = 4 * (region + scratch) if resident else 4 * scratch
-        key = (not resident, p.work, p.passes * p.tile_rows * p.depth,
-               p.ctas, smem)
-        if best_key is None or key < best_key:
-            best_key = key
-            best = (GruBwdPlan(n_sms, replace(p, woff=0), region, smem, 0)
-                    if resident else
-                    GruBwdPlan(n_sms, replace(p, l2off=0), 0, smem,
-                               p.ctas * p.region_floats))
+    best = _persistent_plan(("dh", 3 * H, H, False), B, H, n_sms, max_smem,
+                            bf16, True)
     if best is None:
         raise ValueError(f"gru_bwd_plan: the accumulators of B={B}, H={H} do "
                          f"not fit {max_smem} bytes of shared memory")
@@ -481,7 +667,9 @@ def gru_bwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     csrc/gru_bwd.cu): it counts one in ``gru_bwd.launches`` and those in
     ``gru_bwd.grids``. Raises when the plan or the launch fails (no
     fallback). bf16 streams (xg_t, hs_t, g_t) run the bf16-stream instance
-    (counted in ``gru_bwd.bf16_launches``), Uh passed to it as bf16."""
+    (counted in ``gru_bwd.bf16_launches``), Uh and h0 passed to it also in
+    bf16, its recompute writing the cell's coefficients (T, B, 5H) for the
+    carry, which writes dhg and a bf16 copy for the weight grads."""
     if resolve_impl(impl, xg_t) == "plain":
         return gru_bwd_plain(xg_t, mask_t, uh, bh, h0, hs_t, g_t,
                              reverse=reverse)
@@ -496,44 +684,151 @@ def gru_bwd(xg_t: torch.Tensor, mask_t: torch.Tensor, uh: torch.Tensor,
     check_kernel_arg(h0, torch.float32, (B, H), "gru_bwd: h0")
     check_kernel_arg(hs_t, sdt, (T, B, H), "gru_bwd: hs_t")
     check_kernel_arg(g_t, sdt, (T, B, H), "gru_bwd: g_t")
-    dev = xg_t.device
-    plan = gru_bwd_plan(B, H, *_device_limits(dev), bf16=bf)
-    # scratch: hg (h_prev @ Uh), dhg, base (the carry's direct part)
-    f32 = torch.float32
-    hg = torch.empty((T, B, 3 * H), dtype=f32, device=dev)
-    dhg = torch.empty_like(hg)
-    base = torch.empty_like(h0)
-    dxg, dh0 = torch.empty_like(xg_t), torch.empty_like(h0)
-    duh, dbh = torch.empty_like(uh), torch.empty_like(bh)
-    wl2 = (torch.empty(plan.l2_floats, dtype=torch.float32, device=dev)
-           if plan.l2_floats else None)
-    args = plan.launch_args()
-    w = uh.to(torch.bfloat16).contiguous() if bf else uh
-    rc = _build.load("gru_bwd_bf16" if bf else "gru_bwd").gru_bwd_launch(
-        *(x.data_ptr() for x in (xg_t, mask_t, w, bh, hs_t, h0, g_t, hg, dhg,
-                                 base, dxg, dh0, duh, dbh)),
-        T, B, H, int(reverse), (ctypes.c_int * len(args))(*args), len(args),
-        None if wl2 is None else wl2.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gru_bwd kernel launch failed: CUDA error {rc} "
-                           f"(plan {plan})")
+    plan = gru_bwd_plan(B, H, *_device_limits(xg_t.device), bf16=bf)
+    out, = _launch_bwd(plan, mask_t, [(xg_t, uh, bh, h0, hs_t, g_t, reverse)])
     gru_bwd.launches += 1
     gru_bwd.grids += GRU_BWD_GRIDS
     gru_bwd.bf16_launches += bf
-    return dxg, duh, dbh, dh0
+    return out
+
+
+def _launch_bwd(plan: PersistentPlan, mask_t: torch.Tensor, scans) -> list:
+    """Enqueue one ``gru_bwd`` call of len(scans) scans (2 only on bf16
+    streams, on plan's disjoint CTA ranges), each (xg_t, uh, bh, h0, hs_t,
+    g_t, reverse), with its scratch: hg (h_prev @ Uh; bf16: the
+    coefficients, 5H wide), dhg, base (the carry's direct part); bf16: dhg's
+    bf16 copy and h0 rounded (the products' operands). Returns each scan's
+    (dxg_t, duh, dbh, dh0); raises when the launcher refuses the plan or
+    the launch fails."""
+    xg_t = scans[0][0]
+    T, B, H3 = xg_t.shape
+    H, dev = H3 // 3, xg_t.device
+    bf = xg_t.dtype == torch.bfloat16
+    f32 = torch.float32
+    cols = {"hg": (5 if bf else 3) * H, "dhg": 3 * H}
+    sc = {k: [torch.empty((T, B, c), dtype=f32, device=dev) for _ in scans]
+          for k, c in cols.items()}
+    base = [torch.empty((B, H), dtype=f32, device=dev) for _ in scans]
+    outs = [(torch.empty_like(x), torch.empty((B, H), dtype=f32, device=dev),
+             torch.empty((H, H3), dtype=f32, device=dev),
+             torch.empty((H3,), dtype=f32, device=dev))
+            for x, *_ in scans]
+    wl2 = (torch.empty(plan.l2_floats, dtype=f32, device=dev)
+           if plan.l2_floats else None)
+    w = [x[1].to(torch.bfloat16).contiguous() if bf else x[1] for x in scans]
+    extra = ()
+    if bf:   # held here until the launch is enqueued
+        dhgb = [torch.empty_like(d, dtype=torch.bfloat16) for d in sc["dhg"]]
+        h0b = [x[3].to(torch.bfloat16) for x in scans]
+        extra = (_ptrs(dhgb), _ptrs(h0b))
+    args = plan.launch_args()
+
+    def col(i):
+        return _ptrs([x[i] for x in scans])
+
+    rc = _build.load("gru_bwd_bf16" if bf else "gru_bwd").gru_bwd_launch(
+        len(scans), col(0), mask_t.data_ptr(), _ptrs(w), col(2), col(4),
+        col(3), col(5), _ptrs(sc["hg"]), _ptrs(sc["dhg"]), _ptrs(base),
+        _ptrs([o[0] for o in outs]), _ptrs([o[1] for o in outs]),
+        _ptrs([o[2] for o in outs]), _ptrs([o[3] for o in outs]),
+        _ints([int(x[6]) for x in scans]), T, B, H, _ints(args), len(args),
+        None if wl2 is None else wl2.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, *extra)
+    if rc != 0:
+        raise RuntimeError(f"gru_bwd kernel launch failed: CUDA error {rc} "
+                           f"(plan {plan})")
+    # (dxg, duh, dbh, dh0) in the order of the plain version
+    return [(o[0], o[2], o[3], o[1]) for o in outs]
 
 
 gru_bwd.launches = 0
 gru_bwd.grids = 0
 gru_bwd.bf16_launches = 0
 
-for _name, _defines in (("gru_bwd", _SCAN_DEFINES),
-                        ("gru_bwd_bf16", {**_SCAN_DEFINES, "VAG_BF16": 1})):
-    _build.declare(_name, "gru_bwd_launch",
-                   [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-                   + [ctypes.c_void_p] * 2, _defines, src="gru_bwd")
+
+def _check_pair(what: str, xgs, mask_t, uhs, bhs, h0s, streams=()) -> None:
+    """The pair wrappers' argument checks: each direction's bf16 xg (T, B,
+    3H), fp32 uh, bh, h0, and the bf16 ``streams`` (T, B, H)."""
+    T, B, H3 = xgs[0].shape
+    H = H3 // 3
+    check_kernel_arg(mask_t, torch.float32, (T, B), f"{what}: mask_t")
+    for d, (xg, uh, bh, h0) in enumerate(zip(xgs, uhs, bhs, h0s)):
+        check_kernel_arg(xg, torch.bfloat16, (T, B, 3 * H), f"{what}: xg[{d}]")
+        check_kernel_arg(uh, torch.float32, (H, 3 * H), f"{what}: uh[{d}]")
+        check_kernel_arg(bh, torch.float32, (3 * H,), f"{what}: bh[{d}]")
+        check_kernel_arg(h0, torch.float32, (B, H), f"{what}: h0[{d}]")
+    for i, x in enumerate(streams):
+        check_kernel_arg(x, torch.bfloat16, (T, B, H), f"{what}: stream {i}")
+
+
+def gru_fwd_pair(xg_f: torch.Tensor, xg_b: torch.Tensor, mask_t: torch.Tensor,
+                 uh_f: torch.Tensor, bh_f: torch.Tensor, uh_b: torch.Tensor,
+                 bh_b: torch.Tensor, h0_f: torch.Tensor, h0_b: torch.Tensor,
+                 *, impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both directions of the bi-GRU on bf16 streams: (hs_f, hs_b), the
+    scan of xg_f forward and of xg_b in reverse, over one mask. impl as
+    gru_fwd; plain: the two plain scans. The kernel path runs them as one
+    grid of kernel 2b (csrc/gru_fwd_bf16.cu) tiled by
+    ``gru_fwd_pair_plan``, each direction on CTAs of its own and a step of
+    both one grid sync: it counts two in ``gru_fwd.launches`` and
+    ``gru_fwd.bf16_launches`` (one a scan) and one in ``gru_fwd.grids``."""
+    if resolve_impl(impl, xg_f) == "plain":
+        return (gru_fwd_plain(xg_f, mask_t, uh_f, bh_f, h0_f),
+                gru_fwd_plain(xg_b, mask_t, uh_b, bh_b, h0_b, reverse=True))
+    _check_pair("gru_fwd_pair", (xg_f, xg_b), mask_t, (uh_f, uh_b),
+                (bh_f, bh_b), (h0_f, h0_b))
+    T, B, H3 = xg_f.shape
+    H = H3 // 3
+    Hp = padded_width(H)
+    scans = []
+    for xg, uh, bh, h0, rev in ((xg_f, uh_f, bh_f, h0_f, False),
+                                (xg_b, uh_b, bh_b, h0_b, True)):
+        if Hp != H:
+            xg, uh, bh, h0 = pad_units(xg, uh, bh, h0, Hp)
+        scans.append((xg, uh, bh, h0, rev))
+    outs = _launch_bf16(gru_fwd_pair_plan(B, Hp, *_device_limits(xg_f.device)),
+                        mask_t, scans)
+    gru_fwd.launches += 2
+    gru_fwd.grids += 1
+    gru_fwd.bf16_launches += 2
+    return tuple(o if Hp == H else o[..., :H].contiguous() for o in outs)
+
+
+def gru_bwd_pair(xg_f: torch.Tensor, xg_b: torch.Tensor, mask_t: torch.Tensor,
+                 uh_f: torch.Tensor, bh_f: torch.Tensor, uh_b: torch.Tensor,
+                 bh_b: torch.Tensor, h0_f: torch.Tensor, h0_b: torch.Tensor,
+                 hs_f: torch.Tensor, hs_b: torch.Tensor, g_f: torch.Tensor,
+                 g_b: torch.Tensor, *, impl: str = "auto"):
+    """Gradients of ``gru_fwd_pair``'s two scans: ((dxg_t, duh, dbh, dh0)
+    forward, the same in reverse) given their states and cotangents, bf16
+    streams. impl as gru_fwd; plain: the two plain backwards. The kernel
+    path enqueues GRU_BWD_GRIDS grids of kernel 3b for both (each grid's
+    tiles of both directions in one launch, the carry tiled by
+    ``gru_bwd_pair_plan``, each direction on CTAs of its own): it counts
+    two in ``gru_bwd.launches`` and ``gru_bwd.bf16_launches`` and those
+    grids in ``gru_bwd.grids``."""
+    if resolve_impl(impl, xg_f) == "plain":
+        return (gru_bwd_plain(xg_f, mask_t, uh_f, bh_f, h0_f, hs_f, g_f),
+                gru_bwd_plain(xg_b, mask_t, uh_b, bh_b, h0_b, hs_b, g_b,
+                              reverse=True))
+    _check_pair("gru_bwd_pair", (xg_f, xg_b), mask_t, (uh_f, uh_b),
+                (bh_f, bh_b), (h0_f, h0_b), (hs_f, hs_b, g_f, g_b))
+    T, B, H3 = xg_f.shape
+    plan = gru_bwd_pair_plan(B, H3 // 3, *_device_limits(xg_f.device))
+    out = _launch_bwd(plan, mask_t, [(xg_f, uh_f, bh_f, h0_f, hs_f, g_f, False),
+                                     (xg_b, uh_b, bh_b, h0_b, hs_b, g_b, True)])
+    gru_bwd.launches += 2
+    gru_bwd.grids += GRU_BWD_GRIDS
+    gru_bwd.bf16_launches += 2
+    return tuple(out)
+
+_GRU_BWD_ARGS = ([ctypes.c_int, _VP, ctypes.c_void_p] + [_VP] * 12 + [_IP]
+                 + [ctypes.c_int] * 3 + [_IP, ctypes.c_int]
+                 + [ctypes.c_void_p] * 2)
+_build.declare("gru_bwd", "gru_bwd_launch", _GRU_BWD_ARGS, _SCAN_DEFINES)
+# the bf16 instance's entry also takes dhg's bf16 copy and h0 rounded
+_build.declare("gru_bwd_bf16", "gru_bwd_launch", _GRU_BWD_ARGS + [_VP] * 2,
+               _GRU_BF16_DEFINES, src="gru_bwd")
 
 
 class GRUScan(torch.autograd.Function):
@@ -556,3 +851,28 @@ class GRUScan(torch.autograd.Function):
                                      g_t.contiguous(), reverse=ctx.reverse,
                                      impl=ctx.impl)
         return dxg, None, duh, dbh, dh0, None, None
+
+
+class BiGRUScan(torch.autograd.Function):
+    """Both directions of a bi-GRU on bf16 streams with their gradients:
+    forward through ``gru_fwd_pair``, backward through ``gru_bwd_pair`` (on
+    the card, one grid of kernel 2b and one call of kernel 3b for both
+    directions). Inputs: each direction's xg_t, the shared mask_t, each
+    direction's uh, bh, h0; outputs (hs_f, hs_b)."""
+
+    @staticmethod
+    def forward(ctx, xg_f, xg_b, mask_t, uh_f, bh_f, uh_b, bh_b, h0_f, h0_b,
+                impl: str):
+        hs_f, hs_b = gru_fwd_pair(xg_f, xg_b, mask_t, uh_f, bh_f, uh_b, bh_b,
+                                  h0_f, h0_b, impl=impl)
+        ctx.save_for_backward(xg_f, xg_b, mask_t, uh_f, bh_f, uh_b, bh_b,
+                              h0_f, h0_b, hs_f, hs_b)
+        ctx.impl = impl
+        return hs_f, hs_b
+
+    @staticmethod
+    def backward(ctx, g_f, g_b):
+        saved = ctx.saved_tensors
+        (dxf, duf, dbf, dhf), (dxb, dub, dbb, dhb) = gru_bwd_pair(
+            *saved, g_f.contiguous(), g_b.contiguous(), impl=ctx.impl)
+        return dxf, dxb, None, duf, dbf, dub, dbb, dhf, dhb, None
