@@ -3746,13 +3746,16 @@ def phase_jax_run(torch, np, dev):
 # give them: at R = 640, E = 256, V = 8000 and 16000, K = 5 (depth K; slots
 # 1 and 3 with their flags, the per-step recovery and a lane collision);
 # at K = 12 and 16 (the k16 build) and K = 20 (its passes of 16) at B = 128
-# sentences; at phase 2's ragged shapes (V = 8003, E = 250: rows copied a
-# value at a time). Values and lse within READOUT_RTOL; ids exact on integer
+# sentences; at phase 2's ragged shapes (V = 8003, E = 250: rows off 16
+# bytes, copied a value at a time in place of TMA); at E = READOUT_BF16_DEEP_E,
+# too deep for t's row tile to stay in shared memory (its boxes stream with
+# W's, depth K and slots as at E = 256). Values and lse within READOUT_RTOL; ids exact on integer
 # inputs, on random rows but among candidates within READOUT_RTOL of each
 # other in float64. The fp32 instance and torch.addmm in bf16 (the GEMM
 # alone, bf16 out) are timed in the same call.
 READOUT_BF16_V = (8000, 16000)
 READOUT_BF16_BEAMS = (12, 16, 20)
+READOUT_BF16_DEEP_E = 768
 
 
 def _readout_bf16_bound(R: int, E: int, V: int, K: int, slots: bool):
@@ -3841,6 +3844,21 @@ def phase_readout_bf16(torch, np, dev):
                 t, w, b, K, kind == "integer")
             max_err = max(max_err, e)
         print(f"readout_topk_bf16 (R={Rr}, E={Er}, V={Vr}): ok")
+    # t's row tile too deep to stay in shared memory: a box of t travels
+    # with each W stage (the kernel's second layout), depth K and slots
+    Ed = READOUT_BF16_DEEP_E
+    if rt.bf16_smem(Ed)[0]:
+        raise AssertionError(f"readout_topk_bf16 E={Ed}: t would stay resident")
+    for kind in ("integer", "random"):
+        t, w, b = _readout_bf16_inputs(torch, np, dev, kind, R, Ed, 8000, Ed)
+        e, near[f"{kind} E={Ed}"] = _check_readout_bf16(
+            torch, f"readout_topk_bf16 {kind} (R={R}, E={Ed}, V=8000)", t, w, b,
+            K, kind == "integer")
+        max_err = max(max_err, e)
+    max_err = max(max_err, _readout_slots_checks(torch, np, dev, R, Ed, 8000, K,
+                                                 bf16=True))
+    print(f"readout_topk_bf16 (R={R}, E={Ed}, V=8000, t streamed): depth K, "
+          f"slots {READOUT_SLOTS} and the per-step recovery ok")
     for Kw in READOUT_BF16_BEAMS:
         Rw = WIDE_B * Kw
         for kind in ("integer", "random"):
@@ -3904,7 +3922,7 @@ def phase_readout_bf16(torch, np, dev):
     g = grids[READOUT_BF16_V[0]]
     print(f"readout_topk_bf16: rows differing among near ties {json.dumps(near)}")
     return {"name": "readout_topk_bf16", "route": "cuda",
-            "source": "vag_nmt_tpu_torch/csrc/readout_topk.cu",
+            "source": "vag_nmt_tpu_torch/csrc/readout_topk_bf16.cu",
             "replaces": "vag_nmt_tpu/ops/pallas_readout_topk.py:113",
             "max_abs_err": max_err, "ms": g["grid_ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
@@ -3921,9 +3939,10 @@ def phase_readout_bf16(torch, np, dev):
 # width (B, K, T) = (128, 5, 32), at K = 12 (the k16 build) and K = 20 (its
 # beam groups), at the ragged shape: the bf16 states within
 # BF16_STATE_ATOL, t within BF16_RTOL of its scale; a second call bit for
-# bit; at widths that are no multiples of 8 (rows copied a value at a
-# time); timed beside the fp32 instance and the four products through
-# torch.mm in bf16.
+# bit; at widths that are no multiples of 8 and at full width with every
+# operand off a 16-byte boundary (the copy path in place of TMA); timed
+# beside the fp32 instance and the four products through torch.mm in
+# bf16.
 DEC_STEP_BF16_BEAMS = (5, 12, 20)
 
 
@@ -3967,9 +3986,13 @@ def phase_dec_step_bf16(torch, np, dev):
     cases = {f"k{K}": _dec_step_full(K=K) for K in DEC_STEP_BF16_BEAMS}
     cases["ragged"] = DEC_STEP_RAGGED
     cases["odd"] = DEC_STEP_ODD      # rows copied a value at a time
+    cases["misaligned"] = _dec_step_full()   # every operand 2 bytes off 16
     max_abs, errs_all = 0.0, {}
     for label, shape in cases.items():
         inputs, weights = _dec_step_bf16_case(torch, np, dev, shape, seed=31)
+        if label == "misaligned":
+            inputs = tuple(_misaligned(torch, x) for x in inputs)
+            weights = tuple(_misaligned(torch, w) for w in weights)
         n0 = dec_step.bf16_launches
         got = dec_step(*inputs, weights, impl="kernel")
         again = dec_step(*inputs, weights, impl="kernel")
@@ -4026,7 +4049,7 @@ def phase_dec_step_bf16(torch, np, dev):
     g["plain_ms"] = _time_ms(torch, lambda: dec_step_plain(*inputs, weights))
     print(f"dec_step_bf16 grid (B={B}, K={K}, T={T}): " + json.dumps(g))
     return {"name": "dec_step_bf16", "route": "cuda",
-            "source": "vag_nmt_tpu_torch/csrc/dec_step.cu",
+            "source": "vag_nmt_tpu_torch/csrc/dec_step_bf16.cu",
             "replaces": "vag_nmt_tpu/ops/pallas_dec_step.py:106",
             "max_abs_err": max_abs, "ms": g["grid_ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
@@ -4034,6 +4057,128 @@ def phase_dec_step_bf16(torch, np, dev):
             **{f: g[f] for f in ("grid_warm_ms", "fp32_grid_ms",
                                  "fp32_grid_warm_ms", "mm_bf16_grid_ms",
                                  "mm_bf16_grid_warm_ms", "wrapper_ms")}}
+
+
+# --decode-bf16-grids: kernels 1b and 7b timed alone, through the wrappers
+# of whichever vag_nmt_tpu_torch is first on sys.path (a copy of this
+# script in an unpacked parent tree's root times the parent's kernels):
+# 1b at R=640, E=256, K=5, V=8000 and 16000, depth K and slots 1; 7b at
+# (B, K, T) = (128, 5, 32), full width; each whole call cold and warm
+# (_grid_ms), beside the fp32 instances and the bf16 products through
+# torch.addmm / torch.mm. 7b's grids are read from torch.profiler. 1b is
+# one grid, so its split is read from probes, builds with parts taken out
+# (_build.build_variants, text edits of the tree's bf16 source, each
+# applied where its text is there): without the fold (the logits made, not
+# folded), without the products (the operands loaded, no mma), without
+# both.
+DECODE_BF16_BUILDS = ("readout_topk", "readout_topk_bf16", "dec_step",
+                      "dec_step_bf16")
+_PROBE_NO_FOLD = [("      if (row >= p.R) continue;",
+                   "      if (row >= 0) continue;")]
+_PROBE_NO_MMA = [
+    ("      for (int ni = 0; ni < NI; ++ni) mma_bf16_k16(acc[mi][ni], a[mi], b[ni]);",
+     "      for (int ni = 0; ni < NI; ++ni)\n"
+     "        asm volatile(\"\" :: \"r\"(a[mi][0]), \"r\"(b[ni][0]));"),
+    ("  for (int kk = 0; kk < BOX_K / 16; ++kk) Mma<BW * NB>::run(d, desc_a(a, kk), "
+     "desc_b<BW>(b, kk));", "  for (int kk = 0; kk < 0; ++kk) (void)a, (void)b;")]
+
+
+def _probes(name, variants):
+    """The (label, edits) of ``variants`` whose edits apply to build
+    ``name``'s source in this tree (each variant a list of alternatives,
+    of which those present are taken), built together."""
+    from vag_nmt_tpu_torch.ops import _build
+
+    src = _build.source(name)
+    keep = []
+    for label, alts in variants:
+        edits = [e for e in alts if e[0] in src]
+        if edits:
+            keep.append((label, edits))
+    if not keep:
+        return []
+    libs = _build.build_variants(name, keep, _build.BUILD_DIR.parent / f"{name}_probe")
+    return [(label, lib) for (label, _), lib in zip(keep, libs)]
+
+
+def decode_bf16_grid_times(torch, np, dev):
+    """{"readout": {V: fields}, "dec_step": fields} (see above)."""
+    from vag_nmt_tpu_torch.ops import _build
+    from vag_nmt_tpu_torch.ops import readout_topk as rt
+    from vag_nmt_tpu_torch.ops.dec_step import dec_step
+
+    kw = {"hold": READOUT_HOLD, "warm_hold": READOUT_WARM_HOLD}
+    bf = torch.bfloat16
+    floor_ms = _grid_ms(torch, lambda: torch.cuda._sleep(0))[0]
+    ro_probes = _probes("readout_topk_bf16", (
+        ("no fold", _PROBE_NO_FOLD), ("no mma", _PROBE_NO_MMA),
+        ("no fold, no mma", _PROBE_NO_FOLD + _PROBE_NO_MMA)))
+    R, E, K = 640, 256, 5
+    readout = {}
+    for V in READOUT_BF16_V:
+        t, w, b = _readout_bf16_inputs(torch, np, dev, "random", R, E, V, V + 7)
+        b[list(READOUT_CLEAR_IDS)] += 100.0     # slots 1 flags no row
+        t32, w32 = t.float(), w.float()
+        g = {"R": R, "E": E, "V": V, "K": K, "grid_floor_ms": floor_ms}
+        calls = (("grid", lambda: rt.readout_topk_rows(t, w, b, K, impl="kernel")),
+                 ("slots1_grid", lambda: rt.readout_topk_rows(
+                     t, w, b, K, slots=1, impl="kernel")))
+        for label, fn in calls + (("fp32_grid", lambda: rt.readout_topk_rows(
+                t32, w32, b, K, impl="kernel")),):
+            g[f"{label}_ms"], g[f"{label}_warm_ms"] = _grid_ms(torch, fn, **kw)
+        for label, lib in ro_probes:
+            with _build.loaded_as("readout_topk_bf16", lib):
+                for what, fn in calls:
+                    key = f"{what}_{label.replace(', ', '_').replace(' ', '_')}"
+                    g[f"{key}_ms"], g[f"{key}_warm_ms"] = _grid_ms(torch, fn, **kw)
+        b16 = b.to(bf)
+        logits = torch.empty((R, V), dtype=bf, device=dev)
+        g["addmm_bf16_grid_ms"], g["addmm_bf16_grid_warm_ms"] = _grid_ms(
+            torch, lambda: torch.addmm(b16, t, w, out=logits))
+        g["bound_ms"], g["bound_by"] = _readout_bf16_bound(R, E, V, K, False)
+        g["grid_bound_share"] = g["bound_ms"] / g["grid_ms"]
+        readout[V] = g
+        print(f"decode bf16 grids, readout_topk_bf16 (V={V}): " + json.dumps(g),
+              flush=True)
+
+    full = _dec_step_full()
+    B, K, T, H, A, C, R = full
+    N = B * K
+    inputs, weights = _dec_step_bf16_case(torch, np, dev, full, seed=32)
+    in32 = (inputs[0], inputs[1].float(), inputs[2].float(), *inputs[3:])
+    w32 = tuple(x.float() for x in weights)
+    call = lambda: dec_step(*inputs, weights, impl="kernel")  # noqa: E731
+    call32 = lambda: dec_step(*in32, w32, impl="kernel")  # noqa: E731
+    g = {"B": B, "K": K, "T": T, "H": H, "A": A, "C": C, "R": R,
+         "grid_floor_ms": floor_ms}
+    g["grid_ms"], g["grid_warm_ms"] = _grid_ms(torch, call, **kw)
+    g["fp32_grid_ms"], g["fp32_grid_warm_ms"] = _grid_ms(torch, call32, **kw)
+    s = inputs[1]
+    c = torch.from_numpy(np.random.RandomState(13).randn(N, C).astype(
+        np.float32)).to(dev).to(bf)
+    prods = [(s, weights[0]), (s, weights[2]), (c, weights[5]), (s, weights[7])]
+    outs = [torch.empty((N, x.shape[1]), dtype=bf, device=dev) for _, x in prods]
+
+    def gemms():
+        for (a, x), o in zip(prods, outs):
+            torch.mm(a, x, out=o)
+
+    g["mm_bf16_grid_ms"], g["mm_bf16_grid_warm_ms"] = _grid_ms(torch, gemms, **kw)
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flushed():
+        flush.sum()
+        torch.cuda._sleep(HOLD_CYCLES)
+
+    exclude = set(_profile_grids(torch, flushed, 1))
+    for label, fn in (("", call), ("fp32_", call32)):
+        g[f"{label}grids_cold_ms"] = _profile_grids(
+            torch, lambda: (flushed(), fn()), 20, exclude)
+        g[f"{label}grids_warm_ms"] = _profile_grids(torch, fn, 20)
+    g["bound_ms"], g["bound_by"] = _dec_step_bf16_bound(*full, weights)
+    g["grid_bound_share"] = g["bound_ms"] / g["grid_ms"]
+    print("decode bf16 grids, dec_step_bf16: " + json.dumps(g), flush=True)
+    return {"readout": readout, "dec_step": g}
 
 
 # Phase 19: kernel 2b (gru_fwd_bf16) at the decode encoders' shapes, (B, T)
@@ -5321,7 +5466,9 @@ def phase_host_modules(torch, np, dev):
 # equal, and every loop kernel's counters moved alike (the replay
 # accounting). (a) phase 4's corpus at U = 1 and U = 4; (b) its bf16
 # decode (kernels 1b, 2b); (c) VAG_DEC_STEP=on (kernel 7's cluster launches
-# in a graph); (d) the unfused step through kernels 6, 8 and 9
+# in a graph), and in the bf16 decode (kernel 7b: its five launches and
+# their tensor maps captured by value; timed); (d) the
+# unfused step through kernels 6, 8 and 9
 # (VAG_TOPK_IMPL) on its first GRAPH_UNFUSED_SENT; (e) phase 14's ikea_vag
 # captions two-phase, at depth K and at slots 1 with the per-step recovery
 # (its device-side counts equal too); (f) greedy on GRAPH_GREEDY_LINES.
@@ -5588,6 +5735,9 @@ def phase_graphs(torch, np, dev):
     case("b_bf16", m30k(cfg16), timed=True, kernel=readout, bf16=True)
     case("c_dec_step", m30k(cfg32, env={"VAG_DEC_STEP": "on"}),
          kernel="dec_step")
+    # kernel 7b's launches and their tensor maps captured by value
+    case("c_dec_step_bf16", m30k(cfg16, env={"VAG_DEC_STEP": "on"}),
+         timed=True, kernel="dec_step", bf16=True)
     for k, impl, wrapper in (("6", "pallas_lanes", "beam_topk"),
                              ("8", "pallas", "legacy_topk_blocks"),
                              ("9", "pallas_rows", "legacy_topk_rows")):
@@ -6111,6 +6261,14 @@ def main() -> int:
         print(f"build_s: {_build_some(GRU_BUILDS):.2f}")
         print(json.dumps({"gru_bf16_grids": gru_bf16_grid_times(torch, np, dev)}))
         return 0
+    if sys.argv[1:] == ["--decode-bf16-grids"]:
+        # kernels 1b and 7b beside the fp32 instances and torch's bf16
+        # products, each whole call, grid and probe, and nothing else, the
+        # same way for another tree's kernels: {kernel: fields}.
+        print(f"build_s: {_build_some(DECODE_BF16_BUILDS):.2f}")
+        print(json.dumps({"decode_bf16_grids":
+                          decode_bf16_grid_times(torch, np, dev)}))
+        return 0
     if sys.argv[1:] == ["--gru-bwd-grids"]:
         # kernel 3's whole call alone and each of its grids at
         # GRU_BWD_TIMED, and nothing else, the same way for another tree's
@@ -6212,9 +6370,11 @@ def main() -> int:
             k["replay_launches"] = b_instances["dec_scan_fwd_bf16_replays"]
     # kernels 1b and 7b: their launches in the bf16 decode (phase 20: the
     # default path for 1b, VAG_DEC_STEP=on for 7b); kernel 2b's at decode
+    from vag_nmt_tpu_torch.ops.dec_step import GRIDS_BF16
+
     for k in (readout16, dec_step16):
         k["launches"] = launches16[k["name"]]
-        k["grids"] = k["launches"] * (5 if k["name"] == "dec_step_bf16" else 1)
+        k["grids"] = k["launches"] * (GRIDS_BF16 if k["name"] == "dec_step_bf16" else 1)
     for k in bf16_kernels:
         if k["name"] == "gru_fwd_bf16":
             # the decode's encoder runs 2b's instance that sums in k order

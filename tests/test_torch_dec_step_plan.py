@@ -26,8 +26,7 @@ import torch
 
 import chip_smoke as cs
 from tests.test_torch_dec_step import _case, _to_torch
-from tests.test_torch_readout_plan import (product_3xtf32, product_bf16_k16,
-                                           split_tf32, tf32_rna)
+from tests.test_torch_readout_plan import product_3xtf32, split_tf32, tf32_rna
 from vag_nmt_tpu.models import decoder as jdec
 from vag_nmt_tpu.ops.attention import precompute_ctx_proj as j_ctx_proj
 from vag_nmt_tpu.ops.pallas_dec_step import pallas_decode_step
@@ -35,7 +34,7 @@ from vag_nmt_tpu.ops.pallas_dec_step import pallas_decode_step
 from vag_nmt_tpu_torch.models import decoder as dec
 from vag_nmt_tpu_torch.ops import dec_step as ds
 from vag_nmt_tpu_torch.ops.attention import precompute_ctx_proj
-from vag_nmt_tpu_torch.ops.gru_kernel import gru_gate_algebra, rbf
+from vag_nmt_tpu_torch.ops.gru_kernel import gru_gate_algebra
 
 # One intra-op thread: the suite runs several test processes at once.
 torch.set_num_threads(1)
@@ -128,16 +127,14 @@ def _one_tf32(a, w):
     return tf32_rna(a).double() @ tf32_rna(w).double()
 
 
-def _model(gy, s, ctx, ctxpb, mask, weights, cover=None, product=product_3xtf32,
-           rnd=lambda x: x):
+def _model(gy, s, ctx, ctxpb, mask, weights, cover=None, product=product_3xtf32):
     """csrc/dec_step.cu in torch: the products tile by tile as three TF32
     products (exact, summed in fp64, then fp32 as the accumulators), the
     GRU cells from the gate tiles' accumulators, the attention as the
     plain version, the readout from the split partials in split order.
     ``cover`` counts each product's outputs written; ``product`` is the
-    tile product (the control takes one TF32 pass; the bf16 build's is
-    ``product_bf16_k16``); ``rnd`` is applied where the bf16 build rounds
-    (s~, c, s': ``rbf``), fp32 tensors holding the bf16 values."""
+    tile product (the control takes one TF32 pass). Kernel 7b's model is
+    tests/test_torch_dec_step_bf16_plan.py's."""
     uh1, bh1, w_s, bh2, va, w_c, bi2, ws, b = weights
     B, T, C = ctx.shape
     N, H = s.shape
@@ -185,7 +182,6 @@ def _model(gy, s, ctx, ctxpb, mask, weights, cover=None, product=product_3xtf32,
                                 s[rows[:, None], u[None]])
 
     st, _ = gates(plan["hg1"], s, uh1, gru1)
-    st = rnd(st)
     qh = torch.empty(N, A + 3 * H)
     for rows, ct, cols, acc, _ in tiles(plan["qh"], st, w_s):
         inb = cols >= 0
@@ -194,8 +190,7 @@ def _model(gy, s, ctx, ctxpb, mask, weights, cover=None, product=product_3xtf32,
     e = torch.tanh(ctxpb[:, None, :, :] + q[:, :, None, :])
     sc = (e * va).sum(-1)
     sc = torch.where(mask[:, None, :] > 0, sc, torch.full_like(sc, ds.NEG_INF))
-    c = rnd(torch.einsum("bkt,btc->bkc", torch.softmax(sc, -1),
-                         ctx).reshape(N, C))
+    c = torch.einsum("bkt,btc->bkc", torch.softmax(sc, -1), ctx).reshape(N, C)
 
     def gru2(rows, u, pre):
         xg = [pre[i] + bi2[i * H + u] for i in range(3)]
@@ -205,7 +200,6 @@ def _model(gy, s, ctx, ctxpb, mask, weights, cover=None, product=product_3xtf32,
                                 st[rows[:, None], u[None]])
 
     s_new, tc = gates(plan["xc"], c, w_c, gru2)
-    s_new = rnd(s_new)
     g = plan["sw"]
     parts = torch.zeros(g.splits, N, R)
     for rows, ct, cols, acc, z in tiles(g, s_new, ws):
@@ -344,81 +338,3 @@ def test_fast_tanh_of_the_energies_within_its_stated_error():
         for sq in (-1.0, 1.0):
             worst = (1.0 - (q + sq * 2.0 * q_ulp)).to(torch.float32)
             assert (worst.double() - exact).abs().max() <= 4.8e-7
-
-
-# -- kernel 7b: the bf16 instances (-DVAG_BF16=1) -----------------------------
-
-BF = torch.bfloat16
-
-
-@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
-def test_bf16_plan_fits_and_copies_whole_groups(shape):
-    """The bf16 builds run the same plan: their rings at 2 bytes (A rows
-    padded by 8 elements) within the shared memory, every staged row on a
-    16-byte boundary, and where the widths are multiples of 8 each 8-column
-    group of a tile 8 contiguous columns of b, all in or all out (the
-    16-byte copies of 8 bf16)."""
-    N, H, A, C, R = _widths(shape)
-    for g in ds.dec_step_plan(N, H, A, C, R):
-        ws = g.tile_cols + 8
-        assert g.smem_bytes_of(2) <= g.smem_bytes <= ds.SMEM_LIMIT
-        assert (2 * (ds.BK + 8)) % 16 == 0 and (2 * ws) % 16 == 0
-        assert (2 * ds.BM * (ds.BK + 8)) % 16 == 0
-        assert ds.BK % 16 == 0 and ds.UB % 8 == 0
-        if H % 8 == 0 and g.cols % 8 == 0 and g.col0 % 8 == 0:
-            for ct in range(g.col_tiles):
-                cols = g.b_columns(ct)
-                for j in range(0, g.tile_cols, 8):
-                    grp = cols[j:j + 8]
-                    assert (all(c < 0 for c in grp)
-                            or grp == list(range(grp[0], grp[0] + 8)))
-
-
-def _bf16_inputs(shape, seed=31):
-    """chip_smoke's phase-18 inputs on the CPU: (the bf16 operands as the
-    wrapper takes them, the same values in fp32 for the model)."""
-    inputs, weights = cs._dec_step_bf16_case(torch, np, CPU, shape, seed)
-    f32 = (tuple(x.float() for x in inputs), tuple(w.float() for w in weights))
-    return (inputs, weights), f32
-
-
-@pytest.mark.parametrize("label", ["full", "ragged", "odd"])
-def test_bf16_model_matches_plain_at_chip_shapes(label):
-    """The bf16 build in torch (each 16-deep step's products exact, fp32
-    accumulators, s~, c and s' rounded to bf16 once) against dec_step_plain
-    on the bf16 operands at chip_smoke's shapes: the states within
-    BF16_STATE_ATOL, t within BF16_RTOL of its scale, every output of every
-    product written once."""
-    shape = {"full": FULL, "ragged": RAGGED, "odd": ODD}[label]
-    (inputs, weights), (in32, w32) = _bf16_inputs(shape)
-    cover = _cover(shape)
-    got = _model(*in32, w32, cover=cover, product=product_bf16_k16, rnd=rbf)
-    want = ds.dec_step_plain(*inputs, weights)
-    assert want[0].dtype == BF and want[1].dtype == torch.float32
-    assert float((got[0] - want[0].float()).abs().max()) <= cs.BF16_STATE_ATOL
-    assert cs._rel_err(got[1], want[1]) <= cs.BF16_RTOL
-    for name, n in cover.items():
-        assert torch.equal(n, torch.ones_like(n)), name
-
-
-def test_bf16_products_within_a_tenth_of_dec_step_rtol_of_fp64():
-    """The four products at full width on bf16 operands: the mma chain
-    (exact 16-deep steps, fp32 accumulation) within DEC_STEP_RTOL / 10 of
-    the exact products in fp64 over the product's scale; the fp32 operands
-    the bf16 values came from are not within BF16_RTOL / 100, so bf16 and
-    fp32 sets are different functions."""
-    (inputs, weights), _ = _bf16_inputs(FULL)
-    gy, s, ctx, ctxpb, mask = inputs
-    rng = np.random.RandomState(5)
-    c32 = torch.from_numpy((0.5 * rng.randn(s.shape[0], ctx.shape[2])).astype(
-        np.float32))
-    c = c32.to(BF)
-    for a, w in ((s, weights[0]), (s, weights[2]), (c, weights[5]),
-                 (s, weights[7])):
-        exact = a.double() @ w.double()
-        scale = exact.abs().max()
-        model = product_bf16_k16(a, w).double()
-        assert (model - exact).abs().max() / scale <= cs.DEC_STEP_RTOL / 10
-    exact32 = c32.double() @ weights[5].double()
-    assert (exact32 - c.double() @ weights[5].double()).abs().max() / \
-        exact32.abs().max() > cs.BF16_RTOL / 100

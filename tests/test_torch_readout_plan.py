@@ -430,122 +430,10 @@ def test_k16_tiling_is_the_k8_tiling():
     assert BM * TX * (2 * 16 + 3) <= 3 * (BM * (BK + 4) + BK * (BN + 8) + BN)
 
 
-# -- kernel 1b: the bf16 instances (-DVAG_BF16=1) -----------------------------
+# -- kernel 1b: the bf16 instances' sums ----------------------------------------
+# (its design, csrc/readout_topk_bf16.cu: tests/test_torch_readout_bf16_plan.py)
 
 BF = torch.bfloat16
-
-
-def _bf16_stage(t, w, b, rows, split, tile, e0, BK):
-    """A ring stage of the bf16 build's load_chunk: t rows x BK and BK x BN
-    of W at 2 bytes, by 16-byte copies of 8 values (in or out) where E (t)
-    or V (W) is a multiple of 8, else one value at a time, zero-filled past
-    R, E and the split's last column; the biases fp32, 4 a copy. Returns
-    the stage and the element offsets of the 16-byte copies."""
-    t, w, b = t.float().numpy(), w.float().numpy(), b.numpy()
-    R, E = t.shape
-    V = w.shape[1]
-    BM, BN = rt._ROW_TILE, rt._COL_TILE
-    (r0, _), (_, c_end), (c0, _) = rows, split, tile
-    ts = np.zeros((BM, BK), np.float32)
-    ws = np.zeros((BK, BN), np.float32)
-    bs = np.zeros(BN, np.float32)
-    offsets = []
-    for r in range(BM):
-        for k in range(0, BK, 8):
-            row, e = r0 + r, e0 + k
-            n = [j for j in range(8) if row < R and e + j < E]
-            if E % 8 == 0 and n:
-                assert len(n) == 8
-                offsets.append(row * E + e)
-            for j in n:
-                ts[r, k + j] = t[row, e + j]
-    for k in range(BK):
-        for c in range(0, BN, 8):
-            e, col = e0 + k, c0 + c
-            n = [j for j in range(8) if e < E and col + j < c_end]
-            if V % 8 == 0 and n:
-                assert len(n) == 8
-                offsets.append(e * V + col)
-            for j in n:
-                ws[k, c + j] = w[e, col + j]
-    for c in range(0, BN, 4):
-        for j in range(max(0, min(4, c_end - (c0 + c)))):
-            bs[c + j] = b[c0 + c + j]
-    return (torch.from_numpy(ts), torch.from_numpy(ws), torch.from_numpy(bs),
-            offsets)
-
-
-def ring_floats(bf16: bool = False) -> int:
-    """Floats of the kernel's cp.async ring (csrc/readout_topk.cu's 3
-    stages x STAGE_FLOATS): each stage a t chunk [BM][BK + 16 / itemsize]
-    and a W chunk [BK][BN + 8] of the operands' type, then BN fp32
-    biases."""
-    size, bk = (2, rt._DEPTH_CHUNK_BF16) if bf16 else (4, rt._DEPTH_CHUNK)
-    ops = size * (rt._ROW_TILE * (bk + 16 // size) + bk * (rt._COL_TILE + 8))
-    return 3 * (ops // 4 + rt._COL_TILE)
-
-
-def lane_merge_floats(max_k: int) -> int:
-    """Floats of the lane merge the kernel puts in its ring: BM rows x 16
-    lanes of max_k (value, id) slots and (max, sum, watermark)."""
-    return rt._ROW_TILE * (rt._LANE_PERIOD // rt._LANE_COLS) * (2 * max_k + 3)
-
-
-def test_bf16_builds_keep_the_ring_and_the_lane_merge():
-    """The bf16 builds differ from the fp32 ones only by VAG_BF16 and
-    chunks twice as deep (VAG_BK 128): at 2 bytes a stage then holds the
-    bytes of the fp32 build's (39552 floats of ring, with the rows' 16-byte
-    padding), the lane merge of 16 slots still fits in it, the shared
-    memory stays under 227 KB, and every staged row and the biases start on
-    16-byte boundaries."""
-    from vag_nmt_tpu_torch.ops import _build
-
-    for base in ("readout_topk", "readout_topk_k16"):
-        a = dict(_build._KERNELS[base][1])
-        b = dict(_build._KERNELS[f"{base}_bf16"][1])
-        assert (b.pop("VAG_BF16"), b.pop("VAG_BK"), a.pop("VAG_BK")) == (
-            1, rt._DEPTH_CHUNK_BF16, rt._DEPTH_CHUNK)
-        assert a == b
-    BM, BN, BK = rt._ROW_TILE, rt._COL_TILE, rt._DEPTH_CHUNK_BF16
-    TS, WS = BK + 8, BN + 8                    # elements, 2 bytes each
-    ops_bytes = 2 * (BM * TS + BK * WS)
-    assert ring_floats(True) == 3 * (ops_bytes // 4 + BN) == \
-        ring_floats(False) == 39552
-    assert lane_merge_floats(16) == 35840 <= ring_floats(True)
-    assert 4 * (ring_floats(True) + BM * (BN + 8)) <= 232448
-    assert (2 * TS) % 16 == 0 and (2 * WS) % 16 == 0 and ops_bytes % 16 == 0
-    assert BK % 16 == 0                        # whole m16n8k16 steps
-
-
-@pytest.mark.parametrize("R,E,V", [(640, 256, 8000), (35, 256, 8003),
-                                   (35, 250, 8003), (35, 252, 8004),
-                                   (3, 32, 200)])
-def test_bf16_staging_of_ragged_rows_and_columns(R, E, V):
-    """The bf16 stages of a row tile's last split equal the zero-padded
-    slices of t, W (bf16) and b at every depth chunk of 128; the 16-byte
-    copies start on 16-byte boundaries (8 values), so where E or V is no
-    multiple of 8 (V = 8004: rows 8 bytes off) the values go one by one."""
-    rng = np.random.RandomState(R + V)
-    t = torch.from_numpy(rng.randn(R, E).astype(np.float32)).to(BF)
-    w = torch.from_numpy(rng.randn(E, V).astype(np.float32)).to(BF)
-    b = torch.from_numpy(rng.randn(V).astype(np.float32))
-    BM, BN, BK = rt._ROW_TILE, rt._COL_TILE, rt._DEPTH_CHUNK_BF16
-    rows, _, split, tiles = _cta_grid(R, V)[-1]
-    pad = torch.zeros((rows[0] + BM, -(-E // BK) * BK + BK))
-    pad[:R, :E] = t.float()
-    wpad = torch.zeros((-(-E // BK) * BK + BK, V + BN))
-    wpad[:E, :split[1]] = w[:, :split[1]].float()
-    for tile in (tiles[0], tiles[-1]):
-        for e0 in range(0, E, BK):
-            ts, ws, bs, offsets = _bf16_stage(t, w, b, rows, split, tile, e0,
-                                              BK)
-            assert torch.equal(ts, pad[rows[0]:rows[0] + BM, e0:e0 + BK])
-            assert torch.equal(ws, wpad[e0:e0 + BK, tile[0]:tile[0] + BN])
-            assert all(o % 8 == 0 for o in offsets)
-        want = torch.zeros(BN)
-        want[:tile[1] - tile[0]] = b[tile[0]:tile[1]]
-        assert torch.equal(bs, want)
-    assert (V % 8 == 0) == all(e * V % 8 == 0 for e in range(E))
 
 
 def product_bf16_k16(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -68,16 +68,8 @@
 //   The energies' tanh is tanh_fast (the fast exponential and division,
 // absolute error <= 4.8e-7 by their documented bounds), the rest of the
 // arithmetic is dec_step_plain's.
-// bf16 instances (-DVAG_BF16=1; pallas_dec_step.py under the JAX
-// package's bf16 decode): the states s, s~ and s' and the attention's
-// context c are bf16, each rounded once where the JAX kernel casts it
-// (the new states after the fp32 gate algebra, c after its fp32 sum), as
-// are ctx and the four weight matrices; gy, ctxpb, mask, the biases, va,
-// qh, tc and t stay fp32. The ring stages the bf16 operands at 2 bytes
-// (16-byte copies of 8 elements, or element by element where a row is off
-// a 16-byte boundary) and each 16-deep step is one mma.sync m16n8k16 with
-// fp32 accumulators in place of the three TF32 products; the epilogues
-// read their bf16 state operands from L2 rather than staging them.
+// The bf16 instances (the bf16 decode's states, ctx and matrices) are
+// dec_step_bf16.cu's, on wgmma and TMA, with this contract.
 // The tiling is ops/dec_step.py's dec_step_plan: its constants (BM, BK,
 // UB, BN, RN, SPLIT, STAGES, ATT_CLUSTER) come as -D defines, its tile
 // counts and split depth as dec_step_launch's arguments. Ragged widths and
@@ -89,12 +81,6 @@
 
 #include "common.cuh"
 #include "tf32_mma.cuh"
-
-#if defined(VAG_BF16) && VAG_BF16
-#define VAG_DS_BF16 1
-#else
-#define VAG_DS_BF16 0
-#endif
 
 namespace {
 
@@ -117,17 +103,11 @@ constexpr int THREADS = 128;
 constexpr int WARPS_M = 2, WARPS_N = 2;
 constexpr int WM = BM / WARPS_M;    // rows of a warp tile
 constexpr int MI = WM / 16;         // m16n8 row tiles of a warp
-// The products' operands (and the states, ctx and c): fp32, or bf16 in
-// the bf16 instances; VEC of them make a 16-byte copy.
-#if VAG_DS_BF16
-typedef __nv_bfloat16 op_t;
-__device__ __forceinline__ float ldf(const __nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ __nv_bfloat16 to_op(float x) { return __float2bfloat16_rn(x); }
-#else
+// The products' operands (and the states, ctx and c), fp32; VEC of them
+// make a 16-byte copy.
 typedef float op_t;
 __device__ __forceinline__ float ldf(float x) { return x; }
 __device__ __forceinline__ float to_op(float x) { return x; }
-#endif
 constexpr int VEC = 16 / (int)sizeof(op_t);
 constexpr int TS = BK + VEC;        // A chunk row stride (elements)
 constexpr int ATT_CLUSTER = VAG_ATT_CLUSTER;  // CTAs of a sentence (4)
@@ -179,11 +159,6 @@ using vag::gru_unit;
 using vag::mma_tf32;
 using vag::split_tf32;
 using vag::tanh_fast;
-#if VAG_DS_BF16
-using vag::bf16_pair;
-using vag::copy_bf16;
-using vag::mma_bf16_k16;
-#endif
 using vag::warp_max;
 using vag::warp_sum;
 
@@ -223,18 +198,11 @@ __device__ __forceinline__ int b_col(const Gemm& p, int ct, int j) {
 // Copies depth chunk [k0, k0 + BK) of the CTA's a rows and b columns into
 // ring stage `st`, zero-filled past M, ke and b's columns.
 // One element of a row off a 16-byte boundary (base: any valid address,
-// read from when the element is outside): a 4-byte cp.async of an fp32,
-// a plain copy of a bf16.
+// read from when the element is outside): a 4-byte cp.async.
 __device__ __forceinline__ void copy1(float* dst, const float* src,
                                       const float* base, bool in) {
   cp_async4(dst, in ? src : base, in ? 4 : 0);
 }
-#if VAG_DS_BF16
-__device__ __forceinline__ void copy1(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                      const __nv_bfloat16*, bool in) {
-  copy_bf16(dst, src, in);
-}
-#endif
 
 template <int TN>
 __device__ __forceinline__ void load_chunk(const Gemm& p, float* st, int k0,
@@ -281,41 +249,6 @@ __device__ __forceinline__ void load_chunk(const Gemm& p, float* st, int k0,
   }
 }
 
-#if VAG_DS_BF16
-// acc += the bf16 product of one staged chunk, for this warp's WM x WN:
-// one m16n8k16 a 16-deep step (A's pairs one 4-byte load each along a row,
-// B's pairs of depths a row apart).
-template <int TN>
-__device__ __forceinline__ void mma_chunk(const float* st,
-                                          float (&acc)[MI][Tile<TN, PLAIN>::NI][4],
-                                          int wm, int wn, int g, int tg) {
-  using L = Tile<TN, PLAIN>;
-  const op_t* as = reinterpret_cast<const op_t*>(st);
-  const op_t* bs = as + BM * TS;
-#pragma unroll
-  for (int ks = 0; ks < BK; ks += 16) {
-    uint32_t a[MI][4], b[L::NI][2];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      const op_t* x = as + (wm * WM + mi * 16 + g) * TS + ks + 2 * tg;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(x);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(x + 8 * TS);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(x + 8);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(x + 8 * TS + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < L::NI; ++ni) {
-      const op_t* y = bs + (ks + 2 * tg) * L::WS + wn * L::WN + ni * 8 + g;
-      b[ni][0] = bf16_pair(y[0], y[L::WS]);
-      b[ni][1] = bf16_pair(y[8 * L::WS], y[9 * L::WS]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < L::NI; ++ni) mma_bf16_k16(acc[mi][ni], a[mi], b[ni]);
-  }
-}
-#else
 // acc += the 3xTF32 product of one staged chunk, for this warp's WM x WN.
 template <int TN>
 __device__ __forceinline__ void mma_chunk(const float* st,
@@ -352,7 +285,6 @@ __device__ __forceinline__ void mma_chunk(const float* st,
   }
 }
 
-#endif
 
 // Copies rows [row0, row0 + BM) of src (row stride ld) into dst [BM][NC]:
 // column j from src's column col(j), zero where col(j) < 0 or past M;
@@ -408,10 +340,8 @@ dec_step_gemm(const Gemm p) {
     for (int gi = 0; gi < 3; ++gi)
       stage_rows<UB>(ops + gi * BM * UB, src, ld, row0, p.M, p.vec_e,
                      [&](int j) { return u0 + j < H ? gi * H + u0 + j : -1; });
-#if !VAG_DS_BF16   // the bf16 states are read in the epilogue
     stage_rows<UB>(ops + 3 * BM * UB, p.h, H, row0, p.M, p.vec_e,
                    [&](int j) { return u0 + j < H ? u0 + j : -1; });
-#endif
   } else if (EPI == READOUT) {
     const int cols = p.cols;
     auto col = [&](int j) { return c0 + j < cols ? c0 + j : -1; };
@@ -465,11 +395,7 @@ dec_step_gemm(const Gemm p) {
       if (row >= p.M || u >= H) continue;
       const float* e = et + r * L::WS + uu;
       const float* o = ops + r * UB + uu;   // [gate][BM][UB], then h
-#if VAG_DS_BF16
-      const float h = ldf(p.h[(size_t)row * H + u]);
-#else
       const float h = o[3 * BM * UB];
-#endif
       float v;
       if (EPI == GRU1) {   // gru(xg1, s @ uh1 + bh1, s)
         v = gru_unit(o[0], o[BM * UB], o[2 * BM * UB], e[0] + __ldg(p.hb + u),
@@ -664,8 +590,7 @@ bool al16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// Device pointers to contiguous fp32 tensors (N = B * K rows, G = 3H + R;
-// in the bf16 instances s, ctx, uh1, w_s, w_c, ws, s_new, st and c bf16):
+// Device pointers to contiguous fp32 tensors (N = B * K rows, G = 3H + R):
 //   gy (N, G) the gathered table rows, s (N, H), ctx (B, T, C),
 //   ctxp (B, T, A) with ba folded in, mask (B, T),
 //   uh1 (H, 3H), bh1 (3H,), w_s (H, A + 3H), bh2 (3H,), va (A,),
@@ -720,7 +645,7 @@ extern "C" int dec_step_launch(
   g1.kchunk = H;
   g1.vec_a = H % VEC == 0 && al16(s);
   g1.vec_b = H % VEC == 0 && al16(uh1);
-  g1.vec_e = H % 4 == 0 && R % 4 == 0 && al16(gy) && (VAG_DS_BF16 || al16(s));
+  g1.vec_e = H % 4 == 0 && R % 4 == 0 && al16(gy) && al16(s);
   g1.x = gy_f; g1.ldx = G;
   g1.hb = static_cast<const float*>(bh1);
   g1.h = static_cast<const op_t*>(s);

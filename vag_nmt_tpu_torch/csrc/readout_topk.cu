@@ -59,15 +59,8 @@
 //    buffer per (device, stream), or per captured graph (ops/topk.py),
 //    shared with kernels 6, 8 and 9 on that stream.
 //
-// bf16 instances (-DVAG_BF16=1; the JAX package's bf16 decode, and
-// VAG_FRT_GEMM_DTYPE=bf16): t and W arrive in bf16, b and every output in
-// fp32, as jnp.dot(t_bf16, w_bf16, preferred_element_type=f32) + b. The
-// ring stages t and W at 2 bytes (16-byte copies of 8 elements; where a
-// row is off a 16-byte boundary, element by element), each 16-deep step
-// is one mma.sync m16n8k16 with fp32 accumulators (every product of bf16
-// values exact, the sums fp32), and the rest is the fp32 build's. The
-// wrapper passes BK = 128: a stage then holds as many bytes as the fp32
-// build's BK = 64, so the lane merge still fits in the ring.
+// The bf16 instances (t and W in bf16) are readout_topk_bf16.cu's, on
+// wgmma and TMA, with this contract.
 // Shallow slots (SK < K): a lane keeps SK slots, and its watermark is the
 // largest value it pushed out of its last slot (its (SK+1)-th best). The
 // merge flags a row (viol) iff the maximum watermark over its lanes and
@@ -103,12 +96,6 @@
 #include "common.cuh"
 #include "tf32_mma.cuh"
 
-#if defined(VAG_BF16) && VAG_BF16
-#define VAG_RO_BF16 1
-#else
-#define VAG_RO_BF16 0
-#endif
-
 namespace {
 
 // The wrapper (ops/readout_topk.py) owns the tiling that its split plan and
@@ -133,12 +120,8 @@ constexpr int MI = WM / 16, NI = WN / 8;           // m16n8 tiles a warp
 constexpr int TX = LP / CPT;                       // 16 lanes a row a split
 constexpr int RPT = BM / (THREADS / TX);           // 2 rows a thread
 constexpr int HALVES = BN / LP;                    // lane periods a tile
-// The staged operands' type, and the elements of one 16-byte copy.
-#if VAG_RO_BF16
-typedef __nv_bfloat16 op_t;
-#else
+// The staged operands' type (fp32), and the elements of one 16-byte copy.
 typedef float op_t;
-#endif
 constexpr int VEC = 16 / (int)sizeof(op_t);
 // Shared-memory row strides (elements), padded so that the fragment loads
 // and the accumulator stores hit 32 distinct banks, and every row starts
@@ -172,11 +155,6 @@ using vag::cp_async_wait;
 using vag::insert;
 using vag::mma_tf32;
 using vag::split_tf32;
-#if VAG_RO_BF16
-using vag::bf16_pair;
-using vag::copy_bf16;
-using vag::mma_bf16_k16;
-#endif
 
 struct Params {
   const op_t *t, *w;
@@ -209,18 +187,12 @@ __device__ __forceinline__ int id_in(int i, int base) {
 }
 
 // One element of a row that is off a 16-byte boundary: a 4-byte
-// cp.async of an fp32, a plain copy of a bf16.
+// cp.async.
 // base: any valid address, read from when the element is outside.
 __device__ __forceinline__ void copy1(float* dst, const float* src,
                                       const float* base, bool in) {
   cp_async4(dst, in ? src : base, in ? 4 : 0);
 }
-#if VAG_RO_BF16
-__device__ __forceinline__ void copy1(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                      const __nv_bfloat16*, bool in) {
-  copy_bf16(dst, src, in);
-}
-#endif
 
 // The tile's biases in stage `st`, after its t and W chunks.
 __device__ __forceinline__ float* stage_bias(float* st) {
@@ -285,38 +257,6 @@ __device__ __forceinline__ void load_chunk(const Params& p, float* st, int q,
   }
 }
 
-#if VAG_RO_BF16
-// acc += the bf16 product of one staged chunk, for this warp's WM x WN:
-// one m16n8k16 a 16-deep step. A's fragments are pairs along a t row (one
-// 4-byte load each), B's pairs of depths a W row apart.
-__device__ __forceinline__ void mma_chunk(const float* st, float (&acc)[MI][NI][4],
-                                          int wm, int wn, int g, int tg) {
-  const op_t* ts = reinterpret_cast<const op_t*>(st);
-  const op_t* ws = ts + BM * TS;
-#pragma unroll
-  for (int ks = 0; ks < BK; ks += 16) {
-    uint32_t a[MI][4], b[NI][2];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      const op_t* x = ts + (wm * WM + mi * 16 + g) * TS + ks + 2 * tg;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(x);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(x + 8 * TS);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(x + 8);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(x + 8 * TS + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const op_t* y = ws + (ks + 2 * tg) * WS + wn * WN + ni * 8 + g;
-      b[ni][0] = bf16_pair(y[0], y[WS]);
-      b[ni][1] = bf16_pair(y[8 * WS], y[9 * WS]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) mma_bf16_k16(acc[mi][ni], a[mi], b[ni]);
-  }
-}
-#else
 // acc += the 3xTF32 product of one staged chunk, for this warp's WM x WN.
 __device__ __forceinline__ void mma_chunk(const float* st, float (&acc)[MI][NI][4],
                                           int wm, int wn, int g, int tg) {
@@ -350,7 +290,6 @@ __device__ __forceinline__ void mma_chunk(const float* st, float (&acc)[MI][NI][
   }
 }
 
-#endif
 
 // The K-th entry of a sorted list (K at run time, the list in registers).
 __device__ __forceinline__ float kth(const float (&bv)[MAX_K], int K) {
@@ -690,8 +629,8 @@ cudaError_t grid_pass(const Params& p, int sk, cudaStream_t stream) {
 
 }  // namespace
 
-// Device pointers to contiguous tensors: t (R, E) f32, w (E, V) f32
-// (both bf16 in the bf16 instances), b (V,) f32, ban (R, V) uint8 or null; partials part_v/part_i (n_split, R,
+// Device pointers to contiguous tensors: t (R, E) f32, w (E, V) f32,
+// b (V,) f32, ban (R, V) uint8 or null; partials part_v/part_i (n_split, R,
 // K), part_m/part_s (n_split, R); arrivals (ceil(R / BM),) u32, zero (and
 // left zero); outputs vals (R, K) f32, idx (R, K) i32, lse (R,) f32 and,
 // where lse_parts is not null, (R, 2) f32: the terms of lse = M + log(S),
@@ -801,6 +740,5 @@ extern "C" int readout_topk_launch(const void* t, const void* w, const void* b,
 }
 
 // Two instances (ops/readout_topk.py): MAX_K = 8 for K <= 8, the beam-5
-// path's, and MAX_K = 16 for K > 8 (above 16 in passes); each also built
-// with -DVAG_BF16=1 for bf16 t and W.
+// path's, and MAX_K = 16 for K > 8 (above 16 in passes).
 static_assert(MAX_K == 8 || MAX_K == 16, "grid_sk instantiates 1 <= SK <= MAX_K");

@@ -2,7 +2,9 @@
 (counterpart of the JAX package's ``ops/pallas_dec_step.py``): the
 hand-written CUDA kernel ``csrc/dec_step.cu``, its plain PyTorch version,
 the wrapper that picks between them by the tensors' device, and
-``decode_step_fused``, the counterpart of ``pallas_decode_step``.
+``decode_step_fused``, the counterpart of ``pallas_decode_step``. On
+bf16 operands the kernel is ``csrc/dec_step_bf16.cu`` (kernel 7b, on
+wgmma and TMA, tiled by ``dec_step_bf16_plan``).
 
 The step starts from the decode tables (``models/decoder.decode_tables``):
 the ``gy`` row gather stays outside the kernel (a torch index, as the JAX
@@ -51,6 +53,18 @@ NEG_INF = -1e9          # as ops/attention.masked_softmax
 BM, BK, UB, BN, RN, SPLIT, STAGES, ATT_CLUSTER = 64, 32, 16, 80, 32, 4, 3, 4
 SMEM_LIMIT = 232448     # bytes of shared memory a block may use
 GRIDS = 5               # grids a call enqueues
+# Kernel 7b's tiling (csrc/dec_step_bf16.cu, -D defines): 64-row tiles
+# (BM: one wgmma M) in 64-deep TMA stages (BF16_BOX_K: one 128-byte row of
+# bf16) of a BF16_STAGES-deep ring; gate tiles of BF16_UB units (three
+# boxes of 32 columns), qh tiles of BF16_BN columns (two boxes of 64), tc
+# tiles of three 32-column boxes, readout tiles of BF16_RN columns (one
+# box, the depth not split).
+BF16_UB, BF16_BN, BF16_RN, BF16_STAGES = 32, 128, 32, 4
+BF16_BOX_K = 64
+# Its attention: the scores' grid, then the softmax and context sums' grid
+# of BF16_ATT_PARTS CTAs a sentence; one grid more than kernel 7's.
+BF16_ATT_PARTS = 4
+GRIDS_BF16 = 6
 
 
 @dataclass(frozen=True)
@@ -61,7 +75,9 @@ class GemmPlan:
     (UB units of H, columns u, H + u, 2H + u of b), the rest plain tiles
     over b's columns [col0, col0 + cols). The depth is cut into ``splits``
     parts of ``kchunk`` (the last ones empty where the depth is short), the
-    CTAs of a tile's splits one thread-block cluster."""
+    CTAs of a tile's splits one thread-block cluster. ``ub``: the units
+    of a gate tile; ``box``: kernel 7b's B boxes, of ``box`` columns each
+    (0 in kernel 7's plan)."""
     name: str
     rows: int
     depth: int
@@ -73,6 +89,8 @@ class GemmPlan:
     col_tiles: int
     splits: int
     kchunk: int
+    ub: int = UB
+    box: int = 0
 
     @property
     def row_tiles(self) -> int:
@@ -84,8 +102,8 @@ class GemmPlan:
         out = []
         for j in range(self.tile_cols):
             if ct < self.gate_tiles:
-                u = ct * UB + j % UB
-                out.append((j // UB) * self.H + u if u < self.H else -1)
+                u = ct * self.ub + j % self.ub
+                out.append((j // self.ub) * self.H + u if u < self.H else -1)
             else:
                 c = (ct - self.gate_tiles) * self.tile_cols + j
                 out.append(self.col0 + c if c < self.cols else -1)
@@ -126,6 +144,26 @@ def dec_step_plan(N: int, H: int, A: int, C: int, R: int
         GemmPlan("xc", N, C, gt, H, units, 3 * H, R, units + -(-R // gt), 1,
                  C),
         GemmPlan("sw", N, H, RN, H, 0, 0, R, -(-R // RN), SPLIT, kchunk),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def dec_step_bf16_plan(N: int, H: int, A: int, C: int, R: int
+                       ) -> Tuple[GemmPlan, ...]:
+    """Kernel 7b's four products in launch order, as ``dec_step_plan``:
+    gate tiles of BF16_UB units (boxes of 32 columns), qh tiles of BF16_BN
+    columns (boxes of 64), xc's tc tiles three 32-column boxes wide, the
+    readout in tiles of BF16_RN columns over its whole depth."""
+    ub, gt = BF16_UB, 3 * BF16_UB
+    units, Q = -(-H // ub), A + 3 * H
+    return (
+        GemmPlan("hg1", N, H, gt, H, units, 0, 0, units, 1, H, ub, 32),
+        GemmPlan("qh", N, H, BF16_BN, H, 0, 0, Q, -(-Q // BF16_BN), 1, H, ub,
+                 64),
+        GemmPlan("xc", N, C, gt, H, units, 3 * H, R, units + -(-R // gt), 1,
+                 C, ub, 32),
+        GemmPlan("sw", N, H, BF16_RN, H, 0, 0, R, -(-R // BF16_RN), 1, H, ub,
+                 32),
     )
 
 
@@ -190,8 +228,9 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
              impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """``dec_step_plain``'s contract. impl: "auto" (kernel for CUDA
     tensors, plain for CPU tensors), "kernel" or "plain". One call of the
-    kernel path enqueues GRIDS grids (see csrc/dec_step.cu): it counts one
-    in ``dec_step.launches`` and those in ``dec_step.grids``. The kernel
+    kernel path enqueues GRIDS grids (GRIDS_BF16 on bf16 operands; see
+    csrc/dec_step.cu and csrc/dec_step_bf16.cu): it counts one in
+    ``dec_step.launches`` and those in ``dec_step.grids``. The kernel
     has an instance for K <= 8 beams a sentence and one for K > 8
     (``ops/topk.K_INSTANCES``), whose attention takes the beams of a
     sentence in groups of 16 above 16 (each such call also counts one in
@@ -227,9 +266,10 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
         return torch.empty(shape, dtype=dtype, device=dev)
 
     s_new, t = new(N, H, dtype=sd), new(N, R)
+    # s~ qh c tc (kernel 7b: tc, then its attention's scores (N, T))
     scratch = (new(N, H, dtype=sd), new(N, A + 3 * H), new(N, C, dtype=sd),
-               new(N, R))                                   # s~ qh c tc
-    plan = dec_step_plan(N, H, A, C, R)
+               new(N * (R + T)) if bf else new(N, R))
+    plan = (dec_step_bf16_plan if bf else dec_step_plan)(N, H, A, C, R)
     lib = _build.load(instance("dec_step", K, bf16=bf))
     rc = lib.dec_step_launch(
         gy.data_ptr(), s.data_ptr(), ctx.data_ptr(), ctxpb.data_ptr(),
@@ -240,7 +280,7 @@ def dec_step(gy, s, ctx, ctxpb, mask, weights: Sequence[torch.Tensor], *,
         raise RuntimeError(f"dec_step kernel launch failed: CUDA error {rc}")
     dec_step.launches += 1
     dec_step.bf16_launches += bf
-    dec_step.grids += GRIDS
+    dec_step.grids += GRIDS_BF16 if bf else GRIDS
     if K > MAX_K:
         dec_step.beam_groups += 1
     return s_new, t
@@ -260,7 +300,9 @@ declare_instances("dec_step", "dec_step_launch",
                   {"VAG_BM": BM, "VAG_BK": BK, "VAG_UB": UB, "VAG_BN": BN,
                    "VAG_RN": RN, "VAG_SPLIT": SPLIT, "VAG_STAGES": STAGES,
                    "VAG_ATT_CLUSTER": ATT_CLUSTER},
-                  bf16_defines={})
+                  bf16_defines={"VAG_UB": BF16_UB, "VAG_BN": BF16_BN,
+                                "VAG_RN": BF16_RN, "VAG_STAGES": BF16_STAGES,
+                                "VAG_ATT_PARTS": BF16_ATT_PARTS})
 
 
 def decode_step_fused(params: Dict[str, Any], tables: Dict[str, torch.Tensor],

@@ -3,7 +3,8 @@ package's ``ops/pallas_readout_topk.py``).
 
 The unfused beam step materializes the (B*K, V) fp32 logits, reads them
 for the log-sum-exp, again to build the candidates and again for the
-top-K. The kernel (``csrc/readout_topk.cu``) streams the vocab instead and
+top-K. The kernel (``csrc/readout_topk.cu``; on bf16 operands
+``csrc/readout_topk_bf16.cu``) streams the vocab instead and
 returns per row only the top-K raw logits with their ids and the row's
 log-sum-exp; the live/frozen candidate rules and the K*K -> K cross-beam
 combine (``_combine``) run on those small outputs in PyTorch:
@@ -54,12 +55,44 @@ from vag_nmt_tpu_torch.parallel.tensor import VocabShard
 _ROW_TILE = 64
 _COL_TILE = 128             # columns of an output tile; splits are whole tiles
 _DEPTH_CHUNK = 64           # depth of a staged chunk of t and W
-# The bf16 instances stage t and W at 2 bytes: chunks twice as deep hold
-# the same bytes, so the ring (and the lane merge in it) keeps its size.
-_DEPTH_CHUNK_BF16 = 128
 _LANE_PERIOD = 64           # a lane holds _LANE_COLS columns of every 64
 _LANE_COLS = 4
 _TARGET_BLOCKS = 132        # one block per SM on the H100's 132 SMs
+# Kernel 1b (csrc/readout_topk_bf16.cu) keeps the grid, the tiles and the
+# lane map above. Its own: 64-deep TMA boxes of bf16 (one 128-byte row), a
+# ring of _BF16_STAGES stages of one 64-column W box each (a column tile's
+# two halves in turn; each stage with a box of t where t's row tile is too
+# deep to stay resident), two logits buffers of _ROW_TILE x (_COL_TILE + 4)
+# floats.
+_BF16_BOX = 64
+_BF16_STAGES = 8
+_SMEM_LIMIT = 232448        # bytes of shared memory a block may use
+
+
+def _bf16_block_bytes(kc: int, resident: bool) -> int:
+    """Shared memory of kernel 1b's CTA at kc boxes of depth: its layout
+    (t's row tile if resident, the ring, the logits buffers, 2 * stages + 5
+    barriers and a flag) with the 1024 bytes of slack its alignment
+    takes."""
+    box = _BF16_BOX * _BF16_BOX * 2                   # 64 x 64 bf16
+    stage = box + (0 if resident else box)
+    logits = (kc * box if resident else 0) + _BF16_STAGES * stage
+    bars = logits + 2 * _ROW_TILE * (_COL_TILE + 4) * 4
+    return bars + (2 * _BF16_STAGES + 5) * 8 + 16 + 1024
+
+
+# The deepest row tile of t (in boxes) that stays resident: passed to the
+# build (VAG_RESIDENT_KC), whose static_asserts hold it to the kernel's own
+# layout, so the decision is made here alone.
+_BF16_RESIDENT_BOXES = max(kc for kc in range(1, 64)
+                           if _bf16_block_bytes(kc, True) <= _SMEM_LIMIT)
+
+
+def bf16_smem(E: int) -> Tuple[bool, int]:
+    """(t resident, bytes of shared memory) of kernel 1b's CTA at depth E."""
+    kc = -(-E // _BF16_BOX)
+    resident = kc <= _BF16_RESIDENT_BOXES
+    return resident, _bf16_block_bytes(kc, resident)
 
 
 def ban_mask(ban: torch.Tensor, V: int) -> torch.Tensor:
@@ -284,14 +317,19 @@ def _recoveries(dev: torch.device) -> torch.Tensor:
 
 # One tiling for both instances (K <= 8 and K > 8): at MAX_K = 16 the
 # lane merge's BM x 16 lanes of 2 * 16 + 3 floats (35840) still fit the
-# 39552 floats of the ring; the bf16 builds' chunks of 128 at 2 bytes
-# make the same 39552 (tests/test_torch_readout_plan.py).
+# 39552 floats of the ring (tests/test_torch_readout_plan.py). The bf16
+# instances are csrc/readout_topk_bf16.cu's, with the same grid, tiles
+# and lane map (tests/test_torch_readout_bf16_plan.py).
 declare_instances("readout_topk", "readout_topk_launch",
                   [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
                   {"VAG_BM": _ROW_TILE, "VAG_BN": _COL_TILE,
                    "VAG_BK": _DEPTH_CHUNK, "VAG_LANE_PERIOD": _LANE_PERIOD,
                    "VAG_CPT": _LANE_COLS},
-                  bf16_defines={"VAG_BK": _DEPTH_CHUNK_BF16})
+                  bf16_defines={"VAG_BM": _ROW_TILE, "VAG_BN": _COL_TILE,
+                                "VAG_LANE_PERIOD": _LANE_PERIOD,
+                                "VAG_CPT": _LANE_COLS,
+                                "VAG_STAGES": _BF16_STAGES,
+                                "VAG_RESIDENT_KC": _BF16_RESIDENT_BOXES})
 
 
 def deferred_exactness_active(K: int) -> bool:

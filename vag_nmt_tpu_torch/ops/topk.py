@@ -94,15 +94,16 @@ def declare_instances(base: str, fn: str, argtypes: list,
                       bf16_defines: Optional[Dict[str, int]] = None) -> None:
     """Declare C entry ``fn`` of csrc/<base>.cu in every instance, each
     with ``defines`` and its own VAG_MAX_K; with ``bf16_defines`` also
-    each one's bf16 build (``-DVAG_BF16=1`` and those defines over
-    ``defines``)."""
+    each one's bf16 build, of its own source csrc/<base>_bf16.cu
+    (``-DVAG_BF16=1``, ``bf16_defines`` and VAG_MAX_K), with the same
+    entry point."""
     for m in K_INSTANCES:
         _build.declare(instance(base, m), fn, argtypes,
                        {**defines, "VAG_MAX_K": m}, src=base)
         if bf16_defines is not None:
             _build.declare(instance(base, m, bf16=True), fn, argtypes,
-                           {**defines, **bf16_defines, "VAG_MAX_K": m,
-                            "VAG_BF16": 1}, src=base)
+                           {**bf16_defines, "VAG_MAX_K": m, "VAG_BF16": 1},
+                           src=f"{base}_bf16")
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
